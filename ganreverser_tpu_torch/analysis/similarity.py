@@ -1,0 +1,53 @@
+"""Cosine-similarity search — apply_r.lua:265-318, the counterpart of
+ganreverser_tpu/analysis/similarity.py (exact selection only).
+
+``cosine_topk`` and ``pixel_cosine_topk`` go through kernel C
+(ops/topk_kernel.py) and ``torch.topk``: on CUDA the kernel launches, on the
+CPU its plain version runs. ``normalize_rows`` and ``cosine_scores`` are the
+plain composition with the torch nn.CosineDistance clamp of the norm at
+1e-8; the kernel clamps the squared norm at 1e-16, which differs only on
+degenerate rows.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops import topk_kernel
+
+_EPS = 1e-8
+
+
+def normalize_rows(x: torch.Tensor) -> torch.Tensor:
+    x = x.float()
+    norm = torch.sqrt((x * x).sum(-1, keepdim=True))
+    return x / torch.clamp_min(norm, _EPS)
+
+
+def cosine_scores(embeddings: torch.Tensor,
+                  needle_idx: torch.Tensor) -> torch.Tensor:
+    """(needles, N) cosine similarity of each needle against every row."""
+    normed = normalize_rows(embeddings)
+    return normed.index_select(0, needle_idx) @ normed.T
+
+
+def cosine_topk(embeddings: torch.Tensor, needle_idx: torch.Tensor, k: int):
+    """Top-k most-similar rows per needle: (scores (needles, k), indices
+    (needles, k)), sorted descending (apply_r.lua:275-278)."""
+    return torch.topk(topk_kernel.cosine_scores(embeddings, needle_idx), k,
+                      dim=1)
+
+
+def pixel_cosine_topk(images: torch.Tensor, needle_idx: torch.Tensor, k: int):
+    """The reference's second measure: cosine over flattened pixels
+    (apply_r.lua:307-314)."""
+    return cosine_topk(images.reshape(images.shape[0], -1), needle_idx, k)
+
+
+def topk_recall(exact_idx, test_idx) -> float:
+    """Mean per-needle recall of ``test_idx`` against ``exact_idx`` (both
+    (needles, k) index arrays): |exact & test| / k, averaged."""
+    exact_idx = np.asarray(exact_idx)
+    test_idx = np.asarray(test_idx)
+    hits = sum(len(np.intersect1d(e, t)) for e, t in zip(exact_idx, test_idx))
+    return hits / exact_idx.size

@@ -1,0 +1,149 @@
+// Kernel B: one layer of R's conv block, a 3x3 SAME conv with the folded
+// eval-BatchNorm scale/shift and an activation in the epilogue, optionally
+// followed by the block's 2x2 maxpool, fused into the same epilogue.
+//
+// Replaces ganreverser_tpu/ops/conv_block_kernel.py::conv_block
+// (_make_kernel), which keeps whole images of a three-layer chain in VMEM.
+// On this card a 64x64x64 f32 accumulator alone (1 MB) and stage 2's
+// 9x128x128 weights (295 KB in bf16) exceed the 227 KB of shared memory a
+// block may use, so the chain is one launch per layer (ops/
+// conv_block_kernel.py::conv_block launches them in order) and each launch
+// tiles space and streams weight slices over Ci (conv_tile.cuh).
+//
+// What bounds it: FMA issue. Per output pixel a layer does 9*Ci*Co MACs on
+// Ci + Co values of traffic, far above the card's ridge point, and this
+// first version runs them on the CUDA cores (f32 FMA, 4x4 outputs per
+// thread from shared memory) rather than the tensor cores. The
+// intermediates between layers round-trip device memory in the storage
+// type (rounded as the TPU kernel rounds them); the pool in the last
+// layer's epilogue writes a quarter of the pixels.
+#include "conv_tile.cuh"
+
+namespace gr {
+
+struct Conv3x3Taps {
+  __device__ __forceinline__ void operator()(int t, int& dy, int& dx,
+                                             int& widx) const {
+    dy = t / 3 - 1;
+    dx = t % 3 - 1;
+    widx = t;
+  }
+};
+
+// Row m of the implicit GEMM. Without the pool, rows are pixels in (n, i, j)
+// order. With it, rows are (pooled pixel, window slot) so that the kTM = 4
+// rows of one thread are exactly one 2x2 window.
+template <bool kPool>
+__device__ __forceinline__ RowCoord conv_row(long long m, long long rows, int H,
+                                             int W) {
+  RowCoord c;
+  c.valid = m < rows;
+  if (!c.valid) m = 0;
+  if (kPool) {
+    const int oh = H / 2, ow = W / 2;
+    const long long q = m >> 2;
+    const int s = static_cast<int>(m & 3);
+    const long long per = static_cast<long long>(oh) * ow;
+    c.n = static_cast<int>(q / per);
+    const int r = static_cast<int>(q % per);
+    c.i = 2 * (r / ow) + (s >> 1);
+    c.j = 2 * (r % ow) + (s & 1);
+  } else {
+    const long long per = static_cast<long long>(H) * W;
+    c.n = static_cast<int>(m / per);
+    const int r = static_cast<int>(m % per);
+    c.i = r / W;
+    c.j = r % W;
+  }
+  return c;
+}
+
+template <typename T, bool kPool>
+__global__ void __launch_bounds__(kThreads)
+    conv3x3_bn_act_kernel(const T* __restrict__ x, const T* __restrict__ w9,
+                          const float* __restrict__ scale,
+                          const float* __restrict__ shift, T* __restrict__ out,
+                          int N, int H, int W, int Ci, int Co, int act) {
+  const long long rows = static_cast<long long>(N) * H * W;
+  const long long m0 = static_cast<long long>(blockIdx.x) * kBM;
+  const int co0 = blockIdx.y * kBN;
+  const RowCoord a = conv_row<kPool>(m0 + (threadIdx.x >> 2), rows, H, W);
+
+  float acc[kTM][kTN];
+#pragma unroll
+  for (int r = 0; r < kTM; ++r)
+#pragma unroll
+    for (int c = 0; c < kTN; ++c) acc[r][c] = 0.0f;
+
+  conv_tile_mainloop<T, 9>(x, w9, H, W, Ci, Co, a, co0, Conv3x3Taps{}, acc);
+
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+  const long long mr = m0 + ty * kTM;  // first row of this thread
+  if (mr >= rows) return;
+#pragma unroll
+  for (int c = 0; c < kTN; ++c) {
+    const int co = co0 + tx * kTN + c;
+    if (co >= Co) continue;
+    const float sc = scale[co];
+    const float sh = shift[co];
+    if (kPool) {
+      // rows % 4 == 0, so the whole window is valid with its first row;
+      // rounding is monotone, so max-then-round == round-then-max
+      float y = apply_act(fmaf(acc[0][c], sc, sh), act);
+#pragma unroll
+      for (int r = 1; r < kTM; ++r)
+        y = fmaxf(y, apply_act(fmaf(acc[r][c], sc, sh), act));
+      out[(mr >> 2) * Co + co] = from_f32<T>(y);
+    } else {
+#pragma unroll
+      for (int r = 0; r < kTM; ++r) {
+        if (mr + r < rows)
+          out[(mr + r) * Co + co] =
+              from_f32<T>(apply_act(fmaf(acc[r][c], sc, sh), act));
+      }
+    }
+  }
+}
+
+template <typename T, bool kPool>
+static void launch(const void* x, const void* w9, const void* scale,
+                   const void* shift, void* out, int n, int h, int w, int ci,
+                   int co, int act, cudaStream_t stream) {
+  const long long rows = static_cast<long long>(n) * h * w;
+  const dim3 grid(static_cast<unsigned>((rows + kBM - 1) / kBM),
+                  static_cast<unsigned>((co + kBN - 1) / kBN), 1);
+  conv3x3_bn_act_kernel<T, kPool><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w9),
+      static_cast<const float*>(scale), static_cast<const float*>(shift),
+      static_cast<T*>(out), n, h, w, ci, co, act);
+}
+
+}  // namespace gr
+
+// x (N,H,W,Ci) and w9 (9,Ci,Co) in the storage type, scale/shift (Co,) f32,
+// out (N,H,W,Co) or, with pool, (N,H/2,W/2,Co) in the storage type.
+extern "C" int gr_conv3x3_bn_act(int dtype, const void* x, const void* w9,
+                                 const void* scale, const void* shift,
+                                 void* out, int n, int h, int w, int ci,
+                                 int co, int act, int pool, void* stream) {
+  using namespace gr;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (pool && (h % 2 || w % 2)) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == DT_F32) {
+    if (pool)
+      launch<float, true>(x, w9, scale, shift, out, n, h, w, ci, co, act, s);
+    else
+      launch<float, false>(x, w9, scale, shift, out, n, h, w, ci, co, act, s);
+  } else if (dtype == DT_BF16) {
+    if (pool)
+      launch<__nv_bfloat16, true>(x, w9, scale, shift, out, n, h, w, ci, co,
+                                  act, s);
+    else
+      launch<__nv_bfloat16, false>(x, w9, scale, shift, out, n, h, w, ci, co,
+                                   act, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

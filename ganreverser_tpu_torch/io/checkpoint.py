@@ -1,0 +1,109 @@
+"""The checkpoint directory format of ganreverser_tpu/io/checkpoint.py, read
+and written with numpy and json only.
+
+A checkpoint is a directory holding ``manifest.json`` (a JSON skeleton of
+the tree whose array leaves are ``"@npz:<key>"`` references and whose tuples
+are ``{"__tuple__": [...]}``, plus the run config and extra metadata) and
+``arrays.npz`` (the arrays by key). Checkpoints written by either package
+load in the other. Leaves may be numpy arrays or torch tensors; loading
+gives numpy arrays (``models/bridge.py`` moves them into modules).
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+_LEAF = "@npz:"
+
+
+def _encode(tree, arrays: dict, prefix: str):
+    """Recursively encode a tree into a JSON skeleton + npz array dict."""
+    if isinstance(tree, dict):
+        return {k: _encode(v, arrays, f"{prefix}/{k}") for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        enc = [_encode(v, arrays, f"{prefix}/{i}") for i, v in enumerate(tree)]
+        return {"__tuple__": enc} if isinstance(tree, tuple) else enc
+    if tree is None or isinstance(tree, (bool, int, float, str)):
+        return tree
+    if isinstance(tree, torch.Tensor):
+        tree = tree.detach().cpu().numpy()
+    key = prefix.lstrip("/") or "root"
+    arrays[key] = np.asarray(tree)
+    return _LEAF + key
+
+
+def _decode(skel, arrays):
+    if isinstance(skel, dict):
+        if "__tuple__" in skel and len(skel) == 1:
+            return tuple(_decode(v, arrays) for v in skel["__tuple__"])
+        return {k: _decode(v, arrays) for k, v in skel.items()}
+    if isinstance(skel, list):
+        return [_decode(v, arrays) for v in skel]
+    if isinstance(skel, str) and skel.startswith(_LEAF):
+        return arrays[skel[len(_LEAF):]]
+    return skel
+
+
+def save_checkpoint(path: str, tree: Any, *, config: Optional[dict] = None,
+                    extra: Optional[dict] = None) -> str:
+    """Save ``tree`` to directory ``path`` (written to ``<path>.tmp`` and
+    renamed into place; an existing checkpoint becomes ``<path>.old``).
+    ``config``: JSON-serialisable run config; ``extra``: small JSON
+    metadata."""
+    path = os.path.abspath(path)
+    tmp = path + ".tmp"
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp)
+
+    arrays: dict = {}
+    manifest = {"skeleton": _encode(tree, arrays, ""), "config": config or {},
+                "extra": extra or {}, "format": 1}
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+    np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
+
+    if os.path.exists(path):
+        old = path + ".old"
+        if os.path.exists(old):
+            shutil.rmtree(old)
+        os.rename(path, old)
+    os.rename(tmp, path)
+    return path
+
+
+def load_checkpoint(path: str):
+    """Returns (tree, config, extra); the tree's array leaves are numpy."""
+    path = os.path.abspath(path)
+    if not exists(path):
+        raise FileNotFoundError(
+            f"no checkpoint at {path!r} (expected a directory containing "
+            "manifest.json + arrays.npz — check --save/--G/--R paths)")
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    with np.load(os.path.join(path, "arrays.npz")) as npz:
+        arrays = {k: npz[k] for k in npz.files}
+    tree = _decode(manifest["skeleton"], arrays)
+    return tree, manifest.get("config", {}), manifest.get("extra", {})
+
+
+def exists(path: str) -> bool:
+    return os.path.isfile(os.path.join(path, "manifest.json"))
+
+
+# -- filename conventions (train_r.lua:232, train.lua:241-257) -------------
+
+def adversarial_name(save_dir: str) -> str:
+    return os.path.join(save_dir, "adversarial")
+
+
+def r_name(save_dir: str, c: int, h: int, w: int, noise_dim: int,
+           method: str, fixer: bool) -> str:
+    """r_<C>x<H>x<W>_nd<z>_<method>[_fixer]."""
+    suffix = "_fixer" if fixer else ""
+    return os.path.join(save_dir, f"r_{c}x{h}x{w}_nd{noise_dim}_{method}{suffix}")

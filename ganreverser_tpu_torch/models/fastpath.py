@@ -1,0 +1,109 @@
+"""Fast eval-mode G / R forwards through the hand-written kernels — the
+counterparts of ganreverser_tpu/models/fastpath.py's ``make_fast_generator``
+and ``make_fast_inverter``.
+
+Both consume the standard variable trees of create_G3 / create_R_default
+(``{"params", "state"}``, here as tensors on the compute device; see
+``models/bridge.to_torch``), fold each BatchNorm into a per-channel f32
+scale/shift on every call, and run:
+
+  G: z -> Dense(+BN folded)+ReLU                      [torch.matmul]
+       -> upsample2+conv3x3+BN+ReLU (512->256)       [kernel U]
+       -> upsample2+conv3x3+BN+ReLU (256->128)       [kernel U]
+       -> conv3x3 (128->C) + Sigmoid                  [F.conv2d]
+
+  R: images -> [conv64+BN+ELU x3 + pool]             [kernel B]
+            -> [conv128+BN+ELU x3 + pool]            [kernel B]
+            -> Dense(+BN folded)+ELU -> Dense (+Tanh for uniform)
+                                                      [torch.matmul]
+
+as the JAX package leaves the dense layers and G's Co=C head to XLA outside
+any kernel. On CUDA tensors the kernels launch; on CPU tensors their plain
+versions run. Only the plain (non-fixer) R is covered: the fixer's
+always-on dropout is not ported yet.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..ops.conv_block_kernel import conv_block
+from ..ops.conv_kernel import fold_batchnorm
+from ..ops.upsample_conv import conv_nhwc
+from ..ops.upsample_conv_kernel import upsample2_conv3x3_bn_act
+
+Dims = tuple  # (C, H, W)
+
+
+def _dense(x, kernel, dtype):
+    """x @ kernel with operands rounded to ``dtype``, f32 result."""
+    return x.to(dtype).float() @ kernel.to(dtype).float()
+
+
+def make_fast_generator(dims: Dims, noise_dim: int,
+                        dtype: torch.dtype = torch.bfloat16):
+    """Returns ``generate(g_variables, z) -> images`` equal to
+    ``create_G3(...)`` in evaluation on the same weights; images are NHWC
+    in ``dtype``."""
+    c, h, w = dims
+    sh, sw = h // 4, w // 4
+
+    def generate(variables, z):
+        p, s = variables["params"], variables["state"]
+
+        # Dense + folded BN + ReLU (models.lua:115-117)
+        scale0, shift0 = fold_batchnorm(p["l1"], s["l1"], p["l0"]["bias"])
+        k0 = p["l0"]["kernel"].float() * scale0[None, :]
+        y = torch.clamp_min(_dense(z, k0, dtype) + shift0, 0.0).to(dtype)
+        x = y.reshape(z.shape[0], sh, sw, 512)
+
+        # two fused upsample+conv+BN+ReLU stages (models.lua:121-130)
+        for conv, bn in (("l5", "l6"), ("l9", "l10")):
+            scale, shift = fold_batchnorm(p[bn], s[bn], p[conv]["bias"])
+            x = upsample2_conv3x3_bn_act(x, p[conv]["kernel"].to(dtype),
+                                         scale, shift, act="relu")
+
+        # final 3x3 conv + sigmoid (models.lua:132-133)
+        y = conv_nhwc(x, p["l12"]["kernel"], 1, dtype)
+        return torch.sigmoid(y + p["l12"]["bias"]).to(dtype)
+
+    return generate
+
+
+def make_fast_inverter(dims: Dims, noise_dim: int, noise_method: str,
+                       dtype: torch.dtype = torch.bfloat16):
+    """Returns ``invert(r_variables, images) -> z_hat`` equal to the plain
+    ``create_R_default(...)`` in evaluation on the same weights; z_hat is in
+    ``dtype``."""
+    if noise_method not in ("normal", "uniform"):
+        raise ValueError(noise_method)
+
+    def invert(variables, images):
+        p, s = variables["params"], variables["state"]
+
+        def block(x, layers):
+            kernels, scales, shifts = [], [], []
+            for conv, bn in layers:
+                sc, sh_ = fold_batchnorm(p[bn], s[bn], p[conv]["bias"])
+                kernels.append(p[conv]["kernel"].to(dtype))
+                scales.append(sc)
+                shifts.append(sh_)
+            return conv_block(x, kernels, scales, shifts, act="elu",
+                              pool=True)
+
+        # two blocks of 3x [conv + BN + ELU] + maxpool2 (models.lua:409-440)
+        x = block(images.to(dtype).contiguous(),
+                  (("l0", "l1"), ("l4", "l5"), ("l8", "l9")))
+        x = block(x, (("l13", "l14"), ("l17", "l18"), ("l21", "l22")))
+
+        # head: Dense(+BN folded)+ELU -> Dense (models.lua:446-451)
+        x = x.reshape(x.shape[0], -1)
+        scd, shd = fold_batchnorm(p["l28"], s["l28"], p["l27"]["bias"])
+        kd = p["l27"]["kernel"].float() * scd[None, :]
+        y = F.elu(_dense(x, kd, dtype) + shd).to(dtype)
+        z = _dense(y, p["l31"]["kernel"], dtype) + p["l31"]["bias"]
+        if noise_method != "normal":
+            z = torch.tanh(z)  # models.lua:452-454
+        return z.to(dtype)
+
+    return invert

@@ -1,0 +1,87 @@
+"""G3 and R — the counterparts of ganreverser_tpu/models/zoo.py's
+``create_G3`` and ``create_R_default`` (non-fixer), with the same layer
+indices.
+
+``dimensions`` is (C, H, W) as in the reference; tensors flow as NHWC. The
+models are returned in evaluation mode (the only mode ported); their
+weights are zero until loaded (``models/bridge.py``) or drawn with
+``modules.init_parameters``. D, the fixer-R and the other variants come
+later.
+"""
+from __future__ import annotations
+
+import torch
+
+from .modules import (Activation, BatchNorm, Conv, Dense, Dropout, Flatten,
+                      Identity, MaxPool, Reshape, Sequential, SpatialDropout,
+                      UpsampleConv)
+
+Dims = tuple  # (C, H, W)
+
+
+def create_G(dimensions: Dims, noise_dim: int,
+             dtype: torch.dtype = torch.float32):
+    """models.create_G == create_G3 (models.lua:201-203)."""
+    return create_G3(dimensions, noise_dim, dtype)
+
+
+def create_G3(dimensions: Dims, noise_dim: int,
+              dtype: torch.dtype = torch.float32):
+    """create_G3 (models.lua:104-143): z -> Linear -> BN -> ReLU -> reshape
+    H/4 x W/4 x 512 -> 2x [NN-upsample x2 + 3x3 conv + BN + ReLU] -> 3x3 conv
+    -> Sigmoid. Each upsample+conv pair is one UpsampleConv after an
+    Identity, the layer indices of the JAX package's fused G (its checkpoint
+    keys are the same fused or not)."""
+    c, h, w = dimensions
+    sh, sw = h // 4, w // 4
+    return Sequential([
+        Dense(noise_dim, 512 * sh * sw, dtype=dtype),
+        BatchNorm(512 * sh * sw, dtype=dtype),
+        Activation("relu"),
+        Reshape((sh, sw, 512)),
+        Identity(), UpsampleConv(512, 256, dtype=dtype),
+        BatchNorm(256, dtype=dtype),
+        Activation("relu"),
+        Identity(), UpsampleConv(256, 128, dtype=dtype),
+        BatchNorm(128, dtype=dtype),
+        Activation("relu"),
+        Conv(128, c, dtype=dtype),
+        Activation("sigmoid"),
+    ]).eval()
+
+
+def create_R(dimensions: Dims, noise_dim: int, noise_method: str,
+             dtype: torch.dtype = torch.float32):
+    """models.create_R == create_R_default (models.lua:385-387)."""
+    return create_R_default(dimensions, noise_dim, noise_method, dtype)
+
+
+def create_R_default(dimensions: Dims, noise_dim: int, noise_method: str,
+                     dtype: torch.dtype = torch.float32):
+    """create_R_default (models.lua:389-464), the plain (non-fixer) R:
+    3x [conv64 + BN + ELU] + pool, 3x [conv128 + BN + ELU] + pool, Dense 512
+    + BN + ELU, Dense noise_dim, and a Tanh head only for uniform noise."""
+    if noise_method not in ("normal", "uniform"):
+        raise ValueError(noise_method)
+    c, h, w = dimensions
+
+    def block(in_ch, feat):
+        return [Conv(in_ch, feat, dtype=dtype), BatchNorm(feat, dtype=dtype),
+                Activation("elu")]
+
+    layers = [
+        *block(c, 64), Dropout(0.5),
+        *block(64, 64), Dropout(0.5),
+        *block(64, 64), MaxPool(), Dropout(0.5),
+        *block(64, 128), Dropout(0.5),
+        *block(128, 128), Dropout(0.5),
+        *block(128, 128), SpatialDropout(0.25), MaxPool(),
+        Flatten(),
+        Dense(128 * (h // 4) * (w // 4), 512, dtype=dtype),
+        BatchNorm(512, dtype=dtype), Activation("elu"),
+        Dropout(0.5),
+        Dense(512, noise_dim, dtype=dtype),
+    ]
+    if noise_method != "normal":
+        layers.append(Activation("tanh"))
+    return Sequential(layers).eval()

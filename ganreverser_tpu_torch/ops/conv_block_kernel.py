@@ -1,0 +1,100 @@
+"""Kernel B: a chain of 3x3 conv + BN(eval) + activation layers with an
+optional trailing 2x2 maxpool, R's conv blocks.
+
+The counterpart of ganreverser_tpu/ops/conv_block_kernel.py. The TPU kernel
+keeps a whole chain in VMEM; on this card neither the accumulator of a
+64x64x64 image nor stage 2's weights fit in a block's shared memory, so
+``conv_block`` launches the CUDA kernel (``csrc/conv_block.cu``) once per
+layer, with the pool fused into the last layer's epilogue. Semantics kept
+from the TPU kernel: every layer's input is zero-padded at the image border
+(each launch pads anew), each intermediate is rounded to ``x.dtype``, ELU is
+``exp(min(y, 0)) - 1`` and the pool follows the last layer only.
+
+``conv_block`` launches the kernel on CUDA tensors and takes the plain
+version ``conv_block_plain`` on CPU tensors; no other device is accepted.
+``conv_block.launches`` counts kernel launches (one per layer).
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+
+from . import cuda_lib
+
+_ACTS = ("elu", "relu", "none")
+
+
+def _act(y: torch.Tensor, act: str) -> torch.Tensor:
+    if act == "relu":
+        return torch.clamp_min(y, 0.0)
+    if act == "elu":
+        return torch.where(y > 0, y, torch.exp(torch.clamp_max(y, 0.0)) - 1.0)
+    if act == "none":
+        return y
+    raise ValueError(act)
+
+
+def conv_block_plain(x: torch.Tensor, kernels: Sequence[torch.Tensor],
+                     scales: Sequence[torch.Tensor],
+                     shifts: Sequence[torch.Tensor], *, act: str = "elu",
+                     pool: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of the kernel on any device: per layer an f32
+    conv of the ``x.dtype``-rounded operands, scale/shift, activation,
+    rounding to ``x.dtype``; then the optional 2x2 maxpool."""
+    y = x
+    for k, sc, sh in zip(kernels, scales, shifts):
+        wt = k.to(x.dtype).float().permute(3, 2, 0, 1)
+        acc = F.conv2d(y.float().permute(0, 3, 1, 2), wt, padding=1)
+        acc = acc.permute(0, 2, 3, 1) * sc.float() + sh.float()
+        y = _act(acc, act).to(x.dtype)
+    if pool:
+        n, h, w, c = y.shape
+        y = y.reshape(n, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
+    return y
+
+
+def conv_block(x: torch.Tensor, kernels: Sequence[torch.Tensor],
+               scales: Sequence[torch.Tensor], shifts: Sequence[torch.Tensor],
+               *, act: str = "elu", pool: bool = False) -> torch.Tensor:
+    """x: (N,H,W,C0) NHWC; kernels[i]: (3,3,Ci,Co) HWIO; scales/shifts[i]:
+    (Co,) from fold_batchnorm. Returns (N,H,W,Ck), or (N,H/2,W/2,Ck) with
+    ``pool``, in ``x.dtype``. Eval-mode only; N takes any value."""
+    if act not in _ACTS:
+        raise ValueError(f"act must be one of {_ACTS}, got {act!r}")
+    if not len(kernels) == len(scales) == len(shifts) or not kernels:
+        raise ValueError("need one scale and shift per kernel, at least one")
+    n, h, w, _ = x.shape
+    if pool and (h % 2 or w % 2):
+        raise ValueError(f"pool needs even H and W, got {h}x{w}")
+    if cuda_lib.dispatch_device(x, *kernels, *scales, *shifts) == "cpu":
+        return conv_block_plain(x, kernels, scales, shifts, act=act,
+                                pool=pool)
+    lib = cuda_lib.library()
+    y = x
+    for li, (k, sc, sh) in enumerate(zip(kernels, scales, shifts)):
+        ci, co = y.shape[-1], k.shape[-1]
+        last_pool = pool and li == len(kernels) - 1
+        w9 = k.to(x.dtype).reshape(9, ci, co).contiguous()
+        sc = sc.float().contiguous()
+        sh = sh.float().contiguous()
+        cuda_lib.require(y, "x", x.device, x.dtype, (n, h, w, ci))
+        cuda_lib.require(w9, f"kernels[{li}]", x.device, x.dtype, (9, ci, co))
+        cuda_lib.require(sc, f"scales[{li}]", x.device, torch.float32, (co,))
+        cuda_lib.require(sh, f"shifts[{li}]", x.device, torch.float32, (co,))
+        oh, ow = (h // 2, w // 2) if last_pool else (h, w)
+        out = torch.empty((n, oh, ow, co), dtype=x.dtype, device=x.device)
+        with torch.cuda.device(x.device):
+            rc = lib.gr_conv3x3_bn_act(
+                cuda_lib.dtype_code(x), y.data_ptr(), w9.data_ptr(),
+                sc.data_ptr(), sh.data_ptr(), out.data_ptr(), n, h, w, ci, co,
+                cuda_lib.ACT_CODES[act], int(last_pool),
+                cuda_lib.stream_of(x))
+        cuda_lib.check(rc, "conv_block")
+        conv_block.launches += 1
+        y = out
+    return y
+
+
+conv_block.launches = 0

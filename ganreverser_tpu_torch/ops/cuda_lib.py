@@ -1,0 +1,148 @@
+"""Build and bind the hand-written CUDA kernels of ``csrc/``.
+
+The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
+library with a plain C interface, loaded with ``ctypes``. The build happens
+at first use, not at import, keyed by a hash of the sources and flags, into
+``build/kernels/`` at the root of the checkout; a missing ``nvcc`` raises
+there, on the first CUDA call, and never breaks importing the package.
+
+Each C entry point launches on the stream it is given, allocates nothing and
+returns ``cudaGetLastError()``; :func:`check` raises on a non-zero code.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+ACT_CODES = {"none": 0, "relu": 1, "elu": 2, "sigmoid": 3}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# name -> argtypes; every function returns the cudaError_t of its launch
+_SIGNATURES = {
+    # dtype, x, w9, scale, shift, out, n, h, w, ci, co, act, pool, stream
+    "gr_conv3x3_bn_act": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                          _P],
+    # dtype, x, k16, scale, shift, out, n, h, w, ci, co, act, stream
+    "gr_upsample2_conv3x3_bn_act": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                    _I, _I, _P],
+    # dtype, needles, emb, out, q, n, d, stream
+    "gr_cosine_scores": [_I, _P, _P, _P, _I, _I, _I, _P],
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.isfile(cand):
+        return cand
+    raise RuntimeError(
+        "nvcc not found (PATH or $CUDA_HOME/bin): the CUDA kernels of "
+        "ganreverser_tpu_torch/csrc cannot be built")
+
+
+def _sources() -> list[Path]:
+    return sorted(list(CSRC.glob("*.cu")) + list(CSRC.glob("*.cuh")))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` into ``build/kernels/libgr_kernels_<hash>.so``
+    unless that file exists; returns its path. The compiler's output,
+    ``-Xptxas -v`` included, is kept beside it as ``build_<hash>.log``."""
+    tag = source_hash()
+    lib = BUILD_DIR / f"libgr_kernels_{tag}.so"
+    if lib.is_file():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".so.tmp{os.getpid()}")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(s) for s in _sources() if s.suffix == ".cu")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = BUILD_DIR / f"build_{tag}.log"
+    log.write_text(f"$ {' '.join(cmd)}\n# {time.perf_counter() - t0:.1f} s, "
+                   f"rc {proc.returncode}\n{proc.stdout}{proc.stderr}")
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed (rc {proc.returncode}); see {log}:\n"
+                           f"{proc.stderr[-4000:]}")
+    os.replace(tmp, lib)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError "
+                           f"{rc}")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def dtype_code(t: torch.Tensor) -> int:
+    if t.dtype not in DTYPE_CODES:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {t.dtype}")
+    return DTYPE_CODES[t.dtype]
+
+
+def require(t: torch.Tensor, name: str, device: torch.device, dtype,
+            shape: tuple) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device`` (what a kernel argument must be)."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def dispatch_device(*tensors: torch.Tensor) -> str:
+    """'cpu' (take the plain version) or 'cuda' (launch the kernel); raises
+    for mixed devices and for any other device type."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
+    kind = next(iter(devices)).type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel or plain version for device type {kind!r}")
+    return kind

@@ -1,0 +1,100 @@
+"""The CUDA kernels against their plain versions on the card, at small and
+ragged shapes (N, H, W, Ci and Co off every tile size). Marked ``cuda``:
+they need an NVIDIA GPU and nvcc and skip elsewhere. Run on the card with
+``python -m pytest tests/test_torch_port_cuda.py -m cuda``.
+
+Tolerances: f32 1e-4 (f32 sums in another order); bf16 3e-2 relative to
+the output's scale (one bf16 rounding per layer, taken at the same places
+by both versions, can still land on neighbouring bf16 values)."""
+import numpy as np
+import pytest
+import torch
+
+from ganreverser_tpu_torch.ops import (conv_block_kernel, topk_kernel,
+                                       upsample_conv_kernel)
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _close(out, ref, dtype):
+    ref = ref.float()
+    err = (out.float() - ref).abs().max().item()
+    assert err <= TOL[dtype] * max(1.0, ref.abs().max().item()), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pool", [False, True])
+def test_conv_block_kernel(dev, dtype, pool):
+    g = torch.Generator(device=dev).manual_seed(0)
+    chans = [3, 70, 5]
+    x = torch.randn(5, 10, 6, 3, device=dev, generator=g).to(dtype)
+    ks = [(0.3 * torch.randn(3, 3, ci, co, device=dev, generator=g))
+          for ci, co in zip(chans[:-1], chans[1:])]
+    sc = [torch.rand(co, device=dev, generator=g) + 0.5 for co in chans[1:]]
+    sh = [0.1 * torch.randn(co, device=dev, generator=g) for co in chans[1:]]
+    before = conv_block_kernel.conv_block.launches
+    out = conv_block_kernel.conv_block(x, ks, sc, sh, act="elu", pool=pool)
+    torch.cuda.synchronize()
+    assert conv_block_kernel.conv_block.launches == before + 2
+    ref = conv_block_kernel.conv_block_plain(x, ks, sc, sh, act="elu",
+                                             pool=pool)
+    assert out.shape == ref.shape and out.dtype == dtype
+    _close(out, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["relu", "none", "sigmoid"])
+def test_upsample_kernel(dev, dtype, act):
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(3, 5, 7, 20, device=dev, generator=g).to(dtype)
+    k = 0.3 * torch.randn(3, 3, 20, 72, device=dev, generator=g)
+    sc = torch.rand(72, device=dev, generator=g) + 0.5
+    sh = torch.randn(72, device=dev, generator=g)
+    before = upsample_conv_kernel.upsample2_conv3x3_bn_act.launches
+    out = upsample_conv_kernel.upsample2_conv3x3_bn_act(x, k, sc, sh, act=act)
+    torch.cuda.synchronize()
+    assert upsample_conv_kernel.upsample2_conv3x3_bn_act.launches == before + 1
+    ref = upsample_conv_kernel.upsample2_conv3x3_bn_act_plain(x, k, sc, sh,
+                                                              act=act)
+    assert out.shape == ref.shape == (3, 10, 14, 72)
+    _close(out, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,q", [(77, 100, 3), (300, 1000, 18)])
+def test_cosine_scores_kernel(dev, dtype, n, d, q):
+    g = torch.Generator(device=dev).manual_seed(2)
+    emb = torch.randn(n, d, device=dev, generator=g).to(dtype)
+    emb[5] = 0  # a degenerate row: the clamp, not a NaN
+    idx = torch.randint(0, n, (q,), device=dev, generator=g)
+    before = topk_kernel.cosine_scores.launches
+    out = topk_kernel.cosine_scores(emb, idx)
+    torch.cuda.synchronize()
+    assert topk_kernel.cosine_scores.launches == before + 1
+    ref = topk_kernel.cosine_scores_plain(emb, idx)
+    assert out.shape == (q, n) and out.dtype == torch.float32
+    assert torch.isfinite(out).all()
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=0, atol=1e-5)
+
+
+def test_kernels_refuse_bad_arguments(dev):
+    x = torch.zeros(1, 4, 4, 2, device=dev, dtype=torch.float16)
+    k = torch.zeros(3, 3, 2, 2, device=dev)
+    s = torch.zeros(2, device=dev)
+    with pytest.raises(TypeError):
+        conv_block_kernel.conv_block(x, [k], [s], [s])
+    xt = torch.zeros(1, 4, 4, 2, device=dev).transpose(1, 2)
+    with pytest.raises(ValueError):
+        upsample_conv_kernel.upsample2_conv3x3_bn_act(xt, k, s, s)

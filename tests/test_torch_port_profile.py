@@ -1,0 +1,44 @@
+"""The device-time accounting of tools/profile_port.py: busy time is the
+union of device intervals, so overlapping or nested operations count once
+and host events count not at all."""
+import importlib.util
+import json
+import pathlib
+
+import pytest
+
+_PATH = pathlib.Path(__file__).resolve().parents[1] / "tools" / "profile_port.py"
+_spec = importlib.util.spec_from_file_location("profile_port", _PATH)
+profile_port = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(profile_port)
+
+
+@pytest.mark.parametrize("intervals,expected", [
+    ([], 0.0),
+    ([("a", 0, 10), ("b", 20, 25)], 15.0),          # disjoint
+    ([("a", 0, 10), ("b", 5, 15)], 15.0),           # overlapping
+    ([("a", 0, 10), ("b", 2, 4), ("c", 10, 12)], 12.0),  # nested, touching
+])
+def test_union_us(intervals, expected):
+    assert profile_port.union_us(intervals) == expected
+
+
+def test_device_intervals_keeps_device_ops_only(tmp_path):
+    events = [
+        {"ph": "X", "cat": "kernel", "name": "k", "ts": 100, "dur": 50},
+        {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy DtoH", "ts": 160,
+         "dur": 5},
+        {"ph": "X", "cat": "gpu_memset", "name": "Memset", "ts": 90,
+         "dur": 2},
+        {"ph": "X", "cat": "cpu_op", "name": "aten::conv2d", "ts": 0,
+         "dur": 500},
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel",
+         "ts": 95, "dur": 3},
+        {"ph": "f", "cat": "ac2g", "name": "flow", "ts": 100},
+    ]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    ivs = profile_port.device_intervals(str(path))
+    assert sorted(ivs) == [("Memcpy DtoH", 160.0, 165.0),
+                           ("Memset", 90.0, 92.0), ("k", 100.0, 150.0)]
+    assert profile_port.union_us(ivs) == 57.0

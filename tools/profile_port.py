@@ -1,0 +1,215 @@
+#!/usr/bin/env python3
+"""Where the time of the port's main path goes on one NVIDIA GPU.
+
+Run from the root of a checkout:
+
+    python3 tools/profile_port.py [--out build/profile]
+
+With the models of chip_smoke.py (G3 and R at 3x64x64, noise 100, random
+weights from its seed), bf16, batch 256, N = 10,000, it prints and writes to
+``<out>/profile.txt``:
+
+* ``[e2e]``: three warm runs of apply_r's stage ② (generate + invert) and
+  stage ④ (both searches), wall time and img/s;
+* ``[layer]``: G alone and R alone (median of 3), and each search alone;
+* ``[trace]``: one warm stage ② + ④ under torch.profiler. Device busy time
+  is the union of the intervals of every kernel, memcpy and memset in the
+  exported trace (``<out>/trace_main_path.json``), so nothing is counted
+  twice; the idle share is 1 - busy / wall. Then device time by kernel name;
+* ``[native]``: cuDNN in bf16 on the tensor cores at the shapes of kernels
+  B and U, for reference only (the conv output is rounded to bf16 before
+  the epilogue, so it is not the kernels' function).
+
+Every line carries the card's name and power limit.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+from ganreverser_tpu_torch.analysis.batched import forward_batched  # noqa: E402
+from ganreverser_tpu_torch.analysis.pipeline import generate_and_invert  # noqa: E402
+from ganreverser_tpu_torch.analysis.similarity import (  # noqa: E402
+    cosine_topk, pixel_cosine_topk)
+from ganreverser_tpu_torch.core.prng import noise_inputs, seeded_generator  # noqa: E402
+from ganreverser_tpu_torch.models import bridge, fastpath  # noqa: E402
+
+_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def device_intervals(trace_path: str):
+    """(name, start_us, end_us) of every device operation in a Chrome trace
+    exported by torch.profiler."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    return [(e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+            for e in events
+            if e.get("ph") == "X" and str(e.get("cat", "")).lower()
+            in _DEVICE_CATS]
+
+
+def union_us(intervals) -> float:
+    """Length of the union of [start, end) intervals."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted((s, e) for _, s, e in intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default="build/profile",
+                    help="directory for profile.txt and the trace")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_port: needs a CUDA device", file=sys.stderr)
+        return 1
+    os.makedirs(args.out, exist_ok=True)
+    dev = torch.device("cuda", 0)
+    card = cs.card_line()
+    out = open(os.path.join(args.out, "profile.txt"), "w")
+
+    def log(line: str):
+        print(line)
+        out.write(line + "\n")
+
+    log(card)
+    G, R = cs.make_models(dev)
+    gv = bridge.to_torch(bridge.export_variables(G), dev)
+    rv = bridge.to_torch(bridge.export_variables(R), dev)
+    dims, nd, n, batch = cs.DIMS, cs.NOISE_DIM, cs.N_MAIN, 256
+    bf = torch.bfloat16
+    gen_fn = fastpath.make_fast_generator(dims, nd, bf)
+    inv_fn = fastpath.make_fast_inverter(dims, nd, "normal", bf)
+    needles = torch.tensor([(i + 1) * 100 - 1 for i in range(cs.NEEDLES)],
+                           device=dev)
+
+    def e2e():
+        _, images, attrs = generate_and_invert(
+            gv, rv, dims=dims, n=n, noise_dim=nd, noise_method="normal",
+            generator=seeded_generator(1, dev), batch_size=batch, dtype=bf)
+        with torch.inference_mode():
+            cosine_topk(attrs, needles, 100)
+            pixel_cosine_topk(images, needles, 100)
+
+    e2e()
+    torch.cuda.synchronize()
+    for rep in range(3):
+        t0 = time.perf_counter()
+        e2e()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        log(f"[e2e] rep {rep}: generate+invert+search N={n} bf16 {dt:.4f} s"
+            f" = {n / dt:.1f} img/s  [{card}]")
+
+    z = noise_inputs(seeded_generator(2, dev), n, nd, "normal", device=dev)
+    with torch.inference_mode():
+        images = forward_batched(lambda b: gen_fn(gv, b), z, batch)
+        for name, fn in (
+                ("G-generate",
+                 lambda: forward_batched(lambda b: gen_fn(gv, b), z, batch)),
+                ("R-invert",
+                 lambda: forward_batched(lambda b: inv_fn(rv, b), images,
+                                         batch))):
+            fn()
+            torch.cuda.synchronize()
+            ts = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ts.append(time.perf_counter() - t0)
+            med = sorted(ts)[1]
+            log(f"[layer] {name} N={n} bf16: median {med:.4f} s = "
+                f"{n / med:.1f} img/s (3 runs {ts})  [{card}]")
+        attrs = forward_batched(lambda b: inv_fn(rv, b), images, batch)
+        for name, fn in (
+                ("search attributes",
+                 lambda: cosine_topk(attrs, needles, 100)),
+                ("search pixels",
+                 lambda: pixel_cosine_topk(images, needles, 100))):
+            log(f"[layer] {name} (warm, incl. topk): "
+                f"{cs.time_ms(fn):.4f} ms  [{card}]")
+    del images, attrs
+
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        e2e()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    trace_path = os.path.join(args.out, "trace_main_path.json")
+    prof.export_chrome_trace(trace_path)
+    ivs = device_intervals(trace_path)
+    if not ivs:
+        log(f"[trace] no device operation in the trace  [{card}]")
+        return 1
+    busy = union_us(ivs)
+    span = max(e for _, _, e in ivs) - min(s for _, s, _ in ivs)
+    log(f"[trace] wall {wall_us / 1e6:.4f} s (profiled), device busy "
+        f"{busy / 1e6:.4f} s (union of {len(ivs)} device ops), idle share "
+        f"{1 - busy / wall_us:.4f} of the wall, {1 - busy / span:.4f} of the "
+        f"{span / 1e6:.4f} s from the first to the last device op  [{card}]")
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for name, s, e in ivs:
+        by_name[name][0] += e - s
+        by_name[name][1] += 1
+    total = sum(v[0] for v in by_name.values())
+    for name, (us, count) in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1][0])[:20]:
+        log(f"[trace] {us / 1e3:10.3f} ms {100 * us / total:5.1f}% "
+            f"x{count:5d}  {name[:110]}")
+
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def native_chain(x, ws):
+        y = x.permute(0, 3, 1, 2)
+        for w in ws:
+            y = F.elu(F.conv2d(y, w, padding=1))
+        return F.max_pool2d(y, 2)
+
+    for label, shape, chans in (
+            ("R block 1", (256, 64, 64, 3), [3, 64, 64, 64]),
+            ("R block 2", (256, 32, 32, 64), [64, 128, 128, 128])):
+        x = torch.rand(shape, device=dev, generator=g).to(bf)
+        ws = [torch.randn(co, ci, 3, 3, device=dev, generator=g).to(bf)
+              for ci, co in zip(chans[:-1], chans[1:])]
+        log(f"[native] cuDNN bf16 {label} conv+elu x3 + pool: "
+            f"{cs.time_ms(lambda: native_chain(x, ws)):.4f} ms  [{card}]")
+    for label, shape, co in (("G stage 1", (256, 16, 16, 512), 256),
+                             ("G stage 2", (256, 32, 32, 256), 128)):
+        x = torch.rand(shape, device=dev, generator=g).to(bf)
+        w = torch.randn(co, shape[-1], 3, 3, device=dev, generator=g).to(bf)
+
+        def up():
+            y = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2,
+                              mode="nearest")
+            return F.relu(F.conv2d(y, w, padding=1))
+        log(f"[native] cuDNN bf16 {label} upsample+conv+relu (naive): "
+            f"{cs.time_ms(up):.4f} ms  [{card}]")
+    out.close()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
