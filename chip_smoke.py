@@ -12,14 +12,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
 2. build the CUDA kernels of ganreverser_tpu_torch/csrc with nvcc;
 3. each kernel against its plain PyTorch version on the card at the shapes
    of the main path (N = 256, f32 and bf16, TF32 off for the plain f32
-   reference): max error against the stated tolerance, median times;
-4. the main path at full width: random G3 and R (3x64x64, noise dim 100,
-   normal noise, non-trivial BN running statistics) saved as checkpoints,
-   then ``cli.apply_r.main`` with N = 10,000, 10 needles, batch 256, bf16.
-   Every kernel must have launched in that run; the similar_* files must
-   exist, the latents be finite and the top-k scores agree with the plain
-   search. Then the fast path against the plain module path on the card
-   (f32) on 512 rows of the same z.
+   reference): max error against the stated tolerance, median times.
+   Kernel K (one kmeans step, f32) at (10,000, 100), K = 20, and at a
+   ragged N with an empty cluster, on the same given centroids: the
+   assignment must agree wherever the plain margin exceeds 1e-4 of max |d|,
+   the counts be those of the kernel's assignment and the sums the plain
+   sums over it (1e-4 relative), and a second run be bitwise the same;
+4. the main path at full width: random G3, R and fixer-R (3x64x64, noise
+   dim 100, normal noise, non-trivial BN running statistics) saved as
+   checkpoints, then ``cli.apply_r.main`` with N = 10,000, 10 needles, batch
+   256, bf16 and all six stages. Every kernel must have launched in that
+   run (K at least once per Lloyd iteration); every artifact must exist,
+   the latents be finite, the cluster counts sum to N, the anomaly count be
+   the one the threshold implies and the top-k scores agree with the plain
+   search. Then, on the card in f32, the fast path and the fast fixer-R
+   against the plain module path (same z, same dropout mask) on 512 rows,
+   and latent refinement of 512 of the images: no image's loss may rise,
+   and the chunked refiner must match one chunk on 256 rows.
 
 The last two lines are a JSON object with each kernel's route, source,
 launch count in the main path, error and times, and
@@ -51,6 +60,9 @@ N_COMPARE = 512        # rows of the fast vs plain comparison
 TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 TOL_SCORES = 1e-4      # cosine scores, inputs cast to f32 in both versions
 TOL_PATH = 1e-3        # fast vs plain module path, f32, relative to scale
+TOL_SUMS = 1e-4        # kmeans sums vs plain, relative to max(1, max |sum|)
+KMEANS_K, KMEANS_ITERS = 20, 15   # apply_r.lua:158
+REFINE_STEPS = 5
 
 
 class SmokeFailure(RuntimeError):
@@ -203,15 +215,81 @@ def check_kernels(dev, card: str, n: int = N_CHECK, n_search: int = N_MAIN):
     return records
 
 
+def kmeans_case(x, c):
+    """Kernel K against its plain version on the same centroids. Returns
+    (max |kernel sums - plain sums over the kernel's assignment|, its
+    tolerance, rows whose assignment differs from the plain one)."""
+    import torch
+    from ganreverser_tpu_torch.ops import kmeans_kernel as kk
+    new_c, counts, sums, assign = kk.kmeans_step(x, c, details=True)
+    torch.cuda.synchronize()
+    again = kk.kmeans_step(x, c, details=True)
+    check(all(torch.equal(a, b) for a, b in zip((new_c, counts, sums, assign),
+                                                again)),
+          "kmeans_step: two runs differ")
+    _, _, _, ref_assign = kk.kmeans_step_plain(x, c, details=True)
+    d = (c * c).sum(1)[None, :] - 2.0 * (x @ c.T)
+    top2 = torch.topk(d, 2, dim=1, largest=False).values
+    sure = (top2[:, 1] - top2[:, 0]) > 1e-4 * d.abs().max()
+    flipped = int((assign != ref_assign).sum())
+    check(torch.equal(assign[sure], ref_assign[sure]),
+          "kmeans_step: assignment differs from plain beyond the margin")
+    k = c.shape[0]
+    check(torch.equal(counts, torch.bincount(assign, minlength=k).float()),
+          "kmeans_step: counts are not those of its assignment")
+    ref_sums = torch.nn.functional.one_hot(assign, k).float().T @ x
+    err = (sums - ref_sums).abs().max().item()
+    tol = TOL_SUMS * max(1.0, ref_sums.abs().max().item())
+    check(err <= tol, f"kmeans_step: sums differ from plain by {err} > {tol}")
+    ref_new = torch.where(counts[:, None] > 0,
+                          sums / torch.clamp_min(counts, 1.0)[:, None], c)
+    check(torch.equal(new_c, ref_new),
+          "kmeans_step: centroids are not sums / counts")
+    return err, tol, flipped
+
+
+def check_kmeans(dev, card: str, n: int = N_MAIN):
+    """Phase 3, kernel K: a Lloyd step at the main path's shape, and at a
+    ragged N with an empty cluster; returns one record."""
+    import torch
+    from ganreverser_tpu_torch.ops import kmeans_kernel as kk
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    x = torch.randn(n, NOISE_DIM, device=dev, generator=gen)
+    c = x[torch.randperm(n, device=dev, generator=gen)[:KMEANS_K]]
+    err, tol, flipped = kmeans_case(x, c)
+    ms = time_ms(lambda: kk.kmeans_step(x, c))
+    plain_ms = time_ms(lambda: kk.kmeans_step_plain(x, c))
+    print(f"[kernel] kmeans_step ({n},{NOISE_DIM}) K={KMEANS_K} float32: "
+          f"sums max_abs_err {err:.3e} (tol {tol:.1e}), "
+          f"{flipped} near-tie rows assigned otherwise, kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms per Lloyd step  [{card}]")
+    xr = x[:777]
+    cr = c.clone()
+    cr[-1] = 0.0
+    cr[-1, 0] = 50.0  # no row comes near: an empty cluster
+    err_r, tol_r, flipped_r = kmeans_case(xr, cr)
+    counts = kk.kmeans_step(xr, cr)[1]
+    check(counts[-1].item() == 0.0, "kmeans_step: the far cluster is not "
+          "empty")
+    print(f"[kernel] kmeans_step ragged (777,{NOISE_DIM}) K={KMEANS_K} with "
+          f"an empty cluster: sums max_abs_err {err_r:.3e} (tol {tol_r:.1e}), "
+          f"{flipped_r} "
+          f"near-tie rows  [{card}]")
+    return {"name": "kmeans_step", "label": f"({n},{NOISE_DIM}) K={KMEANS_K}",
+            "dtype": "float32", "max_abs_err": max(err, err_r), "ms": ms,
+            "plain_ms": plain_ms}
+
+
 def make_models(dev, dims=DIMS, noise_dim=NOISE_DIM):
-    """Phase 4a: G3 and R with seeded random weights and non-trivial BN
-    running statistics."""
+    """Phase 4a: G3, R and the fixer-R with seeded random weights and
+    non-trivial BN running statistics."""
     import torch
     from ganreverser_tpu_torch.models import modules, zoo
     gen = torch.Generator().manual_seed(SEED)
     models = []
     for model in (zoo.create_G3(dims, noise_dim),
-                  zoo.create_R(dims, noise_dim, "normal")):
+                  zoo.create_R(dims, noise_dim, "normal"),
+                  zoo.create_R(dims, noise_dim, "normal", fixer=True)):
         modules.init_parameters(model, gen)
         for m in model.modules():
             if isinstance(m, modules.BatchNorm):
@@ -221,7 +299,8 @@ def make_models(dev, dims=DIMS, noise_dim=NOISE_DIM):
     return models
 
 
-def save_models(G, R, save: str, dims=DIMS, noise_dim=NOISE_DIM) -> str:
+def save_models(G, R, RF, save: str, dims=DIMS,
+                noise_dim=NOISE_DIM) -> str:
     """Checkpoints laid out as apply_r expects; returns G's path."""
     from ganreverser_tpu_torch.io import checkpoint as ckpt
     from ganreverser_tpu_torch.models.bridge import export_variables
@@ -230,20 +309,22 @@ def save_models(G, R, save: str, dims=DIMS, noise_dim=NOISE_DIM) -> str:
            "colorSpace": "rgb", "height": h, "width": w}
     g_path = ckpt.adversarial_name(save)
     ckpt.save_checkpoint(g_path, {"G": export_variables(G)}, config=cfg)
-    ckpt.save_checkpoint(ckpt.r_name(save, c, h, w, noise_dim, "normal",
-                                     False),
-                         {"R": export_variables(R)}, config=cfg)
+    for model, fixer in ((R, False), (RF, True)):
+        ckpt.save_checkpoint(ckpt.r_name(save, c, h, w, noise_dim, "normal",
+                                         fixer),
+                             {"R": export_variables(model)}, config=cfg)
     return g_path
 
 
 def kernel_counters():
     from ganreverser_tpu_torch.ops import (conv_block_kernel,
-                                           topk_kernel,
+                                           kmeans_kernel, topk_kernel,
                                            upsample_conv_kernel)
     return {"conv_block": conv_block_kernel.conv_block,
             "upsample2_conv3x3_bn_act":
                 upsample_conv_kernel.upsample2_conv3x3_bn_act,
-            "cosine_scores": topk_kernel.cosine_scores}
+            "cosine_scores": topk_kernel.cosine_scores,
+            "kmeans_step": kmeans_kernel.kmeans_step}
 
 
 def run_main_path(g_path: str, save: str, out_dir: str, n: int = N_MAIN,
@@ -267,18 +348,42 @@ def run_main_path(g_path: str, save: str, out_dir: str, n: int = N_MAIN,
 
 def check_main_path(result, out_dir: str, n: int = N_MAIN,
                     needles: int = NEEDLES, noise_dim: int = NOISE_DIM):
-    """Phase 4c: artifacts, finite latents, search scores vs plain."""
+    """Phase 4c: every artifact, finite latents, cluster counts summing to
+    N, the anomaly count the threshold implies, search scores vs plain.
+    Returns the two top-k score errors."""
     import torch
     from ganreverser_tpu_torch.ops.topk_kernel import cosine_scores_plain
-    for i in range(1, needles + 1):
-        for tag in ("attributes", "pixelwise"):
-            f = os.path.join(out_dir, f"similar_{tag}_{i:02d}.jpg")
-            check(os.path.isfile(f), f"missing {f}")
+    names = ["variations.jpg", "fixed_pairs.jpg", "fixed_images_528.jpg",
+             "fixed_images_528_unfixed.jpg", "anomalies.jpg",
+             "apply_r_stats.jsonl"]
+    names += [f"similar_{tag}_{i:02d}.jpg" for i in range(1, needles + 1)
+              for tag in ("attributes", "pixelwise")]
+    with open(os.path.join(out_dir, "apply_r_stats.jsonl")) as f:
+        stats = [json.loads(line) for line in f]
+    sizes = [r["value"] for r in stats if r["tag"] == "cluster_size"]
+    names += [f"cluster_{ci + 1:02d}.jpg" for ci, size in enumerate(sizes)
+              if size > 0]
+    for name in names:
+        check(os.path.isfile(os.path.join(out_dir, name)), f"missing {name}")
+    check(len(sizes) == KMEANS_K and sum(sizes) == n,
+          f"cluster sizes {sizes} do not sum to {n}")
+    check(result["counts"].sum().item() == n,
+          f"kmeans counts sum to {result['counts'].sum().item()}, not {n}")
+    scores, thr = result["scores"], result["threshold"]
+    implied = int((scores <= thr).sum())
+    n_calc = scores.shape[0]
+    flagged = int(result["is_anomaly"].sum())
+    count = [r["value"] for r in stats if r["tag"] == "anomaly_count"]
+    check(flagged == implied == count[0] and implied >= int(n_calc * 0.15),
+          f"anomalies: {flagged} flagged, {implied} implied by the "
+          f"threshold, {count} in the stats")
     attrs, images = result["attributes"], result["images"]
-    check(tuple(attrs.shape) == (n, noise_dim),
-          f"attributes shape {tuple(attrs.shape)}")
-    check(bool(torch.isfinite(attrs).all()), "non-finite attributes")
-    check(bool(torch.isfinite(images).all()), "non-finite images")
+    for name in ("attributes", "attributes_fixer"):
+        check(tuple(result[name].shape) == (n, noise_dim),
+              f"{name} shape {tuple(result[name].shape)}")
+        check(bool(torch.isfinite(result[name]).all()), f"non-finite {name}")
+    for name in ("images", "fixed", "variations"):
+        check(bool(torch.isfinite(result[name]).all()), f"non-finite {name}")
     idx = torch.tensor([(i + 1) * 100 - 1 for i in range(needles)],
                        device=attrs.device)
     errs = []
@@ -292,34 +397,71 @@ def check_main_path(result, out_dir: str, n: int = N_MAIN,
     return errs
 
 
-def compare_paths(G, R, dev, n: int = N_COMPARE, dims=DIMS,
+def _path_err(what: str, a, b) -> float:
+    err = (a - b).abs().max().item()
+    scale = max(1.0, b.abs().max().item())
+    check(err <= TOL_PATH * scale,
+          f"fast vs plain {what}: {err} > {TOL_PATH * scale}")
+    return err
+
+
+def compare_paths(G, R, RF, dev, n: int = N_COMPARE, dims=DIMS,
                   noise_dim=NOISE_DIM):
     """Phase 4d: fast path (kernels) vs the plain module path, f32, on the
-    same z. Returns (image error, latent error)."""
+    same z, and the fast fixer vs the module fixer-R on the same dropout
+    mask. Returns the image, latent and fixer-latent errors."""
     import torch
     from ganreverser_tpu_torch.core.prng import noise_inputs
     from ganreverser_tpu_torch.models import bridge, fastpath
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     z = noise_inputs(gen, n, noise_dim, "normal", device=dev)
-    g_vars = bridge.to_torch(bridge.export_variables(G), dev)
-    r_vars = bridge.to_torch(bridge.export_variables(R), dev)
+    g_vars, r_vars, rf_vars = (
+        bridge.to_torch(bridge.export_variables(m), dev) for m in (G, R, RF))
+    f32 = torch.float32
     with torch.inference_mode():
-        fast_images = fastpath.make_fast_generator(dims, noise_dim,
-                                                   torch.float32)(g_vars, z)
-        fast_z = fastpath.make_fast_inverter(dims, noise_dim, "normal",
-                                             torch.float32)(r_vars,
-                                                            fast_images)
+        fast_images = fastpath.make_fast_generator(dims, noise_dim, f32)(
+            g_vars, z)
+        fast_z = fastpath.make_fast_inverter(dims, noise_dim, "normal", f32)(
+            r_vars, fast_images)
+        fast_zf = fastpath.make_fast_fixer(dims, noise_dim, "normal", f32)(
+            rf_vars, fast_images,
+            torch.Generator(device=dev).manual_seed(SEED + 5))
         plain_images = G(z)
         plain_z = R(plain_images)
-    errs = []
-    for what, a, b in (("images", fast_images, plain_images),
-                       ("latents", fast_z, plain_z)):
-        err = (a - b).abs().max().item()
-        scale = max(1.0, b.abs().max().item())
-        check(err <= TOL_PATH * scale,
-              f"fast vs plain {what}: {err} > {TOL_PATH * scale}")
-        errs.append(err)
-    return errs
+        RF.l0.generator = torch.Generator(device=dev).manual_seed(SEED + 5)
+        plain_zf = RF(fast_images)
+    return (_path_err("images", fast_images, plain_images),
+            _path_err("latents", fast_z, plain_z),
+            _path_err("fixer latents", fast_zf, plain_zf))
+
+
+def check_refine(G, images, z0, n_chunk: int = 256):
+    """Phase 4e: adam on z through the module G (f32) for the images and
+    first guesses given: no image's loss may rise, and the chunked refiner
+    must match one chunk on ``n_chunk`` rows. Returns (loss before, after,
+    chunk error, seconds)."""
+    import torch
+    from ganreverser_tpu_torch.analysis.refine import make_refiner
+    f32 = torch.float32
+    images, z0 = images.float(), z0.float()
+    _, loss0 = make_refiner(G, steps=0, dtype=f32)(images, z0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    z, loss = make_refiner(G, steps=REFINE_STEPS, dtype=f32,
+                           batch_size=256)(images, z0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(bool(torch.isfinite(z).all()), "refine: non-finite latents")
+    rose = int((loss > loss0).sum())
+    check(rose == 0, f"refine: the loss rose on {rose} of {len(loss)} "
+          f"images (max rise {(loss - loss0).max().item():.3e})")
+    za, _ = make_refiner(G, steps=REFINE_STEPS, dtype=f32,
+                         batch_size=n_chunk // 2)(images[:n_chunk],
+                                                  z0[:n_chunk])
+    zb, _ = make_refiner(G, steps=REFINE_STEPS, dtype=f32)(images[:n_chunk],
+                                                           z0[:n_chunk])
+    err = _path_err("refined latents, chunked vs one chunk", za, zb)
+    return loss0.mean().item(), loss.mean().item(), err, seconds
 
 
 def main() -> int:
@@ -358,28 +500,40 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     records = check_kernels(dev, card)
+    records.append(check_kmeans(dev, card))
 
     # 4. the main path at full width
-    G, R = make_models(dev)
+    G, R, RF = make_models(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         save, out_dir = os.path.join(tmp, "logs"), os.path.join(tmp, "out")
-        g_path = save_models(G, R, save)
+        g_path = save_models(G, R, RF, save)
         result, launches, seconds = run_main_path(g_path, save, out_dir)
         for name, count in launches.items():
             check(count > 0, f"kernel {name} launched no time in the main "
                   "path")
+        check(launches["kmeans_step"] >= KMEANS_ITERS,
+              f"kmeans_step launched {launches['kmeans_step']} times, fewer "
+              f"than the {KMEANS_ITERS} Lloyd iterations")
         score_errs = check_main_path(result, out_dir)
-    gen_inv_s = result["seconds"]["generate_invert"]
-    search_s = result["seconds"]["search"]
-    print(f"[main] apply_r N={N_MAIN} bf16 batch 256: generate+invert "
-          f"{gen_inv_s:.3f} s = {N_MAIN / gen_inv_s:.1f} img/s, search "
-          f"{search_s * 1e3:.3f} ms, whole call {seconds:.2f} s; launches "
-          f"{launches}; top-k score error vs plain {max(score_errs):.2e}  "
-          f"[{card}]")
+    secs = result["seconds"]
+    print(f"[main] apply_r N={N_MAIN} bf16 batch 256, all six stages + "
+          f"fixer-R: whole call {seconds:.2f} s; launches {launches}; top-k "
+          f"score error vs plain {max(score_errs):.2e}  [{card}]")
+    print(f"[main] stage seconds: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in secs.items()) +
+        f"; generate+invert {N_MAIN / secs['generate_invert']:.1f} img/s "
+        f"(G, R and the fixer-R)  [{card}]")
+    loss0, loss1, chunk_err, refine_s = check_refine(
+        G, result["images"][:N_COMPARE], result["attributes"][:N_COMPARE])
+    print(f"[main] refine {N_COMPARE} images, {REFINE_STEPS} adam steps, f32 "
+          f"module G: mean pixel MSE {loss0:.4e} -> {loss1:.4e}, no image "
+          f"rose; {refine_s:.3f} s; chunked vs one chunk on 256 rows "
+          f"max_abs_err {chunk_err:.3e}  [{card}]")
     del result
-    img_err, z_err = compare_paths(G, R, dev)
+    img_err, z_err, zf_err = compare_paths(G, R, RF, dev)
     print(f"[main] fast vs plain module path, f32, {N_COMPARE} rows: images "
-          f"max_abs_err {img_err:.3e}, latents {z_err:.3e}  [{card}]")
+          f"max_abs_err {img_err:.3e}, latents {z_err:.3e}, fixer latents "
+          f"(same mask) {zf_err:.3e}  [{card}]")
 
     sources = {"conv_block": ("ganreverser_tpu_torch/csrc/conv_block.cu",
                               "ganreverser_tpu/ops/conv_block_kernel.py:86"),
@@ -387,12 +541,15 @@ def main() -> int:
                    "ganreverser_tpu_torch/csrc/upsample_conv.cu",
                    "ganreverser_tpu/ops/upsample_conv_kernel.py:122"),
                "cosine_scores": ("ganreverser_tpu_torch/csrc/cosine_scores.cu",
-                                 "ganreverser_tpu/ops/topk_kernel.py:69")}
+                                 "ganreverser_tpu/ops/topk_kernel.py:69"),
+               "kmeans_step": ("ganreverser_tpu_torch/csrc/kmeans.cu",
+                               "ganreverser_tpu/ops/kmeans_kernel.py:97")}
     kernels = []
     for name, (source, replaces) in sources.items():
-        # bf16, the main path's dtype: summed over the path's shapes
-        recs = [r for r in records
-                if r["name"] == name and r["dtype"] == "bfloat16"]
+        # the main path's dtype (bf16; kmeans runs in f32), summed over the
+        # path's shapes
+        recs = [r for r in records if r["name"] == name and r["dtype"] == (
+            "float32" if name == "kmeans_step" else "bfloat16")]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],

@@ -44,21 +44,21 @@ def _f(default, help=""):
 class ApplyConfig(Config):
     """Flags of apply_r.lua:13-23 plus the JAX package's additions. The port
     refuses the flags of modes it does not have yet (--int8, --approx,
-    --refine_steps > 0, --mesh_* > 1) rather than ignoring them."""
+    --mesh_* > 1) rather than ignoring them."""
     save: str = _f("logs", "directory with checkpoints / for outputs")
     G: str = _f("logs/adversarial", "G checkpoint")
     R: str = _f("", "R checkpoint (default derived from G's geometry)")
-    R_fixer: str = _f("", "fixer-R checkpoint (fixing/anomalies: not ported yet)")
+    R_fixer: str = _f("", "fixer-R checkpoint (default derived from G's geometry; plain R when absent)")
     writeto: str = _f("apply_r_results", "output directory for images")
     batchSize: int = _f(32, "inference batch size (chunks are at least 256)")
     N: int = _f(10000, "number of faces to generate + invert (apply_r.lua:145)")
-    clusters: int = _f(20, "kmeans cluster count (apply_r.lua:158; clustering not ported yet)")
-    kmeans_iters: int = _f(15, "kmeans iterations (apply_r.lua:158; clustering not ported yet)")
+    clusters: int = _f(20, "kmeans cluster count (apply_r.lua:158)")
+    kmeans_iters: int = _f(15, "kmeans iterations (apply_r.lua:158)")
     needles: int = _f(5, "similarity-search needle count (apply_r.lua:169)")
-    anomalies_n: int = _f(1024, "images scored for anomalies (apply_r.lua:187; not ported yet)")
-    anomalies_quantile: float = _f(0.15, "anomaly threshold quantile (not ported yet)")
+    anomalies_n: int = _f(1024, "images scored for anomalies (apply_r.lua:187)")
+    anomalies_quantile: float = _f(0.15, "anomaly threshold quantile")
     seed: int = _f(1, "RNG seed")
-    refine_steps: int = _f(0, "gradient-based latent refinement steps (not ported yet: must be 0)")
+    refine_steps: int = _f(0, "gradient-based latent refinement steps (0 = off)")
     refine_lr: float = _f(0.05, "refinement learning rate (adam on z)")
     mesh_data: int = _f(1, "data-parallel axis (not ported yet: must be 1)")
     mesh_model: int = _f(1, "tensor-parallel axis (not ported yet: must be 1)")

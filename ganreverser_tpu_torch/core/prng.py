@@ -1,8 +1,12 @@
 """Latent noise from an explicit ``torch.Generator``.
 
-The JAX package derives every random draw from one ``jax.random`` key; here
-each stage takes a generator seeded from ``--seed``. The two frameworks give
-different numbers for one seed, so tests hand both the same numpy draws.
+The JAX package derives every random draw from one ``jax.random`` key and
+folds a stage number into it (apply_r: 1 variations, 2 generation, 3 kmeans
+init, 5 the fixer's dropout). Here each stage draws from a generator of its
+own, seeded from (``--seed``, stage number) by :func:`stage_seed`, so adding
+or skipping one stage changes no other stage's numbers. The two frameworks
+give different numbers for one seed, so tests hand both the same numpy
+draws.
 """
 from __future__ import annotations
 
@@ -14,6 +18,19 @@ def seeded_generator(seed: int, device: torch.device) -> torch.Generator:
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     return gen
+
+
+def stage_seed(seed: int, stage: int) -> int:
+    """The seed of stage ``stage``: ``seed`` + (stage - 2) * 2**32, modulo
+    2**64. Stage 2, the generation of the N faces, keeps ``seed`` itself."""
+    return (seed + ((stage - 2) << 32)) % (1 << 64)
+
+
+def stage_generator(seed: int, stage: int,
+                    device: torch.device) -> torch.Generator:
+    """A generator on ``device`` for stage ``stage`` of a run seeded with
+    ``seed``."""
+    return seeded_generator(stage_seed(seed, stage), device)
 
 
 def noise_inputs(generator: torch.Generator, n: int, noise_dim: int,

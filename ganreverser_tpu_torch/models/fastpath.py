@@ -18,9 +18,12 @@ scale/shift on every call, and run:
                                                       [torch.matmul]
 
 as the JAX package leaves the dense layers and G's Co=C head to XLA outside
-any kernel. On CUDA tensors the kernels launch; on CPU tensors their plain
-versions run. Only the plain (non-fixer) R is covered: the fixer's
-always-on dropout is not ported yet.
+any kernel. Their f32 precision is pinned by the compute dtype
+(core/precision.py), not by the process-wide TF32 flags. On CUDA tensors
+the kernels launch; on CPU tensors their plain versions run.
+
+The fixer-R (``make_fast_fixer``) is R behind an always-on input dropout:
+its mask is drawn outside the kernels, so the fixer runs on kernel B too.
 """
 from __future__ import annotations
 
@@ -31,13 +34,11 @@ from ..ops.conv_block_kernel import conv_block
 from ..ops.conv_kernel import fold_batchnorm
 from ..ops.upsample_conv import conv_nhwc
 from ..ops.upsample_conv_kernel import upsample2_conv3x3_bn_act
+from .modules import apply_dropout, dense, dropout_keep_mask
 
 Dims = tuple  # (C, H, W)
 
-
-def _dense(x, kernel, dtype):
-    """x @ kernel with operands rounded to ``dtype``, f32 result."""
-    return x.to(dtype).float() @ kernel.to(dtype).float()
+FIXER_DROPOUT = 0.5  # the fixer-R's input dropout rate (models.lua:399-406)
 
 
 def make_fast_generator(dims: Dims, noise_dim: int,
@@ -54,7 +55,7 @@ def make_fast_generator(dims: Dims, noise_dim: int,
         # Dense + folded BN + ReLU (models.lua:115-117)
         scale0, shift0 = fold_batchnorm(p["l1"], s["l1"], p["l0"]["bias"])
         k0 = p["l0"]["kernel"].float() * scale0[None, :]
-        y = torch.clamp_min(_dense(z, k0, dtype) + shift0, 0.0).to(dtype)
+        y = torch.clamp_min(dense(z, k0, dtype) + shift0, 0.0).to(dtype)
         x = y.reshape(z.shape[0], sh, sw, 512)
 
         # two fused upsample+conv+BN+ReLU stages (models.lua:121-130)
@@ -100,10 +101,38 @@ def make_fast_inverter(dims: Dims, noise_dim: int, noise_method: str,
         x = x.reshape(x.shape[0], -1)
         scd, shd = fold_batchnorm(p["l28"], s["l28"], p["l27"]["bias"])
         kd = p["l27"]["kernel"].float() * scd[None, :]
-        y = F.elu(_dense(x, kd, dtype) + shd).to(dtype)
-        z = _dense(y, p["l31"]["kernel"], dtype) + p["l31"]["bias"]
+        y = F.elu(dense(x, kd, dtype) + shd).to(dtype)
+        z = dense(y, p["l31"]["kernel"], dtype) + p["l31"]["bias"]
         if noise_method != "normal":
             z = torch.tanh(z)  # models.lua:452-454
         return z.to(dtype)
 
     return invert
+
+
+def _unshift_layers(tree: dict) -> dict:
+    """``l<i>`` -> ``l<i-1>`` at the top of each of ``params``/``state``:
+    the fixer's layer indices, one past the plain R's (its l0 is the
+    dropout, which has no variables)."""
+    return {part: {f"l{int(k[1:]) - 1}": v for k, v in tree[part].items()}
+            for part in ("params", "state")}
+
+
+def make_fast_fixer(dims: Dims, noise_dim: int, noise_method: str,
+                    dtype: torch.dtype = torch.bfloat16):
+    """Returns ``invert(rf_variables, images, generator) -> z_hat`` equal to
+    ``create_R(..., fixer=True)`` in evaluation with ``l0.generator`` in the
+    same state: a Bernoulli(0.5) keep mask is drawn from ``generator``
+    (``modules.dropout_keep_mask``, the module's draw), the survivors are
+    doubled, and the kernel-B inverter runs on the fixer's variables with
+    their layer indices shifted back by one. Each call draws a fresh mask,
+    as the reference's nn.Dropout does on every forward."""
+    invert = make_fast_inverter(dims, noise_dim, noise_method, dtype)
+
+    def invert_fixer(variables, images, generator):
+        keep = dropout_keep_mask(images.shape, FIXER_DROPOUT, generator,
+                                 images.device)
+        return invert(_unshift_layers(variables),
+                      apply_dropout(images, keep, FIXER_DROPOUT))
+
+    return invert_fixer

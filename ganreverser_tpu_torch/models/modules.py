@@ -13,8 +13,10 @@ these modules name for name (``models/bridge.py``):
   rounded to it, products accumulate in f32, and the output is rounded to
   it again.
 
-Only evaluation is ported: a BatchNorm or a dropout in training mode raises.
-The plain convolutions here go through ``F.conv2d`` on NCHW views.
+Only evaluation is ported: a BatchNorm or a dropout in training mode raises;
+the fixer-R's always-on input dropout is active in evaluation, as in the
+reference. The plain convolutions here go through ``F.conv2d`` on NCHW
+views.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.precision import pinned_precision
 from ..ops.upsample_conv import conv_nhwc, upsample2_conv3x3_dilated
 
 _BN_EPS = 1e-5
@@ -36,6 +39,28 @@ def _heuristic_(t: torch.Tensor, fan_in: int, generator: torch.Generator):
     std = math.sqrt(1.0 / (3.0 * fan_in))
     with torch.no_grad():
         t.uniform_(-std, std, generator=generator)
+
+
+def dense(x: torch.Tensor, kernel: torch.Tensor,
+          dtype: torch.dtype) -> torch.Tensor:
+    """x @ kernel with operands rounded to ``dtype``, f32 result, at the
+    precision pinned for ``dtype`` (core/precision.py)."""
+    with pinned_precision(dtype):
+        return x.to(dtype).float() @ kernel.to(dtype).float()
+
+
+def dropout_keep_mask(shape, rate: float, generator: torch.Generator,
+                      device: torch.device | str) -> torch.Tensor:
+    """Bernoulli(1 - rate) keep mask of ``shape`` (bool), drawn from
+    ``generator`` on ``device`` (the generator's device)."""
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+
+
+def apply_dropout(x: torch.Tensor, keep: torch.Tensor,
+                  rate: float) -> torch.Tensor:
+    """Survivors scaled by 1 / (1 - rate), dropped elements zero, cast back
+    to ``x.dtype`` (the JAX Dropout's ``where(mask, x / keep, 0)``)."""
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
 class Dense(nn.Module):
@@ -53,8 +78,7 @@ class Dense(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x):
-        y = x.to(self.dtype).float() @ self.kernel.to(self.dtype).float()
-        return (y + self.bias).to(self.dtype)
+        return (dense(x, self.kernel, self.dtype) + self.bias).to(self.dtype)
 
 
 class Conv(nn.Module):
@@ -123,14 +147,29 @@ class Activation(nn.Module):
 
 
 class Dropout(nn.Module):
-    """nn.Dropout: the identity in evaluation; training is not ported yet."""
+    """nn.Dropout: the identity in evaluation; training is not ported yet.
 
-    def __init__(self, rate: float = 0.5):
+    ``always_on=True`` is the fixer-R's input dropout, which the reference
+    keeps active at inference (models.lua:399-406): every call draws a
+    fresh keep mask from ``self.generator``, which the caller sets (there
+    is no hidden global stream)."""
+
+    def __init__(self, rate: float = 0.5, always_on: bool = False):
         super().__init__()
         self.rate = rate
+        self.always_on = always_on
+        self.generator: torch.Generator | None = None
 
     def forward(self, x):
-        if self.training and self.rate > 0.0:
+        if self.rate == 0.0:
+            return x
+        if self.always_on:
+            if self.generator is None:
+                raise ValueError("an always-on Dropout needs .generator set")
+            keep = dropout_keep_mask(x.shape, self.rate, self.generator,
+                                     x.device)
+            return apply_dropout(x, keep, self.rate)
+        if self.training:
             raise NotImplementedError("dropout in training is not ported yet")
         return x
 

@@ -1,12 +1,11 @@
 """G3 and R — the counterparts of ganreverser_tpu/models/zoo.py's
-``create_G3`` and ``create_R_default`` (non-fixer), with the same layer
-indices.
+``create_G3`` and ``create_R_default`` (plain and fixer), with the same
+layer indices.
 
 ``dimensions`` is (C, H, W) as in the reference; tensors flow as NHWC. The
 models are returned in evaluation mode (the only mode ported); their
 weights are zero until loaded (``models/bridge.py``) or drawn with
-``modules.init_parameters``. D, the fixer-R and the other variants come
-later.
+``modules.init_parameters``. D and the other variants come later.
 """
 from __future__ import annotations
 
@@ -51,16 +50,20 @@ def create_G3(dimensions: Dims, noise_dim: int,
 
 
 def create_R(dimensions: Dims, noise_dim: int, noise_method: str,
-             dtype: torch.dtype = torch.float32):
+             fixer: bool = False, dtype: torch.dtype = torch.float32):
     """models.create_R == create_R_default (models.lua:385-387)."""
-    return create_R_default(dimensions, noise_dim, noise_method, dtype)
+    return create_R_default(dimensions, noise_dim, noise_method, fixer, dtype)
 
 
 def create_R_default(dimensions: Dims, noise_dim: int, noise_method: str,
+                     fixer: bool = False,
                      dtype: torch.dtype = torch.float32):
-    """create_R_default (models.lua:389-464), the plain (non-fixer) R:
-    3x [conv64 + BN + ELU] + pool, 3x [conv128 + BN + ELU] + pool, Dense 512
-    + BN + ELU, Dense noise_dim, and a Tanh head only for uniform noise."""
+    """create_R_default (models.lua:389-464): 3x [conv64 + BN + ELU] + pool,
+    3x [conv128 + BN + ELU] + pool, Dense 512 + BN + ELU, Dense noise_dim,
+    and a Tanh head only for uniform noise. ``fixer=True`` prepends the
+    always-on Dropout(0.5) (models.lua:399-406), which shifts every layer
+    index by one; set its ``generator`` (``model.l0.generator``) before a
+    forward."""
     if noise_method not in ("normal", "uniform"):
         raise ValueError(noise_method)
     c, h, w = dimensions
@@ -69,7 +72,8 @@ def create_R_default(dimensions: Dims, noise_dim: int, noise_method: str,
         return [Conv(in_ch, feat, dtype=dtype), BatchNorm(feat, dtype=dtype),
                 Activation("elu")]
 
-    layers = [
+    layers = [Dropout(0.5, always_on=True)] if fixer else []
+    layers += [
         *block(c, 64), Dropout(0.5),
         *block(64, 64), Dropout(0.5),
         *block(64, 64), MaxPool(), Dropout(0.5),

@@ -1,10 +1,12 @@
 """Build and bind the hand-written CUDA kernels of ``csrc/``.
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, loaded with ``ctypes``. The build happens
-at first use, not at import, keyed by a hash of the sources and flags, into
-``build/kernels/`` at the root of the checkout; a missing ``nvcc`` raises
-there, on the first CUDA call, and never breaks importing the package.
+Each ``csrc/*.cu`` is compiled with ``nvcc`` for ``sm_90a`` into an object
+file, all of them at once in parallel processes, and the objects are linked
+into one shared library with a plain C interface, loaded with ``ctypes``.
+The build happens at first use, not at import, keyed by a hash of the
+sources and flags, into ``build/kernels/`` at the root of the checkout; a
+missing ``nvcc`` raises there, on the first CUDA call, and never breaks
+importing the package.
 
 Each C entry point launches on the stream it is given, allocates nothing and
 returns ``cudaGetLastError()``; :func:`check` raises on a non-zero code.
@@ -24,14 +26,16 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 ACT_CODES = {"none": 0, "relu": 1, "elu": 2, "sigmoid": 3}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # name -> argtypes; every function returns the cudaError_t of its launch
 _SIGNATURES = {
     # dtype, x, w9, scale, shift, out, n, h, w, ci, co, act, pool, stream
@@ -42,6 +46,8 @@ _SIGNATURES = {
                                     _I, _I, _P],
     # dtype, needles, emb, out, q, n, d, stream
     "gr_cosine_scores": [_I, _P, _P, _P, _I, _I, _I, _P],
+    # x, c, ws, ws_floats, c_new, counts, sums, assign, n, d, k, stream
+    "gr_kmeans_step": [_P, _P, _P, _L, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 
@@ -72,24 +78,45 @@ def source_hash() -> str:
 
 def build() -> Path:
     """Compile ``csrc/*.cu`` into ``build/kernels/libgr_kernels_<hash>.so``
-    unless that file exists; returns its path. The compiler's output,
-    ``-Xptxas -v`` included, is kept beside it as ``build_<hash>.log``."""
+    unless that file exists; returns its path. One ``nvcc -c`` per source,
+    all started together, then one link. The compilers' output, ``-Xptxas
+    -v`` included, is kept beside the library as ``build_<hash>.log``."""
     tag = source_hash()
     lib = BUILD_DIR / f"libgr_kernels_{tag}.so"
     if lib.is_file():
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".so.tmp{os.getpid()}")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in _sources() if s.suffix == ".cu")]
+    nvcc = _nvcc()
+    work = BUILD_DIR / f"obj_{tag}_{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in (s for s in _sources() if s.suffix == ".cu"):
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o",
+               str(work / f"{src.stem}.o")]
+        jobs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], []
+    for cmd, proc in jobs:
+        out, _ = proc.communicate()
+        logs.append(f"$ {' '.join(cmd)}\n# rc {proc.returncode}\n{out}")
+        if proc.returncode != 0:
+            failed.append(out)
+    tmp = lib.with_suffix(f".so.tmp{os.getpid()}")
+    if not failed:
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+               *(str(o) for o in sorted(work.glob("*.o")))]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        logs.append(f"$ {' '.join(cmd)}\n# rc {proc.returncode}\n"
+                    f"{proc.stdout}{proc.stderr}")
+        if proc.returncode != 0:
+            failed.append(proc.stderr)
     log = BUILD_DIR / f"build_{tag}.log"
-    log.write_text(f"$ {' '.join(cmd)}\n# {time.perf_counter() - t0:.1f} s, "
-                   f"rc {proc.returncode}\n{proc.stdout}{proc.stderr}")
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (rc {proc.returncode}); see {log}:\n"
-                           f"{proc.stderr[-4000:]}")
+    log.write_text(f"# {time.perf_counter() - t0:.1f} s\n" + "\n".join(logs))
+    shutil.rmtree(work, ignore_errors=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed; see {log}:\n"
+                           f"{failed[0][-4000:]}")
     os.replace(tmp, lib)
     return lib
 

@@ -21,6 +21,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..core.precision import pinned_precision
+
 # (4, 3) tap-aggregation map of the lhs-dilated formulation
 _A4 = ((1.0, 0.0, 0.0), (1.0, 1.0, 0.0), (0.0, 1.0, 1.0), (0.0, 0.0, 1.0))
 
@@ -28,10 +30,14 @@ _A4 = ((1.0, 0.0, 0.0), (1.0, 1.0, 0.0), (0.0, 1.0, 1.0), (0.0, 0.0, 1.0))
 def conv_nhwc(x: torch.Tensor, kernel: torch.Tensor, padding,
               dtype: torch.dtype) -> torch.Tensor:
     """Stride-1 cross-correlation of NHWC ``x`` with an HWIO ``kernel``,
-    operands rounded to ``dtype``, f32 result. ``padding`` as F.conv2d's."""
+    operands rounded to ``dtype``, f32 result. ``padding`` as F.conv2d's.
+    The precision does not follow the process-wide TF32 flags
+    (core/precision.py)."""
     xt = x.to(dtype).float().permute(0, 3, 1, 2)
     wt = kernel.to(dtype).float().permute(3, 2, 0, 1)
-    return F.conv2d(xt, wt, padding=padding).permute(0, 2, 3, 1)
+    with pinned_precision(dtype):
+        y = F.conv2d(xt, wt, padding=padding)
+    return y.permute(0, 2, 3, 1)
 
 
 def upsample2_conv3x3_dilated(x, kernel, bias, dtype=torch.float32):

@@ -1,0 +1,330 @@
+"""The rest of apply_r against the JAX package: the fixer-R (its always-on
+dropout, its checkpoint, the fast fixer on kernel B's plain version), the
+variation sweep, fixing, the anomaly scores and threshold, latent
+refinement, the metrics log, and the port's CLI against the JAX CLI on the
+same JAX-written checkpoints. f32 at small geometry; tolerances 1e-4 (f32
+sums in another order) unless stated."""
+import json
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ganreverser_tpu import analysis as A
+from ganreverser_tpu import io as gio
+from ganreverser_tpu import models as M
+from ganreverser_tpu.cli import apply_r as j_apply_r
+from ganreverser_tpu.core.prng import noise_inputs as j_noise_inputs
+from ganreverser_tpu.io.metrics import MetricsWriter as JMetricsWriter
+from ganreverser_tpu_torch.analysis import pipeline as P
+from ganreverser_tpu_torch.analysis.refine import make_refiner
+from ganreverser_tpu_torch.cli import apply_r
+from ganreverser_tpu_torch.core import prng
+from ganreverser_tpu_torch.io import checkpoint as ckpt
+from ganreverser_tpu_torch.io.metrics import MetricsWriter
+from ganreverser_tpu_torch.models import bridge, fastpath, modules, zoo
+from ganreverser_tpu_torch.ops import (conv_block_kernel, kmeans_kernel,
+                                       topk_kernel, upsample_conv_kernel)
+
+T = torch.from_numpy
+DIMS, ND = (3, 16, 16), 8
+
+
+def _variables(model, in_shape, seed, rng, amplify=1.0):
+    """JAX variables with non-trivial BN stats; ``amplify`` scales the
+    kernels so that random-init images and latents are not near-constant."""
+    v, _ = model.init(jax.random.PRNGKey(seed), in_shape)
+    state = {layer: {"mean": (rng.normal(size=s["mean"].shape) * 0.1
+                              ).astype(np.float32),
+                     "var": rng.uniform(0.5, 1.5, s["var"].shape
+                                        ).astype(np.float32)}
+             for layer, s in v["state"].items()}
+    params = jax.tree_util.tree_map_with_path(
+        lambda path, leaf: np.asarray(leaf) * (
+            amplify if path[-1].key == "kernel" else 1.0), v["params"])
+    return {"params": params, "state": state}
+
+
+def _shift_layers(tree):
+    """Plain-R variables relabelled as the fixer's (l<i> -> l<i+1>)."""
+    return {part: {f"l{int(k[1:]) + 1}": v for k, v in tree[part].items()}
+            for part in ("params", "state")}
+
+
+def _gen(seed):
+    return torch.Generator().manual_seed(seed)
+
+
+def test_always_on_dropout_draws_from_its_generator():
+    x = torch.rand(4, 6, 6, 3)
+    drop = modules.Dropout(0.5, always_on=True)
+    with pytest.raises(ValueError):
+        drop(x)
+    drop.generator = _gen(3)
+    y = drop(x)
+    keep = modules.dropout_keep_mask(x.shape, 0.5, _gen(3), "cpu")
+    np.testing.assert_array_equal(y.numpy(),
+                                  torch.where(keep, x * 2, 0.0).numpy())
+    assert 0.3 < keep.float().mean().item() < 0.7
+    assert not torch.equal(drop(x), y)  # a fresh mask on every call
+    drop.generator = _gen(3)
+    yb = drop(x.to(torch.bfloat16))
+    assert yb.dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        yb.float().numpy(),
+        torch.where(keep, x.to(torch.bfloat16).float() * 2, 0.0).numpy())
+    # the other dropouts stay the identity in evaluation, raise in training
+    for m in (modules.Dropout(0.5).eval(),
+              modules.SpatialDropout(0.25).eval()):
+        assert torch.equal(m(x), x)
+        with pytest.raises(NotImplementedError):
+            m.train()(x)
+
+
+def test_fixer_checkpoint_from_jax_loads_into_port(tmp_path, rng):
+    """A fixer-R checkpoint as ``train_r --fixer`` writes it (the JAX
+    create_R(fixer=True) tree under "R") loads through the bridge: the
+    dropout is l0 and every layer index is one past the plain R's."""
+    c, h, w = DIMS
+    jrf = M.create_R(DIMS, ND, "normal", fixer=True)
+    v = _variables(jrf, (h, w, c), 3, rng)
+    path = gio.r_name(str(tmp_path), c, h, w, ND, "normal", True)
+    gio.save_checkpoint(path, {"R": v}, config={"noiseDim": ND})
+    tree, _, _ = ckpt.load_checkpoint(path)
+    port = bridge.load_jax_variables(
+        zoo.create_R(DIMS, ND, "normal", fixer=True), tree["R"])
+    assert isinstance(port.l0, modules.Dropout) and port.l0.always_on
+    assert isinstance(port.l1, modules.Conv)
+    np.testing.assert_array_equal(port.l1.kernel.detach().numpy(),
+                                  v["params"]["l1"]["kernel"])
+    np.testing.assert_array_equal(port.l29.mean.numpy(),
+                                  v["state"]["l29"]["mean"])
+    with pytest.raises(KeyError):  # the plain R has a conv at l0
+        bridge.load_jax_variables(zoo.create_R(DIMS, ND, "normal"),
+                                  tree["R"])
+
+
+@pytest.mark.parametrize("noise_method", ["normal", "uniform"])
+def test_fast_fixer_matches_jax_r_on_masked_input(rng, noise_method):
+    """The fast fixer with the mask of generator seed 5 == JAX's plain R on
+    x * m / 0.5 with the same weights relabelled, and == the port's module
+    fixer-R whose dropout draws from a generator of the same seed."""
+    c, h, w = DIMS
+    jr = M.create_R(DIMS, ND, noise_method)
+    rv = _variables(jr, (h, w, c), 4, rng, amplify=2.0)
+    rfv = _shift_layers(rv)
+    x = rng.uniform(size=(6, h, w, c)).astype(np.float32)
+    keep = modules.dropout_keep_mask(x.shape, 0.5, _gen(5), "cpu").numpy()
+    ref = np.asarray(jr.apply(rv, jnp.asarray(np.where(keep, x / 0.5, 0.0)),
+                              train=False)[0])
+    fix = fastpath.make_fast_fixer(DIMS, ND, noise_method, torch.float32)
+    out = fix(bridge.to_torch(rfv, "cpu"), T(x), _gen(5))
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-4, atol=1e-4)
+    module = bridge.load_jax_variables(
+        zoo.create_R(DIMS, ND, noise_method, fixer=True), rfv)
+    module.l0.generator = _gen(5)
+    with torch.no_grad():
+        np.testing.assert_allclose(module(T(x)).numpy(), out.numpy(),
+                                   rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("noise_method", ["normal", "uniform"])
+def test_variation_sweep_matches_jax(rng, noise_method):
+    G = M.create_G(DIMS, ND)
+    gv = _variables(G, (ND,), 5, rng, amplify=2.0)
+    key = jax.random.PRNGKey(11)
+    base = np.array(j_noise_inputs(key, 1, ND, noise_method)[0])
+    ref = np.asarray(A.variation_sweep(G, gv, noise_dim=ND,
+                                       noise_method=noise_method, key=key,
+                                       nb_steps=16, batch_size=32))
+    out = P.variation_sweep(bridge.to_torch(gv, "cpu"), dims=DIMS,
+                            noise_dim=ND, noise_method=noise_method,
+                            base=T(base), nb_steps=16, batch_size=32)
+    assert out.shape == ref.shape == (ND * 16, 16, 16, 3)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-4, atol=1e-4)
+    noise = P.variation_noise(T(base), noise_method, 16).numpy()
+    lo, hi = (-1.0, 1.0) if noise_method == "uniform" else (-3.0, 3.0)
+    np.testing.assert_allclose(noise[5 * 16:6 * 16, 5],
+                               np.linspace(lo, hi, 16), rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(np.delete(noise[5 * 16 + 3], 5),
+                                  np.delete(base, 5))
+
+
+def test_fixing_and_anomaly_scores_match_jax(rng):
+    G = M.create_G(DIMS, ND)
+    gv = _variables(G, (ND,), 6, rng, amplify=2.0)
+    z = rng.normal(size=(40, ND)).astype(np.float32)
+    ref_fixed = np.array(A.fix_images(G, gv, jnp.asarray(z), batch_size=16))
+    fixed = P.fix_images(bridge.to_torch(gv, "cpu"), T(z), dims=DIMS,
+                         noise_dim=ND, batch_size=16)
+    np.testing.assert_allclose(fixed.numpy(), ref_fixed, rtol=1e-4,
+                               atol=1e-4)
+    images = rng.uniform(size=ref_fixed.shape).astype(np.float32)
+    ref_scores, ref_thr, ref_flags = A.detect_anomalies(
+        jnp.asarray(images), jnp.asarray(ref_fixed), 0.15)
+    scores, thr, flags = P.detect_anomalies(T(images), T(ref_fixed), 0.15)
+    np.testing.assert_allclose(scores.numpy(), np.asarray(ref_scores),
+                               rtol=1e-5, atol=1e-5)
+    # on the same scores the index rule and the flags agree exactly
+    js = np.array(ref_scores)
+    assert P.anomaly_threshold(T(js), 0.15).item() == float(ref_thr)
+    np.testing.assert_array_equal(T(js).le(float(ref_thr)).numpy(),
+                                  np.asarray(ref_flags))
+    assert flags.sum().item() == int(40 * 0.15)
+
+
+@pytest.mark.parametrize("n,q", [(1024, 0.15), (100, 0.15), (5, 0.1),
+                                 (7, 0.5)])
+def test_anomaly_threshold_index_rule(rng, n, q):
+    """Element max(int(n q) - 1, 0) of the ascending sort, flags score <=
+    threshold: 153 of 1024 at the default 15 %, as the JAX package."""
+    scores = rng.permutation(n).astype(np.float32) / n
+    thr = P.anomaly_threshold(T(scores), q).item()
+    assert thr == float(A.anomaly_threshold(jnp.asarray(scores), q))
+    assert thr == np.sort(scores)[max(int(n * q) - 1, 0)]
+    assert int((T(scores) <= thr).sum()) == max(int(n * q), 1)
+
+
+def test_refine_matches_jax(rng):
+    """5 adam steps through the frozen G, f32: z and the final per-image
+    loss against the JAX refiner, and the chunked refiner against one
+    chunk."""
+    dims, nd = (1, 8, 8), 6
+    G = M.create_G(dims, nd)
+    gv = _variables(G, (nd,), 7, rng, amplify=2.0)
+    z_true = rng.normal(size=(8, nd)).astype(np.float32)
+    images = np.array(G.apply(gv, jnp.asarray(z_true), train=False)[0])
+    z0 = (z_true + rng.normal(size=z_true.shape)).astype(np.float32)
+    ref_z, ref_loss = A.make_refiner(G, steps=5, lr=0.05)(gv, images, z0)
+    tg = bridge.load_jax_variables(zoo.create_G3(dims, nd), gv)
+    z, loss = make_refiner(tg, steps=5, lr=0.05)(T(images), T(z0))
+    assert z.dtype == loss.dtype == torch.float32 and loss.shape == (8,)
+    np.testing.assert_allclose(z.numpy(), np.asarray(ref_z), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(loss.numpy(), np.asarray(ref_loss),
+                               rtol=1e-4, atol=1e-6)
+    zc, lc = make_refiner(tg, steps=5, lr=0.05, batch_size=3)(T(images),
+                                                               T(z0))
+    np.testing.assert_allclose(zc.numpy(), z.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(lc.numpy(), loss.numpy(), rtol=1e-5,
+                               atol=1e-7)
+    assert not any(p.requires_grad for p in tg.parameters())
+
+
+def test_metrics_records_match_jax(tmp_path):
+    for writer_cls, sub in ((MetricsWriter, "port"), (JMetricsWriter, "jax")):
+        writer = writer_cls(str(tmp_path / sub), name="stats")
+        writer.scalar("n_inverted", 300)
+        writer.scalar("cluster_size", 7, step=2)
+        writer.close()
+    recs = {sub: [json.loads(line) for line in
+                  open(tmp_path / sub / "stats.jsonl")]
+            for sub in ("port", "jax")}
+    for a, b in zip(recs["port"], recs["jax"]):
+        assert set(a) == set(b)
+        assert {k: v for k, v in a.items() if k != "wall"} == \
+            {k: v for k, v in b.items() if k != "wall"}
+
+
+def test_stage_generators():
+    """Stage ② keeps --seed itself; every stage has a stream of its own."""
+    assert prng.stage_seed(1, 2) == 1
+    seeds = {prng.stage_seed(1, s) for s in (1, 2, 3, 5)}
+    assert len(seeds) == 4 and all(0 <= s < 2 ** 64 for s in seeds)
+    a = torch.rand(3, generator=prng.stage_generator(1, 2, "cpu"))
+    b = torch.rand(3, generator=prng.seeded_generator(1, "cpu"))
+    assert torch.equal(a, b)
+
+
+def _write_checkpoints(save, rng, dims, nd, fixer):
+    c, h, w = dims
+    cfg = {"noiseDim": nd, "noiseMethod": "normal", "colorSpace": "y",
+           "height": h, "width": w}
+    G = M.create_G(dims, nd)
+    gio.save_checkpoint(gio.adversarial_name(save),
+                        {"G": _variables(G, (nd,), 8, rng, amplify=4.0),
+                         "D": {}}, config=cfg)
+    for is_fixer in (False, True) if fixer else (False,):
+        R = M.create_R(dims, nd, "normal", fixer=is_fixer)
+        gio.save_checkpoint(gio.r_name(save, c, h, w, nd, "normal", is_fixer),
+                            {"R": _variables(R, (h, w, c), 9, rng,
+                                             amplify=4.0)}, config=cfg)
+
+
+ARGS = ["--N", "300", "--needles", "2", "--batchSize", "64", "--clusters",
+        "3", "--kmeans_iters", "3", "--anomalies_n", "128"]
+
+
+def _stats(out):
+    return [json.loads(line) for line in
+            open(os.path.join(out, "apply_r_stats.jsonl"))]
+
+
+def test_apply_r_matches_jax_cli(tmp_path, rng, capsys):
+    """The port's CLI and the JAX CLI on the same JAX-written G, R and
+    fixer-R write the same artifacts and the same stats keys."""
+    save = str(tmp_path / "logs")
+    _write_checkpoints(save, rng, (1, 8, 8), 6, fixer=True)
+    g = os.path.join(save, "adversarial")
+    j_out, t_out = str(tmp_path / "jax"), str(tmp_path / "port")
+    j_apply_r.main(["--G", g, "--save", save, "--writeto", j_out, *ARGS])
+    capsys.readouterr()
+    result = apply_r.main(["--G", g, "--save", save, "--writeto", t_out,
+                           *ARGS])
+    printed = capsys.readouterr().out
+    assert "not ported yet" not in printed and "no fixer" not in printed
+    for stage in "①②③④⑤⑥":
+        assert f"stage {stage}" in printed
+
+    def files(d):
+        return {f for f in os.listdir(d) if not f.startswith("cluster_")}
+    assert files(t_out) == files(j_out)
+    assert {"variations.jpg", "anomalies.jpg", "fixed_pairs.jpg",
+            "fixed_images_528.jpg", "fixed_images_528_unfixed.jpg",
+            "similar_pixelwise_02.jpg",
+            "apply_r_stats.jsonl"} <= files(t_out)
+    stats, j_stats = _stats(t_out), _stats(j_out)
+    assert [(r["tag"], r.get("step")) for r in stats] == \
+        [(r["tag"], r.get("step")) for r in j_stats]
+    by_tag = {}
+    for r in stats:
+        by_tag.setdefault(r["tag"], []).append(r["value"])
+    sizes = by_tag["cluster_size"]
+    assert by_tag["n_inverted"] == [300.0] and sum(sizes) == 300
+    for ci, size in enumerate(sizes):
+        assert os.path.isfile(os.path.join(
+            t_out, f"cluster_{ci + 1:02d}.jpg")) == (size > 0)
+    assert by_tag["anomaly_count"] == [float(result["is_anomaly"].sum())]
+    assert result["is_anomaly"].sum().item() == int(128 * 0.15)
+    assert result["counts"].sum().item() == 300
+    assert result["attributes_fixer"] is not result["attributes"]
+    assert set(result["seconds"]) == {"variations", "generate_invert",
+                                      "cluster", "search", "fix",
+                                      "anomalies"}
+    assert result["variations"].shape == (6 * 16, 8, 8, 1)
+    assert (conv_block_kernel.conv_block.launches,
+            upsample_conv_kernel.upsample2_conv3x3_bn_act.launches,
+            topk_kernel.cosine_scores.launches,
+            kmeans_kernel.kmeans_step.launches) == (0, 0, 0, 0)
+
+
+@pytest.mark.parametrize("fixer", [False, True])
+def test_apply_r_refine_follows_alias_rule(tmp_path, rng, capsys, fixer):
+    """--refine_steps > 0 refines the latents; without a fixer-R, fixing
+    and anomalies follow the refined latents, with one they keep the
+    fixer's."""
+    save = str(tmp_path / "logs")
+    _write_checkpoints(save, rng, (1, 8, 8), 6, fixer=fixer)
+    result = apply_r.main(["--G", os.path.join(save, "adversarial"),
+                           "--save", save, "--writeto",
+                           str(tmp_path / "out"), *ARGS, "--refine_steps",
+                           "2"])
+    printed = capsys.readouterr().out
+    assert "refine" in result["seconds"] and "final pixel MSE" in printed
+    assert result["attributes"].dtype == torch.float32
+    assert torch.isfinite(result["attributes"]).all()
+    assert (result["attributes_fixer"] is result["attributes"]) != fixer
+    assert ("no fixer checkpoint" in printed) != fixer

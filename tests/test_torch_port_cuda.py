@@ -10,8 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from ganreverser_tpu_torch.ops import (conv_block_kernel, topk_kernel,
-                                       upsample_conv_kernel)
+from ganreverser_tpu_torch.ops import (conv_block_kernel, kmeans_kernel,
+                                       topk_kernel, upsample_conv_kernel)
 
 pytestmark = pytest.mark.cuda
 
@@ -98,3 +98,87 @@ def test_kernels_refuse_bad_arguments(dev):
     xt = torch.zeros(1, 4, 4, 2, device=dev).transpose(1, 2)
     with pytest.raises(ValueError):
         upsample_conv_kernel.upsample2_conv3x3_bn_act(xt, k, s, s)
+
+
+@pytest.mark.parametrize("n,d,k", [(10_000, 100, 20), (777, 37, 5),
+                                   (64, 100, 20), (1, 3, 2)])
+def test_kmeans_kernel(dev, n, d, k):
+    """chip_smoke.kmeans_case on more shapes: against the plain step on the
+    same centroids (assignment beyond the near-tie margin, counts, sums to
+    1e-4 relative, centroids = sums / counts) and bitwise equal over two
+    runs (no float atomics); it raises SmokeFailure otherwise."""
+    import chip_smoke
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(n, d, device=dev, generator=g)
+    c = x[torch.randperm(n, device=dev, generator=g)[:k]]
+    c = torch.cat([c, torch.randn(k - c.shape[0], d, device=dev,
+                                  generator=g)])
+    c[-1] = 0.0
+    c[-1, 0] = 50.0  # no row comes near: an empty cluster
+    before = kmeans_kernel.kmeans_step.launches
+    chip_smoke.kmeans_case(x, c)
+    assert kmeans_kernel.kmeans_step.launches == before + 2
+    new_c, counts = kmeans_kernel.kmeans_step(x, c)
+    assert counts[-1].item() == 0.0 and torch.equal(new_c[-1], c[-1])
+    assert counts.sum().item() == n
+
+
+def test_kmeans_kernel_refuses_bad_arguments(dev):
+    x = torch.zeros(10, 4, device=dev)
+    with pytest.raises(ValueError):  # D differs
+        kmeans_kernel.kmeans_step(x, torch.zeros(2, 5, device=dev))
+    with pytest.raises(ValueError):  # more shared memory than a block has
+        kmeans_kernel.kmeans_step(torch.zeros(10, 4096, device=dev),
+                                  torch.zeros(64, 4096, device=dev))
+    with pytest.raises(ValueError):  # mixed devices
+        kmeans_kernel.kmeans_step(x, torch.zeros(2, 4))
+
+
+def _models(dev, dims, nd):
+    from ganreverser_tpu_torch.models import bridge, modules, zoo
+    gen = torch.Generator().manual_seed(0)
+    G = modules.init_parameters(zoo.create_G3(dims, nd), gen)
+    R = modules.init_parameters(zoo.create_R(dims, nd, "normal", fixer=True),
+                                gen)
+    return (G.to(dev), R.to(dev), bridge.to_torch(bridge.export_variables(G),
+                                                  dev),
+            bridge.to_torch(bridge.export_variables(R), dev))
+
+
+def test_fast_fixer_matches_module_fixer(dev):
+    from ganreverser_tpu_torch.models import fastpath
+    dims, nd = (3, 16, 16), 8
+    _, R, _, rv = _models(dev, dims, nd)
+    x = torch.rand(33, 16, 16, 3, device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(1))
+    fast = fastpath.make_fast_fixer(dims, nd, "normal", torch.float32)(
+        rv, x, torch.Generator(device=dev).manual_seed(9))
+    R.l0.generator = torch.Generator(device=dev).manual_seed(9)
+    with torch.no_grad():
+        ref = R(x)
+    _close(fast, ref, torch.float32)
+
+
+def test_fast_path_f32_ignores_global_tf32_flags(dev):
+    """G's f32 head (cuDNN) and the dense layers (cuBLAS) are pinned to IEEE
+    f32: the fast G and R give the same result with the process-wide TF32
+    flags on and off, and the flags come back as they were."""
+    from ganreverser_tpu_torch.models import fastpath
+    dims, nd = (3, 32, 32), 100
+    _, _, gv, rv = _models(dev, dims, nd)
+    z = torch.randn(64, nd, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(2))
+    gen = fastpath.make_fast_generator(dims, nd, torch.float32)
+    inv = fastpath.make_fast_fixer(dims, nd, "normal", torch.float32)
+    outs = []
+    for tf32 in (True, False):
+        torch.backends.cudnn.allow_tf32 = tf32
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        images = gen(gv, z)
+        outs.append((images, inv(rv, images,
+                                 torch.Generator(device=dev).manual_seed(4))))
+        assert torch.backends.cudnn.allow_tf32 == tf32
+        assert torch.backends.cuda.matmul.allow_tf32 == tf32
+    for a, b in zip(*outs):
+        err = (a - b).abs().max().item()
+        assert err <= 1e-5 * max(1.0, b.abs().max().item()), err

@@ -1,0 +1,171 @@
+"""Kernel K's plain version and the port's kmeans against the JAX package:
+the Lloyd step against ``kmeans_step_pallas`` in interpret mode (as
+tests/test_pallas.py runs it), whole runs against ``kmeans_pallas`` and the
+lax ``kmeans`` with the initial rows ``jax.random.choice`` drew, and the
+min-cosine membership. f32; counts exact, centroids and sums to 1e-5 (f32
+sums in another order). Whole runs are compared on well-separated blobs
+only: on random data a near-tie flips an argmin and the trajectories part.
+On CPU tensors the wrapper takes the plain version and launches nothing."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ganreverser_tpu import analysis as A
+from ganreverser_tpu.ops.kmeans_kernel import kmeans_pallas, kmeans_step_pallas
+from ganreverser_tpu_torch.analysis import kmeans as K
+from ganreverser_tpu_torch.ops import kmeans_kernel
+
+T = torch.from_numpy
+
+
+def _blobs(rng, n, d, k, spread=0.1, dist=5.0):
+    centres = rng.normal(size=(k, d)) * dist
+    labels = np.arange(n) % k
+    x = centres[labels] + rng.normal(size=(n, d)) * spread
+    return x.astype(np.float32)
+
+
+@pytest.mark.parametrize("n,d,k", [(1024, 32, 8), (512, 100, 20)])
+def test_kmeans_step_matches_pallas(rng, n, d, k):
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    c = rng.normal(size=(k, d)).astype(np.float32)
+    ref_c, ref_counts = kmeans_step_pallas(jnp.asarray(x), jnp.asarray(c),
+                                           tile_n=256, interpret=True)
+    before = kmeans_kernel.kmeans_step.launches
+    new_c, counts, sums, assign = kmeans_kernel.kmeans_step(
+        T(x), T(c), details=True)
+    assert kmeans_kernel.kmeans_step.launches == before
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(ref_counts))
+    np.testing.assert_allclose(new_c.numpy(), np.asarray(ref_c), rtol=1e-5,
+                               atol=1e-5)
+    # the details: the assignment and sums behind the same step
+    assert assign.shape == (n,) and counts.sum().item() == n
+    np.testing.assert_array_equal(
+        np.bincount(assign.numpy(), minlength=k), counts.numpy())
+    np.testing.assert_allclose(
+        sums.numpy(), np.stack([x[assign.numpy() == j].sum(0)
+                                for j in range(k)]), rtol=1e-5, atol=1e-4)
+    step_c, step_counts = kmeans_kernel.kmeans_step(T(x), T(c))
+    np.testing.assert_array_equal(step_c.numpy(), new_c.numpy())
+    np.testing.assert_array_equal(step_counts.numpy(), counts.numpy())
+
+
+def test_kmeans_step_empty_cluster_matches_pallas(rng):
+    """A centroid far from every point keeps its place, in both packages."""
+    x = rng.normal(size=(256, 16)).astype(np.float32)
+    c = np.concatenate([np.zeros((1, 16)), np.full((1, 16), 1e6)]
+                       ).astype(np.float32)
+    ref_c, ref_counts = kmeans_step_pallas(jnp.asarray(x), jnp.asarray(c),
+                                           tile_n=256, interpret=True)
+    new_c, counts = kmeans_kernel.kmeans_step(T(x), T(c))
+    assert counts[1].item() == 0.0 == float(ref_counts[1])
+    np.testing.assert_array_equal(new_c[1].numpy(), c[1])
+    np.testing.assert_allclose(new_c.numpy(), np.asarray(ref_c), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_kmeans_step_takes_first_index_on_ties():
+    x = torch.tensor([[0.0, 0.0], [2.0, 0.0]])
+    c = torch.tensor([[1.0, 0.0], [1.0, 0.0], [-5.0, 0.0]])
+    _, counts, _, assign = kmeans_kernel.kmeans_step(x, c, details=True)
+    assert assign.tolist() == [0, 0]
+    assert counts.tolist() == [2.0, 0.0, 0.0]
+
+
+@pytest.mark.parametrize("n", [300, 517])
+def test_kmeans_run_matches_jax_on_blobs(rng, n):
+    """Ragged N (the TPU path pads to its tile and masks; the port takes N
+    as it is) with the init rows drawn by jax.random.choice."""
+    k, iters, d = 4, 6, 10
+    x = _blobs(rng, n, d, k)
+    key = jax.random.PRNGKey(7)
+    init_idx = np.asarray(jax.random.choice(key, n, (k,), replace=False))
+    ref_c, ref_counts = kmeans_pallas(key, jnp.asarray(x), k, iters,
+                                      tile_n=128, interpret=True)
+    lax_c, lax_counts = A.kmeans(key, jnp.asarray(x), k, iters)
+    c, counts = K.kmeans(T(x), k, iters, init_idx=T(np.array(init_idx)))
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(ref_counts))
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(lax_counts))
+    np.testing.assert_allclose(c.numpy(), np.asarray(ref_c), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(c.numpy(), np.asarray(lax_c), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_kmeans_init_from_generator(rng):
+    x = T(_blobs(rng, 200, 5, 3))
+    runs = [K.kmeans(x, 3, 0, generator=torch.Generator().manual_seed(s))
+            for s in (0, 0, 1)]
+    np.testing.assert_array_equal(runs[0][0].numpy(), runs[1][0].numpy())
+    assert not np.array_equal(runs[0][0].numpy(), runs[2][0].numpy())
+    # distinct data rows, and zero counts before any step
+    rows = {tuple(r) for r in runs[0][0].numpy()}
+    assert len(rows) == 3 and rows <= {tuple(r) for r in x.numpy()}
+    assert runs[0][1].tolist() == [0.0, 0.0, 0.0]
+    with pytest.raises(ValueError):
+        K.kmeans(x, 3, 1)
+    with pytest.raises(ValueError):
+        K.kmeans(x, 201, 1, generator=torch.Generator())
+
+
+def test_assign_min_cosine_and_members_match_jax(rng):
+    x = _blobs(rng, 240, 12, 5, spread=0.5)
+    c = _blobs(rng, 5, 12, 5, spread=0.0)
+    ref_assign, ref_sims = A.assign_min_cosine(jnp.asarray(x), jnp.asarray(c))
+    assign, sims = K.assign_min_cosine(T(x), T(c))
+    np.testing.assert_array_equal(assign.numpy(), np.asarray(ref_assign))
+    np.testing.assert_allclose(sims.numpy(), np.asarray(ref_sims), rtol=1e-6,
+                               atol=1e-6)
+    for ci in range(5):
+        for cap in (3, 71):
+            np.testing.assert_array_equal(
+                K.cluster_members(assign.numpy(), np.asarray(ref_sims), ci,
+                                  cap),
+                A.cluster_members(np.asarray(ref_assign),
+                                  np.asarray(ref_sims), ci, cap))
+    # the quirk: the most dissimilar centroid wins
+    a, s = K.assign_min_cosine(torch.tensor([[1.0, 0.0]]),
+                               torch.tensor([[1.0, 0.0], [-1.0, 0.01]]))
+    assert a.item() == 1 and s.item() < 0
+
+
+def test_cluster_members_stable_descending():
+    assign = np.array([0, 0, 1, 0, 0])
+    score = np.array([0.1, 0.9, 0.5, 0.4, 0.9])
+    assert K.cluster_members(assign, score, 0, 3).tolist() == [1, 4, 3]
+    assert K.cluster_members(assign, score, 2, 3).tolist() == []
+
+
+def test_assign_euclidean_matches_jax(rng):
+    x = _blobs(rng, 100, 6, 3)
+    c = _blobs(rng, 3, 6, 3, spread=0.0)
+    ref_assign, ref_dist = A.assign_euclidean(jnp.asarray(x), jnp.asarray(c))
+    assign, dist = K.assign_euclidean(T(x), T(c))
+    np.testing.assert_array_equal(assign.numpy(), np.asarray(ref_assign))
+    np.testing.assert_allclose(dist.numpy(), np.asarray(ref_dist), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_kmeans_step_refuses_bad_arguments():
+    with pytest.raises(ValueError):  # D differs
+        kmeans_kernel.kmeans_step(torch.zeros(4, 3), torch.zeros(2, 4))
+    with pytest.raises(ValueError):  # not (N, D)
+        kmeans_kernel.kmeans_step(torch.zeros(4), torch.zeros(2, 4))
+    with pytest.raises(ValueError):  # no clusters
+        kmeans_kernel.kmeans_step(torch.zeros(4, 3), torch.zeros(0, 3))
+    with pytest.raises(ValueError):  # another device type
+        kmeans_kernel.kmeans_step(torch.zeros(4, 3, device="meta"),
+                                  torch.zeros(2, 3, device="meta"))
+    with pytest.raises(ValueError):  # mixed devices
+        kmeans_kernel.kmeans_step(torch.zeros(4, 3),
+                                  torch.zeros(2, 3, device="meta"))
+
+
+def test_shared_bytes_of_main_path_shape():
+    """K = 20, D = 100 fits below the 48 KB of static shared memory; a
+    K x D far beyond the block's 227 KB is what the wrapper refuses."""
+    assert kmeans_kernel.shared_bytes(100, 20) < 48 * 1024
+    assert kmeans_kernel.shared_bytes(4096, 64) > \
+        kmeans_kernel.MAX_SHARED_BYTES

@@ -109,3 +109,27 @@ def test_init_parameters_is_seeded():
     bound = np.sqrt(1.0 / (3.0 * 27))
     assert 0 < np.abs(ka).max() <= bound
     np.testing.assert_array_equal(a["params"]["l0"]["bias"], 0.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pinned_precision_sets_and_restores_flags(dtype):
+    """f32 pins IEEE convolutions and matmuls, bf16 lets cuDNN use TF32 and
+    leaves the matmul flag alone; the caller's flags come back afterwards,
+    also after an error."""
+    from ganreverser_tpu_torch.core.precision import pinned_precision
+    f32 = dtype == torch.float32
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    try:
+        torch.backends.cudnn.allow_tf32 = f32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        with pytest.raises(RuntimeError):
+            with pinned_precision(dtype):
+                assert torch.backends.cudnn.allow_tf32 == (not f32)
+                assert torch.backends.cuda.matmul.allow_tf32 == (not f32)
+                raise RuntimeError("inside")
+        assert torch.backends.cudnn.allow_tf32 == f32
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved[0]
+        torch.backends.cuda.matmul.allow_tf32 = saved[1]

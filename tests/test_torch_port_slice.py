@@ -1,6 +1,7 @@
 """The ported slice as a whole against the JAX package: fast G -> fast R ->
-cosine top-k on the same z and weights; the port's apply_r on a JAX-written
-checkpoint; device selection; and the port importing no JAX."""
+cosine top-k on the same z and weights; the port's apply_r (all six stages)
+on a JAX-written checkpoint; device selection; and the port importing no
+JAX."""
 import os
 import subprocess
 import sys
@@ -157,8 +158,12 @@ def test_apply_r_on_cpu_writes_artifacts(tmp_path, rng, capsys):
         for tag in ("attributes", "pixelwise"):
             assert os.path.isfile(os.path.join(out,
                                                f"similar_{tag}_{i:02d}.jpg"))
-    for stage in ("①", "③", "⑤", "⑥"):
-        assert f"stage {stage}" in printed and "not ported yet" in printed
+    for stage in "①②③④⑤⑥":
+        assert f"stage {stage}" in printed
+    assert "not ported yet" not in printed
+    for name in ("variations.jpg", "fixed_pairs.jpg", "anomalies.jpg",
+                 "apply_r_stats.jsonl"):
+        assert os.path.isfile(os.path.join(out, name))
     assert result["attributes"].shape == (200, 6)
     assert torch.isfinite(result["attributes"]).all()
     assert result["images"].shape == (200, 8, 8, 1)
@@ -170,7 +175,6 @@ def test_apply_r_on_cpu_writes_artifacts(tmp_path, rng, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--int8"], ["--approx"],
-                                  ["--refine_steps", "2"],
                                   ["--mesh_data", "2"], ["--mesh_model", "2"]])
 def test_apply_r_refuses_unported_modes(tmp_path, flag):
     with pytest.raises(SystemExit) as e:

@@ -5,9 +5,9 @@ Run from the root of a checkout:
 
     python3 tools/profile_port.py [--out build/profile]
 
-With the models of chip_smoke.py (G3 and R at 3x64x64, noise 100, random
-weights from its seed), bf16, batch 256, N = 10,000, it prints and writes to
-``<out>/profile.txt``:
+With the models of chip_smoke.py (G3, R and the fixer-R at 3x64x64, noise
+100, random weights from its seed), bf16, batch 256, N = 10,000, it prints
+and writes to ``<out>/profile.txt``:
 
 * ``[e2e]``: three warm runs of apply_r's stage ② (generate + invert) and
   stage ④ (both searches), wall time and img/s;
@@ -16,6 +16,11 @@ weights from its seed), bf16, batch 256, N = 10,000, it prints and writes to
   is the union of the intervals of every kernel, memcpy and memset in the
   exported trace (``<out>/trace_main_path.json``), so nothing is counted
   twice; the idle share is 1 - busy / wall. Then device time by kernel name;
+* ``[apply_r]``: the CLI's six stages with the fixer-R, once cold and once
+  warm (each stage's seconds), then once more warm under torch.profiler
+  (``<out>/trace_apply_r.json``): wall, device busy, idle share, device
+  time by kernel name. The host's share (grids, JPEG files, the copy of the
+  images) shows as device idle time;
 * ``[native]``: cuDNN in bf16 on the tensor cores at the shapes of kernels
   B and U, for reference only (the conv output is rounded to bf16 before
   the epilogue, so it is not the kernels' function).
@@ -29,6 +34,7 @@ import collections
 import json
 import os
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -73,6 +79,63 @@ def union_us(intervals) -> float:
     return total
 
 
+def summarise_trace(prof, trace_path: str, wall_us: float, tag: str, log,
+                    card: str, top: int = 20) -> bool:
+    """Export the trace, log device busy time (the union of its device
+    intervals), the idle share of the wall and the device time of the
+    ``top`` kernel names. False when the trace holds no device operation."""
+    prof.export_chrome_trace(trace_path)
+    ivs = device_intervals(trace_path)
+    if not ivs:
+        log(f"[{tag}] no device operation in the trace  [{card}]")
+        return False
+    busy = union_us(ivs)
+    span = max(e for _, _, e in ivs) - min(s for _, s, _ in ivs)
+    log(f"[{tag}] wall {wall_us / 1e6:.4f} s (profiled), device busy "
+        f"{busy / 1e6:.4f} s (union of {len(ivs)} device ops), idle share "
+        f"{1 - busy / wall_us:.4f} of the wall, {1 - busy / span:.4f} of the "
+        f"{span / 1e6:.4f} s from the first to the last device op  [{card}]")
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for name, s, e in ivs:
+        by_name[name][0] += e - s
+        by_name[name][1] += 1
+    total = sum(v[0] for v in by_name.values())
+    for name, (us, count) in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1][0])[:top]:
+        log(f"[{tag}] {us / 1e3:10.3f} ms {100 * us / total:5.1f}% "
+            f"x{count:5d}  {name[:110]}")
+    return True
+
+
+def profile_apply_r(G, R, RF, log, card: str, out_dir: str) -> bool:
+    """The ``[apply_r]`` lines: cold and warm stage seconds of the CLI, then
+    a traced warm call."""
+    from torch.profiler import ProfilerActivity, profile
+    from ganreverser_tpu_torch.cli import apply_r
+    with tempfile.TemporaryDirectory(prefix="profile_port_") as tmp:
+        save = os.path.join(tmp, "logs")
+        argv = ["--G", cs.save_models(G, R, RF, save), "--save", save,
+                "--writeto", os.path.join(tmp, "out"), "--N", str(cs.N_MAIN),
+                "--needles", str(cs.NEEDLES), "--batchSize", "256",
+                "--compute_dtype", "bfloat16"]
+        for rep in ("cold", "warm"):
+            t0 = time.perf_counter()
+            seconds = apply_r.main(argv)["seconds"]
+            wall = time.perf_counter() - t0
+            log(f"[apply_r] {rep}: whole call {wall:.4f} s; stages "
+                + ", ".join(f"{k} {v:.4f}" for k, v in seconds.items())
+                + f"  [{card}]")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            apply_r.main(argv)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    return summarise_trace(prof, os.path.join(out_dir, "trace_apply_r.json"),
+                           wall_us, "apply_r", log, card, top=12)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="build/profile",
@@ -91,7 +154,7 @@ def main(argv=None) -> int:
         out.write(line + "\n")
 
     log(card)
-    G, R = cs.make_models(dev)
+    G, R, RF = cs.make_models(dev)
     gv = bridge.to_torch(bridge.export_variables(G), dev)
     rv = bridge.to_torch(bridge.export_variables(R), dev)
     dims, nd, n, batch = cs.DIMS, cs.NOISE_DIM, cs.N_MAIN, 256
@@ -157,27 +220,12 @@ def main(argv=None) -> int:
         e2e()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    trace_path = os.path.join(args.out, "trace_main_path.json")
-    prof.export_chrome_trace(trace_path)
-    ivs = device_intervals(trace_path)
-    if not ivs:
-        log(f"[trace] no device operation in the trace  [{card}]")
+    if not summarise_trace(prof, os.path.join(args.out,
+                                              "trace_main_path.json"),
+                           wall_us, "trace", log, card):
         return 1
-    busy = union_us(ivs)
-    span = max(e for _, _, e in ivs) - min(s for _, s, _ in ivs)
-    log(f"[trace] wall {wall_us / 1e6:.4f} s (profiled), device busy "
-        f"{busy / 1e6:.4f} s (union of {len(ivs)} device ops), idle share "
-        f"{1 - busy / wall_us:.4f} of the wall, {1 - busy / span:.4f} of the "
-        f"{span / 1e6:.4f} s from the first to the last device op  [{card}]")
-    by_name = collections.defaultdict(lambda: [0.0, 0])
-    for name, s, e in ivs:
-        by_name[name][0] += e - s
-        by_name[name][1] += 1
-    total = sum(v[0] for v in by_name.values())
-    for name, (us, count) in sorted(by_name.items(),
-                                    key=lambda kv: -kv[1][0])[:20]:
-        log(f"[trace] {us / 1e3:10.3f} ms {100 * us / total:5.1f}% "
-            f"x{count:5d}  {name[:110]}")
+    if not profile_apply_r(G, R, RF, log, card, args.out):
+        return 1
 
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(device=dev).manual_seed(0)
