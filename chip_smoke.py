@@ -13,6 +13,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 3. each kernel against its plain PyTorch version on the card at the shapes
    of the main path (N = 256, f32 and bf16, TF32 off for the plain f32
    reference): max error against the stated tolerance, median times.
+   Kernel B5 (dropout) at (256,64,64,64), (256,512) and (256,64,64,3), f32
+   and bf16, seeds 12345 and -7: output and gradient bitwise equal to the
+   plain version (tolerance 0);
    Kernel K (one kmeans step, f32) at (10,000, 100), K = 20, and at a
    ragged N with an empty cluster, on the same given centroids: the
    assignment must agree wherever the plain margin exceeds 1e-4 of max |d|,
@@ -28,7 +31,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
    search. Then, on the card in f32, the fast path and the fast fixer-R
    against the plain module path (same z, same dropout mask) on 512 rows,
    and latent refinement of 512 of the images: no image's loss may rise,
-   and the chunked refiner must match one chunk on 256 rows.
+   and the chunked refiner must match one chunk on 256 rows;
+5. R training at full width: a G3 (3x64x64, noise 100) whose BN statistics
+   were settled by ``calibrate_batchnorm`` (50 batches) saved as a
+   checkpoint, then ``cli.train_r.main`` three times at batch 256, bf16,
+   ``--dropout kernel``: 200 batches, 100 more with ``--cont``, and 100 of
+   the fixer-R. Each run must launch kernel B5 exactly as often as its
+   steps and previews imply (6 forward + 6 backward per step of R, 7 + 6 of
+   the fixer-R, whose input needs no gradient, and one per fixer preview),
+   give finite losses, write its artifacts; the checkpoint must hold step
+   300 with the loss history continued, and load in apply_r's R loader; the
+   evaluation MSE on 1,024 held-out latents must fall. Then warm ms/step
+   by CUDA events with the kernel and with the plain masks (the median of
+   40: two runs of 20 steps each, ordered kernel, plain, plain, kernel),
+   and an f32 step that gives the same parameters with the process-wide
+   TF32 flags on and off (the backward runs under the precision pin).
 
 The last two lines are a JSON object with each kernel's route, source,
 launch count in the main path, error and times, and
@@ -63,6 +80,19 @@ TOL_PATH = 1e-3        # fast vs plain module path, f32, relative to scale
 TOL_SUMS = 1e-4        # kmeans sums vs plain, relative to max(1, max |sum|)
 KMEANS_K, KMEANS_ITERS = 20, 15   # apply_r.lua:158
 REFINE_STEPS = 5
+DROPOUT_SHAPES = [(256, 64, 64, 64), (256, 512), (256, 64, 64, 3)]
+DROPOUT_SEEDS = [12345, -7]
+# the element dropouts of one R step at batch 256, 64x64, in layer order
+# (after blocks 1 and 2, after the first pool, after blocks 4 and 5, after
+# the dense layer): their summed time is the kernels line's B5 entry
+DROPOUT_STEP_SHAPES = [(256, 64, 64, 64), (256, 64, 64, 64),
+                       (256, 32, 32, 64), (256, 32, 32, 128),
+                       (256, 32, 32, 128), (256, 512)]
+TRAIN_BATCH = 256
+CALIBRATE_BATCHES = 50
+N_EVAL = 1024          # held-out latents of the evaluation MSE
+STEP_TIMES = 20        # steps timed per dropout impl
+TOL_PIN = 1e-5         # f32 step, TF32 flags on vs off, relative to scale
 
 
 class SmokeFailure(RuntimeError):
@@ -464,6 +494,287 @@ def check_refine(G, images, z0, n_chunk: int = 256):
     return loss0.mean().item(), loss.mean().item(), err, seconds
 
 
+def dropout_case(x, seed: int, rate: float = 0.5):
+    """Kernel B5 against its plain version on ``x``: output and gradient
+    (of a random cotangent) must be bitwise equal. Returns the largest
+    absolute difference seen (0 when they are equal)."""
+    import torch
+    from ganreverser_tpu_torch.ops import dropout_kernel as dk
+    s = torch.tensor([seed], dtype=torch.int32, device=x.device)
+    go = torch.randn(x.shape, device=x.device,
+                     generator=torch.Generator(device=x.device).manual_seed(
+                         seed & 0xFFFF)).to(x.dtype)
+    outs = []
+    for fn in (dk.fused_dropout, dk.fused_dropout_plain):
+        xi = x.detach().clone().requires_grad_(True)
+        y = fn(xi, s, rate)
+        (g,) = torch.autograd.grad(y, xi, go)
+        outs.append((y.detach(), g))
+    torch.cuda.synchronize()
+    (y, g), (yr, gr) = outs
+    err = max((y.float() - yr.float()).abs().max().item(),
+              (g.float() - gr.float()).abs().max().item())
+    check(torch.equal(y, yr) and torch.equal(g, gr),
+          f"fused_dropout {tuple(x.shape)} {x.dtype} seed {seed}: kernel "
+          f"and plain differ (max {err})")
+    return err
+
+
+def check_dropout(dev, card: str):
+    """Phase 3, kernel B5: bitwise against the plain version at the
+    path's shapes, both dtypes, a negative seed among the seeds; the
+    forward's median time, kernel vs plain. Returns one record whose times
+    are one R step's six element dropouts in bf16."""
+    import torch
+    from ganreverser_tpu_torch.ops import dropout_kernel as dk
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    err = 0.0
+    for shape in DROPOUT_SHAPES:
+        x0 = torch.randn(shape, device=dev, generator=gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            for seed in DROPOUT_SEEDS:
+                err = max(err, dropout_case(x0.to(dtype), seed))
+        print(f"[kernel] fused_dropout {shape} f32+bf16 seeds "
+              f"{DROPOUT_SEEDS}: forward and backward bitwise equal to "
+              f"plain  [{card}]")
+    s = torch.tensor([DROPOUT_SEEDS[0]], dtype=torch.int32, device=dev)
+    times = {}
+    for shape in dict.fromkeys(DROPOUT_STEP_SHAPES + DROPOUT_SHAPES):
+        x = torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
+        times[shape] = (time_ms(lambda: dk.fused_dropout(x, s, 0.5)),
+                        time_ms(lambda: dk.fused_dropout_plain(x, s, 0.5)),
+                        time_ms(lambda: torch.where(
+                            torch.rand(shape, device=dev, generator=gen) < 0.5,
+                            x / 0.5, 0.0).to(x.dtype)))
+        ms, plain_ms, mask_ms = times[shape]
+        gbs = 2 * x.numel() * x.element_size() / ms / 1e6
+        print(f"[kernel] fused_dropout {shape} bfloat16 forward: kernel "
+              f"{ms:.4f} ms ({gbs:.0f} GB/s), plain hash {plain_ms:.4f} ms, "
+              f"plain Bernoulli mask + where {mask_ms:.4f} ms  [{card}]")
+    ms = sum(times[sh][0] for sh in DROPOUT_STEP_SHAPES)
+    plain_ms = sum(times[sh][1] for sh in DROPOUT_STEP_SHAPES)
+    mask_ms = sum(times[sh][2] for sh in DROPOUT_STEP_SHAPES)
+    print(f"[kernel] fused_dropout, one R step's six forwards (b256 bf16): "
+          f"kernel {ms:.4f} ms, plain hash {plain_ms:.4f} ms, plain "
+          f"Bernoulli mask + where {mask_ms:.4f} ms  [{card}]")
+    return {"name": "fused_dropout", "label": "one R step's six dropouts",
+            "dtype": "bfloat16", "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms}
+
+
+def make_calibrated_g(dev, dims=DIMS, noise_dim=NOISE_DIM,
+                      batch: int = TRAIN_BATCH,
+                      n_batches: int = CALIBRATE_BATCHES):
+    """Phase 5a: a random f32 G3 whose BN statistics were settled by the
+    port's calibrate_batchnorm (random weights otherwise give a G whose
+    output hardly depends on z)."""
+    import torch
+    from ganreverser_tpu_torch.core.prng import noise_inputs
+    from ganreverser_tpu_torch.models import modules, zoo
+    from ganreverser_tpu_torch.train.r_loop import calibrate_batchnorm
+    G = modules.init_parameters(zoo.create_G3(dims, noise_dim),
+                                torch.Generator().manual_seed(SEED + 6))
+    G = G.to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    return calibrate_batchnorm(
+        G, lambda i: noise_inputs(gen, batch, noise_dim, "normal",
+                                  device=dev), n_batches)
+
+
+def eval_mse(G, R, z) -> float:
+    """Mean squared error of R(G(z)) against z, both in evaluation."""
+    import torch
+    from ganreverser_tpu_torch.train.r_loop import make_r_eval_step
+    with torch.no_grad():
+        z_hat = make_r_eval_step(R)(G.eval()(z))
+    return ((z_hat.float() - z) ** 2).mean().item()
+
+
+def train_run(args, fixer: bool, n_batches: int):
+    """Phase 5b: one ``cli.train_r.main`` run with B5's count set to 0 just
+    before and read just after; the count must be the run's steps times
+    the launches of one step, plus one per fixer preview."""
+    from ganreverser_tpu_torch.cli import train_r
+    from ganreverser_tpu_torch.ops import dropout_kernel as dk
+    dk.fused_dropout.launches = 0
+    t0 = time.perf_counter()
+    out = train_r.main(args)
+    seconds = time.perf_counter() - t0
+    launches = dk.fused_dropout.launches
+    per_step = (7 if fixer else 6) + 6
+    previews = (n_batches // 25 + n_batches // 100) if fixer else 0
+    check(launches == n_batches * per_step + previews,
+          f"train_r{' --fixer' if fixer else ''}: B5 launched {launches} "
+          f"times, expected {n_batches} x {per_step} + {previews}")
+    losses = out["losses"]
+    check(len(losses) == n_batches and all(map(math.isfinite, losses)),
+          f"train_r: {len(losses)} losses, or a non-finite one")
+    return out, launches, seconds
+
+
+def step_times(G, R_state, dev, impl: str, batch: int = TRAIN_BATCH):
+    """Warm ms per R train step (median of STEP_TIMES, CUDA events) at
+    batch 256 bf16 with the given dropout impl, from R's state dict."""
+    import torch
+    from ganreverser_tpu_torch.core.prng import noise_inputs
+    from ganreverser_tpu_torch.models import modules, zoo
+    from ganreverser_tpu_torch.optim import adam
+    from ganreverser_tpu_torch.train.r_loop import make_r_train_step
+    from ganreverser_tpu_torch.train.state import TrainState
+    R = zoo.create_R(DIMS, NOISE_DIM, "normal", dtype=torch.bfloat16,
+                     dropout_impl=impl)
+    R.load_state_dict(R_state)
+    modules.set_dropout_generator(
+        R.to(dev), torch.Generator(device=dev).manual_seed(SEED + 8))
+    ts = TrainState.create(R, adam())
+    step = make_r_train_step(G, dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    zs = [noise_inputs(gen, batch, NOISE_DIM, "normal", device=dev)
+          for _ in range(4)]
+    for i in range(3):
+        step(ts, zs[i % 4])
+    times = []
+    for i in range(STEP_TIMES):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(ts, zs[i % 4])
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return times
+
+
+def precision_pin_error(G, dev, dims=DIMS, noise_dim=NOISE_DIM,
+                        batch: int = 64) -> float:
+    """Phase 5e: one f32 R train step through the f32 module ``G`` with the
+    process-wide TF32 flags on,
+    then off, from the same weights, latents and dropout masks; returns the
+    largest parameter difference relative to max(1, max |param|). The step
+    uses sgd (lr 0.1), whose update is linear in the gradient, so a TF32
+    backward (about 1e-3 relative) would show; adam's sign-like first step
+    would hide it in all but the near-zero entries."""
+    import torch
+    from ganreverser_tpu_torch.core.prng import noise_inputs
+    from ganreverser_tpu_torch.models import modules, zoo
+    from ganreverser_tpu_torch.optim import sgd
+    from ganreverser_tpu_torch.train.r_loop import make_r_train_step
+    from ganreverser_tpu_torch.train.state import TrainState
+    z = noise_inputs(torch.Generator(device=dev).manual_seed(SEED + 10),
+                     batch, noise_dim, "normal", device=dev)
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    params = []
+    try:
+        for tf32 in (True, False):
+            torch.backends.cudnn.allow_tf32 = tf32
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            R = modules.init_parameters(
+                zoo.create_R(dims, noise_dim, "normal", dropout_impl="kernel"),
+                torch.Generator().manual_seed(SEED + 11)).to(dev)
+            modules.set_dropout_generator(
+                R, torch.Generator(device=dev).manual_seed(SEED + 12))
+            opt = sgd(lr=0.1)
+            make_r_train_step(G, dtype=torch.float32, opt=opt)(
+                TrainState.create(R, opt), z)
+            check(torch.backends.cudnn.allow_tf32 == tf32,
+                  "the train step left the TF32 flags changed")
+            params.append([p.detach().clone() for p in R.parameters()])
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved[0]
+        torch.backends.cuda.matmul.allow_tf32 = saved[1]
+    return max((a - b).abs().max().item() / max(1.0, b.abs().max().item())
+               for a, b in zip(*params))
+
+
+def check_training(dev, card: str, tmp: str):
+    """Phase 5: R training at full width through cli.train_r.main (see the
+    module docstring). Returns the B5 launches of the three runs."""
+    import torch
+    from ganreverser_tpu_torch.cli.apply_r import _load_variables
+    from ganreverser_tpu_torch.core.prng import INIT_STAGE, stage_generator
+    from ganreverser_tpu_torch.io import checkpoint as ckpt
+    from ganreverser_tpu_torch.models import bridge, fastpath, modules, zoo
+    c, h, w = DIMS
+    t0 = time.perf_counter()
+    G = make_calibrated_g(dev)
+    save = os.path.join(tmp, "train")
+    g_path = ckpt.adversarial_name(save)
+    ckpt.save_checkpoint(g_path, {"G": bridge.export_variables(G)},
+                         config={"noiseDim": NOISE_DIM,
+                                 "noiseMethod": "normal", "colorSpace": "rgb",
+                                 "height": h, "width": w})
+    bf16 = torch.bfloat16
+    Gb = zoo.create_G3(DIMS, NOISE_DIM, bf16).to(dev)
+    Gb.load_state_dict(G.state_dict())
+    z_eval = torch.randn(N_EVAL, NOISE_DIM, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(
+                             SEED + 13))
+    # R as train_r initialises it (seed 1, the init stage)
+    R0 = modules.init_parameters(
+        zoo.create_R(DIMS, NOISE_DIM, "normal", dtype=bf16),
+        stage_generator(1, INIT_STAGE, "cpu")).to(dev)
+    mse0 = eval_mse(Gb, R0, z_eval)
+    print(f"[train] G calibrated ({CALIBRATE_BATCHES} batches) and saved in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    base = ["--G", g_path, "--save", save, "--batchSize", str(TRAIN_BATCH),
+            "--compute_dtype", "bfloat16", "--dropout", "kernel"]
+    runs = []
+    out, n, secs = train_run(base + ["--nbBatches", "200", "--saveFreq",
+                                     "200"], False, 200)
+    runs.append(n)
+    r_path = out["checkpoint"]
+    print(f"[train] train_r b{TRAIN_BATCH} bf16 --dropout kernel, 200 "
+          f"batches: {secs:.2f} s, B5 launches {n} (200 x 12), loss "
+          f"{out['losses'][0]:.4f} -> {out['losses'][-1]:.4f}  [{card}]")
+    out, n, secs = train_run(base + ["--nbBatches", "100", "--saveFreq",
+                                     "200", "--cont", r_path], False, 100)
+    runs.append(n)
+    tree, _, extra = ckpt.load_checkpoint(r_path)
+    check(out["ts"].step == 300 and int(tree["R"]["step"]) == 300
+          and extra["batch"] == 300,
+          f"--cont: checkpoint at step {int(tree['R']['step'])}, not 300")
+    rows = [row[0] for row in extra["plot_data"]]
+    check(rows == [100, 200, 300], f"--cont: plot_data batches {rows}")
+    mse1 = eval_mse(Gb, out["ts"].module, z_eval)
+    check(mse1 < mse0, f"eval MSE did not fall: {mse0} -> {mse1}")
+    r_vars = _load_variables(r_path, "R", dev)
+    with torch.no_grad():
+        z_fast = fastpath.make_fast_inverter(DIMS, NOISE_DIM, "normal", bf16)(
+            r_vars, Gb(z_eval[:TRAIN_BATCH]))
+    check(bool(torch.isfinite(z_fast).all()),
+          "the trained R loaded in apply_r's loader gives non-finite z")
+    print(f"[train] --cont to batch 300: {secs:.2f} s, B5 launches {n}; "
+          f"checkpoint step 300, plot_data batches {rows}; eval MSE on "
+          f"{N_EVAL} held-out z {mse0:.4f} -> {mse1:.4f}; loads in "
+          f"apply_r's R loader  [{card}]")
+    out_f, n, secs = train_run(base + ["--fixer", "--nbBatches", "100"],
+                               True, 100)
+    runs.append(n)
+    print(f"[train] --fixer, 100 batches: {secs:.2f} s, B5 launches {n} "
+          f"(100 x 13 + 5 previews)  [{card}]")
+    for name in ("events_r.jsonl", "images_r/plot_r_loss.png",
+                 "images_r/g_r_g_000100.png", r_path + "_fixer"):
+        check(os.path.exists(os.path.join(save, name)), f"missing {name}")
+
+    state = out["ts"].module.state_dict()
+    kern, plain = [], []
+    for impl in ("kernel", "plain", "plain", "kernel"):
+        (kern if impl == "kernel" else plain).extend(
+            step_times(Gb, state, dev, impl))
+    ms_k, ms_p = statistics.median(kern), statistics.median(plain)
+    print(f"[train] ms/step, warm, b{TRAIN_BATCH} bf16, median of "
+          f"{len(kern)} by CUDA events: --dropout kernel {ms_k:.3f} ms, "
+          f"--dropout threefry (plain masks) {ms_p:.3f} ms  [{card}]")
+    err = precision_pin_error(G, dev)
+    check(err <= TOL_PIN, f"f32 train step differs with TF32 on vs off by "
+          f"{err} > {TOL_PIN}")
+    print(f"[train] f32 step (b64, sgd), TF32 flags on vs off: parameters "
+          f"within {err:.3e} of scale (tol {TOL_PIN:.0e})  [{card}]")
+    return sum(runs)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -501,6 +812,7 @@ def main() -> int:
     # 3. kernels against their plain versions
     records = check_kernels(dev, card)
     records.append(check_kmeans(dev, card))
+    records.append(check_dropout(dev, card))
 
     # 4. the main path at full width
     G, R, RF = make_models(dev)
@@ -535,6 +847,11 @@ def main() -> int:
           f"max_abs_err {img_err:.3e}, latents {z_err:.3e}, fixer latents "
           f"(same mask) {zf_err:.3e}  [{card}]")
 
+    # 5. R training at full width
+    del G, R, RF
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        launches["fused_dropout"] = check_training(dev, card, tmp)
+
     sources = {"conv_block": ("ganreverser_tpu_torch/csrc/conv_block.cu",
                               "ganreverser_tpu/ops/conv_block_kernel.py:86"),
                "upsample2_conv3x3_bn_act": (
@@ -543,11 +860,13 @@ def main() -> int:
                "cosine_scores": ("ganreverser_tpu_torch/csrc/cosine_scores.cu",
                                  "ganreverser_tpu/ops/topk_kernel.py:69"),
                "kmeans_step": ("ganreverser_tpu_torch/csrc/kmeans.cu",
-                               "ganreverser_tpu/ops/kmeans_kernel.py:97")}
+                               "ganreverser_tpu/ops/kmeans_kernel.py:97"),
+               "fused_dropout": ("ganreverser_tpu_torch/csrc/dropout.cu",
+                                 "ganreverser_tpu/ops/dropout_kernel.py:70")}
     kernels = []
     for name, (source, replaces) in sources.items():
         # the main path's dtype (bf16; kmeans runs in f32), summed over the
-        # path's shapes
+        # path's shapes; B5's launches are those of the three train_r runs
         recs = [r for r in records if r["name"] == name and r["dtype"] == (
             "float32" if name == "kmeans_step" else "bfloat16")]
         kernels.append({

@@ -6,6 +6,7 @@ their CLIs.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 from dataclasses import dataclass, field, fields
 from typing import Type, TypeVar
 
@@ -15,6 +16,10 @@ T = TypeVar("T", bound="Config")
 @dataclass
 class Config:
     """Base: argparse wiring shared by all entry points."""
+
+    def to_dict(self) -> dict:
+        """The flags as a JSON-serialisable dict (saved in checkpoints)."""
+        return dataclasses.asdict(self)
 
     @classmethod
     def parser(cls: Type[T], description: str = "") -> argparse.ArgumentParser:
@@ -66,3 +71,43 @@ class ApplyConfig(Config):
     approx: bool = _f(False, "approximate top-k selection (not ported yet: refused)")
     recall_target: float = _f(0.95, "per-row recall target for --approx")
     compute_dtype: str = _f("float32", "compute dtype: float32|bfloat16")
+
+
+@dataclass
+class RConfig(Config):
+    """Flags of train_r.lua:12-29 plus the JAX package's additions, with
+    its defaults. The port refuses the flags of modes it does not have yet
+    (--mesh_* other than 1, --async_save, a multi-process coordinator);
+    --prng is accepted and inert (both values mean torch's generators)."""
+    save: str = _f("logs", "subdirectory to save logs")
+    batchSize: int = _f(32, "batch size")
+    nbBatches: int = _f(-1, "max number of batches, <0 is infinite")
+    noplot: bool = _f(False, "disable plots/artifacts")
+    seed: int = _f(1, "RNG seed")
+    saveFreq: int = _f(2000, "save every saveFreq batches")
+    R_clamp: float = _f(1.0, "clamp R gradients to +/- this")
+    R_L1: float = _f(0.0, "L1 penalty on the weights of R")
+    R_L2: float = _f(1e-4, "L2 penalty on the weights of R")
+    G: str = _f("logs/adversarial", "checkpoint of the trained G")
+    cont: str = _f("", "R checkpoint to continue from (--continue upstream)")
+    dataset: str = _f("NONE", "directory with *.jpg images (configured but unused for batches; R trains on (G(z), z) pairs, train_r.lua:138-139)")
+    fixer: bool = _f(False, "train the error fixer (always-on input dropout)")
+    prng: str = _f("rbg", "accepted for the JAX CLI's sake: threefry|rbg; the port draws from torch generators either way")
+    dropout: str = _f("threefry", "mask source of R's dropouts: threefry (plain Bernoulli masks from a torch generator) | kernel (kernel B5, in-pass counter-hash masks, csrc/dropout.cu)")
+    async_save: bool = _f(False, "overlap checkpoint writes with training (not ported yet: refused)")
+    # inherited from the G checkpoint at load time (train_r.lua:71-75):
+    noiseDim: int = _f(32, "")
+    noiseMethod: str = _f("normal", "")
+    colorSpace: str = _f("rgb", "")
+    height: int = _f(32, "")
+    width: int = _f(32, "")
+    mesh_data: int = _f(1, "data-parallel axis (not ported yet: must be 1)")
+    mesh_model: int = _f(1, "tensor-parallel axis (not ported yet: must be 1)")
+    compute_dtype: str = _f("float32", "compute dtype: float32|bfloat16")
+    coordinator_address: str = _f("", "multi-process coordinator (not ported yet: must be empty)")
+    num_processes: int = _f(0, "multi-process: total process count")
+    process_id: int = _f(-1, "multi-process: this process's index")
+
+    def img_dims(self) -> tuple:
+        """(C, H, W); one channel for the 'y' colour space."""
+        return (1 if self.colorSpace == "y" else 3, self.height, self.width)

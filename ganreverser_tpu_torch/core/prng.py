@@ -4,7 +4,8 @@ The JAX package derives every random draw from one ``jax.random`` key and
 folds a stage number into it (apply_r: 1 variations, 2 generation, 3 kmeans
 init, 5 the fixer's dropout). Here each stage draws from a generator of its
 own, seeded from (``--seed``, stage number) by :func:`stage_seed`, so adding
-or skipping one stage changes no other stage's numbers. The two frameworks
+or skipping one stage changes no other stage's numbers. A trainer takes
+stages too (:func:`trainer_generators`). The two frameworks
 give different numbers for one seed, so tests hand both the same numpy
 draws.
 """
@@ -31,6 +32,20 @@ def stage_generator(seed: int, stage: int,
     """A generator on ``device`` for stage ``stage`` of a run seeded with
     ``seed``."""
     return seeded_generator(stage_seed(seed, stage), device)
+
+
+# the stages of a training run (train_r): R's initial weights (drawn on the
+# CPU), the latents of the training batches, the dropout masks or seeds, and
+# the latents and fixer masks of the previews
+INIT_STAGE, NOISE_STAGE, DROPOUT_STAGE, PREVIEW_STAGE = 1, 2, 5, 7
+
+
+def trainer_generators(seed: int, device: torch.device):
+    """(noise, dropout) generators on ``device`` for a training run seeded
+    with ``seed``: one stream for the batches' latents, one for the
+    dropouts."""
+    return (stage_generator(seed, NOISE_STAGE, device),
+            stage_generator(seed, DROPOUT_STAGE, device))
 
 
 def noise_inputs(generator: torch.Generator, n: int, noise_dim: int,

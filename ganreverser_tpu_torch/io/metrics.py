@@ -1,14 +1,19 @@
-"""Scalar metrics as a JSONL event file — ``MetricsWriter.scalar`` of
-ganreverser_tpu/io/metrics.py for one process: one record per line,
-``{"tag", "value", "wall"[, "step"]}``, ``wall`` in seconds since the
-writer opened. The image grids, charts and the step timer come with the
-CLIs that use them."""
+"""Metrics of one process — ganreverser_tpu/io/metrics.py's
+``MetricsWriter`` and ``StepTimer``:
+
+* scalars -> a JSONL event file, one record per line,
+  ``{"tag", "value", "wall"[, "step"]}``, ``wall`` in seconds since the
+  writer opened;
+* image grids and loss charts -> PNG files under ``<save>/<subdir>``.
+"""
 from __future__ import annotations
 
 import json
 import os
 import time
 from typing import Optional
+
+import numpy as np
 
 
 class MetricsWriter:
@@ -17,6 +22,7 @@ class MetricsWriter:
 
     def __init__(self, save_dir: str, name: str = "events"):
         os.makedirs(save_dir, exist_ok=True)
+        self.save_dir = save_dir
         self.path = os.path.join(save_dir, f"{name}.jsonl")
         self._f = open(self.path, "a")
         self._t0 = time.time()
@@ -30,6 +36,27 @@ class MetricsWriter:
         self._f.write(json.dumps(rec) + "\n")
         self._f.flush()
 
+    def image_grid(self, tag: str, images, grid_h: int, grid_w: int,
+                   epoch: Optional[int] = None,
+                   subdir: str = "images") -> str:
+        """Save NHWC ``images`` as a (grid_h x grid_w) grid to
+        ``<save>/<subdir>/<tag>[_<epoch:06d>].png``, stamped with
+        ``epoch``."""
+        from ..utils.grids import save_images_as_grid
+        fname = f"{tag}_{epoch:06d}.png" if epoch is not None else f"{tag}.png"
+        path = os.path.join(self.save_dir, subdir, fname)
+        save_images_as_grid(path, np.asarray(images), grid_h, grid_w, epoch)
+        return path
+
+    def chart(self, tag: str, rows, labels, *, title: str = "",
+              subdir: str = "images") -> str:
+        """Render a loss chart (io/plots.py) to ``<save>/<subdir>/<tag>.png``,
+        overwritten on each call, like the reference's live display
+        window."""
+        from .plots import save_chart
+        path = os.path.join(self.save_dir, subdir, f"{tag}.png")
+        return save_chart(path, rows, labels, title=title)
+
     def close(self):
         self._f.close()
 
@@ -38,3 +65,29 @@ class MetricsWriter:
 
     def __exit__(self, *exc):
         self.close()
+
+
+class StepTimer:
+    """Mean seconds per step, written as one scalar every ``log_every``
+    ticks (replaces xlua.progress, adversarial.lua:194)."""
+
+    def __init__(self, writer: Optional[MetricsWriter] = None,
+                 log_every: int = 100, tag: str = "step_time"):
+        self.writer = writer
+        self.log_every = log_every
+        self.tag = tag
+        self._last = time.perf_counter()
+        self._count = 0
+        self._acc = 0.0
+
+    def tick(self, step: Optional[int] = None) -> float:
+        now = time.perf_counter()
+        dt = now - self._last
+        self._last = now
+        self._count += 1
+        self._acc += dt
+        if self.writer and self._count % self.log_every == 0:
+            self.writer.scalar(self.tag, self._acc / self.log_every,
+                               step=step)
+            self._acc = 0.0
+        return dt

@@ -1,11 +1,15 @@
-"""Weights carried between the JAX variable trees and the port's modules.
+"""Weights and train state carried between the JAX trees and the port.
 
 A JAX model's variables are ``{"params": ..., "state": ...}`` trees keyed by
 layer (``l0``, ``l1``, ...; nested Sequentials nest). The port's modules
 keep the same names and layouts (models/modules.py), so the mapping is one
 to one: ``<path>.kernel``/``bias``/``scale`` come from ``params[path]`` and
 the BatchNorm buffers ``<path>.mean``/``var`` from ``state[path]``. Conv
-kernels stay HWIO and Dense kernels (in, out) on both sides.
+kernels stay HWIO and Dense kernels (in, out) on both sides. Optimizer
+moments are trees of the params' shape, so a list aligned with
+``module.parameters()`` maps by the same names (:func:`nest_by_name`,
+:func:`take_by_name`). Float leaves become f32, integer leaves (step
+counts) int32.
 """
 from __future__ import annotations
 
@@ -22,6 +26,46 @@ def _count_leaves(tree) -> int:
     return 1
 
 
+def leaf_array(value) -> np.ndarray:
+    """A leaf (array, tensor or number) as a new numpy array: int32 for
+    integers, f32 for every other."""
+    if isinstance(value, torch.Tensor):
+        value = value.detach().cpu().numpy()
+    a = np.asarray(value)
+    return a.astype(np.int32 if np.issubdtype(a.dtype, np.integer)
+                    else np.float32)
+
+
+def _lookup(tree: dict, key: str):
+    node = tree
+    try:
+        for p in key.split("."):
+            node = node[p]
+    except KeyError as e:
+        raise KeyError(f"tree has no leaf for {key!r}") from e
+    return node
+
+
+def nest_by_name(flat: dict) -> dict:
+    """``{"l0.kernel": t, ...}`` as the nested tree ``{"l0": {"kernel":
+    a}}`` of numpy arrays."""
+    out: dict = {}
+    for key, t in flat.items():
+        *path, leaf = key.split(".")
+        node = out
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = leaf_array(t)
+    return out
+
+
+def take_by_name(tree: dict, names, device) -> list:
+    """The leaves of ``tree`` at the dotted ``names``, in their order, as
+    tensors on ``device``."""
+    return [torch.as_tensor(leaf_array(_lookup(tree, n)), device=device)
+            for n in names]
+
+
 def load_jax_variables(module: nn.Module, variables: dict) -> nn.Module:
     """Copy ``variables`` (a JAX-layout tree of numpy arrays or tensors)
     into ``module``. Raises on a missing leaf, a shape mismatch or a leaf
@@ -29,15 +73,9 @@ def load_jax_variables(module: nn.Module, variables: dict) -> nn.Module:
     own = module.state_dict()
     new = {}
     for key, ref in own.items():
-        *path, leaf = key.split(".")
-        node = variables["state" if leaf in _STATE_LEAVES else "params"]
-        try:
-            for p in path:
-                node = node[p]
-            value = node[leaf]
-        except KeyError as e:
-            raise KeyError(f"variables have no leaf for {key!r}") from e
-        t = torch.from_numpy(np.array(value, dtype=np.float32))
+        leaf = key.rsplit(".", 1)[-1]
+        part = variables["state" if leaf in _STATE_LEAVES else "params"]
+        t = torch.from_numpy(leaf_array(_lookup(part, key)))
         if tuple(t.shape) != tuple(ref.shape):
             raise ValueError(f"{key}: variables have shape {tuple(t.shape)}, "
                              f"module expects {tuple(ref.shape)}")
@@ -52,20 +90,19 @@ def load_jax_variables(module: nn.Module, variables: dict) -> nn.Module:
 
 
 def export_variables(module: nn.Module) -> dict:
-    """The inverse: ``{"params", "state"}`` of f32 numpy arrays, loadable by
+    """The inverse: ``{"params", "state"}`` of numpy arrays, loadable by
     the JAX model of the same architecture."""
-    out = {"params": {}, "state": {}}
-    for key, t in module.state_dict().items():
-        *path, leaf = key.split(".")
-        node = out["state" if leaf in _STATE_LEAVES else "params"]
-        for p in path:
-            node = node.setdefault(p, {})
-        node[leaf] = t.detach().cpu().float().numpy()
-    return out
+    sd = module.state_dict()
+    parts = {"params": {}, "state": {}}
+    for key, t in sd.items():
+        leaf = key.rsplit(".", 1)[-1]
+        parts["state" if leaf in _STATE_LEAVES else "params"][key] = t
+    return {part: nest_by_name(flat) for part, flat in parts.items()}
 
 
 def to_torch(tree, device: torch.device | str):
-    """A tree of arrays as f32 tensors on ``device`` (dicts kept)."""
+    """A tree of arrays as tensors on ``device`` (dicts kept): f32, integer
+    leaves int32."""
     if isinstance(tree, dict):
         return {k: to_torch(v, device) for k, v in tree.items()}
-    return torch.as_tensor(np.asarray(tree, dtype=np.float32), device=device)
+    return torch.as_tensor(leaf_array(tree), device=device)

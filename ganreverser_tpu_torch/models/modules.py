@@ -1,5 +1,5 @@
-"""Eval-mode ``nn.Module``s of the layers G3 and R use — the counterparts of
-ganreverser_tpu/models/modules.py.
+"""``nn.Module``s of the layers G3 and R use — the counterparts of
+ganreverser_tpu/models/modules.py, in evaluation and in training.
 
 Conventions kept from the JAX package, so that its checkpoints map onto
 these modules name for name (``models/bridge.py``):
@@ -13,10 +13,12 @@ these modules name for name (``models/bridge.py``):
   rounded to it, products accumulate in f32, and the output is rounded to
   it again.
 
-Only evaluation is ported: a BatchNorm or a dropout in training mode raises;
-the fixer-R's always-on input dropout is active in evaluation, as in the
-reference. The plain convolutions here go through ``F.conv2d`` on NCHW
-views.
+In training mode (``.train()``) BatchNorm normalises with the batch
+statistics and updates its running buffers, and the dropouts drop; the
+fixer-R's always-on input dropout is active in evaluation too, as in the
+reference. Every active dropout draws from the ``generator`` its caller set
+(:func:`set_dropout_generator`); there is no hidden global stream. The
+plain convolutions here go through ``F.conv2d`` on NCHW views.
 """
 from __future__ import annotations
 
@@ -29,9 +31,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.precision import pinned_precision
+from ..ops.dropout_kernel import draw_seed, fused_dropout
 from ..ops.upsample_conv import conv_nhwc, upsample2_conv3x3_dilated
 
 _BN_EPS = 1e-5
+_BN_MOMENTUM = 0.1
 
 
 def _heuristic_(t: torch.Tensor, fan_in: int, generator: torch.Generator):
@@ -111,8 +115,12 @@ class UpsampleConv(Conv):
 
 
 class BatchNorm(nn.Module):
-    """nn.(Spatial)BatchNormalization in evaluation: normalises the last
-    axis with the running statistics."""
+    """nn.(Spatial)BatchNormalization over the last axis, statistics in f32.
+
+    In evaluation it normalises with the running statistics. In training it
+    normalises with the batch mean and biased variance over all other axes
+    (gradients flow through them) and moves the running buffers by momentum
+    0.1 towards the batch mean and the unbiased variance, as torch does."""
 
     def __init__(self, features: int, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -123,12 +131,21 @@ class BatchNorm(nn.Module):
         self.dtype = dtype
 
     def forward(self, x):
+        xf = x.float()
         if self.training:
-            raise NotImplementedError(
-                "BatchNorm with batch statistics is not ported yet; call "
-                ".eval()")
-        inv = torch.rsqrt(self.var + _BN_EPS) * self.scale
-        return ((x.float() - self.mean) * inv + self.bias).to(self.dtype)
+            red = tuple(range(x.ndim - 1))
+            mean = xf.mean(dim=red)
+            var = xf.var(dim=red, correction=0)
+            count = x.numel() // x.shape[-1]
+            with torch.no_grad():
+                m = _BN_MOMENTUM
+                unbiased = var * (count / max(count - 1, 1))
+                self.mean.copy_((1 - m) * self.mean + m * mean)
+                self.var.copy_((1 - m) * self.var + m * unbiased)
+        else:
+            mean, var = self.mean, self.var
+        inv = torch.rsqrt(var + _BN_EPS) * self.scale
+        return ((xf - mean) * inv + self.bias).to(self.dtype)
 
 
 class Activation(nn.Module):
@@ -147,36 +164,70 @@ class Activation(nn.Module):
 
 
 class Dropout(nn.Module):
-    """nn.Dropout: the identity in evaluation; training is not ported yet.
+    """nn.Dropout: active in training, the identity in evaluation.
 
     ``always_on=True`` is the fixer-R's input dropout, which the reference
-    keeps active at inference (models.lua:399-406): every call draws a
-    fresh keep mask from ``self.generator``, which the caller sets (there
-    is no hidden global stream)."""
+    keeps active at inference (models.lua:399-406). An active call draws
+    from ``self.generator``, which the caller sets: with ``impl="plain"`` a
+    Bernoulli keep mask (the JAX default threefry path; the stream differs
+    from JAX's), with ``impl="kernel"`` one int32 seed for kernel B5
+    (ops/dropout_kernel.py), whose mask is the JAX kernel's for that
+    seed."""
 
-    def __init__(self, rate: float = 0.5, always_on: bool = False):
+    def __init__(self, rate: float = 0.5, always_on: bool = False,
+                 impl: str = "plain"):
         super().__init__()
+        if impl not in ("plain", "kernel"):
+            raise ValueError(f"dropout impl {impl!r}: expected plain or kernel")
         self.rate = rate
         self.always_on = always_on
+        self.impl = impl
         self.generator: torch.Generator | None = None
 
+    def _active_generator(self) -> torch.Generator | None:
+        """The generator of an active call, None when the call is the
+        identity; raises when it is active without one."""
+        if self.rate == 0.0 or not (self.training or self.always_on):
+            return None
+        if self.generator is None:
+            raise ValueError(f"an active {type(self).__name__} needs "
+                             ".generator set (set_dropout_generator)")
+        return self.generator
+
     def forward(self, x):
-        if self.rate == 0.0:
+        gen = self._active_generator()
+        if gen is None:
             return x
-        if self.always_on:
-            if self.generator is None:
-                raise ValueError("an always-on Dropout needs .generator set")
-            keep = dropout_keep_mask(x.shape, self.rate, self.generator,
-                                     x.device)
-            return apply_dropout(x, keep, self.rate)
-        if self.training:
-            raise NotImplementedError("dropout in training is not ported yet")
-        return x
+        if self.impl == "kernel":
+            return fused_dropout(x, draw_seed(gen, x.device), self.rate)
+        keep = dropout_keep_mask(x.shape, self.rate, gen, x.device)
+        return apply_dropout(x, keep, self.rate)
 
 
 class SpatialDropout(Dropout):
-    """nn.SpatialDropout (whole channels in training): the identity in
-    evaluation."""
+    """nn.SpatialDropout: in training, one Bernoulli mask per (sample,
+    channel) drops whole feature maps; the identity in evaluation."""
+
+    def __init__(self, rate: float = 0.25):
+        super().__init__(rate)
+
+    def forward(self, x):
+        gen = self._active_generator()
+        if gen is None:
+            return x
+        shape = (x.shape[0],) + (1,) * (x.ndim - 2) + (x.shape[-1],)
+        keep = dropout_keep_mask(shape, self.rate, gen, x.device)
+        return apply_dropout(x, keep, self.rate)
+
+
+def set_dropout_generator(module: nn.Module,
+                          generator: torch.Generator) -> nn.Module:
+    """Make every Dropout and SpatialDropout of ``module`` draw from
+    ``generator``."""
+    for m in module.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
+    return module
 
 
 class MaxPool(nn.Module):

@@ -3,9 +3,10 @@
 layer indices.
 
 ``dimensions`` is (C, H, W) as in the reference; tensors flow as NHWC. The
-models are returned in evaluation mode (the only mode ported); their
-weights are zero until loaded (``models/bridge.py``) or drawn with
-``modules.init_parameters``. D and the other variants come later.
+models are returned in evaluation mode (``.train()`` switches BatchNorm and
+the dropouts to training); their weights are zero until loaded
+(``models/bridge.py``) or drawn with ``modules.init_parameters``. D and the
+other variants come later.
 """
 from __future__ import annotations
 
@@ -50,20 +51,25 @@ def create_G3(dimensions: Dims, noise_dim: int,
 
 
 def create_R(dimensions: Dims, noise_dim: int, noise_method: str,
-             fixer: bool = False, dtype: torch.dtype = torch.float32):
+             fixer: bool = False, dtype: torch.dtype = torch.float32,
+             dropout_impl: str = "plain"):
     """models.create_R == create_R_default (models.lua:385-387)."""
-    return create_R_default(dimensions, noise_dim, noise_method, fixer, dtype)
+    return create_R_default(dimensions, noise_dim, noise_method, fixer, dtype,
+                            dropout_impl)
 
 
 def create_R_default(dimensions: Dims, noise_dim: int, noise_method: str,
                      fixer: bool = False,
-                     dtype: torch.dtype = torch.float32):
+                     dtype: torch.dtype = torch.float32,
+                     dropout_impl: str = "plain"):
     """create_R_default (models.lua:389-464): 3x [conv64 + BN + ELU] + pool,
     3x [conv128 + BN + ELU] + pool, Dense 512 + BN + ELU, Dense noise_dim,
     and a Tanh head only for uniform noise. ``fixer=True`` prepends the
     always-on Dropout(0.5) (models.lua:399-406), which shifts every layer
-    index by one; set its ``generator`` (``model.l0.generator``) before a
-    forward."""
+    index by one. The seven element dropouts and the fixer's take
+    ``dropout_impl`` (``plain`` Bernoulli masks or ``kernel`` B5); the
+    SpatialDropout always draws a plain mask. Set the dropouts' generator
+    (``modules.set_dropout_generator``) before an active forward."""
     if noise_method not in ("normal", "uniform"):
         raise ValueError(noise_method)
     c, h, w = dimensions
@@ -72,18 +78,21 @@ def create_R_default(dimensions: Dims, noise_dim: int, noise_method: str,
         return [Conv(in_ch, feat, dtype=dtype), BatchNorm(feat, dtype=dtype),
                 Activation("elu")]
 
-    layers = [Dropout(0.5, always_on=True)] if fixer else []
+    def drop():  # nn.Dropout() default 0.5
+        return Dropout(0.5, impl=dropout_impl)
+
+    layers = [Dropout(0.5, always_on=True, impl=dropout_impl)] if fixer else []
     layers += [
-        *block(c, 64), Dropout(0.5),
-        *block(64, 64), Dropout(0.5),
-        *block(64, 64), MaxPool(), Dropout(0.5),
-        *block(64, 128), Dropout(0.5),
-        *block(128, 128), Dropout(0.5),
+        *block(c, 64), drop(),
+        *block(64, 64), drop(),
+        *block(64, 64), MaxPool(), drop(),
+        *block(64, 128), drop(),
+        *block(128, 128), drop(),
         *block(128, 128), SpatialDropout(0.25), MaxPool(),
         Flatten(),
         Dense(128 * (h // 4) * (w // 4), 512, dtype=dtype),
         BatchNorm(512, dtype=dtype), Activation("elu"),
-        Dropout(0.5),
+        drop(),
         Dense(512, noise_dim, dtype=dtype),
     ]
     if noise_method != "normal":

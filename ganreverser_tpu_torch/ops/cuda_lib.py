@@ -36,8 +36,12 @@ ACT_CODES = {"none": 0, "relu": 1, "elu": 2, "sigmoid": 3}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_U = ctypes.c_uint
+_F = ctypes.c_float
 # name -> argtypes; every function returns the cudaError_t of its launch
 _SIGNATURES = {
+    # dtype, x, y, seed, n, thresh, inv_keep, stream
+    "gr_fused_dropout": [_I, _P, _P, _P, _L, _U, _F, _P],
     # dtype, x, w9, scale, shift, out, n, h, w, ci, co, act, pool, stream
     "gr_conv3x3_bn_act": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                           _P],

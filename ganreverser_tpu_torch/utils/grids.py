@@ -1,26 +1,56 @@
-"""Image grids, borders and saving — the numpy path of
-ganreverser_tpu/utils/grids.py (nn_utils.lua:429-548). The epoch stamp and
-the C++ grid assembly are not ported yet."""
+"""Image grids, borders, the epoch stamp and saving — the numpy path of
+ganreverser_tpu/utils/grids.py (nn_utils.lua:429-548). The C++ grid
+assembly is not ported."""
 from __future__ import annotations
 
 import os
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 
 BLUE = (0.0, 0.0, 1.0)   # similarity needle (apply_r.lua:281-296)
 RED = (1.0, 0.0, 0.0)    # anomaly (apply_r.lua:376-388)
 
+# nn_utils.lua:429-479 — digits 0..9 as 5x3 bitmaps
+CHAR_TENSORS = np.array([
+    [[1, 1, 1], [1, 0, 1], [1, 0, 1], [1, 0, 1], [1, 1, 1]],  # 0
+    [[0, 0, 1], [0, 0, 1], [0, 0, 1], [0, 0, 1], [0, 0, 1]],  # 1
+    [[1, 1, 1], [0, 0, 1], [1, 1, 1], [1, 0, 0], [1, 1, 1]],  # 2
+    [[1, 1, 1], [0, 0, 1], [0, 1, 1], [0, 0, 1], [1, 1, 1]],  # 3
+    [[1, 0, 1], [1, 0, 1], [1, 1, 1], [0, 0, 1], [0, 0, 1]],  # 4
+    [[1, 1, 1], [1, 0, 0], [1, 1, 1], [0, 0, 1], [1, 1, 1]],  # 5
+    [[1, 1, 1], [1, 0, 0], [1, 1, 1], [1, 0, 1], [1, 1, 1]],  # 6
+    [[1, 1, 1], [0, 0, 1], [0, 0, 1], [0, 0, 1], [0, 0, 1]],  # 7
+    [[1, 1, 1], [1, 0, 1], [1, 1, 1], [1, 0, 1], [1, 1, 1]],  # 8
+    [[1, 1, 1], [1, 0, 1], [1, 1, 1], [0, 0, 1], [1, 1, 1]],  # 9
+], np.float32)
 
-def images_to_grid(images: np.ndarray, height: int, width: int) -> np.ndarray:
-    """Tile NHWC images row by row into a (height x width) grid."""
+
+def images_to_grid(images: np.ndarray, height: int, width: int,
+                   epoch: Optional[int] = None) -> np.ndarray:
+    """Tile NHWC images row by row into a (height x width) grid; with
+    ``epoch``, a 7-pixel strip below carries its digits."""
     images = np.asarray(images, np.float32)
     n, ih, iw, c = images.shape
-    grid = np.zeros((height * ih, width * iw, c), np.float32)
+    strip = 1 + 5 + 1 if epoch is not None else 0
+    grid = np.zeros((height * ih + strip, width * iw, c), np.float32)
     for i in range(min(n, height * width)):
         gy, gx = divmod(i, width)
         grid[gy * ih:(gy + 1) * ih, gx * iw:(gx + 1) * iw] = images[i]
+    if epoch is not None:
+        _stamp_epoch(grid, int(epoch))
     return grid
+
+
+def _stamp_epoch(grid: np.ndarray, epoch: int):
+    """nn_utils.lua:518-534: digits drawn right to left at the bottom
+    right, 6 pixels apart."""
+    h, w, _ = grid.shape
+    for pos, ch in enumerate(reversed(str(epoch)), start=1):
+        x0 = w - 1 - pos * 5 - pos
+        if x0 < 0:
+            break
+        grid[h - 6:h - 1, x0:x0 + 3, :] = CHAR_TENSORS[int(ch)][..., None]
 
 
 def add_border(image: np.ndarray, color: Sequence[float],
@@ -48,3 +78,9 @@ def save_image(path: str, image: np.ndarray):
         arr = arr[..., 0]
     arr = (arr * 255.0 + 0.5).astype(np.uint8)
     Image.fromarray(arr).save(path)
+
+
+def save_images_as_grid(path: str, images: np.ndarray, height: int,
+                        width: int, epoch: Optional[int] = None):
+    """nn_utils.saveImagesAsGrid (nn_utils.lua:544-548)."""
+    save_image(path, images_to_grid(images, height, width, epoch))

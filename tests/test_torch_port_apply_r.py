@@ -76,12 +76,15 @@ def test_always_on_dropout_draws_from_its_generator():
     np.testing.assert_array_equal(
         yb.float().numpy(),
         torch.where(keep, x.to(torch.bfloat16).float() * 2, 0.0).numpy())
-    # the other dropouts stay the identity in evaluation, raise in training
+    # the other dropouts stay the identity in evaluation; in training they
+    # draw from their generator too, and raise without one
     for m in (modules.Dropout(0.5).eval(),
               modules.SpatialDropout(0.25).eval()):
         assert torch.equal(m(x), x)
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError):
             m.train()(x)
+        m.generator = _gen(3)
+        assert not torch.equal(m(x), x)
 
 
 def test_fixer_checkpoint_from_jax_loads_into_port(tmp_path, rng):

@@ -10,8 +10,9 @@ import numpy as np
 import pytest
 import torch
 
-from ganreverser_tpu_torch.ops import (conv_block_kernel, kmeans_kernel,
-                                       topk_kernel, upsample_conv_kernel)
+from ganreverser_tpu_torch.ops import (conv_block_kernel, dropout_kernel,
+                                       kmeans_kernel, topk_kernel,
+                                       upsample_conv_kernel)
 
 pytestmark = pytest.mark.cuda
 
@@ -182,3 +183,81 @@ def test_fast_path_f32_ignores_global_tf32_flags(dev):
     for a, b in zip(*outs):
         err = (a - b).abs().max().item()
         assert err <= 1e-5 * max(1.0, b.abs().max().item()), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(256, 512), (3, 37, 5, 64), (1_000_003,),
+                                   (8, 16, 16, 3)])
+@pytest.mark.parametrize("seed", [42, -7, -2 ** 31])
+def test_dropout_kernel_bitwise(dev, dtype, shape, seed):
+    """Kernel B5 forward and backward against the plain version, bitwise
+    (chip_smoke.dropout_case raises SmokeFailure otherwise), at sizes that
+    are no multiple of the 16-byte vector; two launches per case."""
+    import chip_smoke
+    x = torch.randn(shape, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(5))
+    before = dropout_kernel.fused_dropout.launches
+    assert chip_smoke.dropout_case(x.to(dtype), seed, 0.25) == 0.0
+    assert dropout_kernel.fused_dropout.launches == before + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dropout_kernel_unaligned_and_strided(dev, dtype):
+    """A view one element into its storage (not 16-byte aligned: the
+    one-element path) and a transposed view (made contiguous) both drop in
+    their logical order, as the plain version does."""
+    base = torch.randn(4097, device=dev).to(dtype)
+    s = torch.tensor([9], dtype=torch.int32, device=dev)
+    for x in (base[1:], base[1:].reshape(64, 64).t()):
+        out = dropout_kernel.fused_dropout(x, s, 0.5)
+        torch.cuda.synchronize()
+        assert torch.equal(out, dropout_kernel.fused_dropout_plain(x, s, 0.5))
+
+
+def test_dropout_kernel_refuses_bad_arguments(dev):
+    s = torch.tensor([1], dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        dropout_kernel.fused_dropout(torch.zeros(8, device=dev,
+                                                 dtype=torch.float16), s, 0.5)
+    with pytest.raises(ValueError):  # the seed on the CPU
+        dropout_kernel.fused_dropout(torch.zeros(8, device=dev), s.cpu(), 0.5)
+
+
+def _train_models(dev, dims, nd, fixer=False, impl="kernel"):
+    import chip_smoke
+    from ganreverser_tpu_torch.models import modules, zoo
+    G = chip_smoke.make_calibrated_g(dev, dims, nd, 32, 5)
+    R = modules.init_parameters(
+        zoo.create_R(dims, nd, "normal", fixer=fixer, dtype=torch.bfloat16,
+                     dropout_impl=impl),
+        torch.Generator().manual_seed(1)).to(dev)
+    modules.set_dropout_generator(R, torch.Generator(device=dev).manual_seed(2))
+    return G, R
+
+
+@pytest.mark.parametrize("fixer", [False, True])
+def test_train_step_launches_dropout_kernel(dev, fixer):
+    """One bf16 R step with --dropout kernel: 6 forward + 6 backward
+    launches of B5, 7 + 6 for the fixer-R (its input needs no gradient)."""
+    from ganreverser_tpu_torch.optim import adam
+    from ganreverser_tpu_torch.train.r_loop import make_r_train_step
+    from ganreverser_tpu_torch.train.state import TrainState
+    G, R = _train_models(dev, (3, 16, 16), 8, fixer)
+    step = make_r_train_step(G, dtype=torch.bfloat16)
+    ts = TrainState.create(R, adam())
+    before = dropout_kernel.fused_dropout.launches
+    loss = step(ts, torch.randn(16, 8, device=dev))
+    torch.cuda.synchronize()
+    assert dropout_kernel.fused_dropout.launches - before == (13 if fixer
+                                                              else 12)
+    assert torch.isfinite(loss) and ts.step == 1
+
+
+def test_train_step_f32_ignores_global_tf32_flags(dev):
+    """The f32 train step's backward runs under the precision pin: the
+    same step with the process-wide TF32 flags on and off gives the same
+    parameters within 1e-5 of scale (chip_smoke.precision_pin_error)."""
+    import chip_smoke
+    G, _ = _train_models(dev, (3, 32, 32), 100)
+    err = chip_smoke.precision_pin_error(G, dev, (3, 32, 32), 100, 32)
+    assert err <= chip_smoke.TOL_PIN, err

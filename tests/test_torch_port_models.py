@@ -82,18 +82,39 @@ def test_upsample_conv_formulations_match_jax(rng, dtype):
 
 
 def test_modules_are_eval_only():
+    """The models come back in evaluation, where BatchNorm uses its running
+    statistics and the dropouts are the identity; ``.train()`` switches
+    both: BatchNorm normalises with the batch statistics and moves its
+    buffers (momentum 0.1, unbiased variance), the dropouts draw from their
+    generator."""
+    x2 = torch.randn(6, 4, generator=torch.Generator().manual_seed(0)) * 3 + 1
     bn = modules.BatchNorm(4).train()
-    with pytest.raises(NotImplementedError):
-        bn(torch.zeros(2, 4))
-    with pytest.raises(NotImplementedError):
-        modules.Dropout(0.5).train()(torch.zeros(2, 4))
-    r = zoo.create_R(DIMS, ND, "normal")
+    y = bn(x2)
+    np.testing.assert_allclose(y.mean(0).detach().numpy(), 0.0, atol=1e-5)
+    np.testing.assert_allclose(y.var(0, unbiased=False).detach().numpy(),
+                               1.0, rtol=1e-4)
+    np.testing.assert_allclose(bn.mean.numpy(), 0.1 * x2.mean(0).numpy(),
+                               rtol=1e-5)
+    np.testing.assert_allclose(bn.var.numpy(),
+                               0.9 + 0.1 * x2.var(0).numpy(), rtol=1e-5)
+    mean = bn.mean.clone()
+    with torch.no_grad():
+        bn.eval()(x2)
+    assert torch.equal(bn.mean, mean)
+    r = modules.init_parameters(zoo.create_R(DIMS, ND, "normal"),
+                                torch.Generator().manual_seed(0))
     assert not r.training and isinstance(r.l3, modules.Dropout)
-    x = torch.rand(1, 16, 16, 3)
+    x = torch.rand(2, 16, 16, 3)
     with torch.no_grad():
         np.testing.assert_array_equal(r.l3(x).numpy(), x.numpy())
-    with pytest.raises(NotImplementedError):
+        before = r(x)
+    with pytest.raises(ValueError):  # no generator set
         r.train()(x)
+    modules.set_dropout_generator(r, torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        after = r(x)
+    assert r.training and not torch.equal(before, after)
+    assert not torch.equal(r.l1.mean, torch.zeros(64))
 
 
 def test_init_parameters_is_seeded():

@@ -42,3 +42,34 @@ def test_device_intervals_keeps_device_ops_only(tmp_path):
     assert sorted(ivs) == [("Memcpy DtoH", 160.0, 165.0),
                            ("Memset", 90.0, 92.0), ("k", 100.0, 150.0)]
     assert profile_port.union_us(ivs) == 57.0
+
+
+@pytest.mark.parametrize("name,cls", [
+    ("void gr::fused_dropout_kernel<__nv_bfloat16, 8>(...)",
+     "B5 dropout kernel"),
+    ("void gr::conv3x3_bn_act_kernel<__nv_bfloat16, true>(...)",
+     "kernels B, U, C, K"),
+    ("sm90_xmma_fprop_implicit_gemm_f32f32_tf32f32_f32_nhwckrsc_nhwc",
+     "convolution (cuDNN)"),
+    ("sm90_xmma_wgrad_indexed_implicit_gemm_f32f32_tf32f32_f32",
+     "convolution (cuDNN)"),
+    ("void cudnn::engines_precompiled::convertTensor_kernel<float>",
+     "convolution (cuDNN)"),
+    ("sm80_xmma_gemm_f32f32_f32f32_f32_tn_n", "matmul (cuBLAS)"),
+    ("void at::native::(anonymous namespace)::multi_tensor_apply_kernel<>",
+     "optimizer and penalties (_foreach)"),
+    ("void at::native::reduce_kernel<128, 4, ReduceOp<float, MeanOps>>",
+     "reduction"),
+    ("void at::native::vectorized_elementwise_kernel<8, "
+     "bfloat16_copy_kernel_cuda>", "copy and cast"),
+    ("void at::native::CatArrayBatchedCopy_alignedK_contig<>",
+     "copy and cast"),
+    ("Memcpy DtoH (Device -> Pageable)", "memcpy and memset"),
+    ("void at::native::vectorized_elementwise_kernel<4, CUDAFunctor_add>",
+     "elementwise"),
+    ("void at::native::(anonymous namespace)::max_pool_forward_nhwc",
+     "pooling"),
+    ("ncclKernel_AllReduce", "other"),
+])
+def test_kernel_class(name, cls):
+    assert profile_port.kernel_class(name) == cls

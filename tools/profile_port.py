@@ -3,7 +3,7 @@
 
 Run from the root of a checkout:
 
-    python3 tools/profile_port.py [--out build/profile]
+    python3 tools/profile_port.py [--out build/profile] [--what all|apply_r|train]
 
 With the models of chip_smoke.py (G3, R and the fixer-R at 3x64x64, noise
 100, random weights from its seed), bf16, batch 256, N = 10,000, it prints
@@ -15,7 +15,9 @@ and writes to ``<out>/profile.txt``:
 * ``[trace]``: one warm stage ② + ④ under torch.profiler. Device busy time
   is the union of the intervals of every kernel, memcpy and memset in the
   exported trace (``<out>/trace_main_path.json``), so nothing is counted
-  twice; the idle share is 1 - busy / wall. Then device time by kernel name;
+  twice; the idle share is 1 - busy / wall. Then device time by class of
+  operation (``kernel_class``: convolution, elementwise, copy and cast, ...)
+  and by kernel name;
 * ``[apply_r]``: the CLI's six stages with the fixer-R, once cold and once
   warm (each stage's seconds), then once more warm under torch.profiler
   (``<out>/trace_apply_r.json``): wall, device busy, idle share, device
@@ -23,7 +25,14 @@ and writes to ``<out>/profile.txt``:
   images) shows as device idle time;
 * ``[native]``: cuDNN in bf16 on the tensor cores at the shapes of kernels
   B and U, for reference only (the conv output is rounded to bf16 before
-  the epilogue, so it is not the kernels' function).
+  the epilogue, so it is not the kernels' function);
+* ``[train]``: R's train step at batch 256, bf16, G3 as chip_smoke.py
+  settles it, with ``--dropout kernel`` and with the plain masks: 10 warm
+  steps under torch.profiler each (``<out>/trace_train_<impl>.json``):
+  ms/step, device busy, idle share, device time by kernel name.
+
+``--what apply_r`` runs every section but ``[train]``; ``--what train`` only
+``[train]``.
 
 Every line carries the card's name and power limit.
 """
@@ -51,6 +60,28 @@ from ganreverser_tpu_torch.core.prng import noise_inputs, seeded_generator  # no
 from ganreverser_tpu_torch.models import bridge, fastpath  # noqa: E402
 
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# (class, substrings of a device operation's name); the first match wins
+_CLASSES = (
+    ("B5 dropout kernel", ("fused_dropout_kernel",)),
+    ("kernels B, U, C, K", ("gr::",)),
+    ("convolution (cuDNN)", ("fprop", "dgrad", "wgrad", "cudnn",
+                             "nhwcAddPadding")),
+    ("matmul (cuBLAS)", ("gemm", "cutlass")),
+    ("optimizer and penalties (_foreach)", ("multi_tensor_apply",)),
+    ("pooling", ("max_pool",)),
+    ("reduction", ("reduce_kernel", "lpnorm")),
+    ("copy and cast", ("copy", "Copy")),
+    ("memcpy and memset", ("Memcpy", "Memset")),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def kernel_class(name: str) -> str:
+    """The class of a device operation, from its (demangled) name."""
+    for cls, keys in _CLASSES:
+        if any(k in name for k in keys):
+            return cls
+    return "other"
 
 
 def device_intervals(trace_path: str):
@@ -82,8 +113,9 @@ def union_us(intervals) -> float:
 def summarise_trace(prof, trace_path: str, wall_us: float, tag: str, log,
                     card: str, top: int = 20) -> bool:
     """Export the trace, log device busy time (the union of its device
-    intervals), the idle share of the wall and the device time of the
-    ``top`` kernel names. False when the trace holds no device operation."""
+    intervals), the idle share of the wall, the device time of each class
+    of operation and of the ``top`` kernel names. False when the trace
+    holds no device operation."""
     prof.export_chrome_trace(trace_path)
     ivs = device_intervals(trace_path)
     if not ivs:
@@ -96,14 +128,17 @@ def summarise_trace(prof, trace_path: str, wall_us: float, tag: str, log,
         f"{1 - busy / wall_us:.4f} of the wall, {1 - busy / span:.4f} of the "
         f"{span / 1e6:.4f} s from the first to the last device op  [{card}]")
     by_name = collections.defaultdict(lambda: [0.0, 0])
+    by_class = collections.defaultdict(lambda: [0.0, 0])
     for name, s, e in ivs:
-        by_name[name][0] += e - s
-        by_name[name][1] += 1
+        for table, key in ((by_name, name), (by_class, kernel_class(name))):
+            table[key][0] += e - s
+            table[key][1] += 1
     total = sum(v[0] for v in by_name.values())
-    for name, (us, count) in sorted(by_name.items(),
-                                    key=lambda kv: -kv[1][0])[:top]:
-        log(f"[{tag}] {us / 1e3:10.3f} ms {100 * us / total:5.1f}% "
-            f"x{count:5d}  {name[:110]}")
+    for table, limit in ((by_class, None), (by_name, top)):
+        for key, (us, count) in sorted(table.items(),
+                                       key=lambda kv: -kv[1][0])[:limit]:
+            log(f"[{tag}] {us / 1e3:10.3f} ms {100 * us / total:5.1f}% "
+                f"x{count:5d}  {key[:110]}")
     return True
 
 
@@ -136,24 +171,52 @@ def profile_apply_r(G, R, RF, log, card: str, out_dir: str) -> bool:
                            wall_us, "apply_r", log, card, top=12)
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", default="build/profile",
-                    help="directory for profile.txt and the trace")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("profile_port: needs a CUDA device", file=sys.stderr)
-        return 1
-    os.makedirs(args.out, exist_ok=True)
-    dev = torch.device("cuda", 0)
-    card = cs.card_line()
-    out = open(os.path.join(args.out, "profile.txt"), "w")
+def profile_train(dev, log, card: str, out_dir: str,
+                  n_steps: int = 10) -> bool:
+    """The ``[train]`` lines: R's bf16 train step at batch 256 with each
+    dropout impl, warm, ``n_steps`` of it traced."""
+    from torch.profiler import ProfilerActivity, profile
+    from ganreverser_tpu_torch.models import modules, zoo
+    from ganreverser_tpu_torch.optim import adam
+    from ganreverser_tpu_torch.train.r_loop import make_r_train_step
+    from ganreverser_tpu_torch.train.state import TrainState
+    bf = torch.bfloat16
+    G = zoo.create_G3(cs.DIMS, cs.NOISE_DIM, bf).to(dev)
+    G.load_state_dict(cs.make_calibrated_g(dev, n_batches=10).state_dict())
+    step = make_r_train_step(G, dtype=bf)
+    z = noise_inputs(seeded_generator(3, dev), cs.TRAIN_BATCH, cs.NOISE_DIM,
+                     "normal", device=dev)
+    for impl in ("kernel", "plain"):
+        R = modules.init_parameters(
+            zoo.create_R(cs.DIMS, cs.NOISE_DIM, "normal", dtype=bf,
+                         dropout_impl=impl),
+            torch.Generator().manual_seed(1)).to(dev)
+        modules.set_dropout_generator(
+            R, torch.Generator(device=dev).manual_seed(2))
+        ts = TrainState.create(R, adam())
+        for _ in range(3):
+            step(ts, z)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n_steps):
+                step(ts, z)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        log(f"[train {impl}] b{cs.TRAIN_BATCH} bf16: "
+            f"{wall_us / 1e3 / n_steps:.3f} ms/step over {n_steps} traced "
+            f"steps  [{card}]")
+        if not summarise_trace(prof, os.path.join(out_dir,
+                                                  f"trace_train_{impl}.json"),
+                               wall_us, f"train {impl}", log, card, top=15):
+            return False
+    return True
 
-    def log(line: str):
-        print(line)
-        out.write(line + "\n")
 
-    log(card)
+def profile_apply_r_sections(dev, log, card: str, out_dir: str) -> bool:
+    """The ``[e2e]``, ``[layer]``, ``[trace]``, ``[apply_r]`` and
+    ``[native]`` lines."""
     G, R, RF = cs.make_models(dev)
     gv = bridge.to_torch(bridge.export_variables(G), dev)
     rv = bridge.to_torch(bridge.export_variables(R), dev)
@@ -220,12 +283,12 @@ def main(argv=None) -> int:
         e2e()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    if not summarise_trace(prof, os.path.join(args.out,
+    if not summarise_trace(prof, os.path.join(out_dir,
                                               "trace_main_path.json"),
                            wall_us, "trace", log, card):
-        return 1
-    if not profile_apply_r(G, R, RF, log, card, args.out):
-        return 1
+        return False
+    if not profile_apply_r(G, R, RF, log, card, out_dir):
+        return False
 
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(device=dev).manual_seed(0)
@@ -255,6 +318,35 @@ def main(argv=None) -> int:
             return F.relu(F.conv2d(y, w, padding=1))
         log(f"[native] cuDNN bf16 {label} upsample+conv+relu (naive): "
             f"{cs.time_ms(up):.4f} ms  [{card}]")
+    return True
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default="build/profile",
+                    help="directory for profile.txt and the trace")
+    ap.add_argument("--what", choices=("all", "apply_r", "train"),
+                    default="all", help="the sections to run")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_port: needs a CUDA device", file=sys.stderr)
+        return 1
+    os.makedirs(args.out, exist_ok=True)
+    dev = torch.device("cuda", 0)
+    card = cs.card_line()
+    out = open(os.path.join(args.out, "profile.txt"), "w")
+
+    def log(line: str):
+        print(line)
+        out.write(line + "\n")
+
+    log(card)
+    if args.what != "train" and not profile_apply_r_sections(dev, log, card,
+                                                             args.out):
+        return 1
+    if args.what != "apply_r" and not profile_train(dev, log, card,
+                                                    args.out):
+        return 1
     out.close()
     return 0
 
