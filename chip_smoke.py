@@ -12,7 +12,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
 2. build the CUDA kernels of ganreverser_tpu_torch/csrc with nvcc;
 3. each kernel against its plain PyTorch version on the card at the shapes
    of the main path (N = 256, f32 and bf16, TF32 off for the plain f32
-   reference): max error against the stated tolerance, median times.
+   reference): max error against the stated tolerance, median times of the
+   kernel, its plain version and the one library call that computes the
+   same function (cuDNN's F.conv2d in channels-last for B, U and B6, the
+   epilogue, U's upsampling and the pools left out; torch.matmul of rows
+   normalised beforehand for C; none for K and B5), and the kernel's bound
+   (the larger of its operations over the card's peak for the inputs'
+   type and its bytes, each input read once and each output written once,
+   over the memory rate). Kernel B6 at D2's five conv + PReLU shapes, the
+   slope read from device memory (0.25, and -0.1 on one shape).
    Kernel B5 (dropout) at (256,64,64,64), (256,512) and (256,64,64,3), f32
    and bf16, seeds 12345 and -7: output and gradient bitwise equal to the
    plain version (tolerance 0);
@@ -45,10 +53,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
    by CUDA events with the kernel and with the plain masks (the median of
    40: two runs of 20 steps each, ordered kernel, plain, plain, kernel),
    and an f32 step that gives the same parameters with the process-wide
-   TF32 flags on and off (the backward runs under the precision pin).
+   TF32 flags on and off (the backward runs under the precision pin);
+6. adversarial training and sampling at full width: ``cli.train.main`` on
+   the synthetic faces at 3x64x64, noise 100, batch 256, bf16, 10 batches
+   per epoch (the depth cut from the default 30), 2 epochs saved each
+   epoch, then ``--network latest`` for a third. Each epoch's losses must
+   be finite and its confusion total 10 x 256; the resumed run must go on
+   at epoch 3 with the same visualisation noise, the checkpoint hold G and
+   D at step 30 and three rows of loss history, and every artifact exist.
+   B6 must launch 10 times per epoch (visualize_progress's two D forwards
+   of 5 layers) and kernel B's count must not move. Then
+   ``cli.sample.main --neighbours --neighbours_max 8192`` on that
+   checkpoint: its seven artifacts, B6 launched at least 5 times. Then the
+   fast D (B6) against the module D2 on 1,024 images with the kernels
+   amplified x3 (f32 1e-4, bf16 2e-2), the warm ms per batch pair (D step
+   + G step, b256 bf16 adam, the median of 20 by CUDA events) with the
+   peak device memory, and an f32 batch pair (b64, sgd) that gives the
+   same G and D parameters with the TF32 flags on and off.
 
 The last two lines are a JSON object with each kernel's route, source,
-launch count in the main path, error and times, and
+launch count in the main path, error, times and bound, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without a result when CUDA is absent or the package is not
 beside this file.
@@ -93,6 +117,24 @@ CALIBRATE_BATCHES = 50
 N_EVAL = 1024          # held-out latents of the evaluation MSE
 STEP_TIMES = 20        # steps timed per dropout impl
 TOL_PIN = 1e-5         # f32 step, TF32 flags on vs off, relative to scale
+# D2's five conv + PReLU layers at 3x64x64 without the batch: label, input
+# shape, output channels, PReLU slope, fused pool
+D2_B6_LAYERS = [
+    ("D2 stem l0 (64,64,3)->128", (64, 64, 3), 128, 0.25, False),
+    ("D2 stem l1 (64,64,128)->128+pool", (64, 64, 128), 128, 0.25, True),
+    ("D2 right l0 (32,32,128)->128+pool", (32, 32, 128), 128, -0.1, True),
+    ("D2 right l2 (16,16,128)->256", (16, 16, 128), 256, 0.25, False),
+    ("D2 right l3 (16,16,256)->256+pool", (16, 16, 256), 256, 0.25, True),
+]
+# fast D (kernel B6) vs the module D2, probabilities: f32 sums in another
+# order; in bf16 the module rounds after the bias and multiplies by a bf16
+# slope where B6 rounds once
+TOL_FAST_D = {"float32": 1e-4, "bfloat16": 2e-2}
+GAN_EPOCH_BATCHES = 10   # --N_epoch of phase 6 (depth; the default is 30)
+GAN_EPOCHS = 3           # two, then one more after --network latest
+N_SAMPLE_NEIGHBOURS = 8192
+N_FAST_D = 1024
+PAIR_TIMES = 20          # warm batch pairs timed
 
 
 class SmokeFailure(RuntimeError):
@@ -131,6 +173,24 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+# the card's published peaks (H100 SXM, dense) and memory rate, for the
+# least time a kernel's work could take (its bound)
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+MEM_BYTES_PER_S = 3.35e12
+
+
+def bound(flops: float, nbytes: float, dtype: str):
+    """(ms, "operations" or "bytes"): the larger of the operations over the
+    peak rate of the inputs' type and the bytes over the memory rate."""
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_mem = nbytes / MEM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def _conv_chain(gen, dev, chans):
     import torch
     ks, scs, shs = [], [], []
@@ -142,11 +202,29 @@ def _conv_chain(gen, dev, chans):
     return ks, scs, shs
 
 
-def kernel_cases(dev, n: int, n_search: int):
-    """(kernel, label, make(dtype) -> (kernel_fn, plain_fn)) at the main
-    path's shapes."""
+def _nchw_last(x, dtype):
+    """NHWC ``x`` as an NCHW channels-last tensor of ``dtype`` (cuDNN's
+    native layout for the library timings)."""
     import torch
+    return x.to(dtype).permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last)
+
+
+def _oihw_last(k, dtype):
+    import torch
+    return k.to(dtype).permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+
+
+def kernel_cases(dev, n: int, n_search: int):
+    """(kernel, label, make(dtype) -> case) at the main path's shapes; a
+    case holds the kernel's call, its plain version, the library call that
+    computes the same function (None where PyTorch has none), and the
+    operations and bytes of the function on these inputs."""
+    import torch
+    import torch.nn.functional as F
     from ganreverser_tpu_torch.ops import (conv_block_kernel as cb,
+                                           conv_kernel as ck,
                                            topk_kernel as tk,
                                            upsample_conv_kernel as uc)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -156,18 +234,33 @@ def kernel_cases(dev, n: int, n_search: int):
     def block(label, shape, chans):
         x0 = torch.rand(shape, device=dev, generator=gen)
         ks, scs, shs = _conv_chain(gen, dev, chans)
+        nb, hh, ww, _ = shape
 
         def make(dtype):
             x = x0.to(dtype)
-            return (lambda: cb.conv_block(x, ks, scs, shs, act="elu",
-                                          pool=True),
-                    lambda: cb.conv_block_plain(x, ks, scs, shs, act="elu",
-                                                pool=True))
+            xl = _nchw_last(x0, dtype)
+            wl = [_oihw_last(k, dtype) for k in ks]
+
+            def library():  # the three convs; epilogues and pool left out
+                y = xl
+                for wk in wl:
+                    y = F.conv2d(y, wk, padding=1)
+                return y
+            return {"kernel": lambda: cb.conv_block(x, ks, scs, shs,
+                                                    act="elu", pool=True),
+                    "plain": lambda: cb.conv_block_plain(x, ks, scs, shs,
+                                                         act="elu",
+                                                         pool=True),
+                    "library": library,
+                    "flops": sum(2 * nb * hh * ww * 9 * ci * co
+                                 for ci, co in zip(chans[:-1], chans[1:])),
+                    "bytes": (_nbytes(x, *ks, *scs, *shs) + nb * hh * ww
+                              // 4 * chans[-1] * x.element_size())}
         cases.append(("conv_block", label, make))
 
     def upsample(label, shape, co):
         x0 = torch.rand(shape, device=dev, generator=gen)
-        ci = shape[-1]
+        nb, hh, ww, ci = shape
         k = torch.randn(3, 3, ci, co, device=dev, generator=gen) / math.sqrt(
             9 * ci)
         sc = 0.5 + torch.rand(co, device=dev, generator=gen)
@@ -175,10 +268,20 @@ def kernel_cases(dev, n: int, n_search: int):
 
         def make(dtype):
             x = x0.to(dtype)
-            return (lambda: uc.upsample2_conv3x3_bn_act(x, k, sc, sh,
-                                                        act="relu"),
-                    lambda: uc.upsample2_conv3x3_bn_act_plain(x, k, sc, sh,
-                                                              act="relu"))
+            # the input upsampled beforehand: the call times the 3x3 conv at
+            # the output's resolution; epilogue left out
+            xl = _nchw_last(x0.repeat_interleave(2, 1).repeat_interleave(2, 2),
+                            dtype)
+            wl = _oihw_last(k, dtype)
+            return {"kernel": lambda: uc.upsample2_conv3x3_bn_act(
+                        x, k, sc, sh, act="relu"),
+                    "plain": lambda: uc.upsample2_conv3x3_bn_act_plain(
+                        x, k, sc, sh, act="relu"),
+                    "library": lambda: F.conv2d(xl, wl, padding=1),
+                    # four effective taps per output phase
+                    "flops": 2 * nb * (2 * hh) * (2 * ww) * 4 * ci * co,
+                    "bytes": (_nbytes(x, k, sc, sh)
+                              + nb * 4 * hh * ww * co * x.element_size())}
         cases.append(("upsample2_conv3x3_bn_act", label, make))
 
     def search(label, d, positive):
@@ -187,12 +290,46 @@ def kernel_cases(dev, n: int, n_search: int):
             e0 = torch.sigmoid(e0)
         idx = torch.tensor([(i + 1) * 100 - 1 for i in range(NEEDLES)],
                            device=dev)
+        en = e0 / e0.norm(dim=1, keepdim=True)
+        qn = en[idx]
 
         def make(dtype):
             e = e0.to(dtype)
-            return (lambda: tk.cosine_scores(e, idx),
-                    lambda: tk.cosine_scores_plain(e, idx))
+            return {"kernel": lambda: tk.cosine_scores(e, idx),
+                    "plain": lambda: tk.cosine_scores_plain(e, idx),
+                    # one product of rows normalised beforehand
+                    "library": lambda: torch.matmul(qn, en.T),
+                    "flops": 2 * NEEDLES * n_search * d + 2 * n_search * d,
+                    "bytes": (_nbytes(e, idx)
+                              + NEEDLES * n_search * 4)}
         cases.append(("cosine_scores", label, make))
+
+    def conv_prelu(label, shape, co, alpha, pool):
+        x0 = torch.rand(shape, device=dev, generator=gen)
+        nb, hh, ww, ci = shape
+        k = torch.randn(3, 3, ci, co, device=dev, generator=gen) / math.sqrt(
+            9 * ci)
+        ones = torch.ones(co, device=dev)
+        bias = 0.1 * torch.randn(co, device=dev, generator=gen)
+        a = torch.tensor([alpha], device=dev)  # read from device memory
+        oh, ow = (hh // 2, ww // 2) if pool else (hh, ww)
+
+        def make(dtype):
+            x = x0.to(dtype)
+            xl = _nchw_last(x0, dtype)
+            wl = _oihw_last(k, dtype)
+            return {"kernel": lambda: ck.conv3x3_bn_act(
+                        x, k, ones, bias, act="prelu", prelu_alpha=a,
+                        pool=pool),
+                    "plain": lambda: ck.conv3x3_bn_act_plain(
+                        x, k, ones, bias, act="prelu", prelu_alpha=a,
+                        pool=pool),
+                    # the convolution alone: bias, PReLU and pool left out
+                    "library": lambda: F.conv2d(xl, wl, padding=1),
+                    "flops": 2 * nb * hh * ww * 9 * ci * co,
+                    "bytes": (_nbytes(x, k, ones, bias, a)
+                              + nb * oh * ow * co * x.element_size())}
+        cases.append(("conv3x3_bn_act", label, make))
 
     block(f"R block 1 ({n},{h},{w},{c})->64x3+pool", (n, h, w, c),
           [c, 64, 64, 64])
@@ -205,12 +342,17 @@ def kernel_cases(dev, n: int, n_search: int):
     search(f"attributes ({n_search},{NOISE_DIM}) x {NEEDLES}", NOISE_DIM,
            False)
     search(f"pixels ({n_search},{c * h * w}) x {NEEDLES}", c * h * w, True)
+    # D2's five conv + PReLU layers (stem l0, l1+pool; right branch
+    # l0+pool, l2, l3+pool), one with a negative slope
+    for label, shape, co, alpha, pool in D2_B6_LAYERS:
+        conv_prelu(label, (n,) + shape, co, alpha, pool)
     return cases
 
 
 def check_kernels(dev, card: str, n: int = N_CHECK, n_search: int = N_MAIN):
     """Phase 3: every kernel against its plain version; returns one record
-    per (kernel, shape, dtype)."""
+    per (kernel, shape, dtype) with the times of the kernel, its plain
+    version and the library call, and the kernel's bound."""
     import torch
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -218,7 +360,8 @@ def check_kernels(dev, card: str, n: int = N_CHECK, n_search: int = N_MAIN):
     for name, label, make in kernel_cases(dev, n, n_search):
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[-1]
-            kern, plain = make(dtype)
+            case = make(dtype)
+            kern, plain = case["kernel"], case["plain"]
             out = kern()
             if dev.type == "cuda":
                 torch.cuda.synchronize()
@@ -234,14 +377,18 @@ def check_kernels(dev, card: str, n: int = N_CHECK, n_search: int = N_MAIN):
                    else TOL[dname] * scale)
             del out, ref
             ms, plain_ms = time_ms(kern), time_ms(plain)
+            lib_ms = time_ms(case["library"])
+            b_ms, b_by = bound(case["flops"], case["bytes"], dname)
             print(f"[kernel] {name} {label} {dname}: max_abs_err {err:.3e} "
                   f"(tol {tol:.1e}), kernel {ms:.4f} ms, plain {plain_ms:.4f}"
-                  f" ms  [{card}]")
+                  f" ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+                  f"({b_by})  [{card}]")
             check(err <= tol, f"{name} {label} {dname}: max_abs_err {err} "
                   f"> tol {tol}")
             records.append({"name": name, "label": label, "dtype": dname,
                             "max_abs_err": err, "ms": ms,
-                            "plain_ms": plain_ms})
+                            "plain_ms": plain_ms, "library_ms": lib_ms,
+                            "bound_ms": b_ms, "bound_by": b_by})
     return records
 
 
@@ -305,9 +452,13 @@ def check_kmeans(dev, card: str, n: int = N_MAIN):
           f"an empty cluster: sums max_abs_err {err_r:.3e} (tol {tol_r:.1e}), "
           f"{flipped_r} "
           f"near-tie rows  [{card}]")
+    b_ms, b_by = bound(2 * n * KMEANS_K * NOISE_DIM + n * NOISE_DIM,
+                       4 * (n * NOISE_DIM + 2 * KMEANS_K * NOISE_DIM
+                            + KMEANS_K), "float32")
     return {"name": "kmeans_step", "label": f"({n},{NOISE_DIM}) K={KMEANS_K}",
             "dtype": "float32", "max_abs_err": max(err, err_r), "ms": ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms,
+            "bound_by": b_by}
 
 
 def make_models(dev, dims=DIMS, noise_dim=NOISE_DIM):
@@ -557,9 +708,13 @@ def check_dropout(dev, card: str):
     print(f"[kernel] fused_dropout, one R step's six forwards (b256 bf16): "
           f"kernel {ms:.4f} ms, plain hash {plain_ms:.4f} ms, plain "
           f"Bernoulli mask + where {mask_ms:.4f} ms  [{card}]")
+    # one read and one write of each bf16 input, one multiply per element
+    elems = sum(math.prod(sh) for sh in DROPOUT_STEP_SHAPES)
+    b_ms, b_by = bound(elems, 4 * elems, "bfloat16")
     return {"name": "fused_dropout", "label": "one R step's six dropouts",
             "dtype": "bfloat16", "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms,
+            "bound_by": b_by}
 
 
 def make_calibrated_g(dev, dims=DIMS, noise_dim=NOISE_DIM,
@@ -775,6 +930,243 @@ def check_training(dev, card: str, tmp: str):
     return sum(runs)
 
 
+def make_d2(dev, dims=DIMS, dtype=None, amplify: float = 3.0):
+    """A random D2 in ``dtype`` (f32 by default) whose conv and dense
+    kernels are amplified (random-init D2 outputs sit at 0.5) and whose
+    biases are small and random."""
+    import torch
+    from ganreverser_tpu_torch.models import modules, zoo
+    gen = torch.Generator().manual_seed(SEED + 14)
+    D = modules.init_parameters(zoo.create_D(dims, dtype or torch.float32),
+                                gen)
+    with torch.no_grad():
+        for name, prm in D.named_parameters():
+            if name.endswith("kernel"):
+                prm.mul_(amplify)
+            elif name.endswith("bias"):
+                prm.copy_(0.1 * torch.randn(prm.shape, generator=gen))
+    return D.to(dev)
+
+
+def fast_d_error(dev, dtype, n: int = N_FAST_D, dims=DIMS,
+                 launches: int = 5) -> float:
+    """D2's fast evaluation forward (kernel B6) against the module D2 on
+    the same amplified weights and ``n`` random images; B6 must launch
+    ``launches`` times. Returns the largest probability difference
+    relative to max(1, max |module|)."""
+    import torch
+    from ganreverser_tpu_torch.models import bridge, fastpath
+    from ganreverser_tpu_torch.ops import conv_kernel
+    D = make_d2(dev, dims, dtype)
+    c, h, w = dims
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    x = torch.rand(n, h, w, c, device=dev, generator=gen)
+    rate = fastpath.make_fast_discriminator(dims, dtype)
+    with torch.no_grad():
+        before = conv_kernel.conv3x3_bn_act.launches
+        fast = rate(bridge.module_variables(D), x)
+        torch.cuda.synchronize()
+        got = conv_kernel.conv3x3_bn_act.launches - before
+        ref = D.eval()(x)
+    check(got == launches, f"fast D launched B6 {got} times, not {launches}")
+    check(fast.shape == ref.shape == (n, 1) and fast.dtype == ref.dtype,
+          f"fast D {tuple(fast.shape)} {fast.dtype} vs module "
+          f"{tuple(ref.shape)} {ref.dtype}")
+    ref = ref.float()
+    check(bool(((ref > 0.05) & (ref < 0.95)).any()),
+          "amplified D2's probabilities are all saturated")
+    return ((fast.float() - ref).abs().max().item()
+            / max(1.0, ref.abs().max().item()))
+
+
+def make_gan(dev, dtype, opt, dims=DIMS, noise_dim=NOISE_DIM):
+    """A GanState of random G3 and D2 in ``dtype`` with ``opt``, D's
+    dropouts drawing from a seeded generator on the card."""
+    import torch
+    from ganreverser_tpu_torch.models import modules, zoo
+    from ganreverser_tpu_torch.train.state import GanState, TrainState
+    gen = torch.Generator().manual_seed(SEED + 15)
+    G = modules.init_parameters(zoo.create_G(dims, noise_dim, dtype), gen)
+    D = modules.init_parameters(zoo.create_D(dims, dtype), gen)
+    modules.set_dropout_generator(
+        D.to(dev), torch.Generator(device=dev).manual_seed(SEED + 17))
+    return GanState(g=TrainState.create(G.to(dev), opt),
+                    d=TrainState.create(D, opt))
+
+
+def _gan_batches(dev, batch: int, n: int, dims=DIMS,
+                 noise_dim=NOISE_DIM):
+    """``n`` (real half, D's latents, G's latents) triples on the card: the
+    real halves are synthetic faces (data/synthetic.py)."""
+    import numpy as np
+    import torch
+    from ganreverser_tpu_torch.data.synthetic import synthetic_faces
+    c, h, w = dims
+    faces = synthetic_faces(n * batch // 2, h, w,
+                            np.random.default_rng(SEED))[..., :c]
+    reals = torch.from_numpy(faces).to(dev).reshape(n, batch // 2, h, w, c)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    return [(reals[i],
+             torch.randn(batch // 2, noise_dim, device=dev, generator=gen),
+             torch.randn(batch, noise_dim, device=dev, generator=gen))
+            for i in range(n)]
+
+
+def pair_times(dev, batch: int = TRAIN_BATCH):
+    """Warm ms per batch pair (one D step + one G step) at ``batch``, bf16,
+    adam: PAIR_TIMES pairs by CUDA events after 3 warm-up pairs. Returns
+    (times, peak device memory in bytes over the timed pairs)."""
+    import torch
+    from ganreverser_tpu_torch.optim import adam
+    from ganreverser_tpu_torch.train.adversarial import (
+        Confusion, make_adversarial_steps)
+    bf16 = torch.bfloat16
+    gs = make_gan(dev, bf16, adam())
+    d_step, g_step = make_adversarial_steps(dtype=bf16)
+    confusion = Confusion.zero(dev)
+    batches = _gan_batches(dev, batch, 4)
+    for real, zd, zg in batches[:3]:
+        d_step(gs, real, zd, confusion)
+        g_step(gs, zg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for i in range(PAIR_TIMES):
+        real, zd, zg = batches[i % 4]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        d_step(gs, real, zd, confusion)
+        g_step(gs, zg)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return times, torch.cuda.max_memory_allocated(dev)
+
+
+def gan_pin_error(dev, batch: int = 64) -> float:
+    """One f32 batch pair (sgd, lr 0.1: the update is linear in the
+    gradient, so a TF32 forward or backward would show) with the
+    process-wide TF32 flags on, then off, from the same weights, data,
+    latents and dropout masks; returns the largest G or D parameter
+    difference relative to max(1, max |param|)."""
+    import torch
+    from ganreverser_tpu_torch.optim import sgd
+    from ganreverser_tpu_torch.train.adversarial import (
+        Confusion, make_adversarial_steps)
+    f32 = torch.float32
+    real, zd, zg = _gan_batches(dev, batch, 1)[0]
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    params = []
+    try:
+        for tf32 in (True, False):
+            torch.backends.cudnn.allow_tf32 = tf32
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            opt = sgd(lr=0.1)
+            gs = make_gan(dev, f32, opt)
+            d_step, g_step = make_adversarial_steps(
+                dtype=f32, d_optimizer=opt, g_optimizer=opt)
+            d_step(gs, real, zd, Confusion.zero(dev))
+            g_step(gs, zg)
+            check(torch.backends.cudnn.allow_tf32 == tf32,
+                  "the GAN steps left the TF32 flags changed")
+            params.append([q.detach().clone() for m in (gs.g, gs.d)
+                           for q in m.module.parameters()])
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved[0]
+        torch.backends.cuda.matmul.allow_tf32 = saved[1]
+    return max((a - b).abs().max().item() / max(1.0, b.abs().max().item())
+               for a, b in zip(*params))
+
+
+def check_gan(dev, card: str, tmp: str):
+    """Phase 6: adversarial training and sampling at full width through
+    cli.train.main and cli.sample.main (see the module docstring). Returns
+    B6's launches in the two train runs and in the sample run."""
+    import torch
+    from ganreverser_tpu_torch.cli import sample, train
+    from ganreverser_tpu_torch.io import checkpoint as ckpt
+    from ganreverser_tpu_torch.ops import conv_kernel
+    c, h, w = DIMS
+    save = os.path.join(tmp, "gan")
+    base = ["--dataset", "synthetic", "--save", save, "--height", str(h),
+            "--width", str(w), "--noiseDim", str(NOISE_DIM), "--batchSize",
+            str(TRAIN_BATCH), "--compute_dtype", "bfloat16", "--N_epoch",
+            str(GAN_EPOCH_BATCHES), "--saveFreq", "1"]
+    per_epoch = 2 * 5  # visualize_progress: two D forwards of 5 B6 layers
+    runs = []
+    for extra, epochs in ((["--epochs", "2"], [1, 2]),
+                          (["--epochs", "3", "--network", "latest"], [3])):
+        conv_kernel.conv3x3_bn_act.launches = 0
+        t0 = time.perf_counter()
+        out = train.main(base + extra)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n = conv_kernel.conv3x3_bn_act.launches
+        runs.append((out, n, secs))
+        check(n == per_epoch * len(epochs),
+              f"train {extra}: B6 launched {n} times, expected "
+              f"{per_epoch} x {len(epochs)} epochs")
+        check([r["epoch"] for r in out["epochs"]] == epochs,
+              f"train {extra}: epochs {[r['epoch'] for r in out['epochs']]}")
+        for r in out["epochs"]:
+            total = sum(map(sum, r["counts"]))
+            check(total == GAN_EPOCH_BATCHES * TRAIN_BATCH,
+                  f"epoch {r['epoch']}: confusion total {total}")
+            losses = r["d_losses"] + r["g_losses"]
+            check(len(losses) == 2 * GAN_EPOCH_BATCHES
+                  and all(map(math.isfinite, losses)),
+                  f"epoch {r['epoch']}: {len(losses)} losses or a "
+                  "non-finite one")
+        print(f"[gan] train {' '.join(extra)}: {secs:.2f} s, B6 launches {n}"
+              f"; epochs " + "; ".join(
+                  f"{r['epoch']}: d {statistics.mean(r['d_losses']):.4f} "
+                  f"g {statistics.mean(r['g_losses']):.4f} "
+                  f"counts {r['counts']}" for r in out["epochs"])
+              + f"  [{card}]")
+    (first, _, _), (second, _, _) = runs
+    check(torch.equal(first["vis_noise"], second["vis_noise"]),
+          "the resumed run has another visualisation noise")
+    path = ckpt.adversarial_name(save)
+    tree, _, extra = ckpt.load_checkpoint(path)
+    rows = [row[0] for row in extra["plot_data"]]
+    steps = (int(tree["G"]["step"]), int(tree["D"]["step"]))
+    check(extra["epoch"] == 3 and rows == [1, 2, 3]
+          and steps == (3 * GAN_EPOCH_BATCHES,) * 2,
+          f"checkpoint: epoch {extra['epoch']}, plot_data {rows}, "
+          f"G/D steps {steps}")
+    names = ["events.jsonl", "adversarial/manifest.json",
+             "images/plot_loss.png"]
+    names += [f"images/{tag}_{e:06d}.png" for e in (1, 2, 3)
+              for tag in ("samples", "best", "worst")]
+    for name in names:
+        check(os.path.exists(os.path.join(save, name)), f"missing {name}")
+
+    out_dir = os.path.join(tmp, "samples")
+    conv_kernel.conv3x3_bn_act.launches = 0
+    t0 = time.perf_counter()
+    sampled = sample.main(["--network", path, "--writeto", out_dir,
+                           "--dataset", "synthetic", "--neighbours",
+                           "--neighbours_max", str(N_SAMPLE_NEIGHBOURS),
+                           "--compute_dtype", "bfloat16"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n_sample = conv_kernel.conv3x3_bn_act.launches
+    check(n_sample >= 5, f"sample: B6 launched {n_sample} times")
+    for name in ("trainset", "samples_256", "samples_1024", "best_64",
+                 "worst_64", "random_64", "neighbours"):
+        check(os.path.isfile(os.path.join(out_dir, name + ".jpg")),
+              f"sample: missing {name}.jpg")
+    check(bool(torch.isfinite(torch.from_numpy(sampled["preds"])).all()),
+          "sample: non-finite scores")
+    print(f"[gan] sample 1,024 images, --neighbours over "
+          f"{N_SAMPLE_NEIGHBOURS}: {secs:.2f} s, B6 launches {n_sample}; "
+          f"checkpoint epoch 3, plot_data epochs {rows}, G/D steps {steps}"
+          f"  [{card}]")
+    return runs[0][1] + runs[1][1], n_sample
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -787,6 +1179,7 @@ def main() -> int:
         print(f"chip_smoke: the port is not importable ({e}); run from the "
               "root of a checkout", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     os.environ["GANREVERSER_PLATFORM"] = "gpu"
@@ -852,6 +1245,37 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         launches["fused_dropout"] = check_training(dev, card, tmp)
 
+    # 6. adversarial training and sampling at full width
+    t6 = time.perf_counter()
+    b_before = kernel_counters()["conv_block"].launches
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        n_train, n_sample = check_gan(dev, card, tmp)
+    check(kernel_counters()["conv_block"].launches == b_before,
+          "phase 6 moved kernel B's count")
+    launches["conv3x3_bn_act"] = n_train + n_sample
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        err = fast_d_error(dev, dtype)
+        check(err <= TOL_FAST_D[dname], f"fast D vs module D {dname}: {err} "
+              f"> {TOL_FAST_D[dname]}")
+        print(f"[gan] fast D (B6) vs module D2, {N_FAST_D} images, kernels "
+              f"x3, {dname}: max prob error {err:.3e} (tol "
+              f"{TOL_FAST_D[dname]:.0e})  [{card}]")
+    times, peak = pair_times(dev)
+    print(f"[gan] ms per batch pair (D step + G step), warm, b{TRAIN_BATCH} "
+          f"bf16 adam, median of {len(times)} by CUDA events: "
+          f"{statistics.median(times):.3f} ms (min {min(times):.3f}, max "
+          f"{max(times):.3f}); peak device memory "
+          f"{peak / 2 ** 30:.2f} GiB  [{card}]")
+    err = gan_pin_error(dev)
+    check(err <= TOL_PIN, f"f32 batch pair differs with TF32 on vs off by "
+          f"{err} > {TOL_PIN}")
+    print(f"[gan] f32 batch pair (b64, sgd), TF32 flags on vs off: G and D "
+          f"parameters within {err:.3e} of scale (tol {TOL_PIN:.0e})  "
+          f"[{card}]")
+    print(f"[time] phase 6 {time.perf_counter() - t6:.1f} s, the whole run "
+          f"{time.perf_counter() - t_start:.1f} s  [{card}]")
+
     sources = {"conv_block": ("ganreverser_tpu_torch/csrc/conv_block.cu",
                               "ganreverser_tpu/ops/conv_block_kernel.py:86"),
                "upsample2_conv3x3_bn_act": (
@@ -862,19 +1286,26 @@ def main() -> int:
                "kmeans_step": ("ganreverser_tpu_torch/csrc/kmeans.cu",
                                "ganreverser_tpu/ops/kmeans_kernel.py:97"),
                "fused_dropout": ("ganreverser_tpu_torch/csrc/dropout.cu",
-                                 "ganreverser_tpu/ops/dropout_kernel.py:70")}
+                                 "ganreverser_tpu/ops/dropout_kernel.py:70"),
+               "conv3x3_bn_act": ("ganreverser_tpu_torch/csrc/conv_block.cu",
+                                  "ganreverser_tpu/ops/conv_kernel.py:87")}
     kernels = []
     for name, (source, replaces) in sources.items():
         # the main path's dtype (bf16; kmeans runs in f32), summed over the
-        # path's shapes; B5's launches are those of the three train_r runs
+        # path's shapes; B5's launches are those of the three train_r runs,
+        # B6's those of the two train runs and the sample run
         recs = [r for r in records if r["name"] == name and r["dtype"] == (
             "float32" if name == "kmeans_step" else "bfloat16")]
+        libs = [r["library_ms"] for r in recs]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": sum(r["ms"] for r in recs),
-            "plain_ms": sum(r["plain_ms"] for r in recs)})
+            "plain_ms": sum(r["plain_ms"] for r in recs),
+            "bound_ms": sum(r["bound_ms"] for r in recs),
+            "bound_by": max(recs, key=lambda r: r["bound_ms"])["bound_by"],
+            "library_ms": None if None in libs else sum(libs)})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,20 @@
-"""Shared CLI glue: device selection, compute dtype, train state <->
-checkpoint tree, host images for artifacts."""
+"""Shared CLI glue: device selection, compute dtype, models and train
+states <-> checkpoint trees, the dataset, host images for artifacts."""
 from __future__ import annotations
 
 import os
+import sys
 
 import numpy as np
 import torch
 
+from ..core.prng import INIT_STAGE, stage_generator
 from ..data.colorspace import to_rgb
-from ..models import bridge
-from ..optim import Optimizer
-from ..train.state import TrainState
+from ..data.dataset import Dataset
+from ..models import bridge, zoo
+from ..models.modules import init_parameters
+from ..optim import Optimizer, make_optimizer
+from ..train.state import GanState, TrainState
 
 
 def resolve_device() -> torch.device:
@@ -68,6 +72,63 @@ def ts_from_tree(tree: dict, module: torch.nn.Module, opt: Optimizer,
             opt_state[k] = bridge.to_torch(tree["opt_state"][k], device)
     return TrainState(module=module, opt_state=opt_state,
                       step=int(tree["step"]))
+
+
+def gan_optimizers(cfg) -> tuple:
+    """(G's, D's) optimizers from the flags (adversarial.lua:147-188)."""
+    return (make_optimizer(cfg.G_optmethod, sgd_lr=cfg.G_sgd_lr,
+                           sgd_momentum=cfg.G_sgd_momentum),
+            make_optimizer(cfg.D_optmethod, sgd_lr=cfg.D_sgd_lr,
+                           sgd_momentum=cfg.D_sgd_momentum))
+
+
+def build_gan_models(cfg, dtype: torch.dtype):
+    """(G3, D2, dims) for the flags' geometry, weights zero, in
+    evaluation."""
+    dims = cfg.img_dims()
+    return (zoo.create_G(dims, cfg.noiseDim, dtype),
+            zoo.create_D(dims, dtype, getattr(cfg, "init", "heuristic")),
+            dims)
+
+
+def init_gan_state(cfg, G, D, device: torch.device) -> GanState:
+    """G and D with fresh 'heuristic' weights (G's drawn first, then D's,
+    from the init stage of ``--seed``, on the CPU) and fresh optimizer
+    states, on ``device``."""
+    gen = stage_generator(cfg.seed, INIT_STAGE, "cpu")
+    g_opt, d_opt = gan_optimizers(cfg)
+    return GanState(
+        g=TrainState.create(init_parameters(G, gen).to(device), g_opt),
+        d=TrainState.create(init_parameters(D, gen).to(device), d_opt))
+
+
+def gan_to_tree(gs: GanState, extra_arrays: dict | None = None) -> dict:
+    """The JAX package's G/D checkpoint tree, ``{"G", "D"}`` train-state
+    trees plus ``extra_arrays`` (``vis_noise_inputs``)."""
+    tree = {"G": ts_to_tree(gs.g), "D": ts_to_tree(gs.d)}
+    if extra_arrays:
+        tree.update({k: bridge.leaf_array(v) for k, v in extra_arrays.items()})
+    return tree
+
+
+def gan_from_tree(tree: dict, G, D, g_opt: Optimizer, d_opt: Optimizer,
+                  device: torch.device) -> GanState:
+    """The inverse: ``tree["G"]``/``tree["D"]`` into the modules and the
+    optimizers' states on ``device``."""
+    return GanState(g=ts_from_tree(tree["G"], G, g_opt, device),
+                    d=ts_from_tree(tree["D"], D, d_opt, device))
+
+
+def make_dataset(cfg) -> Dataset:
+    """The flags' dataset; the numpy stream is seeded ``--seed`` (+ 7919 per
+    process rank in the JAX package; the port runs one process)."""
+    if cfg.dataset == "NONE":
+        sys.exit("--dataset is required (a directory of *.jpg images, or "
+                 "'synthetic' for the built-in procedural faces)")
+    return Dataset([cfg.dataset], height=cfg.height, width=cfg.width,
+                   colorspace=cfg.colorSpace, seed=cfg.seed,
+                   decode_draft=not getattr(cfg, "exact_decode", False),
+                   cache_dir=getattr(cfg, "decode_cache", "") or None)
 
 
 def to_nhwc_rgb(images: torch.Tensor, colorspace: str) -> np.ndarray:

@@ -34,9 +34,11 @@ def stage_generator(seed: int, stage: int,
     return seeded_generator(stage_seed(seed, stage), device)
 
 
-# the stages of a training run (train_r): R's initial weights (drawn on the
-# CPU), the latents of the training batches, the dropout masks or seeds, and
-# the latents and fixer masks of the previews
+# the stages of a training run (train_r, train): the initial weights (drawn
+# on the CPU; train draws G's, then D's), the latents of the training steps
+# (train: D's fake halves and G's batches, in step order), the dropout
+# masks or seeds (R's; D's), and the latents and fixer masks of the previews
+# (train: the fixed visualisation noise)
 INIT_STAGE, NOISE_STAGE, DROPOUT_STAGE, PREVIEW_STAGE = 1, 2, 5, 7
 
 

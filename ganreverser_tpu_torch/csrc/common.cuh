@@ -11,7 +11,13 @@ namespace gr {
 enum DType { DT_F32 = 0, DT_BF16 = 1 };
 
 // activation codes (ops/cuda_lib.py::ACT_CODES)
-enum Act { ACT_NONE = 0, ACT_RELU = 1, ACT_ELU = 2, ACT_SIGMOID = 3 };
+enum Act {
+  ACT_NONE = 0,
+  ACT_RELU = 1,
+  ACT_ELU = 2,
+  ACT_SIGMOID = 3,
+  ACT_PRELU = 4
+};
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T v);
@@ -36,7 +42,9 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
-__device__ __forceinline__ float apply_act(float y, int act) {
+// ``alpha`` is the PReLU slope, read only for ACT_PRELU
+__device__ __forceinline__ float apply_act(float y, int act,
+                                           float alpha = 0.0f) {
   switch (act) {
     case ACT_RELU:
       return fmaxf(y, 0.0f);
@@ -45,6 +53,9 @@ __device__ __forceinline__ float apply_act(float y, int act) {
       return y > 0.0f ? y : expf(fminf(y, 0.0f)) - 1.0f;
     case ACT_SIGMOID:
       return 1.0f / (1.0f + expf(-y));
+    case ACT_PRELU:
+      // nn.PReLU's one shared slope, the TPU kernel's where(y >= 0, y, a y)
+      return y >= 0.0f ? y : alpha * y;
     default:
       return y;
   }

@@ -1,8 +1,8 @@
-// Kernel B: one layer of R's conv block, a 3x3 SAME conv with the folded
-// eval-BatchNorm scale/shift and an activation in the epilogue, optionally
-// followed by the block's 2x2 maxpool, fused into the same epilogue.
+// Kernels B and B6: one 3x3 SAME conv with a per-channel f32 scale/shift and
+// an activation in the epilogue, optionally followed by a 2x2 maxpool fused
+// into the same epilogue.
 //
-// Replaces ganreverser_tpu/ops/conv_block_kernel.py::conv_block
+// B replaces ganreverser_tpu/ops/conv_block_kernel.py::conv_block
 // (_make_kernel), which keeps whole images of a three-layer chain in VMEM.
 // On this card a 64x64x64 f32 accumulator alone (1 MB) and stage 2's
 // 9x128x128 weights (295 KB in bf16) exceed the 227 KB of shared memory a
@@ -10,13 +10,19 @@
 // conv_block_kernel.py::conv_block launches them in order) and each launch
 // tiles space and streams weight slices over Ci (conv_tile.cuh).
 //
-// What bounds it: FMA issue. Per output pixel a layer does 9*Ci*Co MACs on
-// Ci + Co values of traffic, far above the card's ridge point, and this
-// first version runs them on the CUDA cores (f32 FMA, 4x4 outputs per
+// B6 replaces ganreverser_tpu/ops/conv_kernel.py::conv3x3_bn_act, the
+// single-layer kernel with the PReLU epilogue (D2's conv + PReLU + pool
+// block): the same launch with act = ACT_PRELU, whose one shared slope is
+// read from device memory (a pointer to one f32), so a learned slope never
+// waits for the host (ops/conv_kernel.py::conv3x3_bn_act).
+//
+// What bounds both: FMA throughput. Per output pixel a layer does 9*Ci*Co
+// MACs on Ci + Co values of traffic, far above the card's ridge point, and
+// this first version runs them on the CUDA cores (f32 FMA, 4x4 outputs per
 // thread from shared memory) rather than the tensor cores. The
-// intermediates between layers round-trip device memory in the storage
-// type (rounded as the TPU kernel rounds them); the pool in the last
-// layer's epilogue writes a quarter of the pixels.
+// intermediates between B's layers round-trip device memory in the storage
+// type (rounded as the TPU kernel rounds them); the pool in the epilogue
+// writes a quarter of the pixels.
 #include "conv_tile.cuh"
 
 namespace gr {
@@ -62,8 +68,10 @@ template <typename T, bool kPool>
 __global__ void __launch_bounds__(kThreads)
     conv3x3_bn_act_kernel(const T* __restrict__ x, const T* __restrict__ w9,
                           const float* __restrict__ scale,
-                          const float* __restrict__ shift, T* __restrict__ out,
+                          const float* __restrict__ shift,
+                          const float* __restrict__ alpha, T* __restrict__ out,
                           int N, int H, int W, int Ci, int Co, int act) {
+  const float slope = act == ACT_PRELU ? *alpha : 0.0f;
   const long long rows = static_cast<long long>(N) * H * W;
   const long long m0 = static_cast<long long>(blockIdx.x) * kBM;
   const int co0 = blockIdx.y * kBN;
@@ -90,17 +98,17 @@ __global__ void __launch_bounds__(kThreads)
     if (kPool) {
       // rows % 4 == 0, so the whole window is valid with its first row;
       // rounding is monotone, so max-then-round == round-then-max
-      float y = apply_act(fmaf(acc[0][c], sc, sh), act);
+      float y = apply_act(fmaf(acc[0][c], sc, sh), act, slope);
 #pragma unroll
       for (int r = 1; r < kTM; ++r)
-        y = fmaxf(y, apply_act(fmaf(acc[r][c], sc, sh), act));
+        y = fmaxf(y, apply_act(fmaf(acc[r][c], sc, sh), act, slope));
       out[(mr >> 2) * Co + co] = from_f32<T>(y);
     } else {
 #pragma unroll
       for (int r = 0; r < kTM; ++r) {
         if (mr + r < rows)
           out[(mr + r) * Co + co] =
-              from_f32<T>(apply_act(fmaf(acc[r][c], sc, sh), act));
+              from_f32<T>(apply_act(fmaf(acc[r][c], sc, sh), act, slope));
       }
     }
   }
@@ -108,40 +116,48 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T, bool kPool>
 static void launch(const void* x, const void* w9, const void* scale,
-                   const void* shift, void* out, int n, int h, int w, int ci,
-                   int co, int act, cudaStream_t stream) {
+                   const void* shift, const void* alpha, void* out, int n,
+                   int h, int w, int ci, int co, int act,
+                   cudaStream_t stream) {
   const long long rows = static_cast<long long>(n) * h * w;
   const dim3 grid(static_cast<unsigned>((rows + kBM - 1) / kBM),
                   static_cast<unsigned>((co + kBN - 1) / kBN), 1);
   conv3x3_bn_act_kernel<T, kPool><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w9),
       static_cast<const float*>(scale), static_cast<const float*>(shift),
-      static_cast<T*>(out), n, h, w, ci, co, act);
+      static_cast<const float*>(alpha), static_cast<T*>(out), n, h, w, ci, co,
+      act);
 }
 
 }  // namespace gr
 
 // x (N,H,W,Ci) and w9 (9,Ci,Co) in the storage type, scale/shift (Co,) f32,
+// alpha one f32 (read with act = ACT_PRELU only; may be null otherwise),
 // out (N,H,W,Co) or, with pool, (N,H/2,W/2,Co) in the storage type.
 extern "C" int gr_conv3x3_bn_act(int dtype, const void* x, const void* w9,
                                  const void* scale, const void* shift,
-                                 void* out, int n, int h, int w, int ci,
-                                 int co, int act, int pool, void* stream) {
+                                 const void* alpha, void* out, int n, int h,
+                                 int w, int ci, int co, int act, int pool,
+                                 void* stream) {
   using namespace gr;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (pool && (h % 2 || w % 2)) return static_cast<int>(cudaErrorInvalidValue);
+  if (act == ACT_PRELU && alpha == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == DT_F32) {
     if (pool)
-      launch<float, true>(x, w9, scale, shift, out, n, h, w, ci, co, act, s);
+      launch<float, true>(x, w9, scale, shift, alpha, out, n, h, w, ci, co,
+                          act, s);
     else
-      launch<float, false>(x, w9, scale, shift, out, n, h, w, ci, co, act, s);
+      launch<float, false>(x, w9, scale, shift, alpha, out, n, h, w, ci, co,
+                           act, s);
   } else if (dtype == DT_BF16) {
     if (pool)
-      launch<__nv_bfloat16, true>(x, w9, scale, shift, out, n, h, w, ci, co,
-                                  act, s);
+      launch<__nv_bfloat16, true>(x, w9, scale, shift, alpha, out, n, h, w,
+                                  ci, co, act, s);
     else
-      launch<__nv_bfloat16, false>(x, w9, scale, shift, out, n, h, w, ci, co,
-                                   act, s);
+      launch<__nv_bfloat16, false>(x, w9, scale, shift, alpha, out, n, h, w,
+                                   ci, co, act, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -50,11 +50,12 @@ def _decode(skel, arrays):
 
 
 def save_checkpoint(path: str, tree: Any, *, config: Optional[dict] = None,
-                    extra: Optional[dict] = None) -> str:
+                    extra: Optional[dict] = None,
+                    backup_old: bool = True) -> str:
     """Save ``tree`` to directory ``path`` (written to ``<path>.tmp`` and
-    renamed into place; an existing checkpoint becomes ``<path>.old``).
-    ``config``: JSON-serialisable run config; ``extra``: small JSON
-    metadata."""
+    renamed into place; an existing checkpoint becomes ``<path>.old``, or
+    is removed when ``backup_old`` is false). ``config``: JSON-serialisable
+    run config; ``extra``: small JSON metadata."""
     path = os.path.abspath(path)
     tmp = path + ".tmp"
     if os.path.exists(tmp):
@@ -69,10 +70,13 @@ def save_checkpoint(path: str, tree: Any, *, config: Optional[dict] = None,
     np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
 
     if os.path.exists(path):
-        old = path + ".old"
-        if os.path.exists(old):
-            shutil.rmtree(old)
-        os.rename(path, old)
+        if backup_old:
+            old = path + ".old"
+            if os.path.exists(old):
+                shutil.rmtree(old)
+            os.rename(path, old)
+        else:
+            shutil.rmtree(path)
     os.rename(tmp, path)
     return path
 
@@ -96,6 +100,27 @@ def exists(path: str) -> bool:
     return os.path.isfile(os.path.join(path, "manifest.json"))
 
 
+def retain(path: str, keep: int) -> None:
+    """Keep the newest ``keep`` ``<path>.step<E>`` siblings of ``path``
+    (numeric order, so step10 outlives step9) and remove the others."""
+    base = os.path.basename(path)
+    parent = os.path.dirname(path)
+
+    def step_of(name: str) -> int:
+        try:
+            return int(name[len(base + ".step"):])
+        except ValueError:
+            return -1
+
+    sibs = sorted(
+        (d for d in os.listdir(parent)
+         if d.startswith(base + ".step") and
+         os.path.isdir(os.path.join(parent, d))),
+        key=step_of)
+    for d in sibs[:-keep] if keep > 0 else sibs:
+        shutil.rmtree(os.path.join(parent, d))
+
+
 # -- filename conventions (train_r.lua:232, train.lua:241-257) -------------
 
 def adversarial_name(save_dir: str) -> str:
@@ -107,3 +132,15 @@ def r_name(save_dir: str, c: int, h: int, w: int, noise_dim: int,
     """r_<C>x<H>x<W>_nd<z>_<method>[_fixer]."""
     suffix = "_fixer" if fixer else ""
     return os.path.join(save_dir, f"r_{c}x{h}x{w}_nd{noise_dim}_{method}{suffix}")
+
+
+def g_pretrained_name(save_dir: str, c: int, h: int, w: int,
+                      noise_dim: int) -> str:
+    """pretrain_g.lua:191-202 / train.lua:148."""
+    return os.path.join(save_dir, f"g_pretrained_{c}x{h}x{w}_nd{noise_dim}")
+
+
+def pretrained_name(save_dir: str, c: int, h: int, w: int,
+                    noise_dim: int) -> str:
+    """pretrain_with_previous_net.lua:260-266 / train.lua:127."""
+    return os.path.join(save_dir, f"pretrained_{c}x{h}x{w}_nd{noise_dim}")

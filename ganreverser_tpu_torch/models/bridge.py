@@ -46,17 +46,21 @@ def _lookup(tree: dict, key: str):
     return node
 
 
-def nest_by_name(flat: dict) -> dict:
-    """``{"l0.kernel": t, ...}`` as the nested tree ``{"l0": {"kernel":
-    a}}`` of numpy arrays."""
+def _nest(flat: dict, leaf_fn) -> dict:
     out: dict = {}
     for key, t in flat.items():
         *path, leaf = key.split(".")
         node = out
         for p in path:
             node = node.setdefault(p, {})
-        node[leaf] = leaf_array(t)
+        node[leaf] = leaf_fn(t)
     return out
+
+
+def nest_by_name(flat: dict) -> dict:
+    """``{"l0.kernel": t, ...}`` as the nested tree ``{"l0": {"kernel":
+    a}}`` of numpy arrays."""
+    return _nest(flat, leaf_array)
 
 
 def take_by_name(tree: dict, names, device) -> list:
@@ -89,15 +93,26 @@ def load_jax_variables(module: nn.Module, variables: dict) -> nn.Module:
     return module
 
 
+def _parts(module: nn.Module) -> dict:
+    parts: dict = {"params": {}, "state": {}}
+    for key, t in module.state_dict().items():
+        leaf = key.rsplit(".", 1)[-1]
+        parts["state" if leaf in _STATE_LEAVES else "params"][key] = t
+    return parts
+
+
 def export_variables(module: nn.Module) -> dict:
     """The inverse: ``{"params", "state"}`` of numpy arrays, loadable by
     the JAX model of the same architecture."""
-    sd = module.state_dict()
-    parts = {"params": {}, "state": {}}
-    for key, t in sd.items():
-        leaf = key.rsplit(".", 1)[-1]
-        parts["state" if leaf in _STATE_LEAVES else "params"][key] = t
-    return {part: nest_by_name(flat) for part, flat in parts.items()}
+    return {part: nest_by_name(flat) for part, flat in _parts(module).items()}
+
+
+def module_variables(module: nn.Module) -> dict:
+    """``{"params", "state"}`` of the module's own tensors (detached, on its
+    device, not copied), the tree the fast forwards of models/fastpath.py
+    take."""
+    return {part: _nest(flat, lambda t: t)
+            for part, flat in _parts(module).items()}
 
 
 def to_torch(tree, device: torch.device | str):

@@ -1,8 +1,8 @@
-"""Fast eval-mode G / R forwards through the hand-written kernels — the
+"""Fast eval-mode G / R / D forwards through the hand-written kernels — the
 counterparts of ganreverser_tpu/models/fastpath.py's ``make_fast_generator``
-and ``make_fast_inverter``.
+and ``make_fast_inverter``, and of D2's ``D.apply(v, x, train=False)``.
 
-Both consume the standard variable trees of create_G3 / create_R_default
+They consume the standard variable trees of create_G3 / create_R_default
 (``{"params", "state"}``, here as tensors on the compute device; see
 ``models/bridge.to_torch``), fold each BatchNorm into a per-channel f32
 scale/shift on every call, and run:
@@ -17,9 +17,16 @@ scale/shift on every call, and run:
             -> Dense(+BN folded)+ELU -> Dense (+Tanh for uniform)
                                                       [torch.matmul]
 
-as the JAX package leaves the dense layers and G's Co=C head to XLA outside
-any kernel. Their f32 precision is pinned by the compute dtype
-(core/precision.py), not by the process-wide TF32 flags. On CUDA tensors
+  D: images -> [conv3x3 + PReLU] x2 + pool          [kernel B6 x2]
+            -> left:  conv5x5 + PReLU + pool          [F.conv2d]
+               right: [conv3x3 + PReLU] + pool,
+                      [conv3x3 + PReLU] x2 + pool     [kernel B6 x3]
+            -> Dense + PReLU per branch, Dense + PReLU, Dense + Sigmoid
+                                                      [torch.matmul]
+
+as the JAX package leaves the dense layers, G's Co=C head and D's 5x5
+conv to XLA outside any kernel. Their f32 precision is pinned by the
+compute dtype (core/precision.py), not by the process-wide TF32 flags. On CUDA tensors
 the kernels launch; on CPU tensors their plain versions run.
 
 The fixer-R (``make_fast_fixer``) is R behind an always-on input dropout:
@@ -31,7 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.conv_block_kernel import conv_block
-from ..ops.conv_kernel import fold_batchnorm
+from ..ops.conv_kernel import conv3x3_bn_act, fold_batchnorm
 from ..ops.upsample_conv import conv_nhwc
 from ..ops.upsample_conv_kernel import upsample2_conv3x3_bn_act
 from .modules import apply_dropout, dense, dropout_keep_mask
@@ -136,3 +143,58 @@ def make_fast_fixer(dims: Dims, noise_dim: int, noise_method: str,
                       apply_dropout(images, keep, FIXER_DROPOUT))
 
     return invert_fixer
+
+
+def make_fast_discriminator(dims: Dims, dtype: torch.dtype = torch.bfloat16):
+    """Returns ``rate(d_variables, images) -> (N, 1)`` probabilities in
+    ``dtype``, D2 in evaluation (``create_D2(...)`` under ``.eval()``, the
+    dropouts the identity) on the same weights. Five of D2's six
+    convolutions run on kernel B6 with scale 1, shift = the conv bias and
+    the PReLU slope read from its (1,) parameter on the device; the pool
+    that follows three of them is fused. The 5x5 conv of the left branch
+    and the dense layers keep the module path's arithmetic: f32 sums of
+    ``dtype``-rounded operands, the bias added in f32, one rounding, then
+    PReLU in ``dtype``."""
+    c, h, w = dims
+    if h % 8 or w % 8:
+        raise ValueError(f"D2 needs H and W divisible by 8, got {h}x{w}")
+
+    def prelu(x, alpha):
+        return torch.where(x >= 0, x, alpha.to(x.dtype) * x)
+
+    def b6(x, nxn, pool):
+        """create_D2's conv + PReLU block ``nxn`` (its l0, l1) on B6."""
+        k = nxn["l0"]["kernel"]
+        ones = torch.ones(k.shape[-1], device=x.device)
+        return conv3x3_bn_act(x, k.to(dtype), ones, nxn["l0"]["bias"],
+                              act="prelu", prelu_alpha=nxn["l1"]["alpha"],
+                              pool=pool)
+
+    def dense_prelu(x, lin, act):
+        y = (dense(x, lin["kernel"], dtype) + lin["bias"]).to(dtype)
+        return prelu(y, act["alpha"])
+
+    def rate(variables, images):
+        p = variables["params"]
+        left, right = p["l3"]["b0"], p["l3"]["b1"]
+        # stem: two conv + PReLU blocks, the second with the pool (l0-l2)
+        x = b6(images.to(dtype).contiguous(), p["l0"], False)
+        x = b6(x, p["l1"], True)
+        n = x.shape[0]
+        # left branch: 5x5 conv + PReLU + pool, Dense + PReLU (l3.b0)
+        y = (conv_nhwc(x, left["l0"]["l0"]["kernel"], 2, dtype)
+             + left["l0"]["l0"]["bias"]).to(dtype)
+        y = prelu(y, left["l0"]["l1"]["alpha"])
+        y = y.reshape(n, h // 4, 2, w // 4, 2, -1).amax(dim=(2, 4))
+        y = dense_prelu(y.reshape(n, -1), left["l3"], left["l4"])
+        # right branch: three conv + PReLU blocks, two pools (l3.b1)
+        r = b6(x, right["l0"], True)
+        r = b6(r, right["l2"], False)
+        r = b6(r, right["l3"], True)
+        r = dense_prelu(r.reshape(n, -1), right["l6"], right["l7"])
+        # head: Dense 256 + PReLU, Dense 1 + Sigmoid (l4-l8)
+        y = dense_prelu(torch.cat([y, r], dim=-1), p["l4"], p["l5"])
+        y = (dense(y, p["l7"]["kernel"], dtype) + p["l7"]["bias"]).to(dtype)
+        return torch.sigmoid(y)
+
+    return rate

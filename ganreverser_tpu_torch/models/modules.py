@@ -1,4 +1,4 @@
-"""``nn.Module``s of the layers G3 and R use — the counterparts of
+"""``nn.Module``s of the layers G3, R and D2 use — the counterparts of
 ganreverser_tpu/models/modules.py, in evaluation and in training.
 
 Conventions kept from the JAX package, so that its checkpoints map onto
@@ -8,7 +8,8 @@ these modules name for name (``models/bridge.py``):
   (in, out) (``kernel``); BatchNorm has ``scale``/``bias`` parameters and
   ``mean``/``var`` running statistics (buffers), eps 1e-5;
 * ``Sequential`` names its children ``l0``, ``l1``, ... after the layer
-  indices of the checkpoint tree;
+  indices of the checkpoint tree, ``ConcatBranches`` its branches ``b0``,
+  ``b1``, ...;
 * parameters stay f32; a layer computes in its ``dtype``: operands are
   rounded to it, products accumulate in f32, and the output is rounded to
   it again.
@@ -86,22 +87,25 @@ class Dense(nn.Module):
 
 
 class Conv(nn.Module):
-    """nn.SpatialConvolution 3x3, stride 1, SAME padding; ``kernel`` is
-    HWIO."""
+    """nn.SpatialConvolution k x k (odd k, 3 by default), stride 1, padding
+    (k - 1) / 2; ``kernel`` is HWIO."""
 
     def __init__(self, in_ch: int, features: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, kernel: int = 3):
         super().__init__()
-        self.kernel = nn.Parameter(torch.zeros(3, 3, in_ch, features))
+        self.kernel = nn.Parameter(torch.zeros(kernel, kernel, in_ch,
+                                               features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.dtype = dtype
 
     def reset_parameters(self, generator: torch.Generator):
-        _heuristic_(self.kernel, 9 * self.kernel.shape[2], generator)
+        k, _, ci, _ = self.kernel.shape
+        _heuristic_(self.kernel, k * k * ci, generator)
         nn.init.zeros_(self.bias)
 
     def forward(self, x):
-        y = conv_nhwc(x, self.kernel, 1, self.dtype)
+        y = conv_nhwc(x, self.kernel, (self.kernel.shape[0] - 1) // 2,
+                      self.dtype)
         return (y + self.bias).to(self.dtype)
 
 
@@ -146,6 +150,19 @@ class BatchNorm(nn.Module):
             mean, var = self.mean, self.var
         inv = torch.rsqrt(var + _BN_EPS) * self.scale
         return ((xf - mean) * inv + self.bias).to(self.dtype)
+
+
+class PReLU(nn.Module):
+    """nn.PReLU(): one shared learnable slope ``alpha`` of shape (1,),
+    initialised to 0.25; ``where(x >= 0, x, a x)`` with ``a`` cast to the
+    input's dtype."""
+
+    def __init__(self):
+        super().__init__()
+        self.alpha = nn.Parameter(torch.full((1,), 0.25))
+
+    def forward(self, x):
+        return torch.where(x >= 0, x, self.alpha.to(x.dtype) * x)
 
 
 class Activation(nn.Module):
@@ -266,6 +283,20 @@ class Sequential(nn.Sequential):
 
     def __init__(self, layers: Sequence[nn.Module]):
         super().__init__(OrderedDict((f"l{i}", m) for i, m in enumerate(layers)))
+
+
+class ConcatBranches(nn.Module):
+    """nn.Concat over features: every branch runs on the same input and the
+    outputs are concatenated on the last (channel) axis. The branches are
+    named b0, b1, ... (create_D2's left/right split, models.lua:293-321)."""
+
+    def __init__(self, branches: Sequence[nn.Module]):
+        super().__init__()
+        for i, b in enumerate(branches):
+            self.add_module(f"b{i}", b)
+
+    def forward(self, x):
+        return torch.cat([b(x) for b in self.children()], dim=-1)
 
 
 def init_parameters(module: nn.Module, generator: torch.Generator) -> nn.Module:

@@ -1,20 +1,22 @@
-"""G3 and R — the counterparts of ganreverser_tpu/models/zoo.py's
-``create_G3`` and ``create_R_default`` (plain and fixer), with the same
-layer indices.
+"""G3, D2 and R — the counterparts of ganreverser_tpu/models/zoo.py's
+``create_G3``, ``create_D2`` and ``create_R_default`` (plain and fixer),
+with the same layer indices.
 
 ``dimensions`` is (C, H, W) as in the reference; tensors flow as NHWC. The
 models are returned in evaluation mode (``.train()`` switches BatchNorm and
 the dropouts to training); their weights are zero until loaded
-(``models/bridge.py``) or drawn with ``modules.init_parameters``. D and the
-other variants come later.
+(``models/bridge.py``) or drawn with ``modules.init_parameters``, which
+ports the JAX package's default ``init="heuristic"`` only (its ``torch``,
+``xavier`` and ``kaiming`` schemes are not ported). G4, D_default,
+D_facegen and createResidual come later.
 """
 from __future__ import annotations
 
 import torch
 
-from .modules import (Activation, BatchNorm, Conv, Dense, Dropout, Flatten,
-                      Identity, MaxPool, Reshape, Sequential, SpatialDropout,
-                      UpsampleConv)
+from .modules import (Activation, BatchNorm, ConcatBranches, Conv, Dense,
+                      Dropout, Flatten, Identity, MaxPool, PReLU, Reshape,
+                      Sequential, SpatialDropout, UpsampleConv)
 
 Dims = tuple  # (C, H, W)
 
@@ -46,6 +48,69 @@ def create_G3(dimensions: Dims, noise_dim: int,
         BatchNorm(128, dtype=dtype),
         Activation("relu"),
         Conv(128, c, dtype=dtype),
+        Activation("sigmoid"),
+    ]).eval()
+
+
+def create_D(dimensions: Dims, dtype: torch.dtype = torch.float32,
+             init: str = "heuristic"):
+    """models.create_D == create_D2 (models.lua:209-211)."""
+    return create_D2(dimensions, dtype, init)
+
+
+def _nxn(in_ch: int, features: int, kernel: int, dropout: float, dtype):
+    """create_D2's createNxN helper (models.lua:273-281): conv + PReLU, and
+    a SpatialDropout when ``dropout`` > 0. Reference quirk kept: the
+    argument only gates whether the dropout is added; its rate is always
+    0.25."""
+    layers = [Conv(in_ch, features, dtype=dtype, kernel=kernel), PReLU()]
+    if dropout > 0:
+        layers.append(SpatialDropout(0.25))
+    return Sequential(layers)
+
+
+def create_D2(dimensions: Dims, dtype: torch.dtype = torch.float32,
+              init: str = "heuristic"):
+    """create_D2 (models.lua:272-337): a stem of two 3x3 conv + PReLU
+    blocks and a pool, then two branches concatenated on features (left: a
+    5x5 conv path; right: a deeper 3x3 path), each ending in Dense 512 +
+    PReLU, then Dense 256 + PReLU + Dropout and Dense 1 + Sigmoid. H and W
+    must be divisible by 8. Set the dropouts' generator
+    (``modules.set_dropout_generator``) before a training forward."""
+    if init != "heuristic":
+        raise ValueError(f"init {init!r} is not ported: the port draws the "
+                         "'heuristic' scheme only (models/init.py of the JAX "
+                         "package holds the others)")
+    c, h, w = dimensions
+    if h % 8 or w % 8:
+        raise ValueError(f"D2 needs H and W divisible by 8, got {h}x{w}")
+    left = Sequential([
+        _nxn(128, 64, 5, 0.2, dtype),
+        MaxPool(),
+        Flatten(),
+        Dense(64 * (h // 4) * (w // 4), 512, dtype=dtype),
+        PReLU(),
+        Dropout(0.25),
+    ])
+    right = Sequential([
+        _nxn(128, 128, 3, 0.2, dtype),
+        MaxPool(),
+        _nxn(128, 256, 3, 0.2, dtype),
+        _nxn(256, 256, 3, 0.2, dtype),
+        MaxPool(),
+        Flatten(),
+        Dense(256 * (h // 8) * (w // 8), 512, dtype=dtype),
+        PReLU(),
+    ])
+    return Sequential([
+        _nxn(c, 128, 3, 0.0, dtype),
+        _nxn(128, 128, 3, 0.2, dtype),
+        MaxPool(),
+        ConcatBranches([left, right]),
+        Dense(1024, 256, dtype=dtype),
+        PReLU(),
+        Dropout(0.25),
+        Dense(256, 1, dtype=dtype),
         Activation("sigmoid"),
     ]).eval()
 

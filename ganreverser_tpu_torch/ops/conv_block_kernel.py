@@ -88,7 +88,8 @@ def conv_block(x: torch.Tensor, kernels: Sequence[torch.Tensor],
         with torch.cuda.device(x.device):
             rc = lib.gr_conv3x3_bn_act(
                 cuda_lib.dtype_code(x), y.data_ptr(), w9.data_ptr(),
-                sc.data_ptr(), sh.data_ptr(), out.data_ptr(), n, h, w, ci, co,
+                sc.data_ptr(), sh.data_ptr(), None, out.data_ptr(), n, h, w,
+                ci, co,
                 cuda_lib.ACT_CODES[act], int(last_pool),
                 cuda_lib.stream_of(x))
         cuda_lib.check(rc, "conv_block")

@@ -31,7 +31,7 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-ACT_CODES = {"none": 0, "relu": 1, "elu": 2, "sigmoid": 3}
+ACT_CODES = {"none": 0, "relu": 1, "elu": 2, "sigmoid": 3, "prelu": 4}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,9 +42,10 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # dtype, x, y, seed, n, thresh, inv_keep, stream
     "gr_fused_dropout": [_I, _P, _P, _P, _L, _U, _F, _P],
-    # dtype, x, w9, scale, shift, out, n, h, w, ci, co, act, pool, stream
-    "gr_conv3x3_bn_act": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                          _P],
+    # dtype, x, w9, scale, shift, alpha, out, n, h, w, ci, co, act, pool,
+    # stream
+    "gr_conv3x3_bn_act": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _I, _P],
     # dtype, x, k16, scale, shift, out, n, h, w, ci, co, act, stream
     "gr_upsample2_conv3x3_bn_act": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                     _I, _I, _P],

@@ -1,5 +1,5 @@
-"""The train state of one network — the counterpart of
-ganreverser_tpu/train/state.py's ``TrainState``.
+"""The train state of one network and of the G/D pair — the counterparts
+of ganreverser_tpu/train/state.py's ``TrainState`` and ``GanState``.
 
 JAX threads params, module state and optimizer state through pure
 functions and merges the BatchNorm statistics a step reports back
@@ -27,3 +27,11 @@ class TrainState:
     @classmethod
     def create(cls, module: nn.Module, opt: Optimizer) -> "TrainState":
         return cls(module=module, opt_state=opt.init(list(module.parameters())))
+
+
+@dataclass
+class GanState:
+    """G and D of adversarial training, each with its optimizer state
+    (train.lua's MODEL_G/MODEL_D and OPTSTATE)."""
+    g: TrainState
+    d: TrainState

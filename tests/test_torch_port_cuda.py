@@ -261,3 +261,64 @@ def test_train_step_f32_ignores_global_tf32_flags(dev):
     G, _ = _train_models(dev, (3, 32, 32), 100)
     err = chip_smoke.precision_pin_error(G, dev, (3, 32, 32), 100, 32)
     assert err <= chip_smoke.TOL_PIN, err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act,pool,alpha", [("prelu", True, 0.25),
+                                            ("prelu", False, -0.1),
+                                            ("elu", True, 0.0),
+                                            ("relu", False, 0.0)])
+def test_conv3x3_bn_act_kernel(dev, dtype, act, pool, alpha):
+    """Kernel B6 against its plain version at a ragged shape (N, H, W, Ci,
+    Co off every tile size), the PReLU slope read from device memory; one
+    launch on its own counter, none on kernel B's."""
+    from ganreverser_tpu_torch.ops import conv_kernel
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn(5, 10, 6, 3, device=dev, generator=g).to(dtype)
+    k = 0.3 * torch.randn(3, 3, 3, 70, device=dev, generator=g)
+    sc = torch.rand(70, device=dev, generator=g) + 0.5
+    sh = 0.1 * torch.randn(70, device=dev, generator=g)
+    a = torch.tensor([alpha], device=dev)
+    before = (conv_kernel.conv3x3_bn_act.launches,
+              conv_block_kernel.conv_block.launches)
+    out = conv_kernel.conv3x3_bn_act(x, k, sc, sh, act=act, prelu_alpha=a,
+                                     pool=pool)
+    torch.cuda.synchronize()
+    assert (conv_kernel.conv3x3_bn_act.launches,
+            conv_block_kernel.conv_block.launches) == (before[0] + 1,
+                                                       before[1])
+    ref = conv_kernel.conv3x3_bn_act_plain(x, k, sc, sh, act=act,
+                                           prelu_alpha=a, pool=pool)
+    assert out.shape == ref.shape and out.dtype == dtype
+    _close(out, ref, dtype)
+    as_float = conv_kernel.conv3x3_bn_act(x, k, sc, sh, act=act,
+                                          prelu_alpha=alpha, pool=pool)
+    assert torch.equal(as_float, out)
+
+
+def test_conv3x3_bn_act_refuses_bad_arguments(dev):
+    from ganreverser_tpu_torch.ops import conv_kernel
+    x = torch.zeros(1, 5, 4, 2, device=dev)
+    k = torch.zeros(3, 3, 2, 2, device=dev)
+    s = torch.zeros(2, device=dev)
+    with pytest.raises(ValueError):  # odd H with the pool
+        conv_kernel.conv3x3_bn_act(x, k, s, s, pool=True)
+    with pytest.raises(ValueError):  # the slope on the CPU
+        conv_kernel.conv3x3_bn_act(x, k, s, s, act="prelu",
+                                   prelu_alpha=torch.tensor([0.1]))
+    with pytest.raises(TypeError):
+        conv_kernel.conv3x3_bn_act(x.half(), k, s, s)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fast_discriminator_matches_module_d(dev, dtype):
+    """D2 in evaluation on kernel B6 (5 launches) against the module D on
+    the same weights, kernels amplified x3 so that the probabilities spread
+    away from 0.5: f32 within 1e-4, bf16 within 2e-2 (B6 rounds once where
+    the module rounds after the bias and multiplies by a bf16 slope)."""
+    import chip_smoke
+    from ganreverser_tpu_torch.ops import conv_kernel
+    err = chip_smoke.fast_d_error(dev, dtype, n=64, dims=(3, 16, 16),
+                                  launches=5 * 1)
+    assert err <= chip_smoke.TOL_FAST_D[str(dtype).split(".")[-1]], err
+    assert conv_kernel.conv3x3_bn_act.launches >= 5

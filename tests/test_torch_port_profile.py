@@ -73,3 +73,14 @@ def test_device_intervals_keeps_device_ops_only(tmp_path):
 ])
 def test_kernel_class(name, cls):
     assert profile_port.kernel_class(name) == cls
+
+
+@pytest.mark.parametrize("what", ["gan", "train", "apply_r", "all"])
+def test_main_needs_a_card(what, monkeypatch, capsys):
+    """Every section, the adversarial batch pair (--what gan) among them,
+    refuses to run without a CUDA device: a measurement never falls back
+    to the CPU."""
+    monkeypatch.setattr(profile_port.torch.cuda, "is_available",
+                        lambda: False)
+    assert profile_port.main(["--what", what]) == 1
+    assert "needs a CUDA device" in capsys.readouterr().err

@@ -210,8 +210,11 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import ganreverser_tpu_torch.cli.apply_r\n"
+        "import ganreverser_tpu_torch.cli.train\n"
+        "import ganreverser_tpu_torch.cli.sample\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'ganreverser_tpu' or m.startswith('ganreverser_tpu.')]\n"
+        " or m == 'ganreverser_tpu' or m.startswith('ganreverser_tpu.')"
+        " or m == 'PIL']\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

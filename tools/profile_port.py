@@ -3,7 +3,8 @@
 
 Run from the root of a checkout:
 
-    python3 tools/profile_port.py [--out build/profile] [--what all|apply_r|train]
+    python3 tools/profile_port.py [--out build/profile]
+                                  [--what all|apply_r|train|gan]
 
 With the models of chip_smoke.py (G3, R and the fixer-R at 3x64x64, noise
 100, random weights from its seed), bf16, batch 256, N = 10,000, it prints
@@ -31,8 +32,15 @@ and writes to ``<out>/profile.txt``:
   steps under torch.profiler each (``<out>/trace_train_<impl>.json``):
   ms/step, device busy, idle share, device time by kernel name.
 
-``--what apply_r`` runs every section but ``[train]``; ``--what train`` only
-``[train]``.
+* ``[gan]``: one batch pair of adversarial training (a D step and a G
+  step, train/adversarial.py) at batch 256, bf16, adam, G3 and D2 at
+  3x64x64 with random weights from chip_smoke.py's seed: 10 warm pairs
+  under torch.profiler (``<out>/trace_gan.json``): ms/pair, device busy,
+  idle share, device time by class and by kernel name.
+
+``--what apply_r`` runs the ``[e2e]``, ``[layer]``, ``[trace]``,
+``[apply_r]`` and ``[native]`` sections; ``--what train`` only ``[train]``;
+``--what gan`` only ``[gan]``; ``--what all`` every section.
 
 Every line carries the card's name and power limit.
 """
@@ -214,6 +222,40 @@ def profile_train(dev, log, card: str, out_dir: str,
     return True
 
 
+def profile_gan(dev, log, card: str, out_dir: str, n_pairs: int = 10) -> bool:
+    """The ``[gan]`` lines: ``n_pairs`` warm batch pairs (D step + G step)
+    at batch 256, bf16, adam, traced."""
+    from torch.profiler import ProfilerActivity, profile
+    from ganreverser_tpu_torch.optim import adam
+    from ganreverser_tpu_torch.train.adversarial import (
+        Confusion, make_adversarial_steps)
+    bf = torch.bfloat16
+    gs = cs.make_gan(dev, bf, adam())
+    d_step, g_step = make_adversarial_steps(dtype=bf)
+    confusion = Confusion.zero(dev)
+    batches = cs._gan_batches(dev, cs.TRAIN_BATCH, 4)
+
+    def pair(i):
+        real, zd, zg = batches[i % len(batches)]
+        d_step(gs, real, zd, confusion)
+        g_step(gs, zg)
+
+    for i in range(3):
+        pair(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(n_pairs):
+            pair(i)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    log(f"[gan] b{cs.TRAIN_BATCH} bf16 adam: {wall_us / 1e3 / n_pairs:.3f} "
+        f"ms/pair (D step + G step) over {n_pairs} traced pairs  [{card}]")
+    return summarise_trace(prof, os.path.join(out_dir, "trace_gan.json"),
+                           wall_us, "gan", log, card, top=20)
+
+
 def profile_apply_r_sections(dev, log, card: str, out_dir: str) -> bool:
     """The ``[e2e]``, ``[layer]``, ``[trace]``, ``[apply_r]`` and
     ``[native]`` lines."""
@@ -325,7 +367,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="build/profile",
                     help="directory for profile.txt and the trace")
-    ap.add_argument("--what", choices=("all", "apply_r", "train"),
+    ap.add_argument("--what", choices=("all", "apply_r", "train", "gan"),
                     default="all", help="the sections to run")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -341,12 +383,12 @@ def main(argv=None) -> int:
         out.write(line + "\n")
 
     log(card)
-    if args.what != "train" and not profile_apply_r_sections(dev, log, card,
-                                                             args.out):
-        return 1
-    if args.what != "apply_r" and not profile_train(dev, log, card,
-                                                    args.out):
-        return 1
+    sections = (("apply_r", profile_apply_r_sections),
+                ("train", profile_train), ("gan", profile_gan))
+    for what, section in sections:
+        if args.what in ("all", what) and not section(dev, log, card,
+                                                      args.out):
+            return 1
     out.close()
     return 0
 
