@@ -28,7 +28,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ragged N with an empty cluster, on the same given centroids: the
    assignment must agree wherever the plain margin exceeds 1e-4 of max |d|,
    the counts be those of the kernel's assignment and the sums the plain
-   sums over it (1e-4 relative), and a second run be bitwise the same;
+   sums over it (1e-4 relative), and a second run be bitwise the same.
+   U's fused head at G3's stage 2 (N = 256, C = 3 and 1; library: cuDNN's
+   two convolutions in sequence; also timed: kernel U plus the plain head,
+   what the unfused fast G runs); kernel B8 (upsample_v2) at G3's two
+   stages; kernel B7 (conv_stats) at its probe's (256,64,64,256) -> 128,
+   y to the tolerance, the sums within 1e-4 of their magnitudes, bitwise
+   repeatable; the three B9 probes exactly their plain versions;
 4. the main path at full width: random G3, R and fixer-R (3x64x64, noise
    dim 100, normal noise, non-trivial BN running statistics) saved as
    checkpoints, then ``cli.apply_r.main`` with N = 10,000, 10 needles, batch
@@ -69,7 +75,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
    amplified x3 (f32 1e-4, bf16 2e-2), the warm ms per batch pair (D step
    + G step, b256 bf16 adam, the median of 20 by CUDA events) with the
    peak device memory, and an f32 batch pair (b64, sgd) that gives the
-   same G and D parameters with the TF32 flags on and off.
+   same G and D parameters with the TF32 flags on and off;
+7. pretraining and the probes at full width: ``cli.pretrain_g.main`` at
+   3x64x64, noise 100, batch 128, bf16, 2 epochs of 10 batches (the depth
+   cut from 30), then one more with ``--network``: finite losses, the
+   artifacts, the decoder checkpoint with three rows of loss history, and
+   ``cli.train.main --epochs 0`` warm-starting G from it. Then
+   ``cli.pretrain_prev.main`` from phase 6's rgb checkpoint at batch 64,
+   bf16: 60 batches into yuv at 3x64x64, and 20 into y at 1x32x32 with
+   noise 50; each run must launch U's fused head and U (G_prev's two
+   stages) once per batch and B6 five times per batch (D_prev), give
+   finite losses and a checkpoint at its last batch. Then the three probe
+   entry points (``probes.convbn``, ``probes.upsample_v2``,
+   ``probes.kernel_probe``) at full size, each launching its kernels.
 
 The last two lines are a JSON object with each kernel's route, source,
 launch count in the main path, error, times and bound, and
@@ -135,6 +153,13 @@ GAN_EPOCHS = 3           # two, then one more after --network latest
 N_SAMPLE_NEIGHBOURS = 8192
 N_FAST_D = 1024
 PAIR_TIMES = 20          # warm batch pairs timed
+CONVBN_SHAPE = (256, 64, 64, 256, 128)   # B7's probe: N, H, W, Ci, Co
+PRETRAIN_BATCH = 128     # pretrain_g's default --batchSize
+PRETRAIN_EPOCH_BATCHES = 10   # --N_epoch of phase 7 (depth; the default 30)
+DISTILL_BATCH = 64
+# pretrain_prev legs from phase 6's rgb 3x64x64 checkpoint: new colour
+# space, height = width, noise dim, batches
+DISTILL_LEGS = [("yuv", 64, NOISE_DIM, 60), ("y", 32, 50, 20)]
 
 
 class SmokeFailure(RuntimeError):
@@ -226,7 +251,9 @@ def kernel_cases(dev, n: int, n_search: int):
     from ganreverser_tpu_torch.ops import (conv_block_kernel as cb,
                                            conv_kernel as ck,
                                            topk_kernel as tk,
-                                           upsample_conv_kernel as uc)
+                                           upsample_conv_kernel as uc,
+                                           upsample_v2_kernel as v2)
+    from ganreverser_tpu_torch.ops.upsample_conv import conv_nhwc
     gen = torch.Generator(device=dev).manual_seed(SEED)
     c, h, w = DIMS
     cases = []
@@ -283,6 +310,65 @@ def kernel_cases(dev, n: int, n_search: int):
                     "bytes": (_nbytes(x, k, sc, sh)
                               + nb * 4 * hh * ww * co * x.element_size())}
         cases.append(("upsample2_conv3x3_bn_act", label, make))
+
+    def head(label, shape, co, cf, on_path):
+        """U's fused head: U, one rounding, the 3x3 Co -> Cf conv +
+        sigmoid."""
+        x0 = torch.rand(shape, device=dev, generator=gen)
+        nb, hh, ww, ci = shape
+        k = torch.randn(3, 3, ci, co, device=dev, generator=gen) / math.sqrt(
+            9 * ci)
+        sc = 0.5 + torch.rand(co, device=dev, generator=gen)
+        sh = 0.1 * torch.randn(co, device=dev, generator=gen)
+        fk = torch.randn(3, 3, co, cf, device=dev, generator=gen) / math.sqrt(
+            9 * co)
+        fb = 0.1 * torch.randn(cf, device=dev, generator=gen)
+
+        def make(dtype):
+            x = x0.to(dtype)
+            xl = _nchw_last(x0.repeat_interleave(2, 1).repeat_interleave(2, 2),
+                            dtype)
+            wl, fkl = _oihw_last(k, dtype), _oihw_last(fk, dtype)
+
+            def unfused():  # what fused_head=False runs: U, then the head
+                u = uc.upsample2_conv3x3_bn_act(x, k, sc, sh, act="relu")
+                return torch.sigmoid(conv_nhwc(u, fk, 1, dtype) + fb).to(dtype)
+            return {"kernel": lambda: uc.upsample2_conv3x3_head(
+                        x, k, sc, sh, fk, fb),
+                    "plain": lambda: uc.upsample2_conv3x3_bn_act_plain(
+                        x, k, sc, sh, act="relu", final_kernel=fk,
+                        final_bias=fb),
+                    # cuDNN's two convolutions in sequence (the input
+                    # upsampled beforehand; epilogues left out)
+                    "library": lambda: F.conv2d(F.conv2d(xl, wl, padding=1),
+                                                fkl, padding=1),
+                    "unfused": unfused, "on_path": on_path,
+                    "flops": 2 * nb * (2 * hh) * (2 * ww) * (
+                        4 * ci * co + 9 * co * cf),
+                    "bytes": (_nbytes(x, k, sc, sh, fk, fb)
+                              + nb * 4 * hh * ww * cf * x.element_size())}
+        cases.append(("upsample2_conv3x3_head", label, make))
+
+    def upsample_v2(label, shape, co):
+        x0 = torch.rand(shape, device=dev, generator=gen)
+        nb, hh, ww, ci = shape
+        k = torch.randn(3, 3, ci, co, device=dev, generator=gen) / math.sqrt(
+            9 * ci)
+        sc = 0.5 + torch.rand(co, device=dev, generator=gen)
+        sh = 0.1 * torch.randn(co, device=dev, generator=gen)
+
+        def make(dtype):
+            x = x0.to(dtype)
+            xl = _nchw_last(x0.repeat_interleave(2, 1).repeat_interleave(2, 2),
+                            dtype)
+            wl = _oihw_last(k, dtype)
+            return {"kernel": lambda: v2.upsample_v2(x, k, sc, sh),
+                    "plain": lambda: v2.upsample_v2_plain(x, k, sc, sh),
+                    "library": lambda: F.conv2d(xl, wl, padding=1),
+                    "flops": 2 * nb * (2 * hh) * (2 * ww) * 4 * ci * co,
+                    "bytes": (_nbytes(x, k, sc, sh)
+                              + nb * 4 * hh * ww * co * x.element_size())}
+        cases.append(("upsample_v2", label, make))
 
     def search(label, d, positive):
         e0 = torch.randn(n_search, d, device=dev, generator=gen)
@@ -346,6 +432,15 @@ def kernel_cases(dev, n: int, n_search: int):
     # l0+pool, l2, l3+pool), one with a negative slope
     for label, shape, co, alpha, pool in D2_B6_LAYERS:
         conv_prelu(label, (n,) + shape, co, alpha, pool)
+    # U's fused head at G3's stage 2: C = 3 (pretrain_prev's G_prev), and
+    # C = 1 (a grayscale G_prev)
+    for cf in (3, 1):
+        head(f"G stage 2 + head ({n},{h // 2},{w // 2},256)->128->{cf}",
+             (n, h // 2, w // 2, 256), 128, cf, cf == c)
+    upsample_v2(f"G stage 1 ({n},{h // 4},{w // 4},512)->256",
+                (n, h // 4, w // 4, 512), 256)
+    upsample_v2(f"G stage 2 ({n},{h // 2},{w // 2},256)->128",
+                (n, h // 2, w // 2, 256), 128)
     return cases
 
 
@@ -379,16 +474,19 @@ def check_kernels(dev, card: str, n: int = N_CHECK, n_search: int = N_MAIN):
             ms, plain_ms = time_ms(kern), time_ms(plain)
             lib_ms = time_ms(case["library"])
             b_ms, b_by = bound(case["flops"], case["bytes"], dname)
+            unfused = (f", unfused U + head {time_ms(case['unfused']):.4f} ms"
+                       if "unfused" in case else "")
             print(f"[kernel] {name} {label} {dname}: max_abs_err {err:.3e} "
                   f"(tol {tol:.1e}), kernel {ms:.4f} ms, plain {plain_ms:.4f}"
                   f" ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
-                  f"({b_by})  [{card}]")
+                  f"({b_by}){unfused}  [{card}]")
             check(err <= tol, f"{name} {label} {dname}: max_abs_err {err} "
                   f"> tol {tol}")
             records.append({"name": name, "label": label, "dtype": dname,
                             "max_abs_err": err, "ms": ms,
                             "plain_ms": plain_ms, "library_ms": lib_ms,
-                            "bound_ms": b_ms, "bound_by": b_by})
+                            "bound_ms": b_ms, "bound_by": b_by,
+                            "on_path": case.get("on_path", True)})
     return records
 
 
@@ -715,6 +813,105 @@ def check_dropout(dev, card: str):
             "dtype": "bfloat16", "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms,
             "bound_by": b_by}
+
+
+def check_conv_stats(dev, card: str):
+    """Phase 3, kernel B7 at its probe's full size (256,64,64,256)->128, f32
+    and bf16: y within TOL of the plain conv, each channel's sum and sumsq
+    within TOL_SUMS of the summed magnitudes, a second run bitwise equal.
+    Returns the bf16 and f32 records."""
+    import torch
+    import torch.nn.functional as F
+    from ganreverser_tpu_torch.ops import conv_stats_kernel as cs
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    n, h, w, ci, co = CONVBN_SHAPE
+    x0 = 0.5 * torch.randn(n, h, w, ci, device=dev, generator=gen)
+    k = 0.05 * torch.randn(3, 3, ci, co, device=dev, generator=gen)
+    records = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        x = x0.to(dtype)
+        y, s, q = cs.conv_stats(x, k)
+        torch.cuda.synchronize()
+        again = cs.conv_stats(x, k)
+        check(all(torch.equal(a, b) for a, b in zip((y, s, q), again)),
+              f"conv_stats {dname}: two runs differ")
+        del again
+        ry, rs, rq = cs.conv_stats_plain(x, k)
+        err = (y - ry).abs().max().item()
+        tol = TOL[dname] * max(1.0, ry.abs().max().item())
+        check(err <= tol, f"conv_stats {dname}: y max_abs_err {err} > {tol}")
+        mag = ry.abs().sum(dim=(0, 1, 2))
+        err_s = ((s - rs).abs() / torch.clamp_min(mag, 1.0)).max().item()
+        err_q = ((q - rq).abs() / torch.clamp_min(rq, 1.0)).max().item()
+        check(max(err_s, err_q) <= TOL_SUMS,
+              f"conv_stats {dname}: sums off by {err_s}, {err_q} of their "
+              f"magnitudes > {TOL_SUMS}")
+        del y, s, q, ry, rs, rq, mag
+        xl, wl = _nchw_last(x0, dtype), _oihw_last(k, dtype)
+        ms = time_ms(lambda: cs.conv_stats(x, k))
+        plain_ms = time_ms(lambda: cs.conv_stats_plain(x, k))
+        lib_ms = time_ms(lambda: F.conv2d(xl, wl, padding=1))
+        del xl, wl
+        b_ms, b_by = bound(2 * n * h * w * 9 * ci * co,
+                           _nbytes(x, k) + n * h * w * co * 4 + 2 * co * 4,
+                           dname)
+        print(f"[kernel] conv_stats ({n},{h},{w},{ci})->{co} {dname}: y "
+              f"max_abs_err {err:.3e} (tol {tol:.1e}), sums within "
+              f"{max(err_s, err_q):.3e} of their magnitudes, bitwise "
+              f"repeatable; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"library (the conv alone) {lib_ms:.4f} ms, bound {b_ms:.4f} "
+              f"ms ({b_by})  [{card}]")
+        records.append({"name": "conv_stats",
+                        "label": f"({n},{h},{w},{ci})->{co}", "dtype": dname,
+                        "max_abs_err": max(err, err_s, err_q), "ms": ms,
+                        "plain_ms": plain_ms, "library_ms": lib_ms,
+                        "bound_ms": b_ms, "bound_by": b_by, "on_path": True})
+    return records
+
+
+def check_probe_kernels(dev, card: str):
+    """Phase 3, kernel B9 at the TPU probes' shapes: +1 on (8,128) f32, x2
+    on (4,256,128) f32, a (128,128) x (128,128) bf16 product to f32 on
+    small-integer operands; each exactly its plain version. Returns one
+    record per probe."""
+    import torch
+    from ganreverser_tpu_torch.ops import probe_kernels as pk
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    x = torch.randn(8, 128, device=dev, generator=gen)
+    x3 = torch.randn(4, 256, 128, device=dev, generator=gen)
+    a = torch.randint(-3, 4, (128, 128), device=dev, generator=gen).to(
+        torch.bfloat16)
+    b = torch.randint(-3, 4, (128, 128), device=dev, generator=gen).to(
+        torch.bfloat16)
+    cases = [("add_one", "(8,128)", "float32", lambda: pk.add_one(x),
+              lambda: pk.add_one_plain(x), lambda: x + 1.0, x.numel(),
+              2 * _nbytes(x)),
+             ("times_two", "(4,256,128), 4 blocks", "float32",
+              lambda: pk.times_two(x3), lambda: pk.times_two_plain(x3),
+              lambda: x3 * 2.0, x3.numel(), 2 * _nbytes(x3)),
+             ("dot_bf16", "(128,128) x (128,128)", "bfloat16",
+              lambda: pk.dot_bf16(a, b), lambda: pk.dot_bf16_plain(a, b),
+              lambda: torch.matmul(a.float(), b.float()), 2 * 128 ** 3,
+              _nbytes(a, b) + 128 * 128 * 4)]
+    records = []
+    for name, label, dname, kern, plain, library, flops, nbytes in cases:
+        out = kern()
+        torch.cuda.synchronize()
+        ref = plain()
+        check(out.dtype == ref.dtype and torch.equal(out, ref),
+              f"{name} {label}: kernel and plain differ")
+        err = (out.float() - ref.float()).abs().max().item()
+        ms, plain_ms, lib_ms = time_ms(kern), time_ms(plain), time_ms(library)
+        b_ms, b_by = bound(flops, nbytes, dname)
+        print(f"[kernel] {name} {label} {dname}: exactly the plain version; "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+              f"{lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})  [{card}]")
+        records.append({"name": name, "label": label, "dtype": dname,
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "library_ms": lib_ms, "bound_ms": b_ms,
+                        "bound_by": b_by, "on_path": True})
+    return records
 
 
 def make_calibrated_g(dev, dims=DIMS, noise_dim=NOISE_DIM,
@@ -1167,6 +1364,127 @@ def check_gan(dev, card: str, tmp: str):
     return runs[0][1] + runs[1][1], n_sample
 
 
+def check_pretraining(dev, card: str, tmp: str, prev_path: str):
+    """Phase 7: the pretraining CLIs and the probe entry points at full
+    width (see the module docstring). Returns the launches of the new
+    kernels in their runs."""
+    import numpy as np
+    import torch
+    from ganreverser_tpu_torch.cli import pretrain_g, pretrain_prev, train
+    from ganreverser_tpu_torch.io import checkpoint as ckpt
+    from ganreverser_tpu_torch.models.bridge import export_variables
+    from ganreverser_tpu_torch.ops import (conv_kernel, conv_stats_kernel,
+                                           probe_kernels,
+                                           upsample_conv_kernel,
+                                           upsample_v2_kernel)
+    from ganreverser_tpu_torch.probes import convbn, kernel_probe, upsample_v2
+    c, h, w = DIMS
+    uc = upsample_conv_kernel
+    launches = {}
+
+    # pretrain_g: 2 epochs, then one more resumed with --network
+    save = os.path.join(tmp, "pretrain_g")
+    base = ["--dataset", "synthetic", "--save", save, "--height", str(h),
+            "--width", str(w), "--noiseDim", str(NOISE_DIM), "--batchSize",
+            str(PRETRAIN_BATCH), "--N_epoch", str(PRETRAIN_EPOCH_BATCHES),
+            "--compute_dtype", "bfloat16"]
+    t0 = time.perf_counter()
+    out = pretrain_g.main(base + ["--epochs", "2", "--saveFreq", "1"])
+    path = out["checkpoint"]
+    out2 = pretrain_g.main(base + ["--epochs", "1", "--network", path])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    losses = out["losses"] + out2["losses"]
+    check(len(losses) == 3 and all(map(math.isfinite, losses)),
+          f"pretrain_g: losses {losses}")
+    for name in ("events_pretrain_g.jsonl", "images_pretrain_g/plot_g_loss.png",
+                 "images_pretrain_g/ae_recon_000001.png",
+                 "images_pretrain_g/ae_recon_000002.png",
+                 os.path.basename(path)):
+        check(os.path.exists(os.path.join(save, name)),
+              f"pretrain_g: missing {name}")
+    tree, _, extra = ckpt.load_checkpoint(path)
+    rows = [row[0] for row in extra["plot_data"]]
+    check(rows == [1, 2, 3], f"pretrain_g: plot_data epochs {rows}")
+    warm = train.main(["--dataset", "synthetic", "--save",
+                       os.path.join(tmp, "warm"), "--G_pretrained_dir", save,
+                       "--height", str(h), "--width", str(w), "--noiseDim",
+                       str(NOISE_DIM), "--epochs", "0", "--noplot"])
+    got = export_variables(warm["gs"].g.module)
+    check(all(np.array_equal(a, tree[part][layer][leaf])
+              for part in ("params", "state")
+              for layer, leaves in got[part].items()
+              for leaf, a in leaves.items()),
+          "train did not warm-start G from pretrain_g's checkpoint")
+    print(f"[pretrain] pretrain_g b{PRETRAIN_BATCH} bf16, 2 epochs of "
+          f"{PRETRAIN_EPOCH_BATCHES} batches + 1 resumed with --network: "
+          f"{secs:.2f} s, last batch losses "
+          + ", ".join(f"{v:.4f}" for v in losses)
+          + f"; plot_data epochs {rows}; train warm-starts G from it  "
+          f"[{card}]")
+
+    # pretrain_prev from phase 6's rgb checkpoint: two legs
+    launches["upsample2_conv3x3_head"] = 0
+    for cs_new, size, nd, batches in DISTILL_LEGS:
+        for fn in (uc.upsample2_conv3x3_head, uc.upsample2_conv3x3_bn_act,
+                   conv_kernel.conv3x3_bn_act):
+            fn.launches = 0
+        t0 = time.perf_counter()
+        out = pretrain_prev.main([
+            "--network", prev_path, "--dataset", "synthetic", "--save",
+            os.path.join(tmp, f"distill_{cs_new}"), "--batchSize",
+            str(DISTILL_BATCH), "--N_batches", str(batches), "--colorSpace",
+            cs_new, "--height", str(size), "--width", str(size),
+            "--noiseDim", str(nd), "--compute_dtype", "bfloat16"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n_head = uc.upsample2_conv3x3_head.launches
+        n_u = uc.upsample2_conv3x3_bn_act.launches
+        n_b6 = conv_kernel.conv3x3_bn_act.launches
+        check((n_head, n_u, n_b6) == (batches, batches, 5 * batches),
+              f"pretrain_prev {cs_new}: head, U and B6 launched {n_head}, "
+              f"{n_u}, {n_b6} times, expected {batches}, {batches}, "
+              f"{5 * batches}")
+        losses = out["g_losses"] + out["d_losses"]
+        check(len(losses) == 2 * batches and all(map(math.isfinite, losses)),
+              f"pretrain_prev {cs_new}: {len(losses)} losses or a "
+              "non-finite one")
+        tree, cfg, extra = ckpt.load_checkpoint(out["checkpoint"])
+        check(extra["batches"] == batches and cfg["colorSpace"] == cs_new
+              and int(tree["D"]["step"]) == batches,
+              f"pretrain_prev {cs_new}: checkpoint at {extra['batches']}")
+        launches["upsample2_conv3x3_head"] += n_head
+        print(f"[pretrain] pretrain_prev rgb 3x{h}x{w} nd{NOISE_DIM} -> "
+              f"{cs_new} {size}x{size} nd{nd}, b{DISTILL_BATCH} bf16, "
+              f"{batches} batches: {secs:.2f} s ({secs / batches * 1e3:.1f} "
+              f"ms per batch); launches head {n_head}, U {n_u}, B6 {n_b6}; "
+              f"loss G {out['g_losses'][0]:.4f} -> {out['g_losses'][-1]:.4f}"
+              f", D {out['d_losses'][0]:.4f} -> {out['d_losses'][-1]:.4f}  "
+              f"[{card}]")
+
+    # the three probe entry points at full size
+    for name, fn, counters in (
+            ("convbn", convbn.main, [conv_stats_kernel.conv_stats]),
+            ("upsample_v2", upsample_v2.main, [upsample_v2_kernel.upsample_v2]),
+            ("kernel_probe", kernel_probe.main,
+             [probe_kernels.add_one, probe_kernels.times_two,
+              probe_kernels.dot_bf16])):
+        for k in counters:
+            k.launches = 0
+        t0 = time.perf_counter()
+        result = fn([])
+        torch.cuda.synchronize()
+        check(result != 1, f"probe {name} failed")
+        for k in counters:
+            check(k.launches > 0, f"probe {name}: {k.__name__} launched no "
+                  "time")
+            launches[k.__name__] = k.launches
+        print(f"[pretrain] probe {name}: {time.perf_counter() - t0:.2f} s, "
+              "launches " + ", ".join(f"{k.__name__} {k.launches}"
+                                      for k in counters) + f"  [{card}]")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1206,6 +1524,8 @@ def main() -> int:
     records = check_kernels(dev, card)
     records.append(check_kmeans(dev, card))
     records.append(check_dropout(dev, card))
+    records += check_conv_stats(dev, card)
+    records += check_probe_kernels(dev, card)
 
     # 4. the main path at full width
     G, R, RF = make_models(dev)
@@ -1250,8 +1570,14 @@ def main() -> int:
     b_before = kernel_counters()["conv_block"].launches
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         n_train, n_sample = check_gan(dev, card, tmp)
-    check(kernel_counters()["conv_block"].launches == b_before,
-          "phase 6 moved kernel B's count")
+        check(kernel_counters()["conv_block"].launches == b_before,
+              "phase 6 moved kernel B's count")
+        # 7. pretraining from phase 6's checkpoint, and the probes
+        t7 = time.perf_counter()
+        from ganreverser_tpu_torch.io import checkpoint as ckpt
+        launches.update(check_pretraining(
+            dev, card, tmp, ckpt.adversarial_name(os.path.join(tmp, "gan"))))
+        secs7 = time.perf_counter() - t7
     launches["conv3x3_bn_act"] = n_train + n_sample
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
@@ -1273,8 +1599,9 @@ def main() -> int:
     print(f"[gan] f32 batch pair (b64, sgd), TF32 flags on vs off: G and D "
           f"parameters within {err:.3e} of scale (tol {TOL_PIN:.0e})  "
           f"[{card}]")
-    print(f"[time] phase 6 {time.perf_counter() - t6:.1f} s, the whole run "
-          f"{time.perf_counter() - t_start:.1f} s  [{card}]")
+    print(f"[time] phases 6 and 7 {time.perf_counter() - t6:.1f} s (7: "
+          f"{secs7:.1f} s), the whole run {time.perf_counter() - t_start:.1f}"
+          f" s  [{card}]")
 
     sources = {"conv_block": ("ganreverser_tpu_torch/csrc/conv_block.cu",
                               "ganreverser_tpu/ops/conv_block_kernel.py:86"),
@@ -1288,14 +1615,31 @@ def main() -> int:
                "fused_dropout": ("ganreverser_tpu_torch/csrc/dropout.cu",
                                  "ganreverser_tpu/ops/dropout_kernel.py:70"),
                "conv3x3_bn_act": ("ganreverser_tpu_torch/csrc/conv_block.cu",
-                                  "ganreverser_tpu/ops/conv_kernel.py:87")}
+                                  "ganreverser_tpu/ops/conv_kernel.py:87"),
+               "upsample2_conv3x3_head": (
+                   "ganreverser_tpu_torch/csrc/upsample_conv.cu",
+                   "ganreverser_tpu/ops/upsample_conv_kernel.py:98"),
+               "conv_stats": ("ganreverser_tpu_torch/csrc/conv_stats.cu",
+                              "benchmarks/convbn_probe.py:85"),
+               "upsample_v2": ("ganreverser_tpu_torch/csrc/upsample_v2.cu",
+                               "benchmarks/tpu_upsample_v2.py:69"),
+               "add_one": ("ganreverser_tpu_torch/csrc/probes.cu",
+                           "benchmarks/tpu_pallas_probe.py:48"),
+               "times_two": ("ganreverser_tpu_torch/csrc/probes.cu",
+                             "benchmarks/tpu_pallas_probe.py:63"),
+               "dot_bf16": ("ganreverser_tpu_torch/csrc/probes.cu",
+                            "benchmarks/tpu_pallas_probe.py:80")}
+    f32_lines = ("kmeans_step", "add_one", "times_two")
     kernels = []
     for name, (source, replaces) in sources.items():
-        # the main path's dtype (bf16; kmeans runs in f32), summed over the
-        # path's shapes; B5's launches are those of the three train_r runs,
-        # B6's those of the two train runs and the sample run
+        # the main path's dtype (bf16; kmeans and two probes run in f32),
+        # summed over the path's shapes (the head's C = 3 row: G_prev is
+        # rgb); B5's launches are those of the three train_r runs, B6's
+        # those of the two train runs and the sample run, the head's those
+        # of the two pretrain_prev runs, B7-B9's those of their probes
         recs = [r for r in records if r["name"] == name and r["dtype"] == (
-            "float32" if name == "kmeans_step" else "bfloat16")]
+            "float32" if name in f32_lines else "bfloat16")
+            and r.get("on_path", True)]
         libs = [r["library_ms"] for r in recs]
         kernels.append({
             "name": name, "route": "cuda", "source": source,

@@ -185,3 +185,58 @@ class RConfig(Config):
     coordinator_address: str = _f("", "multi-process coordinator (not ported yet: must be empty)")
     num_processes: int = _f(0, "multi-process: total process count")
     process_id: int = _f(-1, "multi-process: this process's index")
+
+
+@dataclass
+class PretrainGConfig(Config):
+    """Flags of pretrain_g.lua:12-35 as the JAX package has them (defaults
+    identical)."""
+    save: str = _f("logs", "subdirectory to save logs")
+    saveFreq: int = _f(30, "save every saveFreq epochs")
+    epochs: int = _f(-1, "stop after that many epochs (<0 = run forever; the reference's inverted check fixed, pretrain_g.lua:112)")
+    network: str = _f("", "reload a pretrained network (its decoder and loss history; the encoder starts fresh)")
+    noplot: bool = _f(False, "disable plots/artifacts")
+    batchSize: int = _f(128, "batch size")
+    N_epoch: int = _f(30, "batches per epoch")
+    G_L1: float = _f(0.0, "L1 penalty on the weights of G")
+    G_L2: float = _f(0.0, "L2 penalty on the weights of G")
+    G_clamp: float = _f(5.0, "clamp G gradients to +/- this")
+    G_optmethod: str = _f("adam", "adam|adagrad")
+    noiseDim: int = _f(100, "dimensionality of the bottleneck z")
+    noiseMethod: str = _f("normal", "normal|uniform")
+    seed: int = _f(1, "RNG seed")
+    colorSpace: str = _f("rgb", "rgb|yuv|hsl|y")
+    height: int = _f(32, "image height")
+    width: int = _f(32, "image width")
+    dataset: str = _f("NONE", "directory with *.jpg images, or 'synthetic'")
+    exact_decode: bool = _f(False, "full-size exact JPEG decode (parity audits); default is DCT-scaled draft decode (data/dataset.py)")
+    decode_cache: str = _f("", "directory for the decoded-tensor disk cache (data/cache.py), uint8-quantized; parity audits leave it off")
+    compute_dtype: str = _f("float32", "compute dtype")
+
+
+@dataclass
+class PretrainPrevConfig(Config):
+    """Flags of pretrain_with_previous_net.lua:12-37 as the JAX package has
+    them (defaults identical)."""
+    save: str = _f("logs", "subdirectory to save logs")
+    batchSize: int = _f(32, "batch size")
+    noplot: bool = _f(False, "disable plots/artifacts")
+    seed: int = _f(1, "RNG seed")
+    saveFreq: int = _f(50, "save every saveFreq batches")
+    colorSpace: str = _f("rgb", "new color space")
+    height: int = _f(32, "new image height")
+    width: int = _f(32, "new image width")
+    G_clamp: float = _f(5.0, "clamp G gradients to +/- this")
+    D_clamp: float = _f(1.0, "clamp D gradients to +/- this")
+    G_L1: float = _f(0.0, "L1 penalty on the weights of G")
+    G_L2: float = _f(0.0, "L2 penalty on the weights of G")
+    D_L1: float = _f(0.0, "L1 penalty on the weights of D")
+    D_L2: float = _f(1e-4, "L2 penalty on the weights of D")
+    noiseDim: int = _f(100, "new noise dimensionality")
+    noiseMethod: str = _f("normal", "normal|uniform")
+    network: str = _f("logs/adversarial", "previous G+D checkpoint to distill from")
+    N_batches: int = _f(1000, "number of distillation batches")
+    dataset: str = _f("NONE", "directory with *.jpg images, or 'synthetic'")
+    exact_decode: bool = _f(False, "full-size exact JPEG decode (parity audits); default is DCT-scaled draft decode (data/dataset.py)")
+    decode_cache: str = _f("", "directory for the decoded-tensor disk cache (data/cache.py), uint8-quantized; parity audits leave it off")
+    compute_dtype: str = _f("float32", "compute dtype")

@@ -109,3 +109,10 @@ def to_rgb(images: np.ndarray, colorspace: str) -> np.ndarray:
     if colorspace == "hsl":
         return hsl2rgb(images)
     raise ValueError(f"Unknown color space {colorspace!r}")
+
+
+def switch_colorspace(images: np.ndarray, src: str, dst: str) -> np.ndarray:
+    """NN_UTILS.switchColorSpace (nn_utils.lua:133-137): ``src`` -> RGB ->
+    ``dst``; distillation across colour spaces uses it
+    (pretrain_with_previous_net.lua:167,182)."""
+    return rgb_to_colorspace(to_rgb(images, src), dst)

@@ -11,6 +11,8 @@ scale/shift on every call, and run:
        -> upsample2+conv3x3+BN+ReLU (512->256)       [kernel U]
        -> upsample2+conv3x3+BN+ReLU (256->128)       [kernel U]
        -> conv3x3 (128->C) + Sigmoid                  [F.conv2d]
+     with ``fused_head=True`` the last two lines are one launch of U's
+     fused head (upsample_conv_kernel.upsample2_conv3x3_head)
 
   R: images -> [conv64+BN+ELU x3 + pool]             [kernel B]
             -> [conv128+BN+ELU x3 + pool]            [kernel B]
@@ -49,10 +51,15 @@ FIXER_DROPOUT = 0.5  # the fixer-R's input dropout rate (models.lua:399-406)
 
 
 def make_fast_generator(dims: Dims, noise_dim: int,
-                        dtype: torch.dtype = torch.bfloat16):
+                        dtype: torch.dtype = torch.bfloat16,
+                        fused_head: bool = False):
     """Returns ``generate(g_variables, z) -> images`` equal to
     ``create_G3(...)`` in evaluation on the same weights; images are NHWC
-    in ``dtype``."""
+    in ``dtype``. ``fused_head=True`` runs the second upsample stage and
+    the 128->C conv + sigmoid as one launch of U's fused head, with the
+    same rounding points (stage 2's output rounded to ``dtype``, f32 sums of
+    the head); False, the JAX fast G's choice, leaves the head to a plain
+    convolution."""
     c, h, w = dims
     sh, sw = h // 4, w // 4
 
@@ -65,11 +72,17 @@ def make_fast_generator(dims: Dims, noise_dim: int,
         y = torch.clamp_min(dense(z, k0, dtype) + shift0, 0.0).to(dtype)
         x = y.reshape(z.shape[0], sh, sw, 512)
 
-        # two fused upsample+conv+BN+ReLU stages (models.lua:121-130)
+        # two fused upsample+conv+BN+ReLU stages (models.lua:121-130); with
+        # fused_head the second carries the output conv + sigmoid
         for conv, bn in (("l5", "l6"), ("l9", "l10")):
             scale, shift = fold_batchnorm(p[bn], s[bn], p[conv]["bias"])
+            head = ({"final_kernel": p["l12"]["kernel"],
+                     "final_bias": p["l12"]["bias"], "final_act": "sigmoid"}
+                    if fused_head and conv == "l9" else {})
             x = upsample2_conv3x3_bn_act(x, p[conv]["kernel"].to(dtype),
-                                         scale, shift, act="relu")
+                                         scale, shift, act="relu", **head)
+        if fused_head:
+            return x
 
         # final 3x3 conv + sigmoid (models.lua:132-133)
         y = conv_nhwc(x, p["l12"]["kernel"], 1, dtype)

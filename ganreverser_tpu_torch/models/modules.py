@@ -254,6 +254,15 @@ class MaxPool(nn.Module):
         return F.max_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
 
 
+class AvgPool(nn.Module):
+    """nn.SpatialAveragePooling(2, 2, 2, 2) on NHWC: the mean of each
+    window in f32, rounded back to the input's dtype."""
+
+    def forward(self, x):
+        y = F.avg_pool2d(x.float().permute(0, 3, 1, 2), 2)
+        return y.permute(0, 2, 3, 1).to(x.dtype)
+
+
 class Flatten(nn.Module):
     """nn.View(n): collapse to (batch, -1) in (H, W, C) order."""
 

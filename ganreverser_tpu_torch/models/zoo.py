@@ -1,6 +1,7 @@
-"""G3, D2 and R — the counterparts of ganreverser_tpu/models/zoo.py's
-``create_G3``, ``create_D2`` and ``create_R_default`` (plain and fixer),
-with the same layer indices.
+"""G3, G_encoder, D2 and R — the counterparts of
+ganreverser_tpu/models/zoo.py's ``create_G3``, ``create_G_encoder``,
+``create_D2`` and ``create_R_default`` (plain and fixer), with the same
+layer indices.
 
 ``dimensions`` is (C, H, W) as in the reference; tensors flow as NHWC. The
 models are returned in evaluation mode (``.train()`` switches BatchNorm and
@@ -14,9 +15,9 @@ from __future__ import annotations
 
 import torch
 
-from .modules import (Activation, BatchNorm, ConcatBranches, Conv, Dense,
-                      Dropout, Flatten, Identity, MaxPool, PReLU, Reshape,
-                      Sequential, SpatialDropout, UpsampleConv)
+from .modules import (Activation, AvgPool, BatchNorm, ConcatBranches, Conv,
+                      Dense, Dropout, Flatten, Identity, MaxPool, PReLU,
+                      Reshape, Sequential, SpatialDropout, UpsampleConv)
 
 Dims = tuple  # (C, H, W)
 
@@ -49,6 +50,30 @@ def create_G3(dimensions: Dims, noise_dim: int,
         Activation("relu"),
         Conv(128, c, dtype=dtype),
         Activation("sigmoid"),
+    ]).eval()
+
+
+def create_G_encoder(dimensions: Dims, noise_dim: int,
+                     dtype: torch.dtype = torch.float32):
+    """create_G_encoder (models.lua:57-102), the encoder of pretrain_g's
+    autoencoder: conv16 + BN + ReLU + avgpool, conv32 + BN + ReLU + pool,
+    conv64 + BN + ReLU + pool, Dense 512 + BN + ReLU, Dense noise_dim +
+    Tanh. Each pool floors, so Dense 512 takes 64 (H // 8) (W // 8)
+    inputs."""
+    c, h, w = dimensions
+
+    def block(in_ch, feat, pool):
+        return [Conv(in_ch, feat, dtype=dtype), BatchNorm(feat, dtype=dtype),
+                Activation("relu"), pool]
+
+    return Sequential([
+        *block(c, 16, AvgPool()),
+        *block(16, 32, MaxPool()),
+        *block(32, 64, MaxPool()),
+        Flatten(),
+        Dense(64 * (h // 8) * (w // 8), 512, dtype=dtype),
+        BatchNorm(512, dtype=dtype), Activation("relu"),
+        Dense(512, noise_dim, dtype=dtype), Activation("tanh"),
     ]).eval()
 
 

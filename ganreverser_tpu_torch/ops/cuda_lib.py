@@ -53,6 +53,20 @@ _SIGNATURES = {
     "gr_cosine_scores": [_I, _P, _P, _P, _I, _I, _I, _P],
     # x, c, ws, ws_floats, c_new, counts, sums, assign, n, d, k, stream
     "gr_kmeans_step": [_P, _P, _P, _L, _P, _P, _P, _P, _I, _I, _I, _P],
+    # dtype, x, k16, scale, shift, fk, fb, out, n, h, w, ci, co, cf, act,
+    # final_act, stream
+    "gr_upsample2_conv3x3_head": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                  _I, _I, _I, _I, _I, _P],
+    # dtype, x, w9, y, ws, sum, sumsq, n, h, w, ci, co, stream
+    "gr_conv_stats": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # dtype, x, k4, scale, shift, out, n, h, w, ci, co, stream
+    "gr_upsample_v2": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, y, n, stream
+    "gr_probe_add_one": [_P, _P, _L, _P],
+    # x, y, g, per, stream
+    "gr_probe_times_two": [_P, _P, _I, _L, _P],
+    # a, b, c, m, n, k, stream
+    "gr_probe_dot_bf16": [_P, _P, _P, _I, _I, _I, _P],
 }
 
 

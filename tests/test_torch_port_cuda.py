@@ -10,9 +10,11 @@ import numpy as np
 import pytest
 import torch
 
-from ganreverser_tpu_torch.ops import (conv_block_kernel, dropout_kernel,
-                                       kmeans_kernel, topk_kernel,
-                                       upsample_conv_kernel)
+from ganreverser_tpu_torch.ops import (conv_block_kernel, conv_stats_kernel,
+                                       dropout_kernel, kmeans_kernel,
+                                       probe_kernels, topk_kernel,
+                                       upsample_conv_kernel,
+                                       upsample_v2_kernel)
 
 pytestmark = pytest.mark.cuda
 
@@ -322,3 +324,138 @@ def test_fast_discriminator_matches_module_d(dev, dtype):
                                   launches=5 * 1)
     assert err <= chip_smoke.TOL_FAST_D[str(dtype).split(".")[-1]], err
     assert conv_kernel.conv3x3_bn_act.launches >= 5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,w,ci,co,cf", [(3, 5, 7, 20, 72, 3),
+                                            (2, 8, 8, 16, 64, 1),
+                                            (1, 9, 4, 33, 130, 4)])
+def test_upsample_head_kernel(dev, dtype, n, h, w, ci, co, cf):
+    """U's fused head against its plain version: ragged output tiles
+    (2H, 2W off multiples of 14), Co off multiples of 64, Cf 1 to 4, a ReLU
+    stage and a sigmoid head; one launch on the head's own counter, none on
+    U's."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn(n, h, w, ci, device=dev, generator=g).to(dtype)
+    k = 0.3 * torch.randn(3, 3, ci, co, device=dev, generator=g)
+    sc = torch.rand(co, device=dev, generator=g) + 0.5
+    sh = torch.randn(co, device=dev, generator=g)
+    fk = 0.1 * torch.randn(3, 3, co, cf, device=dev, generator=g)
+    fb = torch.randn(cf, device=dev, generator=g)
+    u_before = upsample_conv_kernel.upsample2_conv3x3_bn_act.launches
+    before = upsample_conv_kernel.upsample2_conv3x3_head.launches
+    out = upsample_conv_kernel.upsample2_conv3x3_bn_act(
+        x, k, sc, sh, act="relu", final_kernel=fk, final_bias=fb)
+    torch.cuda.synchronize()
+    assert upsample_conv_kernel.upsample2_conv3x3_head.launches == before + 1
+    assert upsample_conv_kernel.upsample2_conv3x3_bn_act.launches == u_before
+    ref = upsample_conv_kernel.upsample2_conv3x3_bn_act_plain(
+        x, k, sc, sh, act="relu", final_kernel=fk, final_bias=fb)
+    assert out.shape == ref.shape == (n, 2 * h, 2 * w, cf)
+    assert out.dtype == dtype
+    _close(out, ref, dtype)
+    lin = upsample_conv_kernel.upsample2_conv3x3_head(
+        x, k, sc, sh, fk, fb, act="none", final_act="none")
+    _close(lin, upsample_conv_kernel.upsample2_conv3x3_bn_act_plain(
+        x, k, sc, sh, act="none", final_kernel=fk, final_bias=fb,
+        final_act="none"), dtype)
+
+
+def test_upsample_head_refuses_bad_arguments(dev):
+    x = torch.zeros(1, 4, 4, 8, device=dev)
+    k = torch.zeros(3, 3, 8, 8, device=dev)
+    s = torch.zeros(8, device=dev)
+    with pytest.raises(ValueError):  # Cf = 5
+        upsample_conv_kernel.upsample2_conv3x3_head(
+            x, k, s, s, torch.zeros(3, 3, 8, 5, device=dev),
+            torch.zeros(5, device=dev))
+    with pytest.raises(ValueError):  # the head's Co is not U's
+        upsample_conv_kernel.upsample2_conv3x3_head(
+            x, k, s, s, torch.zeros(3, 3, 7, 3, device=dev),
+            torch.zeros(3, device=dev))
+    with pytest.raises(ValueError):
+        upsample_conv_kernel.upsample2_conv3x3_head(
+            x, k, s, s, torch.zeros(3, 3, 8, 3, device=dev),
+            torch.zeros(3, device=dev), final_act="elu")
+
+
+def test_fast_generator_fused_head_launches_head(dev):
+    from ganreverser_tpu_torch.models import bridge, fastpath, modules, zoo
+    dims, nd = (3, 16, 16), 8
+    G = modules.init_parameters(zoo.create_G3(dims, nd),
+                                torch.Generator().manual_seed(3)).to(dev)
+    v = bridge.module_variables(G)
+    z = torch.randn(5, nd, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        before = (upsample_conv_kernel.upsample2_conv3x3_bn_act.launches,
+                  upsample_conv_kernel.upsample2_conv3x3_head.launches)
+        fused = fastpath.make_fast_generator(dims, nd, dtype, True)(v, z)
+        torch.cuda.synchronize()
+        assert (upsample_conv_kernel.upsample2_conv3x3_bn_act.launches,
+                upsample_conv_kernel.upsample2_conv3x3_head.launches) == (
+                    before[0] + 1, before[1] + 1)
+        plain = fastpath.make_fast_generator(dims, nd, dtype)(v, z)
+        _close(fused, plain, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,w,ci,co", [(4, 8, 8, 16, 32), (3, 7, 5, 20, 70)])
+def test_conv_stats_kernel(dev, dtype, n, h, w, ci, co):
+    """y against the plain conv, the sums within 1e-4 of the summed
+    magnitudes, and a second run bitwise equal (no float atomics)."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn(n, h, w, ci, device=dev, generator=g).to(dtype)
+    k = 0.2 * torch.randn(3, 3, ci, co, device=dev, generator=g)
+    before = conv_stats_kernel.conv_stats.launches
+    y, s, q = conv_stats_kernel.conv_stats(x, k)
+    torch.cuda.synchronize()
+    assert conv_stats_kernel.conv_stats.launches == before + 1
+    again = conv_stats_kernel.conv_stats(x, k)
+    assert all(torch.equal(a, b) for a, b in zip((y, s, q), again))
+    ry, rs, rq = conv_stats_kernel.conv_stats_plain(x, k)
+    assert y.dtype == s.dtype == q.dtype == torch.float32
+    _close(y, ry, torch.float32)
+    scale = (ry.abs().sum(dim=(0, 1, 2)).max().item(), rq.max().item())
+    assert (s - rs).abs().max().item() <= 1e-4 * max(1.0, scale[0])
+    assert (q - rq).abs().max().item() <= 1e-4 * max(1.0, scale[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ci", [16, 20, 3])
+def test_upsample_v2_kernel(dev, dtype, ci):
+    """B8 against its plain version and against kernel U: Ci = 20 and 3
+    make BK chunks straddle taps."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    x = torch.randn(3, 5, 7, ci, device=dev, generator=g).to(dtype)
+    k = 0.3 * torch.randn(3, 3, ci, 72, device=dev, generator=g)
+    sc = torch.rand(72, device=dev, generator=g) + 0.5
+    sh = torch.randn(72, device=dev, generator=g)
+    before = upsample_v2_kernel.upsample_v2.launches
+    out = upsample_v2_kernel.upsample_v2(x, k, sc, sh)
+    torch.cuda.synchronize()
+    assert upsample_v2_kernel.upsample_v2.launches == before + 1
+    assert out.shape == (3, 10, 14, 72) and out.dtype == dtype
+    _close(out, upsample_v2_kernel.upsample_v2_plain(x, k, sc, sh), dtype)
+    if dtype == torch.float32:
+        _close(out, upsample_conv_kernel.upsample2_conv3x3_bn_act(
+            x, k, sc, sh, act="relu"), dtype)
+
+
+def test_probe_kernels_exact(dev):
+    """B9: +1, x2 and the wmma bf16 product, exactly their plain versions
+    (small-integer operands make every f32 sum exact in any order)."""
+    g = torch.Generator(device=dev).manual_seed(14)
+    x = torch.randn(8, 128, device=dev, generator=g)
+    assert torch.equal(probe_kernels.add_one(x), x + 1)
+    x3 = torch.randn(4, 256, 128, device=dev, generator=g)
+    assert torch.equal(probe_kernels.times_two(x3), x3 * 2)
+    a = torch.randint(-3, 4, (128, 128), device=dev,
+                      generator=g).to(torch.bfloat16)
+    b = torch.randint(-3, 4, (128, 64), device=dev,
+                      generator=g).to(torch.bfloat16)
+    c = probe_kernels.dot_bf16(a, b)
+    torch.cuda.synchronize()
+    assert c.dtype == torch.float32
+    assert torch.equal(c, probe_kernels.dot_bf16_plain(a, b))
+    with pytest.raises(ValueError):
+        probe_kernels.dot_bf16(a[:, :120], b[:120])

@@ -122,3 +122,38 @@ def test_wrappers_refuse_other_devices():
                                   torch.zeros(1, dtype=torch.int64))
     with pytest.raises(ValueError):  # mixed devices
         conv_block_kernel.conv_block(torch.zeros(1, 4, 4, 2), [k], [s], [s])
+
+
+@pytest.mark.parametrize("cf", [1, 3])
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 1e-2)])
+def test_upsample_head_plain_matches_jax(rng, cf, dtype, tol):
+    """U with the fused final head (final_kernel, final_bias, sigmoid)
+    against the JAX kernel in interpret mode, as tests/test_ops.py runs it:
+    f32 within 1e-5, bf16 within 1e-2 of the output's scale (the kernels
+    are handed over rounded to bf16, as the fast G hands them); no launch
+    of either counter on the CPU."""
+    before = (_launch_counts(),
+              upsample_conv_kernel.upsample2_conv3x3_head.launches)
+    jdt = getattr(jnp, dtype)
+    x = rng.normal(size=(2, 6, 4, 5)).astype(np.float32)
+    k = (rng.normal(size=(3, 3, 5, 8)) * 0.3).astype(np.float32)
+    sc = rng.uniform(0.5, 1.5, 8).astype(np.float32)
+    sh = (rng.normal(size=8) * 0.1).astype(np.float32)
+    fk = (rng.normal(size=(3, 3, 8, cf)) * 0.3).astype(np.float32)
+    fb = (rng.normal(size=cf) * 0.1).astype(np.float32)
+    xj, kj, fkj = (jnp.asarray(a).astype(jdt) for a in (x, k, fk))
+    ref = np.asarray(j_upsample(xj, kj, sc, sh, act="relu", tile_n=1,
+                                interpret=True, final_kernel=fkj,
+                                final_bias=fb, final_act="sigmoid"
+                                ).astype(jnp.float32))
+    tdt = getattr(torch, dtype)
+    xt, kt, fkt = (T(np.array(a.astype(jnp.float32))).to(tdt)
+                   for a in (xj, kj, fkj))
+    out = upsample_conv_kernel.upsample2_conv3x3_bn_act(
+        xt, kt, T(sc), T(sh), act="relu", final_kernel=fkt,
+        final_bias=T(fb), final_act="sigmoid")
+    assert out.shape == ref.shape == (2, 12, 8, cf) and out.dtype == tdt
+    err = np.abs(out.float().numpy() - ref).max()
+    assert err <= tol * max(1.0, np.abs(ref).max()), err
+    assert (_launch_counts(),
+            upsample_conv_kernel.upsample2_conv3x3_head.launches) == before

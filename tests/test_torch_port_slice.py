@@ -212,6 +212,11 @@ def test_port_imports_no_jax():
         "import ganreverser_tpu_torch.cli.apply_r\n"
         "import ganreverser_tpu_torch.cli.train\n"
         "import ganreverser_tpu_torch.cli.sample\n"
+        "import ganreverser_tpu_torch.cli.pretrain_g\n"
+        "import ganreverser_tpu_torch.cli.pretrain_prev\n"
+        "import ganreverser_tpu_torch.probes.convbn\n"
+        "import ganreverser_tpu_torch.probes.upsample_v2\n"
+        "import ganreverser_tpu_torch.probes.kernel_probe\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'ganreverser_tpu' or m.startswith('ganreverser_tpu.')"
         " or m == 'PIL']\n"

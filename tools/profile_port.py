@@ -4,7 +4,7 @@
 Run from the root of a checkout:
 
     python3 tools/profile_port.py [--out build/profile]
-                                  [--what all|apply_r|train|gan]
+                                  [--what all|apply_r|train|gan|distill]
 
 With the models of chip_smoke.py (G3, R and the fixer-R at 3x64x64, noise
 100, random weights from its seed), bf16, batch 256, N = 10,000, it prints
@@ -38,9 +38,17 @@ and writes to ``<out>/profile.txt``:
   under torch.profiler (``<out>/trace_gan.json``): ms/pair, device busy,
   idle share, device time by class and by kernel name.
 
+* ``[distill]``: ``cli.pretrain_prev`` as chip_smoke.py's phase 7 runs it
+  (a random rgb G3 + D2 at 3x64x64 into yuv at 3x64x64, noise 100, batch
+  64, bf16): 10 batches to warm up, then 20 under torch.profiler
+  (``<out>/trace_distill.json``): ms/batch, device busy, idle share (the
+  host hop for colour space and size, and the synthetic real images, show
+  as idle time), device time by class and by kernel name.
+
 ``--what apply_r`` runs the ``[e2e]``, ``[layer]``, ``[trace]``,
 ``[apply_r]`` and ``[native]`` sections; ``--what train`` only ``[train]``;
-``--what gan`` only ``[gan]``; ``--what all`` every section.
+``--what gan`` only ``[gan]``; ``--what distill`` only ``[distill]``;
+``--what all`` every section.
 
 Every line carries the card's name and power limit.
 """
@@ -256,6 +264,56 @@ def profile_gan(dev, log, card: str, out_dir: str, n_pairs: int = 10) -> bool:
                            wall_us, "gan", log, card, top=20)
 
 
+def profile_distill(dev, log, card: str, out_dir: str,
+                    n_batches: int = 20) -> bool:
+    """The ``[distill]`` lines: pretrain_prev's batches, warm, traced."""
+    from torch.profiler import ProfilerActivity, profile
+    from ganreverser_tpu_torch.cli import common, pretrain_prev
+    from ganreverser_tpu_torch.io import checkpoint as ckpt
+    from ganreverser_tpu_torch.optim import adam
+    c, h, w = cs.DIMS
+    with tempfile.TemporaryDirectory(prefix="profile_port_") as tmp:
+        prev = ckpt.adversarial_name(os.path.join(tmp, "gan"))
+        ckpt.save_checkpoint(prev, common.gan_to_tree(
+            cs.make_gan(dev, torch.float32, adam())), config={
+                "noiseDim": cs.NOISE_DIM, "noiseMethod": "normal",
+                "colorSpace": "rgb", "height": h, "width": w})
+
+        def run(batches):
+            return pretrain_prev.main([
+                "--network", prev, "--dataset", "synthetic", "--save",
+                os.path.join(tmp, "distill"), "--batchSize",
+                str(cs.DISTILL_BATCH), "--N_batches", str(batches),
+                "--colorSpace", "yuv", "--height", str(h), "--width", str(w),
+                "--noiseDim", str(cs.NOISE_DIM), "--compute_dtype",
+                "bfloat16"])
+
+        run(10)
+        walls = {}
+        for batches in (n_batches, 3 * n_batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(batches)
+            torch.cuda.synchronize()
+            walls[batches] = time.perf_counter() - t0
+        marginal = ((walls[3 * n_batches] - walls[n_batches])
+                    / (2 * n_batches) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run(n_batches)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    log(f"[distill] pretrain_prev b{cs.DISTILL_BATCH} bf16 rgb -> yuv "
+        f"{h}x{w}: whole runs of {n_batches} and {3 * n_batches} batches "
+        f"{walls[n_batches]:.3f} and {walls[3 * n_batches]:.3f} s, so "
+        f"{marginal:.3f} ms per batch beyond the fixed costs (set-up, the "
+        f"final checkpoint); traced run of {n_batches}: "
+        f"{wall_us / 1e3 / n_batches:.3f} ms/batch  [{card}]")
+    return summarise_trace(prof, os.path.join(out_dir, "trace_distill.json"),
+                           wall_us, "distill", log, card, top=15)
+
+
 def profile_apply_r_sections(dev, log, card: str, out_dir: str) -> bool:
     """The ``[e2e]``, ``[layer]``, ``[trace]``, ``[apply_r]`` and
     ``[native]`` lines."""
@@ -367,7 +425,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="build/profile",
                     help="directory for profile.txt and the trace")
-    ap.add_argument("--what", choices=("all", "apply_r", "train", "gan"),
+    ap.add_argument("--what", choices=("all", "apply_r", "train", "gan",
+                                       "distill"),
                     default="all", help="the sections to run")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -384,7 +443,8 @@ def main(argv=None) -> int:
 
     log(card)
     sections = (("apply_r", profile_apply_r_sections),
-                ("train", profile_train), ("gan", profile_gan))
+                ("train", profile_train), ("gan", profile_gan),
+                ("distill", profile_distill))
     for what, section in sections:
         if args.what in ("all", what) and not section(dev, log, card,
                                                       args.out):
