@@ -9,7 +9,12 @@ Run from the root of a checkout, with no arguments:
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. the card's name and power limit (nvidia-smi) and torch's device name;
-2. build the CUDA kernels of ganreverser_tpu_torch/csrc with nvcc;
+2. build the CUDA kernels of ganreverser_tpu_torch/csrc with nvcc, print
+   each kernel's registers, spills and stack from the build log (-Xptxas
+   -v) and the main path's tile plans (their shared bytes), and the SASS
+   guard: cuobjdump -sass of the built library must show
+   HGMMA (tensor-core) instructions in every instance of the two bf16
+   kernels, conv3x3_wgmma_kernel (B, B6) and upsample2_wgmma_kernel (U);
 3. each kernel against its plain PyTorch version on the card at the shapes
    of the main path (N = 256, f32 and bf16, TF32 off for the plain f32
    reference): max error against the stated tolerance, median times of the
@@ -24,8 +29,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    Kernel B5 (dropout) at (256,64,64,64), (256,512) and (256,64,64,3), f32
    and bf16, seeds 12345 and -7: output and gradient bitwise equal to the
    plain version (tolerance 0);
-   Kernel K (one kmeans step, f32) at (10,000, 100), K = 20, and at a
-   ragged N with an empty cluster, on the same given centroids: the
+   Kernel K (one kmeans step, f32) at (10,000, 100), K = 20 and K = 256
+   (apply_r --clusters 256), and at a ragged N with an empty cluster, on
+   the same given centroids: the
    assignment must agree wherever the plain margin exceeds 1e-4 of max |d|,
    the counts be those of the kernel's assignment and the sums the plain
    sums over it (1e-4 relative), and a second run be bitwise the same.
@@ -100,6 +106,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -121,6 +128,7 @@ TOL_SCORES = 1e-4      # cosine scores, inputs cast to f32 in both versions
 TOL_PATH = 1e-3        # fast vs plain module path, f32, relative to scale
 TOL_SUMS = 1e-4        # kmeans sums vs plain, relative to max(1, max |sum|)
 KMEANS_K, KMEANS_ITERS = 20, 15   # apply_r.lua:158
+KMEANS_K_WIDE = 256    # apply_r --clusters 256
 REFINE_STEPS = 5
 DROPOUT_SHAPES = [(256, 64, 64, 64), (256, 512), (256, 64, 64, 3)]
 DROPOUT_SEEDS = [12345, -7]
@@ -178,6 +186,69 @@ def card_line() -> str:
     check(proc.returncode == 0 and proc.stdout.strip(),
           f"nvidia-smi failed: {proc.stderr.strip()}")
     return proc.stdout.strip().splitlines()[0]
+
+
+# the bf16 tensor-core kernels: each must hold HGMMA in every instance
+WGMMA_KERNELS = ("conv3x3_wgmma_kernel", "upsample2_wgmma_kernel")
+# the main path's tensor-core layers (label, H, W, Ci, Co at the input's
+# resolution), whose tile plans phase 2 prints
+MAIN_CONV_LAYERS = [("R block 1 l0", 64, 64, 3, 64),
+                    ("R block 1 l1-2", 64, 64, 64, 64),
+                    ("R block 2 l0", 32, 32, 64, 128),
+                    ("R block 2 l1-2", 32, 32, 128, 128),
+                    ("G stage 1", 16, 16, 512, 256),
+                    ("G stage 2", 32, 32, 256, 128)]
+
+
+def sass_hgmma(lib_path) -> dict:
+    """HGMMA (tensor-core) instructions per kernel function in the SASS of
+    the built library (cuobjdump -sass), by mangled name."""
+    from ganreverser_tpu_torch.ops import cuda_lib
+    proc = subprocess.run([cuda_lib.cuda_tool("cuobjdump"), "-sass",
+                           str(lib_path)], capture_output=True, text=True,
+                          timeout=300)
+    check(proc.returncode == 0, f"cuobjdump failed: {proc.stderr[-2000:]}")
+    counts, name = {}, None
+    for line in proc.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+        elif name is not None and "HGMMA" in line:
+            counts[name] += 1
+    return counts
+
+
+def check_hgmma(lib_path) -> dict:
+    """The SASS guard: every instance of the bf16 kernels (one per tile
+    width BN) holds HGMMA instructions. Returns their counts."""
+    from ganreverser_tpu_torch.ops.conv_operands import WIDTHS_N
+    counts = sass_hgmma(lib_path)
+    found = {}
+    for stem in WGMMA_KERNELS:
+        mine = {n: c for n, c in counts.items() if stem in n}
+        check(len(mine) == len(WIDTHS_N), f"SASS: {len(mine)} instances of "
+              f"{stem}, expected one per BN in {WIDTHS_N}")
+        check(all(mine.values()), f"SASS: an instance of {stem} has no "
+              f"HGMMA: {mine}")
+        found.update(mine)
+    return found
+
+
+def ptxas_lines(log: str) -> list:
+    """One line per kernel from a build log with -Xptxas -v: its mangled
+    name, registers, barriers, stack and spill bytes."""
+    lines, name, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name, spill = m.group(1), ""
+        elif name and "spill" in line:
+            spill = line.strip()
+        elif name and "Used" in line:
+            lines.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
+            name = None
+    return lines
 
 
 def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -538,6 +609,17 @@ def check_kmeans(dev, card: str, n: int = N_MAIN):
           f"sums max_abs_err {err:.3e} (tol {tol:.1e}), "
           f"{flipped} near-tie rows assigned otherwise, kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms per Lloyd step  [{card}]")
+    # apply_r --clusters 256 at noise 100: the centroids stream past the
+    # rows in four tiles of 64 (ops/kmeans_kernel.py::kmeans_plan)
+    c256 = x[torch.randperm(n, device=dev, generator=gen)[:KMEANS_K_WIDE]]
+    err_w, tol_w, flipped_w = kmeans_case(x, c256)
+    ms_w = time_ms(lambda: kk.kmeans_step(x, c256))
+    plain_w = time_ms(lambda: kk.kmeans_step_plain(x, c256))
+    print(f"[kernel] kmeans_step ({n},{NOISE_DIM}) K={KMEANS_K_WIDE} float32 "
+          f"(plan {tuple(kk.kmeans_plan(NOISE_DIM, KMEANS_K_WIDE))}): sums "
+          f"max_abs_err {err_w:.3e} (tol {tol_w:.1e}), {flipped_w} near-tie "
+          f"rows assigned otherwise, kernel {ms_w:.4f} ms, plain "
+          f"{plain_w:.4f} ms per Lloyd step  [{card}]")
     xr = x[:777]
     cr = c.clone()
     cr[-1] = 0.0
@@ -554,7 +636,8 @@ def check_kmeans(dev, card: str, n: int = N_MAIN):
                        4 * (n * NOISE_DIM + 2 * KMEANS_K * NOISE_DIM
                             + KMEANS_K), "float32")
     return {"name": "kmeans_step", "label": f"({n},{NOISE_DIM}) K={KMEANS_K}",
-            "dtype": "float32", "max_abs_err": max(err, err_r), "ms": ms,
+            "dtype": "float32", "max_abs_err": max(err, err_r, err_w),
+            "ms": ms,
             "plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms,
             "bound_by": b_by}
 
@@ -1516,9 +1599,17 @@ def main() -> int:
     print(f"[build] {lib_path.name} in {time.perf_counter() - t0:.1f} s")
     log = lib_path.parent / f"build_{cuda_lib.source_hash()}.log"
     if log.is_file():
-        for line in log.read_text().splitlines():
-            if "Used" in line or "spill" in line:
-                print(f"[build] {line.strip()}")
+        for line in ptxas_lines(log.read_text()):
+            print(f"[build] {line}")
+    hgmma = check_hgmma(lib_path)
+    print("[build] SASS guard, HGMMA instructions per bf16 kernel: " +
+          ", ".join(f"{n} {c}" for n, c in sorted(hgmma.items())))
+    from ganreverser_tpu_torch.ops.conv_operands import tile_plan
+    print("[build] tile plans (BH, BW, BN, BK, stages, shared bytes): " +
+          "; ".join(f"{label} {tuple(tile_plan(*shape))}"
+                    for label, *shape in MAIN_CONV_LAYERS + [
+                        (lab, h, w, c, co) for lab, (h, w, c), co, _, _
+                        in D2_B6_LAYERS]))
 
     # 3. kernels against their plain versions
     records = check_kernels(dev, card)

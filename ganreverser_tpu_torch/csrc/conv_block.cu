@@ -8,7 +8,8 @@
 // 9x128x128 weights (295 KB in bf16) exceed the 227 KB of shared memory a
 // block may use, so the chain is one launch per layer (ops/
 // conv_block_kernel.py::conv_block launches them in order) and each launch
-// tiles space and streams weight slices over Ci (conv_tile.cuh).
+// tiles space and streams weight slices over Ci (conv_wgmma.cuh in bf16,
+// conv_tile.cuh in f32).
 //
 // B6 replaces ganreverser_tpu/ops/conv_kernel.py::conv3x3_bn_act, the
 // single-layer kernel with the PReLU epilogue (D2's conv + PReLU + pool
@@ -16,14 +17,19 @@
 // read from device memory (a pointer to one f32), so a learned slope never
 // waits for the host (ops/conv_kernel.py::conv3x3_bn_act).
 //
-// What bounds both: FMA throughput. Per output pixel a layer does 9*Ci*Co
-// MACs on Ci + Co values of traffic, far above the card's ridge point, and
-// this first version runs them on the CUDA cores (f32 FMA, 4x4 outputs per
-// thread from shared memory) rather than the tensor cores. The
+// What bounds both: the tensor cores. Per output pixel a layer does
+// 9*Ci*Co MACs on Ci + Co values of traffic, far above the card's ridge
+// point. bf16 runs on conv_wgmma.cuh: wgmma on 128-pixel x BN-channel tiles
+// fed by a TMA ring, whose 3x3 taps are nine boxes of the same input (the
+// Co = 64 layers re-read each box from L2 for only 64 output channels, so L2
+// may hold them below the tensor-core rate). f32 keeps conv_tile.cuh's IEEE
+// f32 loop on the CUDA cores (64 x 64 tiles, 4 x 4 outputs per thread): the
+// f32 parity tests hold the fast paths to 1e-4, which TF32 would break. The
 // intermediates between B's layers round-trip device memory in the storage
 // type (rounded as the TPU kernel rounds them); the pool in the epilogue
 // writes a quarter of the pixels.
 #include "conv_tile.cuh"
+#include "conv_wgmma.cuh"
 
 namespace gr {
 
@@ -129,37 +135,86 @@ static void launch(const void* x, const void* w9, const void* scale,
       act);
 }
 
+// The bf16 kernel: conv_wgmma.cuh's tile, 9 taps.
+template <int BN>
+__global__ void __launch_bounds__(wg::kThreads, BN <= 64 ? 2 : 1)
+    conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                         const __grid_constant__ CUtensorMap wmap,
+                         const wg::ConvArgs args) {
+  wg::conv_wgmma_body<BN, false>(xmap, wmap, args);
+}
+
+template <int BN>
+static cudaError_t launch_wgmma(dim3 grid, const CUtensorMap& xmap,
+                                const CUtensorMap& wmap,
+                                const wg::ConvArgs& args, int smem,
+                                cudaStream_t stream) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      conv3x3_wgmma_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return e;
+  conv3x3_wgmma_kernel<BN><<<grid, wg::kThreads, smem, stream>>>(xmap, wmap,
+                                                                 args);
+  return cudaGetLastError();
+}
+
+static int launch_bf16(const void* x, const void* w9, const void* scale,
+                       const void* shift, const void* alpha, void* out, int n,
+                       int h, int w, int ci, int co, int act, int pool,
+                       const wg::Plan& pl, cudaStream_t stream) {
+  CUtensorMap xmap, wmap;
+  if (!wg::plan_ok(pl, pool) ||
+      !wg::encode_maps(&xmap, &wmap, x, w9, n, h, w, ci, co, 9, pl))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const wg::ConvArgs args{static_cast<const float*>(scale),
+                          static_cast<const float*>(shift),
+                          static_cast<const float*>(alpha),
+                          static_cast<__nv_bfloat16*>(out),
+                          h, w, co, act, pool, pl.bh, pl.bw, pl.bk, pl.stages,
+                          (ci + pl.bk - 1) / pl.bk};
+  const long long tiles = static_cast<long long>(n) * ((h + pl.bh - 1) / pl.bh) *
+                          ((w + pl.bw - 1) / pl.bw);
+  const dim3 grid(static_cast<unsigned>(tiles),
+                  static_cast<unsigned>((co + pl.bn - 1) / pl.bn), 1);
+  cudaError_t e;
+  switch (pl.bn) {
+    case 16: e = launch_wgmma<16>(grid, xmap, wmap, args, pl.smem, stream); break;
+    case 32: e = launch_wgmma<32>(grid, xmap, wmap, args, pl.smem, stream); break;
+    case 64: e = launch_wgmma<64>(grid, xmap, wmap, args, pl.smem, stream); break;
+    case 128: e = launch_wgmma<128>(grid, xmap, wmap, args, pl.smem, stream); break;
+    default: e = launch_wgmma<256>(grid, xmap, wmap, args, pl.smem, stream);
+  }
+  return static_cast<int>(e);
+}
+
 }  // namespace gr
 
-// x (N,H,W,Ci) and w9 (9,Ci,Co) in the storage type, scale/shift (Co,) f32,
-// alpha one f32 (read with act = ACT_PRELU only; may be null otherwise),
-// out (N,H,W,Co) or, with pool, (N,H/2,W/2,Co) in the storage type.
+// f32: x (N,H,W,Ci) and w9 (9,Ci,Co), the plan ignored. bf16: x (N,H,W,Ci)
+// with Ci % 8 == 0 and w9 (9,Co,Ci) K-major (ops/conv_operands.py), on the
+// plan bh, bw, bn, bk, stages, smem (ops/conv_operands.py::tile_plan).
+// scale/shift (Co,) f32, alpha one f32 (read with act = ACT_PRELU only; may
+// be null otherwise), out (N,H,W,Co) or, with pool, (N,H/2,W/2,Co) in the
+// storage type.
 extern "C" int gr_conv3x3_bn_act(int dtype, const void* x, const void* w9,
                                  const void* scale, const void* shift,
                                  const void* alpha, void* out, int n, int h,
                                  int w, int ci, int co, int act, int pool,
-                                 void* stream) {
+                                 int bh, int bw, int bn, int bk, int stages,
+                                 int smem, void* stream) {
   using namespace gr;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (pool && (h % 2 || w % 2)) return static_cast<int>(cudaErrorInvalidValue);
   if (act == ACT_PRELU && alpha == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == DT_F32) {
-    if (pool)
-      launch<float, true>(x, w9, scale, shift, alpha, out, n, h, w, ci, co,
-                          act, s);
-    else
-      launch<float, false>(x, w9, scale, shift, alpha, out, n, h, w, ci, co,
-                           act, s);
-  } else if (dtype == DT_BF16) {
-    if (pool)
-      launch<__nv_bfloat16, true>(x, w9, scale, shift, alpha, out, n, h, w,
-                                  ci, co, act, s);
-    else
-      launch<__nv_bfloat16, false>(x, w9, scale, shift, alpha, out, n, h, w,
-                                   ci, co, act, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (dtype == DT_BF16)
+    return launch_bf16(x, w9, scale, shift, alpha, out, n, h, w, ci, co, act,
+                       pool, wg::Plan{bh, bw, bn, bk, stages, smem}, s);
+  if (dtype != DT_F32) return static_cast<int>(cudaErrorInvalidValue);
+  if (pool)
+    launch<float, true>(x, w9, scale, shift, alpha, out, n, h, w, ci, co, act,
+                        s);
+  else
+    launch<float, false>(x, w9, scale, shift, alpha, out, n, h, w, ci, co,
+                         act, s);
   return static_cast<int>(cudaGetLastError());
 }

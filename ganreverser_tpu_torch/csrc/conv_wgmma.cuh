@@ -1,0 +1,609 @@
+// The bf16 tensor-core mainloop shared by kernels B (and B6) and U: an
+// implicit GEMM for a 3x3 convolution, or one output phase of U's 2x2 phase
+// convolution, over an NHWC bf16 input, on Hopper's wgmma fed by TMA.
+//
+//   acc[m][co] = sum_tap sum_ci x[n, i(m) + dy(tap), j(m) + dx(tap), ci]
+//                               * w[widx(tap)][co][ci]
+//
+// M is a patch of BH x BW = 128 output pixels of one image, N is BN output
+// channels (16 to 256), K is taps x input channels, streamed BK channels of
+// one tap per pipeline stage. Sums are f32 in registers.
+//
+// Operands. x is (N, H, W, C) with C % 8 == 0 (the wrapper zero-pads the
+// channels, ops/conv_operands.py), read through one 4D tiled tensor map over
+// (C, W, H, N) with box (BK, BW, BH, 1): tap (dy, dx) of the tile at
+// (n, i0, j0) is the box at (c0, j0 + dx, i0 + dy, n). TMA fills every
+// element outside the tensor, negative coordinates included, with zero: that
+// is the SAME padding each layer re-applies (conv_tile.cuh), with no padded
+// copy and no bounds checks, and it zero-fills the ragged edges (H, W off the
+// tile, channels past C) too. The box lands in shared memory as the 128 x BK
+// K-major A tile. The weights are (taps, Co, C), K-major, read through a 3D
+// map with box (BK, BN, 1); channels past Co read as zero. BK is 64 (128-byte
+// rows, 128-byte swizzle), or 32 or 16 (64- and 32-byte swizzle) where C is
+// that narrow, so a stem of 3 channels computes 16 deep, not 64 (the wrapper
+// pads such a C to BK: TMA is slow on rows that are half out of bounds).
+//
+// Pipeline. One producer warp (one elected lane) issues both loads of a
+// stage with cp.async.bulk.tensor on the stage's "full" mbarrier
+// (expect_tx); two consumer warpgroups, 64 rows each, wait on it, issue
+// wgmma.mma_async (m64nBNk16, bf16 -> f32, both operands from shared memory
+// through matrix descriptors, both K-major so neither is transposed), and
+// keep one group in flight: a stage is released on its "empty" mbarrier
+// (one arrival per consumer warp) when the next stage's products have been
+// issued and its own have completed. The ring holds 2-8 stages.
+//
+// Epilogue. acc * scale + shift, the activation (common.cuh's apply_act, a
+// PReLU slope read from device memory) and one rounding to bf16, in f32 as
+// before; the tile is staged through the freed ring and stored 16 bytes per
+// thread (scalar where Co % 8 != 0), masking ragged pixels and channels.
+// With the pool, the 2x2 max is taken from the staged tile: BH, BW and the
+// tile origin are even, so every window lies in one tile, and rounding is
+// monotone, so round-then-max equals max-then-round. With U, phase (a, b)
+// writes pixel (2i + a, 2j + b) of the (N, 2H, 2W, Co) output.
+//
+// The tile plan (BH, BW, BN, BK, stages, shared bytes) is computed once, by
+// ops/conv_operands.py::tile_plan; the host side here only checks it against
+// the layout below. The tensor maps are encoded per launch with
+// cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPointByVersion,
+// so the library links no libcuda.
+#pragma once
+
+#include <cuda.h>
+#include <cstdint>
+
+#include "common.cuh"
+
+namespace gr {
+namespace wg {
+
+constexpr int kBM = 128;                 // output pixels per block
+constexpr int kConsumerWarps = 8;        // two warpgroups of 64 rows
+constexpr int kConsumerThreads = 32 * kConsumerWarps;
+constexpr int kThreads = kConsumerThreads + 32;  // + the producer warp
+constexpr int kAlign = 1024;             // the 128-byte swizzle's period
+constexpr int kMaxSharedBytes = 232448;
+
+// Everything a launch needs beyond its two tensor maps.
+struct ConvArgs {
+  const float* scale;
+  const float* shift;
+  const float* alpha;  // the PReLU slope, read with ACT_PRELU only
+  __nv_bfloat16* out;
+  int H, W, Co, act, pool;
+  int bh, bw, bk, stages, kchunks;  // the plan; kchunks = ceil(C / bk)
+};
+
+__host__ __device__ constexpr int stage_bytes(int bn, int bk) {
+  return (kBM * bk * 2 + bn * bk * 2 + kAlign - 1) / kAlign * kAlign;
+}
+
+// Shared bytes of a plan's layout: the alignment slack, the ring, its
+// full/empty barriers. The epilogue's staged tile reuses the ring.
+__host__ __device__ constexpr int smem_need(int bn, int bk, int stages) {
+  return kAlign + stages * stage_bytes(bn, bk) + 16 * stages;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// Wait until the phase of parity ``parity`` has completed. A wait that
+// never ends is a fault of the pipeline: after 2^26 polls (seconds) the
+// block traps, so the launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  for (uint32_t polls = 0;; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 26)) __trap();
+  }
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Matrix descriptor of a K-major tile whose rows are bk * 2 bytes, swizzled
+// as the tensor map swizzled it (layout 1, 2, 3: 128-, 64-, 32-byte), the
+// 8-row groups ``sbo`` bytes apart; LBO is unused for swizzled K-major tiles.
+__device__ __forceinline__ uint64_t make_desc(const void* tile, int layout,
+                                              int sbo) {
+  uint64_t d = (smem_u32(tile) & 0x3FFFF) >> 4;
+  d |= uint64_t(1) << 16;
+  d |= uint64_t((sbo >> 4) & 0x3FFF) << 32;
+  d |= uint64_t(layout) << 62;
+  return d;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of the accumulators across
+// the asynchronous products' fences.
+template <int R>
+__device__ __forceinline__ void fence_operands(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The consumer warpgroups' own barrier (the producer warp has left).
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(kConsumerThreads) : "memory");
+}
+
+// wgmma.mma_async m64nNk16, f32 += bf16 x bf16, A and B from shared memory,
+// both K-major; d is this thread's N / 2 accumulators.
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<16> {
+  static __device__ __forceinline__ void mma(float (&d)[8], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  static __device__ __forceinline__ void mma(float (&d)[16], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<256> {
+  static __device__ __forceinline__ void mma(float (&d)[128], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, "
+        "%88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, "
+        "%104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, "
+        "%120, %121, %122, %123, %124, %125, %126, %127"
+        "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+          "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+          "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+          "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+          "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+          "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+          "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+struct TapOffset {
+  int dy, dx, widx;
+};
+
+// Tap t of a 3x3 conv, or of phase (a, b) of U (input taps (a + ta - 1,
+// b + tb - 1), weights [a, ta, b, tb] flattened).
+template <bool kUp>
+__device__ __forceinline__ TapOffset tap_offset(int t, int a, int b) {
+  if (kUp) {
+    const int ta = t >> 1, tb = t & 1;
+    return {a + ta - 1, b + tb - 1, ((a * 2 + ta) * 2 + b) * 2 + tb};
+  }
+  return {t / 3 - 1, t % 3 - 1, t};
+}
+
+// Eight staged bf16 values to out[0..min(8, left)), 16 bytes at once when
+// Co % 8 == 0 keeps the destination aligned.
+__device__ __forceinline__ void store8(__nv_bfloat16* dst,
+                                       const __nv_bfloat16* src, int left,
+                                       bool vec) {
+  if (vec) {
+    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      if (e < left) dst[e] = src[e];
+  }
+}
+
+// One block: the 128-pixel tile blockIdx.x (image-major, then tile rows,
+// then tile columns), output channels blockIdx.y * BN .. + BN, and with kUp
+// the phase blockIdx.z = 2a + b.
+template <int BN, bool kUp>
+__device__ __forceinline__ void conv_wgmma_body(const CUtensorMap& xmap,
+                                                const CUtensorMap& wmap,
+                                                const ConvArgs& p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* buf =
+      smem_raw + ((kAlign - (smem_u32(smem_raw) & (kAlign - 1))) & (kAlign - 1));
+  const int a_bytes = kBM * p.bk * 2;
+  const int b_bytes = BN * p.bk * 2;
+  const int sbytes = stage_bytes(BN, p.bk);
+  uint64_t* full = reinterpret_cast<uint64_t*>(buf + p.stages * sbytes);
+  uint64_t* empty = full + p.stages;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tiles_w = (p.W + p.bw - 1) / p.bw;
+  const int tiles_h = (p.H + p.bh - 1) / p.bh;
+  const int tj = blockIdx.x % tiles_w;
+  const int ti = (blockIdx.x / tiles_w) % tiles_h;
+  const int n = blockIdx.x / tiles_w / tiles_h;
+  const int i0 = ti * p.bh, j0 = tj * p.bw;
+  const int co0 = blockIdx.y * BN;
+  const int pa = kUp ? static_cast<int>(blockIdx.z >> 1) : 0;
+  const int pb = kUp ? static_cast<int>(blockIdx.z & 1) : 0;
+  const int iters = (kUp ? 4 : 9) * p.kchunks;
+
+  if (tid == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumerWarps) {  // the producer
+    if (lane == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int it = 0; it < iters; ++it) {
+        const int tap = it / p.kchunks;
+        const int c0 = (it - tap * p.kchunks) * p.bk;
+        const TapOffset o = tap_offset<kUp>(tap, pa, pb);
+        unsigned char* sa = buf + stage * sbytes;
+        mbar_wait(&empty[stage], phase ^ 1u);
+        mbar_expect_tx(&full[stage], a_bytes + b_bytes);
+        tma_load_4d(sa, &xmap, &full[stage], c0, j0 + o.dx, i0 + o.dy, n);
+        tma_load_3d(sa + a_bytes, &wmap, &full[stage], c0, co0, o.widx);
+        if (++stage == p.stages) {
+          stage = 0;
+          phase ^= 1u;
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumers: warpgroup wgi owns rows wgi * 64 .. + 64 of the tile
+  const int wgi = warp >> 2;
+  const int layout = p.bk == 64 ? 1 : (p.bk == 32 ? 2 : 3);
+  const int sbo = 8 * p.bk * 2;
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+  fence_operands(acc);
+  int stage = 0, prev = 0;
+  uint32_t phase = 0;
+  for (int it = 0; it < iters; ++it) {
+    mbar_wait(&full[stage], phase);
+    const unsigned char* sa = buf + stage * sbytes;
+    const uint64_t da = make_desc(sa + wgi * 64 * p.bk * 2, layout, sbo);
+    const uint64_t db = make_desc(sa + a_bytes, layout, sbo);
+    wgmma_fence();
+    // each k16 step is 32 bytes further along the rows: +2 in 16-byte units
+    for (int kk = 0; kk < p.bk / 16; ++kk)
+      Wgmma<BN>::mma(acc, da + 2 * kk, db + 2 * kk);
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous stage's products are done
+    if (it > 0 && lane == 0) mbar_arrive(&empty[prev]);
+    prev = stage;
+    if (++stage == p.stages) {
+      stage = 0;
+      phase ^= 1u;
+    }
+  }
+  wgmma_wait<0>();
+  fence_operands(acc);
+  consumer_sync();  // both warpgroups are done reading the ring
+
+  // epilogue: f32 scale/shift/act, one rounding, staged as [128][BN + 8]
+  constexpr int kLdc = BN + 8;
+  __nv_bfloat16* cs = reinterpret_cast<__nv_bfloat16*>(buf);
+  const float slope = p.act == ACT_PRELU ? *p.alpha : 0.0f;
+  const int row_base = wgi * 64 + (warp & 3) * 16 + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = j * 8 + 2 * (lane & 3);
+    const int co = co0 + col;
+    const float sc0 = co < p.Co ? p.scale[co] : 0.0f;
+    const float sh0 = co < p.Co ? p.shift[co] : 0.0f;
+    const float sc1 = co + 1 < p.Co ? p.scale[co + 1] : 0.0f;
+    const float sh1 = co + 1 < p.Co ? p.shift[co + 1] : 0.0f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float v0 =
+          apply_act(fmaf(acc[j * 4 + 2 * h], sc0, sh0), p.act, slope);
+      const float v1 =
+          apply_act(fmaf(acc[j * 4 + 2 * h + 1], sc1, sh1), p.act, slope);
+      *reinterpret_cast<__nv_bfloat162*>(cs + (row_base + 8 * h) * kLdc +
+                                         col) = __floats2bfloat162_rn(v0, v1);
+    }
+  }
+  consumer_sync();
+
+  constexpr int kVecs = BN / 8;
+  const int H = p.H, W = p.W, Co = p.Co;
+  const bool vec = Co % 8 == 0;
+  if (!kUp && p.pool) {
+    const int pw = p.bw / 2;
+    for (int c = tid; c < (kBM / 4) * kVecs; c += kConsumerThreads) {
+      const int pr = c / kVecs, v = c - pr * kVecs;
+      const int py = pr / pw, px = pr - py * pw;
+      const int P = i0 / 2 + py, Q = j0 / 2 + px, co = co0 + v * 8;
+      if (P >= H / 2 || Q >= W / 2 || co >= Co) continue;
+      const __nv_bfloat16* s0 = cs + ((2 * py) * p.bw + 2 * px) * kLdc + v * 8;
+      const __nv_bfloat16* s2 = s0 + p.bw * kLdc;
+      __align__(16) __nv_bfloat16 m[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        m[e] = __float2bfloat16(
+            fmaxf(fmaxf(__bfloat162float(s0[e]), __bfloat162float(s0[kLdc + e])),
+                  fmaxf(__bfloat162float(s2[e]), __bfloat162float(s2[kLdc + e]))));
+      const long long pix =
+          (static_cast<long long>(n) * (H / 2) + P) * (W / 2) + Q;
+      store8(p.out + pix * Co + co, m, Co - co, vec);
+    }
+  } else {
+    for (int c = tid; c < kBM * kVecs; c += kConsumerThreads) {
+      const int row = c / kVecs, v = c - row * kVecs;
+      const int pi = i0 + row / p.bw, pj = j0 + row % p.bw, co = co0 + v * 8;
+      if (pi >= H || pj >= W || co >= Co) continue;
+      const long long pix =
+          kUp ? ((static_cast<long long>(n) * 2 * H + 2 * pi + pa) * 2 * W +
+                 2 * pj + pb)
+              : ((static_cast<long long>(n) * H + pi) * W + pj);
+      store8(p.out + pix * Co + co, cs + row * kLdc + v * 8, Co - co, vec);
+    }
+  }
+}
+
+// ---- host side -----------------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                         cudaEnableDefault, &q) !=
+            cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      f = nullptr;
+    return reinterpret_cast<EncodeTiledFn>(f);
+  }();
+  return fn;
+}
+
+// A plan as the wrapper computed it (ops/conv_operands.py::tile_plan).
+struct Plan {
+  int bh, bw, bn, bk, stages, smem;
+};
+
+// Does the plan fit this layout? (the tile, the widths the kernel is built
+// for, even sides with the pool, the staged tile inside the ring, and the
+// shared bytes of the layout within what the plan asks for and the card has)
+inline bool plan_ok(const Plan& pl, bool pool) {
+  return pl.bh * pl.bw == kBM && pl.bh > 0 &&
+         (pl.bn == 16 || pl.bn == 32 || pl.bn == 64 || pl.bn == 128 ||
+          pl.bn == 256) &&
+         (pl.bk == 16 || pl.bk == 32 || pl.bk == 64) && pl.stages >= 2 &&
+         (!pool || (pl.bh % 2 == 0 && pl.bw % 2 == 0)) &&
+         kBM * (pl.bn + 8) * 2 <= pl.stages * stage_bytes(pl.bn, pl.bk) &&
+         smem_need(pl.bn, pl.bk, pl.stages) <= pl.smem &&
+         pl.smem <= kMaxSharedBytes;
+}
+
+// Tiled bf16 map over a tensor whose dims (innermost first) are dims[0..r)
+// and whose innermost dim is contiguous; box box[0..r).
+inline bool encode_map(CUtensorMap* map, const void* base, int rank,
+                       const long long* dims, const int* box, int bk) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr || (reinterpret_cast<uintptr_t>(base) & 15) != 0)
+    return false;
+  cuuint64_t gdim[4], gstride[3];
+  cuuint32_t gbox[4], estride[4];
+  long long stride = 2;
+  for (int i = 0; i < rank; ++i) {
+    gdim[i] = static_cast<cuuint64_t>(dims[i]);
+    gbox[i] = static_cast<cuuint32_t>(box[i]);
+    estride[i] = 1;
+    stride *= dims[i];
+    if (i + 1 < rank) gstride[i] = static_cast<cuuint64_t>(stride);
+  }
+  const CUtensorMapSwizzle sw =
+      bk == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+               : (bk == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B);
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, static_cast<cuuint32_t>(rank),
+            const_cast<void*>(base), gdim, gstride, gbox, estride,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The two maps of a launch: x (N, H, W, C) with box (bk, bw, bh, 1), and the
+// K-major weights (taps, Co, C) with box (bk, bn, 1).
+inline bool encode_maps(CUtensorMap* xmap, CUtensorMap* wmap, const void* x,
+                        const void* w, int n, int h, int wd, int c, int co,
+                        int taps, const Plan& pl) {
+  const long long xd[4] = {c, wd, h, n};
+  const int xb[4] = {pl.bk, pl.bw, pl.bh, 1};
+  const long long wdims[3] = {c, co, taps};
+  const int wb[3] = {pl.bk, pl.bn, 1};
+  return c % 8 == 0 && encode_map(xmap, x, 4, xd, xb, pl.bk) &&
+         encode_map(wmap, w, 3, wdims, wb, pl.bk);
+}
+
+}  // namespace wg
+}  // namespace gr

@@ -14,10 +14,12 @@
 // quarter of the output directly, so the upsampled input never exists and
 // the interleave costs no extra pass.
 //
-// What bounds it: FMA issue, as kernel B (conv_block.cu): stage 1's
+// What bounds it: the tensor cores, as kernel B (conv_block.cu): stage 1's
 // aggregated weights are 16x512x256 (4 MB in bf16), streamed BK input
-// channels at a time through shared memory, with f32 CUDA-core FMAs in this
-// first version.
+// channels of one tap at a time. In bf16 each phase is conv_wgmma.cuh's tile
+// with its four taps, the weights laid out K-major as (16, Co, Ci) by the
+// wrapper; in f32 conv_tile.cuh's IEEE f32 loop runs on the CUDA cores. The
+// fused head below stays on conv_tile.cuh in both types.
 //
 // The second entry point, gr_upsample2_conv3x3_head, is the TPU kernel's
 // fused final head (its final_kernel path): U, one rounding to the storage
@@ -37,6 +39,7 @@
 // recomputes (16 / 14)^2 = 1.31x of U's work, 1.56x on a 64x64 output where
 // the last tile row and column are ragged.
 #include "conv_tile.cuh"
+#include "conv_wgmma.cuh"
 
 namespace gr {
 
@@ -117,6 +120,59 @@ static void launch(const void* x, const void* k16, const void* scale,
       static_cast<const T*>(x), static_cast<const T*>(k16),
       static_cast<const float*>(scale), static_cast<const float*>(shift),
       static_cast<T*>(out), n, h, w, ci, co, act);
+}
+
+// The bf16 kernel: conv_wgmma.cuh's tile, the four taps of phase
+// blockIdx.z.
+template <int BN>
+__global__ void __launch_bounds__(wg::kThreads, BN <= 64 ? 2 : 1)
+    upsample2_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                           const __grid_constant__ CUtensorMap wmap,
+                           const wg::ConvArgs args) {
+  wg::conv_wgmma_body<BN, true>(xmap, wmap, args);
+}
+
+template <int BN>
+static cudaError_t launch_wgmma(dim3 grid, const CUtensorMap& xmap,
+                                const CUtensorMap& wmap,
+                                const wg::ConvArgs& args, int smem,
+                                cudaStream_t stream) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      upsample2_wgmma_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return e;
+  upsample2_wgmma_kernel<BN><<<grid, wg::kThreads, smem, stream>>>(xmap, wmap,
+                                                                   args);
+  return cudaGetLastError();
+}
+
+static int launch_bf16(const void* x, const void* k16, const void* scale,
+                       const void* shift, void* out, int n, int h, int w,
+                       int ci, int co, int act, const wg::Plan& pl,
+                       cudaStream_t stream) {
+  CUtensorMap xmap, wmap;
+  if (!wg::plan_ok(pl, false) ||
+      !wg::encode_maps(&xmap, &wmap, x, k16, n, h, w, ci, co, 16, pl))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const wg::ConvArgs args{static_cast<const float*>(scale),
+                          static_cast<const float*>(shift),
+                          nullptr,
+                          static_cast<__nv_bfloat16*>(out),
+                          h, w, co, act, 0, pl.bh, pl.bw, pl.bk, pl.stages,
+                          (ci + pl.bk - 1) / pl.bk};
+  const long long tiles = static_cast<long long>(n) * ((h + pl.bh - 1) / pl.bh) *
+                          ((w + pl.bw - 1) / pl.bw);
+  const dim3 grid(static_cast<unsigned>(tiles),
+                  static_cast<unsigned>((co + pl.bn - 1) / pl.bn), 4);
+  cudaError_t e;
+  switch (pl.bn) {
+    case 16: e = launch_wgmma<16>(grid, xmap, wmap, args, pl.smem, stream); break;
+    case 32: e = launch_wgmma<32>(grid, xmap, wmap, args, pl.smem, stream); break;
+    case 64: e = launch_wgmma<64>(grid, xmap, wmap, args, pl.smem, stream); break;
+    case 128: e = launch_wgmma<128>(grid, xmap, wmap, args, pl.smem, stream); break;
+    default: e = launch_wgmma<256>(grid, xmap, wmap, args, pl.smem, stream);
+  }
+  return static_cast<int>(e);
 }
 
 constexpr int kHalo = 16;          // haloed tile side, high-res pixels
@@ -249,21 +305,25 @@ static int launch_head(const void* x, const void* k16, const void* scale,
 
 }  // namespace gr
 
-// x (N,H,W,Ci) and k16 (16,Ci,Co, flattened [a,ta,b,tb]) in the storage
-// type, scale/shift (Co,) f32, out (N,2H,2W,Co) in the storage type.
+// f32: x (N,H,W,Ci) and k16 (16,Ci,Co, flattened [a,ta,b,tb]), the plan
+// ignored. bf16: x (N,H,W,Ci) with Ci % 8 == 0 and k16 (16,Co,Ci) K-major
+// (ops/conv_operands.py), on the plan bh, bw, bn, bk, stages, smem
+// (ops/conv_operands.py::tile_plan). scale/shift (Co,) f32, out (N,2H,2W,Co)
+// in the storage type.
 extern "C" int gr_upsample2_conv3x3_bn_act(int dtype, const void* x,
                                            const void* k16, const void* scale,
                                            const void* shift, void* out, int n,
                                            int h, int w, int ci, int co,
-                                           int act, void* stream) {
+                                           int act, int bh, int bw, int bn,
+                                           int bk, int stages, int smem,
+                                           void* stream) {
   using namespace gr;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DT_F32)
-    launch<float>(x, k16, scale, shift, out, n, h, w, ci, co, act, s);
-  else if (dtype == DT_BF16)
-    launch<__nv_bfloat16>(x, k16, scale, shift, out, n, h, w, ci, co, act, s);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == DT_BF16)
+    return launch_bf16(x, k16, scale, shift, out, n, h, w, ci, co, act,
+                       wg::Plan{bh, bw, bn, bk, stages, smem}, s);
+  if (dtype != DT_F32) return static_cast<int>(cudaErrorInvalidValue);
+  launch<float>(x, k16, scale, shift, out, n, h, w, ci, co, act, s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,7 +5,8 @@ The counterpart of ganreverser_tpu/ops/conv_block_kernel.py. The TPU kernel
 keeps a whole chain in VMEM; on this card neither the accumulator of a
 64x64x64 image nor stage 2's weights fit in a block's shared memory, so
 ``conv_block`` launches the CUDA kernel (``csrc/conv_block.cu``) once per
-layer, with the pool fused into the last layer's epilogue. Semantics kept
+layer, with the pool fused into the last layer's epilogue: bf16 on the
+tensor cores (``csrc/conv_wgmma.cuh``), f32 on the CUDA cores. Semantics kept
 from the TPU kernel: every layer's input is zero-padded at the image border
 (each launch pads anew), each intermediate is rounded to ``x.dtype``, ELU is
 ``exp(min(y, 0)) - 1`` and the pool follows the last layer only.
@@ -22,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_lib
+from .conv_kernel import launch_conv3x3
 
 _ACTS = ("elu", "relu", "none")
 
@@ -71,30 +73,12 @@ def conv_block(x: torch.Tensor, kernels: Sequence[torch.Tensor],
     if cuda_lib.dispatch_device(x, *kernels, *scales, *shifts) == "cpu":
         return conv_block_plain(x, kernels, scales, shifts, act=act,
                                 pool=pool)
-    lib = cuda_lib.library()
     y = x
     for li, (k, sc, sh) in enumerate(zip(kernels, scales, shifts)):
-        ci, co = y.shape[-1], k.shape[-1]
-        last_pool = pool and li == len(kernels) - 1
-        w9 = k.to(x.dtype).reshape(9, ci, co).contiguous()
-        sc = sc.float().contiguous()
-        sh = sh.float().contiguous()
-        cuda_lib.require(y, "x", x.device, x.dtype, (n, h, w, ci))
-        cuda_lib.require(w9, f"kernels[{li}]", x.device, x.dtype, (9, ci, co))
-        cuda_lib.require(sc, f"scales[{li}]", x.device, torch.float32, (co,))
-        cuda_lib.require(sh, f"shifts[{li}]", x.device, torch.float32, (co,))
-        oh, ow = (h // 2, w // 2) if last_pool else (h, w)
-        out = torch.empty((n, oh, ow, co), dtype=x.dtype, device=x.device)
-        with torch.cuda.device(x.device):
-            rc = lib.gr_conv3x3_bn_act(
-                cuda_lib.dtype_code(x), y.data_ptr(), w9.data_ptr(),
-                sc.data_ptr(), sh.data_ptr(), None, out.data_ptr(), n, h, w,
-                ci, co,
-                cuda_lib.ACT_CODES[act], int(last_pool),
-                cuda_lib.stream_of(x))
-        cuda_lib.check(rc, "conv_block")
+        y = launch_conv3x3(y, k, sc, sh, act=act,
+                           pool=pool and li == len(kernels) - 1,
+                           name="conv_block")
         conv_block.launches += 1
-        y = out
     return y
 
 

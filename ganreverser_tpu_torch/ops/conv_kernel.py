@@ -6,7 +6,8 @@ BatchNorm folding of ganreverser_tpu/ops/conv_kernel.py.
 D/R conv + PReLU + pool block: D2's evaluation forward runs five of its six
 convolutions on it (models/fastpath.py::make_fast_discriminator). On CUDA
 tensors it launches the single-layer kernel of ``csrc/conv_block.cu`` (the
-one kernel B chains) with the PReLU epilogue; on CPU tensors it takes the
+one kernel B chains, :func:`launch_conv3x3`) with the PReLU epilogue: bf16
+on the tensor cores, f32 on the CUDA cores; on CPU tensors it takes the
 plain version ``conv3x3_bn_act_plain``; no other device is accepted.
 ``conv3x3_bn_act.launches`` counts its launches, apart from kernel B's.
 
@@ -22,7 +23,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import cuda_lib
+from . import conv_operands, cuda_lib
 
 _ACTS = ("relu", "elu", "prelu", "none")
 
@@ -88,28 +89,56 @@ def conv3x3_bn_act(x: torch.Tensor, kernel: torch.Tensor, scale: torch.Tensor,
     if cuda_lib.dispatch_device(x, kernel, scale, shift, alpha) == "cpu":
         return conv3x3_bn_act_plain(x, kernel, scale, shift, act=act,
                                     prelu_alpha=alpha, pool=pool)
-    n, h, w, ci = x.shape
-    co = kernel.shape[-1]
-    w9 = kernel.to(x.dtype).reshape(9, ci, co).contiguous()
-    scale = scale.float().contiguous()
-    shift = shift.float().contiguous()
-    alpha = alpha.float().reshape(1).contiguous()
-    cuda_lib.require(x, "x", x.device, x.dtype, (n, h, w, ci))
-    cuda_lib.require(w9, "kernel", x.device, x.dtype, (9, ci, co))
-    cuda_lib.require(scale, "scale", x.device, torch.float32, (co,))
-    cuda_lib.require(shift, "shift", x.device, torch.float32, (co,))
-    cuda_lib.require(alpha, "prelu_alpha", x.device, torch.float32, (1,))
-    oh, ow = (h // 2, w // 2) if pool else (h, w)
-    out = torch.empty((n, oh, ow, co), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = cuda_lib.library().gr_conv3x3_bn_act(
-            cuda_lib.dtype_code(x), x.data_ptr(), w9.data_ptr(),
-            scale.data_ptr(), shift.data_ptr(), alpha.data_ptr(),
-            out.data_ptr(), n, h, w, ci, co, cuda_lib.ACT_CODES[act],
-            int(pool), cuda_lib.stream_of(x))
-    cuda_lib.check(rc, "conv3x3_bn_act")
+    out = launch_conv3x3(x, kernel, scale, shift, act=act,
+                         alpha=alpha.float().reshape(1), pool=pool,
+                         name="conv3x3_bn_act")
     conv3x3_bn_act.launches += 1
     return out
 
 
 conv3x3_bn_act.launches = 0
+
+
+def launch_conv3x3(x: torch.Tensor, kernel: torch.Tensor, scale: torch.Tensor,
+                   shift: torch.Tensor, *, act: str, alpha=None,
+                   pool: bool = False, name: str) -> torch.Tensor:
+    """One launch of ``csrc/conv_block.cu``'s ``gr_conv3x3_bn_act`` on CUDA
+    tensors, for kernels B and B6 (each wrapper counts its own). bf16 runs
+    on the tensor-core tile with the padded, K-major operands of
+    ``conv_operands`` and its ``tile_plan``; f32 on the CUDA-core tile with
+    (9, Ci, Co) weights. ``alpha``: the PReLU slope, a (1,) f32 tensor on
+    the device, or None where ``act`` is not prelu."""
+    code = cuda_lib.dtype_code(x)
+    n, h, w, ci = x.shape
+    co = kernel.shape[-1]
+    if tuple(kernel.shape[:3]) != (3, 3, ci):
+        raise ValueError(f"{name}: kernel {tuple(kernel.shape)} does not take "
+                         f"the input's {ci} channels")
+    if x.dtype == torch.bfloat16:
+        xk = conv_operands.pad_channels(x)
+        wk = conv_operands.conv3x3_weights(kernel, x.dtype)
+        plan = conv_operands.tile_plan(h, w, ci, co)
+        wshape = (9, co, xk.shape[-1])
+    else:
+        xk, plan = x, conv_operands.NO_PLAN
+        wk = kernel.to(x.dtype).reshape(9, ci, co).contiguous()
+        wshape = (9, ci, co)
+    scale = scale.float().contiguous()
+    shift = shift.float().contiguous()
+    cuda_lib.require(xk, "x", x.device, x.dtype, (n, h, w, xk.shape[-1]))
+    cuda_lib.require(wk, "kernel", x.device, x.dtype, wshape)
+    cuda_lib.require(scale, "scale", x.device, torch.float32, (co,))
+    cuda_lib.require(shift, "shift", x.device, torch.float32, (co,))
+    if alpha is not None:
+        alpha = alpha.contiguous()
+        cuda_lib.require(alpha, "prelu_alpha", x.device, torch.float32, (1,))
+    oh, ow = (h // 2, w // 2) if pool else (h, w)
+    out = torch.empty((n, oh, ow, co), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = cuda_lib.library().gr_conv3x3_bn_act(
+            code, xk.data_ptr(), wk.data_ptr(), scale.data_ptr(),
+            shift.data_ptr(), None if alpha is None else alpha.data_ptr(),
+            out.data_ptr(), n, h, w, xk.shape[-1], co,
+            cuda_lib.ACT_CODES[act], int(pool), *plan, cuda_lib.stream_of(x))
+    cuda_lib.check(rc, name)
+    return out

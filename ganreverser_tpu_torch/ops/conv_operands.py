@@ -1,0 +1,132 @@
+"""The operands and tile plan of the bf16 tensor-core convolutions
+(``csrc/conv_wgmma.cuh``, kernels B, B6 and U), and a plain version of
+their implicit GEMM in the kernel's K order.
+
+TMA reads rows that are a multiple of 16 bytes, so ``pad_channels`` zero-pads
+an NHWC input's channels up to a multiple of 8, and a narrow stem's up to
+the stage depth, 16 or 32 (``padded_channels``): zero channels add exact
+zeros to the f32 sums, and TMA is slow on rows that lie half outside the
+tensor. ``kmajor`` pads the weights' Ci to match: they go (taps, Co, Ci'),
+each tap's (Co, Ci') slice K-major, as the activations' tile is, so the
+tensor cores transpose neither operand. A 3x3 conv has the 9 taps of its
+HWIO kernel (tap t is (t // 3, t % 3)); kernel U has the 16 phase taps
+``[a, ta, b, tb]`` of ``phase_kernels``, four per output phase.
+
+``tile_plan`` is the one place where a launch's tile is chosen: 128 output
+pixels as a BH x BW patch of one image, BN output channels, BK input
+channels per stage, the ring's stage count and the block's shared bytes;
+``csrc/conv_wgmma.cuh`` checks a plan against its layout and refuses one
+that does not fit.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Sequence
+
+import torch
+import torch.nn.functional as F
+
+BM = 128                     # output pixels per block (two warpgroups)
+MAX_SHARED_BYTES = 232_448   # dynamic shared memory a block may use (sm_90)
+ALIGN = 1024                 # a stage starts on the 128-byte swizzle's period
+MAX_STAGES = 8
+WIDTHS_N = (16, 32, 64, 128, 256)   # BN the kernel is built for
+# bytes of the TMA ring by BN: three blocks per SM up to BN = 64, one above
+RING_BYTES = {16: 72 << 10, 32: 72 << 10, 64: 72 << 10, 128: 128 << 10,
+              256: 192 << 10}
+
+# taps as (dy, dx, weight index)
+CONV3X3_TAPS = tuple((t // 3 - 1, t % 3 - 1, t) for t in range(9))
+
+
+def phase_taps(a: int, b: int) -> tuple:
+    """The four taps of U's output phase (a, b): input offsets
+    (a + ta - 1, b + tb - 1) with the phase kernel [a, ta, b, tb]."""
+    return tuple((a + ta - 1, b + tb - 1, ((a * 2 + ta) * 2 + b) * 2 + tb)
+                 for ta in (0, 1) for tb in (0, 1))
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def padded_channels(ci: int) -> int:
+    """Ci as the tensor-core tile reads it: a multiple of 8, and 16 or 32
+    where it is that narrow, so that the stage depth BK (16, 32 or 64)
+    never reaches past the tensor's channels."""
+    ci8 = _round_up(ci, 8)
+    return ci8 if ci8 > 32 else (16 if ci8 <= 16 else 32)
+
+
+def pad_channels(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with its last dim zero-padded to ``padded_channels`` (``x``
+    itself, contiguous, when it needs none)."""
+    c = x.shape[-1]
+    cp = padded_channels(c)
+    if cp == c:
+        return x.contiguous()
+    out = x.new_zeros((*x.shape[:-1], cp))
+    out[..., :c] = x
+    return out
+
+
+def kmajor(w_taps: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """(taps, Ci, Co) weights -> (taps, Co, padded_channels(Ci)) in
+    ``dtype``, zero-padded, contiguous."""
+    return pad_channels(w_taps.to(dtype).transpose(1, 2))
+
+
+def conv3x3_weights(kernel: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A (3,3,Ci,Co) HWIO kernel as the tensor-core tile's (9, Co, Ci')."""
+    ci, co = kernel.shape[2:]
+    return kmajor(kernel.reshape(9, ci, co), dtype)
+
+
+class TilePlan(NamedTuple):
+    bh: int          # tile rows
+    bw: int          # tile columns; bh * bw = 128, both even
+    bn: int          # output channels per block
+    bk: int          # input channels per stage (64, or 32/16 for a stem)
+    stages: int      # stages of the TMA ring
+    smem_bytes: int  # the block's dynamic shared memory
+
+
+NO_PLAN = TilePlan(0, 0, 0, 0, 0, 0)   # what an f32 launch passes (ignored)
+
+
+def tile_plan(h: int, w: int, ci: int, co: int) -> TilePlan:
+    """The tile of one launch over an (H, W) input with Ci input and Co
+    output channels. BW is 16 where W > 8 (8 x 16 patches), else 8 or 4, so
+    narrow images waste little of the tile; BH = 128 / BW; both are even,
+    as the fused pool needs. BK is the padded Ci's depth up to 64 (64
+    channels are one 128-byte swizzled row). BN is the least width the
+    kernel is built for that covers Co, at most 256 (one tile reads each
+    input box once for all of Co). The ring takes ``RING_BYTES[BN]``: three
+    blocks per SM up to BN = 64, one above (64 or 128 accumulators a
+    thread), 2 to 8 stages. The bytes add the 1 KB alignment slack and the
+    16 bytes of barriers per stage."""
+    bw = 16 if w > 8 else (8 if w > 4 else 4)
+    bh = BM // bw
+    cp = padded_channels(ci)
+    bk = cp if cp <= 32 else 64
+    bn = next((b for b in WIDTHS_N if co <= b), WIDTHS_N[-1])
+    stage = _round_up(BM * bk * 2 + bn * bk * 2, ALIGN)
+    stages = max(2, min(MAX_STAGES, RING_BYTES[bn] // stage))
+    return TilePlan(bh, bw, bn, bk, stages, ALIGN + stages * (stage + 16))
+
+
+def implicit_gemm_plain(x: torch.Tensor, wk: torch.Tensor,
+                        taps: Sequence[tuple], bk: int) -> torch.Tensor:
+    """The tensor-core tile's sums in its K order, in f32 on any device:
+    for each tap (dy, dx, widx) in turn, then each ``bk``-channel chunk,
+    x shifted by (dy, dx) (zero outside the image) times ``wk[widx]``.
+    x: (N,H,W,C') padded; wk: (taps, Co, C'). Returns (N,H,W,Co) f32."""
+    n, h, w, c = x.shape
+    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    acc = torch.zeros((n, h, w, wk.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    for dy, dx, widx in taps:
+        xs = xp[:, 1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
+        wt = wk[widx].float()
+        for c0 in range(0, c, bk):
+            acc += xs[..., c0:c0 + bk] @ wt[:, c0:c0 + bk].T
+    return acc

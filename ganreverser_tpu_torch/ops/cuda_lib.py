@@ -43,16 +43,18 @@ _SIGNATURES = {
     # dtype, x, y, seed, n, thresh, inv_keep, stream
     "gr_fused_dropout": [_I, _P, _P, _P, _L, _U, _F, _P],
     # dtype, x, w9, scale, shift, alpha, out, n, h, w, ci, co, act, pool,
-    # stream
+    # then the bf16 plan (bh, bw, bn, bk, stages, smem), stream
     "gr_conv3x3_bn_act": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                          _I, _P],
-    # dtype, x, k16, scale, shift, out, n, h, w, ci, co, act, stream
+                          _I, *[_I] * 6, _P],
+    # dtype, x, k16, scale, shift, out, n, h, w, ci, co, act, then the bf16
+    # plan (bh, bw, bn, bk, stages, smem), stream
     "gr_upsample2_conv3x3_bn_act": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                    _I, _I, _P],
+                                    _I, _I, *[_I] * 6, _P],
     # dtype, needles, emb, out, q, n, d, stream
     "gr_cosine_scores": [_I, _P, _P, _P, _I, _I, _I, _P],
-    # x, c, ws, ws_floats, c_new, counts, sums, assign, n, d, k, stream
-    "gr_kmeans_step": [_P, _P, _P, _L, _P, _P, _P, _P, _I, _I, _I, _P],
+    # x, c, c_new, counts, sums, assign, n, d, k, rows, kt, smem_bytes,
+    # stream
+    "gr_kmeans_step": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # dtype, x, k16, scale, shift, fk, fb, out, n, h, w, ci, co, cf, act,
     # final_act, stream
     "gr_upsample2_conv3x3_head": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -70,17 +72,19 @@ _SIGNATURES = {
 }
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def cuda_tool(name: str) -> str:
+    """Path of a CUDA toolkit program (nvcc, cuobjdump): PATH, then
+    $CUDA_HOME/bin, then /usr/local/cuda/bin."""
+    found = shutil.which(name)
     if found:
         return found
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = os.path.join(home, "bin", "nvcc")
+    cand = os.path.join(home, "bin", name)
     if os.path.isfile(cand):
         return cand
     raise RuntimeError(
-        "nvcc not found (PATH or $CUDA_HOME/bin): the CUDA kernels of "
-        "ganreverser_tpu_torch/csrc cannot be built")
+        f"{name} not found (PATH or $CUDA_HOME/bin): the CUDA kernels of "
+        "ganreverser_tpu_torch/csrc cannot be built or inspected")
 
 
 def _sources() -> list[Path]:
@@ -104,7 +108,7 @@ def build() -> Path:
     lib = BUILD_DIR / f"libgr_kernels_{tag}.so"
     if lib.is_file():
         return lib
-    nvcc = _nvcc()
+    nvcc = cuda_tool("nvcc")
     work = BUILD_DIR / f"obj_{tag}_{os.getpid()}"
     work.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()

@@ -1,22 +1,26 @@
-"""Kernel K: one Lloyd step of kmeans — assignment and centroid update from a
-single read of X.
+"""Kernel K: one Lloyd step of kmeans — assignment and centroid update.
 
 The counterpart of ganreverser_tpu/ops/kmeans_kernel.py (``_kmeans_sums_counts``
 and ``kmeans_step_pallas``). Per row the squared distance to each centroid is
 the TPU kernel's ``|c|^2 - 2 x.c`` in f32 (``|x|^2`` is constant per row), the
 argmin takes the first index on ties, and the step returns the new
 centroids ``sums / max(count, 1)``, an empty cluster keeping its centroid,
-and the counts. The CUDA kernel (``csrc/kmeans.cu``) reduces its per-block
-partial sums in a fixed order, with no float atomics, so two runs give
-bitwise-equal results; any N is taken (the ragged end is masked, nothing is
-padded, so there is no ``n_valid``). X is cast to f32, as the TPU wrapper
-casts it.
+and the counts. The CUDA kernel (``csrc/kmeans.cu``) assigns the rows in one
+launch, streaming the centroids through shared memory in tiles sized by
+:func:`kmeans_plan`, and sums each cluster's rows in an order fixed by the
+assignment in a second, with no float atomics, so two runs give
+bitwise-equal results; any N and K are taken, and D up to about 29,000 (the
+ragged end is masked, nothing is padded, so there is no ``n_valid``). X is
+cast to f32, as the TPU wrapper casts it.
 
 ``kmeans_step`` launches the kernel on CUDA tensors and takes the plain
 version ``kmeans_step_plain`` on CPU tensors; no other device is accepted.
-``kmeans_step.launches`` counts kernel launches (one per step).
+``kmeans_step.launches`` counts its calls on the card (one per step, each
+two launches).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -24,16 +28,38 @@ import torch.nn.functional as F
 from ..core.precision import pinned_precision
 from . import cuda_lib
 
-ROWS_PER_BLOCK = 64          # kRows of csrc/kmeans.cu
+MAX_ROWS = 64                # rows of X per block of the assignment launch
 MAX_SHARED_BYTES = 232_448   # dynamic shared memory a block may use (sm_90)
 
 
-def shared_bytes(d: int, k: int) -> int:
-    """Shared memory of one stage-1 block (csrc/kmeans.cu::
-    kmeans_smem_floats): centroids, their norms, the rows, the dot
-    products, the (K, D+1) accumulator and the rows' assignments."""
-    r = ROWS_PER_BLOCK
-    return 4 * (k * d + k + r * d + r * k + k * (d + 1) + r)
+class KmeansPlan(NamedTuple):
+    rows: int        # rows of X held by one block of the assignment launch
+    kt: int          # centroids per shared-memory tile
+    smem_bytes: int  # that block's dynamic shared memory
+
+
+def _assign_bytes(d: int, rows: int, kt: int) -> int:
+    # rows and a centroid tile at the odd stride D + 1, the tile's squared
+    # norms and the (rows, kt) dot products (csrc/kmeans.cu)
+    return 4 * ((rows + kt) * (d + 1) + kt + rows * kt)
+
+
+def kmeans_plan(d: int, k: int) -> KmeansPlan:
+    """The assignment launch's tiles for (K, D): up to 64 rows and 64
+    centroids, halving the larger of the two until one block's shared
+    memory fits in 227 KB. Raises for a D whose single row and centroid do
+    not fit (about 29,000)."""
+    rows, kt = MAX_ROWS, min(k, MAX_ROWS)
+    while _assign_bytes(d, rows, kt) > MAX_SHARED_BYTES:
+        if rows == kt == 1:
+            raise ValueError(f"D={d}: one row and one centroid need "
+                             f"{_assign_bytes(d, 1, 1)} bytes of shared "
+                             f"memory, over {MAX_SHARED_BYTES}")
+        if rows >= kt:
+            rows //= 2
+        else:
+            kt //= 2
+    return KmeansPlan(rows, kt, _assign_bytes(d, rows, kt))
 
 
 def _finish(sums, counts, centroids):
@@ -72,29 +98,22 @@ def kmeans_step(x: torch.Tensor, centroids: torch.Tensor, *,
         raise ValueError(f"empty kmeans step: N={n}, K={k}, D={d}")
     if cuda_lib.dispatch_device(x, centroids) == "cpu":
         return kmeans_step_plain(x, centroids, details=details)
-    if shared_bytes(d, k) > MAX_SHARED_BYTES:
-        raise ValueError(f"K={k}, D={d} needs {shared_bytes(d, k)} bytes of "
-                         f"shared memory per block, over {MAX_SHARED_BYTES}")
+    plan = kmeans_plan(d, k)
     dev = x.device
     x = x.float().contiguous()
     c = centroids.float().contiguous()
     cuda_lib.require(x, "x", dev, torch.float32, (n, d))
     cuda_lib.require(c, "centroids", dev, torch.float32, (k, d))
-    blocks = -(-n // ROWS_PER_BLOCK)
-    ws = torch.empty(blocks * k * (d + 1), dtype=torch.float32, device=dev)
     new = torch.empty((k, d), dtype=torch.float32, device=dev)
     counts = torch.empty((k,), dtype=torch.float32, device=dev)
     sums = (torch.empty((k, d), dtype=torch.float32, device=dev)
             if details else None)
-    assign = (torch.empty((n,), dtype=torch.int32, device=dev)
-              if details else None)
+    assign = torch.empty((n,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = cuda_lib.library().gr_kmeans_step(
-            x.data_ptr(), c.data_ptr(), ws.data_ptr(), ws.numel(),
-            new.data_ptr(), counts.data_ptr(),
-            sums.data_ptr() if details else None,
-            assign.data_ptr() if details else None, n, d, k,
-            cuda_lib.stream_of(x))
+            x.data_ptr(), c.data_ptr(), new.data_ptr(), counts.data_ptr(),
+            sums.data_ptr() if details else None, assign.data_ptr(), n, d, k,
+            *plan, cuda_lib.stream_of(x))
     cuda_lib.check(rc, "kmeans_step")
     kmeans_step.launches += 1
     return (new, counts, sums, assign.long()) if details else (new, counts)

@@ -3,9 +3,11 @@
 The counterpart of ganreverser_tpu/ops/upsample_conv_kernel.py: G's two
 upsample blocks as one kernel that reads the low-resolution input once and
 writes the upsampled output once. The weights are aggregated on the host
-into four 2x2 phase kernels (``phase_kernels``, the same ``_AGG`` map); the
+into four 2x2 phase kernels (``phase_kernels``, the same aggregation); the
 CUDA kernel (``csrc/upsample_conv.cu``) runs the phases as blocks of an
-implicit GEMM with the scale/shift and activation in the epilogue.
+implicit GEMM with the scale/shift and activation in the epilogue: bf16 on
+the tensor cores (``csrc/conv_wgmma.cuh``, operands laid out by
+``conv_operands``), f32 on the CUDA cores.
 
 ``upsample2_conv3x3_bn_act`` launches the kernel on CUDA tensors and takes
 the plain version ``upsample2_conv3x3_bn_act_plain`` on CPU tensors; no
@@ -25,23 +27,28 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import cuda_lib
+from . import conv_operands, cuda_lib
 from .upsample_conv import conv_nhwc
 
-# per-axis aggregation: _AGG[a, t, u] = 1 iff input tap u feeds phase a slot t
-_AGG = ((( 1.0, 0.0, 0.0), (0.0, 1.0, 1.0)),   # a=0: U(0,0)={0}, U(0,1)={1,2}
-        (( 1.0, 1.0, 0.0), (0.0, 0.0, 1.0)))   # a=1: U(1,0)={0,1}, U(1,1)={2}
-
 _ACTS = ("relu", "none", "sigmoid")
+
+
+def _aggregate(k: torch.Tensor, axis: int) -> torch.Tensor:
+    """Sums of the three taps of ``axis`` into four slots, index a * 2 + t:
+    phase a = 0 takes taps {0} and {1, 2}, phase a = 1 taps {0, 1} and
+    {2}."""
+    t0, t1, t2 = k.unbind(axis)
+    return torch.stack([t0, t1 + t2, t0 + t1, t2], axis)
 
 
 def phase_kernels(kernel: torch.Tensor) -> torch.Tensor:
     """(3,3,Ci,Co) -> (2,2,2,2,Ci,Co) phase-aggregated 2x2 kernels indexed
     [a, ta, b, tb], summed in f32 and rounded once to ``kernel.dtype`` (so a
-    bf16 kernel gives bf16 sums of its bf16 taps)."""
-    m = torch.tensor(_AGG, dtype=torch.float32, device=kernel.device)
-    agg = torch.einsum("atu,bsv,uvio->atbsio", m, m, kernel.float())
-    return agg.to(kernel.dtype)
+    bf16 kernel gives bf16 sums of its bf16 taps). The JAX package's einsum
+    with its 0/1 map, done as slice sums: an einsum over the whole kernel
+    cost as much device time as kernel U itself."""
+    agg = _aggregate(_aggregate(kernel.float(), 0), 1)
+    return agg.reshape(2, 2, 2, 2, *kernel.shape[2:]).to(kernel.dtype)
 
 
 def _act(y: torch.Tensor, act: str) -> torch.Tensor:
@@ -104,21 +111,31 @@ def upsample2_conv3x3_bn_act(x: torch.Tensor, kernel: torch.Tensor,
     if cuda_lib.dispatch_device(x, kernel, scale, shift) == "cpu":
         return upsample2_conv3x3_bn_act_plain(x, kernel, scale, shift,
                                               act=act)
+    code = cuda_lib.dtype_code(x)
     n, h, w, ci = x.shape
     co = kernel.shape[-1]
-    k16 = phase_kernels(kernel.to(x.dtype)).reshape(16, ci, co).contiguous()
+    k16 = phase_kernels(kernel.to(x.dtype)).reshape(16, ci, co)
+    if x.dtype == torch.bfloat16:  # the tensor-core tile's operands
+        xk = conv_operands.pad_channels(x)
+        k16 = conv_operands.kmajor(k16, x.dtype)
+        plan = conv_operands.tile_plan(h, w, ci, co)
+        kshape = (16, co, xk.shape[-1])
+    else:
+        xk, k16 = x, k16.contiguous()
+        plan = conv_operands.NO_PLAN
+        kshape = (16, ci, co)
     scale = scale.float().contiguous()
     shift = shift.float().contiguous()
-    cuda_lib.require(x, "x", x.device, x.dtype, (n, h, w, ci))
-    cuda_lib.require(k16, "kernel", x.device, x.dtype, (16, ci, co))
+    cuda_lib.require(xk, "x", x.device, x.dtype, (n, h, w, xk.shape[-1]))
+    cuda_lib.require(k16, "kernel", x.device, x.dtype, kshape)
     cuda_lib.require(scale, "scale", x.device, torch.float32, (co,))
     cuda_lib.require(shift, "shift", x.device, torch.float32, (co,))
     out = torch.empty((n, 2 * h, 2 * w, co), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         rc = cuda_lib.library().gr_upsample2_conv3x3_bn_act(
-            cuda_lib.dtype_code(x), x.data_ptr(), k16.data_ptr(),
-            scale.data_ptr(), shift.data_ptr(), out.data_ptr(), n, h, w, ci,
-            co, cuda_lib.ACT_CODES[act], cuda_lib.stream_of(x))
+            code, xk.data_ptr(), k16.data_ptr(), scale.data_ptr(),
+            shift.data_ptr(), out.data_ptr(), n, h, w, xk.shape[-1], co,
+            cuda_lib.ACT_CODES[act], *plan, cuda_lib.stream_of(x))
     cuda_lib.check(rc, "upsample2_conv3x3_bn_act")
     upsample2_conv3x3_bn_act.launches += 1
     return out

@@ -6,11 +6,14 @@ they need an NVIDIA GPU and nvcc and skip elsewhere. Run on the card with
 Tolerances: f32 1e-4 (f32 sums in another order); bf16 3e-2 relative to
 the output's scale (one bf16 rounding per layer, taken at the same places
 by both versions, can still land on neighbouring bf16 values)."""
+import json
+
 import numpy as np
 import pytest
 import torch
 
-from ganreverser_tpu_torch.ops import (conv_block_kernel, conv_stats_kernel,
+from ganreverser_tpu_torch.ops import (conv_block_kernel, conv_kernel,
+                                       conv_stats_kernel, cuda_lib,
                                        dropout_kernel, kmeans_kernel,
                                        probe_kernels, topk_kernel,
                                        upsample_conv_kernel,
@@ -104,12 +107,17 @@ def test_kernels_refuse_bad_arguments(dev):
 
 
 @pytest.mark.parametrize("n,d,k", [(10_000, 100, 20), (777, 37, 5),
-                                   (64, 100, 20), (1, 3, 2)])
+                                   (64, 100, 20), (1, 3, 2),
+                                   (10_000, 100, 256), (10_000, 512, 64),
+                                   (10_000, 100, 1000), (300, 4096, 64)])
 def test_kmeans_kernel(dev, n, d, k):
     """chip_smoke.kmeans_case on more shapes: against the plain step on the
     same centroids (assignment beyond the near-tie margin, counts, sums to
     1e-4 relative, centroids = sums / counts) and bitwise equal over two
-    runs (no float atomics); it raises SmokeFailure otherwise."""
+    runs (no float atomics); it raises SmokeFailure otherwise. (K, D) =
+    (256, 100), (64, 512) and (1000, 100) are what apply_r --clusters takes
+    at noise 100 and 512; (64, 4096) streams 8 centroids at a time past 4
+    rows per block."""
     import chip_smoke
     g = torch.Generator(device=dev).manual_seed(3)
     x = torch.randn(n, d, device=dev, generator=g)
@@ -117,7 +125,9 @@ def test_kmeans_kernel(dev, n, d, k):
     c = torch.cat([c, torch.randn(k - c.shape[0], d, device=dev,
                                   generator=g)])
     c[-1] = 0.0
-    c[-1, 0] = 50.0  # no row comes near: an empty cluster
+    # no row comes near (|c|^2 beats every row's other distances, about D):
+    # an empty cluster
+    c[-1, 0] = max(50.0, 2 * d ** 0.5 + 10)
     before = kmeans_kernel.kmeans_step.launches
     chip_smoke.kmeans_case(x, c)
     assert kmeans_kernel.kmeans_step.launches == before + 2
@@ -130,9 +140,9 @@ def test_kmeans_kernel_refuses_bad_arguments(dev):
     x = torch.zeros(10, 4, device=dev)
     with pytest.raises(ValueError):  # D differs
         kmeans_kernel.kmeans_step(x, torch.zeros(2, 5, device=dev))
-    with pytest.raises(ValueError):  # more shared memory than a block has
-        kmeans_kernel.kmeans_step(torch.zeros(10, 4096, device=dev),
-                                  torch.zeros(64, 4096, device=dev))
+    with pytest.raises(ValueError):  # one row and one centroid over 227 KB
+        kmeans_kernel.kmeans_step(torch.zeros(10, 40_000, device=dev),
+                                  torch.zeros(2, 40_000, device=dev))
     with pytest.raises(ValueError):  # mixed devices
         kmeans_kernel.kmeans_step(x, torch.zeros(2, 4))
 
@@ -459,3 +469,112 @@ def test_probe_kernels_exact(dev):
     assert torch.equal(c, probe_kernels.dot_bf16_plain(a, b))
     with pytest.raises(ValueError):
         probe_kernels.dot_bf16(a[:, :120], b[:120])
+
+
+# the main path's tensor-core layers, N cut to 16: kernel B's two R blocks
+# (chain, pool), U's two G stages (input resolution), B6's five D2 layers
+MAIN_B = [((16, 64, 64, 3), [3, 64, 64, 64]),
+          ((16, 32, 32, 64), [64, 128, 128, 128])]
+MAIN_U = [((16, 16, 16, 512), 256), ((16, 32, 32, 256), 128)]
+MAIN_B6 = [((16, 64, 64, 3), 128, False), ((16, 64, 64, 128), 128, True),
+           ((16, 32, 32, 128), 128, True), ((16, 16, 16, 128), 256, False),
+           ((16, 16, 16, 256), 256, True)]
+
+
+def _main_path_case(dev, kind, i):
+    """(call, plain, launches per call, counter) of one main-path layer in
+    bf16, on seeded inputs of the main path's scale."""
+    import chip_smoke
+    g = torch.Generator(device=dev).manual_seed(20 + i)
+    bf16 = torch.bfloat16
+    if kind == "B":
+        shape, chans = MAIN_B[i]
+        x = torch.rand(shape, device=dev, generator=g).to(bf16)
+        ks, sc, sh = chip_smoke._conv_chain(g, dev, chans)
+        return (lambda: conv_block_kernel.conv_block(x, ks, sc, sh, act="elu",
+                                                     pool=True),
+                lambda: conv_block_kernel.conv_block_plain(
+                    x, ks, sc, sh, act="elu", pool=True),
+                len(ks), conv_block_kernel.conv_block)
+    if kind == "U":
+        shape, co = MAIN_U[i]
+        x = torch.rand(shape, device=dev, generator=g).to(bf16)
+        (k,), (sc,), (sh,) = chip_smoke._conv_chain(g, dev, [shape[-1], co])
+        uc = upsample_conv_kernel
+        return (lambda: uc.upsample2_conv3x3_bn_act(x, k, sc, sh),
+                lambda: uc.upsample2_conv3x3_bn_act_plain(x, k, sc, sh),
+                1, uc.upsample2_conv3x3_bn_act)
+    shape, co, pool = MAIN_B6[i]
+    x = torch.rand(shape, device=dev, generator=g).to(bf16)
+    (k,), _, (b,) = chip_smoke._conv_chain(g, dev, [shape[-1], co])
+    ones = torch.ones(co, device=dev)
+    a = torch.tensor([0.25], device=dev)
+    return (lambda: conv_kernel.conv3x3_bn_act(x, k, ones, b, act="prelu",
+                                               prelu_alpha=a, pool=pool),
+            lambda: conv_kernel.conv3x3_bn_act_plain(
+                x, k, ones, b, act="prelu", prelu_alpha=a, pool=pool),
+            1, conv_kernel.conv3x3_bn_act)
+
+
+MAIN_CASES = ([("B", i) for i in range(len(MAIN_B))]
+              + [("U", i) for i in range(len(MAIN_U))]
+              + [("B6", i) for i in range(len(MAIN_B6))])
+
+
+@pytest.mark.parametrize("kind,i", MAIN_CASES,
+                         ids=[f"{k}{i}" for k, i in MAIN_CASES])
+def test_tensor_core_kernels_at_main_path_shapes(dev, kind, i):
+    """B, U and B6 in bf16 at the main path's layer shapes against their
+    plain versions; the counter moves by one per launch; two calls are
+    bitwise equal (each output element is one block's sum in a fixed
+    order: no split of K, no atomics)."""
+    call, plain, per_call, counter = _main_path_case(dev, kind, i)
+    before = counter.launches
+    out = call()
+    torch.cuda.synchronize()
+    assert counter.launches == before + per_call
+    assert torch.equal(call(), out)
+    _close(out, plain(), torch.bfloat16)
+
+
+def _device_kernels(fn, tmp_path) -> set:
+    """Names of the kernels the card ran during ``fn()``, from a
+    torch.profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    return {e["name"] for e in events
+            if e.get("ph") == "X" and str(e.get("cat", "")).lower() == "kernel"}
+
+
+@pytest.mark.parametrize("kind,wgmma,cuda_core",
+                         [("B", "conv3x3_wgmma_kernel", "conv3x3_bn_act_kernel"),
+                          ("B6", "conv3x3_wgmma_kernel",
+                           "conv3x3_bn_act_kernel"),
+                          ("U", "upsample2_wgmma_kernel",
+                           "upsample2_conv3x3_bn_act_kernel")])
+def test_bf16_runs_no_cuda_core_kernel(dev, tmp_path, kind, wgmma,
+                                       cuda_core):
+    """A bf16 call runs the tensor-core kernel and never the CUDA-core
+    loop (conv_tile.cuh), which stays the f32 path."""
+    call = _main_path_case(dev, kind, 0)[0]
+    names = _device_kernels(call, tmp_path)
+    assert any(wgmma in n for n in names), names
+    assert not any(cuda_core in n for n in names), names
+
+
+def test_tensor_core_kernels_have_hgmma(dev):
+    """chip_smoke's SASS guard: every instance of the two bf16 kernels
+    holds HGMMA instructions (the tensor cores), and the CUDA-core f32
+    kernels hold none."""
+    import chip_smoke
+    counts = chip_smoke.check_hgmma(cuda_lib.build())
+    assert counts
+    for name, n in chip_smoke.sass_hgmma(cuda_lib.build()).items():
+        if "bn_act_kernel" in name:
+            assert n == 0, name

@@ -163,9 +163,22 @@ def test_kmeans_step_refuses_bad_arguments():
                                   torch.zeros(2, 3, device="meta"))
 
 
-def test_shared_bytes_of_main_path_shape():
-    """K = 20, D = 100 fits below the 48 KB of static shared memory; a
-    K x D far beyond the block's 227 KB is what the wrapper refuses."""
-    assert kmeans_kernel.shared_bytes(100, 20) < 48 * 1024
-    assert kmeans_kernel.shared_bytes(4096, 64) > \
-        kmeans_kernel.MAX_SHARED_BYTES
+@pytest.mark.parametrize("k,d,rows,kt", [(20, 100, 64, 20),
+                                         (256, 100, 64, 64),
+                                         (64, 512, 32, 64),
+                                         (1000, 4096, 4, 8)])
+def test_kmeans_plan_of_main_path_shapes(k, d, rows, kt):
+    """The assignment launch's tiles: every (K, D) the JAX package takes at
+    D <= 4,096 gets a plan within the block's 227 KB (apply_r's default K
+    = 20 and --clusters 256 at noise 100, K = 64 at noise 512, and a wide
+    case), with no refusal; its bytes are the rows and the centroid tile at
+    stride D + 1, the tile's norms and the dot products."""
+    plan = kmeans_kernel.kmeans_plan(d, k)
+    assert (plan.rows, plan.kt) == (rows, kt)
+    assert plan.smem_bytes == 4 * ((rows + kt) * (d + 1) + kt + rows * kt)
+    assert plan.smem_bytes <= kmeans_kernel.MAX_SHARED_BYTES
+    # the wider tiles of each halving step would not have fitted
+    if (rows, kt) != (64, min(k, 64)):
+        wider = (2 * rows, kt) if rows < kt else (rows, 2 * kt)
+        assert 4 * ((wider[0] + wider[1]) * (d + 1) + wider[1]
+                    + wider[0] * wider[1]) > kmeans_kernel.MAX_SHARED_BYTES
