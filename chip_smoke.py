@@ -11,10 +11,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. the card's name and power limit (nvidia-smi) and torch's device name;
 2. build the CUDA kernels of ganreverser_tpu_torch/csrc with nvcc, print
    each kernel's registers, spills and stack from the build log (-Xptxas
-   -v) and the main path's tile plans (their shared bytes), and the SASS
-   guard: cuobjdump -sass of the built library must show
-   HGMMA (tensor-core) instructions in every instance of the two bf16
-   kernels, conv3x3_wgmma_kernel (B, B6) and upsample2_wgmma_kernel (U);
+   -v), the main path's tile plans (their shared bytes) beside B7's and
+   B8's, and the SASS guard: cuobjdump -sass of the built library must show
+   HGMMA (tensor-core) instructions in every instance (one per BN) of the
+   four bf16 kernels, conv3x3_wgmma_kernel (B, B6), upsample2_wgmma_kernel
+   (U), conv_stats_wgmma_kernel (B7) and upsample_v2_wgmma_kernel (B8);
 3. each kernel against its plain PyTorch version on the card at the shapes
    of the main path (N = 256, f32 and bf16, TF32 off for the plain f32
    reference): max error against the stated tolerance, median times of the
@@ -38,7 +39,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    U's fused head at G3's stage 2 (N = 256, C = 3 and 1; library: cuDNN's
    two convolutions in sequence; also timed: kernel U plus the plain head,
    what the unfused fast G runs); kernel B8 (upsample_v2) at G3's two
-   stages; kernel B7 (conv_stats) at its probe's (256,64,64,256) -> 128,
+   stages, also against kernel U on the same inputs (time, and within the
+   probe's tolerance: f32 1e-4, bf16 3e-2 of the output's scale); kernel
+   B7 (conv_stats) at its probe's (256,64,64,256) -> 128,
    y to the tolerance, the sums within 1e-4 of their magnitudes, bitwise
    repeatable; the three B9 probes exactly their plain versions;
 4. the main path at full width: random G3, R and fixer-R (3x64x64, noise
@@ -127,6 +130,9 @@ TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 TOL_SCORES = 1e-4      # cosine scores, inputs cast to f32 in both versions
 TOL_PATH = 1e-3        # fast vs plain module path, f32, relative to scale
 TOL_SUMS = 1e-4        # kmeans sums vs plain, relative to max(1, max |sum|)
+# B8 vs kernel U (the probe's): U rounds its phase kernels from the rounded
+# kernel, B8 sums them in f32 and rounds once
+TOL_V2_U = {"float32": 1e-4, "bfloat16": 3e-2}
 KMEANS_K, KMEANS_ITERS = 20, 15   # apply_r.lua:158
 KMEANS_K_WIDE = 256    # apply_r --clusters 256
 REFINE_STEPS = 5
@@ -189,7 +195,8 @@ def card_line() -> str:
 
 
 # the bf16 tensor-core kernels: each must hold HGMMA in every instance
-WGMMA_KERNELS = ("conv3x3_wgmma_kernel", "upsample2_wgmma_kernel")
+WGMMA_KERNELS = ("conv3x3_wgmma_kernel", "upsample2_wgmma_kernel",
+                 "conv_stats_wgmma_kernel", "upsample_v2_wgmma_kernel")
 # the main path's tensor-core layers (label, H, W, Ci, Co at the input's
 # resolution), whose tile plans phase 2 prints
 MAIN_CONV_LAYERS = [("R block 1 l0", 64, 64, 3, 64),
@@ -436,6 +443,8 @@ def kernel_cases(dev, n: int, n_search: int):
             return {"kernel": lambda: v2.upsample_v2(x, k, sc, sh),
                     "plain": lambda: v2.upsample_v2_plain(x, k, sc, sh),
                     "library": lambda: F.conv2d(xl, wl, padding=1),
+                    "u": lambda: uc.upsample2_conv3x3_bn_act(x, k, sc, sh,
+                                                             act="relu"),
                     "flops": 2 * nb * (2 * hh) * (2 * ww) * 4 * ci * co,
                     "bytes": (_nbytes(x, k, sc, sh)
                               + nb * 4 * hh * ww * co * x.element_size())}
@@ -541,6 +550,14 @@ def check_kernels(dev, card: str, n: int = N_CHECK, n_search: int = N_MAIN):
             scale = max(1.0, ref.float().abs().max().item())
             tol = (TOL_SCORES if name == "cosine_scores"
                    else TOL[dname] * scale)
+            versus = ""
+            if "u" in case:  # B8 against kernel U on the same inputs
+                err_u = (out.float() - case["u"]().float()).abs().max().item()
+                tol_u = TOL_V2_U[dname] * scale
+                versus = (f", vs kernel U max_abs_err {err_u:.3e} (tol "
+                          f"{tol_u:.1e}), U {time_ms(case['u']):.4f} ms")
+                check(err_u <= tol_u, f"{name} {label} {dname}: vs kernel U "
+                      f"{err_u} > {tol_u}")
             del out, ref
             ms, plain_ms = time_ms(kern), time_ms(plain)
             lib_ms = time_ms(case["library"])
@@ -550,7 +567,7 @@ def check_kernels(dev, card: str, n: int = N_CHECK, n_search: int = N_MAIN):
             print(f"[kernel] {name} {label} {dname}: max_abs_err {err:.3e} "
                   f"(tol {tol:.1e}), kernel {ms:.4f} ms, plain {plain_ms:.4f}"
                   f" ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
-                  f"({b_by}){unfused}  [{card}]")
+                  f"({b_by}){unfused}{versus}  [{card}]")
             check(err <= tol, f"{name} {label} {dname}: max_abs_err {err} "
                   f"> tol {tol}")
             records.append({"name": name, "label": label, "dtype": dname,
@@ -1610,6 +1627,12 @@ def main() -> int:
                     for label, *shape in MAIN_CONV_LAYERS + [
                         (lab, h, w, c, co) for lab, (h, w, c), co, _, _
                         in D2_B6_LAYERS]))
+    _, h7, w7, c7, co7 = CONVBN_SHAPE
+    print(f"[build] B7 and B8 tile plans: B7 conv_stats {CONVBN_SHAPE[1:]} "
+          f"(f32 staged tile) {tuple(tile_plan(h7, w7, c7, co7, 4))}; "
+          + "; ".join(f"B8 {label} {tuple(tile_plan(*shape))}"
+                      for label, *shape in MAIN_CONV_LAYERS
+                      if label.startswith("G stage")))
 
     # 3. kernels against their plain versions
     records = check_kernels(dev, card)

@@ -7,21 +7,29 @@
 // card run in parallel and in no order, so there are two launches and no
 // float atomics, as kernel K (kmeans.cu):
 //
-//  1. conv_stats_kernel: kernel B's implicit-GEMM tile (conv_tile.cuh, 9
-//     taps, 64 pixels x 64 channels per block). The epilogue writes y in
-//     f32 and sums each channel over the block's 64 rows in a fixed order
-//     (each thread its 4 rows, then the 16 row groups in shared memory),
-//     writing one partial sum and sumsq per (channel, block) to a
-//     workspace laid out [channel][block].
+//  1. the conv, whose epilogue writes y in f32 and one partial sum and
+//     sumsq per (channel, block) to a workspace laid out [channel][block],
+//     each summed over the block's pixels in a fixed order. bf16 runs
+//     conv_stats_wgmma_kernel: conv_wgmma.cuh's tensor-core tile (kernel
+//     B's 9 taps, operands and plan, 128 pixels x BN channels per block)
+//     with its StatsEpilogue (the sums from the f32 accumulators, ragged
+//     pixels masked; y staged as f32 through the ring, so the plan is
+//     tile_plan(..., out_bytes=4), whose ring holds the f32 tile). f32 runs
+//     conv_stats_kernel: conv_tile.cuh's IEEE f32 tile on the CUDA cores
+//     (64 pixels x 64 channels; each thread sums its 4 rows, then the 16
+//     row groups in shared memory).
 //  2. conv_stats_finish_kernel: one block per channel sums that channel's
 //     partials, each thread a fixed stride of blocks in order, then a fixed
 //     tree in shared memory. Two runs give bitwise-equal sums.
 //
-// What bounds it: FMA issue, as kernel B: (256,64,64,256) -> 128 is 618
-// GFLOP on 0.27 GB of bf16 input and 0.54 GB of f32 output, far above the
-// card's ridge point. The statistics add one f32 read of nothing: they are
-// taken from the accumulators before y is written.
+// What bounds it: the tensor cores in bf16 (f32 FMA issue on the CUDA
+// cores), as kernel B: (256,64,64,256) -> 128 is 618 GFLOP on 0.27 GB of
+// bf16 input and 0.54 GB of f32 output, far above the card's ridge point;
+// on the tensor-core tile each stage re-reads its A and B boxes from L2, as
+// B's Co = 128 layers do. The statistics add no read of y: they are taken
+// from the accumulators before y is written.
 #include "conv_tile.cuh"
+#include "conv_wgmma.cuh"
 
 namespace gr {
 
@@ -140,41 +148,94 @@ __global__ void __launch_bounds__(kFinishThreads)
   }
 }
 
-template <typename T>
-static int launch(const void* x, const void* w9, void* y, void* ws, void* sum,
-                  void* sumsq, int n, int h, int w, int ci, int co,
-                  cudaStream_t stream) {
-  const long long rows = static_cast<long long>(n) * h * w;
-  const int nblocks = static_cast<int>((rows + kBM - 1) / kBM);
-  float* part_sum = static_cast<float*>(ws);
-  float* part_sq = part_sum + static_cast<long long>(co) * nblocks;
-  const dim3 grid(static_cast<unsigned>(nblocks),
-                  static_cast<unsigned>((co + kBN - 1) / kBN), 1);
-  conv_stats_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w9),
-      static_cast<float*>(y), part_sum, part_sq, n, h, w, ci, co);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
+// Sums the conv's per-block partials ([co][nblocks] in ws) into sum and
+// sumsq.
+static int finish(float* part_sum, float* part_sq, void* sum, void* sumsq,
+                  int co, int nblocks, cudaStream_t stream) {
   conv_stats_finish_kernel<<<co, kFinishThreads, 0, stream>>>(
       part_sum, part_sq, static_cast<float*>(sum),
       static_cast<float*>(sumsq), nblocks);
   return static_cast<int>(cudaGetLastError());
 }
 
+static int launch_f32(const void* x, const void* w9, void* y, void* ws,
+                      void* sum, void* sumsq, int n, int h, int w, int ci,
+                      int co, cudaStream_t stream) {
+  const long long rows = static_cast<long long>(n) * h * w;
+  const int nblocks = static_cast<int>((rows + kBM - 1) / kBM);
+  float* part_sum = static_cast<float*>(ws);
+  float* part_sq = part_sum + static_cast<long long>(co) * nblocks;
+  const dim3 grid(static_cast<unsigned>(nblocks),
+                  static_cast<unsigned>((co + kBN - 1) / kBN), 1);
+  conv_stats_kernel<float><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w9),
+      static_cast<float*>(y), part_sum, part_sq, n, h, w, ci, co);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return finish(part_sum, part_sq, sum, sumsq, co, nblocks, stream);
+}
+
+// The bf16 kernel: conv_wgmma.cuh's tile, 9 taps, the statistics epilogue.
+template <int BN>
+__global__ void __launch_bounds__(wg::kThreads, BN <= 64 ? 2 : 1)
+    conv_stats_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                            const __grid_constant__ CUtensorMap wmap,
+                            const wg::ConvArgs args) {
+  wg::conv_wgmma_body<BN, wg::Conv3x3Taps, wg::StatsEpilogue>(xmap, wmap,
+                                                              args);
+}
+
+static int launch_bf16(const void* x, const void* w9, void* y, void* ws,
+                       void* sum, void* sumsq, int n, int h, int w, int ci,
+                       int co, const wg::Plan& pl, cudaStream_t stream) {
+  CUtensorMap xmap, wmap;
+  if (!wg::plan_ok(pl, false, 4) ||
+      !wg::encode_maps(&xmap, &wmap, x, w9, n, h, w, ci, co, ci, 9, pl))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid = wg::plan_grid(pl, n, h, w, co, 1);
+  float* part_sum = static_cast<float*>(ws);
+  float* part_sq = part_sum + static_cast<long long>(co) * grid.x;
+  wg::ConvArgs args{};
+  args.H = h;
+  args.W = w;
+  args.Co = co;
+  args.bh = pl.bh;
+  args.bw = pl.bw;
+  args.bk = pl.bk;
+  args.stages = pl.stages;
+  args.kchunks = (ci + pl.bk - 1) / pl.bk;
+  args.y32 = static_cast<float*>(y);
+  args.part_sum = part_sum;
+  args.part_sq = part_sq;
+  const cudaError_t e = wg::by_width(pl.bn, [&](auto bn) {
+    return wg::launch(conv_stats_wgmma_kernel<decltype(bn)::value>, grid,
+                      pl.smem, stream, xmap, wmap, args);
+  });
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return finish(part_sum, part_sq, sum, sumsq, co, static_cast<int>(grid.x),
+                stream);
+}
+
 }  // namespace gr
 
-// x (N,H,W,Ci) and w9 (9,Ci,Co) in the storage type; y (N,H,W,Co) f32; ws a
-// workspace of 2 * Co * ceil(N*H*W / 64) f32; sum and sumsq (Co,) f32.
+// f32: x (N,H,W,Ci) and w9 (9,Ci,Co), the plan ignored, ws a workspace of
+// 2 * Co * ceil(N*H*W / 64) f32. bf16: x (N,H,W,Ci) with Ci % 8 == 0 and w9
+// (9,Co,Ci) K-major (ops/conv_operands.py), on the plan bh, bw, bn, bk,
+// stages, smem (ops/conv_operands.py::tile_plan with out_bytes=4), ws a
+// workspace of 2 * Co * N * ceil(H/bh) * ceil(W/bw) f32. y (N,H,W,Co) f32;
+// sum and sumsq (Co,) f32.
 extern "C" int gr_conv_stats(int dtype, const void* x, const void* w9, void* y,
                              void* ws, void* sum, void* sumsq, int n, int h,
-                             int w, int ci, int co, void* stream) {
+                             int w, int ci, int co, int bh, int bw, int bn,
+                             int bk, int stages, int smem, void* stream) {
   using namespace gr;
   if (n < 1 || h < 1 || w < 1 || ci < 1 || co < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DT_F32)
-    return launch<float>(x, w9, y, ws, sum, sumsq, n, h, w, ci, co, s);
+    return launch_f32(x, w9, y, ws, sum, sumsq, n, h, w, ci, co, s);
   if (dtype == DT_BF16)
-    return launch<__nv_bfloat16>(x, w9, y, ws, sum, sumsq, n, h, w, ci, co, s);
+    return launch_bf16(x, w9, y, ws, sum, sumsq, n, h, w, ci, co,
+                       wg::Plan{bh, bw, bn, bk, stages, smem}, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

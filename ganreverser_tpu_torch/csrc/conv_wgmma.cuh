@@ -1,13 +1,17 @@
-// The bf16 tensor-core mainloop shared by kernels B (and B6) and U: an
-// implicit GEMM for a 3x3 convolution, or one output phase of U's 2x2 phase
-// convolution, over an NHWC bf16 input, on Hopper's wgmma fed by TMA.
+// The bf16 tensor-core mainloop shared by kernels B (and B6), U, B7 and B8:
+// an implicit GEMM for a 3x3 convolution, or one output phase of U's 2x2
+// phase convolution, over an NHWC bf16 input, on Hopper's wgmma fed by TMA.
 //
-//   acc[m][co] = sum_tap sum_ci x[n, i(m) + dy(tap), j(m) + dx(tap), ci]
-//                               * w[widx(tap)][co][ci]
+//   acc[m][co] = sum_stage x[n, i(m) + dy(stage), j(m) + dx(stage), c0 + ci]
+//                         * w[wz(stage)][co][wk(stage) + ci]
 //
 // M is a patch of BH x BW = 128 output pixels of one image, N is BN output
-// channels (16 to 256), K is taps x input channels, streamed BK channels of
-// one tap per pipeline stage. Sums are f32 in registers.
+// channels (16 to 256), K is streamed BK channels of one tap per pipeline
+// stage. Sums are f32 in registers. Three policies are template parameters:
+// the tap policy (Conv3x3Taps, PhaseTaps, StackedPhaseTaps) maps a stage to
+// the two boxes it reads, and the epilogue (BnActEpilogue, StatsEpilogue)
+// takes the sums from the registers; the ring between them is the same for
+// every kernel.
 //
 // Operands. x is (N, H, W, C) with C % 8 == 0 (the wrapper zero-pads the
 // channels, ops/conv_operands.py), read through one 4D tiled tensor map over
@@ -17,11 +21,14 @@
 // is the SAME padding each layer re-applies (conv_tile.cuh), with no padded
 // copy and no bounds checks, and it zero-fills the ragged edges (H, W off the
 // tile, channels past C) too. The box lands in shared memory as the 128 x BK
-// K-major A tile. The weights are (taps, Co, C), K-major, read through a 3D
-// map with box (BK, BN, 1); channels past Co read as zero. BK is 64 (128-byte
-// rows, 128-byte swizzle), or 32 or 16 (64- and 32-byte swizzle) where C is
-// that narrow, so a stem of 3 channels computes 16 deep, not 64 (the wrapper
-// pads such a C to BK: TMA is slow on rows that are half out of bounds).
+// K-major A tile. The weights are (slices, Co, K), K-major, read through a
+// 3D map with box (BK, BN, 1); channels past Co read as zero. K is C with
+// one slice per tap (B, B6, B7: 9 taps; U: 16 phase taps), or 4 * Kp with
+// one slice per phase (B8: the phase's four taps stacked). BK is 64
+// (128-byte rows, 128-byte swizzle), or 32 or 16 (64- and 32-byte swizzle)
+// where C is that narrow, so a stem of 3 channels computes 16 deep, not 64
+// (the wrapper pads such a C to BK: TMA is slow on rows that are half out of
+// bounds).
 //
 // Pipeline. One producer warp (one elected lane) issues both loads of a
 // stage with cp.async.bulk.tensor on the stage's "full" mbarrier
@@ -30,16 +37,18 @@
 // through matrix descriptors, both K-major so neither is transposed), and
 // keep one group in flight: a stage is released on its "empty" mbarrier
 // (one arrival per consumer warp) when the next stage's products have been
-// issued and its own have completed. The ring holds 2-8 stages.
+// issued and its own have completed. The ring holds 2 or more stages.
 //
-// Epilogue. acc * scale + shift, the activation (common.cuh's apply_act, a
-// PReLU slope read from device memory) and one rounding to bf16, in f32 as
-// before; the tile is staged through the freed ring and stored 16 bytes per
-// thread (scalar where Co % 8 != 0), masking ragged pixels and channels.
-// With the pool, the 2x2 max is taken from the staged tile: BH, BW and the
-// tile origin are even, so every window lies in one tile, and rounding is
-// monotone, so round-then-max equals max-then-round. With U, phase (a, b)
-// writes pixel (2i + a, 2j + b) of the (N, 2H, 2W, Co) output.
+// Epilogues, on the freed ring. BnActEpilogue: acc * scale + shift, the
+// activation (common.cuh's apply_act, a PReLU slope read from device memory)
+// and one rounding to bf16, in f32 as before; the tile is staged and stored
+// 16 bytes per thread (scalar where Co % 8 != 0), masking ragged pixels and
+// channels. With the pool, the 2x2 max is taken from the staged tile: BH,
+// BW and the tile origin are even, so every window lies in one tile, and
+// rounding is monotone, so round-then-max equals max-then-round. With a
+// phase, phase (a, b) writes pixel (2i + a, 2j + b) of the (N, 2H, 2W, Co)
+// output. StatsEpilogue (B7): y in f32 and per-tile channel sums and sums of
+// squares, in a fixed order.
 //
 // The tile plan (BH, BW, BN, BK, stages, shared bytes) is computed once, by
 // ops/conv_operands.py::tile_plan; the host side here only checks it against
@@ -50,6 +59,7 @@
 
 #include <cuda.h>
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -68,9 +78,12 @@ struct ConvArgs {
   const float* scale;
   const float* shift;
   const float* alpha;  // the PReLU slope, read with ACT_PRELU only
-  __nv_bfloat16* out;
+  __nv_bfloat16* out;  // BnActEpilogue's output
   int H, W, Co, act, pool;
   int bh, bw, bk, stages, kchunks;  // the plan; kchunks = ceil(C / bk)
+  float* y32;       // StatsEpilogue's f32 output
+  float* part_sum;  // StatsEpilogue's partials, [Co][tiles]
+  float* part_sq;
 };
 
 __host__ __device__ constexpr int stage_bytes(int bn, int bk) {
@@ -343,19 +356,81 @@ struct Wgmma<256> {
   }
 };
 
-struct TapOffset {
-  int dy, dx, widx;
+// ---- what stage ``it`` of a block reads ------------------------------------
+//
+// A tap policy maps stage ``it`` of the K loop (and the block's output phase,
+// blockIdx.z, where there is one) to the A box's channel and pixel offset and
+// the weight box's (K, slice) coordinate. The ring, the products and the
+// epilogues do not depend on it.
+struct StageCoord {
+  int c0, dy, dx;  // the A box at (c0, j0 + dx, i0 + dy, n)
+  int wk, wz;      // the weight box at (wk, co0, wz)
 };
 
-// Tap t of a 3x3 conv, or of phase (a, b) of U (input taps (a + ta - 1,
-// b + tb - 1), weights [a, ta, b, tb] flattened).
-template <bool kUp>
-__device__ __forceinline__ TapOffset tap_offset(int t, int a, int b) {
-  if (kUp) {
-    const int ta = t >> 1, tb = t & 1;
-    return {a + ta - 1, b + tb - 1, ((a * 2 + ta) * 2 + b) * 2 + tb};
+// Kernels B, B6 and B7: tap t = it / kchunks of a 3x3 conv, BK channels of
+// it per stage; the weights (9, Co, C).
+struct Conv3x3Taps {
+  static constexpr int kTaps = 9;
+  static __device__ __forceinline__ StageCoord at(int it, int kchunks, int bk,
+                                                  int) {
+    const int t = it / kchunks;
+    const int c0 = (it - t * kchunks) * bk;
+    return {c0, t / 3 - 1, t % 3 - 1, c0, t};
   }
-  return {t / 3 - 1, t % 3 - 1, t};
+};
+
+// Kernel U: tap (ta, tb) of phase (a, b) reads input (a + ta - 1,
+// b + tb - 1) with the phase kernel [a, ta, b, tb] of the (16, Co, C)
+// weights.
+struct PhaseTaps {
+  static constexpr int kTaps = 4;
+  static __device__ __forceinline__ StageCoord at(int it, int kchunks, int bk,
+                                                  int phase) {
+    const int t = it / kchunks;
+    const int c0 = (it - t * kchunks) * bk;
+    const int a = phase >> 1, b = phase & 1, ta = t >> 1, tb = t & 1;
+    return {c0, a + ta - 1, b + tb - 1, c0, ((a * 2 + ta) * 2 + b) * 2 + tb};
+  }
+};
+
+// Kernel B8: U's taps with each phase's four weight blocks stacked on K,
+// (4 phases, Co, 4 * Kp) with tap t at [t * Kp, t * Kp + C) and Kp =
+// kchunks * bk, so stage it reads K offset t * Kp + c0 = it * bk: one K loop
+// of 4 * Kp over one contiguous weight row per output channel.
+struct StackedPhaseTaps {
+  static constexpr int kTaps = 4;
+  static __device__ __forceinline__ StageCoord at(int it, int kchunks, int bk,
+                                                  int phase) {
+    const int t = it / kchunks;
+    const int c0 = (it - t * kchunks) * bk;
+    return {c0, (phase >> 1) + (t >> 1) - 1, (phase & 1) + (t & 1) - 1,
+            it * bk, phase};
+  }
+};
+
+// The block's place: the 128-pixel tile blockIdx.x (image-major, then tile
+// rows, then tile columns) of image n at (i0, j0), output channels co0 ..
+// co0 + BN (blockIdx.y) and the output phase blockIdx.z.
+struct Tile {
+  int n, i0, j0, co0, phase;
+};
+
+__device__ __forceinline__ Tile block_tile(const ConvArgs& p, int bn) {
+  const int tiles_w = (p.W + p.bw - 1) / p.bw;
+  const int tiles_h = (p.H + p.bh - 1) / p.bh;
+  const int tj = blockIdx.x % tiles_w;
+  const int ti = (blockIdx.x / tiles_w) % tiles_h;
+  return {static_cast<int>(blockIdx.x / tiles_w / tiles_h), ti * p.bh,
+          tj * p.bw, static_cast<int>(blockIdx.y) * bn,
+          static_cast<int>(blockIdx.z)};
+}
+
+// Row ``row`` of this consumer thread's accumulators: wgmma's m64nN layout
+// gives lane l of warp w rows (w & 3) * 16 + l / 4 and that + 8 of its
+// warpgroup's 64, columns j * 8 + 2 * (l % 4) + {0, 1}, in acc[j * 4 +
+// {0, 1}] and acc[j * 4 + {2, 3}].
+__device__ __forceinline__ int acc_row(int warp, int lane) {
+  return (warp >> 2) * 64 + (warp & 3) * 16 + (lane >> 2);
 }
 
 // Eight staged bf16 values to out[0..min(8, left)), 16 bytes at once when
@@ -372,10 +447,190 @@ __device__ __forceinline__ void store8(__nv_bfloat16* dst,
   }
 }
 
-// One block: the 128-pixel tile blockIdx.x (image-major, then tile rows,
-// then tile columns), output channels blockIdx.y * BN .. + BN, and with kUp
-// the phase blockIdx.z = 2a + b.
-template <int BN, bool kUp>
+// Four staged f32 values to out[0..min(4, left)), 16 bytes at once when
+// Co % 4 == 0.
+__device__ __forceinline__ void store4(float* dst, const float* src, int left,
+                                       bool vec) {
+  if (vec) {
+    *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (e < left) dst[e] = src[e];
+  }
+}
+
+// ---- the epilogues ---------------------------------------------------------
+//
+// Each runs on the 256 consumer threads once both warpgroups are done with
+// the ring (``buf``, free to reuse), with this thread's accumulators.
+
+// Kernels B, B6, U and B8: acc * scale + shift, the activation, one rounding
+// to bf16, staged as [128][BN + 8]; with the pool, the 2x2 max from the
+// staged tile; with kPhase, phase (a, b) writes pixel (2i + a, 2j + b) of
+// the (N, 2H, 2W, Co) output.
+template <bool kPhase>
+struct BnActEpilogue {
+  template <int BN>
+  static __device__ __forceinline__ void run(float (&acc)[BN / 2],
+                                             unsigned char* buf, const Tile& t,
+                                             const ConvArgs& p) {
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    constexpr int kLdc = BN + 8;
+    __nv_bfloat16* cs = reinterpret_cast<__nv_bfloat16*>(buf);
+    const float slope = p.act == ACT_PRELU ? *p.alpha : 0.0f;
+    const int row_base = acc_row(warp, lane);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = j * 8 + 2 * (lane & 3);
+      const int co = t.co0 + col;
+      const float sc0 = co < p.Co ? p.scale[co] : 0.0f;
+      const float sh0 = co < p.Co ? p.shift[co] : 0.0f;
+      const float sc1 = co + 1 < p.Co ? p.scale[co + 1] : 0.0f;
+      const float sh1 = co + 1 < p.Co ? p.shift[co + 1] : 0.0f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float v0 =
+            apply_act(fmaf(acc[j * 4 + 2 * h], sc0, sh0), p.act, slope);
+        const float v1 =
+            apply_act(fmaf(acc[j * 4 + 2 * h + 1], sc1, sh1), p.act, slope);
+        *reinterpret_cast<__nv_bfloat162*>(cs + (row_base + 8 * h) * kLdc +
+                                           col) = __floats2bfloat162_rn(v0, v1);
+      }
+    }
+    consumer_sync();
+
+    constexpr int kVecs = BN / 8;
+    const int H = p.H, W = p.W, Co = p.Co;
+    const bool vec = Co % 8 == 0;
+    if (!kPhase && p.pool) {
+      const int pw = p.bw / 2;
+      for (int c = tid; c < (kBM / 4) * kVecs; c += kConsumerThreads) {
+        const int pr = c / kVecs, v = c - pr * kVecs;
+        const int py = pr / pw, px = pr - py * pw;
+        const int P = t.i0 / 2 + py, Q = t.j0 / 2 + px, co = t.co0 + v * 8;
+        if (P >= H / 2 || Q >= W / 2 || co >= Co) continue;
+        const __nv_bfloat16* s0 =
+            cs + ((2 * py) * p.bw + 2 * px) * kLdc + v * 8;
+        const __nv_bfloat16* s2 = s0 + p.bw * kLdc;
+        __align__(16) __nv_bfloat16 m[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          m[e] = __float2bfloat16(fmaxf(
+              fmaxf(__bfloat162float(s0[e]), __bfloat162float(s0[kLdc + e])),
+              fmaxf(__bfloat162float(s2[e]), __bfloat162float(s2[kLdc + e]))));
+        const long long pix =
+            (static_cast<long long>(t.n) * (H / 2) + P) * (W / 2) + Q;
+        store8(p.out + pix * Co + co, m, Co - co, vec);
+      }
+    } else {
+      const int pa = t.phase >> 1, pb = t.phase & 1;
+      for (int c = tid; c < kBM * kVecs; c += kConsumerThreads) {
+        const int row = c / kVecs, v = c - row * kVecs;
+        const int pi = t.i0 + row / p.bw, pj = t.j0 + row % p.bw;
+        const int co = t.co0 + v * 8;
+        if (pi >= H || pj >= W || co >= Co) continue;
+        const long long pix =
+            kPhase ? ((static_cast<long long>(t.n) * 2 * H + 2 * pi + pa) * 2 *
+                          W +
+                      2 * pj + pb)
+                   : ((static_cast<long long>(t.n) * H + pi) * W + pj);
+        store8(p.out + pix * Co + co, cs + row * kLdc + v * 8, Co - co, vec);
+      }
+    }
+  }
+};
+
+// Kernel B7: y = acc in f32, and this tile's per-channel sum and sum of
+// squares over its pixels inside the image, taken from the accumulators in a
+// fixed order (no float atomics, so two runs are bitwise equal):
+//  1. each thread adds its two rows of a column (ragged pixels masked to 0:
+//     their taps reach back into the image, so their sums are not 0);
+//  2. __shfl_xor_sync over lane bits 2, 3 and 4 adds the warp's 8 row pairs
+//     as a fixed tree, giving the warp's 16-row column sums;
+//  3. one thread per column adds the 8 warps in warp order from [2][8][BN]
+//     in the freed ring, and writes partial[co][blockIdx.x] (gridDim.x is
+//     the number of tiles), which conv_stats_finish_kernel sums over tiles;
+//  4. y is staged as f32 [128][BN + 4] through the ring and stored 16 bytes
+//     a thread, ragged pixels and channels masked.
+struct StatsEpilogue {
+  template <int BN>
+  static __device__ __forceinline__ void run(float (&acc)[BN / 2],
+                                             unsigned char* buf, const Tile& t,
+                                             const ConvArgs& p) {
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int row0 = acc_row(warp, lane);
+    bool in[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      in[h] = t.i0 + row / p.bw < p.H && t.j0 + row % p.bw < p.W;
+    }
+    float* red = reinterpret_cast<float*>(buf);  // sums, then squares
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float v0 = in[0] ? acc[j * 4 + e] : 0.0f;
+        const float v1 = in[1] ? acc[j * 4 + 2 + e] : 0.0f;
+        float s = v0 + v1;
+        float q = fmaf(v1, v1, v0 * v0);
+#pragma unroll
+        for (int m = 4; m <= 16; m <<= 1) {
+          s += __shfl_xor_sync(0xffffffffu, s, m);
+          q += __shfl_xor_sync(0xffffffffu, q, m);
+        }
+        if (lane < 4) {
+          const int col = j * 8 + 2 * lane + e;
+          red[warp * BN + col] = s;
+          red[(kConsumerWarps + warp) * BN + col] = q;
+        }
+      }
+    }
+    consumer_sync();
+    if (tid < BN && t.co0 + tid < p.Co) {
+      float s = 0.0f, q = 0.0f;
+#pragma unroll
+      for (int w = 0; w < kConsumerWarps; ++w) {
+        s += red[w * BN + tid];
+        q += red[(kConsumerWarps + w) * BN + tid];
+      }
+      const long long at =
+          static_cast<long long>(t.co0 + tid) * gridDim.x + blockIdx.x;
+      p.part_sum[at] = s;
+      p.part_sq[at] = q;
+    }
+    consumer_sync();
+
+    constexpr int kLdc = BN + 4;
+    float* cs = reinterpret_cast<float*>(buf);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = j * 8 + 2 * (lane & 3);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(cs + (row0 + 8 * h) * kLdc + col) =
+            make_float2(acc[j * 4 + 2 * h], acc[j * 4 + 2 * h + 1]);
+    }
+    consumer_sync();
+    constexpr int kVecs = BN / 4;
+    const bool vec = p.Co % 4 == 0;
+    for (int c = tid; c < kBM * kVecs; c += kConsumerThreads) {
+      const int row = c / kVecs, v = c - row * kVecs;
+      const int pi = t.i0 + row / p.bw, pj = t.j0 + row % p.bw;
+      const int co = t.co0 + v * 4;
+      if (pi >= p.H || pj >= p.W || co >= p.Co) continue;
+      const long long pix = (static_cast<long long>(t.n) * p.H + pi) * p.W + pj;
+      store4(p.y32 + pix * p.Co + co, cs + row * kLdc + v * 4, p.Co - co, vec);
+    }
+  }
+};
+
+// ---- the mainloop ------------------------------------------------------------
+
+// One block: the tile of block_tile, its K loop of Taps::kTaps * kchunks
+// stages through the ring, then Epilogue on the f32 sums.
+template <int BN, class Taps, class Epilogue>
 __device__ __forceinline__ void conv_wgmma_body(const CUtensorMap& xmap,
                                                 const CUtensorMap& wmap,
                                                 const ConvArgs& p) {
@@ -389,16 +644,8 @@ __device__ __forceinline__ void conv_wgmma_body(const CUtensorMap& xmap,
   uint64_t* empty = full + p.stages;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int tiles_w = (p.W + p.bw - 1) / p.bw;
-  const int tiles_h = (p.H + p.bh - 1) / p.bh;
-  const int tj = blockIdx.x % tiles_w;
-  const int ti = (blockIdx.x / tiles_w) % tiles_h;
-  const int n = blockIdx.x / tiles_w / tiles_h;
-  const int i0 = ti * p.bh, j0 = tj * p.bw;
-  const int co0 = blockIdx.y * BN;
-  const int pa = kUp ? static_cast<int>(blockIdx.z >> 1) : 0;
-  const int pb = kUp ? static_cast<int>(blockIdx.z & 1) : 0;
-  const int iters = (kUp ? 4 : 9) * p.kchunks;
+  const Tile t = block_tile(p, BN);
+  const int iters = Taps::kTaps * p.kchunks;
 
   if (tid == 0) {
     for (int s = 0; s < p.stages; ++s) {
@@ -414,14 +661,13 @@ __device__ __forceinline__ void conv_wgmma_body(const CUtensorMap& xmap,
       int stage = 0;
       uint32_t phase = 0;
       for (int it = 0; it < iters; ++it) {
-        const int tap = it / p.kchunks;
-        const int c0 = (it - tap * p.kchunks) * p.bk;
-        const TapOffset o = tap_offset<kUp>(tap, pa, pb);
+        const StageCoord o = Taps::at(it, p.kchunks, p.bk, t.phase);
         unsigned char* sa = buf + stage * sbytes;
         mbar_wait(&empty[stage], phase ^ 1u);
         mbar_expect_tx(&full[stage], a_bytes + b_bytes);
-        tma_load_4d(sa, &xmap, &full[stage], c0, j0 + o.dx, i0 + o.dy, n);
-        tma_load_3d(sa + a_bytes, &wmap, &full[stage], c0, co0, o.widx);
+        tma_load_4d(sa, &xmap, &full[stage], o.c0, t.j0 + o.dx, t.i0 + o.dy,
+                    t.n);
+        tma_load_3d(sa + a_bytes, &wmap, &full[stage], o.wk, t.co0, o.wz);
         if (++stage == p.stages) {
           stage = 0;
           phase ^= 1u;
@@ -462,66 +708,7 @@ __device__ __forceinline__ void conv_wgmma_body(const CUtensorMap& xmap,
   wgmma_wait<0>();
   fence_operands(acc);
   consumer_sync();  // both warpgroups are done reading the ring
-
-  // epilogue: f32 scale/shift/act, one rounding, staged as [128][BN + 8]
-  constexpr int kLdc = BN + 8;
-  __nv_bfloat16* cs = reinterpret_cast<__nv_bfloat16*>(buf);
-  const float slope = p.act == ACT_PRELU ? *p.alpha : 0.0f;
-  const int row_base = wgi * 64 + (warp & 3) * 16 + (lane >> 2);
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    const int col = j * 8 + 2 * (lane & 3);
-    const int co = co0 + col;
-    const float sc0 = co < p.Co ? p.scale[co] : 0.0f;
-    const float sh0 = co < p.Co ? p.shift[co] : 0.0f;
-    const float sc1 = co + 1 < p.Co ? p.scale[co + 1] : 0.0f;
-    const float sh1 = co + 1 < p.Co ? p.shift[co + 1] : 0.0f;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float v0 =
-          apply_act(fmaf(acc[j * 4 + 2 * h], sc0, sh0), p.act, slope);
-      const float v1 =
-          apply_act(fmaf(acc[j * 4 + 2 * h + 1], sc1, sh1), p.act, slope);
-      *reinterpret_cast<__nv_bfloat162*>(cs + (row_base + 8 * h) * kLdc +
-                                         col) = __floats2bfloat162_rn(v0, v1);
-    }
-  }
-  consumer_sync();
-
-  constexpr int kVecs = BN / 8;
-  const int H = p.H, W = p.W, Co = p.Co;
-  const bool vec = Co % 8 == 0;
-  if (!kUp && p.pool) {
-    const int pw = p.bw / 2;
-    for (int c = tid; c < (kBM / 4) * kVecs; c += kConsumerThreads) {
-      const int pr = c / kVecs, v = c - pr * kVecs;
-      const int py = pr / pw, px = pr - py * pw;
-      const int P = i0 / 2 + py, Q = j0 / 2 + px, co = co0 + v * 8;
-      if (P >= H / 2 || Q >= W / 2 || co >= Co) continue;
-      const __nv_bfloat16* s0 = cs + ((2 * py) * p.bw + 2 * px) * kLdc + v * 8;
-      const __nv_bfloat16* s2 = s0 + p.bw * kLdc;
-      __align__(16) __nv_bfloat16 m[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        m[e] = __float2bfloat16(
-            fmaxf(fmaxf(__bfloat162float(s0[e]), __bfloat162float(s0[kLdc + e])),
-                  fmaxf(__bfloat162float(s2[e]), __bfloat162float(s2[kLdc + e]))));
-      const long long pix =
-          (static_cast<long long>(n) * (H / 2) + P) * (W / 2) + Q;
-      store8(p.out + pix * Co + co, m, Co - co, vec);
-    }
-  } else {
-    for (int c = tid; c < kBM * kVecs; c += kConsumerThreads) {
-      const int row = c / kVecs, v = c - row * kVecs;
-      const int pi = i0 + row / p.bw, pj = j0 + row % p.bw, co = co0 + v * 8;
-      if (pi >= H || pj >= W || co >= Co) continue;
-      const long long pix =
-          kUp ? ((static_cast<long long>(n) * 2 * H + 2 * pi + pa) * 2 * W +
-                 2 * pj + pb)
-              : ((static_cast<long long>(n) * H + pi) * W + pj);
-      store8(p.out + pix * Co + co, cs + row * kLdc + v * 8, Co - co, vec);
-    }
-  }
+  Epilogue::template run<BN>(acc, buf, t, p);
 }
 
 // ---- host side -----------------------------------------------------------
@@ -552,16 +739,22 @@ struct Plan {
   int bh, bw, bn, bk, stages, smem;
 };
 
+// Bytes of the epilogue's staged tile, [128][BN] of out_bytes each (2 for
+// bf16, 4 for B7's f32) with 16 bytes of padding per row.
+__host__ __device__ constexpr int staged_bytes(int bn, int out_bytes) {
+  return kBM * (bn * out_bytes + 16);
+}
+
 // Does the plan fit this layout? (the tile, the widths the kernel is built
 // for, even sides with the pool, the staged tile inside the ring, and the
 // shared bytes of the layout within what the plan asks for and the card has)
-inline bool plan_ok(const Plan& pl, bool pool) {
+inline bool plan_ok(const Plan& pl, bool pool, int out_bytes = 2) {
   return pl.bh * pl.bw == kBM && pl.bh > 0 &&
          (pl.bn == 16 || pl.bn == 32 || pl.bn == 64 || pl.bn == 128 ||
           pl.bn == 256) &&
          (pl.bk == 16 || pl.bk == 32 || pl.bk == 64) && pl.stages >= 2 &&
          (!pool || (pl.bh % 2 == 0 && pl.bw % 2 == 0)) &&
-         kBM * (pl.bn + 8) * 2 <= pl.stages * stage_bytes(pl.bn, pl.bk) &&
+         staged_bytes(pl.bn, out_bytes) <= pl.stages * stage_bytes(pl.bn, pl.bk) &&
          smem_need(pl.bn, pl.bk, pl.stages) <= pl.smem &&
          pl.smem <= kMaxSharedBytes;
 }
@@ -593,16 +786,53 @@ inline bool encode_map(CUtensorMap* map, const void* base, int rank,
 }
 
 // The two maps of a launch: x (N, H, W, C) with box (bk, bw, bh, 1), and the
-// K-major weights (taps, Co, C) with box (bk, bn, 1).
+// K-major weights (slices, Co, K) with box (bk, bn, 1).
 inline bool encode_maps(CUtensorMap* xmap, CUtensorMap* wmap, const void* x,
                         const void* w, int n, int h, int wd, int c, int co,
-                        int taps, const Plan& pl) {
+                        int k, int slices, const Plan& pl) {
   const long long xd[4] = {c, wd, h, n};
   const int xb[4] = {pl.bk, pl.bw, pl.bh, 1};
-  const long long wdims[3] = {c, co, taps};
+  const long long wdims[3] = {k, co, slices};
   const int wb[3] = {pl.bk, pl.bn, 1};
-  return c % 8 == 0 && encode_map(xmap, x, 4, xd, xb, pl.bk) &&
+  return c % 8 == 0 && k % 8 == 0 && encode_map(xmap, x, 4, xd, xb, pl.bk) &&
          encode_map(wmap, w, 3, wdims, wb, pl.bk);
+}
+
+// The launch grid of a plan: one block per tile and BN channels, ``phases``
+// output phases on z.
+inline dim3 plan_grid(const Plan& pl, int n, int h, int w, int co,
+                      int phases) {
+  const long long tiles = static_cast<long long>(n) * ((h + pl.bh - 1) / pl.bh) *
+                          ((w + pl.bw - 1) / pl.bw);
+  return dim3(static_cast<unsigned>(tiles),
+              static_cast<unsigned>((co + pl.bn - 1) / pl.bn),
+              static_cast<unsigned>(phases));
+}
+
+// One launch of ``kernel`` (a __global__ of (xmap, wmap, args)) with the
+// plan's dynamic shared bytes.
+template <class Kernel>
+inline cudaError_t launch(Kernel kernel, dim3 grid, int smem,
+                          cudaStream_t stream, const CUtensorMap& xmap,
+                          const CUtensorMap& wmap, const ConvArgs& args) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, kThreads, smem, stream>>>(xmap, wmap, args);
+  return cudaGetLastError();
+}
+
+// f(std::integral_constant<int, BN>{}) for the plan's BN (plan_ok checked
+// that it is one the kernels are built for).
+template <class F>
+inline cudaError_t by_width(int bn, F f) {
+  switch (bn) {
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+    default: return f(std::integral_constant<int, 256>{});
+  }
 }
 
 }  // namespace wg

@@ -123,27 +123,14 @@ static void launch(const void* x, const void* k16, const void* scale,
 }
 
 // The bf16 kernel: conv_wgmma.cuh's tile, the four taps of phase
-// blockIdx.z.
+// blockIdx.z, the scale/shift/act epilogue with the phase-strided store.
 template <int BN>
 __global__ void __launch_bounds__(wg::kThreads, BN <= 64 ? 2 : 1)
     upsample2_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                            const __grid_constant__ CUtensorMap wmap,
                            const wg::ConvArgs args) {
-  wg::conv_wgmma_body<BN, true>(xmap, wmap, args);
-}
-
-template <int BN>
-static cudaError_t launch_wgmma(dim3 grid, const CUtensorMap& xmap,
-                                const CUtensorMap& wmap,
-                                const wg::ConvArgs& args, int smem,
-                                cudaStream_t stream) {
-  const cudaError_t e = cudaFuncSetAttribute(
-      upsample2_wgmma_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (e != cudaSuccess) return e;
-  upsample2_wgmma_kernel<BN><<<grid, wg::kThreads, smem, stream>>>(xmap, wmap,
-                                                                   args);
-  return cudaGetLastError();
+  wg::conv_wgmma_body<BN, wg::PhaseTaps, wg::BnActEpilogue<true>>(xmap, wmap,
+                                                                 args);
 }
 
 static int launch_bf16(const void* x, const void* k16, const void* scale,
@@ -152,7 +139,7 @@ static int launch_bf16(const void* x, const void* k16, const void* scale,
                        cudaStream_t stream) {
   CUtensorMap xmap, wmap;
   if (!wg::plan_ok(pl, false) ||
-      !wg::encode_maps(&xmap, &wmap, x, k16, n, h, w, ci, co, 16, pl))
+      !wg::encode_maps(&xmap, &wmap, x, k16, n, h, w, ci, co, ci, 16, pl))
     return static_cast<int>(cudaErrorInvalidValue);
   const wg::ConvArgs args{static_cast<const float*>(scale),
                           static_cast<const float*>(shift),
@@ -160,19 +147,11 @@ static int launch_bf16(const void* x, const void* k16, const void* scale,
                           static_cast<__nv_bfloat16*>(out),
                           h, w, co, act, 0, pl.bh, pl.bw, pl.bk, pl.stages,
                           (ci + pl.bk - 1) / pl.bk};
-  const long long tiles = static_cast<long long>(n) * ((h + pl.bh - 1) / pl.bh) *
-                          ((w + pl.bw - 1) / pl.bw);
-  const dim3 grid(static_cast<unsigned>(tiles),
-                  static_cast<unsigned>((co + pl.bn - 1) / pl.bn), 4);
-  cudaError_t e;
-  switch (pl.bn) {
-    case 16: e = launch_wgmma<16>(grid, xmap, wmap, args, pl.smem, stream); break;
-    case 32: e = launch_wgmma<32>(grid, xmap, wmap, args, pl.smem, stream); break;
-    case 64: e = launch_wgmma<64>(grid, xmap, wmap, args, pl.smem, stream); break;
-    case 128: e = launch_wgmma<128>(grid, xmap, wmap, args, pl.smem, stream); break;
-    default: e = launch_wgmma<256>(grid, xmap, wmap, args, pl.smem, stream);
-  }
-  return static_cast<int>(e);
+  const dim3 grid = wg::plan_grid(pl, n, h, w, co, 4);
+  return static_cast<int>(wg::by_width(pl.bn, [&](auto bn) {
+    return wg::launch(upsample2_wgmma_kernel<decltype(bn)::value>, grid,
+                      pl.smem, stream, xmap, wmap, args);
+  }));
 }
 
 constexpr int kHalo = 16;          // haloed tile side, high-res pixels

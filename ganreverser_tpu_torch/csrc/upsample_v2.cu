@@ -5,17 +5,26 @@
 // Replaces benchmarks/tpu_upsample_v2.py::upsample_v2 (_kernel_v2), whose
 // one deeper dot per phase concatenated the four shifted patches on the
 // channel axis (Mosaic refused the concatenation, so it never ran on the
-// TPU). Here no patch is concatenated: element k of the reduction is tap
-// k / Ci, channel k % Ci, so the A loader computes each element's tap and a
-// BK chunk may straddle two taps when Ci is not a multiple of BK. The tile
-// is kernel B's (64 pixels x 64 channels, f32 CUDA-core FMAs; conv_tile.cuh
-// holds the constants), blockIdx.z the phase, output written strided per
-// phase as kernel U writes it.
+// TPU). Here no patch is concatenated; blockIdx.z is the phase, the output
+// written strided per phase as kernel U writes it.
 //
-// What bounds it: FMA issue, as U; the A/B against U measures one K loop of
-// 4*Ci against four of Ci, the question a tensor-core redesign of U has to
-// answer.
+// bf16 runs upsample_v2_wgmma_kernel: conv_wgmma.cuh's tensor-core tile
+// with StackedPhaseTaps over the weights (4 phases, Co, 4*Kp)
+// (ops/conv_operands.py::stacked_kmajor): tap block t at [t*Kp, t*Kp + Ci),
+// Kp = Ci rounded up to BK, so no weight box crosses from one tap into the
+// next and stage it of a phase reads K offset it * BK of one contiguous
+// weight row; the A box of stage it is tap it / kchunks's shifted patch, as
+// in U. The epilogue is U's (scale/shift/ReLU, one rounding, the
+// phase-strided store). f32 runs upsample_v2_kernel on the CUDA cores (64
+// pixels x 64 channels, conv_tile.cuh's constants): element k of the
+// reduction is tap k / Ci, channel k % Ci, so its A loader computes each
+// element's tap and a BK chunk may straddle two taps.
+//
+// What bounds it: the tensor cores in bf16 (f32 FMA issue on the CUDA
+// cores), as U; held against U at G3's two stages it answers, on this card,
+// whether one K loop of 4*Ci beats four of Ci.
 #include "conv_tile.cuh"
+#include "conv_wgmma.cuh"
 
 namespace gr {
 
@@ -121,34 +130,71 @@ __global__ void __launch_bounds__(kThreads) upsample_v2_kernel(
   }
 }
 
-template <typename T>
-static void launch(const void* x, const void* k4, const void* scale,
-                   const void* shift, void* out, int n, int h, int w, int ci,
-                   int co, cudaStream_t stream) {
+static int launch_f32(const void* x, const void* k4, const void* scale,
+                      const void* shift, void* out, int n, int h, int w,
+                      int ci, int co, cudaStream_t stream) {
   const long long rows = static_cast<long long>(n) * h * w;
   const dim3 grid(static_cast<unsigned>((rows + kBM - 1) / kBM),
                   static_cast<unsigned>((co + kBN - 1) / kBN), 4);
-  upsample_v2_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(k4),
+  upsample_v2_kernel<float><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(k4),
       static_cast<const float*>(scale), static_cast<const float*>(shift),
-      static_cast<T*>(out), n, h, w, ci, co);
+      static_cast<float*>(out), n, h, w, ci, co);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 kernel: conv_wgmma.cuh's tile, one stacked K loop per phase
+// blockIdx.z, U's epilogue with ReLU.
+template <int BN>
+__global__ void __launch_bounds__(wg::kThreads, BN <= 64 ? 2 : 1)
+    upsample_v2_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                             const __grid_constant__ CUtensorMap wmap,
+                             const wg::ConvArgs args) {
+  wg::conv_wgmma_body<BN, wg::StackedPhaseTaps, wg::BnActEpilogue<true>>(
+      xmap, wmap, args);
+}
+
+static int launch_bf16(const void* x, const void* k4, const void* scale,
+                       const void* shift, void* out, int n, int h, int w,
+                       int ci, int co, const wg::Plan& pl,
+                       cudaStream_t stream) {
+  const int kchunks = (ci + pl.bk - 1) / pl.bk;
+  CUtensorMap xmap, wmap;
+  if (!wg::plan_ok(pl, false) ||
+      !wg::encode_maps(&xmap, &wmap, x, k4, n, h, w, ci, co,
+                       4 * kchunks * pl.bk, 4, pl))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const wg::ConvArgs args{static_cast<const float*>(scale),
+                          static_cast<const float*>(shift),
+                          nullptr,
+                          static_cast<__nv_bfloat16*>(out),
+                          h, w, co, ACT_RELU, 0, pl.bh, pl.bw, pl.bk,
+                          pl.stages, kchunks};
+  const dim3 grid = wg::plan_grid(pl, n, h, w, co, 4);
+  return static_cast<int>(wg::by_width(pl.bn, [&](auto bn) {
+    return wg::launch(upsample_v2_wgmma_kernel<decltype(bn)::value>, grid,
+                      pl.smem, stream, xmap, wmap, args);
+  }));
 }
 
 }  // namespace gr
 
-// x (N,H,W,Ci) and k4 (4, 4*Ci, Co; phase a*2+b, rows tap-major) in the
-// storage type, scale/shift (Co,) f32, out (N,2H,2W,Co) in the storage type.
+// f32: x (N,H,W,Ci) and k4 (4, 4*Ci, Co; phase a*2+b, rows tap-major), the
+// plan ignored. bf16: x (N,H,W,Ci) with Ci % 8 == 0 and k4 (4, Co, 4*Kp),
+// Kp = ceil(Ci / bk) * bk (ops/conv_operands.py::stacked_kmajor), on the
+// plan bh, bw, bn, bk, stages, smem (ops/conv_operands.py::tile_plan).
+// scale/shift (Co,) f32, out (N,2H,2W,Co) in the storage type.
 extern "C" int gr_upsample_v2(int dtype, const void* x, const void* k4,
                               const void* scale, const void* shift, void* out,
-                              int n, int h, int w, int ci, int co,
+                              int n, int h, int w, int ci, int co, int bh,
+                              int bw, int bn, int bk, int stages, int smem,
                               void* stream) {
   using namespace gr;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DT_F32)
-    launch<float>(x, k4, scale, shift, out, n, h, w, ci, co, s);
-  else if (dtype == DT_BF16)
-    launch<__nv_bfloat16>(x, k4, scale, shift, out, n, h, w, ci, co, s);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+    return launch_f32(x, k4, scale, shift, out, n, h, w, ci, co, s);
+  if (dtype == DT_BF16)
+    return launch_bf16(x, k4, scale, shift, out, n, h, w, ci, co,
+                       wg::Plan{bh, bw, bn, bk, stages, smem}, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

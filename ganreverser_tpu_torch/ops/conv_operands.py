@@ -1,6 +1,6 @@
 """The operands and tile plan of the bf16 tensor-core convolutions
-(``csrc/conv_wgmma.cuh``, kernels B, B6 and U), and a plain version of
-their implicit GEMM in the kernel's K order.
+(``csrc/conv_wgmma.cuh``, kernels B, B6, U, B7 and B8), and plain versions
+of their implicit GEMM in the kernel's K order.
 
 TMA reads rows that are a multiple of 16 bytes, so ``pad_channels`` zero-pads
 an NHWC input's channels up to a multiple of 8, and a narrow stem's up to
@@ -10,13 +10,18 @@ tensor. ``kmajor`` pads the weights' Ci to match: they go (taps, Co, Ci'),
 each tap's (Co, Ci') slice K-major, as the activations' tile is, so the
 tensor cores transpose neither operand. A 3x3 conv has the 9 taps of its
 HWIO kernel (tap t is (t // 3, t % 3)); kernel U has the 16 phase taps
-``[a, ta, b, tb]`` of ``phase_kernels``, four per output phase.
+``[a, ta, b, tb]`` of ``phase_kernels``, four per output phase. Kernel B8
+stacks each phase's four taps on K instead (``stacked_kmajor``): (4 phases,
+Co, 4 * Kp), tap t at ``[t * Kp, t * Kp + Ci')``, Kp = Ci' rounded up to BK,
+so one weight box never spans two taps.
 
 ``tile_plan`` is the one place where a launch's tile is chosen: 128 output
 pixels as a BH x BW patch of one image, BN output channels, BK input
 channels per stage, the ring's stage count and the block's shared bytes;
 ``csrc/conv_wgmma.cuh`` checks a plan against its layout and refuses one
-that does not fit.
+that does not fit. The epilogue stages the output tile through the ring, so
+a plan for B7's f32 output (``out_bytes=4``) has a ring that holds twice the
+bf16 tile.
 """
 from __future__ import annotations
 
@@ -93,7 +98,14 @@ class TilePlan(NamedTuple):
 NO_PLAN = TilePlan(0, 0, 0, 0, 0, 0)   # what an f32 launch passes (ignored)
 
 
-def tile_plan(h: int, w: int, ci: int, co: int) -> TilePlan:
+def staged_bytes(bn: int, out_bytes: int) -> int:
+    """Bytes of the epilogue's staged tile: [128][BN] values of
+    ``out_bytes`` (2 for bf16, 4 for f32) and 16 bytes of padding a row."""
+    return BM * (bn * out_bytes + 16)
+
+
+def tile_plan(h: int, w: int, ci: int, co: int,
+              out_bytes: int = 2) -> TilePlan:
     """The tile of one launch over an (H, W) input with Ci input and Co
     output channels. BW is 16 where W > 8 (8 x 16 patches), else 8 or 4, so
     narrow images waste little of the tile; BH = 128 / BW; both are even,
@@ -102,16 +114,37 @@ def tile_plan(h: int, w: int, ci: int, co: int) -> TilePlan:
     kernel is built for that covers Co, at most 256 (one tile reads each
     input box once for all of Co). The ring takes ``RING_BYTES[BN]``: three
     blocks per SM up to BN = 64, one above (64 or 128 accumulators a
-    thread), 2 to 8 stages. The bytes add the 1 KB alignment slack and the
-    16 bytes of barriers per stage."""
+    thread), 2 to 8 stages, and at least as many as the staged output tile
+    of ``out_bytes`` per value needs (B7's f32 tile at BN = 256 and BK =
+    16 takes 11). The bytes add the 1 KB alignment slack and the 16 bytes
+    of barriers per stage."""
     bw = 16 if w > 8 else (8 if w > 4 else 4)
     bh = BM // bw
     cp = padded_channels(ci)
     bk = cp if cp <= 32 else 64
     bn = next((b for b in WIDTHS_N if co <= b), WIDTHS_N[-1])
     stage = _round_up(BM * bk * 2 + bn * bk * 2, ALIGN)
-    stages = max(2, min(MAX_STAGES, RING_BYTES[bn] // stage))
+    stages = max(2, min(MAX_STAGES, RING_BYTES[bn] // stage),
+                 -(-staged_bytes(bn, out_bytes) // stage))
     return TilePlan(bh, bw, bn, bk, stages, ALIGN + stages * (stage + 16))
+
+
+def stacked_depth(ci: int, bk: int) -> int:
+    """Kp: the K extent of one tap block of B8's stacked weights, the
+    padded Ci rounded up to ``bk``."""
+    return _round_up(padded_channels(ci), bk)
+
+
+def stacked_kmajor(k4: torch.Tensor, dtype: torch.dtype,
+                   bk: int) -> torch.Tensor:
+    """B8's (4, 4*Ci, Co) stacked phase weights (``stacked_phase_kernels``)
+    -> (4, Co, 4 * Kp) in ``dtype``, K-major: phase p's tap t at
+    ``[t * Kp, t * Kp + Ci)``, zero up to ``(t + 1) * Kp``. Contiguous."""
+    ci = k4.shape[1] // 4
+    kp = stacked_depth(ci, bk)
+    out = k4.new_zeros((4, k4.shape[2], 4, kp), dtype=dtype)
+    out[..., :ci] = k4.to(dtype).reshape(4, 4, ci, -1).permute(0, 3, 1, 2)
+    return out.reshape(4, k4.shape[2], 4 * kp)
 
 
 def implicit_gemm_plain(x: torch.Tensor, wk: torch.Tensor,
@@ -129,4 +162,27 @@ def implicit_gemm_plain(x: torch.Tensor, wk: torch.Tensor,
         wt = wk[widx].float()
         for c0 in range(0, c, bk):
             acc += xs[..., c0:c0 + bk] @ wt[:, c0:c0 + bk].T
+    return acc
+
+
+def stacked_gemm_plain(x: torch.Tensor, ws: torch.Tensor, phase: int,
+                       bk: int) -> torch.Tensor:
+    """Kernel B8's sums for output ``phase`` = 2a + b in its K order, in f32
+    on any device: one loop over K = 4 * Kp of ``ws[phase]``, stage by
+    stage, stage s reading tap t = s // (Kp / bk)'s input shifted by
+    (a + t // 2 - 1, b + t % 2 - 1), channels past C' read as zero (as TMA
+    reads them). x: (N,H,W,C') padded; ws: (4, Co, 4 * Kp). Returns
+    (N,H,W,Co) f32."""
+    n, h, w, c = x.shape
+    kp = ws.shape[2] // 4
+    a, b = phase // 2, phase % 2
+    xp = F.pad(x.float(), (0, kp - c, 1, 1, 1, 1))
+    wt = ws[phase].float()
+    acc = torch.zeros((n, h, w, ws.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    for k0 in range(0, 4 * kp, bk):
+        t, c0 = divmod(k0, kp)
+        dy, dx = a + t // 2 - 1, b + t % 2 - 1
+        xs = xp[:, 1 + dy:1 + dy + h, 1 + dx:1 + dx + w, c0:c0 + bk]
+        acc += xs @ wt[:, k0:k0 + bk].T
     return acc

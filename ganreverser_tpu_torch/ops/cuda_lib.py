@@ -59,10 +59,14 @@ _SIGNATURES = {
     # final_act, stream
     "gr_upsample2_conv3x3_head": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                   _I, _I, _I, _I, _I, _P],
-    # dtype, x, w9, y, ws, sum, sumsq, n, h, w, ci, co, stream
-    "gr_conv_stats": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # dtype, x, k4, scale, shift, out, n, h, w, ci, co, stream
-    "gr_upsample_v2": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # dtype, x, w9, y, ws, sum, sumsq, n, h, w, ci, co, then the bf16 plan
+    # (bh, bw, bn, bk, stages, smem), stream
+    "gr_conv_stats": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                      *[_I] * 6, _P],
+    # dtype, x, k4, scale, shift, out, n, h, w, ci, co, then the bf16 plan
+    # (bh, bw, bn, bk, stages, smem), stream
+    "gr_upsample_v2": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                       *[_I] * 6, _P],
     # x, y, n, stream
     "gr_probe_add_one": [_P, _P, _L, _P],
     # x, y, g, per, stream

@@ -7,7 +7,9 @@ the TPU).
 ``upsample2_conv3x3_bn_act(..., act="relu")`` computes, from the per-phase
 channel-stacked weights of :func:`stacked_phase_kernels` (4, 4*Ci, Co). On
 CUDA tensors it launches ``csrc/upsample_v2.cu`` (one K loop of 4*Ci per
-phase); on CPU tensors it takes :func:`upsample_v2_plain`.
+phase): bf16 on the tensor-core tile, the weights laid out K-major by
+``conv_operands.stacked_kmajor``, f32 on the CUDA cores; on CPU tensors it
+takes :func:`upsample_v2_plain`.
 ``upsample_v2.launches`` counts the launches.
 """
 from __future__ import annotations
@@ -15,7 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import cuda_lib
+from . import conv_operands, cuda_lib
 from .upsample_conv_kernel import phase_kernels
 
 
@@ -54,21 +56,31 @@ def upsample_v2(x: torch.Tensor, kernel: torch.Tensor, scale: torch.Tensor,
     Returns (N,2H,2W,Co) in ``x.dtype``, ReLU in the epilogue."""
     if cuda_lib.dispatch_device(x, kernel, scale, shift) == "cpu":
         return upsample_v2_plain(x, kernel, scale, shift)
+    code = cuda_lib.dtype_code(x)
     n, h, w, ci = x.shape
     co = kernel.shape[-1]
-    k4 = stacked_phase_kernels(kernel).to(x.dtype).contiguous()
+    k4 = stacked_phase_kernels(kernel)
+    if x.dtype == torch.bfloat16:  # the tensor-core tile's operands
+        xk = conv_operands.pad_channels(x)
+        plan = conv_operands.tile_plan(h, w, ci, co)
+        k4 = conv_operands.stacked_kmajor(k4, x.dtype, plan.bk)
+        kshape = (4, co, 4 * conv_operands.stacked_depth(ci, plan.bk))
+    else:
+        xk, plan = x, conv_operands.NO_PLAN
+        k4 = k4.to(x.dtype).contiguous()
+        kshape = (4, 4 * ci, co)
     scale = scale.float().contiguous()
     shift = shift.float().contiguous()
-    cuda_lib.require(x, "x", x.device, x.dtype, (n, h, w, ci))
-    cuda_lib.require(k4, "kernel", x.device, x.dtype, (4, 4 * ci, co))
+    cuda_lib.require(xk, "x", x.device, x.dtype, (n, h, w, xk.shape[-1]))
+    cuda_lib.require(k4, "kernel", x.device, x.dtype, kshape)
     cuda_lib.require(scale, "scale", x.device, torch.float32, (co,))
     cuda_lib.require(shift, "shift", x.device, torch.float32, (co,))
     out = torch.empty((n, 2 * h, 2 * w, co), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         rc = cuda_lib.library().gr_upsample_v2(
-            cuda_lib.dtype_code(x), x.data_ptr(), k4.data_ptr(),
-            scale.data_ptr(), shift.data_ptr(), out.data_ptr(), n, h, w, ci,
-            co, cuda_lib.stream_of(x))
+            code, xk.data_ptr(), k4.data_ptr(), scale.data_ptr(),
+            shift.data_ptr(), out.data_ptr(), n, h, w, xk.shape[-1], co,
+            *plan, cuda_lib.stream_of(x))
     cuda_lib.check(rc, "upsample_v2")
     upsample_v2.launches += 1
     return out

@@ -5,9 +5,15 @@ BK channels at a time as the kernel sums them (``implicit_gemm_plain``),
 then the epilogue, against the JAX ``conv_block`` and U in interpret mode,
 as the JAX tests run them on the CPU. f32 within 1e-5 of the output's
 scale (f32 sums in another order); bf16 within 3e-2 of it (one rounding of
-the output, which may land on a neighbouring bf16 value). And the plan of
-every layer of R, G3 and D2 at 3x64x64 and of the card tests' ragged
-shapes."""
+the output, which may land on a neighbouring bf16 value). Kernel B7: the
+same conv operands with the statistics in the kernel's order (per tile,
+ragged pixels masked, then the fixed-order finish) against a lax conv and
+its per-channel sums (y within 1e-5 of its scale, the sums within 1e-4 of
+their magnitudes: f32 sums of exact bf16 products in another order).
+Kernel B8: the stacked K-major weights summed stage by stage against the
+JAX U. And the plan of every layer of R, G3 and D2 at 3x64x64, of the
+probes' shapes and of the card tests' ragged shapes."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,7 +23,9 @@ from ganreverser_tpu.ops.conv_block_kernel import conv_block as j_conv_block
 from ganreverser_tpu.ops.upsample_conv_kernel import (
     upsample2_conv3x3_bn_act as j_upsample)
 from ganreverser_tpu_torch.ops import conv_operands as co_
+from ganreverser_tpu_torch.ops import conv_stats_kernel as cs
 from ganreverser_tpu_torch.ops.upsample_conv_kernel import phase_kernels
+from ganreverser_tpu_torch.ops.upsample_v2_kernel import stacked_phase_kernels
 
 T = torch.from_numpy
 TOL = {"float32": 1e-5, "bfloat16": 3e-2}
@@ -95,6 +103,94 @@ def test_phase_operands_match_jax_upsample(rng, ci, co, dtype):
     _close(y.to(xt.dtype), ref, dtype)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 9, 7), (2, 10, 14)])
+@pytest.mark.parametrize("ci,co", CHANNELS)
+def test_conv_stats_operands_match_lax(rng, ci, co, shape, dtype):
+    """Kernel B7: kernel B's padded input and (9, Co, Ci') weights in the
+    kernel's K order, then the per-tile partial sums of y and y^2 in the
+    kernel's order over the plan's tiles (ragged pixels masked) and the
+    fixed-order finish, against a lax conv (f32 sums) and its per-channel
+    sums, on ragged images."""
+    xj, kj, xt, kt, _, _ = _operands(rng, shape, ci, co, dtype)
+    ref = jax.lax.conv_general_dilated(
+        xj, kj, (1, 1), "SAME", dimension_numbers=("NHWC", "HWIO", "NHWC"),
+        preferred_element_type=jnp.float32)
+    plan = co_.tile_plan(shape[1], shape[2], ci, co, out_bytes=4)
+    y = co_.implicit_gemm_plain(co_.pad_channels(xt),
+                                co_.conv3x3_weights(kt, xt.dtype),
+                                co_.CONV3X3_TAPS, plan.bk)
+    part_s, part_q = cs.tile_partials_plain(y, plan.bh, plan.bw)
+    tiles = shape[0] * -(-shape[1] // plan.bh) * -(-shape[2] // plan.bw)
+    assert part_s.shape == part_q.shape == (co, tiles)
+    s, q = cs.finish_plain(part_s, part_q)
+    assert tuple(y.shape) == ref.shape and y.dtype == torch.float32
+    _close(y, ref, "float32")
+    ref = np.asarray(ref)
+    mag = np.maximum(np.abs(ref).sum(axis=(0, 1, 2)), 1.0)
+    ref_q = (ref * ref).sum(axis=(0, 1, 2))
+    assert (np.abs(s.numpy() - ref.sum(axis=(0, 1, 2))) / mag).max() <= 1e-4
+    assert (np.abs(q.numpy() - ref_q) / np.maximum(ref_q, 1.0)).max() <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ci,co", CHANNELS)
+def test_stacked_operands_match_jax_upsample(rng, ci, co, dtype):
+    """Kernel B8: the stacked phase weights laid out (4, Co, 4 Kp), each
+    phase one K loop of 4 Kp summed stage by stage in the kernel's order,
+    interleaved into the (N, 2H, 2W, Co) output, against the JAX kernel U
+    (whose phase kernels are rounded from the rounded kernel; B8's are
+    summed in f32 and rounded once)."""
+    xj, kj, xt, _, sc, sh = _operands(rng, (2, 5, 3), ci, co, dtype)
+    ref = j_upsample(xj, kj, sc, sh, act="relu",
+                     tile_n=1).astype(jnp.float32)
+    n, h, w, _ = xt.shape
+    plan = co_.tile_plan(h, w, ci, co)
+    x8 = co_.pad_channels(xt)
+    k = T(np.array(kj.astype(jnp.float32)))
+    ws = co_.stacked_kmajor(stacked_phase_kernels(k), xt.dtype, plan.bk)
+    assert ws.shape == (4, co, 4 * co_.stacked_depth(ci, plan.bk))
+    acc = torch.empty((n, h, 2, w, 2, co))
+    for p in range(4):
+        acc[:, :, p // 2, :, p % 2] = co_.stacked_gemm_plain(x8, ws, p,
+                                                             plan.bk)
+    y = torch.clamp_min(acc.reshape(n, 2 * h, 2 * w, co) * T(sc) + T(sh), 0.0)
+    assert tuple(y.shape) == ref.shape
+    _close(y.to(xt.dtype), ref, dtype)
+
+
+def test_stacked_kmajor_layout():
+    """Phase p's tap t is its (Ci, Co) block of the stacked weights,
+    transposed, at K offset t * Kp; zero from Ci to the next Kp; Kp the
+    padded Ci rounded up to BK."""
+    assert [co_.stacked_depth(c, bk) for c, bk in (
+        (3, 16), (20, 32), (70, 64), (256, 64), (512, 64))] == [
+        16, 32, 128, 256, 512]
+    ci, co = 5, 7
+    k4 = torch.randn(4, 4 * ci, co)
+    ws = co_.stacked_kmajor(k4, torch.bfloat16, 16)
+    assert ws.shape == (4, co, 64) and ws.dtype == torch.bfloat16
+    assert ws.is_contiguous()
+    for p in range(4):
+        for t in range(4):
+            blk = ws[p, :, t * 16:(t + 1) * 16]
+            assert torch.equal(blk[:, :ci],
+                               k4[p, t * ci:(t + 1) * ci].T.to(torch.bfloat16))
+            assert not blk[:, ci:].any()
+
+
+def test_conv_stats_finish_order():
+    """The plain statistics in the kernel's order add up to the plain sums:
+    one tile and many (more than the finish kernel's 256 threads)."""
+    y = torch.randn(5, 33, 70, 3)
+    for bh, bw in ((8, 16), (16, 8)):
+        s, q = cs.finish_plain(*cs.tile_partials_plain(y, bh, bw))
+        assert torch.allclose(s, y.sum(dim=(0, 1, 2)), rtol=0, atol=1e-3)
+        assert torch.allclose(q, (y * y).sum(dim=(0, 1, 2)), rtol=1e-5)
+    part = torch.arange(600.0).reshape(1, 600)
+    assert cs.finish_plain(part, part)[0].item() == 599 * 600 / 2
+
+
 def test_padding_and_kmajor_layout():
     """Zero channels up to a multiple of 8, and up to 16 or 32 below that,
     the data untouched; tap t of the K-major weights is kernel[t // 3,
@@ -132,6 +228,7 @@ PLAN_LAYERS = [
     ("ragged U", 5, 7, 20, 72), ("ragged head U", 9, 4, 33, 130),
     ("wide Co", 6, 6, 64, 300),
     ("one pixel", 1, 1, 8, 8),
+    ("B7 probe", 64, 64, 256, 128), ("B7 stem Co 300", 6, 6, 3, 300),
 ]
 
 
@@ -157,3 +254,12 @@ def test_tile_plan(label, h, w, ci, co):
     assert plan.stages * stage <= co_.RING_BYTES[plan.bn]
     if w >= 16:
         assert (plan.bh, plan.bw) == (8, 16)
+    # B7's plan: the same tile, a ring that holds the f32 staged tile
+    f32 = co_.tile_plan(h, w, ci, co, out_bytes=4)
+    assert f32[:4] == plan[:4] and f32.stages >= plan.stages
+    assert co_.staged_bytes(f32.bn, 4) == 128 * (f32.bn + 4) * 4
+    assert co_.staged_bytes(f32.bn, 4) <= f32.stages * stage
+    assert f32.smem_bytes == 1024 + f32.stages * (stage + 16)
+    assert f32.smem_bytes <= co_.MAX_SHARED_BYTES
+    if f32.stages > plan.stages:   # only where the bf16 ring is too small
+        assert (f32.stages - 1) * stage < co_.staged_bytes(f32.bn, 4)

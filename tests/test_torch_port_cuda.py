@@ -409,10 +409,14 @@ def test_fast_generator_fused_head_launches_head(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,h,w,ci,co", [(4, 8, 8, 16, 32), (3, 7, 5, 20, 70)])
+@pytest.mark.parametrize("n,h,w,ci,co", [(4, 8, 8, 16, 32), (3, 7, 5, 20, 70),
+                                         (16, 64, 64, 256, 128)])
 def test_conv_stats_kernel(dev, dtype, n, h, w, ci, co):
     """y against the plain conv, the sums within 1e-4 of the summed
-    magnitudes, and a second run bitwise equal (no float atomics)."""
+    magnitudes, and a second run bitwise equal (no float atomics). The
+    ragged (3,7,5,20,70) leaves pixels of every tile outside the image,
+    whose sums the bf16 epilogue must mask; (16,64,64,256)->128 is the
+    probe's shape at N = 16."""
     g = torch.Generator(device=dev).manual_seed(12)
     x = torch.randn(n, h, w, ci, device=dev, generator=g).to(dtype)
     k = 0.2 * torch.randn(3, 3, ci, co, device=dev, generator=g)
@@ -431,24 +435,31 @@ def test_conv_stats_kernel(dev, dtype, n, h, w, ci, co):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("ci", [16, 20, 3])
-def test_upsample_v2_kernel(dev, dtype, ci):
-    """B8 against its plain version and against kernel U: Ci = 20 and 3
-    make BK chunks straddle taps."""
+@pytest.mark.parametrize("n,h,w,ci,co", [(3, 5, 7, 16, 72), (3, 5, 7, 20, 72),
+                                         (3, 5, 7, 3, 72),
+                                         (16, 16, 16, 512, 256),
+                                         (16, 32, 32, 256, 128)])
+def test_upsample_v2_kernel(dev, dtype, n, h, w, ci, co):
+    """B8 against its plain version and against kernel U within the
+    probe's tolerance (f32 1e-4, bf16 3e-2: U rounds the phase kernels from
+    the rounded kernel, B8 sums them in f32 first); a second run bitwise
+    equal. Ci = 20 and 3 pad each tap block of the stacked weights (and
+    make the f32 route's BK chunks straddle taps); the last two are the
+    probe's shapes, G3's two stages, at N = 16."""
     g = torch.Generator(device=dev).manual_seed(13)
-    x = torch.randn(3, 5, 7, ci, device=dev, generator=g).to(dtype)
-    k = 0.3 * torch.randn(3, 3, ci, 72, device=dev, generator=g)
-    sc = torch.rand(72, device=dev, generator=g) + 0.5
-    sh = torch.randn(72, device=dev, generator=g)
+    x = torch.randn(n, h, w, ci, device=dev, generator=g).to(dtype)
+    k = 0.3 * torch.randn(3, 3, ci, co, device=dev, generator=g)
+    sc = torch.rand(co, device=dev, generator=g) + 0.5
+    sh = torch.randn(co, device=dev, generator=g)
     before = upsample_v2_kernel.upsample_v2.launches
     out = upsample_v2_kernel.upsample_v2(x, k, sc, sh)
     torch.cuda.synchronize()
     assert upsample_v2_kernel.upsample_v2.launches == before + 1
-    assert out.shape == (3, 10, 14, 72) and out.dtype == dtype
+    assert out.shape == (n, 2 * h, 2 * w, co) and out.dtype == dtype
+    assert torch.equal(upsample_v2_kernel.upsample_v2(x, k, sc, sh), out)
     _close(out, upsample_v2_kernel.upsample_v2_plain(x, k, sc, sh), dtype)
-    if dtype == torch.float32:
-        _close(out, upsample_conv_kernel.upsample2_conv3x3_bn_act(
-            x, k, sc, sh, act="relu"), dtype)
+    _close(out, upsample_conv_kernel.upsample2_conv3x3_bn_act(
+        x, k, sc, sh, act="relu"), dtype)
 
 
 def test_probe_kernels_exact(dev):
@@ -504,6 +515,20 @@ def _main_path_case(dev, kind, i):
         return (lambda: uc.upsample2_conv3x3_bn_act(x, k, sc, sh),
                 lambda: uc.upsample2_conv3x3_bn_act_plain(x, k, sc, sh),
                 1, uc.upsample2_conv3x3_bn_act)
+    if kind == "B7":  # the probe's shape at N = 16
+        x = (0.5 * torch.randn(16, 64, 64, 256, device=dev, generator=g)).to(
+            bf16)
+        k = 0.05 * torch.randn(3, 3, 256, 128, device=dev, generator=g)
+        return (lambda: conv_stats_kernel.conv_stats(x, k),
+                lambda: conv_stats_kernel.conv_stats_plain(x, k), 1,
+                conv_stats_kernel.conv_stats)
+    if kind == "B8":  # U's shape, stage 1
+        shape, co = MAIN_U[i]
+        x = torch.rand(shape, device=dev, generator=g).to(bf16)
+        (k,), (sc,), (sh,) = chip_smoke._conv_chain(g, dev, [shape[-1], co])
+        v2 = upsample_v2_kernel
+        return (lambda: v2.upsample_v2(x, k, sc, sh),
+                lambda: v2.upsample_v2_plain(x, k, sc, sh), 1, v2.upsample_v2)
     shape, co, pool = MAIN_B6[i]
     x = torch.rand(shape, device=dev, generator=g).to(bf16)
     (k,), _, (b,) = chip_smoke._conv_chain(g, dev, [shape[-1], co])
@@ -557,7 +582,11 @@ def _device_kernels(fn, tmp_path) -> set:
                           ("B6", "conv3x3_wgmma_kernel",
                            "conv3x3_bn_act_kernel"),
                           ("U", "upsample2_wgmma_kernel",
-                           "upsample2_conv3x3_bn_act_kernel")])
+                           "upsample2_conv3x3_bn_act_kernel"),
+                          ("B7", "conv_stats_wgmma_kernel",
+                           "conv_stats_kernel"),
+                          ("B8", "upsample_v2_wgmma_kernel",
+                           "upsample_v2_kernel")])
 def test_bf16_runs_no_cuda_core_kernel(dev, tmp_path, kind, wgmma,
                                        cuda_core):
     """A bf16 call runs the tensor-core kernel and never the CUDA-core
@@ -569,12 +598,13 @@ def test_bf16_runs_no_cuda_core_kernel(dev, tmp_path, kind, wgmma,
 
 
 def test_tensor_core_kernels_have_hgmma(dev):
-    """chip_smoke's SASS guard: every instance of the two bf16 kernels
+    """chip_smoke's SASS guard: every instance of the four bf16 kernels
     holds HGMMA instructions (the tensor cores), and the CUDA-core f32
     kernels hold none."""
     import chip_smoke
     counts = chip_smoke.check_hgmma(cuda_lib.build())
-    assert counts
+    assert len(counts) == 4 * 5
     for name, n in chip_smoke.sass_hgmma(cuda_lib.build()).items():
-        if "bn_act_kernel" in name:
+        if any(s in name for s in ("bn_act_kernel", "conv_stats_kernel",
+                                   "upsample_v2_kernel")):
             assert n == 0, name
