@@ -14,8 +14,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    -v), the main path's tile plans (their shared bytes) beside B7's and
    B8's, and the SASS guard: cuobjdump -sass of the built library must show
    HGMMA (tensor-core) instructions in every instance (one per BN) of the
-   four bf16 kernels, conv3x3_wgmma_kernel (B, B6), upsample2_wgmma_kernel
-   (U), conv_stats_wgmma_kernel (B7) and upsample_v2_wgmma_kernel (B8);
+   six bf16 kernels, conv3x3_wgmma_kernel (B, B6), upsample2_wgmma_kernel
+   (U), conv_stats_wgmma_kernel (B7), upsample_v2_wgmma_kernel (B8),
+   upsample2_head_wgmma_kernel (U's fused head, BN 16 to 128) and
+   cosine_wgmma_kernel (C);
 3. each kernel against its plain PyTorch version on the card at the shapes
    of the main path (N = 256, f32 and bf16, TF32 off for the plain f32
    reference): max error against the stated tolerance, median times of the
@@ -38,7 +40,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    sums over it (1e-4 relative), and a second run be bitwise the same.
    U's fused head at G3's stage 2 (N = 256, C = 3 and 1; library: cuDNN's
    two convolutions in sequence; also timed: kernel U plus the plain head,
-   what the unfused fast G runs); kernel B8 (upsample_v2) at G3's two
+   what the unfused fast G runs). In bf16 the head and C each run two
+   launches whose second adds partials in a fixed order: a second call
+   must give bitwise the first's output. Kernel B8 (upsample_v2) at G3's two
    stages, also against kernel U on the same inputs (time, and within the
    probe's tolerance: f32 1e-4, bf16 3e-2 of the output's scale); kernel
    B7 (conv_stats) at its probe's (256,64,64,256) -> 128,
@@ -196,7 +200,12 @@ def card_line() -> str:
 
 # the bf16 tensor-core kernels: each must hold HGMMA in every instance
 WGMMA_KERNELS = ("conv3x3_wgmma_kernel", "upsample2_wgmma_kernel",
-                 "conv_stats_wgmma_kernel", "upsample_v2_wgmma_kernel")
+                 "conv_stats_wgmma_kernel", "upsample_v2_wgmma_kernel",
+                 "upsample2_head_wgmma_kernel", "cosine_wgmma_kernel")
+HEAD_WGMMA = "upsample2_head_wgmma_kernel"   # built for BN up to 128 only
+# the bf16 kernels whose second launch adds partials: a second call must be
+# bitwise the first
+REPEATABLE = ("upsample2_conv3x3_head", "cosine_scores")
 # the main path's tensor-core layers (label, H, W, Ci, Co at the input's
 # resolution), whose tile plans phase 2 prints
 MAIN_CONV_LAYERS = [("R block 1 l0", 64, 64, 3, 64),
@@ -229,13 +238,15 @@ def sass_hgmma(lib_path) -> dict:
 def check_hgmma(lib_path) -> dict:
     """The SASS guard: every instance of the bf16 kernels (one per tile
     width BN) holds HGMMA instructions. Returns their counts."""
-    from ganreverser_tpu_torch.ops.conv_operands import WIDTHS_N
+    from ganreverser_tpu_torch.ops.conv_operands import HEAD_MAX_BN, WIDTHS_N
     counts = sass_hgmma(lib_path)
     found = {}
     for stem in WGMMA_KERNELS:
+        widths = tuple(b for b in WIDTHS_N
+                       if stem != HEAD_WGMMA or b <= HEAD_MAX_BN)
         mine = {n: c for n, c in counts.items() if stem in n}
-        check(len(mine) == len(WIDTHS_N), f"SASS: {len(mine)} instances of "
-              f"{stem}, expected one per BN in {WIDTHS_N}")
+        check(len(mine) == len(widths), f"SASS: {len(mine)} instances of "
+              f"{stem}, expected one per BN in {widths}")
         check(all(mine.values()), f"SASS: an instance of {stem} has no "
               f"HGMMA: {mine}")
         found.update(mine)
@@ -548,6 +559,11 @@ def check_kernels(dev, card: str, n: int = N_CHECK, n_search: int = N_MAIN):
                   f"{name} {label} {dname}: non-finite output")
             err = (out.float() - ref.float()).abs().max().item()
             scale = max(1.0, ref.float().abs().max().item())
+            repeat = ""
+            if name in REPEATABLE and dtype == torch.bfloat16:
+                check(torch.equal(kern(), out), f"{name} {label} {dname}: a "
+                      "second call differs from the first")
+                repeat = ", a second call bitwise equal"
             tol = (TOL_SCORES if name == "cosine_scores"
                    else TOL[dname] * scale)
             versus = ""
@@ -565,9 +581,9 @@ def check_kernels(dev, card: str, n: int = N_CHECK, n_search: int = N_MAIN):
             unfused = (f", unfused U + head {time_ms(case['unfused']):.4f} ms"
                        if "unfused" in case else "")
             print(f"[kernel] {name} {label} {dname}: max_abs_err {err:.3e} "
-                  f"(tol {tol:.1e}), kernel {ms:.4f} ms, plain {plain_ms:.4f}"
-                  f" ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
-                  f"({b_by}){unfused}{versus}  [{card}]")
+                  f"(tol {tol:.1e}){repeat}, kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+                  f"{b_ms:.4f} ms ({b_by}){unfused}{versus}  [{card}]")
             check(err <= tol, f"{name} {label} {dname}: max_abs_err {err} "
                   f"> tol {tol}")
             records.append({"name": name, "label": label, "dtype": dname,

@@ -1,4 +1,5 @@
-// The bf16 tensor-core mainloop shared by kernels B (and B6), U, B7 and B8:
+// The bf16 tensor-core mainloop shared by kernels B (and B6), U (and its
+// fused head), B7 and B8, and the helpers kernel C's own loop reuses:
 // an implicit GEMM for a 3x3 convolution, or one output phase of U's 2x2
 // phase convolution, over an NHWC bf16 input, on Hopper's wgmma fed by TMA.
 //
@@ -9,9 +10,9 @@
 // channels (16 to 256), K is streamed BK channels of one tap per pipeline
 // stage. Sums are f32 in registers. Three policies are template parameters:
 // the tap policy (Conv3x3Taps, PhaseTaps, StackedPhaseTaps) maps a stage to
-// the two boxes it reads, and the epilogue (BnActEpilogue, StatsEpilogue)
-// takes the sums from the registers; the ring between them is the same for
-// every kernel.
+// the two boxes it reads, and the epilogue (BnActEpilogue, StatsEpilogue,
+// HeadTapsEpilogue) takes the sums from the registers; the ring between
+// them is the same for every kernel.
 //
 // Operands. x is (N, H, W, C) with C % 8 == 0 (the wrapper zero-pads the
 // channels, ops/conv_operands.py), read through one 4D tiled tensor map over
@@ -48,7 +49,8 @@
 // rounding is monotone, so round-then-max equals max-then-round. With a
 // phase, phase (a, b) writes pixel (2i + a, 2j + b) of the (N, 2H, 2W, Co)
 // output. StatsEpilogue (B7): y in f32 and per-tile channel sums and sums of
-// squares, in a fixed order.
+// squares, in a fixed order. HeadTapsEpilogue (U's fused head): the head's
+// nine tap partials per pixel from a second product on the rounded tile.
 //
 // The tile plan (BH, BW, BN, BK, stages, shared bytes) is computed once, by
 // ops/conv_operands.py::tile_plan; the host side here only checks it against
@@ -84,6 +86,9 @@ struct ConvArgs {
   float* y32;       // StatsEpilogue's f32 output
   float* part_sum;  // StatsEpilogue's partials, [Co][tiles]
   float* part_sq;
+  const __nv_bfloat16* head_w;  // HeadTapsEpilogue's (rows, Co') weights
+  float* taps;                  // its tap partials (see HeadTapsEpilogue)
+  int cf;                       // the head's output channels
 };
 
 __host__ __device__ constexpr int stage_bytes(int bn, int bk) {
@@ -149,6 +154,16 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1,
                                             int c2) {
@@ -191,6 +206,16 @@ template <int R>
 __device__ __forceinline__ void fence_operands(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The same for A fragments held in registers: the product reads them
+// asynchronously, so they must stay live until its wait.
+template <int R>
+__device__ __forceinline__ void fence_operands(uint32_t (&a)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
 // The consumer warpgroups' own barrier (the producer warp has left).
@@ -356,6 +381,24 @@ struct Wgmma<256> {
   }
 };
 
+// wgmma.mma_async m64n16k16, f32 += bf16 x bf16, A from registers (a[0..4),
+// the m64k16 fragment: rows l / 4 and l / 4 + 8 of the warp's 16, columns
+// 2 * (l % 4) + {0, 1} and those + 8, as mma.sync's A), B from shared memory
+// (K-major). The A fragment of a k16 step is the accumulator layout of two
+// neighbouring n8 column groups, so a tile's f32 sums become the next
+// product's A without going through shared memory.
+__device__ __forceinline__ void wgmma_rs16(float (&d)[8], const uint32_t (&a)[4],
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // ---- what stage ``it`` of a block reads ------------------------------------
 //
 // A tap policy maps stage ``it`` of the K loop (and the block's output phase,
@@ -463,7 +506,8 @@ __device__ __forceinline__ void store4(float* dst, const float* src, int left,
 // ---- the epilogues ---------------------------------------------------------
 //
 // Each runs on the 256 consumer threads once both warpgroups are done with
-// the ring (``buf``, free to reuse), with this thread's accumulators.
+// the ring (``buf``, free to reuse), with this thread's accumulators. Its
+// prologue runs on the same threads before the first stage arrives.
 
 // Kernels B, B6, U and B8: acc * scale + shift, the activation, one rounding
 // to bf16, staged as [128][BN + 8]; with the pool, the 2x2 max from the
@@ -471,6 +515,9 @@ __device__ __forceinline__ void store4(float* dst, const float* src, int left,
 // the (N, 2H, 2W, Co) output.
 template <bool kPhase>
 struct BnActEpilogue {
+  template <int BN>
+  static __device__ __forceinline__ void prologue(unsigned char*, const Tile&,
+                                                  const ConvArgs&) {}
   template <int BN>
   static __device__ __forceinline__ void run(float (&acc)[BN / 2],
                                              unsigned char* buf, const Tile& t,
@@ -555,6 +602,9 @@ struct BnActEpilogue {
 //     a thread, ragged pixels and channels masked.
 struct StatsEpilogue {
   template <int BN>
+  static __device__ __forceinline__ void prologue(unsigned char*, const Tile&,
+                                                  const ConvArgs&) {}
+  template <int BN>
   static __device__ __forceinline__ void run(float (&acc)[BN / 2],
                                              unsigned char* buf, const Tile& t,
                                              const ConvArgs& p) {
@@ -626,6 +676,145 @@ struct StatsEpilogue {
   }
 };
 
+// Kernel U's fused head (bf16): in place of U's output, the tap partials
+// of the head's 3x3 Co -> Cf conv over this tile's U pixels,
+//
+//   taps[cb][phase][n][i][j][t * Cf + f] =
+//       sum_{c in channel block cb} fk[t / 3][t % 3][c][f] * u[n, 2i + a, 2j + b, c]
+//
+// with u = act(acc * scale + shift) rounded once to bf16 (the TPU kernel's
+// rounding of U's output), cb = blockIdx.y and phase = 2a + b = blockIdx.z.
+// The rounded sums go from the accumulators straight into a second product
+// as its A fragments (wgmma_rs16), against the head's weights laid out
+// K-major as (rows, Co'): row t * Cf + f, rows = 9 Cf rounded up to 16,
+// Co' = Co rounded up to BN (ops/conv_operands.py::head_weights). The
+// prologue copies the block's BN columns of them into shared memory behind
+// the ring and its barriers, in the 128-byte swizzle, 64 channels a chunk.
+// The partials (27 f32 a pixel at Cf = 3, against U's 128 bf16 channels) are
+// staged as f32 [128][9 Cf] in the freed ring and stored with ragged pixels
+// masked; upsample_conv.cu's finish launch adds each output pixel's in-image
+// neighbours.
+constexpr int kHeadMaxBN = 128;     // the head is built for BN 16 to 128
+constexpr int kHeadMaxChunks = 3;   // n16 column groups: 9 * Cf <= 48
+
+__host__ __device__ constexpr int head_rows(int cf) {
+  return 16 * ((9 * cf + 15) / 16);
+}
+
+// Offset of the head's weight tile from the aligned base: behind the ring
+// and its barriers, on the swizzle's period.
+__host__ __device__ constexpr int head_w_offset(int bn, int bk, int stages) {
+  return (stages * (stage_bytes(bn, bk) + 16) + kAlign - 1) / kAlign * kAlign;
+}
+
+__host__ __device__ constexpr int head_w_bytes(int bn, int cf) {
+  return (bn + 63) / 64 * head_rows(cf) * 128;
+}
+
+struct HeadTapsEpilogue {
+  template <int BN>
+  static __device__ __forceinline__ void prologue(unsigned char* buf,
+                                                  const Tile& t,
+                                                  const ConvArgs& p) {
+    unsigned char* fw = buf + head_w_offset(BN, p.bk, p.stages);
+    const int rows = head_rows(p.cf);
+    const long long ld = static_cast<long long>(gridDim.y) * BN;  // Co'
+    constexpr int kVecs = BN / 8;  // 16-byte pieces of a row's BN channels
+    for (int i = threadIdx.x; i < rows * kVecs; i += kConsumerThreads) {
+      const int r = i / kVecs, v = i - r * kVecs;
+      const uint4 val = *reinterpret_cast<const uint4*>(p.head_w + r * ld +
+                                                        t.co0 + v * 8);
+      // chunk v / 8 of 64 channels; piece v % 8 of row r lands at piece
+      // (v % 8) ^ (r % 8), as TMA's 128-byte swizzle would put it
+      *reinterpret_cast<uint4*>(fw + (v >> 3) * rows * 128 + r * 128 +
+                                (((v & 7) ^ (r & 7)) << 4)) = val;
+    }
+    // written by the generic proxy, read by wgmma (the async proxy) after
+    // the consumers' barrier that ends the mainloop
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+
+  template <int BN>
+  static __device__ __forceinline__ void run(float (&acc)[BN / 2],
+                                             unsigned char* buf, const Tile& t,
+                                             const ConvArgs& p) {
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    // 1. u in bf16 as the A fragments of BN / 16 k16 steps: step kk takes
+    //    the n8 groups 2 kk (registers 0, 1) and 2 kk + 1 (2, 3)
+    uint32_t a[BN / 16][4];
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int co = t.co0 + j * 8 + 2 * (lane & 3);
+      const float sc0 = co < p.Co ? p.scale[co] : 0.0f;
+      const float sh0 = co < p.Co ? p.shift[co] : 0.0f;
+      const float sc1 = co + 1 < p.Co ? p.scale[co + 1] : 0.0f;
+      const float sh1 = co + 1 < p.Co ? p.shift[co + 1] : 0.0f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        // channels past Co give act(0), against weight columns of zero
+        __nv_bfloat162 u = __floats2bfloat162_rn(
+            apply_act(fmaf(acc[j * 4 + 2 * h], sc0, sh0), p.act),
+            apply_act(fmaf(acc[j * 4 + 2 * h + 1], sc1, sh1), p.act));
+        a[j >> 1][(j & 1) * 2 + h] = *reinterpret_cast<uint32_t*>(&u);
+      }
+    }
+
+    // 2. the second product, one n16 column group of the taps at a time
+    const unsigned char* fw = buf + head_w_offset(BN, p.bk, p.stages);
+    const int rows = head_rows(p.cf);
+    float d[kHeadMaxChunks][8];
+#pragma unroll
+    for (int c = 0; c < kHeadMaxChunks; ++c) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) d[c][i] = 0.0f;
+      fence_operands(d[c]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < kHeadMaxChunks; ++c) {
+      if (c * 16 >= rows) break;  // the same in every thread
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+        wgmma_rs16(d[c], a[kk],
+                   make_desc(fw + (kk >> 2) * rows * 128 + c * 2048, 1, 1024) +
+                       2 * (kk & 3));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(a);
+#pragma unroll
+    for (int c = 0; c < kHeadMaxChunks; ++c) fence_operands(d[c]);
+
+    // 3. staged as f32 [128][9 Cf] in the freed ring, stored a row piece
+    //    at a time (a tile row of BW pixels is contiguous in taps)
+    const int ld = 9 * p.cf;
+    float* cs = reinterpret_cast<float*>(buf);
+    const int row0 = acc_row(warp, lane);
+#pragma unroll
+    for (int c = 0; c < kHeadMaxChunks; ++c)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = c * 16 + j * 8 + 2 * (lane & 3) + e;
+            if (col < ld) cs[(row0 + 8 * h) * ld + col] = d[c][j * 4 + 2 * h + e];
+          }
+    consumer_sync();
+    const int tiles = ((p.W + p.bw - 1) / p.bw) * ((p.H + p.bh - 1) / p.bh);
+    const long long images = gridDim.x / tiles;
+    float* dst = p.taps + ((static_cast<long long>(blockIdx.y) * 4 + t.phase) *
+                               images + t.n) * p.H * p.W * ld;
+    for (int i = tid; i < kBM * ld; i += kConsumerThreads) {
+      const int row = i / ld, col = i - row * ld;
+      const int pi = t.i0 + row / p.bw, pj = t.j0 + row % p.bw;
+      if (pi < p.H && pj < p.W)
+        dst[(static_cast<long long>(pi) * p.W + pj) * ld + col] = cs[i];
+    }
+  }
+};
+
 // ---- the mainloop ------------------------------------------------------------
 
 // One block: the tile of block_tile, its K loop of Taps::kTaps * kchunks
@@ -678,6 +867,7 @@ __device__ __forceinline__ void conv_wgmma_body(const CUtensorMap& xmap,
   }
 
   // the consumers: warpgroup wgi owns rows wgi * 64 .. + 64 of the tile
+  Epilogue::template prologue<BN>(buf, t, p);
   const int wgi = warp >> 2;
   const int layout = p.bk == 64 ? 1 : (p.bk == 32 ? 2 : 3);
   const int sbo = 8 * p.bk * 2;
@@ -757,6 +947,16 @@ inline bool plan_ok(const Plan& pl, bool pool, int out_bytes = 2) {
          staged_bytes(pl.bn, out_bytes) <= pl.stages * stage_bytes(pl.bn, pl.bk) &&
          smem_need(pl.bn, pl.bk, pl.stages) <= pl.smem &&
          pl.smem <= kMaxSharedBytes;
+}
+
+// Does a plan fit HeadTapsEpilogue's layout? (plan_ok, BN at most 128, the
+// staged f32 partials inside the ring, the head's weight tile behind the
+// ring and its barriers within the plan's bytes)
+inline bool head_plan_ok(const Plan& pl, int cf) {
+  return plan_ok(pl, false) && pl.bn <= kHeadMaxBN && cf >= 1 &&
+         cf <= 4 && kBM * 9 * cf * 4 <= pl.stages * stage_bytes(pl.bn, pl.bk) &&
+         kAlign + head_w_offset(pl.bn, pl.bk, pl.stages) +
+                 head_w_bytes(pl.bn, cf) <= pl.smem;
 }
 
 // Tiled bf16 map over a tensor whose dims (innermost first) are dims[0..r)

@@ -18,26 +18,36 @@
 // aggregated weights are 16x512x256 (4 MB in bf16), streamed BK input
 // channels of one tap at a time. In bf16 each phase is conv_wgmma.cuh's tile
 // with its four taps, the weights laid out K-major as (16, Co, Ci) by the
-// wrapper; in f32 conv_tile.cuh's IEEE f32 loop runs on the CUDA cores. The
-// fused head below stays on conv_tile.cuh in both types.
+// wrapper; in f32 conv_tile.cuh's IEEE f32 loop runs on the CUDA cores.
 //
 // The second entry point, gr_upsample2_conv3x3_head, is the TPU kernel's
 // fused final head (its final_kernel path): U, one rounding to the storage
-// type, SAME zero padding, then a 3x3 Co -> Cf conv + bias + final act, in
-// one launch whose U output never goes to device memory. A block owns one
-// image and a 14x14 tile of high-resolution output pixels. It computes U
-// over the 16x16 haloed region into shared memory: the region holds 8x8
-// pixels of each phase, so each phase is exactly one 64-row chunk of the
-// shared tile (conv_tile.cuh) with that phase's weights, run once per 64
-// output channels. The epilogue stores act(scale * acc + shift) rounded to
-// the storage type, and zero for the halo pixels outside the image (the
-// head's padding ring, applied after the activation and the rounding).
-// Then one warp per output pixel runs the 9-tap head out of shared memory,
-// lanes striding over Co (conflict-free), a warp sum per output channel.
-// At G3's stage 2 (Co = 128) the tile is 64 KB in bf16 and 128 KB in f32,
-// above the 48 KB a launch gets without cudaFuncSetAttribute. The halo
-// recomputes (16 / 14)^2 = 1.31x of U's work, 1.56x on a 64x64 output where
-// the last tile row and column are ragged.
+// type, SAME zero padding, then a 3x3 Co -> Cf conv (Cf 1 to 4) + bias +
+// final act. What bounds it is U's tensor-core work (275 GFLOP at G3's
+// stage 2, N = 256; the head adds 7.2); a tile of U's output is all a
+// block holds, so the head's 3x3 window, which reaches one pixel into the
+// neighbouring tiles, cannot be finished inside the block. In bf16 two
+// launches do it without recomputing a halo and without writing U's
+// output:
+//  1. upsample2_head_wgmma_kernel: U's own grid and mainloop (the phase
+//     taps, blockIdx.z the phase, the plan of ops/conv_operands.py::
+//     head_plan: U's tile with BN at most 128), whose epilogue
+//     (conv_wgmma.cuh's HeadTapsEpilogue) rounds the tile to bf16 and
+//     multiplies it on the tensor cores by the head's weights, writing each
+//     U pixel's nine tap partials v_t(q) = fk[t] . u(q), 9 Cf f32 (108
+//     bytes at Cf = 3 against U's 256), per channel block, to a workspace
+//     (channel blocks, 4 phases, N, H, W, 9 Cf);
+//  2. upsample2_head_finish_kernel: each output pixel p adds v_t(p + t - 1)
+//     of its in-image neighbours in tap order, each tap's channel blocks in
+//     block order (the SAME padding: a neighbour outside the image adds
+//     nothing), then the bias and final act, and rounds once to bf16.
+// No float atomics, so two calls are bitwise equal; the rounding points are
+// the TPU kernel's, the f32 sums taken in another order. In f32 one launch,
+// upsample2_conv3x3_head_kernel, keeps the IEEE f32 CUDA-core design: a
+// block computes U over a 16x16 haloed tile of output pixels into shared
+// memory (conv_tile.cuh, one 64-row chunk per phase, zero for the halo
+// pixels outside the image), then one warp per output pixel runs the 9-tap
+// head out of shared memory; the halo recomputes 1.31x of U's work.
 #include "conv_tile.cuh"
 #include "conv_wgmma.cuh"
 
@@ -258,27 +268,135 @@ __global__ void __launch_bounds__(kThreads) upsample2_conv3x3_head_kernel(
   }
 }
 
-template <typename T>
-static int launch_head(const void* x, const void* k16, const void* scale,
-                       const void* shift, const void* fk, const void* fb,
-                       void* out, int n, int h, int w, int ci, int co, int cf,
-                       int act, int final_act, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(kHalo) * kHalo * co * sizeof(T) +
+static int launch_head_f32(const void* x, const void* k16, const void* scale,
+                           const void* shift, const void* fk, const void* fb,
+                           void* out, int n, int h, int w, int ci, int co,
+                           int cf, int act, int final_act,
+                           cudaStream_t stream) {
+  if (n > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = static_cast<size_t>(kHalo) * kHalo * co * sizeof(float) +
                       static_cast<size_t>(9) * cf * co * sizeof(float);
   // the mainloop's static tiles count against the same 48 KB default, so
   // the opt-in is set whatever the dynamic size
   const cudaError_t e = cudaFuncSetAttribute(
-      upsample2_conv3x3_head_kernel<T>,
+      upsample2_conv3x3_head_kernel<float>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(static_cast<unsigned>((2 * w + kOutTile - 1) / kOutTile),
                   static_cast<unsigned>((2 * h + kOutTile - 1) / kOutTile),
                   static_cast<unsigned>(n));
-  upsample2_conv3x3_head_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(k16),
+  upsample2_conv3x3_head_kernel<float><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(k16),
       static_cast<const float*>(scale), static_cast<const float*>(shift),
-      static_cast<const T*>(fk), static_cast<const float*>(fb),
-      static_cast<T*>(out), h, w, ci, co, cf, act, final_act);
+      static_cast<const float*>(fk), static_cast<const float*>(fb),
+      static_cast<float*>(out), h, w, ci, co, cf, act, final_act);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 head, launch 1: U's tile, the four taps of phase blockIdx.z, the
+// tap-partials epilogue.
+template <int BN>
+__global__ void __launch_bounds__(wg::kThreads, BN <= 64 ? 2 : 1)
+    upsample2_head_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                                const __grid_constant__ CUtensorMap wmap,
+                                const wg::ConvArgs args) {
+  wg::conv_wgmma_body<BN, wg::PhaseTaps, wg::HeadTapsEpilogue>(xmap, wmap,
+                                                               args);
+}
+
+constexpr int kFinishThreads = 256;
+
+// The bf16 head, launch 2: output pixel p of (N, 2H, 2W) adds, for each
+// tap t = (dy, dx) in order, v_t of U pixel p + (dy - 1, dx - 1) where that
+// pixel lies in the image, over the channel blocks in order; then the bias
+// and the final act, rounded once to bf16.
+__global__ void __launch_bounds__(kFinishThreads)
+    upsample2_head_finish_kernel(const float* __restrict__ taps,
+                                 const float* __restrict__ fb,
+                                 __nv_bfloat16* __restrict__ out, int N,
+                                 int H, int W, int cf, int blocks,
+                                 int final_act) {
+  const int H2 = 2 * H, W2 = 2 * W;
+  const long long p = static_cast<long long>(blockIdx.x) * kFinishThreads +
+                      threadIdx.x;
+  if (p >= static_cast<long long>(N) * H2 * W2) return;
+  const int x = static_cast<int>(p % W2);
+  const int y = static_cast<int>((p / W2) % H2);
+  const int n = static_cast<int>(p / (static_cast<long long>(W2) * H2));
+  const int ld = 9 * cf;
+  const long long plane = static_cast<long long>(N) * H * W;  // one phase
+  float s[kMaxCf] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int t = 0; t < 9; ++t) {
+    const int qy = y + t / 3 - 1, qx = x + t % 3 - 1;
+    if (qy < 0 || qy >= H2 || qx < 0 || qx >= W2) continue;
+    const long long q = ((qy & 1) * 2 + (qx & 1)) * plane +
+                        (static_cast<long long>(n) * H + (qy >> 1)) * W +
+                        (qx >> 1);
+    for (int b = 0; b < blocks; ++b) {
+      const float* v = taps + (b * 4 * plane + q) * ld + t * cf;
+#pragma unroll
+      for (int f = 0; f < kMaxCf; ++f)
+        if (f < cf) s[f] += v[f];
+    }
+  }
+#pragma unroll
+  for (int f = 0; f < kMaxCf; ++f)
+    if (f < cf)
+      out[p * cf + f] = __float2bfloat16(apply_act(s[f] + fb[f], final_act));
+}
+
+static int launch_head_bf16(const void* x, const void* k16, const void* scale,
+                            const void* shift, const void* fk, const void* fb,
+                            void* ws, void* out, int n, int h, int w, int ci,
+                            int co, int cf, int act, int final_act,
+                            const wg::Plan& pl, cudaStream_t stream) {
+  CUtensorMap xmap, wmap;
+  if (!wg::head_plan_ok(pl, cf) ||
+      !wg::encode_maps(&xmap, &wmap, x, k16, n, h, w, ci, co, ci, 16, pl))
+    return static_cast<int>(cudaErrorInvalidValue);
+  wg::ConvArgs args{};
+  args.scale = static_cast<const float*>(scale);
+  args.shift = static_cast<const float*>(shift);
+  args.H = h;
+  args.W = w;
+  args.Co = co;
+  args.act = act;
+  args.bh = pl.bh;
+  args.bw = pl.bw;
+  args.bk = pl.bk;
+  args.stages = pl.stages;
+  args.kchunks = (ci + pl.bk - 1) / pl.bk;
+  args.head_w = static_cast<const __nv_bfloat16*>(fk);
+  args.taps = static_cast<float*>(ws);
+  args.cf = cf;
+  const dim3 grid = wg::plan_grid(pl, n, h, w, co, 4);
+  cudaError_t e;
+  switch (pl.bn) {  // head_plan_ok: BN is 16, 32, 64 or 128
+    case 16:
+      e = wg::launch(upsample2_head_wgmma_kernel<16>, grid, pl.smem, stream,
+                     xmap, wmap, args);
+      break;
+    case 32:
+      e = wg::launch(upsample2_head_wgmma_kernel<32>, grid, pl.smem, stream,
+                     xmap, wmap, args);
+      break;
+    case 64:
+      e = wg::launch(upsample2_head_wgmma_kernel<64>, grid, pl.smem, stream,
+                     xmap, wmap, args);
+      break;
+    default:
+      e = wg::launch(upsample2_head_wgmma_kernel<128>, grid, pl.smem, stream,
+                     xmap, wmap, args);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long pixels = static_cast<long long>(n) * 4 * h * w;
+  upsample2_head_finish_kernel<<<static_cast<unsigned>(
+                                     (pixels + kFinishThreads - 1) /
+                                     kFinishThreads),
+                                 kFinishThreads, 0, stream>>>(
+      static_cast<const float*>(ws), static_cast<const float*>(fb),
+      static_cast<__nv_bfloat16*>(out), n, h, w, cf,
+      static_cast<int>(grid.y), final_act);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -306,25 +424,31 @@ extern "C" int gr_upsample2_conv3x3_bn_act(int dtype, const void* x,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The fused head: x, k16, scale/shift as gr_upsample2_conv3x3_bn_act; fk
-// (3,3,Co,Cf) in the storage type, fb (Cf,) f32, 1 <= Cf <= 4; out
-// (N,2H,2W,Cf) in the storage type.
+// The fused head: x, k16, scale/shift as gr_upsample2_conv3x3_bn_act, fb
+// (Cf,) f32, 1 <= Cf <= 4, out (N,2H,2W,Cf) in the storage type. f32: fk
+// (3,3,Co,Cf), ws and the plan ignored, N <= 65535. bf16: fk the head's
+// weights (head_rows(Cf), Co') K-major (ops/conv_operands.py::
+// head_weights), on the plan bh, bw, bn, bk, stages, smem (ops/
+// conv_operands.py::head_plan), ws the tap partials, (ceil(Co / bn), 4, N,
+// H, W, 9 Cf) f32.
 extern "C" int gr_upsample2_conv3x3_head(int dtype, const void* x,
                                          const void* k16, const void* scale,
                                          const void* shift, const void* fk,
-                                         const void* fb, void* out, int n,
-                                         int h, int w, int ci, int co, int cf,
-                                         int act, int final_act,
-                                         void* stream) {
+                                         const void* fb, void* ws, void* out,
+                                         int n, int h, int w, int ci, int co,
+                                         int cf, int act, int final_act,
+                                         int bh, int bw, int bn, int bk,
+                                         int stages, int smem, void* stream) {
   using namespace gr;
-  if (cf < 1 || cf > kMaxCf || n < 1 || n > 65535)
+  if (cf < 1 || cf > kMaxCf || n < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DT_F32)
-    return launch_head<float>(x, k16, scale, shift, fk, fb, out, n, h, w, ci,
-                              co, cf, act, final_act, s);
+    return launch_head_f32(x, k16, scale, shift, fk, fb, out, n, h, w, ci, co,
+                           cf, act, final_act, s);
   if (dtype == DT_BF16)
-    return launch_head<__nv_bfloat16>(x, k16, scale, shift, fk, fb, out, n, h,
-                                      w, ci, co, cf, act, final_act, s);
+    return launch_head_bf16(x, k16, scale, shift, fk, fb, ws, out, n, h, w,
+                            ci, co, cf, act, final_act,
+                            wg::Plan{bh, bw, bn, bk, stages, smem}, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -22,6 +22,13 @@ channels per stage, the ring's stage count and the block's shared bytes;
 that does not fit. The epilogue stages the output tile through the ring, so
 a plan for B7's f32 output (``out_bytes=4``) has a ring that holds twice the
 bf16 tile.
+
+U's fused head in bf16 runs U's tile with a second product in its
+epilogue (``csrc/conv_wgmma.cuh``'s HeadTapsEpilogue): ``head_plan`` is
+U's plan with BN at most 128 and the head's weight tile behind the ring,
+``head_weights`` lays the (3,3,Co,Cf) head out K-major as (``head_rows``,
+Co'), and ``head_workspace_shape`` is the shape of the tap partials the
+first launch writes and the second adds up.
 """
 from __future__ import annotations
 
@@ -186,3 +193,52 @@ def stacked_gemm_plain(x: torch.Tensor, ws: torch.Tensor, phase: int,
         xs = xp[:, 1 + dy:1 + dy + h, 1 + dx:1 + dx + w, c0:c0 + bk]
         acc += xs @ wt[:, k0:k0 + bk].T
     return acc
+
+
+HEAD_MAX_BN = 128   # the head's epilogue holds U's tile and 24 more sums
+
+
+def head_rows(cf: int) -> int:
+    """Rows of the head's K-major weights: the 9 * Cf taps rounded up to
+    16 (one to three n16 column groups of the second product)."""
+    return _round_up(9 * cf, 16)
+
+
+def head_weight_bytes(bn: int, cf: int) -> int:
+    """Shared bytes of one block's head weight tile: BN channels in chunks
+    of 64 (128-byte swizzled rows) of ``head_rows(cf)`` rows."""
+    return -(-bn // 64) * head_rows(cf) * 128
+
+
+def head_plan(h: int, w: int, ci: int, co: int, cf: int) -> TilePlan:
+    """The plan of U's fused head at U's input (H, W, Ci) to Co channels
+    and Cf head channels: ``tile_plan``'s tile and ring for BN at most
+    ``HEAD_MAX_BN`` (a wider Co takes several channel blocks), and the
+    shared bytes for the head's weights behind the ring and its barriers,
+    on the swizzle's 1 KB period."""
+    p = tile_plan(h, w, ci, min(co, HEAD_MAX_BN))
+    stage = _round_up(BM * p.bk * 2 + p.bn * p.bk * 2, ALIGN)
+    behind = _round_up(p.stages * (stage + 16), ALIGN)
+    return p._replace(smem_bytes=ALIGN + behind + head_weight_bytes(p.bn, cf))
+
+
+def head_weights(final_kernel: torch.Tensor, dtype: torch.dtype,
+                 bn: int) -> torch.Tensor:
+    """The head's (3,3,Co,Cf) HWIO kernel as the second product's B
+    operand, (head_rows(Cf), Co'), K-major, in ``dtype``: row t * Cf + f
+    holds tap t = (t // 3, t % 3)'s weights into channel f; Co' is Co
+    rounded up to ``bn``; the padding is zero."""
+    co, cf = final_kernel.shape[2:]
+    out = final_kernel.new_zeros((head_rows(cf), _round_up(co, bn)),
+                                 dtype=dtype)
+    out[:9 * cf, :co] = (final_kernel.to(dtype).reshape(9, co, cf)
+                         .permute(0, 2, 1).reshape(9 * cf, co))
+    return out
+
+
+def head_workspace_shape(n: int, h: int, w: int, co: int, cf: int,
+                         bn: int) -> tuple:
+    """The tap partials' shape: (channel blocks, 4 phases, N, H, W,
+    9 * Cf), f32. Entry [b, 2a + c, n, i, j, t * Cf + f] is block b's part
+    of tap t's contribution to channel f from U pixel (2i + a, 2j + c)."""
+    return (-(-co // bn), 4, n, h, w, 9 * cf)

@@ -50,15 +50,17 @@ _SIGNATURES = {
     # plan (bh, bw, bn, bk, stages, smem), stream
     "gr_upsample2_conv3x3_bn_act": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                     _I, _I, *[_I] * 6, _P],
-    # dtype, needles, emb, out, q, n, d, stream
-    "gr_cosine_scores": [_I, _P, _P, _P, _I, _I, _I, _P],
+    # dtype, needles, emb, idx, ws, out, q, n, d, then the bf16 plan (bnq,
+    # slices, stages, smem), stream
+    "gr_cosine_scores": [_I, _P, _P, _P, _P, _P, _I, _I, _I, *[_I] * 4, _P],
     # x, c, c_new, counts, sums, assign, n, d, k, rows, kt, smem_bytes,
     # stream
     "gr_kmeans_step": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # dtype, x, k16, scale, shift, fk, fb, out, n, h, w, ci, co, cf, act,
-    # final_act, stream
-    "gr_upsample2_conv3x3_head": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                  _I, _I, _I, _I, _I, _P],
+    # dtype, x, k16, scale, shift, fk, fb, ws, out, n, h, w, ci, co, cf,
+    # act, final_act, then the bf16 plan (bh, bw, bn, bk, stages, smem),
+    # stream
+    "gr_upsample2_conv3x3_head": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                  _I, _I, _I, _I, _I, _I, *[_I] * 6, _P],
     # dtype, x, w9, y, ws, sum, sumsq, n, h, w, ci, co, then the bf16 plan
     # (bh, bw, bn, bk, stages, smem), stream
     "gr_conv_stats": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -17,10 +17,15 @@ kernel launches.
 With ``final_kernel``/``final_bias`` the call is the TPU kernel's fused
 final head (G's 128 -> C output conv): U's output is rounded once to the
 storage type and, zero-padded, goes through a 3x3 conv to Cf channels +
-bias + ``final_act`` in the same launch (``csrc/upsample_conv.cu``'s
-``gr_upsample2_conv3x3_head``), so the (N,2H,2W,Co) intermediate never
-reaches device memory. That variant counts its launches on
-``upsample2_conv3x3_head.launches``.
+bias + ``final_act`` (``csrc/upsample_conv.cu``'s
+``gr_upsample2_conv3x3_head``), and the (N,2H,2W,Co) intermediate never
+reaches device memory. In f32 that is one CUDA-core launch. In bf16 it is
+two: U's tensor-core tile whose epilogue writes each U pixel's nine tap
+partials of the head (a second tensor-core product, f32, 9 * Cf a pixel
+per channel block: :func:`head_tap_partials_plain`), then a launch that
+adds each output pixel's in-image neighbours, the bias and the act
+(:func:`head_finish_plain`). The variant counts its calls on
+``upsample2_conv3x3_head.launches``, one per call.
 """
 from __future__ import annotations
 
@@ -91,6 +96,55 @@ def upsample2_conv3x3_bn_act_plain(x, kernel, scale, shift, *,
     return _act(y, act).to(x.dtype)
 
 
+def head_tap_partials_plain(x, kernel, scale, shift, final_kernel, *,
+                            act: str = "relu") -> torch.Tensor:
+    """The bf16 head's first launch in plain PyTorch on any device: U's
+    output rounded to ``x.dtype`` (:func:`upsample2_conv3x3_bn_act_plain`),
+    and per channel block of ``conv_operands.head_plan``'s BN and output
+    phase, each U pixel's contribution to the head's nine taps, operands in
+    ``x.dtype``, f32 sums. Returns the workspace
+    (``conv_operands.head_workspace_shape``) f32."""
+    n, h, w, ci = x.shape
+    co, cf = final_kernel.shape[2:]
+    bn = conv_operands.head_plan(h, w, ci, co, cf).bn
+    u = upsample2_conv3x3_bn_act_plain(x, kernel, scale, shift, act=act)
+    fk = final_kernel.to(x.dtype).float().reshape(9, co, cf)
+    out = torch.empty(conv_operands.head_workspace_shape(n, h, w, co, cf, bn),
+                      dtype=torch.float32, device=x.device)
+    for b in range(out.shape[0]):
+        cs = slice(b * bn, (b + 1) * bn)
+        for a in (0, 1):
+            for c in (0, 1):
+                up = u[:, a::2, c::2, cs].float()
+                out[b, 2 * a + c] = torch.einsum(
+                    "nhwc,tcf->nhwtf", up, fk[:, cs]).reshape(n, h, w, -1)
+    return out
+
+
+def head_finish_plain(taps: torch.Tensor, final_bias: torch.Tensor, *,
+                      final_act: str = "sigmoid",
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The bf16 head's second launch in plain PyTorch on any device: output
+    pixel p adds, for each tap t = (dy, dx) in order and each channel block
+    in order, t's partial of U pixel p + (dy - 1, dx - 1) where that pixel
+    is in the image, then ``final_bias`` and ``final_act``, rounded to
+    ``dtype``. ``taps``: (blocks, 4, N, H, W, 9 * Cf) f32. Returns
+    (N, 2H, 2W, Cf)."""
+    blocks, _, n, h, w, k = taps.shape
+    cf = k // 9
+    v = (taps.reshape(blocks, 2, 2, n, h, w, 9, cf)
+         .permute(0, 3, 4, 1, 5, 2, 6, 7).reshape(blocks, n, 2 * h, 2 * w,
+                                                  9, cf))
+    v = F.pad(v, (0, 0, 0, 0, 1, 1, 1, 1))  # pixels outside add nothing
+    s = torch.zeros((n, 2 * h, 2 * w, cf), dtype=torch.float32,
+                    device=taps.device)
+    for t in range(9):
+        dy, dx = divmod(t, 3)
+        for b in range(blocks):
+            s = s + v[b, :, dy:dy + 2 * h, dx:dx + 2 * w, t]
+    return _act(s + final_bias.float(), final_act).to(dtype)
+
+
 def upsample2_conv3x3_bn_act(x: torch.Tensor, kernel: torch.Tensor,
                              scale: torch.Tensor, shift: torch.Tensor, *,
                              act: str = "relu", final_kernel=None,
@@ -151,8 +205,9 @@ def upsample2_conv3x3_head(x: torch.Tensor, kernel: torch.Tensor,
                            final_act: str = "sigmoid") -> torch.Tensor:
     """U followed by the fused 3x3 head: ``final_kernel`` (3,3,Co,Cf) HWIO
     with 1 <= Cf <= 4, ``final_bias`` (Cf,). Returns (N,2H,2W,Cf) in
-    ``x.dtype``; one launch on CUDA tensors, the plain version on CPU
-    tensors."""
+    ``x.dtype``; the kernel on CUDA tensors (bf16: the tap partials in a
+    workspace of ``conv_operands.head_workspace_shape``, 113 MB at G3's
+    stage 2 and N = 256), the plain version on CPU tensors."""
     for name, a in (("act", act), ("final_act", final_act)):
         if a not in _ACTS:
             raise ValueError(f"{name} must be one of {_ACTS}, got {a!r}")
@@ -169,24 +224,43 @@ def upsample2_conv3x3_head(x: torch.Tensor, kernel: torch.Tensor,
     if not 1 <= cf <= 4:
         raise ValueError(f"the fused head takes 1 to 4 output channels, got "
                          f"{cf}")
-    k16 = phase_kernels(kernel.to(x.dtype)).reshape(16, ci, co).contiguous()
-    fk = final_kernel.to(x.dtype).contiguous()
+    if tuple(final_kernel.shape[:3]) != (3, 3, co):
+        raise ValueError(f"final_kernel {tuple(final_kernel.shape)} does not "
+                         f"take U's {co} channels")
+    code = cuda_lib.dtype_code(x)
+    k16 = phase_kernels(kernel.to(x.dtype)).reshape(16, ci, co)
+    if x.dtype == torch.bfloat16:  # U's tensor-core tile + the tap partials
+        xk = conv_operands.pad_channels(x)
+        k16 = conv_operands.kmajor(k16, x.dtype)
+        plan = conv_operands.head_plan(h, w, ci, co, cf)
+        fk = conv_operands.head_weights(final_kernel, x.dtype, plan.bn)
+        kshape = (16, co, xk.shape[-1])
+        fshape = (conv_operands.head_rows(cf), fk.shape[1])
+        ws = torch.empty(conv_operands.head_workspace_shape(
+            n, h, w, co, cf, plan.bn), dtype=torch.float32, device=x.device)
+    else:
+        xk, k16 = x, k16.contiguous()
+        plan = conv_operands.NO_PLAN
+        fk = final_kernel.to(x.dtype).contiguous()
+        kshape, fshape = (16, ci, co), (3, 3, co, cf)
+        ws = None
     scale = scale.float().contiguous()
     shift = shift.float().contiguous()
     fb = final_bias.float().contiguous()
-    cuda_lib.require(x, "x", x.device, x.dtype, (n, h, w, ci))
-    cuda_lib.require(k16, "kernel", x.device, x.dtype, (16, ci, co))
+    cuda_lib.require(xk, "x", x.device, x.dtype, (n, h, w, xk.shape[-1]))
+    cuda_lib.require(k16, "kernel", x.device, x.dtype, kshape)
     cuda_lib.require(scale, "scale", x.device, torch.float32, (co,))
     cuda_lib.require(shift, "shift", x.device, torch.float32, (co,))
-    cuda_lib.require(fk, "final_kernel", x.device, x.dtype, (3, 3, co, cf))
+    cuda_lib.require(fk, "final_kernel", x.device, x.dtype, fshape)
     cuda_lib.require(fb, "final_bias", x.device, torch.float32, (cf,))
     out = torch.empty((n, 2 * h, 2 * w, cf), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         rc = cuda_lib.library().gr_upsample2_conv3x3_head(
-            cuda_lib.dtype_code(x), x.data_ptr(), k16.data_ptr(),
-            scale.data_ptr(), shift.data_ptr(), fk.data_ptr(), fb.data_ptr(),
-            out.data_ptr(), n, h, w, ci, co, cf, cuda_lib.ACT_CODES[act],
-            cuda_lib.ACT_CODES[final_act], cuda_lib.stream_of(x))
+            code, xk.data_ptr(), k16.data_ptr(), scale.data_ptr(),
+            shift.data_ptr(), fk.data_ptr(), fb.data_ptr(),
+            None if ws is None else ws.data_ptr(), out.data_ptr(), n, h, w,
+            xk.shape[-1], co, cf, cuda_lib.ACT_CODES[act],
+            cuda_lib.ACT_CODES[final_act], *plan, cuda_lib.stream_of(x))
     cuda_lib.check(rc, "upsample2_conv3x3_head")
     upsample2_conv3x3_head.launches += 1
     return out

@@ -490,6 +490,12 @@ MAIN_U = [((16, 16, 16, 512), 256), ((16, 32, 32, 256), 128)]
 MAIN_B6 = [((16, 64, 64, 3), 128, False), ((16, 64, 64, 128), 128, True),
            ((16, 32, 32, 128), 128, True), ((16, 16, 16, 128), 256, False),
            ((16, 16, 16, 256), 256, True)]
+# U's fused head at G3's stage 2 (Cf = 3, a grayscale G_prev's 1); kernel
+# C's two searches of apply_r (pixels of sigmoid outputs, latents), 10
+# needles at (i + 1) * 100 - 1
+MAIN_H = [((16, 32, 32, 256), 128, 3), ((16, 32, 32, 256), 128, 1)]
+MAIN_C = [(10_000, 12_288, True), (10_000, 100, False)]
+TOL_SCORES = 1e-4   # C against its plain version, absolute (chip_smoke's)
 
 
 def _main_path_case(dev, kind, i):
@@ -522,6 +528,24 @@ def _main_path_case(dev, kind, i):
         return (lambda: conv_stats_kernel.conv_stats(x, k),
                 lambda: conv_stats_kernel.conv_stats_plain(x, k), 1,
                 conv_stats_kernel.conv_stats)
+    if kind == "H":
+        shape, co, cf = MAIN_H[i]
+        x = torch.rand(shape, device=dev, generator=g).to(bf16)
+        (k, fk), (sc, _), (sh, fb) = chip_smoke._conv_chain(
+            g, dev, [shape[-1], co, cf])
+        uc = upsample_conv_kernel
+        return (lambda: uc.upsample2_conv3x3_head(x, k, sc, sh, fk, fb),
+                lambda: uc.upsample2_conv3x3_bn_act_plain(
+                    x, k, sc, sh, final_kernel=fk, final_bias=fb),
+                1, uc.upsample2_conv3x3_head)
+    if kind == "C":
+        n, d, positive = MAIN_C[i]
+        e = torch.randn(n, d, device=dev, generator=g)
+        e = (torch.sigmoid(e) if positive else e).to(bf16)
+        idx = torch.arange(1, 11, device=dev) * 100 - 1
+        return (lambda: topk_kernel.cosine_scores(e, idx),
+                lambda: topk_kernel.cosine_scores_plain(e, idx), 1,
+                topk_kernel.cosine_scores)
     if kind == "B8":  # U's shape, stage 1
         shape, co = MAIN_U[i]
         x = torch.rand(shape, device=dev, generator=g).to(bf16)
@@ -543,23 +567,31 @@ def _main_path_case(dev, kind, i):
 
 MAIN_CASES = ([("B", i) for i in range(len(MAIN_B))]
               + [("U", i) for i in range(len(MAIN_U))]
-              + [("B6", i) for i in range(len(MAIN_B6))])
+              + [("B6", i) for i in range(len(MAIN_B6))]
+              + [("H", i) for i in range(len(MAIN_H))]
+              + [("C", i) for i in range(len(MAIN_C))])
 
 
 @pytest.mark.parametrize("kind,i", MAIN_CASES,
                          ids=[f"{k}{i}" for k, i in MAIN_CASES])
 def test_tensor_core_kernels_at_main_path_shapes(dev, kind, i):
-    """B, U and B6 in bf16 at the main path's layer shapes against their
-    plain versions; the counter moves by one per launch; two calls are
-    bitwise equal (each output element is one block's sum in a fixed
-    order: no split of K, no atomics)."""
+    """B, U, B6, U's fused head (H) and C in bf16 at the main path's
+    shapes against their plain versions (C's scores within 1e-4); the
+    counter moves by one per call; two calls are bitwise equal (each
+    output element is one block's sum in a fixed order, and the head's and
+    C's partials are added in a fixed order by their second launch: no
+    atomics)."""
     call, plain, per_call, counter = _main_path_case(dev, kind, i)
     before = counter.launches
     out = call()
     torch.cuda.synchronize()
     assert counter.launches == before + per_call
     assert torch.equal(call(), out)
-    _close(out, plain(), torch.bfloat16)
+    if kind == "C":
+        err = (out - plain()).abs().max().item()
+        assert err <= TOL_SCORES, err
+    else:
+        _close(out, plain(), torch.bfloat16)
 
 
 def _device_kernels(fn, tmp_path) -> set:
@@ -586,7 +618,11 @@ def _device_kernels(fn, tmp_path) -> set:
                           ("B7", "conv_stats_wgmma_kernel",
                            "conv_stats_kernel"),
                           ("B8", "upsample_v2_wgmma_kernel",
-                           "upsample_v2_kernel")])
+                           "upsample_v2_kernel"),
+                          ("H", "upsample2_head_wgmma_kernel",
+                           "upsample2_conv3x3_head_kernel"),
+                          ("C", "cosine_wgmma_kernel",
+                           "cosine_scores_kernel")])
 def test_bf16_runs_no_cuda_core_kernel(dev, tmp_path, kind, wgmma,
                                        cuda_core):
     """A bf16 call runs the tensor-core kernel and never the CUDA-core
@@ -598,13 +634,55 @@ def test_bf16_runs_no_cuda_core_kernel(dev, tmp_path, kind, wgmma,
 
 
 def test_tensor_core_kernels_have_hgmma(dev):
-    """chip_smoke's SASS guard: every instance of the four bf16 kernels
-    holds HGMMA instructions (the tensor cores), and the CUDA-core f32
-    kernels hold none."""
+    """chip_smoke's SASS guard: every instance of the six bf16 kernels
+    holds HGMMA instructions (the tensor cores): four conv kernels and C
+    for BN 16 to 256, U's fused head for BN 16 to 128; the CUDA-core f32
+    kernels and the finish launches hold none."""
     import chip_smoke
     counts = chip_smoke.check_hgmma(cuda_lib.build())
-    assert len(counts) == 4 * 5
+    assert len(counts) == 4 * 5 + 4 + 5
     for name, n in chip_smoke.sass_hgmma(cuda_lib.build()).items():
         if any(s in name for s in ("bn_act_kernel", "conv_stats_kernel",
-                                   "upsample_v2_kernel")):
+                                   "upsample_v2_kernel", "head_kernel",
+                                   "cosine_scores_kernel", "finish_kernel")):
             assert n == 0, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,q", [(600, 100, 300), (1000, 1030, 40),
+                                   (5, 8, 1)])
+def test_cosine_scores_kernel_groups_and_pad(dev, dtype, n, d, q):
+    """C beyond apply_r's shapes: more needles than one group of 256 (grid
+    y), D off a multiple of 8 (bf16 pads it) and of 64, N below one tile;
+    a zero row; two calls bitwise equal."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    emb = torch.randn(n, d, device=dev, generator=g).to(dtype)
+    emb[n // 2] = 0
+    idx = torch.randint(0, n, (q,), device=dev, generator=g)
+    out = topk_kernel.cosine_scores(emb, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(topk_kernel.cosine_scores(emb, idx), out)
+    ref = topk_kernel.cosine_scores_plain(emb, idx)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("n,h,w,ci,co,cf", [(2, 6, 5, 24, 300, 3),
+                                            (3, 4, 9, 8, 16, 2)])
+def test_upsample_head_kernel_channel_blocks(dev, n, h, w, ci, co, cf):
+    """The bf16 head with Co over three channel blocks of 128 and with one
+    block of 16, ragged tiles; against the plain version, and against its
+    own two-stage plain order; two calls bitwise equal."""
+    import chip_smoke
+    g = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn(n, h, w, ci, device=dev, generator=g).to(torch.bfloat16)
+    (k, fk), (sc, _), (sh, fb) = chip_smoke._conv_chain(g, dev, [ci, co, cf])
+    uc = upsample_conv_kernel
+    out = uc.upsample2_conv3x3_head(x, k, sc, sh, fk, fb)
+    torch.cuda.synchronize()
+    assert torch.equal(uc.upsample2_conv3x3_head(x, k, sc, sh, fk, fb), out)
+    _close(out, uc.upsample2_conv3x3_bn_act_plain(
+        x, k, sc, sh, final_kernel=fk, final_bias=fb), torch.bfloat16)
+    _close(out, uc.head_finish_plain(
+        uc.head_tap_partials_plain(x, k, sc, sh, fk), fb,
+        dtype=torch.bfloat16), torch.bfloat16)

@@ -48,9 +48,9 @@ def test_device_intervals_keeps_device_ops_only(tmp_path):
     ("void gr::fused_dropout_kernel<__nv_bfloat16, 8>(...)",
      "B5 dropout kernel"),
     ("void gr::conv3x3_bn_act_kernel<__nv_bfloat16, true>(...)",
-     "kernels B, U, C, K"),
+     "hand-written kernels on the CUDA cores"),
     ("void gr::upsample2_wgmma_kernel<256>(CUtensorMap_st, ...)",
-     "kernels B, B6, U on the tensor cores (bf16)"),
+     "hand-written kernels on the tensor cores (bf16)"),
     ("sm90_xmma_fprop_implicit_gemm_f32f32_tf32f32_f32_nhwckrsc_nhwc",
      "convolution (cuDNN)"),
     ("sm90_xmma_wgrad_indexed_implicit_gemm_f32f32_tf32f32_f32",

@@ -79,8 +79,8 @@ _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # (class, substrings of a device operation's name); the first match wins
 _CLASSES = (
     ("B5 dropout kernel", ("fused_dropout_kernel",)),
-    ("kernels B, B6, U on the tensor cores (bf16)", ("wgmma_kernel",)),
-    ("kernels B, U, C, K", ("gr::",)),
+    ("hand-written kernels on the tensor cores (bf16)", ("wgmma_kernel",)),
+    ("hand-written kernels on the CUDA cores", ("gr::",)),
     ("convolution (cuDNN)", ("fprop", "dgrad", "wgrad", "cudnn",
                              "nhwcAddPadding")),
     ("matmul (cuBLAS)", ("gemm", "cutlass")),

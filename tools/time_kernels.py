@@ -9,12 +9,16 @@ shapes, from one checkout, for A/B runs of two commits in one call.
 commit unpacked into a directory can be timed by the same script; its
 kernels build into that checkout's ``build/kernels``. ``--names`` picks
 kernels by their ``chip_smoke.kernel_cases`` name (default: conv_block,
-upsample2_conv3x3_bn_act, conv3x3_bn_act: B, U, B6). Each case runs in
-bf16 at N = 256: the median of ``--reps`` calls by CUDA events (chip_smoke's
-``time_ms``: the wrapper as a user calls it, weight re-layout included),
-and the device time per call of the tensor-core kernels it launched
-(names holding ``wgmma_kernel``) from a torch.profiler trace of ``--reps``
-calls; one JSON line per case with the card's name and power limit, then
+upsample2_conv3x3_bn_act, conv3x3_bn_act, upsample2_conv3x3_head,
+cosine_scores: B, U, B6, U's fused head, C). Each case runs in bf16 at
+N = 256 (C at apply_r's N = 10,000): the median of ``--reps`` calls by CUDA
+events (chip_smoke's ``time_ms``: the wrapper as a user calls it, weight
+re-layout and padding included), and the device time per call of the
+hand-written kernels it launched, from a torch.profiler trace of
+``--reps`` calls: the device operations whose name holds one of ``DEVICE_KERNELS``
+(the tensor-core kernels, the head's and C's second launches, and the
+CUDA-core head and C of a checkout that predates their tensor-core
+design). One JSON line per case with the card's name and power limit, then
 one line with the sums per kernel. Needs a CUDA device.
 """
 from __future__ import annotations
@@ -24,12 +28,15 @@ import json
 import os
 import sys
 
-DEFAULT_NAMES = "conv_block,upsample2_conv3x3_bn_act,conv3x3_bn_act"
+DEFAULT_NAMES = ("conv_block,upsample2_conv3x3_bn_act,conv3x3_bn_act,"
+                 "upsample2_conv3x3_head,cosine_scores")
+DEVICE_KERNELS = ("wgmma_kernel", "finish_kernel", "conv3x3_head_kernel",
+                  "cosine_scores_kernel")
 
 
 def device_ms(fn, reps: int) -> float:
-    """Device time per call of ``fn`` in kernels whose name holds
-    ``wgmma_kernel``, from a torch.profiler trace of ``reps`` calls."""
+    """Device time per call of ``fn`` in kernels whose name holds one of
+    ``DEVICE_KERNELS``, from a torch.profiler trace of ``reps`` calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -40,7 +47,7 @@ def device_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
     total = 0.0
     for ev in prof.key_averages():
-        if "wgmma_kernel" in ev.key:
+        if any(k in ev.key for k in DEVICE_KERNELS):
             total += getattr(ev, "device_time_total",
                              getattr(ev, "cuda_time_total", 0.0))
     return total / reps / 1e3
