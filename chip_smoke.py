@@ -12,7 +12,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 2. build the CUDA kernels of ganreverser_tpu_torch/csrc with nvcc, print
    each kernel's registers, spills and stack from the build log (-Xptxas
    -v), the main path's tile plans (their shared bytes) beside B7's and
-   B8's, and the SASS guard: cuobjdump -sass of the built library must show
+   B8's, the 64-bit IMAD.WIDE count of B5's pack kernel (its address
+   arithmetic; the hash is 32-bit), and the SASS guard: cuobjdump -sass of the built library must show
    HGMMA (tensor-core) instructions in every instance (one per BN) of the
    six bf16 kernels, conv3x3_wgmma_kernel (B, B6), upsample2_wgmma_kernel
    (U), conv_stats_wgmma_kernel (B7), upsample_v2_wgmma_kernel (B8),
@@ -29,15 +30,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
    type and its bytes, each input read once and each output written once,
    over the memory rate). Kernel B6 at D2's five conv + PReLU shapes, the
    slope read from device memory (0.25, and -0.1 on one shape).
-   Kernel B5 (dropout) at (256,64,64,64), (256,512) and (256,64,64,3), f32
-   and bf16, seeds 12345 and -7: output and gradient bitwise equal to the
-   plain version (tolerance 0);
-   Kernel K (one kmeans step, f32) at (10,000, 100), K = 20 and K = 256
-   (apply_r --clusters 256), and at a ragged N with an empty cluster, on
-   the same given centroids: the
-   assignment must agree wherever the plain margin exceeds 1e-4 of max |d|,
-   the counts be those of the kernel's assignment and the sums the plain
-   sums over it (1e-4 relative), and a second run be bitwise the same.
+   Kernel B5 (dropout) at one R step's six shapes, (256,512) and
+   (256,64,64,3), f32 and bf16, seeds 12345 and -7: output and gradient
+   bitwise equal to the plain version (tolerance 0), a second forward
+   bitwise the first; the bf16 forward's wrapper time and device time
+   (torch.profiler) at every shape, the (256,512) call being host cost;
+   Kernel K (f32) at (10,000, 100), K = 20 and K = 256 (apply_r --clusters
+   256), and at a ragged N with an empty cluster: one step (kmeans_step)
+   and the whole run of 15 Lloyd iterations in one launch (kmeans_lloyd),
+   each iteration held against the plain step from the kernel's own
+   centroids: the assignment must agree wherever the plain margin exceeds
+   1e-4 of max |d|, the counts be those of the kernel's assignment, the
+   sums the plain sums over it (1e-4 relative) and bitwise the segment
+   order's (kmeans_segment_sums_plain), and two runs be bitwise the same;
+   with no near-tie row assigned otherwise the run must end within 1e-4 of
+   the plain run (kmeans_lloyd_plain); wrapper and device times of the run;
    U's fused head at G3's stage 2 (N = 256, C = 3 and 1; library: cuDNN's
    two convolutions in sequence; also timed: kernel U plus the plain head,
    what the unfused fast G runs). In bf16 the head and C each run two
@@ -52,7 +59,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    dim 100, normal noise, non-trivial BN running statistics) saved as
    checkpoints, then ``cli.apply_r.main`` with N = 10,000, 10 needles, batch
    256, bf16 and all six stages. Every kernel must have launched in that
-   run (K at least once per Lloyd iteration); every artifact must exist,
+   run (K once: one launch for all Lloyd iterations); every artifact must exist,
    the latents be finite, the cluster counts sum to N, the anomaly count be
    the one the threshold implies and the top-k scores agree with the plain
    search. Then, on the card in f32, the fast path and the fast fixer-R
@@ -216,9 +223,10 @@ MAIN_CONV_LAYERS = [("R block 1 l0", 64, 64, 3, 64),
                     ("G stage 2", 32, 32, 256, 128)]
 
 
-def sass_hgmma(lib_path) -> dict:
-    """HGMMA (tensor-core) instructions per kernel function in the SASS of
-    the built library (cuobjdump -sass), by mangled name."""
+def sass_hgmma(lib_path, opcode: str = "HGMMA") -> dict:
+    """``opcode`` instructions (by default HGMMA, the tensor cores') per
+    kernel function in the SASS of the built library (cuobjdump -sass), by
+    mangled name."""
     from ganreverser_tpu_torch.ops import cuda_lib
     proc = subprocess.run([cuda_lib.cuda_tool("cuobjdump"), "-sass",
                            str(lib_path)], capture_output=True, text=True,
@@ -230,7 +238,7 @@ def sass_hgmma(lib_path) -> dict:
         if m:
             name = m.group(1)
             counts[name] = 0
-        elif name is not None and "HGMMA" in line:
+        elif name is not None and opcode in line:
             counts[name] += 1
     return counts
 
@@ -285,6 +293,24 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, names, reps: int = 10) -> float:
+    """Device time per call of ``fn`` in the kernels whose name holds one
+    of ``names``, from a torch.profiler trace of ``reps`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(ev, "device_time_total",
+                        getattr(ev, "cuda_time_total", 0.0))
+                for ev in prof.key_averages()
+                if any(n in ev.key for n in names))
+    return total / reps / 1e3
 
 
 # the card's published peaks (H100 SXM, dense) and memory rate, for the
@@ -594,85 +620,150 @@ def check_kernels(dev, card: str, n: int = N_CHECK, n_search: int = N_MAIN):
     return records
 
 
-def kmeans_case(x, c):
-    """Kernel K against its plain version on the same centroids. Returns
-    (max |kernel sums - plain sums over the kernel's assignment|, its
-    tolerance, rows whose assignment differs from the plain one)."""
+def _step_against_plain(what, x, c, new_c, counts, sums, assign):
+    """One Lloyd step of kernel K (its outputs from centroids ``c``)
+    against the plain step on ``c``: the assignment wherever the plain
+    margin exceeds 1e-4 of max |d|, the counts those of the kernel's
+    assignment, the sums the plain sums over it (TOL_SUMS relative) and
+    the centroids sums / counts. Returns (max sums error, its tolerance,
+    rows assigned otherwise than by the plain step)."""
     import torch
     from ganreverser_tpu_torch.ops import kmeans_kernel as kk
-    new_c, counts, sums, assign = kk.kmeans_step(x, c, details=True)
-    torch.cuda.synchronize()
-    again = kk.kmeans_step(x, c, details=True)
-    check(all(torch.equal(a, b) for a, b in zip((new_c, counts, sums, assign),
-                                                again)),
-          "kmeans_step: two runs differ")
     _, _, _, ref_assign = kk.kmeans_step_plain(x, c, details=True)
     d = (c * c).sum(1)[None, :] - 2.0 * (x @ c.T)
-    top2 = torch.topk(d, 2, dim=1, largest=False).values
-    sure = (top2[:, 1] - top2[:, 0]) > 1e-4 * d.abs().max()
+    top2 = torch.topk(d, min(2, c.shape[0]), dim=1, largest=False).values
+    sure = ((top2[:, -1] - top2[:, 0]) > 1e-4 * d.abs().max()
+            if c.shape[0] > 1 else torch.ones_like(ref_assign, dtype=bool))
     flipped = int((assign != ref_assign).sum())
     check(torch.equal(assign[sure], ref_assign[sure]),
-          "kmeans_step: assignment differs from plain beyond the margin")
+          f"{what}: assignment differs from plain beyond the margin")
     k = c.shape[0]
     check(torch.equal(counts, torch.bincount(assign, minlength=k).float()),
-          "kmeans_step: counts are not those of its assignment")
+          f"{what}: counts are not those of its assignment")
     ref_sums = torch.nn.functional.one_hot(assign, k).float().T @ x
     err = (sums - ref_sums).abs().max().item()
     tol = TOL_SUMS * max(1.0, ref_sums.abs().max().item())
-    check(err <= tol, f"kmeans_step: sums differ from plain by {err} > {tol}")
+    check(err <= tol, f"{what}: sums differ from plain by {err} > {tol}")
     ref_new = torch.where(counts[:, None] > 0,
                           sums / torch.clamp_min(counts, 1.0)[:, None], c)
     check(torch.equal(new_c, ref_new),
-          "kmeans_step: centroids are not sums / counts")
+          f"{what}: centroids are not sums / counts")
+    seg_sums, _ = kk.kmeans_segment_sums_plain(x, assign, k)
+    check(torch.equal(sums, seg_sums),
+          f"{what}: sums are not bitwise the segment order's "
+          f"(kmeans_segment_sums_plain)")
     return err, tol, flipped
 
 
+def kmeans_case(x, c):
+    """One Lloyd step of kernel K (``kmeans_step``) against its plain
+    version on the same centroids, and bitwise equal over two runs.
+    Returns (max |kernel sums - plain sums over the kernel's assignment|,
+    its tolerance, rows whose assignment differs from the plain one)."""
+    import torch
+    from ganreverser_tpu_torch.ops import kmeans_kernel as kk
+    out = kk.kmeans_step(x, c, details=True)
+    torch.cuda.synchronize()
+    again = kk.kmeans_step(x, c, details=True)
+    check(all(torch.equal(a, b) for a, b in zip(out, again)),
+          "kmeans_step: two runs differ")
+    return _step_against_plain("kmeans_step", x, c, *out)
+
+
+def lloyd_case(x, c, iters: int):
+    """Kernel K's whole run (``kmeans_lloyd``, one launch): bitwise equal
+    over two runs; each iteration (the run of i iterations, whose first
+    i - 1 are the longer run's) held against the plain step from the
+    kernel's centroids before it, as ``kmeans_case`` holds one step; and,
+    when no near-tie row went otherwise in any iteration, the final
+    centroids within TOL_SUMS of the plain run (``kmeans_lloyd_plain``)
+    and the counts equal. Returns (max sums error, its tolerance, rows
+    assigned otherwise summed over the iterations, max |kernel - plain
+    run| of the centroids)."""
+    import torch
+    from ganreverser_tpu_torch.ops import kmeans_kernel as kk
+    out = kk.kmeans_lloyd(x, c, iters, details=True)
+    torch.cuda.synchronize()
+    again = kk.kmeans_lloyd(x, c, iters, details=True)
+    check(all(torch.equal(a, b) for a, b in zip(out, again)),
+          "kmeans_lloyd: two runs differ")
+    cur, err, tol, flipped = c.float(), 0.0, 0.0, 0
+    for i in range(1, iters + 1):
+        step = out if i == iters else kk.kmeans_lloyd(x, c, i, details=True)
+        e, t, f = _step_against_plain(f"kmeans_lloyd iteration {i}", x, cur,
+                                      *step)
+        err, tol, flipped = max(err, e), max(tol, t), flipped + f
+        cur = step[0]
+    plain_c, plain_counts = kk.kmeans_lloyd_plain(x, c, iters)
+    run_err = (out[0] - plain_c).abs().max().item()
+    if flipped == 0:
+        check(torch.equal(out[1], plain_counts) and run_err <= TOL_SUMS * max(
+            1.0, plain_c.abs().max().item()),
+              f"kmeans_lloyd: {run_err} from the plain run with no near-tie "
+              f"row assigned otherwise")
+    return err, tol, flipped, run_err
+
+
 def check_kmeans(dev, card: str, n: int = N_MAIN):
-    """Phase 3, kernel K: a Lloyd step at the main path's shape, and at a
-    ragged N with an empty cluster; returns one record."""
+    """Phase 3, kernel K: one step and the whole run of KMEANS_ITERS
+    iterations at the main path's shape, at K = 256 and at a ragged N with
+    an empty cluster; the run's wrapper and device times beside one step's.
+    Returns one record (the whole run at K = 20)."""
     import torch
     from ganreverser_tpu_torch.ops import kmeans_kernel as kk
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     x = torch.randn(n, NOISE_DIM, device=dev, generator=gen)
     c = x[torch.randperm(n, device=dev, generator=gen)[:KMEANS_K]]
     err, tol, flipped = kmeans_case(x, c)
-    ms = time_ms(lambda: kk.kmeans_step(x, c))
-    plain_ms = time_ms(lambda: kk.kmeans_step_plain(x, c))
+    step_ms = time_ms(lambda: kk.kmeans_step(x, c))
+    step_dev = device_ms(lambda: kk.kmeans_step(x, c), ("kmeans",))
     print(f"[kernel] kmeans_step ({n},{NOISE_DIM}) K={KMEANS_K} float32: "
-          f"sums max_abs_err {err:.3e} (tol {tol:.1e}), "
-          f"{flipped} near-tie rows assigned otherwise, kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms per Lloyd step  [{card}]")
+          f"sums max_abs_err {err:.3e} (tol {tol:.1e}), {flipped} near-tie "
+          f"rows assigned otherwise, one step {step_ms:.4f} ms, device "
+          f"{step_dev:.4f} ms  [{card}]")
+    cases = {}
     # apply_r --clusters 256 at noise 100: the centroids stream past the
     # rows in four tiles of 64 (ops/kmeans_kernel.py::kmeans_plan)
     c256 = x[torch.randperm(n, device=dev, generator=gen)[:KMEANS_K_WIDE]]
-    err_w, tol_w, flipped_w = kmeans_case(x, c256)
-    ms_w = time_ms(lambda: kk.kmeans_step(x, c256))
-    plain_w = time_ms(lambda: kk.kmeans_step_plain(x, c256))
-    print(f"[kernel] kmeans_step ({n},{NOISE_DIM}) K={KMEANS_K_WIDE} float32 "
-          f"(plan {tuple(kk.kmeans_plan(NOISE_DIM, KMEANS_K_WIDE))}): sums "
-          f"max_abs_err {err_w:.3e} (tol {tol_w:.1e}), {flipped_w} near-tie "
-          f"rows assigned otherwise, kernel {ms_w:.4f} ms, plain "
-          f"{plain_w:.4f} ms per Lloyd step  [{card}]")
+    for kc in (c, c256):
+        k = kc.shape[0]
+        err_k, tol_k, flipped_k, run_err = lloyd_case(x, kc, KMEANS_ITERS)
+        run = lambda: kk.kmeans_lloyd(x, kc, KMEANS_ITERS)  # noqa: E731
+        ms = time_ms(run)
+        dms = device_ms(run, ("kmeans",))
+        plain_ms = time_ms(lambda: kk.kmeans_lloyd_plain(x, kc, KMEANS_ITERS))
+        plan = kk.card_plan(n, NOISE_DIM, k, torch.cuda.current_device())
+        cases[k] = (err_k, tol_k, ms, plain_ms)
+        print(f"[kernel] kmeans_lloyd ({n},{NOISE_DIM}) K={k} float32, "
+              f"{KMEANS_ITERS} iterations in one launch (grid {plan.grid}, "
+              f"{plan.tiles_per_block} tile(s) of {plan.rows} rows a block): "
+              f"sums max_abs_err {err_k:.3e} (tol {tol_k:.1e}), {flipped_k} "
+              f"near-tie rows assigned otherwise, centroids vs the plain run "
+              f"{run_err:.3e}; bitwise repeatable; wrapper {ms:.4f} ms, "
+              f"device {dms:.4f} ms, plain {plain_ms:.4f} ms  [{card}]")
     xr = x[:777]
     cr = c.clone()
     cr[-1] = 0.0
     cr[-1, 0] = 50.0  # no row comes near: an empty cluster
-    err_r, tol_r, flipped_r = kmeans_case(xr, cr)
-    counts = kk.kmeans_step(xr, cr)[1]
-    check(counts[-1].item() == 0.0, "kmeans_step: the far cluster is not "
+    err_r, tol_r, flipped_r, _ = lloyd_case(xr, cr, KMEANS_ITERS)
+    counts = kk.kmeans_lloyd(xr, cr, KMEANS_ITERS)[1]
+    check(counts[-1].item() == 0.0, "kmeans_lloyd: the far cluster is not "
           "empty")
-    print(f"[kernel] kmeans_step ragged (777,{NOISE_DIM}) K={KMEANS_K} with "
+    print(f"[kernel] kmeans_lloyd ragged (777,{NOISE_DIM}) K={KMEANS_K} with "
           f"an empty cluster: sums max_abs_err {err_r:.3e} (tol {tol_r:.1e}), "
-          f"{flipped_r} "
-          f"near-tie rows  [{card}]")
-    b_ms, b_by = bound(2 * n * KMEANS_K * NOISE_DIM + n * NOISE_DIM,
+          f"{flipped_r} near-tie rows  [{card}]")
+    # the whole run: X, the centroids and counts read or written once
+    b_ms, b_by = bound(KMEANS_ITERS * (2 * n * KMEANS_K * NOISE_DIM
+                                       + n * NOISE_DIM),
                        4 * (n * NOISE_DIM + 2 * KMEANS_K * NOISE_DIM
                             + KMEANS_K), "float32")
-    return {"name": "kmeans_step", "label": f"({n},{NOISE_DIM}) K={KMEANS_K}",
-            "dtype": "float32", "max_abs_err": max(err, err_r, err_w),
-            "ms": ms,
-            "plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms,
-            "bound_by": b_by}
+    err, tol, ms, plain_ms = cases[KMEANS_K]
+    return {"name": "kmeans_lloyd",
+            "label": f"({n},{NOISE_DIM}) K={KMEANS_K}, {KMEANS_ITERS} "
+                     f"iterations", "dtype": "float32",
+            "max_abs_err": max(err, err_r, cases[KMEANS_K_WIDE][0]),
+            "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by}
 
 
 def make_models(dev, dims=DIMS, noise_dim=NOISE_DIM):
@@ -719,7 +810,7 @@ def kernel_counters():
             "upsample2_conv3x3_bn_act":
                 upsample_conv_kernel.upsample2_conv3x3_bn_act,
             "cosine_scores": topk_kernel.cosine_scores,
-            "kmeans_step": kmeans_kernel.kmeans_step}
+            "kmeans_lloyd": kmeans_kernel.kmeans_lloyd}
 
 
 def run_main_path(g_path: str, save: str, out_dir: str, n: int = N_MAIN,
@@ -882,49 +973,67 @@ def dropout_case(x, seed: int, rate: float = 0.5):
     check(torch.equal(y, yr) and torch.equal(g, gr),
           f"fused_dropout {tuple(x.shape)} {x.dtype} seed {seed}: kernel "
           f"and plain differ (max {err})")
+    check(torch.equal(dk.fused_dropout(x, s, rate), y),
+          f"fused_dropout {tuple(x.shape)} {x.dtype} seed {seed}: two "
+          f"runs differ")
     return err
 
 
 def check_dropout(dev, card: str):
-    """Phase 3, kernel B5: bitwise against the plain version at the
-    path's shapes, both dtypes, a negative seed among the seeds; the
-    forward's median time, kernel vs plain. Returns one record whose times
-    are one R step's six element dropouts in bf16."""
+    """Phase 3, kernel B5: bitwise against the plain version at the path's
+    shapes and one R step's, both dtypes, a negative seed among the seeds,
+    and bitwise repeatable; the bf16 forward's median wrapper time, its
+    device time, the plain hash and a plain Bernoulli mask at every shape.
+    Returns one record whose times are one R step's six element dropouts
+    in bf16."""
     import torch
     from ganreverser_tpu_torch.ops import dropout_kernel as dk
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    shapes = list(dict.fromkeys(DROPOUT_STEP_SHAPES + DROPOUT_SHAPES))
     err = 0.0
-    for shape in DROPOUT_SHAPES:
+    for shape in shapes:
         x0 = torch.randn(shape, device=dev, generator=gen)
         for dtype in (torch.float32, torch.bfloat16):
             for seed in DROPOUT_SEEDS:
                 err = max(err, dropout_case(x0.to(dtype), seed))
+        del x0
         print(f"[kernel] fused_dropout {shape} f32+bf16 seeds "
               f"{DROPOUT_SEEDS}: forward and backward bitwise equal to "
-              f"plain  [{card}]")
+              f"plain, bitwise repeatable  [{card}]")
     s = torch.tensor([DROPOUT_SEEDS[0]], dtype=torch.int32, device=dev)
     times = {}
-    for shape in dict.fromkeys(DROPOUT_STEP_SHAPES + DROPOUT_SHAPES):
+    for shape in shapes:
         x = torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
         times[shape] = (time_ms(lambda: dk.fused_dropout(x, s, 0.5)),
+                        device_ms(lambda: dk.fused_dropout(x, s, 0.5),
+                                  ("fused_dropout",)),
                         time_ms(lambda: dk.fused_dropout_plain(x, s, 0.5)),
                         time_ms(lambda: torch.where(
                             torch.rand(shape, device=dev, generator=gen) < 0.5,
                             x / 0.5, 0.0).to(x.dtype)))
-        ms, plain_ms, mask_ms = times[shape]
-        gbs = 2 * x.numel() * x.element_size() / ms / 1e6
-        print(f"[kernel] fused_dropout {shape} bfloat16 forward: kernel "
-              f"{ms:.4f} ms ({gbs:.0f} GB/s), plain hash {plain_ms:.4f} ms, "
-              f"plain Bernoulli mask + where {mask_ms:.4f} ms  [{card}]")
-    ms = sum(times[sh][0] for sh in DROPOUT_STEP_SHAPES)
-    plain_ms = sum(times[sh][1] for sh in DROPOUT_STEP_SHAPES)
-    mask_ms = sum(times[sh][2] for sh in DROPOUT_STEP_SHAPES)
-    print(f"[kernel] fused_dropout, one R step's six forwards (b256 bf16): "
-          f"kernel {ms:.4f} ms, plain hash {plain_ms:.4f} ms, plain "
-          f"Bernoulli mask + where {mask_ms:.4f} ms  [{card}]")
+        ms, dms, plain_ms, mask_ms = times[shape]
+        nbytes = 2 * x.numel() * x.element_size()
+        print(f"[kernel] fused_dropout {shape} bfloat16 forward: wrapper "
+              f"{ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s), device "
+              f"{dms:.4f} ms ({nbytes / dms / 1e6:.0f} GB/s), plain hash "
+              f"{plain_ms:.4f} ms, plain Bernoulli mask + where "
+              f"{mask_ms:.4f} ms  [{card}]")
+        del x
+    host = times[(256, 512)]
+    print(f"[kernel] fused_dropout (256,512) bfloat16, 256 KB: wrapper "
+          f"{host[0]:.4f} ms against {host[1]:.4f} ms on the device, so "
+          f"{host[0] - host[1]:.4f} ms of host and launch cost a call  "
+          f"[{card}]")
+    ms, dms, plain_ms, mask_ms = (sum(times[sh][i] for sh in
+                                      DROPOUT_STEP_SHAPES) for i in range(4))
     # one read and one write of each bf16 input, one multiply per element
     elems = sum(math.prod(sh) for sh in DROPOUT_STEP_SHAPES)
     b_ms, b_by = bound(elems, 4 * elems, "bfloat16")
+    print(f"[kernel] fused_dropout, one R step's six forwards (b256 bf16): "
+          f"wrapper {ms:.4f} ms, device {dms:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_ms / ms:.0%} of it in the wrapper, {b_ms / dms:.0%} on the "
+          f"device), plain hash {plain_ms:.4f} ms, plain Bernoulli mask + "
+          f"where {mask_ms:.4f} ms  [{card}]")
     return {"name": "fused_dropout", "label": "one R step's six dropouts",
             "dtype": "bfloat16", "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms,
@@ -1064,11 +1173,14 @@ def train_run(args, fixer: bool, n_batches: int):
     the launches of one step, plus one per fixer preview."""
     from ganreverser_tpu_torch.cli import train_r
     from ganreverser_tpu_torch.ops import dropout_kernel as dk
-    dk.fused_dropout.launches = 0
+    dk.fused_dropout.launches = dk.fused_dropout.copies = 0
     t0 = time.perf_counter()
     out = train_r.main(args)
     seconds = time.perf_counter() - t0
     launches = dk.fused_dropout.launches
+    # a non-contiguous tensor or gradient is a hidden copy before a launch
+    print(f"[train] B5's wrapper copied {dk.fused_dropout.copies} "
+          f"non-contiguous inputs or gradients in {launches} launches")
     per_step = (7 if fixer else 6) + 6
     previews = (n_batches // 25 + n_batches // 100) if fixer else 0
     check(launches == n_batches * per_step + previews,
@@ -1637,6 +1749,13 @@ def main() -> int:
     hgmma = check_hgmma(lib_path)
     print("[build] SASS guard, HGMMA instructions per bf16 kernel: " +
           ", ".join(f"{n} {c}" for n, c in sorted(hgmma.items())))
+    wide = {n: c for n, c in sass_hgmma(lib_path, "IMAD.WIDE").items()
+            if "fused_dropout_pack_kernel" in n}
+    check(len(wide) == 2, f"SASS: {len(wide)} instances of "
+          "fused_dropout_pack_kernel, expected f32 and bf16")
+    print("[build] B5's pack kernel, 64-bit IMAD.WIDE instructions (address "
+          "arithmetic per 16-byte pack; the hash is 32-bit): " +
+          ", ".join(f"{n} {c}" for n, c in sorted(wide.items())))
     from ganreverser_tpu_torch.ops.conv_operands import tile_plan
     print("[build] tile plans (BH, BW, BN, BK, stages, shared bytes): " +
           "; ".join(f"{label} {tuple(tile_plan(*shape))}"
@@ -1666,9 +1785,9 @@ def main() -> int:
         for name, count in launches.items():
             check(count > 0, f"kernel {name} launched no time in the main "
                   "path")
-        check(launches["kmeans_step"] >= KMEANS_ITERS,
-              f"kmeans_step launched {launches['kmeans_step']} times, fewer "
-              f"than the {KMEANS_ITERS} Lloyd iterations")
+        check(launches["kmeans_lloyd"] == 1,
+              f"kmeans_lloyd launched {launches['kmeans_lloyd']} times for "
+              f"the {KMEANS_ITERS} Lloyd iterations of one run, not once")
         score_errs = check_main_path(result, out_dir)
     secs = result["seconds"]
     print(f"[main] apply_r N={N_MAIN} bf16 batch 256, all six stages + "
@@ -1740,8 +1859,8 @@ def main() -> int:
                    "ganreverser_tpu/ops/upsample_conv_kernel.py:122"),
                "cosine_scores": ("ganreverser_tpu_torch/csrc/cosine_scores.cu",
                                  "ganreverser_tpu/ops/topk_kernel.py:69"),
-               "kmeans_step": ("ganreverser_tpu_torch/csrc/kmeans.cu",
-                               "ganreverser_tpu/ops/kmeans_kernel.py:97"),
+               "kmeans_lloyd": ("ganreverser_tpu_torch/csrc/kmeans.cu",
+                                "ganreverser_tpu/ops/kmeans_kernel.py:97"),
                "fused_dropout": ("ganreverser_tpu_torch/csrc/dropout.cu",
                                  "ganreverser_tpu/ops/dropout_kernel.py:70"),
                "conv3x3_bn_act": ("ganreverser_tpu_torch/csrc/conv_block.cu",
@@ -1759,7 +1878,7 @@ def main() -> int:
                              "benchmarks/tpu_pallas_probe.py:63"),
                "dot_bf16": ("ganreverser_tpu_torch/csrc/probes.cu",
                             "benchmarks/tpu_pallas_probe.py:80")}
-    f32_lines = ("kmeans_step", "add_one", "times_two")
+    f32_lines = ("kmeans_lloyd", "add_one", "times_two")
     kernels = []
     for name, (source, replaces) in sources.items():
         # the main path's dtype (bf16; kmeans and two probes run in f32),

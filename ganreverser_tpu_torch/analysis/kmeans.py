@@ -1,9 +1,9 @@
 """kmeans and the cluster membership of apply_r.lua (197-260), the
 counterpart of ganreverser_tpu/analysis/kmeans.py.
 
-Lloyd iterations go through kernel K (ops/kmeans_kernel.py): on CUDA the
-kernel runs each step, two launches with no host synchronisation; on the
-CPU its plain version runs.
+Lloyd iterations go through kernel K (ops/kmeans_kernel.py): on CUDA one
+launch runs them all, with no host synchronisation; on the CPU its plain
+version runs.
 
 The reference's membership step has a quirk, kept behind its own function:
 after kmeans every image goes to the centroid with the MINIMUM cosine
@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ..core.precision import pinned_precision
-from ..ops.kmeans_kernel import kmeans_step
+from ..ops.kmeans_kernel import kmeans_lloyd
 from .similarity import normalize_rows
 
 
@@ -38,11 +38,7 @@ def kmeans(x: torch.Tensor, k: int, iters: int, *,
         init_idx = torch.randperm(n, generator=generator,
                                   device=generator.device)[:k]
     init_idx = torch.as_tensor(init_idx, dtype=torch.int64, device=x.device)
-    centroids = x.index_select(0, init_idx)
-    counts = torch.zeros(k, dtype=torch.float32, device=x.device)
-    for _ in range(iters):
-        centroids, counts = kmeans_step(x, centroids)
-    return centroids, counts
+    return kmeans_lloyd(x, x.index_select(0, init_idx), iters)
 
 
 def _pairwise_sq_dists(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

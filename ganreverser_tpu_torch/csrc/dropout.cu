@@ -15,15 +15,32 @@
 //   y    = keep ? T(float(x) * inv_keep) : 0, inv_keep = f32(1 / keep_p):
 //          one f32 multiply, and the bf16 store rounds to nearest even.
 //
-// What bounds it: one read and one write of x and about ten integer
-// operations per element, so device-memory bandwidth (at R's largest
-// dropout, (256,64,64,64) bf16, 2 x 134 MB). Design: the seed is an int32
-// read from device memory (the trainer draws it on the card, so a launch
-// needs no host sync and can be captured in a graph later); a grid-stride
-// loop moves 16 bytes per thread per iteration (4 f32 or 8 bf16) when both
-// pointers are 16-byte aligned, one element otherwise, and the ragged tail
-// one element at a time. Any size is taken: the TPU kernel's size % 8192
-// gate exists only for its (8, 1024) tiling. No shared memory.
+// What bounds it: one read and one write of x, so device-memory bandwidth
+// (R's largest dropout, (256,64,64,64) bf16, is 2 x 134 MB, more than the
+// 50 MB L2). But each element also costs about 12-18 integer and float
+// instructions (two IMADs in fmix32, the compare, select, multiply and
+// rounding), so the memory stream and the issue rate must overlap. Design:
+//  - a streaming pass over 16-byte packs (4 f32 or 8 bf16): each thread
+//    issues kDropUnroll independent 16-byte loads before it hashes any,
+//    with streaming cache hints (ld.global.cs / st.global.cs: every byte is
+//    touched once), so several loads per thread are in flight;
+//  - 32-bit arithmetic per element: the hash takes the index mod 2^32, so
+//    a pack's base index is one 32-bit multiply of its pack number and an
+//    element's index is base + j;
+//  - in bf16, pairs are widened with __bfloat1622float2 and rounded with
+//    __floats2bfloat162_rn after the f32 multiply (not __hmul2, which would
+//    round the product in bf16 arithmetic: the TPU kernel multiplies in f32
+//    and rounds once);
+//  - the grid is one resident wave: the occupancy of the kernel times the
+//    card's SM count, queried once per device and cached, with a grid-stride
+//    loop over the packs;
+//  - the seed is an int32 read from device memory (the trainer draws it on
+//    the card, so a launch needs no host sync);
+//  - both pointers must be 16-byte aligned for the packs; otherwise (a view
+//    that starts inside a pack) another kernel takes one element per thread.
+//    Any size is taken: block 0 does the ragged tail after the last pack,
+//    and the TPU kernel's size % 8192 gate exists only for its (8, 1024)
+//    tiling. One launch per call, no shared memory.
 #include <cstdint>
 
 #include "common.cuh"
@@ -31,7 +48,8 @@
 namespace gr {
 
 constexpr int kDropThreads = 256;
-constexpr int kDropMaxBlocks = 132 * 8;  // 2,048 threads on each of 132 SMs
+constexpr int kDropUnroll = 4;   // 16-byte loads in flight per thread
+constexpr int kMaxDevices = 64;  // devices whose resident wave is cached
 
 __device__ __forceinline__ unsigned int fmix32(unsigned int h) {
   h ^= h >> 16;
@@ -42,60 +60,135 @@ __device__ __forceinline__ unsigned int fmix32(unsigned int h) {
   return h;
 }
 
-template <typename T>
-__device__ __forceinline__ T drop_one(T v, long long i, unsigned int seed_mix,
-                                      unsigned int thresh, float inv_keep) {
-  const unsigned int h = fmix32(static_cast<unsigned int>(i) ^ seed_mix);
-  return from_f32<T>(h < thresh ? to_f32(v) * inv_keep : 0.0f);
+__device__ __forceinline__ float drop_f32(float v, unsigned int idx,
+                                          unsigned int seed_mix,
+                                          unsigned int thresh, float inv_keep) {
+  return fmix32(idx ^ seed_mix) < thresh ? v * inv_keep : 0.0f;
 }
 
-template <typename T, int kVec>
-struct alignas(sizeof(T) * kVec) Pack {
-  T v[kVec];
-};
-
-template <typename T, int kVec>
-__global__ void __launch_bounds__(kDropThreads)
-    fused_dropout_kernel(const T* __restrict__ x, T* __restrict__ y,
-                         const int* __restrict__ seed, long long n,
-                         unsigned int thresh, float inv_keep) {
-  const unsigned int seed_mix = static_cast<unsigned int>(__ldg(seed)) * 0x9E3779B9u;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long nvec = n / kVec;
-  const Pack<T, kVec>* xv = reinterpret_cast<const Pack<T, kVec>*>(x);
-  Pack<T, kVec>* yv = reinterpret_cast<Pack<T, kVec>*>(y);
-  for (long long p = tid; p < nvec; p += stride) {
-    Pack<T, kVec> pack = xv[p];
-    const long long base = p * kVec;
+// the 16-byte pack: 4 f32 or 8 bf16, element j of the pack at index base + j
+__device__ __forceinline__ uint4 drop_pack(uint4 v, float, unsigned int base,
+                                           unsigned int seed_mix,
+                                           unsigned int thresh, float inv_keep) {
+  float* f = reinterpret_cast<float*>(&v);
 #pragma unroll
-    for (int j = 0; j < kVec; ++j)
-      pack.v[j] = drop_one(pack.v[j], base + j, seed_mix, thresh, inv_keep);
-    yv[p] = pack;
+  for (int j = 0; j < 4; ++j) f[j] = drop_f32(f[j], base + j, seed_mix, thresh, inv_keep);
+  return v;
+}
+
+__device__ __forceinline__ uint4 drop_pack(uint4 v, __nv_bfloat16,
+                                           unsigned int base,
+                                           unsigned int seed_mix,
+                                           unsigned int thresh, float inv_keep) {
+  __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(p[j]);
+    p[j] = __floats2bfloat162_rn(
+        drop_f32(f.x, base + 2 * j, seed_mix, thresh, inv_keep),
+        drop_f32(f.y, base + 2 * j + 1, seed_mix, thresh, inv_keep));
   }
-  for (long long i = nvec * kVec + tid; i < n; i += stride)
-    y[i] = drop_one(x[i], i, seed_mix, thresh, inv_keep);
+  return v;
+}
+
+// packs p, p + stride, ... of x, kUnroll at a time: the loads of a batch are
+// all issued before the first is hashed
+template <typename T>
+__global__ void __launch_bounds__(kDropThreads)
+    fused_dropout_pack_kernel(const uint4* __restrict__ x, uint4* __restrict__ y,
+                              const int* __restrict__ seed, long long npack,
+                              long long n, unsigned int thresh, float inv_keep) {
+  constexpr unsigned int kVec = 16 / sizeof(T);
+  const unsigned int seed_mix = static_cast<unsigned int>(__ldg(seed)) * 0x9E3779B9u;
+  const long long stride = static_cast<long long>(gridDim.x) * kDropThreads;
+  long long p = static_cast<long long>(blockIdx.x) * kDropThreads + threadIdx.x;
+  for (; p + (kDropUnroll - 1) * stride < npack; p += kDropUnroll * stride) {
+    uint4 v[kDropUnroll];
+#pragma unroll
+    for (int u = 0; u < kDropUnroll; ++u) v[u] = __ldcs(x + p + u * stride);
+#pragma unroll
+    for (int u = 0; u < kDropUnroll; ++u) {
+      // the pack number mod 2^32 times kVec: the index of its first element
+      const unsigned int base =
+          static_cast<unsigned int>(p + u * stride) * kVec;
+      __stcs(y + p + u * stride,
+             drop_pack(v[u], T(), base, seed_mix, thresh, inv_keep));
+    }
+  }
+  for (; p < npack; p += stride)
+    __stcs(y + p, drop_pack(__ldcs(x + p), T(), static_cast<unsigned int>(p) * kVec,
+                            seed_mix, thresh, inv_keep));
+  // the ragged tail, fewer than kVec elements after the last pack
+  const long long i = npack * kVec + threadIdx.x;
+  if (blockIdx.x == 0 && i < n) {
+    const T* xe = reinterpret_cast<const T*>(x);
+    T* ye = reinterpret_cast<T*>(y);
+    ye[i] = from_f32<T>(drop_f32(to_f32(xe[i]), static_cast<unsigned int>(i),
+                                 seed_mix, thresh, inv_keep));
+  }
+}
+
+// all elements of an unaligned tensor (a view that starts inside a pack),
+// one per thread
+template <typename T>
+__global__ void __launch_bounds__(kDropThreads)
+    fused_dropout_elem_kernel(const T* __restrict__ x, T* __restrict__ y,
+                              const int* __restrict__ seed, long long n,
+                              unsigned int thresh, float inv_keep) {
+  const unsigned int seed_mix = static_cast<unsigned int>(__ldg(seed)) * 0x9E3779B9u;
+  const long long stride = static_cast<long long>(gridDim.x) * kDropThreads;
+  for (long long i = static_cast<long long>(blockIdx.x) * kDropThreads + threadIdx.x;
+       i < n; i += stride)
+    y[i] = from_f32<T>(drop_f32(to_f32(x[i]), static_cast<unsigned int>(i),
+                                seed_mix, thresh, inv_keep));
+}
+
+// blocks of `kernel` resident on the current device at once (occupancy x
+// SMs), queried on the first launch on each device and cached
+template <typename K>
+int resident_blocks(K kernel, int* cache) {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) return 0;
+  if (cache[dev] > 0) return cache[dev];
+  int per_sm = 0, sms = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kDropThreads, 0) !=
+          cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  cache[dev] = per_sm * sms;
+  return cache[dev];
+}
+
+int wave_grid(long long units, int resident) {
+  const long long want = (units + kDropThreads - 1) / kDropThreads;
+  return static_cast<int>(want < resident ? want : resident);
 }
 
 template <typename T>
 cudaError_t launch_dropout(const void* x, void* y, const void* seed,
                            long long n, unsigned int thresh, float inv_keep,
                            cudaStream_t s) {
-  constexpr int kVec = 16 / static_cast<int>(sizeof(T));
-  const bool aligned = ((reinterpret_cast<std::uintptr_t>(x) |
-                         reinterpret_cast<std::uintptr_t>(y)) % 16) == 0;
-  const long long units = aligned ? (n + kVec - 1) / kVec : n;
-  const long long want = (units + kDropThreads - 1) / kDropThreads;
-  const int blocks = static_cast<int>(want < kDropMaxBlocks ? want : kDropMaxBlocks);
+  static int pack_wave[kMaxDevices] = {};
+  static int elem_wave[kMaxDevices] = {};
+  constexpr long long kVec = 16 / static_cast<long long>(sizeof(T));
   const T* xt = static_cast<const T*>(x);
   T* yt = static_cast<T*>(y);
   const int* st = static_cast<const int*>(seed);
-  if (aligned)
-    fused_dropout_kernel<T, kVec><<<blocks, kDropThreads, 0, s>>>(xt, yt, st, n, thresh,
-                                                                 inv_keep);
-  else
-    fused_dropout_kernel<T, 1><<<blocks, kDropThreads, 0, s>>>(xt, yt, st, n, thresh,
-                                                              inv_keep);
+  const bool aligned = ((reinterpret_cast<std::uintptr_t>(x) |
+                         reinterpret_cast<std::uintptr_t>(y)) % 16) == 0;
+  if (aligned && n >= kVec) {
+    const int resident = resident_blocks(fused_dropout_pack_kernel<T>, pack_wave);
+    if (resident <= 0) return cudaErrorInvalidConfiguration;
+    const long long npack = n / kVec;
+    fused_dropout_pack_kernel<T><<<wave_grid(npack, resident), kDropThreads, 0, s>>>(
+        static_cast<const uint4*>(x), static_cast<uint4*>(y), st, npack, n, thresh,
+        inv_keep);
+  } else {
+    const int resident = resident_blocks(fused_dropout_elem_kernel<T>, elem_wave);
+    if (resident <= 0) return cudaErrorInvalidConfiguration;
+    fused_dropout_elem_kernel<T><<<wave_grid(n, resident), kDropThreads, 0, s>>>(
+        xt, yt, st, n, thresh, inv_keep);
+  }
   return cudaGetLastError();
 }
 

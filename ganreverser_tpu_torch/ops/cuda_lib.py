@@ -53,9 +53,13 @@ _SIGNATURES = {
     # dtype, needles, emb, idx, ws, out, q, n, d, then the bf16 plan (bnq,
     # slices, stages, smem), stream
     "gr_cosine_scores": [_I, _P, _P, _P, _P, _P, _I, _I, _I, *[_I] * 4, _P],
-    # x, c, c_new, counts, sums, assign, n, d, k, rows, kt, smem_bytes,
+    # x, c, c_new, counts, sums, assign, ws_f, ws_i, n, d, k, iters, then
+    # the plan (rows, kt, smem_bytes, grid, tiles_per_block, max_segments),
     # stream
-    "gr_kmeans_step": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "gr_kmeans_lloyd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                        *[_I] * 6, _P],
+    # smem_bytes -> co-resident blocks of the Lloyd kernel
+    "gr_kmeans_resident": [_I],
     # dtype, x, k16, scale, shift, fk, fb, ws, out, n, h, w, ci, co, cf,
     # act, final_act, then the bf16 plan (bh, bw, bn, bk, stages, smem),
     # stream
@@ -167,7 +171,15 @@ def check(rc: int, name: str) -> None:
                            f"{rc}")
 
 
+# the current stream's handle without building a torch.cuda.Stream object
+# (about 0.1 us against 4 us a call on the card's host)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def stream_of(t: torch.Tensor) -> int:
+    """The handle of the current CUDA stream of ``t``'s device."""
+    if _raw_stream is not None:
+        return _raw_stream(t.device.index)
     return torch.cuda.current_stream(t.device).cuda_stream
 
 

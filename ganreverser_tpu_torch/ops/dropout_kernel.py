@@ -11,12 +11,18 @@ kernel's for the same int32 seed and shape. The gradient is dropout of the
 incoming gradient with the same seed: the mask is regenerated, never stored.
 
 ``fused_dropout`` launches the CUDA kernel (``csrc/dropout.cu``) on CUDA
-tensors, its backward too (``fused_dropout.launches`` counts both), and takes
-the plain version ``fused_dropout_plain`` on CPU tensors; no other device is
-accepted. Unlike the TPU wrapper's ``supports`` gate (size % 8192), any size
+tensors, its backward too (``fused_dropout.launches`` counts both;
+``fused_dropout.copies`` counts the non-contiguous tensors or gradients it
+had to copy first), and takes the plain version ``fused_dropout_plain`` on
+CPU tensors; no other device is accepted. The launch's threshold,
+multiplier and dtype code are computed once per (rate, dtype)
+(:func:`dropout_plan`). Unlike the TPU wrapper's ``supports`` gate (size % 8192), any size
 is taken: the hash of the flat index does not depend on a tiling.
 """
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -65,17 +71,36 @@ def fused_dropout_plain(x: torch.Tensor, seed: torch.Tensor,
     return torch.where(keep, x.float() * inv_keep_f32(rate), 0.0).to(x.dtype)
 
 
+class DropoutPlan(NamedTuple):
+    code: int        # dtype code of the C interface
+    thresh: int      # keep_threshold(rate)
+    inv_keep: float  # inv_keep_f32(rate)
+
+
+@functools.lru_cache(maxsize=None)
+def dropout_plan(rate: float, dtype: torch.dtype) -> DropoutPlan:
+    """The launch's scalars for (rate, dtype), computed once per pair."""
+    return DropoutPlan(cuda_lib.DTYPE_CODES[dtype], keep_threshold(rate),
+                       inv_keep_f32(rate))
+
+
 def _launch(x: torch.Tensor, seed: torch.Tensor, rate: float) -> torch.Tensor:
-    x = x.contiguous()
+    if not x.is_contiguous():
+        x = x.contiguous()
+        fused_dropout.copies += 1
     dev = x.device
-    code = cuda_lib.dtype_code(x)
+    cuda_lib.dtype_code(x)
+    plan = dropout_plan(rate, x.dtype)
     seed = seed.reshape(1)
     cuda_lib.require(seed, "seed", dev, torch.int32, (1,))
     y = torch.empty_like(x)
-    with torch.cuda.device(dev):
-        rc = cuda_lib.library().gr_fused_dropout(
-            code, x.data_ptr(), y.data_ptr(), seed.data_ptr(), x.numel(),
-            keep_threshold(rate), inv_keep_f32(rate), cuda_lib.stream_of(x))
+    args = (plan.code, x.data_ptr(), y.data_ptr(), seed.data_ptr(),
+            x.numel(), plan.thresh, plan.inv_keep, cuda_lib.stream_of(x))
+    if dev.index == torch.cuda.current_device():
+        rc = cuda_lib.library().gr_fused_dropout(*args)
+    else:
+        with torch.cuda.device(dev):
+            rc = cuda_lib.library().gr_fused_dropout(*args)
     cuda_lib.check(rc, "fused_dropout")
     fused_dropout.launches += 1
     return y
@@ -108,10 +133,13 @@ def fused_dropout(x: torch.Tensor, seed: torch.Tensor,
                          f"{tuple(seed.shape)}")
     if cuda_lib.dispatch_device(x, seed) == "cpu":
         return fused_dropout_plain(x, seed, rate)
+    if not (x.requires_grad and torch.is_grad_enabled()):
+        return _launch(x, seed, rate)  # no graph to record
     return _FusedDropout.apply(x, seed, rate)
 
 
 fused_dropout.launches = 0
+fused_dropout.copies = 0   # non-contiguous inputs copied before a launch
 
 
 def draw_seed(generator: torch.Generator, device) -> torch.Tensor:

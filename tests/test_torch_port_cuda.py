@@ -147,6 +147,58 @@ def test_kmeans_kernel_refuses_bad_arguments(dev):
         kmeans_kernel.kmeans_step(x, torch.zeros(2, 4))
 
 
+@pytest.mark.parametrize("n,d,k,iters", [(10_000, 100, 20, 15),
+                                         (10_000, 100, 256, 15),
+                                         (777, 100, 20, 15),
+                                         (1_000, 4096, 64, 3)])
+def test_kmeans_lloyd_kernel(dev, n, d, k, iters):
+    """chip_smoke.lloyd_case: the whole run in one launch, bitwise equal
+    over two runs, each iteration held against the plain step from the
+    kernel's centroids (assignment beyond the near-tie margin, counts, sums
+    to TOL_SUMS and bitwise the segment order's), and the final centroids
+    within TOL_SUMS of kmeans_lloyd_plain when no near-tie row went
+    otherwise; it raises SmokeFailure otherwise. The last centroid is far
+    from every row, so its cluster stays empty and keeps its place."""
+    import chip_smoke
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn(n, d, device=dev, generator=g)
+    c = x[torch.randperm(n, device=dev, generator=g)[:k]].clone()
+    c[-1] = 0.0
+    c[-1, 0] = max(50.0, 2 * d ** 0.5 + 10)
+    before = kmeans_kernel.kmeans_lloyd.launches
+    chip_smoke.lloyd_case(x, c, iters)
+    assert kmeans_kernel.kmeans_lloyd.launches == before + 2 + iters - 1
+    new_c, counts = kmeans_kernel.kmeans_lloyd(x, c, iters)
+    assert counts[-1].item() == 0.0 and torch.equal(new_c[-1], c[-1])
+    assert counts.sum().item() == n
+
+
+def test_kmeans_lloyd_refuses_a_grid_over_the_resident_blocks(dev,
+                                                             monkeypatch):
+    """A plan whose grid the card cannot hold at once (one block per tile
+    of 4 rows, 1,000 blocks of about 200 KB of shared memory) is refused
+    by the cooperative launch: the wrapper raises with the plan, launches
+    no loop of steps instead, and leaves no error behind for the next
+    launch."""
+    n, d, k = 4_000, 4096, 64
+    x = torch.randn(n, d, device=dev)
+    c = x[:k].clone()
+    plan = kmeans_kernel.lloyd_plan(n, d, k, 10 ** 6)
+    resident = kmeans_kernel.resident_blocks(plan.smem_bytes,
+                                             torch.cuda.current_device())
+    assert 0 < resident < plan.grid == 1_000
+    before = kmeans_kernel.kmeans_lloyd.launches
+    with monkeypatch.context() as m:
+        m.setattr(kmeans_kernel, "card_plan", lambda *args: plan)
+        with pytest.raises(RuntimeError, match="LloydPlan"):
+            kmeans_kernel.kmeans_lloyd(x, c, 2)
+    assert kmeans_kernel.kmeans_lloyd.launches == before
+    ref = kmeans_kernel.kmeans_step_plain(x, c)[1]
+    out = kmeans_kernel.kmeans_lloyd(x, c, 1)[1]
+    torch.cuda.synchronize()
+    assert out.sum().item() == n and ref.sum().item() == n
+
+
 def _models(dev, dims, nd):
     from ganreverser_tpu_torch.models import bridge, modules, zoo
     gen = torch.Generator().manual_seed(0)
@@ -199,28 +251,33 @@ def test_fast_path_f32_ignores_global_tf32_flags(dev):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(256, 512), (3, 37, 5, 64), (1_000_003,),
-                                   (8, 16, 16, 3)])
+                                   (8, 16, 16, 3), (256, 64, 64, 64),
+                                   (256, 32, 32, 128), (33_554_437,)])
 @pytest.mark.parametrize("seed", [42, -7, -2 ** 31])
 def test_dropout_kernel_bitwise(dev, dtype, shape, seed):
-    """Kernel B5 forward and backward against the plain version, bitwise
-    (chip_smoke.dropout_case raises SmokeFailure otherwise), at sizes that
-    are no multiple of the 16-byte vector; two launches per case."""
+    """Kernel B5 forward and backward against the plain version, bitwise,
+    and a second forward bitwise the first (chip_smoke.dropout_case raises
+    SmokeFailure otherwise): at sizes that are no multiple of the 16-byte
+    pack (a ragged tail), at R's step shapes (many unrolled batches a
+    thread) and at a size whose packs are no multiple of the unrolled
+    batch; three launches per case."""
     import chip_smoke
     x = torch.randn(shape, device=dev,
                     generator=torch.Generator(device=dev).manual_seed(5))
     before = dropout_kernel.fused_dropout.launches
     assert chip_smoke.dropout_case(x.to(dtype), seed, 0.25) == 0.0
-    assert dropout_kernel.fused_dropout.launches == before + 2
+    assert dropout_kernel.fused_dropout.launches == before + 3
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_dropout_kernel_unaligned_and_strided(dev, dtype):
     """A view one element into its storage (not 16-byte aligned: the
-    one-element path) and a transposed view (made contiguous) both drop in
-    their logical order, as the plain version does."""
-    base = torch.randn(4097, device=dev).to(dtype)
+    one-element kernel), a view eight elements in (aligned in both dtypes:
+    the packs, with a ragged tail) and a transposed view (made contiguous)
+    all drop in their logical order, as the plain version does."""
+    base = torch.randn(1_000_037, device=dev).to(dtype)
     s = torch.tensor([9], dtype=torch.int32, device=dev)
-    for x in (base[1:], base[1:].reshape(64, 64).t()):
+    for x in (base[1:], base[8:], base[3:4099].reshape(64, 64).t()):
         out = dropout_kernel.fused_dropout(x, s, 0.5)
         torch.cuda.synchronize()
         assert torch.equal(out, dropout_kernel.fused_dropout_plain(x, s, 0.5))

@@ -85,12 +85,16 @@ def test_hash_bits_match_numpy_fmix32(seed):
     assert bits.min() >= 0 and bits.max() <= 0xFFFFFFFF
 
 
-@pytest.mark.parametrize("rate", [0.5, 0.25, 0.1, 0.0])
+@pytest.mark.parametrize("rate", [0.5, 0.25, 0.1, 0.0, 0.9])
 def test_threshold_and_multiplier(rate):
     keep = 1.0 - rate
     assert dk.keep_threshold(rate) == min(int(round(keep * 2 ** 32)),
                                           2 ** 32 - 1)
     assert dk.inv_keep_f32(rate) == float(np.float32(1.0 / keep))
+    # the launch's cached scalars are the same numbers, per dtype
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        assert dk.dropout_plan(rate, dtype) == (
+            code, dk.keep_threshold(rate), dk.inv_keep_f32(rate))
 
 
 def test_any_size_and_layout():

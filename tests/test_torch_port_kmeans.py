@@ -13,7 +13,9 @@ import pytest
 import torch
 
 from ganreverser_tpu import analysis as A
-from ganreverser_tpu.ops.kmeans_kernel import kmeans_pallas, kmeans_step_pallas
+from ganreverser_tpu.ops.kmeans_kernel import (_kmeans_sums_counts,
+                                               kmeans_pallas,
+                                               kmeans_step_pallas)
 from ganreverser_tpu_torch.analysis import kmeans as K
 from ganreverser_tpu_torch.ops import kmeans_kernel
 
@@ -92,6 +94,62 @@ def test_kmeans_run_matches_jax_on_blobs(rng, n):
                                atol=1e-5)
     np.testing.assert_allclose(c.numpy(), np.asarray(lax_c), rtol=1e-5,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("iters", [1, 3, 15])
+def test_kmeans_lloyd_plain_matches_pallas(rng, iters):
+    """The plain whole run against kmeans_pallas from the rows
+    jax.random.choice drew: the same last assignment (counts) and the
+    centroids to the step test's 1e-5; the wrapper on CPU tensors is the
+    plain version and launches nothing."""
+    n, k, d = 300, 5, 12
+    x = _blobs(rng, n, d, k, spread=0.5, dist=2.0)
+    key = jax.random.PRNGKey(iters)
+    init_idx = np.asarray(jax.random.choice(key, n, (k,), replace=False))
+    ref_c, ref_counts = kmeans_pallas(key, jnp.asarray(x), k, iters,
+                                      interpret=True)
+    before = kmeans_kernel.kmeans_lloyd.launches
+    c, counts = kmeans_kernel.kmeans_lloyd(T(x), T(x[init_idx]), iters)
+    assert kmeans_kernel.kmeans_lloyd.launches == before
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(ref_counts))
+    np.testing.assert_allclose(c.numpy(), np.asarray(ref_c), rtol=1e-5,
+                               atol=1e-5)
+    plain = kmeans_kernel.kmeans_lloyd_plain(T(x), T(x[init_idx]), iters)
+    np.testing.assert_array_equal(plain[0].numpy(), c.numpy())
+
+
+@pytest.mark.parametrize("n,d,k", [(1024, 32, 5), (512, 100, 20),
+                                   (200, 7, 3)])
+def test_segment_sums_match_pallas_sums(rng, n, d, k):
+    """The kernel's summation order (sorted rows in segments of 64, then
+    the segments) in plain PyTorch against the JAX step's raw sums on the
+    same assignment: counts exact, sums to 1e-5 relative (f32 sums in
+    another order). Clusters of 200 rows span four segments; the last
+    centroid is far from every row, so its cluster is empty."""
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    c = rng.normal(size=(k, d)).astype(np.float32)
+    c[-1] = 1e4
+    ref_sums, ref_counts = _kmeans_sums_counts(jnp.asarray(x), jnp.asarray(c),
+                                               n, True)
+    _, _, _, assign = kmeans_kernel.kmeans_step_plain(T(x), T(c),
+                                                      details=True)
+    sums, counts = kmeans_kernel.kmeans_segment_sums_plain(T(x), assign, k)
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(ref_counts))
+    assert counts[-1].item() == 0.0 and not sums[-1].any()
+    np.testing.assert_allclose(sums.numpy(), np.asarray(ref_sums), rtol=1e-5,
+                               atol=1e-5 * max(1.0, np.abs(ref_sums).max()))
+    # the order itself: cluster 0's sum is its sorted rows' segments
+    rows = np.nonzero(assign.numpy() == 0)[0]
+    segs = []
+    for s0 in range(0, len(rows), 64):
+        acc = np.zeros(d, np.float32)
+        for r in rows[s0:s0 + 64]:
+            acc = acc + x[r]
+        segs.append(acc)
+    total = np.zeros(d, np.float32)
+    for acc in segs:
+        total = total + acc
+    np.testing.assert_array_equal(sums[0].numpy(), total)
 
 
 def test_kmeans_init_from_generator(rng):
@@ -182,3 +240,35 @@ def test_kmeans_plan_of_main_path_shapes(k, d, rows, kt):
         wider = (2 * rows, kt) if rows < kt else (rows, 2 * kt)
         assert 4 * ((wider[0] + wider[1]) * (d + 1) + wider[1]
                     + wider[0] * wider[1]) > kmeans_kernel.MAX_SHARED_BYTES
+
+
+@pytest.mark.parametrize("n,d,k,resident,rows,grid,per_block", [
+    (10_000, 100, 20, 264, 40, 250, 1),    # apply_r: 40 rows a block
+    (10_000, 100, 256, 264, 40, 250, 1),   # --clusters 256
+    (10_000, 100, 20, 132, 64, 79, 2),     # 157 tiles of 64 on 132 blocks
+    (777, 100, 20, 264, 4, 195, 1),
+    (10_000, 4096, 1000, 132, 4, 132, 19),  # 2,500 tiles of 4 rows
+    (1_000, 20_000, 5, 132, 1, 125, 8),     # tiles of 1 row: kept
+])
+def test_lloyd_plan_grid_and_workspace(n, d, k, resident, rows, grid,
+                                       per_block):
+    """The Lloyd launch's grid covers every tile of rows with at most the
+    resident blocks and no idle block, with tiles of fewer rows (in fours)
+    than the assignment's plan where that fills more blocks; its workspace
+    holds 2 K D centroids, their K norms and min(N, ceil(N / 64) + K)
+    segment sums of D floats, and the permutation, the (K, grid) table, the K counts, two
+    (K + 1) starts and the segments' clusters in ints."""
+    plan = kmeans_kernel.lloyd_plan(n, d, k, resident)
+    max_rows, kt, smem = kmeans_kernel.kmeans_plan(d, k)
+    assert (plan.rows, plan.kt) == (rows, kt) and rows <= max_rows
+    assert plan.smem_bytes == max(smem, 4 * 256)
+    assert (plan.grid, plan.tiles_per_block) == (grid, per_block)
+    tiles = -(-n // rows)
+    assert plan.grid <= resident
+    assert (plan.grid - 1) * per_block < tiles <= plan.grid * per_block
+    segs = min(n, -(-n // 64) + k)
+    assert plan.max_segments == segs
+    assert plan.ws_floats == 2 * k * d + k + segs * d
+    assert plan.ws_ints == n + k * grid + k + 2 * (k + 1) + segs
+    with pytest.raises(RuntimeError):
+        kmeans_kernel.lloyd_plan(n, d, k, 0)

@@ -10,28 +10,79 @@ commit unpacked into a directory can be timed by the same script; its
 kernels build into that checkout's ``build/kernels``. ``--names`` picks
 kernels by their ``chip_smoke.kernel_cases`` name (default: conv_block,
 upsample2_conv3x3_bn_act, conv3x3_bn_act, upsample2_conv3x3_head,
-cosine_scores: B, U, B6, U's fused head, C). Each case runs in bf16 at
-N = 256 (C at apply_r's N = 10,000): the median of ``--reps`` calls by CUDA
-events (chip_smoke's ``time_ms``: the wrapper as a user calls it, weight
-re-layout and padding included), and the device time per call of the
-hand-written kernels it launched, from a torch.profiler trace of
-``--reps`` calls: the device operations whose name holds one of ``DEVICE_KERNELS``
-(the tensor-core kernels, the head's and C's second launches, and the
-CUDA-core head and C of a checkout that predates their tensor-core
-design). One JSON line per case with the card's name and power limit, then
-one line with the sums per kernel. Needs a CUDA device.
+cosine_scores: B, U, B6, U's fused head, C), or one of three cases built
+here from entry points every checkout of the port has:
+
+- ``fused_dropout`` (B5): the bf16 forward at each of chip_smoke's
+  ``DROPOUT_STEP_SHAPES`` (one R step's six dropouts);
+- ``kmeans_lloyd`` (K): ``analysis.kmeans.kmeans`` at (10,000, 100), 15
+  iterations, K = 20 and K = 256 (one launch, or a loop of steps in a
+  checkout that predates the one-launch design);
+- ``r_step``: one warm R train step, b256 bf16 ``--dropout kernel``
+  (chip_smoke's ``step_times``: the median of its 20 steps is the case's
+  time, and its device time is B5's share).
+
+Each kernel case runs in bf16 at N = 256 (C at apply_r's N = 10,000): the
+median of ``--reps`` calls by CUDA events (chip_smoke's ``time_ms``: the
+wrapper as a user calls it, weight re-layout and padding included), and
+the device time per call of the hand-written kernels it launched, from a
+torch.profiler trace of ``--reps`` calls: the device operations whose name
+holds one of ``DEVICE_KERNELS`` (the tensor-core kernels, the head's and
+C's second launches, the CUDA-core head and C of a checkout that predates
+their tensor-core design, B5 and K). One JSON line per case with the
+card's name and power limit, then one line with the sums per kernel.
+Needs a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
+import statistics
 import sys
 
 DEFAULT_NAMES = ("conv_block,upsample2_conv3x3_bn_act,conv3x3_bn_act,"
                  "upsample2_conv3x3_head,cosine_scores")
 DEVICE_KERNELS = ("wgmma_kernel", "finish_kernel", "conv3x3_head_kernel",
-                  "cosine_scores_kernel")
+                  "cosine_scores_kernel", "fused_dropout", "kmeans_")
+KMEANS_CASE = (10_000, 100, 15)   # N, D (noise 100), Lloyd iterations
+
+
+def local_cases(dev, names):
+    """(name, label, fn) for the cases built here."""
+    import torch
+    import chip_smoke
+    gen = torch.Generator(device=dev).manual_seed(chip_smoke.SEED + 21)
+    if "fused_dropout" in names:
+        from ganreverser_tpu_torch.ops import dropout_kernel as dk
+        seed = torch.tensor([12345], dtype=torch.int32, device=dev)
+        for shape in chip_smoke.DROPOUT_STEP_SHAPES:
+            x = torch.randn(shape, device=dev, generator=gen).to(
+                torch.bfloat16)
+            yield ("fused_dropout", str(shape),
+                   lambda x=x: dk.fused_dropout(x, seed, 0.5))
+    if "kmeans_lloyd" in names:
+        from ganreverser_tpu_torch.analysis.kmeans import kmeans
+        n, d, iters = KMEANS_CASE
+        x = torch.randn(n, d, device=dev, generator=gen)
+        for k in (20, 256):
+            idx = torch.randperm(n, device=dev, generator=gen)[:k]
+            yield ("kmeans_lloyd", f"({n},{d}) K={k}, {iters} iterations",
+                   lambda k=k, idx=idx: kmeans(x, k, iters, init_idx=idx))
+    if "r_step" in names:
+        from ganreverser_tpu_torch.models import modules, zoo
+        G = chip_smoke.make_calibrated_g(dev)
+        Gb = zoo.create_G3(chip_smoke.DIMS, chip_smoke.NOISE_DIM,
+                           torch.bfloat16).to(dev)
+        Gb.load_state_dict(G.state_dict())
+        R = modules.init_parameters(
+            zoo.create_R(chip_smoke.DIMS, chip_smoke.NOISE_DIM, "normal",
+                         dtype=torch.bfloat16, dropout_impl="kernel"),
+            torch.Generator().manual_seed(chip_smoke.SEED + 22))
+        yield ("r_step", "b256 bf16 --dropout kernel",
+               lambda: chip_smoke.step_times(Gb, R.state_dict(), dev,
+                                             "kernel"))
 
 
 def device_ms(fn, reps: int) -> float:
@@ -72,19 +123,25 @@ def main(argv=None) -> int:
     names = args.names.split(",")
     sums = dict.fromkeys(names, 0.0)
     dev_sums = dict.fromkeys(names, 0.0)
-    for name, label, make in chip_smoke.kernel_cases(dev, chip_smoke.N_CHECK,
-                                                     chip_smoke.N_MAIN):
-        if name not in sums:
-            continue
-        case = make(torch.bfloat16)
-        ms = chip_smoke.time_ms(case["kernel"], reps=args.reps)
-        dms = device_ms(case["kernel"], args.reps)
+    kernel_cases = ((name, label, make)
+                    for name, label, make in chip_smoke.kernel_cases(
+                        dev, chip_smoke.N_CHECK, chip_smoke.N_MAIN)
+                    if name in sums)
+    for name, label, fn in itertools.chain(
+            ((n, lab, make(torch.bfloat16)["kernel"])
+             for n, lab, make in kernel_cases), local_cases(dev, names)):
+        if name == "r_step":  # a call is 3 warm-up + STEP_TIMES steps
+            ms = statistics.median(fn())
+            dms = device_ms(fn, 1) / (chip_smoke.STEP_TIMES + 3)
+        else:
+            ms = chip_smoke.time_ms(fn, reps=args.reps)
+            dms = device_ms(fn, args.reps)
         sums[name] += ms
         dev_sums[name] += dms
         print(json.dumps({"root": root, "name": name, "label": label,
                           "dtype": "bfloat16", "ms": ms, "device_ms": dms,
                           "card": card}))
-        del case
+        del fn
         torch.cuda.empty_cache()
     print(json.dumps({"root": root, "sum_ms": sums,
                       "sum_device_ms": dev_sums, "card": card}))
