@@ -28,8 +28,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    normalised beforehand for C; none for K and B5), and the kernel's bound
    (the larger of its operations over the card's peak for the inputs'
    type and its bytes, each input read once and each output written once,
-   over the memory rate). Kernel B6 at D2's five conv + PReLU shapes, the
-   slope read from device memory (0.25, and -0.1 on one shape).
+   over the memory rate). Kernel C at apply_r's two searches (10,000 rows,
+   10 needles) and at the fused e2e program's needle chunk (10,240 rows,
+   256 needles), D = 100 and 12,288. Kernel B6 at D2's five conv + PReLU
+   shapes, the slope read from device memory (0.25, and -0.1 on one
+   shape).
    Kernel B5 (dropout) at one R step's six shapes, (256,512) and
    (256,64,64,3), f32 and bf16, seeds 12345 and -7: output and gradient
    bitwise equal to the plain version (tolerance 0), a second forward
@@ -54,7 +57,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    probe's tolerance: f32 1e-4, bf16 3e-2 of the output's scale); kernel
    B7 (conv_stats) at its probe's (256,64,64,256) -> 128,
    y to the tolerance, the sums within 1e-4 of their magnitudes, bitwise
-   repeatable; the three B9 probes exactly their plain versions;
+   repeatable; the three B9 probes exactly their plain versions, with
+   their wrapper and device (torch.profiler) times;
 4. the main path at full width: random G3, R and fixer-R (3x64x64, noise
    dim 100, normal noise, non-trivial BN running statistics) saved as
    checkpoints, then ``cli.apply_r.main`` with N = 10,000, 10 needles, batch
@@ -107,7 +111,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
    stages) once per batch and B6 five times per batch (D_prev), give
    finite losses and a checkpoint at its last batch. Then the three probe
    entry points (``probes.convbn``, ``probes.upsample_v2``,
-   ``probes.kernel_probe``) at full size, each launching its kernels.
+   ``probes.kernel_probe``) at full size, each launching its kernels;
+8. the fused generate -> invert -> top-k program (analysis/e2e.py) at full
+   width, as bench.py times JAX's: phase 4's G3 and R, N = 10,240 latents,
+   bf16, k = 100, needle chunk 256, the fast G (kernel U, and U's fused
+   head where e2e.FUSED_HEAD says so) and the fast R (kernel B), kernel C
+   in the search. Its first call (warm-up, capture, replay) is the path
+   whose launches count; a second replay must add to U's, B's and C's
+   counts exactly as many launches as the chunks imply, a traced third
+   must run as many of their kernels on the device (torch.profiler), and
+   the replays must give bitwise the first call's results,
+   which must be bitwise the eager program's (capture=False) and the
+   serial programs' (generate-all, invert-all, search-all); the top-k
+   values must be within 1e-5 of the plain search on the same embeddings
+   (cosine_scores_plain + torch.topk), each returned row's plain score
+   within 1e-5 of its value, and the index sets equal on every row whose
+   k-th score leads the (k+1)-th by more than that; a call with other
+   weights (G's and R's kernels x 3) must give what the eager program
+   gives on them, and hold the same checks with at least one row so
+   separated. The same with the pixel measure (pixel_k = 100), for both
+   pairs of weights, against the search in f64 on the serial program's
+   images, also within 1e-5 (the plain f32 search's own sums of 12,288
+   products lie up to about 1e-4 from the exact scores), the other
+   weights' with at least one row separated.
+   Printed: img/s of the fused graph, the
+   eager program and the serial graphs at batch 128, of the other fast G
+   (U's fused head on or off), of batch 256 and of the pixel measure; the
+   peak device memory of the fused and the serial programs' first calls;
+   the search through kernel C against torch.matmul of normalised rows,
+   each + torch.topk.
 
 The last two lines are a JSON object with each kernel's route, source,
 launch count in the main path, error, times and bound, and
@@ -178,6 +210,20 @@ GAN_EPOCHS = 3           # two, then one more after --network latest
 N_SAMPLE_NEIGHBOURS = 8192
 N_FAST_D = 1024
 PAIR_TIMES = 20          # warm batch pairs timed
+# phase 8, bench.py's e2e program: N and batch (bench.py:107-108), and
+# apply_r's batch; k, the needle chunk and the pixel measure's k
+E2E_N = 10_240
+E2E_BATCHES = (128, 256)
+E2E_K, E2E_CHUNK, E2E_PIXEL_K = 100, 256, 100
+E2E_TIMES = 5            # graph calls timed
+E2E_AMPLIFY = 3.0        # the second G's and R's kernels, phase 4's x 3
+TOL_TOPK = 1e-5          # e2e top-k vs the plain search (pixels: f64)
+# each e2e wrapper's kernel, by the name a torch.profiler trace gives it
+# (one per counted launch; the bf16 kernels)
+E2E_DEVICE_KERNELS = {"upsample2_conv3x3_bn_act": "upsample2_wgmma_kernel",
+                      "upsample2_conv3x3_head": "upsample2_head_wgmma_kernel",
+                      "conv_block": "conv3x3_wgmma_kernel",
+                      "cosine_scores": "cosine_wgmma_kernel"}
 CONVBN_SHAPE = (256, 64, 64, 256, 128)   # B7's probe: N, H, W, Ci, Co
 PRETRAIN_BATCH = 128     # pretrain_g's default --batchSize
 PRETRAIN_EPOCH_BATCHES = 10   # --N_epoch of phase 7 (depth; the default 30)
@@ -311,6 +357,20 @@ def device_ms(fn, names, reps: int = 10) -> float:
                 for ev in prof.key_averages()
                 if any(n in ev.key for n in names))
     return total / reps / 1e3
+
+
+def device_counts(fn, names: dict) -> dict:
+    """Per key of ``names``, the device kernels of one call of ``fn`` whose
+    name holds its value, counted in a torch.profiler trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    return {key: sum(ev.count for ev in events if name in ev.key)
+            for key, name in names.items()}
 
 
 # the card's published peaks (H100 SXM, dense) and memory rate, for the
@@ -487,12 +547,16 @@ def kernel_cases(dev, n: int, n_search: int):
                               + nb * 4 * hh * ww * co * x.element_size())}
         cases.append(("upsample_v2", label, make))
 
-    def search(label, d, positive):
-        e0 = torch.randn(n_search, d, device=dev, generator=gen)
+    def search(label, d, positive, rows=n_search, needles=None):
+        """C with apply_r's NEEDLES needles, or with ``needles`` (the
+        fused e2e program's needle chunk: rows 0 .. 255)."""
+        e0 = torch.randn(rows, d, device=dev, generator=gen)
         if positive:  # pixels are sigmoid outputs in [0, 1]
             e0 = torch.sigmoid(e0)
-        idx = torch.tensor([(i + 1) * 100 - 1 for i in range(NEEDLES)],
-                           device=dev)
+        idx = (torch.tensor([(i + 1) * 100 - 1 for i in range(NEEDLES)],
+                            device=dev) if needles is None
+               else torch.arange(needles, device=dev))
+        q = idx.shape[0]
         en = e0 / e0.norm(dim=1, keepdim=True)
         qn = en[idx]
 
@@ -502,9 +566,8 @@ def kernel_cases(dev, n: int, n_search: int):
                     "plain": lambda: tk.cosine_scores_plain(e, idx),
                     # one product of rows normalised beforehand
                     "library": lambda: torch.matmul(qn, en.T),
-                    "flops": 2 * NEEDLES * n_search * d + 2 * n_search * d,
-                    "bytes": (_nbytes(e, idx)
-                              + NEEDLES * n_search * 4)}
+                    "flops": 2 * q * rows * d + 2 * rows * d,
+                    "bytes": _nbytes(e, idx) + q * rows * 4}
         cases.append(("cosine_scores", label, make))
 
     def conv_prelu(label, shape, co, alpha, pool):
@@ -545,6 +608,11 @@ def kernel_cases(dev, n: int, n_search: int):
     search(f"attributes ({n_search},{NOISE_DIM}) x {NEEDLES}", NOISE_DIM,
            False)
     search(f"pixels ({n_search},{c * h * w}) x {NEEDLES}", c * h * w, True)
+    # the fused e2e program's needle chunks (phase 8)
+    search(f"attributes ({E2E_N},{NOISE_DIM}) x {E2E_CHUNK}", NOISE_DIM,
+           False, E2E_N, E2E_CHUNK)
+    search(f"pixels ({E2E_N},{c * h * w}) x {E2E_CHUNK}", c * h * w, True,
+           E2E_N, E2E_CHUNK)
     # D2's five conv + PReLU layers (stem l0, l1+pool; right branch
     # l0+pool, l2, l3+pool), one with a negative slope
     for label, shape, co, alpha, pool in D2_B6_LAYERS:
@@ -1112,7 +1180,7 @@ def check_probe_kernels(dev, card: str):
     cases = [("add_one", "(8,128)", "float32", lambda: pk.add_one(x),
               lambda: pk.add_one_plain(x), lambda: x + 1.0, x.numel(),
               2 * _nbytes(x)),
-             ("times_two", "(4,256,128), 4 blocks", "float32",
+             ("times_two", "(4,256,128), grid (16, 4)", "float32",
               lambda: pk.times_two(x3), lambda: pk.times_two_plain(x3),
               lambda: x3 * 2.0, x3.numel(), 2 * _nbytes(x3)),
              ("dot_bf16", "(128,128) x (128,128)", "bfloat16",
@@ -1128,10 +1196,12 @@ def check_probe_kernels(dev, card: str):
               f"{name} {label}: kernel and plain differ")
         err = (out.float() - ref.float()).abs().max().item()
         ms, plain_ms, lib_ms = time_ms(kern), time_ms(plain), time_ms(library)
+        dev_ms = device_ms(kern, ["probe_"])
         b_ms, b_by = bound(flops, nbytes, dname)
         print(f"[kernel] {name} {label} {dname}: exactly the plain version; "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-              f"{lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})  [{card}]")
+              f"kernel {ms:.4f} ms (device {dev_ms:.4f} ms), plain "
+              f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+              f"{b_ms:.6f} ms ({b_by})  [{card}]")
         records.append({"name": name, "label": label, "dtype": dname,
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                         "library_ms": lib_ms, "bound_ms": b_ms,
@@ -1713,6 +1783,287 @@ def check_pretraining(dev, card: str, tmp: str, prev_path: str):
     return launches
 
 
+
+def _amplified(variables: dict) -> dict:
+    """``variables`` with every kernel x E2E_AMPLIFY (the other leaves as
+    they are)."""
+    return {"params": {layer: {k: t * E2E_AMPLIFY if k == "kernel" else t
+                               for k, t in leaves.items()}
+                       for layer, leaves in variables["params"].items()},
+            "state": variables["state"]}
+
+
+def e2e_inputs(dev):
+    """Phase 8's inputs: phase 4's G3 and R (the same seed), their variable
+    trees on the card and a second pair's (every kernel x E2E_AMPLIFY:
+    phase 4's random G draws nearly the same face from every latent, so
+    the top-k of its embeddings are near ties, which the amplified pair's
+    are less), and E2E_N normal latents. Returns (G, R, gv, rv, gv2, rv2,
+    z)."""
+    import torch
+    from ganreverser_tpu_torch.core.prng import noise_inputs
+    from ganreverser_tpu_torch.models import bridge
+    G, R, _ = make_models(dev)
+    gv, rv = bridge.module_variables(G), bridge.module_variables(R)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    z = noise_inputs(gen, E2E_N, NOISE_DIM, "normal", device=dev)
+    return G, R, gv, rv, _amplified(gv), _amplified(rv), z
+
+
+def wall_s(fn, reps: int) -> list:
+    """Host seconds of ``reps`` calls of ``fn``, each ended by a
+    synchronisation (a program's time as its caller sees it)."""
+    import torch
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times
+
+
+def first_call(fn):
+    """(result, seconds, peak bytes) of a first call of a captured program
+    (warm-up, capture, replay): the peak is the device memory allocated
+    beyond what was allocated before it."""
+    import torch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() - base)
+
+
+def cosine_scores_f64(rows, idx):
+    """(Q, N) cosine scores of rows ``idx`` against every row, in f64."""
+    e = rows.double()
+    e = e / e.norm(dim=1, keepdim=True).clamp_min(1e-8)
+    return e.index_select(0, idx) @ e.T
+
+
+def topk_against_plain(rows, v, i, k: int, tol: float, f64: bool = False,
+                       chunk: int = 1024):
+    """The top-k (``v``, ``i``) of every row of ``rows`` against the plain
+    search on the same rows (``cosine_scores_plain``, or with ``f64`` the
+    scores in f64, + ``torch.topk``).
+    Returns (the largest difference of the values, the largest difference
+    between a returned value and the plain score of the row it names, the
+    rows whose index set differs though the plain k-th score exceeds the
+    (k+1)-th by more than ``tol``, the rows so separated): within ``tol``
+    the first two say that the indices are a top-k of the plain scores up
+    to ties, the third that where there is no tie they are its top-k."""
+    import torch
+    from ganreverser_tpu_torch.ops.topk_kernel import cosine_scores_plain
+    n = rows.shape[0]
+    err, named, bad, separated = 0.0, 0.0, 0, 0
+    for s in range(0, n, chunk):
+        idx = torch.arange(s, min(s + chunk, n), device=rows.device)
+        scores = (cosine_scores_f64 if f64 else cosine_scores_plain)(rows,
+                                                                     idx)
+        rv, ri = torch.topk(scores, k + 1, dim=1)
+        vc, ic = v[s:s + chunk], i[s:s + chunk]
+        err = max(err, (vc - rv[:, :k]).abs().max().item())
+        named = max(named, (scores.gather(1, ic) - vc).abs().max().item())
+        sep = (rv[:, k - 1] - rv[:, k]) > tol
+        differ = (torch.sort(ic, 1).values
+                  != torch.sort(ri[:, :k], 1).values).any(1)
+        bad += int((differ & sep).sum())
+        separated += int(sep.sum())
+    return err, named, bad, separated
+
+
+def check_topk(what: str, rows, v, i, k: int, tol: float,
+               f64: bool = False, separated_rows: bool = False) -> str:
+    """:func:`topk_against_plain` within ``tol``, or fail; its line. With
+    ``separated_rows`` it also fails when no row is so separated, so that
+    the index check has rows to compare."""
+    err, named, bad, separated = topk_against_plain(rows, v, i, k, tol, f64)
+    check(err <= tol and named <= tol and bad == 0, f"e2e {what}: top-k vs "
+          f"the plain search: values {err}, named rows' scores {named}, "
+          f"{bad} separated rows with other indices (tol {tol})")
+    check(separated > 0 or not separated_rows, f"e2e {what}: no row's k-th "
+          f"score leads its (k+1)-th by more than {tol}, so no index set was "
+          "compared")
+    return (f"{what}: top-k values vs the plain search"
+            f"{' in f64' if f64 else ''} max_abs_err "
+            f"{err:.3e}, the named rows' plain scores {named:.3e} (tol "
+            f"{tol:.0e}), index sets equal on all {separated} of "
+            f"{rows.shape[0]} rows whose k-th score leads the (k+1)-th by "
+            f"more than the tol")
+
+
+def check_e2e(dev, card: str):
+    """Phase 8: the fused generate -> invert -> top-k program at full width
+    (see the module docstring). Returns the launches of its first call."""
+    import torch
+    from ganreverser_tpu_torch.analysis import e2e
+    from ganreverser_tpu_torch.analysis.similarity import normalize_rows
+    from ganreverser_tpu_torch.ops import (conv_block_kernel, topk_kernel,
+                                           upsample_conv_kernel)
+    uc = upsample_conv_kernel
+    counters = {"upsample2_conv3x3_bn_act": uc.upsample2_conv3x3_bn_act,
+                "upsample2_conv3x3_head": uc.upsample2_conv3x3_head,
+                "conv_block": conv_block_kernel.conv_block,
+                "cosine_scores": topk_kernel.cosine_scores}
+    G, R, gv, rv, gv2, rv2, z = e2e_inputs(dev)
+    n, head = E2E_N, e2e.FUSED_HEAD
+
+    def program(batch=E2E_BATCHES[0], fused_head=head, pixel_k=0,
+                capture=True):
+        return e2e.make_e2e_program(
+            G, R, batch_size=batch, k=E2E_K, needle_chunk=E2E_CHUNK,
+            pixel_k=pixel_k, capture=capture,
+            **e2e.fast_legs(DIMS, NOISE_DIM, "normal", fused_head=fused_head))
+
+    def rate(times):
+        return n / statistics.median(times)
+
+    # the fused graph as a caller drives it: its first call, counted
+    fused = program()
+    for fn in counters.values():
+        fn.launches = 0
+    (emb, v, i), first_s, peak_fused = first_call(lambda: fused(gv, rv, z))
+    launches = {name: fn.launches for name, fn in counters.items()}
+    for name in ("conv_block", "cosine_scores", "upsample2_conv3x3_bn_act",
+                 *(("upsample2_conv3x3_head",) if head else ())):
+        check(launches[name] > 0, f"e2e: kernel {name} launched no time in "
+              "the fused program's first call")
+    before = dict(launches)
+    out = fused(gv, rv, z)
+    torch.cuda.synchronize()
+    per_replay = {name: fn.launches - before[name]
+                  for name, fn in counters.items()}
+    chunks = -(-n // E2E_BATCHES[0])
+    expected = {"upsample2_conv3x3_bn_act": chunks if head else 2 * chunks,
+                "upsample2_conv3x3_head": chunks if head else 0,
+                "conv_block": 6 * chunks,
+                "cosine_scores": -(-n // E2E_CHUNK)}
+    check(per_replay == expected, f"e2e: launches per replay {per_replay}, "
+          f"expected {expected}")
+    # the counts above are the capture's, added again at each replay: the
+    # kernels one replay ran on the device, from a trace
+    traced = device_counts(lambda: fused(gv, rv, z), E2E_DEVICE_KERNELS)
+    check(traced == expected, f"e2e: device kernels of one traced replay "
+          f"{traced}, expected {expected}")
+    check(all(torch.equal(a, b) for a, b in zip(out, (emb, v, i))),
+          "e2e: a second replay differs from the first")
+    check(tuple(emb.shape) == (n, NOISE_DIM) and bool(
+        torch.isfinite(emb).all()), f"e2e: embeddings {tuple(emb.shape)} "
+          "or non-finite")
+    topk_line = check_topk("attributes", emb, v, i, E2E_K, TOL_TOPK)
+    t_graph = wall_s(lambda: fused(gv, rv, z), E2E_TIMES)
+
+    # a replay against the eager program, and a call with other weights
+    eager = program(capture=False)
+    check(all(torch.equal(a, b) for a, b in zip(eager(gv, rv, z), out)),
+          "e2e: the graph's replay differs from the eager program")
+    t_eager = wall_s(lambda: eager(gv, rv, z), 3)
+    other = fused(gv2, rv2, z)
+    check(not torch.equal(other[0], emb) and all(
+        torch.equal(a, b) for a, b in zip(other, eager(gv2, rv2, z))),
+        "e2e: a call with other weights did not give their result")
+    topk_line2 = check_topk(f"G's and R's kernels x{E2E_AMPLIFY:g}", *other,
+                            E2E_K, TOL_TOPK, separated_rows=True)
+    check(torch.equal(fused(gv, rv, z)[0], emb),
+          "e2e: the first weights again did not give the first result")
+    del eager, other, out
+
+    # the serial programs on the same legs
+    generate, invert, search = e2e.make_serial_programs(
+        G, R, batch_size=E2E_BATCHES[0], k=E2E_K, needle_chunk=E2E_CHUNK,
+        **e2e.fast_legs(DIMS, NOISE_DIM, "normal", fused_head=head))
+
+    def serial():
+        images = generate(gv, z)
+        s_emb = invert(rv, images)
+        return images, s_emb, search(s_emb)
+
+    (images, s_emb, (sv, si)), _, peak_serial = first_call(serial)
+    check(torch.equal(s_emb, emb) and torch.equal(sv, v)
+          and torch.equal(si, i), "e2e: the serial programs differ from the "
+          "fused program")
+    t_serial = [statistics.median(wall_s(fn, 3)) for fn in (
+        lambda: generate(gv, z), lambda: invert(rv, images),
+        lambda: search(s_emb))]
+    del invert, search, s_emb, sv, si
+    print(f"[e2e] fused program N={n} bf16 batch {E2E_BATCHES[0]} k={E2E_K}"
+          f" chunk {E2E_CHUNK}, fast G {'with' if head else 'without'} U's "
+          f"fused head: graph {rate(t_graph):.1f} img/s (median of "
+          f"{E2E_TIMES}: {statistics.median(t_graph):.4f} s; first call, "
+          f"warm-up + capture + replay, {first_s:.2f} s), eager program "
+          f"{rate(t_eager):.1f} img/s ({statistics.median(t_eager):.4f} s), "
+          f"serial graphs {n / sum(t_serial):.1f} img/s (generate "
+          f"{t_serial[0]:.4f} + invert {t_serial[1]:.4f} + search "
+          f"{t_serial[2]:.4f} s)  [{card}]")
+    print(f"[e2e] peak device memory of a first call: fused "
+          f"{peak_fused / 2 ** 30:.3f} GiB, serial (the three programs) "
+          f"{peak_serial / 2 ** 30:.3f} GiB, the image tensor "
+          f"{images.numel() * images.element_size() / 2 ** 30:.3f} GiB  "
+          f"[{card}]")
+    print(f"[e2e] checks: replays bitwise equal, bitwise the eager program "
+          f"and the serial programs; other weights give their own result; "
+          f"{topk_line}; {topk_line2}; launches per replay {per_replay}, "
+          f"the same kernels in a traced replay  [{card}]")
+
+    # the pixel leg: its top-k against the plain search on the same images
+    pix = program(pixel_k=E2E_PIXEL_K)
+    p_out = pix(gv, rv, z)
+    check(torch.equal(p_out[0], emb), "e2e: the pixel program's embeddings "
+          "differ")
+    # kernel C's scores at D = 12,288 against the exact scores: the plain
+    # f32 search's own sums of 12,288 products lie up to about 1e-4 from
+    # them, C's (a slice at most MAX_SLICE_CHUNKS deep) within 1e-5
+    p_line = check_topk("pixels", images.reshape(n, -1), p_out[3], p_out[4],
+                        E2E_PIXEL_K, TOL_TOPK, f64=True)
+    t_pix = wall_s(lambda: pix(gv, rv, z), 3)
+    # the amplified pair's images are far enough apart that rows are
+    # separated, so that the pixel leg's indices are held to the f64 search
+    p_out = pix(gv2, rv2, z)
+    p_line2 = check_topk(f"pixels, G's and R's kernels x{E2E_AMPLIFY:g}",
+                         generate(gv2, z).reshape(n, -1), p_out[3], p_out[4],
+                         E2E_PIXEL_K, TOL_TOPK, f64=True, separated_rows=True)
+    del pix, p_out, generate
+    torch.cuda.empty_cache()
+    print(f"[e2e] with the pixel measure (pixel_k={E2E_PIXEL_K}): graph "
+          f"{rate(t_pix):.1f} img/s ({statistics.median(t_pix):.4f} s); "
+          f"{p_line}; {p_line2}  [{card}]")
+
+    # the other fast G, and batch 256
+    for label, prog in ((f"fast G {'without' if head else 'with'} U's "
+                         f"fused head", program(fused_head=not head)),
+                        (f"batch {E2E_BATCHES[1]}",
+                         program(batch=E2E_BATCHES[1]))):
+        o = prog(gv, rv, z)
+        check(bool(torch.isfinite(o[0]).all()), f"e2e {label}: non-finite")
+        diff = (o[0].float() - emb.float()).abs().max().item()
+        t = wall_s(lambda: prog(gv, rv, z), 3)
+        print(f"[e2e] {label}: graph {rate(t):.1f} img/s "
+              f"({statistics.median(t):.4f} s; embeddings max_abs_err vs "
+              f"the program above {diff:.3e})  [{card}]")
+        del prog, o
+        torch.cuda.empty_cache()
+
+    # kernel C's search against one plain product of normalised rows
+    for label, rows, k in (("attributes", emb, E2E_K),
+                           ("pixels", images.reshape(n, -1), E2E_PIXEL_K)):
+        def library(rows=rows, k=k):  # JAX's topk_all: normalise, then
+            normed = normalize_rows(rows)  # one product per needle chunk
+            return e2e.chunked_topk_search(normed, normed, k, E2E_CHUNK)
+        ms = time_ms(lambda: e2e.topk_all(rows, k, E2E_CHUNK), reps=5)
+        lib_ms = time_ms(library, reps=5)
+        print(f"[e2e] search {label} ({n},{rows.shape[1]}) bf16, k={k}, "
+              f"needle chunk {E2E_CHUNK}: kernel C + torch.topk {ms:.4f} ms,"
+              f" torch.matmul of normalised rows + torch.topk {lib_ms:.4f} "
+              f"ms (eager calls, CUDA events, median of 5)  [{card}]")
+    del fused, images
+    torch.cuda.empty_cache()
+    return launches
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1848,9 +2199,13 @@ def main() -> int:
     print(f"[gan] f32 batch pair (b64, sgd), TF32 flags on vs off: G and D "
           f"parameters within {err:.3e} of scale (tol {TOL_PIN:.0e})  "
           f"[{card}]")
-    print(f"[time] phases 6 and 7 {time.perf_counter() - t6:.1f} s (7: "
-          f"{secs7:.1f} s), the whole run {time.perf_counter() - t_start:.1f}"
-          f" s  [{card}]")
+    # 8. the fused generate -> invert -> top-k program at full width
+    t8 = time.perf_counter()
+    for name, count in check_e2e(dev, card).items():
+        launches[name] += count
+    print(f"[time] phases 6 and 7 {t8 - t6:.1f} s (7: {secs7:.1f} s), phase "
+          f"8 {time.perf_counter() - t8:.1f} s, the whole run "
+          f"{time.perf_counter() - t_start:.1f} s  [{card}]")
 
     sources = {"conv_block": ("ganreverser_tpu_torch/csrc/conv_block.cu",
                               "ganreverser_tpu/ops/conv_block_kernel.py:86"),
@@ -1883,9 +2238,11 @@ def main() -> int:
     for name, (source, replaces) in sources.items():
         # the main path's dtype (bf16; kmeans and two probes run in f32),
         # summed over the path's shapes (the head's C = 3 row: G_prev is
-        # rgb); B5's launches are those of the three train_r runs, B6's
-        # those of the two train runs and the sample run, the head's those
-        # of the two pretrain_prev runs, B7-B9's those of their probes
+        # rgb); B, U and C's launches are apply_r's and the fused e2e
+        # program's first call's (phases 4 and 8), B5's those of the three
+        # train_r runs, B6's those of the two train runs and the sample run,
+        # the head's those of the two pretrain_prev runs and the e2e
+        # program's, B7-B9's those of their probes
         recs = [r for r in records if r["name"] == name and r["dtype"] == (
             "float32" if name in f32_lines else "bfloat16")
             and r.get("on_path", True)]

@@ -1,0 +1,227 @@
+"""The composed generate→invert→top-k pipeline as one program, the
+counterpart of ganreverser_tpu/analysis/e2e.py.
+
+The reference runs apply_r's main loop on the host: createImages
+(apply_r.lua:143-147), forwardBatched through R (apply_r.lua:150-153), then
+the needle-by-needle cosine search (apply_r.lua:265-318). Here:
+
+* the G→R leg is one chunk loop in which each chunk's images feed R at
+  once, so the full (N, H, W, C) image tensor is never stored;
+* the similarity search takes every generated face as a needle, in
+  needle chunks over the embeddings, each chunk one launch of kernel C
+  (ops/topk_kernel.py, row-normalisation and scores) and ``torch.topk``;
+* ``pixel_k > 0`` adds the reference's second measure, cosine over the
+  flattened pixels (apply_r.lua:307-314): the chunk loop also keeps each
+  chunk's flat images in the compute dtype, and the same search ranks
+  them, kernel C normalising the rows (JAX keeps an f32 normalised copy
+  instead; the function is the same);
+* on CUDA tensors the whole program (prepare the weights, the chunk loop,
+  both searches) is one CUDA graph, captured at the first call and
+  replayed after (analysis/graphs.py), the analogue of JAX's one jitted
+  program.
+
+``make_serial_programs`` builds the unfused three programs (generate-all,
+invert-all, search-all), each captured the same way, so that what the
+fusion buys is measured against graphs, not against eager code.
+
+G and R are the port's modules (models/zoo.py); with no ``g_apply`` or
+``r_apply`` the module runs in evaluation on the variables it is given
+(JAX's ``G.apply(variables, x, train=False)``). The fast forwards of
+models/fastpath.py (kernels U and B) are the overrides the card runs; a
+:class:`~..models.fastpath.FastForward` is prepared once per call,
+outside the chunk loop. Only the exact selection is ported: ``approx=True``
+raises (ROADMAP.md, queue A item 6). ``make_distributed_e2e_program`` is
+not ported (queue A item 8).
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..models.fastpath import (FastForward, make_fast_generator,
+                               make_fast_inverter)
+from ..ops import topk_kernel
+from .batched import forward_batched
+from .graphs import CapturedProgram
+from .similarity import refuse_approx, scores_against
+
+
+# the fast G the fused program runs: U's fused head on G3's second stage,
+# or U and a plain head (the JAX fast G's layout), chosen by chip_smoke.py's
+# phase 8 on the card (PERF.md)
+FUSED_HEAD = True
+
+
+def fast_legs(dims: tuple, noise_dim: int, noise_method: str,
+              dtype: torch.dtype = torch.bfloat16,
+              fused_head: bool = FUSED_HEAD) -> dict:
+    """``{"g_apply", "r_apply"}``: the fast G (kernel U, and U's fused head
+    with ``fused_head``) and the fast R (kernel B) of models/fastpath.py,
+    the legs the card runs in :func:`make_e2e_program` and
+    :func:`make_serial_programs`."""
+    return {"g_apply": make_fast_generator(dims, noise_dim, dtype,
+                                           fused_head),
+            "r_apply": make_fast_inverter(dims, noise_dim, noise_method,
+                                          dtype)}
+
+
+def chunked_topk_search(queries_normed: torch.Tensor,
+                        corpus_normed: torch.Tensor, k: int,
+                        needle_chunk: int = 256, approx: bool = False):
+    """Top-k corpus rows per query, the queries streamed in chunks of
+    ``needle_chunk``; both operands row-normalised. Each chunk is one plain
+    product (JAX's ``jnp.dot``, f32 sums) and ``torch.topk``, so the (Q, N)
+    score matrix is never whole. Returns (values (Q, k), indices (Q, k))."""
+    refuse_approx(approx)
+    q = queries_normed.shape[0]
+    pad = -(-q // needle_chunk) * needle_chunk - q
+    # zero-row padding, not a repeat of the first rows, which would
+    # under-pad a query set smaller than half a chunk
+    qq = F.pad(queries_normed, (0, 0, 0, pad)) if pad else queries_normed
+    vs, ids = [], []
+    for qc in qq.split(needle_chunk):
+        v, i = torch.topk(scores_against(qc, corpus_normed), k, dim=1)
+        vs.append(v)
+        ids.append(i)
+    return torch.cat(vs)[:q], torch.cat(ids)[:q]
+
+
+def topk_all(embeddings: torch.Tensor, k: int, needle_chunk: int = 256,
+             approx: bool = False):
+    """Top-k most similar rows for every row, in chunks of needles: each
+    chunk is one call of kernel C with the chunk's rows as needles
+    (``needle_idx = arange(s, s + chunk)``) on the un-normalised corpus,
+    then ``torch.topk``; the last chunk is shorter. The corpus is padded
+    for the kernel once per search (``topk_kernel.padded_corpus``)."""
+    refuse_approx(approx)
+    n = embeddings.shape[0]
+    corpus = topk_kernel.padded_corpus(embeddings)
+    rows = torch.arange(n, device=embeddings.device)
+    vs, ids = [], []
+    for s in range(0, n, needle_chunk):
+        v, i = torch.topk(topk_kernel.cosine_scores(
+            corpus, rows[s:s + needle_chunk]), k, dim=1)
+        vs.append(v)
+        ids.append(i)
+    return torch.cat(vs), torch.cat(ids)
+
+
+def _flat_variables(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for name, v in tree.items():
+        key = f"{prefix}{name}"
+        if isinstance(v, dict):
+            out.update(_flat_variables(v, key + "."))
+        else:
+            out[key] = v
+    return out
+
+
+def _module_apply(model: nn.Module) -> FastForward:
+    """``(variables, x) -> y``: ``model`` in evaluation on the variables it
+    is given (a ``{"params", "state"}`` tree), JAX's
+    ``model.apply(variables, x, train=False)[0]``. Puts ``model`` in
+    evaluation."""
+    model.eval()
+
+    def prepare(variables):
+        return {**_flat_variables(variables["params"]),
+                **_flat_variables(variables["state"])}
+
+    def run(flat, x):
+        return torch.func.functional_call(model, flat, (x,))
+
+    return FastForward(prepare, run)
+
+
+def _as_forward(apply: Optional[Callable], model: nn.Module) -> FastForward:
+    """``apply`` as a prepare/run pair: a FastForward as it is, any other
+    ``(variables, x)`` callable with nothing to prepare, None the module."""
+    if apply is None:
+        return _module_apply(model)
+    if isinstance(apply, FastForward):
+        return apply
+    return FastForward(lambda variables: variables, apply)
+
+
+def _g_then_r_fn(g: FastForward, r: FastForward, pixels: bool):
+    """The per-chunk fused leg on prepared weights: z chunk -> R embedding,
+    and with ``pixels`` also the chunk's flat images."""
+
+    def g_then_r(g_prepared, r_prepared, zc):
+        images = g.run(g_prepared, zc)
+        emb = r.run(r_prepared, images)
+        if pixels:
+            return emb, images.reshape(images.shape[0], -1)
+        return emb
+
+    return g_then_r
+
+
+def make_e2e_program(G: nn.Module, R: nn.Module, *, batch_size: int = 128,
+                     k: int = 100, needle_chunk: int = 256,
+                     g_apply: Optional[Callable] = None,
+                     r_apply: Optional[Callable] = None,
+                     approx: bool = False, pixel_k: int = 0,
+                     capture: bool = True) -> CapturedProgram:
+    """``run(g_variables, r_variables, z) -> (emb, v, i)``, or ``(emb, v,
+    i, pv, pi)`` with ``pixel_k > 0``: chunks of ``batch_size`` latents
+    through G then R, then the top-``k`` rows by cosine of every embedding
+    (and the top-``pixel_k`` by cosine of the flat images), as in
+    apply_r.lua:143-153 + 265-318 with every face a needle.
+
+    ``g_apply(g_variables, z_chunk) -> images`` and ``r_apply(r_variables,
+    images) -> embeddings`` override the module legs, e.g. the fast
+    forwards of models/fastpath.py on the same variable trees; a
+    ``FastForward`` is prepared once per call. On CUDA tensors ``run`` is
+    one CUDA graph per (N, dtype) of its inputs (analysis/graphs.py);
+    ``capture=False`` runs it eagerly, to time the graph against it."""
+    refuse_approx(approx)
+    g, r = _as_forward(g_apply, G), _as_forward(r_apply, R)
+    g_then_r = _g_then_r_fn(g, r, pixel_k > 0)
+
+    def program(g_variables, r_variables, z):
+        g_prepared, r_prepared = g.prepare(g_variables), r.prepare(
+            r_variables)
+        out = forward_batched(
+            lambda zc: g_then_r(g_prepared, r_prepared, zc), z, batch_size)
+        if pixel_k > 0:
+            emb, flat = out
+            v, i = topk_all(emb, k, needle_chunk)
+            pv, pi = topk_all(flat, pixel_k, needle_chunk)
+            return emb, v, i, pv, pi
+        v, i = topk_all(out, k, needle_chunk)
+        return out, v, i
+
+    return CapturedProgram(program, capture=capture)
+
+
+def make_serial_programs(G: nn.Module, R: nn.Module, *,
+                         batch_size: int = 128, k: int = 100,
+                         needle_chunk: int = 256,
+                         g_apply: Optional[Callable] = None,
+                         r_apply: Optional[Callable] = None):
+    """The unfused pipeline as three programs, ``generate(g_variables, z)
+    -> images``, ``invert(r_variables, images) -> emb`` and ``search(emb)
+    -> (v, i)``, to measure what the fusion of :func:`make_e2e_program`
+    buys. The legs and their overrides are the fused program's, so the
+    two give the same embeddings on the same chunk boundaries; each
+    program is captured the same way."""
+    g, r = _as_forward(g_apply, G), _as_forward(r_apply, R)
+
+    def generate(g_variables, z):
+        prepared = g.prepare(g_variables)
+        return forward_batched(lambda b: g.run(prepared, b), z, batch_size)
+
+    def invert(r_variables, images):
+        prepared = r.prepare(r_variables)
+        return forward_batched(lambda b: r.run(prepared, b), images,
+                               batch_size)
+
+    def search(emb):
+        return topk_all(emb, k, needle_chunk)
+
+    return tuple(CapturedProgram(fn) for fn in (generate, invert, search))

@@ -6,13 +6,18 @@ ganreverser_tpu/analysis/similarity.py (exact selection only).
 CPU its plain version runs. ``normalize_rows`` and ``cosine_scores`` are the
 plain composition with the torch nn.CosineDistance clamp of the norm at
 1e-8; the kernel clamps the squared norm at 1e-16, which differs only on
-degenerate rows.
+degenerate rows. :class:`SimilarityIndex` keeps a corpus normalised once
+for repeated queries.
+
+Approximate selection (JAX's ``approx=True``, ``jax.lax.approx_max_k``) is
+not ported: asking for it raises (ROADMAP.md, queue A item 6).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..core.precision import pinned_precision
 from ..ops import topk_kernel
 
 _EPS = 1e-8
@@ -51,3 +56,51 @@ def topk_recall(exact_idx, test_idx) -> float:
     test_idx = np.asarray(test_idx)
     hits = sum(len(np.intersect1d(e, t)) for e, t in zip(exact_idx, test_idx))
     return hits / exact_idx.size
+
+
+def refuse_approx(approx: bool) -> None:
+    """Raise for ``approx=True``: the port selects exactly only."""
+    if approx:
+        raise NotImplementedError(
+            "approximate top-k selection is not ported yet (ROADMAP.md, "
+            "queue A item 6); the exact selection is the default")
+
+
+def scores_against(queries: torch.Tensor, corpus: torch.Tensor):
+    """(Q, N) f32 products of rows already normalised, f32 sums at the
+    precision pinned for the operands' dtype (core/precision.py): the
+    plain ``jnp.dot(..., preferred_element_type=f32)`` of the JAX search,
+    outside any kernel."""
+    with pinned_precision(queries.dtype):
+        return queries.float() @ corpus.float().T
+
+
+class SimilarityIndex:
+    """Cosine search over a corpus normalised once and kept on its device
+    (JAX ``similarity.py:119-147``), for repeated queries: ``cosine_topk``
+    normalises the whole corpus on every call.
+
+    ``topk_by_index`` scores corpus rows (the apply_r pattern,
+    apply_r.lua:270-276) through kernel C on the stored rows;
+    ``topk`` scores free query vectors, normalised here, with one plain
+    product against the stored rows (the JAX index's ``jnp.dot``)."""
+
+    def __init__(self, embeddings: torch.Tensor):
+        self._normed = normalize_rows(embeddings)
+
+    @property
+    def size(self) -> int:
+        return self._normed.shape[0]
+
+    def topk(self, queries: torch.Tensor, k: int, *, approx: bool = False):
+        """(Q, D) query vectors -> (scores (Q, k), indices (Q, k))."""
+        refuse_approx(approx)
+        return torch.topk(scores_against(normalize_rows(queries),
+                                         self._normed), k, dim=1)
+
+    def topk_by_index(self, needle_idx: torch.Tensor, k: int, *,
+                      approx: bool = False):
+        """(Q,) corpus rows as needles -> (scores (Q, k), indices (Q, k))."""
+        refuse_approx(approx)
+        return torch.topk(topk_kernel.cosine_scores(self._normed,
+                                                    needle_idx), k, dim=1)

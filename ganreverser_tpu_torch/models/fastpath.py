@@ -4,8 +4,11 @@ and ``make_fast_inverter``, and of D2's ``D.apply(v, x, train=False)``.
 
 They consume the standard variable trees of create_G3 / create_R_default
 (``{"params", "state"}``, here as tensors on the compute device; see
-``models/bridge.to_torch``), fold each BatchNorm into a per-channel f32
-scale/shift on every call, and run:
+``models/bridge.to_torch``). G and R are :class:`FastForward` objects: a
+``prepare`` step folds each BatchNorm into a per-channel f32 scale/shift,
+rounds the weights to the compute dtype and lays them out for the
+kernels, and ``run`` is the forward on those operands; a call does both.
+They run:
 
   G: z -> Dense(+BN folded)+ReLU                      [torch.matmul]
        -> upsample2+conv3x3+BN+ReLU (512->256)       [kernel U]
@@ -39,10 +42,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..core.precision import pinned_precision
 from ..ops.conv_block_kernel import conv_block
-from ..ops.conv_kernel import conv3x3_bn_act, fold_batchnorm
+from ..ops.conv_kernel import conv3x3_bn_act, conv3x3_operand, fold_batchnorm
 from ..ops.upsample_conv import conv_nhwc
-from ..ops.upsample_conv_kernel import upsample2_conv3x3_bn_act
+from ..ops.upsample_conv_kernel import (head_operand, phase_operand,
+                                        upsample2_conv3x3_bn_act)
 from .modules import apply_dropout, dense, dropout_keep_mask
 
 Dims = tuple  # (C, H, W)
@@ -50,84 +55,139 @@ Dims = tuple  # (C, H, W)
 FIXER_DROPOUT = 0.5  # the fixer-R's input dropout rate (models.lua:399-406)
 
 
+class FastForward:
+    """A fast forward in two steps: ``prepare(variables)`` folds each
+    BatchNorm into an f32 scale/shift, rounds the weights to the compute
+    dtype and lays them out as the kernels read them, once;
+    ``run(prepared, x)`` is the forward on those operands. Calling it,
+    ``f(variables, x)``, does both, so a caller that runs the same weights
+    over many chunks prepares once and runs per chunk (analysis/e2e.py)."""
+
+    def __init__(self, prepare, run):
+        self.prepare = prepare
+        self.run = run
+
+    def __call__(self, variables, x):
+        return self.run(self.prepare(variables), x)
+
+
+def _rounded(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` rounded to ``dtype`` and held in f32: what ``modules.dense``
+    makes of a kernel on every call, made once."""
+    return t.to(dtype).float()
+
+
+def _dense(x: torch.Tensor, k: torch.Tensor, dtype: torch.dtype):
+    """``modules.dense`` on a kernel already :func:`_rounded`: bitwise the
+    same result without widening the kernel again on every chunk (on an
+    H100, widening R's (32,768 x 512) kernel per chunk cost the fused e2e
+    program about 4 % of its img/s; PERF.md)."""
+    with pinned_precision(dtype):
+        return x.to(dtype).float() @ k
+
+
 def make_fast_generator(dims: Dims, noise_dim: int,
                         dtype: torch.dtype = torch.bfloat16,
-                        fused_head: bool = False):
-    """Returns ``generate(g_variables, z) -> images`` equal to
-    ``create_G3(...)`` in evaluation on the same weights; images are NHWC
-    in ``dtype``. ``fused_head=True`` runs the second upsample stage and
-    the 128->C conv + sigmoid as one launch of U's fused head, with the
-    same rounding points (stage 2's output rounded to ``dtype``, f32 sums of
-    the head); False, the JAX fast G's choice, leaves the head to a plain
-    convolution."""
+                        fused_head: bool = False) -> FastForward:
+    """Returns ``generate(g_variables, z) -> images`` (a
+    :class:`FastForward`) equal to ``create_G3(...)`` in evaluation on the
+    same weights; images are NHWC in ``dtype``. ``fused_head=True`` runs
+    the second upsample stage and the 128->C conv + sigmoid as one launch
+    of U's fused head, with the same rounding points (stage 2's output
+    rounded to ``dtype``, f32 sums of the head); False, the JAX fast G's
+    choice, leaves the head to a plain convolution."""
     c, h, w = dims
     sh, sw = h // 4, w // 4
 
-    def generate(variables, z):
+    def prepare(variables):
         p, s = variables["params"], variables["state"]
-
-        # Dense + folded BN + ReLU (models.lua:115-117)
+        # the kernels' layouts where they launch; the plain versions on the
+        # CPU read the HWIO kernels
+        on_card = p["l0"]["kernel"].is_cuda
         scale0, shift0 = fold_batchnorm(p["l1"], s["l1"], p["l0"]["bias"])
-        k0 = p["l0"]["kernel"].float() * scale0[None, :]
-        y = torch.clamp_min(dense(z, k0, dtype) + shift0, 0.0).to(dtype)
-        x = y.reshape(z.shape[0], sh, sw, 512)
+        stages = []
+        for i, (conv, bn) in enumerate((("l5", "l6"), ("l9", "l10"))):
+            scale, shift = fold_batchnorm(p[bn], s[bn], p[conv]["bias"])
+            k = p[conv]["kernel"].to(dtype)
+            stage = {"kernel": k, "scale": scale, "shift": shift,
+                     "operand": phase_operand(k, dtype) if on_card else None}
+            if fused_head and i == 1:
+                fk = p["l12"]["kernel"]
+                stage.update(final_kernel=fk, final_bias=p["l12"]["bias"],
+                             final_act="sigmoid", final_operand=head_operand(
+                                 fk, dtype, 2 * sh, 2 * sw, k.shape[2])
+                             if on_card else None)
+            stages.append(stage)
+        return {"k0": _rounded(p["l0"]["kernel"].float() * scale0[None, :],
+                               dtype),
+                "shift0": shift0, "stages": stages,
+                "head": p["l12"]["kernel"].to(dtype),
+                "head_bias": p["l12"]["bias"]}
 
+    def run(prep, z):
+        # Dense + folded BN + ReLU (models.lua:115-117)
+        y = torch.clamp_min(_dense(z, prep["k0"], dtype) + prep["shift0"],
+                            0.0).to(dtype)
+        x = y.reshape(z.shape[0], sh, sw, 512)
         # two fused upsample+conv+BN+ReLU stages (models.lua:121-130); with
         # fused_head the second carries the output conv + sigmoid
-        for conv, bn in (("l5", "l6"), ("l9", "l10")):
-            scale, shift = fold_batchnorm(p[bn], s[bn], p[conv]["bias"])
-            head = ({"final_kernel": p["l12"]["kernel"],
-                     "final_bias": p["l12"]["bias"], "final_act": "sigmoid"}
-                    if fused_head and conv == "l9" else {})
-            x = upsample2_conv3x3_bn_act(x, p[conv]["kernel"].to(dtype),
-                                         scale, shift, act="relu", **head)
+        for stage in prep["stages"]:
+            x = upsample2_conv3x3_bn_act(x, act="relu", **stage)
         if fused_head:
             return x
-
         # final 3x3 conv + sigmoid (models.lua:132-133)
-        y = conv_nhwc(x, p["l12"]["kernel"], 1, dtype)
-        return torch.sigmoid(y + p["l12"]["bias"]).to(dtype)
+        y = conv_nhwc(x, prep["head"], 1, dtype)
+        return torch.sigmoid(y + prep["head_bias"]).to(dtype)
 
-    return generate
+    return FastForward(prepare, run)
 
 
 def make_fast_inverter(dims: Dims, noise_dim: int, noise_method: str,
-                       dtype: torch.dtype = torch.bfloat16):
-    """Returns ``invert(r_variables, images) -> z_hat`` equal to the plain
-    ``create_R_default(...)`` in evaluation on the same weights; z_hat is in
-    ``dtype``."""
+                       dtype: torch.dtype = torch.bfloat16) -> FastForward:
+    """Returns ``invert(r_variables, images) -> z_hat`` (a
+    :class:`FastForward`) equal to the plain ``create_R_default(...)`` in
+    evaluation on the same weights; z_hat is in ``dtype``."""
     if noise_method not in ("normal", "uniform"):
         raise ValueError(noise_method)
+    blocks = ((("l0", "l1"), ("l4", "l5"), ("l8", "l9")),
+              (("l13", "l14"), ("l17", "l18"), ("l21", "l22")))
 
-    def invert(variables, images):
+    def prepare(variables):
         p, s = variables["params"], variables["state"]
-
-        def block(x, layers):
-            kernels, scales, shifts = [], [], []
+        on_card = p["l0"]["kernel"].is_cuda  # as in the generator
+        prep = {"blocks": []}
+        for layers in blocks:
+            block = {"kernels": [], "scales": [], "shifts": []}
             for conv, bn in layers:
                 sc, sh_ = fold_batchnorm(p[bn], s[bn], p[conv]["bias"])
-                kernels.append(p[conv]["kernel"].to(dtype))
-                scales.append(sc)
-                shifts.append(sh_)
-            return conv_block(x, kernels, scales, shifts, act="elu",
-                              pool=True)
+                block["kernels"].append(p[conv]["kernel"].to(dtype))
+                block["scales"].append(sc)
+                block["shifts"].append(sh_)
+            block["operands"] = ([conv3x3_operand(k, dtype)
+                                  for k in block["kernels"]]
+                                 if on_card else None)
+            prep["blocks"].append(block)
+        scd, shd = fold_batchnorm(p["l28"], s["l28"], p["l27"]["bias"])
+        prep.update(kd=_rounded(p["l27"]["kernel"].float() * scd[None, :],
+                                dtype),
+                    shd=shd, k31=_rounded(p["l31"]["kernel"], dtype),
+                    b31=p["l31"]["bias"])
+        return prep
 
+    def run(prep, images):
         # two blocks of 3x [conv + BN + ELU] + maxpool2 (models.lua:409-440)
-        x = block(images.to(dtype).contiguous(),
-                  (("l0", "l1"), ("l4", "l5"), ("l8", "l9")))
-        x = block(x, (("l13", "l14"), ("l17", "l18"), ("l21", "l22")))
-
+        x = images.to(dtype).contiguous()
+        for block in prep["blocks"]:
+            x = conv_block(x, act="elu", pool=True, **block)
         # head: Dense(+BN folded)+ELU -> Dense (models.lua:446-451)
         x = x.reshape(x.shape[0], -1)
-        scd, shd = fold_batchnorm(p["l28"], s["l28"], p["l27"]["bias"])
-        kd = p["l27"]["kernel"].float() * scd[None, :]
-        y = F.elu(dense(x, kd, dtype) + shd).to(dtype)
-        z = dense(y, p["l31"]["kernel"], dtype) + p["l31"]["bias"]
+        y = F.elu(_dense(x, prep["kd"], dtype) + prep["shd"]).to(dtype)
+        z = _dense(y, prep["k31"], dtype) + prep["b31"]
         if noise_method != "normal":
             z = torch.tanh(z)  # models.lua:452-454
         return z.to(dtype)
 
-    return invert
+    return FastForward(prepare, run)
 
 
 def _unshift_layers(tree: dict) -> dict:

@@ -59,10 +59,15 @@ def conv_block_plain(x: torch.Tensor, kernels: Sequence[torch.Tensor],
 
 def conv_block(x: torch.Tensor, kernels: Sequence[torch.Tensor],
                scales: Sequence[torch.Tensor], shifts: Sequence[torch.Tensor],
-               *, act: str = "elu", pool: bool = False) -> torch.Tensor:
+               *, act: str = "elu", pool: bool = False,
+               operands: Sequence[torch.Tensor] | None = None
+               ) -> torch.Tensor:
     """x: (N,H,W,C0) NHWC; kernels[i]: (3,3,Ci,Co) HWIO; scales/shifts[i]:
     (Co,) from fold_batchnorm. Returns (N,H,W,Ck), or (N,H/2,W/2,Ck) with
-    ``pool``, in ``x.dtype``. Eval-mode only; N takes any value."""
+    ``pool``, in ``x.dtype``. Eval-mode only; N takes any value.
+    ``operands``: each kernel laid out beforehand by
+    ``conv_kernel.conv3x3_operand`` for ``x.dtype`` (the launches then
+    skip the re-layout; the plain version reads ``kernels``)."""
     if act not in _ACTS:
         raise ValueError(f"act must be one of {_ACTS}, got {act!r}")
     if not len(kernels) == len(scales) == len(shifts) or not kernels:
@@ -73,13 +78,16 @@ def conv_block(x: torch.Tensor, kernels: Sequence[torch.Tensor],
     if cuda_lib.dispatch_device(x, *kernels, *scales, *shifts) == "cpu":
         return conv_block_plain(x, kernels, scales, shifts, act=act,
                                 pool=pool)
+    if operands is None:
+        operands = [None] * len(kernels)
     y = x
-    for li, (k, sc, sh) in enumerate(zip(kernels, scales, shifts)):
+    for li, (k, sc, sh, wk) in enumerate(zip(kernels, scales, shifts,
+                                             operands)):
         y = launch_conv3x3(y, k, sc, sh, act=act,
                            pool=pool and li == len(kernels) - 1,
-                           name="conv_block")
+                           name="conv_block", operand=wk)
         conv_block.launches += 1
     return y
 
 
-conv_block.launches = 0
+cuda_lib.counted(conv_block)

@@ -96,32 +96,45 @@ def conv3x3_bn_act(x: torch.Tensor, kernel: torch.Tensor, scale: torch.Tensor,
     return out
 
 
-conv3x3_bn_act.launches = 0
+cuda_lib.counted(conv3x3_bn_act)
+
+
+def conv3x3_operand(kernel: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A (3,3,Ci,Co) HWIO kernel as :func:`launch_conv3x3` hands it to the
+    kernel in ``dtype``: bf16 the tensor-core tile's (9, Co, Ci'), padded
+    and K-major (``conv_operands.conv3x3_weights``); f32 (9, Ci, Co). A
+    caller that runs the same weights many times lays them out once."""
+    if dtype == torch.bfloat16:
+        return conv_operands.conv3x3_weights(kernel, dtype)
+    ci, co = kernel.shape[2:]
+    return kernel.to(dtype).reshape(9, ci, co).contiguous()
 
 
 def launch_conv3x3(x: torch.Tensor, kernel: torch.Tensor, scale: torch.Tensor,
                    shift: torch.Tensor, *, act: str, alpha=None,
-                   pool: bool = False, name: str) -> torch.Tensor:
+                   pool: bool = False, name: str,
+                   operand: torch.Tensor | None = None) -> torch.Tensor:
     """One launch of ``csrc/conv_block.cu``'s ``gr_conv3x3_bn_act`` on CUDA
     tensors, for kernels B and B6 (each wrapper counts its own). bf16 runs
     on the tensor-core tile with the padded, K-major operands of
     ``conv_operands`` and its ``tile_plan``; f32 on the CUDA-core tile with
     (9, Ci, Co) weights. ``alpha``: the PReLU slope, a (1,) f32 tensor on
-    the device, or None where ``act`` is not prelu."""
+    the device, or None where ``act`` is not prelu. ``operand``: the
+    weights already laid out by :func:`conv3x3_operand` (else laid out
+    here, on every call)."""
     code = cuda_lib.dtype_code(x)
     n, h, w, ci = x.shape
     co = kernel.shape[-1]
     if tuple(kernel.shape[:3]) != (3, 3, ci):
         raise ValueError(f"{name}: kernel {tuple(kernel.shape)} does not take "
                          f"the input's {ci} channels")
+    wk = conv3x3_operand(kernel, x.dtype) if operand is None else operand
     if x.dtype == torch.bfloat16:
         xk = conv_operands.pad_channels(x)
-        wk = conv_operands.conv3x3_weights(kernel, x.dtype)
         plan = conv_operands.tile_plan(h, w, ci, co)
         wshape = (9, co, xk.shape[-1])
     else:
         xk, plan = x, conv_operands.NO_PLAN
-        wk = kernel.to(x.dtype).reshape(9, ci, co).contiguous()
         wshape = (9, ci, co)
     scale = scale.float().contiguous()
     shift = shift.float().contiguous()
@@ -134,7 +147,7 @@ def launch_conv3x3(x: torch.Tensor, kernel: torch.Tensor, scale: torch.Tensor,
         cuda_lib.require(alpha, "prelu_alpha", x.device, torch.float32, (1,))
     oh, ow = (h // 2, w // 2) if pool else (h, w)
     out = torch.empty((n, oh, ow, co), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
+    with cuda_lib.on_device(x):
         rc = cuda_lib.library().gr_conv3x3_bn_act(
             code, xk.data_ptr(), wk.data_ptr(), scale.data_ptr(),
             shift.data_ptr(), None if alpha is None else alpha.data_ptr(),

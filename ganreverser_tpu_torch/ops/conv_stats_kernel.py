@@ -119,7 +119,7 @@ def conv_stats(x: torch.Tensor, kernel: torch.Tensor):
     ws = torch.empty(2 * co * nblocks, **f32)
     s = torch.empty(co, **f32)
     q = torch.empty(co, **f32)
-    with torch.cuda.device(x.device):
+    with cuda_lib.on_device(x):
         rc = cuda_lib.library().gr_conv_stats(
             code, xk.data_ptr(), wk.data_ptr(), y.data_ptr(), ws.data_ptr(),
             s.data_ptr(), q.data_ptr(), n, h, w, xk.shape[-1], co, *plan,
@@ -129,4 +129,4 @@ def conv_stats(x: torch.Tensor, kernel: torch.Tensor):
     return y, s, q
 
 
-conv_stats.launches = 0
+cuda_lib.counted(conv_stats)

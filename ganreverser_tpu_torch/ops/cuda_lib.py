@@ -10,9 +10,16 @@ importing the package.
 
 Each C entry point launches on the stream it is given, allocates nothing and
 returns ``cudaGetLastError()``; :func:`check` raises on a non-zero code.
+
+Each wrapper counts the launches of its kernel on its ``launches``
+attribute, registered by :func:`counted`. A CUDA graph runs the wrapper's
+Python once, at capture, and the kernel at every replay, so a captured
+program adds its launches per replay with :func:`add_launches`
+(``analysis/graphs.py``).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -181,6 +188,39 @@ def stream_of(t: torch.Tensor) -> int:
     if _raw_stream is not None:
         return _raw_stream(t.device.index)
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# every wrapper with a ``launches`` count, in registration order
+COUNTED: list = []
+
+
+def counted(fn):
+    """Register ``fn`` as a wrapper whose ``launches`` counts its kernel's
+    launches, starting at 0; returns ``fn``."""
+    fn.launches = 0
+    COUNTED.append(fn)
+    return fn
+
+
+def launch_counts() -> list:
+    """The ``launches`` of every registered wrapper, in :data:`COUNTED`'s
+    order."""
+    return [fn.launches for fn in COUNTED]
+
+
+def add_launches(deltas) -> None:
+    """Add ``deltas`` (one per registered wrapper, as
+    :func:`launch_counts` orders them) to the wrappers' counts."""
+    for fn, d in zip(COUNTED, deltas):
+        fn.launches += d
+
+
+def on_device(t: torch.Tensor):
+    """A context with ``t``'s device current: nothing to do where it is
+    already (the common case, which saves the switch on every launch)."""
+    if t.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)
 
 
 def dtype_code(t: torch.Tensor) -> int:

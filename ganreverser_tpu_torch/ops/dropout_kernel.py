@@ -96,11 +96,8 @@ def _launch(x: torch.Tensor, seed: torch.Tensor, rate: float) -> torch.Tensor:
     y = torch.empty_like(x)
     args = (plan.code, x.data_ptr(), y.data_ptr(), seed.data_ptr(),
             x.numel(), plan.thresh, plan.inv_keep, cuda_lib.stream_of(x))
-    if dev.index == torch.cuda.current_device():
+    with cuda_lib.on_device(x):
         rc = cuda_lib.library().gr_fused_dropout(*args)
-    else:
-        with torch.cuda.device(dev):
-            rc = cuda_lib.library().gr_fused_dropout(*args)
     cuda_lib.check(rc, "fused_dropout")
     fused_dropout.launches += 1
     return y
@@ -138,7 +135,7 @@ def fused_dropout(x: torch.Tensor, seed: torch.Tensor,
     return _FusedDropout.apply(x, seed, rate)
 
 
-fused_dropout.launches = 0
+cuda_lib.counted(fused_dropout)
 fused_dropout.copies = 0   # non-contiguous inputs copied before a launch
 
 

@@ -224,7 +224,7 @@ def _launch(x: torch.Tensor, centroids: torch.Tensor, iters: int,
     assign = torch.empty((n,), dtype=torch.int32, device=dev)
     ws_f = torch.empty((plan.ws_floats,), dtype=torch.float32, device=dev)
     ws_i = torch.empty((plan.ws_ints,), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
+    with cuda_lib.on_device(x):
         rc = cuda_lib.library().gr_kmeans_lloyd(
             x.data_ptr(), c.data_ptr(), new.data_ptr(), counts.data_ptr(),
             sums.data_ptr() if details else None, assign.data_ptr(),
@@ -253,7 +253,7 @@ def kmeans_lloyd(x: torch.Tensor, centroids: torch.Tensor, iters: int, *,
     return out
 
 
-kmeans_lloyd.launches = 0
+cuda_lib.counted(kmeans_lloyd)
 
 
 def kmeans_step(x: torch.Tensor, centroids: torch.Tensor, *,
@@ -269,4 +269,4 @@ def kmeans_step(x: torch.Tensor, centroids: torch.Tensor, *,
     return out
 
 
-kmeans_step.launches = 0
+cuda_lib.counted(kmeans_step)

@@ -3,8 +3,9 @@
 (``csrc/probes.cu``), each with its plain version:
 
 * :func:`add_one` — x + 1 over an f32 array in one block;
-* :func:`times_two` — 2 x over a (G, ...) f32 array, one block per
-  leading index;
+* :func:`times_two` — 2 x over a (G, ...) f32 array, a grid over (slice,
+  leading index) with 16-byte accesses, each block within one leading
+  index;
 * :func:`dot_bf16` — (M,K) x (K,N) bf16 -> f32 on the tensor cores
   (wmma), M, N, K multiples of 16.
 
@@ -36,7 +37,7 @@ def add_one(x: torch.Tensor) -> torch.Tensor:
         return add_one_plain(x)
     cuda_lib.require(x, "x", x.device, torch.float32, tuple(x.shape))
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
+    with cuda_lib.on_device(x):
         rc = cuda_lib.library().gr_probe_add_one(
             x.data_ptr(), y.data_ptr(), x.numel(), cuda_lib.stream_of(x))
     cuda_lib.check(rc, "add_one")
@@ -49,7 +50,7 @@ def times_two(x: torch.Tensor) -> torch.Tensor:
         return times_two_plain(x)
     cuda_lib.require(x, "x", x.device, torch.float32, tuple(x.shape))
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
+    with cuda_lib.on_device(x):
         rc = cuda_lib.library().gr_probe_times_two(
             x.data_ptr(), y.data_ptr(), x.shape[0], x[0].numel(),
             cuda_lib.stream_of(x))
@@ -68,7 +69,7 @@ def dot_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     cuda_lib.require(a, "a", a.device, torch.bfloat16, (m, k))
     cuda_lib.require(b, "b", a.device, torch.bfloat16, (k, n))
     c = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    with torch.cuda.device(a.device):
+    with cuda_lib.on_device(a):
         rc = cuda_lib.library().gr_probe_dot_bf16(
             a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
             cuda_lib.stream_of(a))
@@ -77,6 +78,6 @@ def dot_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return c
 
 
-add_one.launches = 0
-times_two.launches = 0
-dot_bf16.launches = 0
+cuda_lib.counted(add_one)
+cuda_lib.counted(times_two)
+cuda_lib.counted(dot_bf16)

@@ -36,6 +36,12 @@ _EPS = 1e-8
 BM = 128      # rows of E per block
 BK = 64       # elements of D per stage (one 128-byte swizzled row)
 SMS = 132     # streaming multiprocessors of an H100 SXM
+# the most BK chunks one slice adds up in the tensor cores' accumulators:
+# their f32 sums lose more than IEEE f32 sums over a long D (on an NVIDIA
+# H100, one slice of D = 12,288 at 256 needles put the scores 2.5e-5 to
+# 4.2e-5 from an f64 reference, three of 64 chunks 5.9e-6 to 7.6e-6, at
+# the same device time)
+MAX_SLICE_CHUNKS = 64
 
 
 class CosinePlan(NamedTuple):
@@ -54,8 +60,10 @@ def cosine_plan(n: int, d: int, q: int) -> CosinePlan:
     kernel is built for that holds Q, at most 256; more needles loop over
     grid y. The ring takes ``RING_BYTES[BNQ]`` (three blocks an SM up to
     BNQ = 64). D is split into as many slices as fill one wave of resident
-    blocks on the card's SMS SMs with the N tiles and needle groups, at
-    least one and at most one slice per BK chunk."""
+    blocks on the card's SMS SMs with the N tiles and needle groups, and
+    at least as many as keep a slice within MAX_SLICE_CHUNKS chunks (the
+    slices are added in f32 by the second launch), at most one slice per
+    BK chunk."""
     dp = -(-d // 8) * 8
     bnq = next((b for b in WIDTHS_N if q <= b), WIDTHS_N[-1])
     tiles, groups = -(-n // BM), -(-q // bnq)
@@ -63,7 +71,8 @@ def cosine_plan(n: int, d: int, q: int) -> CosinePlan:
     stage = -(-(BM * BK * 2 + bnq * BK * 2) // ALIGN) * ALIGN
     stages = max(2, min(MAX_STAGES, RING_BYTES[bnq] // stage))
     per_sm = 3 if bnq <= 64 else 1
-    slices = max(1, min(chunks, SMS * per_sm // (tiles * groups)))
+    slices = max(1, -(-chunks // MAX_SLICE_CHUNKS),
+                 min(chunks, SMS * per_sm // (tiles * groups)))
     return CosinePlan(dp, bnq, tiles, groups, slices, stages,
                       ALIGN + stages * (stage + 16))
 
@@ -120,6 +129,19 @@ def cosine_finish_plain(part_dot: torch.Tensor, part_sq: torch.Tensor,
                   * torch.sqrt(torch.clamp_min(ee, _EPS * _EPS))[None, :])
 
 
+def padded_corpus(embeddings: torch.Tensor) -> torch.Tensor:
+    """``embeddings`` as :func:`cosine_scores` hands them to the kernel:
+    a bf16 tensor on the card with its rows zero-padded to a multiple of 8
+    (the zero columns add exact zeros to every sum, and the launch plan of
+    the padded D is the unpadded one's, so the scores are bitwise the
+    same); any other tensor as it is."""
+    d = embeddings.shape[1]
+    if (embeddings.device.type != "cuda"
+            or embeddings.dtype != torch.bfloat16 or d % 8 == 0):
+        return embeddings
+    return F.pad(embeddings, (0, -(-d // 8) * 8 - d))
+
+
 def cosine_scores(embeddings: torch.Tensor,
                   needle_idx: torch.Tensor) -> torch.Tensor:
     """embeddings: (N, D) f32 or bf16; needle_idx: (Q,) int64 row indices.
@@ -147,7 +169,7 @@ def cosine_scores(embeddings: torch.Tensor,
     cuda_lib.require(needles, "needles", embeddings.device, embeddings.dtype,
                      (q, e.shape[1]))
     out = torch.empty((q, n), dtype=torch.float32, device=embeddings.device)
-    with torch.cuda.device(embeddings.device):
+    with cuda_lib.on_device(embeddings):
         rc = cuda_lib.library().gr_cosine_scores(
             code, needles.data_ptr(), e.data_ptr(), needle_idx.data_ptr(),
             None if ws is None else ws.data_ptr(), out.data_ptr(), q, n,
@@ -157,4 +179,4 @@ def cosine_scores(embeddings: torch.Tensor,
     return out
 
 
-cosine_scores.launches = 0
+cuda_lib.counted(cosine_scores)

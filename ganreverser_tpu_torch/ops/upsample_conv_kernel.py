@@ -56,6 +56,31 @@ def phase_kernels(kernel: torch.Tensor) -> torch.Tensor:
     return agg.reshape(2, 2, 2, 2, *kernel.shape[2:]).to(kernel.dtype)
 
 
+def phase_operand(kernel: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A (3,3,Ci,Co) HWIO kernel as the kernel reads it in ``dtype``: the
+    16 phase taps of :func:`phase_kernels`, bf16 K-major and padded as
+    (16, Co, Ci') (``conv_operands.kmajor``), f32 as (16, Ci, Co). A caller
+    that runs the same weights many times lays them out once."""
+    ci, co = kernel.shape[2:]
+    k16 = phase_kernels(kernel.to(dtype)).reshape(16, ci, co)
+    if dtype == torch.bfloat16:
+        return conv_operands.kmajor(k16, dtype)
+    return k16.contiguous()
+
+
+def head_operand(final_kernel: torch.Tensor, dtype: torch.dtype,
+                 h: int, w: int, ci: int) -> torch.Tensor:
+    """The fused head's (3,3,Co,Cf) weights as the kernel reads them in
+    ``dtype`` at U's input (H, W, Ci): bf16 the second product's K-major
+    tile (``conv_operands.head_weights`` for ``head_plan``'s BN), f32 the
+    kernel itself, contiguous."""
+    if dtype == torch.bfloat16:
+        co, cf = final_kernel.shape[2:]
+        bn = conv_operands.head_plan(h, w, ci, co, cf).bn
+        return conv_operands.head_weights(final_kernel, dtype, bn)
+    return final_kernel.to(dtype).contiguous()
+
+
 def _act(y: torch.Tensor, act: str) -> torch.Tensor:
     if act == "relu":
         return torch.clamp_min(y, 0.0)
@@ -148,18 +173,24 @@ def head_finish_plain(taps: torch.Tensor, final_bias: torch.Tensor, *,
 def upsample2_conv3x3_bn_act(x: torch.Tensor, kernel: torch.Tensor,
                              scale: torch.Tensor, shift: torch.Tensor, *,
                              act: str = "relu", final_kernel=None,
-                             final_bias=None,
-                             final_act: str = "sigmoid") -> torch.Tensor:
+                             final_bias=None, final_act: str = "sigmoid",
+                             operand: torch.Tensor | None = None,
+                             final_operand: torch.Tensor | None = None
+                             ) -> torch.Tensor:
     """x: (N,H,W,Ci) NHWC; kernel: (3,3,Ci,Co), the unfused conv's HWIO
     weights; scale/shift: (Co,) from fold_batchnorm (scale=1, shift=bias for
     a plain conv). Returns (N,2H,2W,Co) in ``x.dtype``. Eval-mode only.
+    ``operand``: ``kernel`` laid out beforehand by :func:`phase_operand`
+    for ``x.dtype`` (else on every call; the plain version reads
+    ``kernel``).
 
     With ``final_kernel`` (3,3,Co,Cf) and ``final_bias`` (Cf,), the fused
     head (:func:`upsample2_conv3x3_head`): returns (N,2H,2W,Cf)."""
     if final_kernel is not None:
         return upsample2_conv3x3_head(x, kernel, scale, shift, final_kernel,
                                       final_bias, act=act,
-                                      final_act=final_act)
+                                      final_act=final_act, operand=operand,
+                                      final_operand=final_operand)
     if act not in _ACTS:
         raise ValueError(f"act must be one of {_ACTS}, got {act!r}")
     if cuda_lib.dispatch_device(x, kernel, scale, shift) == "cpu":
@@ -168,15 +199,13 @@ def upsample2_conv3x3_bn_act(x: torch.Tensor, kernel: torch.Tensor,
     code = cuda_lib.dtype_code(x)
     n, h, w, ci = x.shape
     co = kernel.shape[-1]
-    k16 = phase_kernels(kernel.to(x.dtype)).reshape(16, ci, co)
+    k16 = phase_operand(kernel, x.dtype) if operand is None else operand
     if x.dtype == torch.bfloat16:  # the tensor-core tile's operands
         xk = conv_operands.pad_channels(x)
-        k16 = conv_operands.kmajor(k16, x.dtype)
         plan = conv_operands.tile_plan(h, w, ci, co)
         kshape = (16, co, xk.shape[-1])
     else:
-        xk, k16 = x, k16.contiguous()
-        plan = conv_operands.NO_PLAN
+        xk, plan = x, conv_operands.NO_PLAN
         kshape = (16, ci, co)
     scale = scale.float().contiguous()
     shift = shift.float().contiguous()
@@ -185,7 +214,7 @@ def upsample2_conv3x3_bn_act(x: torch.Tensor, kernel: torch.Tensor,
     cuda_lib.require(scale, "scale", x.device, torch.float32, (co,))
     cuda_lib.require(shift, "shift", x.device, torch.float32, (co,))
     out = torch.empty((n, 2 * h, 2 * w, co), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
+    with cuda_lib.on_device(x):
         rc = cuda_lib.library().gr_upsample2_conv3x3_bn_act(
             code, xk.data_ptr(), k16.data_ptr(), scale.data_ptr(),
             shift.data_ptr(), out.data_ptr(), n, h, w, xk.shape[-1], co,
@@ -195,19 +224,24 @@ def upsample2_conv3x3_bn_act(x: torch.Tensor, kernel: torch.Tensor,
     return out
 
 
-upsample2_conv3x3_bn_act.launches = 0
+cuda_lib.counted(upsample2_conv3x3_bn_act)
 
 
 def upsample2_conv3x3_head(x: torch.Tensor, kernel: torch.Tensor,
                            scale: torch.Tensor, shift: torch.Tensor,
                            final_kernel: torch.Tensor,
                            final_bias: torch.Tensor, *, act: str = "relu",
-                           final_act: str = "sigmoid") -> torch.Tensor:
+                           final_act: str = "sigmoid",
+                           operand: torch.Tensor | None = None,
+                           final_operand: torch.Tensor | None = None
+                           ) -> torch.Tensor:
     """U followed by the fused 3x3 head: ``final_kernel`` (3,3,Co,Cf) HWIO
     with 1 <= Cf <= 4, ``final_bias`` (Cf,). Returns (N,2H,2W,Cf) in
     ``x.dtype``; the kernel on CUDA tensors (bf16: the tap partials in a
     workspace of ``conv_operands.head_workspace_shape``, 113 MB at G3's
-    stage 2 and N = 256), the plain version on CPU tensors."""
+    stage 2 and N = 256), the plain version on CPU tensors. ``operand``
+    and ``final_operand``: the weights laid out beforehand by
+    :func:`phase_operand` and :func:`head_operand` (else on every call)."""
     for name, a in (("act", act), ("final_act", final_act)):
         if a not in _ACTS:
             raise ValueError(f"{name} must be one of {_ACTS}, got {a!r}")
@@ -228,20 +262,19 @@ def upsample2_conv3x3_head(x: torch.Tensor, kernel: torch.Tensor,
         raise ValueError(f"final_kernel {tuple(final_kernel.shape)} does not "
                          f"take U's {co} channels")
     code = cuda_lib.dtype_code(x)
-    k16 = phase_kernels(kernel.to(x.dtype)).reshape(16, ci, co)
+    k16 = phase_operand(kernel, x.dtype) if operand is None else operand
+    fk = (head_operand(final_kernel, x.dtype, h, w, ci)
+          if final_operand is None else final_operand)
     if x.dtype == torch.bfloat16:  # U's tensor-core tile + the tap partials
         xk = conv_operands.pad_channels(x)
-        k16 = conv_operands.kmajor(k16, x.dtype)
         plan = conv_operands.head_plan(h, w, ci, co, cf)
-        fk = conv_operands.head_weights(final_kernel, x.dtype, plan.bn)
         kshape = (16, co, xk.shape[-1])
-        fshape = (conv_operands.head_rows(cf), fk.shape[1])
+        fshape = (conv_operands.head_rows(cf),
+                  -(-co // plan.bn) * plan.bn)
         ws = torch.empty(conv_operands.head_workspace_shape(
             n, h, w, co, cf, plan.bn), dtype=torch.float32, device=x.device)
     else:
-        xk, k16 = x, k16.contiguous()
-        plan = conv_operands.NO_PLAN
-        fk = final_kernel.to(x.dtype).contiguous()
+        xk, plan = x, conv_operands.NO_PLAN
         kshape, fshape = (16, ci, co), (3, 3, co, cf)
         ws = None
     scale = scale.float().contiguous()
@@ -254,7 +287,7 @@ def upsample2_conv3x3_head(x: torch.Tensor, kernel: torch.Tensor,
     cuda_lib.require(fk, "final_kernel", x.device, x.dtype, fshape)
     cuda_lib.require(fb, "final_bias", x.device, torch.float32, (cf,))
     out = torch.empty((n, 2 * h, 2 * w, cf), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
+    with cuda_lib.on_device(x):
         rc = cuda_lib.library().gr_upsample2_conv3x3_head(
             code, xk.data_ptr(), k16.data_ptr(), scale.data_ptr(),
             shift.data_ptr(), fk.data_ptr(), fb.data_ptr(),
@@ -266,4 +299,4 @@ def upsample2_conv3x3_head(x: torch.Tensor, kernel: torch.Tensor,
     return out
 
 
-upsample2_conv3x3_head.launches = 0
+cuda_lib.counted(upsample2_conv3x3_head)

@@ -76,7 +76,7 @@ def upsample_v2(x: torch.Tensor, kernel: torch.Tensor, scale: torch.Tensor,
     cuda_lib.require(scale, "scale", x.device, torch.float32, (co,))
     cuda_lib.require(shift, "shift", x.device, torch.float32, (co,))
     out = torch.empty((n, 2 * h, 2 * w, co), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
+    with cuda_lib.on_device(x):
         rc = cuda_lib.library().gr_upsample_v2(
             code, xk.data_ptr(), k4.data_ptr(), scale.data_ptr(),
             shift.data_ptr(), out.data_ptr(), n, h, w, xk.shape[-1], co,
@@ -86,4 +86,4 @@ def upsample_v2(x: torch.Tensor, kernel: torch.Tensor, scale: torch.Tensor,
     return out
 
 
-upsample_v2.launches = 0
+cuda_lib.counted(upsample_v2)

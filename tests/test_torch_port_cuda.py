@@ -743,3 +743,122 @@ def test_upsample_head_kernel_channel_blocks(dev, n, h, w, ci, co, cf):
     _close(out, uc.head_finish_plain(
         uc.head_tap_partials_plain(x, k, sc, sh, fk), fb,
         dtype=torch.bfloat16), torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape,offset", [((4, 256, 128), 0),
+                                          ((3, 1001), 0), ((2, 5, 4099), 0),
+                                          ((5, 64), 1), ((1, 3), 0)])
+def test_probe_times_two_grid(dev, shape, offset):
+    """B9's times_two on its grid over (slice, leading index): 16-byte
+    packs where the rows allow, scalars on ragged rows and on a view one
+    element off the 16-byte boundary; exactly the plain version."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    numel = int(np.prod(shape))
+    x = torch.randn(numel + offset, device=dev, generator=g)[offset:]
+    x = x.view(shape)
+    assert torch.equal(probe_kernels.times_two(x),
+                       probe_kernels.times_two_plain(x))
+
+
+def test_cosine_padded_corpus_bitwise(dev):
+    """Kernel C on a corpus padded once beforehand (padded_corpus, what
+    topk_all hands it) gives bitwise the scores of C padding it itself;
+    an f32 or already aligned corpus is handed over as it is."""
+    g = torch.Generator(device=dev).manual_seed(14)
+    emb = torch.randn(300, 100, device=dev, generator=g).to(torch.bfloat16)
+    idx = torch.arange(40, 80, device=dev)
+    padded = topk_kernel.padded_corpus(emb)
+    assert padded.shape == (300, 104) and torch.equal(padded[:, :100], emb)
+    assert torch.equal(topk_kernel.cosine_scores(padded, idx),
+                       topk_kernel.cosine_scores(emb, idx))
+    f32 = emb.float()
+    assert topk_kernel.padded_corpus(f32) is f32
+    assert topk_kernel.padded_corpus(padded) is padded
+
+
+def _e2e_case(dev, dims=(3, 16, 16), nd=16, n=40):
+    """A random G3 and R at a small size, their variable trees on the card,
+    a second R's, and latents."""
+    from torch.utils import _pytree as pytree
+    from ganreverser_tpu_torch.models import bridge, modules, zoo
+    gen = torch.Generator().manual_seed(15)
+    G = modules.init_parameters(zoo.create_G3(dims, nd), gen).to(dev)
+    R = modules.init_parameters(zoo.create_R(dims, nd, "normal"), gen).to(dev)
+    rv = bridge.module_variables(R)
+    g = torch.Generator(device=dev).manual_seed(16)
+    # positive factors keep the BatchNorm variances positive
+    rv2 = pytree.tree_map(lambda t: t * (1.0 + 0.2 * torch.rand(
+        t.shape, device=dev, generator=g)), rv)
+    z = torch.randn(n, nd, device=dev, generator=g)
+    return G, R, bridge.module_variables(G), rv, rv2, z, dims, nd
+
+
+def _e2e(G, R, dims, nd, fused_head=False, pixel_k=0, capture=True):
+    from ganreverser_tpu_torch.analysis import e2e
+    return e2e.make_e2e_program(
+        G, R, batch_size=16, k=5, needle_chunk=16, pixel_k=pixel_k,
+        capture=capture, **e2e.fast_legs(dims, nd, "normal",
+                                          fused_head=fused_head))
+
+
+@pytest.mark.parametrize("fused_head", [False, True])
+@pytest.mark.parametrize("pixel_k", [0, 7])
+def test_e2e_graph_matches_eager(dev, fused_head, pixel_k):
+    """The fused program as one CUDA graph: a replay is bitwise the eager
+    program, and each replay adds the kernels' launches of one run to
+    their counts (three chunks of 16: U twice a chunk, or U and the head;
+    B six times a chunk; C once per needle chunk and search)."""
+    G, R, gv, rv, _, z, dims, nd = _e2e_case(dev)
+    graph = _e2e(G, R, dims, nd, fused_head, pixel_k)
+    eager = _e2e(G, R, dims, nd, fused_head, pixel_k, capture=False)
+    out = graph(gv, rv, z)
+    ref = eager(gv, rv, z)
+    assert len(out) == (5 if pixel_k else 3)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    counters = {"U": upsample_conv_kernel.upsample2_conv3x3_bn_act,
+                "head": upsample_conv_kernel.upsample2_conv3x3_head,
+                "B": conv_block_kernel.conv_block,
+                "C": topk_kernel.cosine_scores}
+    before = {k: fn.launches for k, fn in counters.items()}
+    again = graph(gv, rv, z)
+    torch.cuda.synchronize()
+    per_replay = {k: fn.launches - before[k] for k, fn in counters.items()}
+    assert per_replay == {"U": 3 if fused_head else 6,
+                          "head": 3 if fused_head else 0, "B": 18,
+                          "C": 6 if pixel_k else 3}
+    for a, b in zip(again, out):
+        assert torch.equal(a, b)
+    assert len(graph.graphs) == 1
+
+
+def test_e2e_graph_takes_each_calls_weights(dev):
+    """A call with other weights gives those weights' result (the graph
+    reads static copies, filled on every call), and the first weights
+    give the first result again."""
+    G, R, gv, rv, rv2, z, dims, nd = _e2e_case(dev)
+    graph = _e2e(G, R, dims, nd)
+    eager = _e2e(G, R, dims, nd, capture=False)
+    first = graph(gv, rv, z)
+    other = graph(gv, rv2, z)
+    assert not torch.equal(other[0], first[0])
+    for a, b in zip(other, eager(gv, rv2, z)):
+        assert torch.equal(a, b)
+    for a, b in zip(graph(gv, rv, z), first):
+        assert torch.equal(a, b)
+    assert len(graph.graphs) == 1
+
+
+def test_serial_programs_graphs_match_fused(dev):
+    """generate-all, invert-all, search-all, each a CUDA graph on the same
+    fast legs, give the fused graph's embeddings and rankings bitwise."""
+    from ganreverser_tpu_torch.analysis import e2e
+    G, R, gv, rv, _, z, dims, nd = _e2e_case(dev)
+    generate, invert, search = e2e.make_serial_programs(
+        G, R, batch_size=16, k=5, needle_chunk=16,
+        **e2e.fast_legs(dims, nd, "normal"))
+    emb = invert(rv, generate(gv, z))
+    v, i = search(emb)
+    fused = _e2e(G, R, dims, nd, e2e.FUSED_HEAD)(gv, rv, z)
+    for a, b in zip((emb, v, i), fused):
+        assert torch.equal(a, b)

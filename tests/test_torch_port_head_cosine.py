@@ -200,13 +200,15 @@ def test_cosine_two_stage_plain_matches_jax(rng, d, slices):
 @pytest.mark.parametrize("n,d,q", [(10_000, 12_288, 10), (10_000, 100, 10),
                                    (77, 100, 3), (300, 1000, 18),
                                    (600, 64, 300), (1, 8, 1),
-                                   (129, 4096, 100)])
+                                   (129, 4096, 100), (10_240, 12_288, 256),
+                                   (1, 20_000, 1)])
 def test_cosine_plan(n, d, q):
     """The plan covers N with 128-row tiles and Q with needle groups of a
     built width (more than 256 needles loop over grid y), pads D to a
     multiple of 8 only where D % 8 != 0, and splits D into slices of whole
-    64-element chunks that cover it in order, none empty; the ring fits
-    the block's bytes, three blocks an SM up to 64 needles."""
+    64-element chunks that cover it in order, none empty and none longer
+    than MAX_SLICE_CHUNKS chunks; the ring fits the block's bytes, three
+    blocks an SM up to 64 needles."""
     p = topk_kernel.cosine_plan(n, d, q)
     assert (p.dp == d) == (d % 8 == 0) and p.dp % 8 == 0 and p.dp - d < 8
     assert (p.tiles - 1) * 128 < n <= p.tiles * 128
@@ -219,12 +221,14 @@ def test_cosine_plan(n, d, q):
         assert a1 == b0
     assert all(a % 64 == 0 and b > a for a, b in bounds)
     assert 1 <= p.slices <= -(-p.dp // 64)
+    assert all(b - a <= 64 * topk_kernel.MAX_SLICE_CHUNKS for a, b in bounds)
     stage = -(-(128 * 64 * 2 + p.bnq * 64 * 2) // 1024) * 1024
     assert p.smem_bytes == 1024 + p.stages * (stage + 16)
     assert p.stages >= 2
     per_sm = 3 if p.bnq <= 64 else 1
     assert per_sm * (p.smem_bytes + 1024) <= 233_472
-    if p.slices > 1:  # split only as far as one wave of resident blocks
+    depth = -(-p.dp // (64 * topk_kernel.MAX_SLICE_CHUNKS))
+    if p.slices > max(1, depth):  # else only as far as one resident wave
         assert p.tiles * p.groups * p.slices <= 132 * per_sm
     assert topk_kernel.workspace_floats(p, q, n) == p.slices * (q * n + n)
 
@@ -238,3 +242,14 @@ def test_cosine_plan_of_main_path():
         12_288, 16, 79, 1, 5)
     att = topk_kernel.cosine_plan(10_000, 100, 10)
     assert (att.dp, att.slices) == (104, 2)
+
+
+def test_cosine_plan_of_e2e_program():
+    """The fused e2e program's searches at N = 10,240 in needle chunks of
+    256: the pixel search's D = 12,288 in 3 slices of 64 chunks (the
+    depth cap; the wave alone gives 1), the attributes' padded D in one
+    (80 blocks of 256 needles fill the wave)."""
+    pix = topk_kernel.cosine_plan(10_240, 12_288, 256)
+    assert (pix.bnq, pix.tiles, pix.groups, pix.slices) == (256, 80, 1, 3)
+    att = topk_kernel.cosine_plan(10_240, 100, 256)
+    assert (att.dp, att.bnq, att.slices) == (104, 256, 1)

@@ -6,6 +6,8 @@ min-cosine membership. f32; counts exact, centroids and sums to 1e-5 (f32
 sums in another order). Whole runs are compared on well-separated blobs
 only: on random data a near-tie flips an argmin and the trajectories part.
 On CPU tensors the wrapper takes the plain version and launches nothing."""
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,8 +18,10 @@ from ganreverser_tpu import analysis as A
 from ganreverser_tpu.ops.kmeans_kernel import (_kmeans_sums_counts,
                                                kmeans_pallas,
                                                kmeans_step_pallas)
-from ganreverser_tpu_torch.analysis import kmeans as K
 from ganreverser_tpu_torch.ops import kmeans_kernel
+
+# the module (the package exports its function ``kmeans`` under the name)
+K = importlib.import_module("ganreverser_tpu_torch.analysis.kmeans")
 
 T = torch.from_numpy
 

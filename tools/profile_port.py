@@ -4,14 +4,15 @@
 Run from the root of a checkout:
 
     python3 tools/profile_port.py [--out build/profile]
-                                  [--what all|apply_r|train|gan|distill]
+                                  [--what all|apply_r|e2e|train|gan|distill]
 
 With the models of chip_smoke.py (G3, R and the fixer-R at 3x64x64, noise
 100, random weights from its seed), bf16, batch 256, N = 10,000, it prints
 and writes to ``<out>/profile.txt``:
 
-* ``[e2e]``: three warm runs of apply_r's stage ② (generate + invert) and
-  stage ④ (both searches), wall time and img/s;
+* ``[stage2+4]``: three warm runs of apply_r's stage ② (generate +
+  invert) and a search of 10 needles on each measure (stage ④), wall time
+  and img/s;
 * ``[layer]``: G alone and R alone (median of 3), and each search alone;
 * ``[trace]``: one warm stage ② + ④ under torch.profiler. Device busy time
   is the union of the intervals of every kernel, memcpy and memset in the
@@ -45,10 +46,18 @@ and writes to ``<out>/profile.txt``:
   host hop for colour space and size, and the synthetic real images, show
   as idle time), device time by class and by kernel name.
 
-``--what apply_r`` runs the ``[e2e]``, ``[layer]``, ``[trace]``,
-``[apply_r]`` and ``[native]`` sections; ``--what train`` only ``[train]``;
-``--what gan`` only ``[gan]``; ``--what distill`` only ``[distill]``;
-``--what all`` every section.
+* ``[e2e]``: the fused generate -> invert -> top-k program
+  (analysis/e2e.py) as chip_smoke.py's phase 8 drives it (N = 10,240,
+  bf16, batch 128, k = 100, the fast legs of ``e2e.fast_legs``), once as
+  its CUDA graph and once eager (``capture=False``): each warmed by one
+  call, timed over three, then one call under torch.profiler
+  (``<out>/trace_e2e_{graph,eager}.json``): wall, device busy, idle share,
+  device time by class and by kernel name.
+
+``--what apply_r`` runs the ``[stage2+4]``, ``[layer]``, ``[trace]``,
+``[apply_r]`` and ``[native]`` sections; ``--what e2e`` only ``[e2e]``;
+``--what train`` only ``[train]``; ``--what gan`` only ``[gan]``;
+``--what distill`` only ``[distill]``; ``--what all`` every section.
 
 Every line carries the card's name and power limit.
 """
@@ -315,8 +324,43 @@ def profile_distill(dev, log, card: str, out_dir: str,
                            wall_us, "distill", log, card, top=15)
 
 
+def profile_e2e(dev, log, card: str, out_dir: str) -> bool:
+    """The ``[e2e]`` lines: the fused program as a graph and eager, warm
+    times and one traced call each."""
+    from torch.profiler import ProfilerActivity, profile
+    from ganreverser_tpu_torch.analysis import e2e
+    G, R, gv, rv, *_, z = cs.e2e_inputs(dev)
+    n = cs.E2E_N
+    for label, capture in (("graph", True), ("eager", False)):
+        run = e2e.make_e2e_program(
+            G, R, batch_size=cs.E2E_BATCHES[0], k=cs.E2E_K,
+            needle_chunk=cs.E2E_CHUNK, capture=capture,
+            **e2e.fast_legs(cs.DIMS, cs.NOISE_DIM, "normal"))
+        run(gv, rv, z)
+        times = cs.wall_s(lambda: run(gv, rv, z), 3)
+        log(f"[e2e {label}] N={n} bf16 batch {cs.E2E_BATCHES[0]} k="
+            f"{cs.E2E_K}, fused head {e2e.FUSED_HEAD}: "
+            + ", ".join(f"{t:.4f} s" for t in times)
+            + f" = {n / sorted(times)[1]:.1f} img/s (median)  [{card}]")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run(gv, rv, z)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        traced = summarise_trace(prof, os.path.join(
+            out_dir, f"trace_e2e_{label}.json"), wall_us, f"e2e {label}",
+            log, card, top=15)
+        if not (traced or capture):
+            return False
+        del run
+        torch.cuda.empty_cache()
+    return True
+
+
 def profile_apply_r_sections(dev, log, card: str, out_dir: str) -> bool:
-    """The ``[e2e]``, ``[layer]``, ``[trace]``, ``[apply_r]`` and
+    """The ``[stage2+4]``, ``[layer]``, ``[trace]``, ``[apply_r]`` and
     ``[native]`` lines."""
     G, R, RF = cs.make_models(dev)
     gv = bridge.to_torch(bridge.export_variables(G), dev)
@@ -328,7 +372,7 @@ def profile_apply_r_sections(dev, log, card: str, out_dir: str) -> bool:
     needles = torch.tensor([(i + 1) * 100 - 1 for i in range(cs.NEEDLES)],
                            device=dev)
 
-    def e2e():
+    def stage2_4():
         _, images, attrs = generate_and_invert(
             gv, rv, dims=dims, n=n, noise_dim=nd, noise_method="normal",
             generator=seeded_generator(1, dev), batch_size=batch, dtype=bf)
@@ -336,15 +380,16 @@ def profile_apply_r_sections(dev, log, card: str, out_dir: str) -> bool:
             cosine_topk(attrs, needles, 100)
             pixel_cosine_topk(images, needles, 100)
 
-    e2e()
+    stage2_4()
     torch.cuda.synchronize()
     for rep in range(3):
         t0 = time.perf_counter()
-        e2e()
+        stage2_4()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        log(f"[e2e] rep {rep}: generate+invert+search N={n} bf16 {dt:.4f} s"
-            f" = {n / dt:.1f} img/s  [{card}]")
+        log(f"[stage2+4] rep {rep}: apply_r's generate+invert and a "
+            f"{cs.NEEDLES}-needle search N={n} bf16 {dt:.4f} s = "
+            f"{n / dt:.1f} img/s  [{card}]")
 
     z = noise_inputs(seeded_generator(2, dev), n, nd, "normal", device=dev)
     with torch.inference_mode():
@@ -381,7 +426,7 @@ def profile_apply_r_sections(dev, log, card: str, out_dir: str) -> bool:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        e2e()
+        stage2_4()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     if not summarise_trace(prof, os.path.join(out_dir,
@@ -426,8 +471,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="build/profile",
                     help="directory for profile.txt and the trace")
-    ap.add_argument("--what", choices=("all", "apply_r", "train", "gan",
-                                       "distill"),
+    ap.add_argument("--what", choices=("all", "apply_r", "e2e", "train",
+                                       "gan", "distill"),
                     default="all", help="the sections to run")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -443,7 +488,7 @@ def main(argv=None) -> int:
         out.write(line + "\n")
 
     log(card)
-    sections = (("apply_r", profile_apply_r_sections),
+    sections = (("apply_r", profile_apply_r_sections), ("e2e", profile_e2e),
                 ("train", profile_train), ("gan", profile_gan),
                 ("distill", profile_distill))
     for what, section in sections:

@@ -20,7 +20,10 @@ here from entry points every checkout of the port has:
   checkout that predates the one-launch design);
 - ``r_step``: one warm R train step, b256 bf16 ``--dropout kernel``
   (chip_smoke's ``step_times``: the median of its 20 steps is the case's
-  time, and its device time is B5's share).
+  time, and its device time is B5's share);
+- ``probes`` (B9): ``add_one`` on (8,128), ``times_two`` on (4,256,128)
+  and ``dot_bf16`` on (128,128)^2, chip_smoke's phase-3 shapes (their
+  device time is the ``probe_`` kernels').
 
 Each kernel case runs in bf16 at N = 256 (C at apply_r's N = 10,000): the
 median of ``--reps`` calls by CUDA events (chip_smoke's ``time_ms``: the
@@ -45,7 +48,8 @@ import sys
 DEFAULT_NAMES = ("conv_block,upsample2_conv3x3_bn_act,conv3x3_bn_act,"
                  "upsample2_conv3x3_head,cosine_scores")
 DEVICE_KERNELS = ("wgmma_kernel", "finish_kernel", "conv3x3_head_kernel",
-                  "cosine_scores_kernel", "fused_dropout", "kmeans_")
+                  "cosine_scores_kernel", "fused_dropout", "kmeans_",
+                  "probe_")
 KMEANS_CASE = (10_000, 100, 15)   # N, D (noise 100), Lloyd iterations
 
 
@@ -70,6 +74,19 @@ def local_cases(dev, names):
             idx = torch.randperm(n, device=dev, generator=gen)[:k]
             yield ("kmeans_lloyd", f"({n},{d}) K={k}, {iters} iterations",
                    lambda k=k, idx=idx: kmeans(x, k, iters, init_idx=idx))
+    if "probes" in names:
+        from ganreverser_tpu_torch.ops import probe_kernels as pk
+        x = torch.randn(8, 128, device=dev, generator=gen)
+        x3 = torch.randn(4, 256, 128, device=dev, generator=gen)
+        a, b = (torch.randint(-3, 4, (128, 128), device=dev,
+                              generator=gen).to(torch.bfloat16)
+                for _ in range(2))
+        for label, fn in (("add_one (8,128)", lambda: pk.add_one(x)),
+                          ("times_two (4,256,128)",
+                           lambda: pk.times_two(x3)),
+                          ("dot_bf16 (128,128)^2",
+                           lambda: pk.dot_bf16(a, b))):
+            yield ("probes", label, fn)
     if "r_step" in names:
         from ganreverser_tpu_torch.models import modules, zoo
         G = chip_smoke.make_calibrated_g(dev)
@@ -138,8 +155,9 @@ def main(argv=None) -> int:
             dms = device_ms(fn, args.reps)
         sums[name] += ms
         dev_sums[name] += dms
+        dtype = "f32 and bf16" if name == "probes" else "bfloat16"
         print(json.dumps({"root": root, "name": name, "label": label,
-                          "dtype": "bfloat16", "ms": ms, "device_ms": dms,
+                          "dtype": dtype, "ms": ms, "device_ms": dms,
                           "card": card}))
         del fn
         torch.cuda.empty_cache()
