@@ -139,7 +139,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (U's fused head on or off), of batch 256 and of the pixel measure; the
    peak device memory of the fused and the serial programs' first calls;
    the search through kernel C against torch.matmul of normalised rows,
-   each + torch.topk.
+   each + torch.topk;
+9. the Torch7 import at full width, the reference user's path: phase 4's
+   G3, R and fixer-R and an amplified D2 (3x64x64, noise 100) as the
+   reference's networks in torch's layouts (NCHW, nn.Copy at both ends,
+   cudnn convs in G, createNxN sub-Sequentials and an nn.Concat in D),
+   written by this script's own t7 writer as train.lua's adversarial file
+   (epoch 4, loss history, visualisation noise) and train_r.lua's R and
+   fixer-R files; ``cli.show.main`` on the adversarial file, then
+   ``cli.import_t7.main`` on each (seconds printed) and ``cli.show.main``
+   on each checkpoint, whose parameter counts must be the reference
+   networks'. The fast G (kernel U; U's fused head), R (B) and D (B6) on
+   the imported weights against the NCHW reference forwards (f32, TF32
+   off, 512 rows, TOL_PATH); ``cli.apply_r.main`` on the imported
+   checkpoints with phase 4's arguments and checks (B, U, C, K must
+   launch); one ``cli.train.main --network <imported>`` epoch of 10
+   batches, which must be epoch 5 with the file's visualisation noise and
+   launch B6 10 times; G3, D2 and R drawn on the card from a CUDA
+   generator under each --init, every layer within its half-width.
 
 The last two lines are a JSON object with each kernel's route, source,
 launch count in the main path, error, times and bound, and
@@ -2064,6 +2081,545 @@ def check_e2e(dev, card: str):
     torch.cuda.empty_cache()
     return launches
 
+
+# -- phase 9: the Torch7 import ------------------------------------------
+
+T7_EPOCH = 4             # the adversarial file's epoch; train resumes at 5
+T7_TRAIN_BATCHES = 10    # --N_epoch of the resumed epoch (depth; 30)
+INITS = ("heuristic", "torch", "xavier", "xavier_caffe", "kaiming")
+
+
+class T7Object:
+    """A torch class instance to serialize: its class name and fields."""
+
+    def __init__(self, cls: str, **payload):
+        self.cls = cls
+        self.payload = payload
+
+
+def t7_bytes(obj) -> bytes:
+    """``obj`` in Torch7's binary ``torch.save`` format (the reference's
+    ``*.net`` files; the record layout is io/torch7.py's): nil, numbers,
+    strings, booleans, tables (dicts; lists as 1-based tables), torch
+    class instances (:class:`T7Object`) and numpy arrays as
+    torch.FloatTensor over their own FloatStorage. Nothing is shared, so
+    every table and object gets a new memo index."""
+    import struct
+    import numpy as np
+    out, idx = [], [0]
+
+    def i32(v):
+        out.append(struct.pack("<i", v))
+
+    def i64(v):
+        out.append(struct.pack("<q", v))
+
+    def string(v):
+        b = v.encode()
+        i32(len(b))
+        out.append(b)
+
+    def index():
+        idx[0] += 1
+        i32(idx[0])
+
+    def torch_class(name):
+        i32(4)
+        index()
+        string("V 1")
+        string(name)
+
+    def write(o):
+        if o is None:
+            i32(0)
+        elif isinstance(o, bool):
+            i32(5)
+            i32(int(o))
+        elif isinstance(o, (int, float)):
+            i32(1)
+            out.append(struct.pack("<d", float(o)))
+        elif isinstance(o, str):
+            i32(2)
+            string(o)
+        elif isinstance(o, np.ndarray):
+            arr = np.ascontiguousarray(o, dtype="<f4")
+            torch_class("torch.FloatTensor")
+            i32(arr.ndim)
+            for d in arr.shape:
+                i64(d)
+            for st in arr.strides:
+                i64(st // 4)
+            i64(1)  # storageOffset, 1-based
+            torch_class("torch.FloatStorage")
+            i64(arr.size)
+            out.append(arr.tobytes())
+        elif isinstance(o, (list, tuple)):
+            write({i + 1: v for i, v in enumerate(o)})
+        elif isinstance(o, dict):
+            i32(3)
+            index()
+            i32(len(o))
+            for k, v in o.items():
+                write(k)
+                write(v)
+        elif isinstance(o, T7Object):
+            torch_class(o.cls)
+            write(dict(o.payload))
+        else:
+            raise TypeError(type(o))
+
+    write(obj)
+    return b"".join(out)
+
+
+# A reference network as models.lua builds it, in torch's layouts (NCHW
+# activations, (out, in) Linear and OIHW conv weights, C-major nn.View):
+# a list of ops, each a tuple (kind, *fields). ``nchw_forward`` runs it
+# with torch.nn.functional; ``t7_module`` serializes it as the reference's
+# nn graph. Both stand apart from the port's modules and importer.
+
+def _np32(t):
+    return t.detach().float().cpu().numpy()
+
+
+def _t_linear(dense, in_hwc=None, out_hwc=None):
+    """The port's Dense as an nn.Linear: (out, in) weight; a Flatten of
+    (h, w, c) maps before it or a View to (c, h, w) after it orders the
+    units C-major."""
+    k = dense.kernel.detach().float()
+    b = dense.bias.detach().float()
+    w = k.T
+    if in_hwc is not None:
+        h, wd, c = in_hwc
+        w = w.reshape(-1, h, wd, c).permute(0, 3, 1, 2).reshape(w.shape[0],
+                                                                 -1)
+    if out_hwc is not None:
+        h, wd, c = out_hwc
+        w = w.reshape(h, wd, c, -1).permute(2, 0, 1, 3).reshape(
+            -1, w.shape[1])
+        b = b.reshape(h, wd, c).permute(2, 0, 1).reshape(-1)
+    return ("linear", w.contiguous(), b.contiguous())
+
+
+def _t_conv(conv, cls="cudnn.SpatialConvolution"):
+    return ("conv", conv.kernel.detach().float().permute(3, 2, 0, 1)
+            .contiguous(), conv.bias.detach().float(), cls)
+
+
+def _t_bn(bn, spatial=True, chw_of_hwc=None):
+    """nn.SpatialBatchNormalization, or nn.BatchNormalization after a
+    Linear (its units C-major when a View to (c, h, w) follows)."""
+    vs = [v.detach().float() for v in (bn.scale, bn.bias, bn.mean, bn.var)]
+    if chw_of_hwc is not None:
+        h, w, c = chw_of_hwc
+        vs = [v.reshape(h, w, c).permute(2, 0, 1).reshape(-1) for v in vs]
+    return ("bn", *vs, spatial)
+
+
+def _t_prelu(p):
+    return ("prelu", p.alpha.detach().float())
+
+
+def g3_reference(G, dims=DIMS):
+    """create_G3 (models.lua:104-143) as a GPU-trained file holds it:
+    nn.Copy at both ends, cudnn convs."""
+    c, h, w = dims
+    hwc = (h // 4, w // 4, 512)
+    return [("copy",), _t_linear(G.l0, out_hwc=hwc),
+            _t_bn(G.l1, False, hwc),
+            ("relu",), ("view", (512, h // 4, w // 4)),
+            ("up",), _t_conv(G.l5), _t_bn(G.l6), ("relu",),
+            ("up",), _t_conv(G.l9), _t_bn(G.l10), ("relu",),
+            _t_conv(G.l12), ("sigmoid",), ("copy",)]
+
+
+def d2_reference(D, dims=DIMS):
+    """create_D2 (models.lua:272-337): createNxN sub-Sequentials of plain
+    nn convs, an nn.Concat of the two branches."""
+    c, h, w = dims
+
+    def nxn(block, drop=True):
+        ops = [_t_conv(block.l0, "nn.SpatialConvolution"),
+               _t_prelu(block.l1)]
+        return ("seq", ops + ([("sdropout",)] if drop else []))
+
+    left, right = D.l3.b0, D.l3.b1
+    left_ops = [nxn(left.l0), ("maxpool",), ("view", None),
+                _t_linear(left.l3, in_hwc=(h // 4, w // 4, 64)),
+                _t_prelu(left.l4), ("dropout",)]
+    right_ops = [nxn(right.l0), ("maxpool",), nxn(right.l2),
+                 nxn(right.l3), ("maxpool",), ("view", None),
+                 _t_linear(right.l6, in_hwc=(h // 8, w // 8, 256)),
+                 _t_prelu(right.l7)]
+    return [("copy",), nxn(D.l0, drop=False), nxn(D.l1), ("maxpool",),
+            ("concat", [left_ops, right_ops]),
+            _t_linear(D.l4), _t_prelu(D.l5), ("dropout",),
+            _t_linear(D.l7), ("sigmoid",), ("copy",)]
+
+
+def r_reference(R, dims=DIMS):
+    """create_R_default (models.lua:389-464), the fixer's always-on input
+    dropout first where it has one, nn.Copy at both ends."""
+    from ganreverser_tpu_torch.models import modules
+    c, h, w = dims
+    ops, shape, flat = [("copy",)], (h, w, c), None
+    for m in R.children():
+        if isinstance(m, modules.Conv):
+            ops.append(_t_conv(m, "nn.SpatialConvolution"))
+            shape = shape[:2] + (m.kernel.shape[-1],)
+        elif isinstance(m, modules.BatchNorm):
+            ops.append(_t_bn(m, spatial=ops[-1][0] == "conv"))
+        elif isinstance(m, modules.Activation):
+            ops.append((m.fn,))
+        elif isinstance(m, modules.SpatialDropout):
+            ops.append(("sdropout",))
+        elif isinstance(m, modules.Dropout):
+            ops.append(("dropout",))
+        elif isinstance(m, modules.MaxPool):
+            ops.append(("maxpool",))
+            shape = (shape[0] // 2, shape[1] // 2, shape[2])
+        elif isinstance(m, modules.Flatten):
+            ops.append(("view", None))
+            flat = shape
+        elif isinstance(m, modules.Dense):
+            ops.append(_t_linear(m, in_hwc=flat))
+            flat = None
+        else:
+            raise TypeError(type(m).__name__)
+    return ops + [("copy",)]
+
+
+def nchw_forward(ops, x):
+    """The reference network in evaluation (dropouts the identity) on NCHW
+    (or (N, features)) ``x``, f32 with TF32 off."""
+    import torch
+    import torch.nn.functional as F
+    from ganreverser_tpu_torch.core.precision import pinned_precision
+    with pinned_precision(torch.float32), torch.no_grad():
+        for op in ops:
+            kind = op[0]
+            if kind == "linear":
+                x = F.linear(x, op[1], op[2])
+            elif kind == "conv":
+                x = F.conv2d(x, op[1], op[2],
+                             padding=(op[1].shape[-1] - 1) // 2)
+            elif kind == "bn":
+                x = F.batch_norm(x, op[3], op[4], op[1], op[2],
+                                 training=False, eps=1e-5)
+            elif kind == "prelu":
+                x = F.prelu(x, op[1])
+            elif kind in ("relu", "elu", "sigmoid", "tanh"):
+                x = {"relu": F.relu, "elu": F.elu, "sigmoid": torch.sigmoid,
+                     "tanh": torch.tanh}[kind](x)
+            elif kind == "view":
+                x = x.reshape((x.shape[0],) + (op[1] or (-1,)))
+            elif kind == "up":
+                x = F.interpolate(x, scale_factor=2, mode="nearest")
+            elif kind == "maxpool":
+                x = F.max_pool2d(x, 2)
+            elif kind == "seq":
+                x = nchw_forward(op[1], x)
+            elif kind == "concat":
+                x = torch.cat([nchw_forward(b, x) for b in op[1]], dim=1)
+            # copy, dropout, sdropout: the identity in evaluation
+    return x
+
+
+_T7_CLASSES = {"copy": "nn.Copy", "relu": "cudnn.ReLU", "elu": "nn.ELU",
+               "sigmoid": "nn.Sigmoid", "tanh": "nn.Tanh", "view": "nn.View",
+               "up": "nn.SpatialUpSamplingNearest",
+               "maxpool": "nn.SpatialMaxPooling", "dropout": "nn.Dropout",
+               "sdropout": "nn.SpatialDropout"}
+
+
+def t7_module(ops) -> T7Object:
+    """The reference network as the nn.Sequential torch.save writes."""
+    mods = []
+    for op in ops:
+        kind = op[0]
+        if kind == "linear":
+            mods.append(T7Object("nn.Linear", weight=_np32(op[1]),
+                                 bias=_np32(op[2])))
+        elif kind == "conv":
+            o, i, kh, kw = op[1].shape
+            mods.append(T7Object(op[3], weight=_np32(op[1]),
+                                 bias=_np32(op[2]), nInputPlane=i,
+                                 nOutputPlane=o, kH=kh, kW=kw))
+        elif kind == "bn":
+            mods.append(T7Object(
+                "nn.SpatialBatchNormalization" if op[5]
+                else "nn.BatchNormalization", weight=_np32(op[1]),
+                bias=_np32(op[2]), running_mean=_np32(op[3]),
+                running_var=_np32(op[4]), eps=1e-5))
+        elif kind == "prelu":
+            mods.append(T7Object("nn.PReLU", weight=_np32(op[1])))
+        elif kind == "seq":
+            mods.append(t7_module(op[1]))
+        elif kind == "concat":
+            mods.append(T7Object("nn.Concat", dimension=2,
+                                 modules=[t7_module(b) for b in op[1]]))
+        else:
+            mods.append(T7Object(_T7_CLASSES[kind]))
+    return T7Object("nn.Sequential", modules=mods)
+
+
+def reference_parameters(ops) -> int:
+    """Learnable values of a reference network (weights, biases, BN
+    affine, PReLU slopes)."""
+    n = 0
+    for op in ops:
+        if op[0] in ("linear", "conv"):
+            n += op[1].numel() + op[2].numel()
+        elif op[0] == "bn":
+            n += op[1].numel() + op[2].numel()
+        elif op[0] == "prelu":
+            n += op[1].numel()
+        elif op[0] == "seq":
+            n += reference_parameters(op[1])
+        elif op[0] == "concat":
+            n += sum(reference_parameters(b) for b in op[1])
+    return n
+
+
+def write_t7_files(G, D, R, RF, tmp: str, vis, dims=DIMS,
+                   noise_dim=NOISE_DIM):
+    """The reference's three save files of these networks: train.lua:256's
+    adversarial {G, D, opt, plot_data, epoch, vis_noise_inputs} and
+    train_r.lua:234's {R, opt} for R and the fixer-R. Returns
+    ({name: path}, {name: reference ops}, seconds)."""
+    c, h, w = dims
+    t0 = time.perf_counter()
+    refs = {"G": g3_reference(G, dims), "D": d2_reference(D, dims),
+            "R": r_reference(R, dims), "R_fixer": r_reference(RF, dims)}
+    geo = {"noiseDim": noise_dim, "noiseMethod": "normal", "height": h,
+           "width": w, "colorSpace": "rgb" if c == 3 else "y"}
+    files = {
+        "adversarial.net": {
+            "G": t7_module(refs["G"]), "D": t7_module(refs["D"]),
+            "opt": {**geo, "batchSize": TRAIN_BATCH, "seed": SEED,
+                    "D_optmethod": "adam", "G_optmethod": "adam",
+                    "gpu": 0, "window": 3},
+            "plot_data": [[e, 0.7 - 0.01 * e, 0.8 + 0.01 * e, 0.5]
+                          for e in range(1, T7_EPOCH + 1)],
+            "epoch": T7_EPOCH, "vis_noise_inputs": vis},
+        "r.net": {"R": t7_module(refs["R"]),
+                  "opt": {**geo, "fixer": False, "batchSize": TRAIN_BATCH,
+                          "seed": SEED}},
+        "r_fixer.net": {"R": t7_module(refs["R_fixer"]),
+                        "opt": {**geo, "fixer": True,
+                                "batchSize": TRAIN_BATCH, "seed": SEED}}}
+    paths = {}
+    for name, obj in files.items():
+        paths[name] = os.path.join(tmp, name)
+        with open(paths[name], "wb") as f:
+            f.write(t7_bytes(obj))
+    return paths, refs, time.perf_counter() - t0
+
+
+def shown_counts(path: str) -> dict:
+    """``cli.show.main`` on a checkpoint: {model: parameters} from its
+    '-- <model>: N parameters' lines."""
+    import contextlib
+    import io
+    from ganreverser_tpu_torch.cli import show
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        show.main([path])
+    counts = {}
+    for line in buf.getvalue().splitlines():
+        m = re.match(r"-- (\w+): (\d+) parameters$", line)
+        if m:
+            counts[m.group(1)] = int(m.group(2))
+    return counts
+
+
+def check_init_draws(dev, dims=DIMS, noise_dim=NOISE_DIM) -> int:
+    """G3, D2 and R with each init drawn on the card from a CUDA generator:
+    every weight within its scheme's half-width, the biases zero or drawn
+    as the layer says, the BatchNorm scales ones or in [0, 1). Returns the
+    number of layers checked."""
+    import torch
+    from ganreverser_tpu_torch.models import modules, zoo
+    from ganreverser_tpu_torch.models.init import scheme_std
+    n = 0
+    for i, init in enumerate(INITS):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 30 + i)
+        for model in (zoo.create_G3(dims, noise_dim, init=init),
+                      zoo.create_D2(dims, init=init),
+                      zoo.create_R(dims, noise_dim, "normal", init=init)):
+            modules.init_parameters(model.to(dev), gen)
+            for m in model.modules():
+                if isinstance(m, modules.BatchNorm):
+                    s = m.scale
+                    ok = (bool(((s >= 0) & (s < 1)).all())
+                          and s.std().item() > 0.1
+                          if m.scale_init == "torch"
+                          else bool((s == 1).all()))
+                    check(ok, f"init {init}: BN scales out of range")
+                elif isinstance(m, (modules.Dense, modules.Conv)):
+                    k, b = m.kernel, m.bias
+                    fans = (k.shape if k.ndim == 2 else
+                            (k.shape[0] * k.shape[1] * k.shape[2],
+                             k.shape[0] * k.shape[1] * k.shape[3]))
+                    hw = scheme_std(m.init_scheme, *fans) * (1 + 1e-6)
+                    check(k.is_cuda and k.abs().max().item() <= hw
+                          and k.abs().max().item() > 0.5 * hw,
+                          f"init {init}: a {tuple(k.shape)} kernel outside "
+                          f"its half-width {hw}")
+                    check(bool((b == 0).all()) if m.init_zero_bias else
+                          0 < b.abs().min().item() <= b.abs().max().item()
+                          <= hw, f"init {init}: a {tuple(b.shape)} bias")
+                else:
+                    continue
+                n += 1
+    return n
+
+
+def check_t7_import(dev, card: str, tmp: str) -> dict:
+    """Phase 9: the reference user's path at full width (see the module
+    docstring). Returns the kernels' launches of its apply_r run and its
+    resumed train epoch."""
+    import numpy as np
+    import torch
+    from ganreverser_tpu_torch.cli import import_t7, show, train
+    from ganreverser_tpu_torch.core.prng import noise_inputs
+    from ganreverser_tpu_torch.io import checkpoint as ckpt
+    from ganreverser_tpu_torch.models import bridge, fastpath
+    from ganreverser_tpu_torch.ops import conv_kernel
+    t_phase = time.perf_counter()
+    c, h, w = DIMS
+    f32 = torch.float32
+    G, R, RF = make_models(dev, DIMS, NOISE_DIM)
+    D = make_d2(dev, DIMS)
+    vis = np.random.default_rng(SEED + 40).normal(
+        size=(100, NOISE_DIM)).astype(np.float32)
+    paths, refs, write_s = write_t7_files(G, D, R, RF, tmp, vis)
+    del G, R, RF, D
+    sizes = {k: os.path.getsize(p) / 2 ** 20 for k, p in paths.items()}
+    print(f"[t7] wrote " + ", ".join(f"{k} {v:.1f} MiB"
+                                     for k, v in sizes.items())
+          + f" in {write_s:.2f} s  [{card}]")
+    show.main([paths["adversarial.net"]])
+
+    save = os.path.join(tmp, "logs")
+    ckpts, import_s = {}, {}
+    for name, path in paths.items():
+        t0 = time.perf_counter()
+        ckpts[name] = import_t7.main([path, "--out", save])
+        import_s[name] = time.perf_counter() - t0
+    check(ckpts["adversarial.net"] == ckpt.adversarial_name(save)
+          and ckpts["r_fixer.net"] == ckpt.r_name(save, c, h, w, NOISE_DIM,
+                                                  "normal", True),
+          f"imported checkpoints {ckpts}")
+    for name, want in (("adversarial.net", {"G": refs["G"], "D": refs["D"]}),
+                       ("r.net", {"R": refs["R"]}),
+                       ("r_fixer.net", {"R": refs["R_fixer"]})):
+        got = shown_counts(ckpts[name])
+        want = {k: reference_parameters(v) for k, v in want.items()}
+        check(got == want, f"show {name}: parameters {got}, the reference "
+              f"networks have {want}")
+        print(f"[t7] show {os.path.basename(ckpts[name])}: " + ", ".join(
+            f"{k} {v:,} parameters" for k, v in got.items())
+            + " (= the reference networks')")
+    print(f"[t7] import seconds, {c}x{h}x{w} noise {NOISE_DIM}: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in import_s.items()) + f"  [{card}]")
+
+    # the fast paths on the imported weights against the NCHW forwards
+    tree, _, extra = ckpt.load_checkpoint(ckpts["adversarial.net"])
+    check(extra["epoch"] == T7_EPOCH and len(extra["plot_data"]) == T7_EPOCH
+          and np.array_equal(tree["vis_noise_inputs"], vis),
+          "the imported extra or visualisation noise differ from the file")
+
+    def variables(t):
+        return bridge.to_torch({"params": t["params"], "state": t["state"]},
+                               dev)
+
+    g_vars, d_vars = variables(tree["G"]), variables(tree["D"])
+    r_vars = variables(ckpt.load_checkpoint(ckpts["r.net"])[0]["R"])
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    z = noise_inputs(gen, N_COMPARE, NOISE_DIM, "normal", device=dev)
+    ref_images = nchw_forward(refs["G"], z)
+    x = ref_images.permute(0, 2, 3, 1).contiguous()
+    errs = {}
+    with torch.inference_mode():
+        for head in (False, True):
+            fast = fastpath.make_fast_generator(DIMS, NOISE_DIM, f32, head)(
+                g_vars, z)
+            errs["G" + (" (U's head)" if head else "")] = _path_err(
+                "imported G", fast, x)
+        errs["R"] = _path_err(
+            "imported R", fastpath.make_fast_inverter(
+                DIMS, NOISE_DIM, "normal", f32)(r_vars, x),
+            nchw_forward(refs["R"], ref_images))
+        errs["D"] = _path_err(
+            "imported D", fastpath.make_fast_discriminator(DIMS, f32)(
+                d_vars, x), nchw_forward(refs["D"], ref_images))
+    print(f"[t7] fast paths on imported weights vs the NCHW reference "
+          f"forwards, f32, {N_COMPARE} rows: " + ", ".join(
+              f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (tol {TOL_PATH:.0e} of scale)  [{card}]")
+    del g_vars, d_vars, r_vars, ref_images, x
+
+    # apply_r on the imported checkpoints, phase 4's arguments
+    out_dir = os.path.join(tmp, "apply_out")
+    result, launches, seconds = run_main_path(ckpts["adversarial.net"], save,
+                                              out_dir)
+    for name, count in launches.items():
+        check(count > 0, f"kernel {name} launched no time in apply_r on "
+              "the imported checkpoints")
+    check(launches["kmeans_lloyd"] == 1,
+          f"kmeans_lloyd launched {launches['kmeans_lloyd']} times")
+    score_errs = check_main_path(result, out_dir)
+    secs = result["seconds"]
+    del result
+    print(f"[t7] apply_r N={N_MAIN} bf16 batch 256 on the imported G, R "
+          f"and fixer-R: whole call {seconds:.2f} s; launches {launches}; "
+          f"top-k score error vs plain {max(score_errs):.2e}  [{card}]")
+    print(f"[t7] stage seconds: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in secs.items()) +
+        f"; generate+invert {N_MAIN / secs['generate_invert']:.1f} img/s  "
+        f"[{card}]")
+
+    # one train epoch resumed from the imported file
+    conv_kernel.conv3x3_bn_act.launches = 0
+    t0 = time.perf_counter()
+    out = train.main(["--dataset", "synthetic", "--save",
+                      os.path.join(tmp, "gan"), "--network",
+                      ckpts["adversarial.net"], "--height", str(h),
+                      "--width", str(w), "--noiseDim", str(NOISE_DIM),
+                      "--batchSize", str(TRAIN_BATCH), "--compute_dtype",
+                      "bfloat16", "--N_epoch", str(T7_TRAIN_BATCHES),
+                      "--epochs", str(T7_EPOCH + 1), "--saveFreq", "1"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    n_b6 = conv_kernel.conv3x3_bn_act.launches
+    epochs = [r["epoch"] for r in out["epochs"]]
+    losses = out["epochs"][0]["d_losses"] + out["epochs"][0]["g_losses"]
+    check(epochs == [T7_EPOCH + 1], f"resumed train ran epochs {epochs}")
+    check(np.array_equal(out["vis_noise"].cpu().numpy(), vis),
+          "the resumed train has another visualisation noise")
+    check(n_b6 == 10, f"resumed train: B6 launched {n_b6} times, not 10")
+    check(len(losses) == 2 * T7_TRAIN_BATCHES
+          and all(map(math.isfinite, losses)), "resumed train: losses")
+    check([row[0] for row in out["plot_data"]]
+          == list(range(1, T7_EPOCH + 2)), "resumed train: loss history")
+    print(f"[t7] train --network <imported> b{TRAIN_BATCH} bf16, "
+          f"{T7_TRAIN_BATCHES} batches: epoch {epochs[0]}, "
+          f"{train_s:.2f} s, B6 launches {n_b6}, d "
+          f"{statistics.mean(out['epochs'][0]['d_losses']):.4f} g "
+          f"{statistics.mean(out['epochs'][0]['g_losses']):.4f}  [{card}]")
+    del out
+
+    n_layers = check_init_draws(dev)
+    print(f"[t7] init on the card (CUDA generator), G3, D2 and R x "
+          f"{', '.join(INITS)}: {n_layers} layers within their half-widths"
+          f"  [{card}]")
+    print(f"[time] phase 9 {time.perf_counter() - t_phase:.1f} s  [{card}]")
+    torch.cuda.empty_cache()
+    launches["conv3x3_bn_act"] = n_b6
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2203,9 +2759,14 @@ def main() -> int:
     t8 = time.perf_counter()
     for name, count in check_e2e(dev, card).items():
         launches[name] += count
+    t9 = time.perf_counter()
+    # 9. the Torch7 import, then apply_r and train on the imported files
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        for name, count in check_t7_import(dev, card, tmp).items():
+            launches[name] += count
     print(f"[time] phases 6 and 7 {t8 - t6:.1f} s (7: {secs7:.1f} s), phase "
-          f"8 {time.perf_counter() - t8:.1f} s, the whole run "
-          f"{time.perf_counter() - t_start:.1f} s  [{card}]")
+          f"8 {t9 - t8:.1f} s, phase 9 {time.perf_counter() - t9:.1f} s, "
+          f"the whole run {time.perf_counter() - t_start:.1f} s  [{card}]")
 
     sources = {"conv_block": ("ganreverser_tpu_torch/csrc/conv_block.cu",
                               "ganreverser_tpu/ops/conv_block_kernel.py:86"),
@@ -2238,9 +2799,9 @@ def main() -> int:
     for name, (source, replaces) in sources.items():
         # the main path's dtype (bf16; kmeans and two probes run in f32),
         # summed over the path's shapes (the head's C = 3 row: G_prev is
-        # rgb); B, U and C's launches are apply_r's and the fused e2e
-        # program's first call's (phases 4 and 8), B5's those of the three
-        # train_r runs, B6's those of the two train runs and the sample run,
+        # rgb); B, U, C and K's launches are apply_r's and the fused e2e
+        # program's first call's (phases 4, 8 and 9), B5's those of the three
+        # train_r runs, B6's those of the three train runs and the sample run,
         # the head's those of the two pretrain_prev runs and the e2e
         # program's, B7-B9's those of their probes
         recs = [r for r in records if r["name"] == name and r["dtype"] == (

@@ -83,18 +83,18 @@ def gan_optimizers(cfg) -> tuple:
 
 
 def build_gan_models(cfg, dtype: torch.dtype):
-    """(G3, D2, dims) for the flags' geometry, weights zero, in
-    evaluation."""
+    """(G3, D2, dims) for the flags' geometry and ``--init``, weights
+    zero, in evaluation."""
     dims = cfg.img_dims()
-    return (zoo.create_G(dims, cfg.noiseDim, dtype),
-            zoo.create_D(dims, dtype, getattr(cfg, "init", "heuristic")),
-            dims)
+    init = getattr(cfg, "init", "heuristic")
+    return (zoo.create_G(dims, cfg.noiseDim, dtype, init),
+            zoo.create_D(dims, dtype, init), dims)
 
 
 def init_gan_state(cfg, G, D, device: torch.device) -> GanState:
-    """G and D with fresh 'heuristic' weights (G's drawn first, then D's,
-    from the init stage of ``--seed``, on the CPU) and fresh optimizer
-    states, on ``device``."""
+    """G and D with fresh weights by their layers' init schemes (G's drawn
+    first, then D's, from the init stage of ``--seed``, on the CPU) and
+    fresh optimizer states, on ``device``."""
     gen = stage_generator(cfg.seed, INIT_STAGE, "cpu")
     g_opt, d_opt = gan_optimizers(cfg)
     return GanState(

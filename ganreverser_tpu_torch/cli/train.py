@@ -24,9 +24,10 @@ the same visualisation noise, the loss history continued, the
 ``epoch_time`` (mean seconds per epoch over 10) goes to the event file.
 SIGTERM checkpoints at the end of the epoch and exits. On CUDA
 (GANREVERSER_PLATFORM unset or gpu) kernel B6 runs; with
-GANREVERSER_PLATFORM=cpu its plain version. Refused: --mesh_* other than 1,
-a coordinator, --async_save, --profile_dir, --init other than heuristic;
---prng is inert.
+GANREVERSER_PLATFORM=cpu its plain version. ``--init`` picks the weight
+init of fresh G and D (models/zoo.py); ``--profile_dir`` writes a
+torch.profiler trace of epoch 2 there. Refused: --mesh_* other than 1, a
+coordinator, --async_save; --prng is inert.
 
 Usage: python -m ganreverser_tpu_torch.cli.train --dataset synthetic \\
            --height 64 --width 64 --noiseDim 100 --batchSize 256 \\
@@ -46,7 +47,7 @@ from ..core.prng import (PREVIEW_STAGE, noise_inputs, stage_generator,
 from ..data.dataset import NORMALIZE_STATS, normalize_images
 from ..data.prefetch import prefetch_to_device
 from ..io import checkpoint as ckpt
-from ..io.metrics import MetricsWriter, StepTimer
+from ..io.metrics import MetricsWriter, StepTimer, profiler_trace
 from ..io.preemption import PreemptionGuard
 from ..models import bridge
 from ..models.fastpath import make_fast_discriminator
@@ -61,9 +62,7 @@ def _refuse_unported(cfg: GanConfig):
         ("--mesh_data other than 1", cfg.mesh_data != 1),
         ("--mesh_model other than 1", cfg.mesh_model != 1),
         ("--coordinator_address", bool(cfg.coordinator_address)),
-        ("--async_save", cfg.async_save),
-        ("--profile_dir", bool(cfg.profile_dir)),
-        (f"--init {cfg.init}", cfg.init != "heuristic")) if on]
+        ("--async_save", cfg.async_save)) if on]
     if refused:
         sys.exit(f"<trainer> not ported yet: {', '.join(refused)} "
                  "(ROADMAP.md, queue A)")
@@ -239,8 +238,10 @@ def main(argv=None) -> dict:
                                    train_data)
 
             confusion = Confusion.zero(device)
-            d_losses, g_losses = epoch_program(gs, confusion, train_data,
-                                               noise_gen)
+            with profiler_trace(cfg.profile_dir if epoch == 2 else None,
+                                device):
+                d_losses, g_losses = epoch_program(gs, confusion,
+                                                   train_data, noise_gen)
             # the epoch's one host fetch
             host = torch.cat([
                 d_losses, g_losses, d_losses.mean()[None],

@@ -22,6 +22,14 @@ class Config:
         return dataclasses.asdict(self)
 
     @classmethod
+    def from_dict(cls: Type[T], d: dict) -> T:
+        """A config from a dict (a checkpoint's, or a Torch7 file's saved
+        ``opt``): unknown keys are ignored, missing ones keep their
+        defaults."""
+        known = {f.name for f in fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in known})
+
+    @classmethod
     def parser(cls: Type[T], description: str = "") -> argparse.ArgumentParser:
         p = argparse.ArgumentParser(description=description)
         for f in fields(cls):
@@ -82,9 +90,8 @@ class ApplyConfig(Config):
 class GanConfig(Config):
     """Flags of train.lua:15-49 plus the JAX package's additions, with its
     defaults. The port refuses the flags of modes it does not have yet
-    (--mesh_* other than 1, a multi-process coordinator, --async_save, a
-    non-empty --profile_dir, --init other than heuristic); --prng is
-    accepted and inert (both values mean torch's generators)."""
+    (--mesh_* other than 1, a multi-process coordinator, --async_save);
+    --prng is accepted and inert (both values mean torch's generators)."""
     save: str = _f("logs", "subdirectory to save logs")
     saveFreq: int = _f(30, "save every saveFreq epochs")
     epochs: int = _f(-1, "stop after that many epochs (<0 = run forever; the reference's inverted check, train.lua:208, is fixed as in the JAX package)")
@@ -118,11 +125,11 @@ class GanConfig(Config):
     exact_decode: bool = _f(False, "full-size exact JPEG decode (parity audits); default is DCT-scaled draft decode (data/dataset.py)")
     decode_cache: str = _f("", "directory for the decoded-tensor disk cache (data/cache.py), uint8-quantized; parity audits leave it off")
     normalize: bool = _f(False, "normalize training data to [-1,1] (train.lua:51,217-218); mean/std travel in the checkpoint")
-    init: str = _f("heuristic", "weight init: heuristic (torch, xavier, xavier_caffe and kaiming are not ported yet: refused)")
+    init: str = _f("heuristic", "weight init: heuristic (clean default) | torch (reproduce the reference's accidental initial distributions, models/zoo.py) | xavier | xavier_caffe | kaiming")
     mesh_data: int = _f(1, "data-parallel axis (not ported yet: must be 1)")
     mesh_model: int = _f(1, "tensor-parallel axis (not ported yet: must be 1)")
     compute_dtype: str = _f("float32", "compute dtype: float32|bfloat16")
-    profile_dir: str = _f("", "profiler trace of one epoch (not ported yet: must be empty; tools/profile_port.py --what gan traces the step)")
+    profile_dir: str = _f("", "write a torch.profiler Chrome trace of epoch 2 here (io/metrics.py::profiler_trace)")
     prng: str = _f("threefry", "accepted for the JAX CLI's sake: threefry|rbg; the port draws from torch generators either way")
     async_save: bool = _f(False, "overlap checkpoint writes with training (not ported yet: refused)")
     keep_history: int = _f(0, "also keep the newest N epoch-stamped checkpoints (adversarial.step<E>); 0 = only latest + .old")

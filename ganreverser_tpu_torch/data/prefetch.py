@@ -8,7 +8,9 @@ the pinned buffer lives until the copy has completed; the consumer's stream
 then waits on the copy's event, and the tensor is marked as used by that
 stream for PyTorch's allocator. On the CPU there is no pinning and no
 stream. An exception in the worker is re-raised in the consumer, never a
-hang.
+hang. Closing the iterator waits for the worker to finish the batch it is
+making, so no copy to the card is left running (at interpreter exit a
+thread still inside a CUDA call aborts the process).
 """
 from __future__ import annotations
 
@@ -81,5 +83,8 @@ def prefetch_to_device(batch_fn: Callable[[int], np.ndarray], n_batches: int,
             yield tensor
     finally:
         stop.set()
-        while not q.empty():  # let a worker blocked on put() see ``stop``
-            q.get_nowait()
+        while t.is_alive():  # let a worker blocked on put() see ``stop``
+            try:
+                q.get(timeout=0.05)
+            except queue.Empty:
+                pass

@@ -1,19 +1,23 @@
 """Metrics of one process — ganreverser_tpu/io/metrics.py's
-``MetricsWriter`` and ``StepTimer``:
+``MetricsWriter``, ``StepTimer`` and ``profiler_trace``:
 
 * scalars -> a JSONL event file, one record per line,
   ``{"tag", "value", "wall"[, "step"]}``, ``wall`` in seconds since the
   writer opened;
-* image grids and loss charts -> PNG files under ``<save>/<subdir>``.
+* image grids and loss charts -> PNG files under ``<save>/<subdir>``;
+* a profiler trace of a region -> a Chrome trace JSON under a directory
+  (JAX writes a TensorBoard profile plugin directory instead).
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
 from typing import Optional
 
 import numpy as np
+import torch
 
 
 class MetricsWriter:
@@ -91,3 +95,27 @@ class StepTimer:
                                step=step)
             self._acc = 0.0
         return dt
+
+
+@contextlib.contextmanager
+def profiler_trace(log_dir: Optional[str],
+                   device: torch.device | str = "cpu"):
+    """A ``torch.profiler`` trace of the region, written as
+    ``<log_dir>/trace_<pid>_<time>.json`` (Chrome trace format) when it
+    ends; on a CUDA ``device`` the card's activity is recorded too, the
+    region ending in a synchronisation. Does nothing when ``log_dir`` is
+    empty."""
+    if not log_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+    cuda = torch.device(device).type == "cuda"
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                           if cuda else [])
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+        if cuda:
+            torch.cuda.synchronize(device)
+    prof.export_chrome_trace(os.path.join(
+        log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))

@@ -1,4 +1,5 @@
-"""``nn.Module``s of the layers G3, R and D2 use — the counterparts of
+"""``nn.Module``s of the zoo's layers (G3, G4, G_encoder, D2, D_default,
+D_facegen, R, createResidual) — the counterparts of
 ganreverser_tpu/models/modules.py, in evaluation and in training.
 
 Conventions kept from the JAX package, so that its checkpoints map onto
@@ -20,12 +21,18 @@ fixer-R's always-on input dropout is active in evaluation too, as in the
 reference. Every active dropout draws from the ``generator`` its caller set
 (:func:`set_dropout_generator`); there is no hidden global stream. The
 plain convolutions here go through ``F.conv2d`` on NCHW views.
+
+Dense and Conv carry their init scheme (``init_scheme``,
+``init_zero_bias``) and BatchNorm its ``scale_init``, as the JAX layers
+do; :func:`init_parameters` draws every layer by its own (models/init.py).
 """
 from __future__ import annotations
 
-import math
 from collections import OrderedDict
+from functools import partial
 from typing import Sequence
+
+import numpy as np
 
 import torch
 import torch.nn.functional as F
@@ -34,16 +41,17 @@ from torch import nn
 from ..core.precision import pinned_precision
 from ..ops.dropout_kernel import draw_seed, fused_dropout
 from ..ops.upsample_conv import conv_nhwc, upsample2_conv3x3_dilated
+from .init import SCHEMES, init_bn_scale, init_conv, init_dense
 
 _BN_EPS = 1e-5
 _BN_MOMENTUM = 0.1
 
 
-def _heuristic_(t: torch.Tensor, fan_in: int, generator: torch.Generator):
-    """weight-init.lua's 'heuristic': uniform(+-sqrt(1 / (3 fan_in)))."""
-    std = math.sqrt(1.0 / (3.0 * fan_in))
-    with torch.no_grad():
-        t.uniform_(-std, std, generator=generator)
+def _check_scheme(scheme: str) -> str:
+    if scheme not in SCHEMES:
+        raise ValueError(f"Unknown init scheme {scheme!r}: expected one of "
+                         f"{SCHEMES}")
+    return scheme
 
 
 def dense(x: torch.Tensor, kernel: torch.Tensor,
@@ -72,15 +80,18 @@ class Dense(nn.Module):
     """nn.Linear; ``kernel`` is (in, out)."""
 
     def __init__(self, in_features: int, features: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 init_scheme: str = "heuristic", init_zero_bias: bool = True):
         super().__init__()
         self.kernel = nn.Parameter(torch.zeros(in_features, features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.dtype = dtype
+        self.init_scheme = _check_scheme(init_scheme)
+        self.init_zero_bias = init_zero_bias
 
     def reset_parameters(self, generator: torch.Generator):
-        _heuristic_(self.kernel, self.kernel.shape[0], generator)
-        nn.init.zeros_(self.bias)
+        init_dense(self.kernel, self.bias, generator, self.init_scheme,
+                   self.init_zero_bias)
 
     def forward(self, x):
         return (dense(x, self.kernel, self.dtype) + self.bias).to(self.dtype)
@@ -91,17 +102,19 @@ class Conv(nn.Module):
     (k - 1) / 2; ``kernel`` is HWIO."""
 
     def __init__(self, in_ch: int, features: int,
-                 dtype: torch.dtype = torch.float32, kernel: int = 3):
+                 dtype: torch.dtype = torch.float32, kernel: int = 3,
+                 init_scheme: str = "heuristic", init_zero_bias: bool = True):
         super().__init__()
         self.kernel = nn.Parameter(torch.zeros(kernel, kernel, in_ch,
                                                features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.dtype = dtype
+        self.init_scheme = _check_scheme(init_scheme)
+        self.init_zero_bias = init_zero_bias
 
     def reset_parameters(self, generator: torch.Generator):
-        k, _, ci, _ = self.kernel.shape
-        _heuristic_(self.kernel, k * k * ci, generator)
-        nn.init.zeros_(self.bias)
+        init_conv(self.kernel, self.bias, generator, self.init_scheme,
+                  self.init_zero_bias)
 
     def forward(self, x):
         y = conv_nhwc(x, self.kernel, (self.kernel.shape[0] - 1) // 2,
@@ -124,15 +137,22 @@ class BatchNorm(nn.Module):
     In evaluation it normalises with the running statistics. In training it
     normalises with the batch mean and biased variance over all other axes
     (gradients flow through them) and moves the running buffers by momentum
-    0.1 towards the batch mean and the unbiased variance, as torch does."""
+    0.1 towards the batch mean and the unbiased variance, as torch does.
+    ``scale_init="torch"`` draws the scale from uniform(0, 1)."""
 
-    def __init__(self, features: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, features: int, dtype: torch.dtype = torch.float32,
+                 scale_init: str = "ones"):
         super().__init__()
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
         self.dtype = dtype
+        self.scale_init = scale_init
+
+    def reset_parameters(self, generator: torch.Generator):
+        init_bn_scale(self.scale, generator, self.scale_init)
+        nn.init.zeros_(self.bias)
 
     def forward(self, x):
         xf = x.float()
@@ -166,10 +186,12 @@ class PReLU(nn.Module):
 
 
 class Activation(nn.Module):
-    """relu / elu (alpha 1) / sigmoid / tanh."""
+    """relu / elu (alpha 1) / sigmoid / tanh / leaky_relu (slope 0.333,
+    createResidual's nn.LeakyReLU(0.333))."""
 
     _FNS = {"relu": F.relu, "elu": F.elu, "sigmoid": torch.sigmoid,
-            "tanh": torch.tanh}
+            "tanh": torch.tanh,
+            "leaky_relu": partial(F.leaky_relu, negative_slope=0.333)}
 
     def __init__(self, fn: str):
         super().__init__()
@@ -263,6 +285,18 @@ class AvgPool(nn.Module):
         return y.permute(0, 2, 3, 1).to(x.dtype)
 
 
+class UpsampleNearest(nn.Module):
+    """nn.SpatialUpSamplingNearest(scale) on NHWC."""
+
+    def __init__(self, scale: int = 2):
+        super().__init__()
+        self.scale = scale
+
+    def forward(self, x):
+        s = self.scale
+        return x.repeat_interleave(s, dim=1).repeat_interleave(s, dim=2)
+
+
 class Flatten(nn.Module):
     """nn.View(n): collapse to (batch, -1) in (H, W, C) order."""
 
@@ -308,10 +342,61 @@ class ConcatBranches(nn.Module):
         return torch.cat([b(x) for b in self.children()], dim=-1)
 
 
+class Residual(nn.Module):
+    """models.createResidual (models.lua:8-55): the ``inner`` path plus the
+    ``shortcut`` (Identity, or a 1x1-conv reducer), summed."""
+
+    def __init__(self, inner: nn.Module, shortcut: nn.Module):
+        super().__init__()
+        self.inner = inner
+        self.shortcut = shortcut
+
+    def forward(self, x):
+        return self.inner(x) + self.shortcut(x)
+
+
 def init_parameters(module: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Draw every Dense/Conv weight of ``module`` with the 'heuristic'
-    scheme and zero biases, in module order, from ``generator``."""
+    """Draw every Dense, Conv and BatchNorm of ``module`` by its own init
+    attributes, in module order, from ``generator``."""
     for m in module.modules():
-        if isinstance(m, (Dense, Conv)):
+        if isinstance(m, (Dense, Conv, BatchNorm)):
             m.reset_parameters(generator)
     return module
+
+
+def _leaves(tree):
+    """(name, array-like) leaves of a module, a tensor or a nested
+    dict/list/tuple of arrays or tensors."""
+    if isinstance(tree, nn.Module):
+        yield from tree.named_parameters()
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            for name, leaf in _leaves(v):
+                yield (f"{k}.{name}" if name else str(k)), leaf
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            for name, leaf in _leaves(v):
+                yield (f"{i}.{name}" if name else str(i)), leaf
+    elif tree is not None:
+        yield "", tree
+
+
+def _size(leaf) -> int:
+    return int(leaf.numel() if isinstance(leaf, torch.Tensor)
+               else np.size(leaf))
+
+
+def count_parameters(params) -> int:
+    """NN_UTILS.getNumberOfParameters, counting every learnable leaf (the
+    reference counts only ``.weight`` tensors, nn_utils.lua:417-426) of a
+    module or a tree of arrays or tensors."""
+    return sum(_size(leaf) for _, leaf in _leaves(params))
+
+
+def count_weight_parameters(params) -> int:
+    """The reference's count: only weight/kernel/scale/alpha leaves, no
+    biases (nn_utils.lua:417-426 counts modules' ``.weight``, which
+    includes BatchNorm's scale and PReLU's alpha in torch)."""
+    return sum(_size(leaf) for name, leaf in _leaves(params)
+               if any(k in name.rsplit(".", 1)[-1]
+                      for k in ("kernel", "scale", "alpha")))

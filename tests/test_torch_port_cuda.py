@@ -862,3 +862,66 @@ def test_serial_programs_graphs_match_fused(dev):
     fused = _e2e(G, R, dims, nd, e2e.FUSED_HEAD)(gv, rv, z)
     for a, b in zip((emb, v, i), fused):
         assert torch.equal(a, b)
+
+
+def _chip_smoke():
+    """chip_smoke.py beside the tests' directory: its Torch7 writer and
+    NCHW reference networks (the card's machine has no jax, so the test
+    writer of tests/test_torch7.py is not at hand there)."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_imported_g3_and_r_fast_paths_on_card(dev, tmp_path):
+    """A small G3 and R (3x16x16, noise 8, random BN statistics) written as
+    the reference's t7 files, imported, then the fast G (U, and U's fused
+    head), the fast R (B) and the fast D (B6) on the card in f32 against
+    the NCHW reference forwards: 1e-4 of the output's scale."""
+    from ganreverser_tpu_torch.io import checkpoint as ckpt
+    from ganreverser_tpu_torch.io.import_t7 import import_t7
+    from ganreverser_tpu_torch.models import bridge, fastpath
+    cs = _chip_smoke()
+    dims, nd = (3, 16, 16), 8
+    G, R, RF = cs.make_models(dev, dims, nd)
+    D = cs.make_d2(dev, dims)
+    vis = np.random.default_rng(0).normal(size=(100, nd)).astype(np.float32)
+    paths, refs, _ = cs.write_t7_files(G, D, R, RF, str(tmp_path), vis,
+                                       dims, nd)
+    save = str(tmp_path / "logs")
+    tree = ckpt.load_checkpoint(import_t7(paths["adversarial.net"], save,
+                                          verbose=False))[0]
+    r_tree = ckpt.load_checkpoint(import_t7(paths["r.net"], save,
+                                            verbose=False))[0]["R"]
+
+    def variables(t):
+        return bridge.to_torch({"params": t["params"], "state": t["state"]},
+                               dev)
+
+    z = torch.randn(64, nd, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1))
+    ref = cs.nchw_forward(refs["G"], z)
+    x = ref.permute(0, 2, 3, 1).contiguous()
+    counters = (upsample_conv_kernel.upsample2_conv3x3_bn_act,
+                upsample_conv_kernel.upsample2_conv3x3_head,
+                conv_block_kernel.conv_block, conv_kernel.conv3x3_bn_act)
+    before = [fn.launches for fn in counters]
+    with torch.no_grad():
+        for head in (False, True):
+            _close(fastpath.make_fast_generator(dims, nd, torch.float32,
+                                                head)(variables(tree["G"]),
+                                                      z), x, torch.float32)
+        _close(fastpath.make_fast_inverter(dims, nd, "normal",
+                                           torch.float32)(
+            variables(r_tree), x), cs.nchw_forward(refs["R"], ref),
+            torch.float32)
+        _close(fastpath.make_fast_discriminator(dims, torch.float32)(
+            variables(tree["D"]), x), cs.nchw_forward(refs["D"], ref),
+            torch.float32)
+    torch.cuda.synchronize()
+    assert [fn.launches - b for fn, b in zip(counters, before)] == \
+        [3, 1, 6, 5]

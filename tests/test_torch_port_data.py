@@ -6,6 +6,7 @@ normalisation are bitwise equal; the other colour spaces agree within
 order); JPEG directories within 1e-5 (the JAX package may resize with its
 C++ library)."""
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -121,3 +122,20 @@ def test_prefetch_in_order_and_reraises():
     assert [float(next(endless)) for _ in range(4)] == [0.0, 1.0, 2.0, 3.0]
     endless.close()
     assert threading.active_count() < 50
+
+
+def test_prefetch_close_waits_for_the_worker():
+    """Closing the iterator returns only once the worker has finished the
+    batch it was making: nothing of it runs on after the close."""
+    started, finished = [], []
+
+    def slow(i):
+        started.append(i)
+        time.sleep(0.2)
+        finished.append(i)
+        return np.full(1, i, np.float32)
+
+    it = prefetch.prefetch_to_device(slow, -1)
+    assert float(next(it)) == 0.0
+    it.close()
+    assert started == finished and len(started) >= 2

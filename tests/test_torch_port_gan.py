@@ -113,7 +113,7 @@ def test_d2_module_matches_jax():
         M.count_parameters(dv["params"])
     assert D.l0.l1.alpha.shape == (1,) and D.l3.b1.l0.l1.alpha.shape == (1,)
     with pytest.raises(ValueError):
-        zoo.create_D(DIMS, init="torch")
+        zoo.create_D(DIMS, init="lecun")
     with pytest.raises(ValueError):
         zoo.create_D((3, 12, 12))
 

@@ -69,8 +69,8 @@ def test_cli_writes_every_artifact(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [["--mesh_data", "2"], ["--mesh_model", "2"],
-                                   ["--async_save"], ["--profile_dir", "p"],
-                                   ["--init", "torch"],
+                                   ["--async_save"], ["--mesh_data", "0"],
+                                   ["--mesh_model", "4"],
                                    ["--coordinator_address", "localhost:1"]])
 def test_cli_refuses_unported_flags(tmp_path, flags):
     with pytest.raises(SystemExit):
