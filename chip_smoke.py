@@ -156,10 +156,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
    launch); one ``cli.train.main --network <imported>`` epoch of 10
    batches, which must be epoch 5 with the file's visualisation noise and
    launch B6 10 times; G3, D2 and R drawn on the card from a CUDA
-   generator under each --init, every layer within its half-width.
+   generator under each --init, every layer within its half-width;
+10. serving and the int8 legs, from phase 4's checkpoints (the same seed):
+   ``cli.export.main`` writes the invert (batch 256), generate (batch 256)
+   and e2e (N = 10,240, batch 128, k = 100) artifacts in bf16, each with
+   ``--check``; a fresh process that imports only
+   ``ganreverser_tpu_torch.io.serving`` (and this script's timers) loads
+   each on the card (one CUDA graph), runs it on the inputs the live legs
+   get, counts its kernels in one traced call (invert B 6; generate U 1
+   and U's head 1; e2e U 80, U's head 80, B 480, C 40), times the e2e
+   artifact warm, then loads the invert artifact on the CPU; it must have
+   imported nothing under models/, cli/ or analysis/e2e.py. The loaded
+   outputs must be within 1e-3 x max(1, scale) of the live legs', the
+   e2e top-k within 1e-5 of the f64 search, the CPU leg's 16 rows within
+   1e-2 of the plain path. Printed beside phase 8's live graph: export
+   seconds, artifact MB, load and first-call seconds, the loaded e2e
+   artifact's warm img/s. Then kernels Q1-Q4 (csrc/quant.cu) against
+   their plain versions at the int8 legs' shapes (R's six convs, G's
+   output conv, G's two upsample stages, the three dense layers, five
+   activation sizes): q and the scale bitwise, outputs within 1e-6 of
+   scale, kernel, plain and bound times (bound: operations over 1,979
+   TOPS or bytes over 3.35 TB/s), Q3 beside torch._int_mm; ``apply_r
+   --int8`` with phase 4's arguments (Q1-Q4, B, U, C and K must launch;
+   phase 4's checks) and its stage seconds beside phase 4's; the top-100
+   recall of the int8 e2e program against the bf16 one on phase 8's x3
+   weights (printed, not gated); ``export --what e2e --int8 --check`` at
+   N = 2,560 (its trace at 10,240 alone takes longer than the phase should).
 
 The last two lines are a JSON object with each kernel's route, source,
-launch count in the main path, error, times and bound, and
+launch count in the main path (Q1-Q4's: ``apply_r --int8`` and the int8
+e2e export's check), error, times and bound, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without a result when CUDA is absent or the package is not
 beside this file.
@@ -2079,7 +2105,7 @@ def check_e2e(dev, card: str):
               f"ms (eager calls, CUDA events, median of 5)  [{card}]")
     del fused, images
     torch.cuda.empty_cache()
-    return launches
+    return launches, rate(t_graph)
 
 
 # -- phase 9: the Torch7 import ------------------------------------------
@@ -2620,6 +2646,395 @@ def check_t7_import(dev, card: str, tmp: str) -> dict:
     return launches
 
 
+# -- phase 10: serving and the int8 legs ------------------------------------
+
+SERVE_BATCH = 256        # export --batch of invert and generate
+SERVE_E2E = (E2E_N, E2E_BATCHES[0], E2E_K)   # export --what e2e: N, batch, k
+# export --what e2e --int8: N cut to a quarter (its trace at N = 10,240
+# took 81.5 s on an NVIDIA H100 80GB HBM3 host, against 37.3 s in bf16)
+SERVE_E2E_INT8_N = E2E_N // 4
+TOL_SERVE = 1e-3         # loaded artifact vs live program, of max(1, scale)
+SERVE_CPU_ROWS = 16      # rows of the CPU leg held to the plain path
+# Q1-Q3's dequantised outputs vs their plain versions, of max(1, |plain|):
+# one FMA rounding on both sides; expm1 and the sigmoid in CUDA's libdevice
+# against PyTorch's (their int8 and int32 parts must be bitwise)
+TOL_INT8 = 1e-6
+PEAK_INT8_OPS = 1979e12  # dense int8 tensor-core peak of an H100 SXM
+INT8_LINES = ("quant_conv3x3_same", "quant_upsample2_conv3x3", "quant_dense",
+              "quant_act")
+# a process that loads artifacts with io.serving alone: loads each on the
+# card, runs it on the saved input (first call: capture + replay), saves
+# its outputs, counts its kernels in one traced call and times the e2e
+# artifact warm; then the invert artifact on the CPU; prints a JSON line
+SERVE_LOADER = r"""
+import json, statistics, sys, time
+root, spec = sys.argv[1], json.loads(sys.argv[2])
+sys.path.insert(0, root)
+import torch
+from ganreverser_tpu_torch.io.serving import load_serving_program
+import chip_smoke as cs
+out = {}
+for what, d in spec["card"].items():
+    t0 = time.perf_counter()
+    call, meta = load_serving_program(d["path"])
+    load_s = time.perf_counter() - t0
+    x = torch.load(d["input"]).to("cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = call(x)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    ys = y if isinstance(y, tuple) else (y,)
+    torch.save([t.cpu() for t in ys], d["output"])
+    rec = {"load_s": load_s, "first_s": first_s,
+           "counts": cs.device_counts(lambda: call(x), cs.E2E_DEVICE_KERNELS)}
+    if what == "e2e":
+        rec["img_s"] = x.shape[0] / statistics.median(cs.wall_s(
+            lambda: call(x), cs.E2E_TIMES))
+    out[what] = rec
+d = spec["cpu"]
+t0 = time.perf_counter()
+call, meta = load_serving_program(d["path"], "cpu")
+y = call(torch.load(d["input"]))
+out["cpu_s"] = time.perf_counter() - t0
+torch.save(y[:d["rows"]], d["output"])
+out["modules"] = [m for m in sys.modules if m.startswith((
+    "ganreverser_tpu_torch.models", "ganreverser_tpu_torch.cli",
+    "ganreverser_tpu_torch.analysis.e2e", "jax", "ganreverser_tpu."))]
+print("SERVE " + json.dumps(out))
+"""
+
+
+def quant_counters():
+    from ganreverser_tpu_torch.ops import quant
+    return {name: getattr(quant, name) for name in INT8_LINES}
+
+
+def quant_cases(dev, n: int):
+    """(kernel, label, make() -> case) for Q1-Q4 at the int8 legs' shapes:
+    the quantised operands from seeded f32 tensors, the kernel's call, its
+    plain version, the library call (torch._int_mm for Q3, its K or M
+    zero-padded to a multiple of 8 where cuBLAS needs it; none for the
+    others: no PyTorch call computes them), operations and bytes."""
+    import torch
+    import torch.nn.functional as F
+    from ganreverser_tpu_torch.ops import quant as Q
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    c, h, w = DIMS
+    cases = []
+
+    def act_input(shape, relu):
+        x = torch.randn(shape, device=dev, generator=gen)
+        return Q.quantize_plain(torch.clamp_min(x, 0) if relu else x)
+
+    def conv(label, shape, co, act, pool):
+        nb, hh, ww, ci = shape
+        xq, xs = act_input(shape, False)
+        wq, ws = Q.quantize_plain(torch.randn(3, 3, ci, co, device=dev,
+                                              generator=gen), axis=(0, 1, 2))
+        b = torch.randn(co, device=dev, generator=gen)
+        op = Q.conv_operand(wq)
+        oh, ow = (hh // 2, ww // 2) if pool else (hh, ww)
+        cases.append(("quant_conv3x3_same", label, lambda: {
+            "kernel": lambda: Q.quant_conv3x3_same(xq, xs, wq, ws, b, act=act,
+                                                   pool=pool, operand=op),
+            "plain": lambda: Q.quant_conv3x3_plain(xq, xs, wq, ws, b, act=act,
+                                                   pool=pool),
+            "library": None,
+            "ops": 2 * nb * hh * ww * 9 * ci * co,
+            "bytes": _nbytes(xq, xs, op, ws, b) + nb * oh * ow * co * 4}))
+
+    def upsample(label, shape, co):
+        nb, hh, ww, ci = shape
+        xq, xs = act_input(shape, True)
+        wq16, ws = Q.quant_phase_weights(
+            torch.randn(3, 3, ci, co, device=dev, generator=gen),
+            0.5 + torch.rand(co, device=dev, generator=gen))
+        sh = torch.randn(co, device=dev, generator=gen)
+        op = Q.phase_operand(wq16)
+        cases.append(("quant_upsample2_conv3x3", label, lambda: {
+            "kernel": lambda: Q.quant_upsample2_conv3x3(xq, xs, wq16, ws, sh,
+                                                        operand=op),
+            "plain": lambda: Q.quant_upsample2_conv3x3_plain(xq, xs, wq16, ws,
+                                                             sh),
+            "library": None,
+            "ops": 2 * nb * 4 * hh * ww * 4 * ci * co,
+            "bytes": _nbytes(xq, xs, op, ws, sh) + nb * 4 * hh * ww * co * 4}))
+
+    def dense(label, nb, k, m, act):
+        xq, xs = act_input((nb, k), act == "elu")
+        wq, ws = Q.quantize_plain(torch.randn(k, m, device=dev,
+                                              generator=gen), axis=(0,))
+        b = torch.randn(m, device=dev, generator=gen)
+        op = Q.dense_operand(wq)
+        kp, mp = -(-k // 8) * 8, -(-m // 8) * 8
+        xl = F.pad(xq, (0, kp - k)).contiguous()
+        wl = F.pad(wq, (0, mp - m, 0, kp - k)).contiguous()
+        cases.append(("quant_dense", label, lambda: {
+            "kernel": lambda: Q.quant_dense(xq, xs, wq, ws, b, act=act,
+                                            operand=op),
+            "plain": lambda: Q.quant_dense_plain(xq, xs, wq, ws, b, act=act),
+            "library": lambda: torch._int_mm(xl, wl),
+            "ops": 2 * nb * k * m,
+            "bytes": _nbytes(xq, xs, op, ws, b) + nb * m * 4}))
+
+    def quantize(label, shape):
+        x = torch.randn(shape, device=dev, generator=gen)
+        cases.append(("quant_act", label, lambda: {
+            "kernel": lambda: Q.quant_act(x),
+            "plain": lambda: Q.quantize_plain(x),
+            "library": None,
+            "ops": 4 * x.numel(),   # |x|, max, divide, round + clip
+            "bytes": _nbytes(x) + x.numel() + 4}))
+
+    conv(f"R l0 ({n},{h},{w},{c})->64 elu", (n, h, w, c), 64, "elu", False)
+    conv(f"R l4 ({n},{h},{w},64)->64 elu", (n, h, w, 64), 64, "elu", False)
+    conv(f"R l8 ({n},{h},{w},64)->64 elu+pool", (n, h, w, 64), 64, "elu",
+         True)
+    conv(f"R l13 ({n},{h // 2},{w // 2},64)->128 elu",
+         (n, h // 2, w // 2, 64), 128, "elu", False)
+    conv(f"R l17 ({n},{h // 2},{w // 2},128)->128 elu",
+         (n, h // 2, w // 2, 128), 128, "elu", False)
+    conv(f"R l21 ({n},{h // 2},{w // 2},128)->128 elu+pool",
+         (n, h // 2, w // 2, 128), 128, "elu", True)
+    conv(f"G l12 ({n},{h},{w},128)->{c} sigmoid", (n, h, w, 128), c,
+         "sigmoid", False)
+    upsample(f"G stage 1 ({n},{h // 4},{w // 4},512)->256",
+             (n, h // 4, w // 4, 512), 256)
+    upsample(f"G stage 2 ({n},{h // 2},{w // 2},256)->128",
+             (n, h // 2, w // 2, 256), 128)
+    dense(f"G l0 ({n},{NOISE_DIM})->{h * w * 32} relu", n, NOISE_DIM,
+          h * w * 32, "relu")
+    dense(f"R l27 ({n},{h * w * 8})->512 elu", n, h * w * 8, 512, "elu")
+    dense(f"R l31 ({n},512)->{NOISE_DIM}", n, 512, NOISE_DIM, "none")
+    # R's layers' inputs, largest first, and G's
+    for shape in ((n, h, w, 64), (n, h // 2, w // 2, 128), (n, h, w, c),
+                  (n, h // 2, w // 2, 256), (n, h // 4, w // 4, 512)):
+        quantize(f"{shape} f32", shape)
+    return cases
+
+
+def check_quant_kernels(dev, card: str, n: int = N_CHECK) -> list:
+    """Phase 10: Q1-Q4 against their plain versions on the card at the int8
+    legs' shapes; records as check_kernels' (dtype "int8")."""
+    import torch
+    records = []
+    for name, label, make in quant_cases(dev, n):
+        case = make()
+        out = case["kernel"]()
+        torch.cuda.synchronize()
+        ref = case["plain"]()
+        if name == "quant_act":
+            check(torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1]),
+                  f"{name} {label}: q or scale differ from the plain version")
+            check(int(out[0].min()) >= -127, f"{name} {label}: q holds -128")
+            err = 0.0
+        else:
+            check(out.shape == ref.shape and out.dtype == ref.dtype
+                  and bool(torch.isfinite(out).all()),
+                  f"{name} {label}: {tuple(out.shape)} {out.dtype} vs plain "
+                  f"{tuple(ref.shape)} {ref.dtype}")
+            err = (out - ref).abs().max().item()
+            tol = TOL_INT8 * max(1.0, ref.abs().max().item())
+            check(err <= tol, f"{name} {label}: max_abs_err {err} > {tol}")
+        del out, ref
+        ms, plain_ms = time_ms(case["kernel"]), time_ms(case["plain"])
+        lib_ms = (time_ms(case["library"]) if case["library"] is not None
+                  else None)
+        t_ops = case["ops"] / PEAK_INT8_OPS * 1e3
+        t_mem = case["bytes"] / MEM_BYTES_PER_S * 1e3
+        b_ms, b_by = ((t_ops, "operations") if t_ops >= t_mem
+                      else (t_mem, "bytes"))
+        lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+        print(f"[int8] {name} {label}: max_abs_err {err:.3e} (q and scale "
+              f"bitwise; outputs tol {TOL_INT8:.0e} of scale), kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib}, bound "
+              f"{b_ms:.4f} ms ({b_by})  [{card}]")
+        records.append({"name": name, "label": label, "dtype": "int8",
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "library_ms": lib_ms, "bound_ms": b_ms,
+                        "bound_by": b_by})
+    torch.cuda.empty_cache()
+    return records
+
+
+def check_serving(dev, card: str, tmp: str, secs4: dict, rate8: float):
+    """Phase 10: export, a fresh process's load, the CPU leg, Q1-Q4, apply_r
+    --int8 and the int8 program's recall (see the module docstring).
+    Returns (kernel records, Q1-Q4's launches in apply_r --int8 and the
+    int8 export's check)."""
+    import torch
+    from torch.utils import _pytree as pytree
+    from ganreverser_tpu_torch.analysis import e2e
+    from ganreverser_tpu_torch.analysis.similarity import topk_recall
+    from ganreverser_tpu_torch.cli import apply_r, export
+    from ganreverser_tpu_torch.models import bridge
+    t_phase = time.perf_counter()
+    G, R, RF = make_models(dev)
+    save = os.path.join(tmp, "logs")
+    g_path = save_models(G, R, RF, save)
+    gv, rv = bridge.module_variables(G), bridge.module_variables(R)
+    del G, R, RF
+    n_e2e, b_e2e, k_e2e = SERVE_E2E
+    base = ["--G", g_path, "--save", save, "--compute_dtype", "bfloat16",
+            "--check"]
+    exports = {"invert": ["--batch", str(SERVE_BATCH)],
+               "generate": ["--batch", str(SERVE_BATCH)],
+               "e2e": ["--N", str(n_e2e), "--batch", str(b_e2e), "--k",
+                       str(k_e2e)]}
+    done = {what: export.main([*base, "--out", os.path.join(tmp, what),
+                               "--what", what, *extra])
+            for what, extra in exports.items()}
+
+    # the same inputs through the live legs and through a fresh process
+    legs = e2e.fast_legs(DIMS, NOISE_DIM, "normal", fused_head=True)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 50)
+    c, h, w = DIMS
+    inputs = {"invert": torch.rand(SERVE_BATCH, h, w, c, device=dev,
+                                   generator=gen).to(torch.bfloat16),
+              "generate": torch.randn(SERVE_BATCH, NOISE_DIM, device=dev,
+                                      generator=gen),
+              "e2e": torch.randn(n_e2e, NOISE_DIM, device=dev, generator=gen)}
+    fwd = e2e.make_e2e_forward(None, None, batch_size=b_e2e, k=k_e2e, **legs)
+    with torch.no_grad():
+        live = {"invert": (legs["r_apply"](rv, inputs["invert"]),),
+                "generate": (legs["g_apply"](gv, inputs["generate"]),),
+                "e2e": fwd((gv, rv), inputs["e2e"])}
+        cpu_want = legs["r_apply"](
+            pytree.tree_map(lambda t: t.cpu(), rv),
+            inputs["invert"][:SERVE_CPU_ROWS].cpu())
+    spec = {"card": {}, "cpu": {
+        "path": os.path.join(tmp, "invert"),
+        "input": os.path.join(tmp, "invert_in.pt"),
+        "output": os.path.join(tmp, "invert_cpu_out.pt"),
+        "rows": SERVE_CPU_ROWS}}
+    for what, x in inputs.items():
+        torch.save(x.cpu(), os.path.join(tmp, f"{what}_in.pt"))
+        spec["card"][what] = {"path": os.path.join(tmp, what),
+                              "input": os.path.join(tmp, f"{what}_in.pt"),
+                              "output": os.path.join(tmp, f"{what}_out.pt")}
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, "-c", SERVE_LOADER, root, json.dumps(spec)],
+        capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, GANREVERSER_PLATFORM="gpu"))
+    check(proc.returncode == 0, f"serving: the loading process failed: "
+          f"{proc.stderr[-3000:]}")
+    loaded = json.loads(next(line for line in proc.stdout.splitlines()
+                             if line.startswith("SERVE "))[6:])
+    check(not loaded["modules"], f"serving: the loading process imported "
+          f"{loaded['modules']}")
+    chunks = n_e2e // b_e2e
+    expected = {"invert": {"conv_block": 6},
+                "generate": {"upsample2_conv3x3_bn_act": 1,
+                             "upsample2_conv3x3_head": 1},
+                "e2e": {"upsample2_conv3x3_bn_act": chunks,
+                        "upsample2_conv3x3_head": chunks,
+                        "conv_block": 6 * chunks,
+                        "cosine_scores": -(-n_e2e // E2E_CHUNK)}}
+    lines = []
+    for what, want in live.items():
+        got = [t.to(dev) for t in torch.load(spec["card"][what]["output"])]
+        err, scale = export.max_float_error(got, want)
+        tol = TOL_SERVE * max(1.0, scale)
+        check(err <= tol and all(a.shape == b.shape for a, b in zip(
+            got, want)), f"serving {what}: loaded artifact vs live program "
+              f"{err} > {tol}")
+        counts = {k: v for k, v in loaded[what]["counts"].items() if v}
+        check(counts == expected[what], f"serving {what}: kernels of one "
+              f"traced call {counts}, expected {expected[what]}")
+        rec = loaded[what]
+        lines.append(f"{what}: export {done[what]['export_s']:.2f} s, "
+                     f"{done[what]['bytes'] / 1e6:.1f} MB, load "
+                     f"{rec['load_s']:.2f} s, first call "
+                     f"{rec['first_s']:.2f} s, vs live max_abs_err "
+                     f"{err:.3e} (tol {tol:.1e}), kernels of a traced call "
+                     f"{counts}")
+    emb, v, i = (t.to(dev) for t in torch.load(spec["card"]["e2e"]["output"]))
+    topk_line = check_topk("loaded e2e artifact", emb, v, i, k_e2e, TOL_TOPK,
+                           f64=True)
+    cpu_got = torch.load(spec["cpu"]["output"])
+    cpu_err, cpu_scale = export.max_float_error((cpu_got,), (cpu_want,))
+    cpu_tol = TOL["bfloat16"] * max(1.0, cpu_scale)
+    check(cpu_err <= cpu_tol, f"serving: invert artifact on the CPU vs the "
+          f"plain path {cpu_err} > {cpu_tol}")
+    for line in lines:
+        print(f"[serving] {line}  [{card}]")
+    print(f"[serving] loaded e2e artifact (N={n_e2e}, batch {b_e2e}, bf16, "
+          f"one CUDA graph in a fresh process): {loaded['e2e']['img_s']:.1f} "
+          f"img/s (median of {E2E_TIMES}), phase 8's live graph "
+          f"{rate8:.1f} img/s; {topk_line}  [{card}]")
+    print(f"[serving] the invert artifact on the CPU: {loaded['cpu_s']:.2f} "
+          f"s for {SERVE_BATCH} rows, {SERVE_CPU_ROWS} rows vs the plain "
+          f"path max_abs_err {cpu_err:.3e} (tol {cpu_tol:.1e}); the loading "
+          f"process imported nothing of models/, cli/, analysis/e2e.py  "
+          f"[{card}]")
+    del live, emb, v, i
+
+    # Q1-Q4 against their plain versions
+    records = check_quant_kernels(dev, card)
+
+    # apply_r --int8, the int8 legs' main path, with phase 4's arguments
+    counters = {**kernel_counters(), **quant_counters()}
+    for fn in counters.values():
+        fn.launches = 0
+    out_dir = os.path.join(tmp, "out_int8")
+    t0 = time.perf_counter()
+    result = apply_r.main(["--G", g_path, "--save", save, "--writeto",
+                           out_dir, "--N", str(N_MAIN), "--needles",
+                           str(NEEDLES), "--batchSize", "256",
+                           "--compute_dtype", "bfloat16", "--int8"])
+    whole_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    for name, count in launches.items():
+        check(count > 0, f"apply_r --int8: {name} launched no time")
+    score_errs = check_main_path(result, out_dir)
+    secs = result["seconds"]
+    print(f"[serving] apply_r --int8 N={N_MAIN} bf16 batch 256: whole call "
+          f"{whole_s:.2f} s; launches {launches}; top-k score error vs plain "
+          f"{max(score_errs):.2e}  [{card}]")
+    print("[serving] stage seconds, int8 vs phase 4's bf16: " + ", ".join(
+        f"{k} {secs[k]:.4f} / {secs4[k]:.4f}" for k in secs) +
+        f"; generate+invert {N_MAIN / secs['generate_invert']:.1f} vs "
+        f"{N_MAIN / secs4['generate_invert']:.1f} img/s  [{card}]")
+    del result
+    q_launches = {name: launches[name] for name in INT8_LINES}
+
+    # the int8 program's top-k against the bf16 program's on phase 8's x3
+    # weights (a random G ties every score at phase 4's)
+    G, R, _, _, gv2, rv2, z = e2e_inputs(dev)
+    progs = {label: e2e.make_e2e_program(
+        G, R, batch_size=E2E_BATCHES[0], k=E2E_K, needle_chunk=E2E_CHUNK,
+        **e2e.fast_legs(DIMS, NOISE_DIM, "normal", int8=int8))
+        for label, int8 in (("bf16", False), ("int8", True))}
+    (_, _, i_bf), (_, _, i_q) = (progs[k](gv2, rv2, z) for k in progs)
+    recall = topk_recall(i_bf.cpu().numpy(), i_q.cpu().numpy())
+    t_q = wall_s(lambda: progs["int8"](gv2, rv2, z), 3)
+    print(f"[serving] int8 e2e program (N={E2E_N}, batch {E2E_BATCHES[0]}, "
+          f"k={E2E_K}, weights x{E2E_AMPLIFY:g}): top-k recall against the "
+          f"bf16 program {recall:.4f} (printed, not gated); graph "
+          f"{E2E_N / statistics.median(t_q):.1f} img/s  [{card}]")
+    del progs, i_bf, i_q, G, R, gv2, rv2, z
+    torch.cuda.empty_cache()
+
+    # export --what e2e --int8 --check, its launches counted
+    for fn in quant_counters().values():
+        fn.launches = 0
+    q8 = export.main([*base, "--out", os.path.join(tmp, "e2e_int8"),
+                      "--what", "e2e", "--int8", "--N", str(SERVE_E2E_INT8_N),
+                      "--batch", str(b_e2e), "--k", str(k_e2e)])
+    for name, fn in quant_counters().items():
+        q_launches[name] += fn.launches
+    print(f"[serving] export --what e2e --int8 --check (N cut to "
+          f"{SERVE_E2E_INT8_N} from {n_e2e}: the trace's time): export "
+          f"{q8['export_s']:.2f} s, {q8['bytes'] / 1e6:.1f} MB, check "
+          f"max_abs_err {q8['check_err']:.3e} (scale "
+          f"{q8['check_scale']:.2e})  [{card}]")
+    print(f"[time] phase 10 {time.perf_counter() - t_phase:.1f} s  [{card}]")
+    torch.cuda.empty_cache()
+    return records, q_launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2757,16 +3172,24 @@ def main() -> int:
           f"[{card}]")
     # 8. the fused generate -> invert -> top-k program at full width
     t8 = time.perf_counter()
-    for name, count in check_e2e(dev, card).items():
+    launches8, rate8 = check_e2e(dev, card)
+    for name, count in launches8.items():
         launches[name] += count
     t9 = time.perf_counter()
     # 9. the Torch7 import, then apply_r and train on the imported files
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         for name, count in check_t7_import(dev, card, tmp).items():
             launches[name] += count
+    t10 = time.perf_counter()
+    # 10. serving: export, load, the CPU leg, Q1-Q4, apply_r --int8
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        q_records, q_launches = check_serving(dev, card, tmp, secs, rate8)
+    records += q_records
+    launches.update(q_launches)
     print(f"[time] phases 6 and 7 {t8 - t6:.1f} s (7: {secs7:.1f} s), phase "
-          f"8 {t9 - t8:.1f} s, phase 9 {time.perf_counter() - t9:.1f} s, "
-          f"the whole run {time.perf_counter() - t_start:.1f} s  [{card}]")
+          f"8 {t9 - t8:.1f} s, phase 9 {t10 - t9:.1f} s, phase 10 "
+          f"{time.perf_counter() - t10:.1f} s, the whole run "
+          f"{time.perf_counter() - t_start:.1f} s  [{card}]")
 
     sources = {"conv_block": ("ganreverser_tpu_torch/csrc/conv_block.cu",
                               "ganreverser_tpu/ops/conv_block_kernel.py:86"),
@@ -2793,7 +3216,17 @@ def main() -> int:
                "times_two": ("ganreverser_tpu_torch/csrc/probes.cu",
                              "benchmarks/tpu_pallas_probe.py:63"),
                "dot_bf16": ("ganreverser_tpu_torch/csrc/probes.cu",
-                            "benchmarks/tpu_pallas_probe.py:80")}
+                            "benchmarks/tpu_pallas_probe.py:80"),
+               # Q1-Q4 replace XLA ops of the JAX package's int8 legs
+               "quant_conv3x3_same": ("ganreverser_tpu_torch/csrc/quant.cu",
+                                      "ganreverser_tpu/ops/quant.py:60"),
+               "quant_upsample2_conv3x3": (
+                   "ganreverser_tpu_torch/csrc/quant.cu",
+                   "ganreverser_tpu/models/fastpath.py:282"),
+               "quant_dense": ("ganreverser_tpu_torch/csrc/quant.cu",
+                               "ganreverser_tpu/ops/quant.py:77"),
+               "quant_act": ("ganreverser_tpu_torch/csrc/quant.cu",
+                             "ganreverser_tpu/ops/quant.py:43")}
     f32_lines = ("kmeans_lloyd", "add_one", "times_two")
     kernels = []
     for name, (source, replaces) in sources.items():
@@ -2803,10 +3236,11 @@ def main() -> int:
         # program's first call's (phases 4, 8 and 9), B5's those of the three
         # train_r runs, B6's those of the three train runs and the sample run,
         # the head's those of the two pretrain_prev runs and the e2e
-        # program's, B7-B9's those of their probes
+        # program's, B7-B9's those of their probes; Q1-Q4's (int8) those
+        # of apply_r --int8 and the int8 e2e export's check (phase 10)
         recs = [r for r in records if r["name"] == name and r["dtype"] == (
-            "float32" if name in f32_lines else "bfloat16")
-            and r.get("on_path", True)]
+            "float32" if name in f32_lines else "int8" if name in INT8_LINES
+            else "bfloat16") and r.get("on_path", True)]
         libs = [r["library_ms"] for r in recs]
         kernels.append({
             "name": name, "route": "cuda", "source": source,

@@ -8,11 +8,13 @@ use and bound with ctypes (``ops/cuda_lib.py``).
 Module paths mirror the JAX package, so each counterpart is found by name:
 
 * ``core``     — configs (``config``), noise (``prng``)
-* ``io``       — the checkpoint directory format (``checkpoint``)
+* ``io``       — the checkpoint directory format (``checkpoint``), serving
+                 artifacts (``serving``)
 * ``models``   — eval-mode ``nn.Module``s (``modules``, ``zoo``), the weight
                  bridge to the JAX variable trees (``bridge``) and the fast
                  forwards through the kernels (``fastpath``)
-* ``ops``      — the kernels' wrappers and their plain versions
+* ``ops``      — the kernels' wrappers, their plain versions and their
+                 ``torch.library`` operators (``library``)
 * ``analysis`` — batched forwards, cosine top-k, generate + invert
 * ``cli``      — ``apply_r`` (generate + invert + similarity search)
 

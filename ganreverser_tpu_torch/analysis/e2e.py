@@ -42,7 +42,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..models.fastpath import (FastForward, make_fast_generator,
-                               make_fast_inverter)
+                               make_fast_generator_int8, make_fast_inverter,
+                               make_fast_inverter_int8)
 from ..ops import topk_kernel
 from .batched import forward_batched
 from .graphs import CapturedProgram
@@ -57,11 +58,16 @@ FUSED_HEAD = True
 
 def fast_legs(dims: tuple, noise_dim: int, noise_method: str,
               dtype: torch.dtype = torch.bfloat16,
-              fused_head: bool = FUSED_HEAD) -> dict:
+              fused_head: bool = FUSED_HEAD, int8: bool = False) -> dict:
     """``{"g_apply", "r_apply"}``: the fast G (kernel U, and U's fused head
     with ``fused_head``) and the fast R (kernel B) of models/fastpath.py,
     the legs the card runs in :func:`make_e2e_program` and
-    :func:`make_serial_programs`."""
+    :func:`make_serial_programs`; with ``int8`` the int8 G and R (kernels
+    Q1-Q4)."""
+    if int8:
+        return {"g_apply": make_fast_generator_int8(dims, noise_dim, dtype),
+                "r_apply": make_fast_inverter_int8(dims, noise_dim,
+                                                   noise_method, dtype)}
     return {"g_apply": make_fast_generator(dims, noise_dim, dtype,
                                            fused_head),
             "r_apply": make_fast_inverter(dims, noise_dim, noise_method,
@@ -161,6 +167,41 @@ def _g_then_r_fn(g: FastForward, r: FastForward, pixels: bool):
     return g_then_r
 
 
+def make_e2e_forward(G: Optional[nn.Module], R: Optional[nn.Module], *,
+                     batch_size: int = 128, k: int = 100,
+                     needle_chunk: int = 256,
+                     g_apply: Optional[Callable] = None,
+                     r_apply: Optional[Callable] = None,
+                     approx: bool = False, pixel_k: int = 0) -> FastForward:
+    """The program of :func:`make_e2e_program` as a :class:`FastForward`
+    over the pair ``(g_variables, r_variables)``: ``prepare`` prepares both
+    legs once, ``run(prepared, z)`` is the chunk loop and the searches.
+    ``export --what e2e`` traces ``run`` on prepared weights
+    (cli/export.py). G and R may be None where ``g_apply`` and ``r_apply``
+    are given."""
+    refuse_approx(approx)
+    g, r = _as_forward(g_apply, G), _as_forward(r_apply, R)
+    g_then_r = _g_then_r_fn(g, r, pixel_k > 0)
+
+    def prepare(variables):
+        g_variables, r_variables = variables
+        return g.prepare(g_variables), r.prepare(r_variables)
+
+    def run(prepared, z):
+        g_prepared, r_prepared = prepared
+        out = forward_batched(
+            lambda zc: g_then_r(g_prepared, r_prepared, zc), z, batch_size)
+        if pixel_k > 0:
+            emb, flat = out
+            v, i = topk_all(emb, k, needle_chunk)
+            pv, pi = topk_all(flat, pixel_k, needle_chunk)
+            return emb, v, i, pv, pi
+        v, i = topk_all(out, k, needle_chunk)
+        return out, v, i
+
+    return FastForward(prepare, run)
+
+
 def make_e2e_program(G: nn.Module, R: nn.Module, *, batch_size: int = 128,
                      k: int = 100, needle_chunk: int = 256,
                      g_apply: Optional[Callable] = None,
@@ -179,22 +220,13 @@ def make_e2e_program(G: nn.Module, R: nn.Module, *, batch_size: int = 128,
     ``FastForward`` is prepared once per call. On CUDA tensors ``run`` is
     one CUDA graph per (N, dtype) of its inputs (analysis/graphs.py);
     ``capture=False`` runs it eagerly, to time the graph against it."""
-    refuse_approx(approx)
-    g, r = _as_forward(g_apply, G), _as_forward(r_apply, R)
-    g_then_r = _g_then_r_fn(g, r, pixel_k > 0)
+    forward = make_e2e_forward(G, R, batch_size=batch_size, k=k,
+                               needle_chunk=needle_chunk, g_apply=g_apply,
+                               r_apply=r_apply, approx=approx,
+                               pixel_k=pixel_k)
 
     def program(g_variables, r_variables, z):
-        g_prepared, r_prepared = g.prepare(g_variables), r.prepare(
-            r_variables)
-        out = forward_batched(
-            lambda zc: g_then_r(g_prepared, r_prepared, zc), z, batch_size)
-        if pixel_k > 0:
-            emb, flat = out
-            v, i = topk_all(emb, k, needle_chunk)
-            pv, pi = topk_all(flat, pixel_k, needle_chunk)
-            return emb, v, i, pv, pi
-        v, i = topk_all(out, k, needle_chunk)
-        return out, v, i
+        return forward((g_variables, r_variables), z)
 
     return CapturedProgram(program, capture=capture)
 

@@ -10,7 +10,8 @@ import torch
 
 from ..core.prng import noise_inputs
 from ..models.fastpath import (make_fast_fixer, make_fast_generator,
-                               make_fast_inverter)
+                               make_fast_generator_int8, make_fast_inverter,
+                               make_fast_inverter_int8)
 from .batched import forward_batched
 
 
@@ -53,14 +54,21 @@ def generate_and_invert(g_variables: dict, r_variables: dict, *, dims: tuple,
                         generator: torch.Generator, batch_size: int = 1024,
                         dtype: torch.dtype = torch.float32,
                         rf_variables: dict | None = None,
-                        fixer_generator: torch.Generator | None = None):
+                        fixer_generator: torch.Generator | None = None,
+                        int8: bool = False):
     """② noise from ``generator`` (on its device) -> fast G -> fast R, in
     chunks of ``batch_size``; with ``rf_variables`` also the fast fixer-R,
     whose dropout masks come from ``fixer_generator``, a fresh one per
-    chunk. The variables are tensor trees on the generator's device.
+    chunk. ``int8``: G and R on the int8 legs (the activation scales are
+    per chunk, so the chunking is part of the result), the fixer-R as
+    without it. The variables are tensor trees on the generator's device.
     Returns (noise, images, attributes[, attributes_fixer])."""
-    generate = make_fast_generator(dims, noise_dim, dtype)
-    invert = make_fast_inverter(dims, noise_dim, noise_method, dtype)
+    if int8:
+        generate = make_fast_generator_int8(dims, noise_dim, dtype)
+        invert = make_fast_inverter_int8(dims, noise_dim, noise_method, dtype)
+    else:
+        generate = make_fast_generator(dims, noise_dim, dtype)
+        invert = make_fast_inverter(dims, noise_dim, noise_method, dtype)
     noise = noise_inputs(generator, n, noise_dim, noise_method,
                          device=generator.device)
     images = forward_batched(lambda z: generate(g_variables, z), noise,

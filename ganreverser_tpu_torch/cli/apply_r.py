@@ -4,7 +4,8 @@ artifact names:
 
   ① variations.jpg                  latent-component sweep (fast G)
   ② generate N faces with G and recover their latents with R and, when a
-    fixer checkpoint exists, the fixer-R (fast G, fast R on kernel B)
+    fixer checkpoint exists, the fixer-R (fast G, fast R on kernel B;
+    --int8: G and R on the int8 kernels Q1-Q4, the fixer-R on kernel B)
     [--refine_steps > 0: adam on the latents through the module G]
   ③ cluster_NN.jpg                  kmeans on kernel K, min-cosine members
                                     (the average first, then the top 71)
@@ -19,8 +20,8 @@ artifact names:
 It reads the checkpoints the JAX package writes (io/checkpoint.py). On CUDA
 (GANREVERSER_PLATFORM unset or gpu) the kernels run; with
 GANREVERSER_PLATFORM=cpu their plain versions run. Each stage draws its
-random numbers from a generator of its own (core/prng.py). --int8, --approx
-and --mesh_* > 1 are refused.
+random numbers from a generator of its own (core/prng.py). --approx and
+--mesh_* > 1 are refused.
 
 Usage: python -m ganreverser_tpu_torch.cli.apply_r --G logs/adversarial \
            --N 10000 --compute_dtype bfloat16
@@ -69,12 +70,11 @@ def _side_grid(images_rgb: np.ndarray):
 
 def _refuse_unported(cfg: ApplyConfig):
     refused = [flag for flag, on in (
-        ("--int8", cfg.int8), ("--approx", cfg.approx),
-        ("--mesh_data > 1", cfg.mesh_data > 1),
-        ("--mesh_model > 1", cfg.mesh_model > 1)) if on]
+        ("--approx (ROADMAP.md, queue A item 6)", cfg.approx),
+        ("--mesh_data > 1 (queue A item 8)", cfg.mesh_data > 1),
+        ("--mesh_model > 1 (queue A item 8)", cfg.mesh_model > 1)) if on]
     if refused:
-        sys.exit(f"[apply_r] not ported yet: {', '.join(refused)} "
-                 "(ROADMAP.md, queue A)")
+        sys.exit(f"[apply_r] not ported yet: {', '.join(refused)}")
 
 
 class _StageClock:
@@ -171,11 +171,12 @@ def main(argv=None) -> dict:
         noise_method=noise_method,
         generator=stage_generator(cfg.seed, 2, device), batch_size=batch,
         dtype=dtype, rf_variables=rf_vars,
-        fixer_generator=stage_generator(cfg.seed, 5, device))
+        fixer_generator=stage_generator(cfg.seed, 5, device), int8=cfg.int8)
     _, images, attributes = out[:3]
     attributes_fixer = out[3] if rf_vars is not None else attributes
     t = clock.stop("generate_invert")
     print(f"[apply_r]   {cfg.N} images ({cfg.N / t:.1f} img/s)"
+          f"{', int8 G and R' if cfg.int8 else ''}"
           f"{', fixer-R included' if rf_vars is not None else ''}")
 
     # --- optional: gradient-based latent refinement ---

@@ -2,12 +2,12 @@
 states <-> checkpoint trees, the dataset, host images for artifacts."""
 from __future__ import annotations
 
-import os
 import sys
 
 import numpy as np
 import torch
 
+from ..core.platform import resolve_device  # noqa: F401
 from ..core.prng import INIT_STAGE, stage_generator
 from ..data.colorspace import to_rgb
 from ..data.dataset import Dataset
@@ -15,23 +15,6 @@ from ..models import bridge, zoo
 from ..models.modules import init_parameters
 from ..optim import Optimizer, make_optimizer
 from ..train.state import GanState, TrainState
-
-
-def resolve_device() -> torch.device:
-    """The device named by GANREVERSER_PLATFORM, as the JAX CLIs honour it:
-    ``cpu`` is the CPU; unset, ``gpu`` or ``cuda`` is the current CUDA
-    device, and raises when CUDA is absent — a run meant for the card never
-    carries on on the CPU."""
-    plat = os.environ.get("GANREVERSER_PLATFORM", "gpu").lower()
-    if plat == "cpu":
-        return torch.device("cpu")
-    if plat not in ("gpu", "cuda"):
-        raise ValueError(f"GANREVERSER_PLATFORM={plat!r}: expected cpu or gpu")
-    if not torch.cuda.is_available():
-        raise RuntimeError("GANREVERSER_PLATFORM asks for the GPU, but CUDA "
-                           "is not available (set GANREVERSER_PLATFORM=cpu "
-                           "to run on the CPU)")
-    return torch.device("cuda", torch.cuda.current_device())
 
 
 def compute_dtype(cfg) -> torch.dtype:

@@ -36,6 +36,20 @@ the kernels launch; on CPU tensors their plain versions run.
 
 The fixer-R (``make_fast_fixer``) is R behind an always-on input dropout:
 its mask is drawn outside the kernels, so the fixer runs on kernel B too.
+
+``make_fast_inverter_int8`` and ``make_fast_generator_int8`` are the int8
+legs (ops/quant.py), the counterparts of the JAX package's
+``make_fast_inverter_int8`` and ``make_fast_generator_xla_int8``: BatchNorm
+folded into the weights, which are quantised per output channel once in
+``prepare``; per call each layer's f32 input is quantised per tensor
+(kernel Q4) and runs on the int8 kernels, activations in f32 between them:
+
+  G: z -> int8 Dense(+BN)+ReLU                        [Q4, Q3]
+       -> 2x int8 upsample2+conv3x3(+BN)+ReLU          [Q4, Q2]
+       -> int8 conv3x3 (128->C) + Sigmoid              [Q4, Q1]
+  R: images -> 2x (3x int8 conv3x3(+BN)+ELU, pool)    [Q4, Q1; the pool in
+                                                        the third's epilogue]
+            -> int8 Dense(+BN)+ELU -> int8 Dense (+Tanh) [Q4, Q3]
 """
 from __future__ import annotations
 
@@ -44,6 +58,7 @@ import torch.nn.functional as F
 
 from ..core.precision import pinned_precision
 from ..ops.conv_block_kernel import conv_block
+from ..ops import quant
 from ..ops.conv_kernel import conv3x3_bn_act, conv3x3_operand, fold_batchnorm
 from ..ops.upsample_conv import conv_nhwc
 from ..ops.upsample_conv_kernel import (head_operand, phase_operand,
@@ -142,6 +157,11 @@ def make_fast_generator(dims: Dims, noise_dim: int,
     return FastForward(prepare, run)
 
 
+# R's two conv blocks: (conv, BatchNorm) layer names
+R_BLOCKS = ((("l0", "l1"), ("l4", "l5"), ("l8", "l9")),
+            (("l13", "l14"), ("l17", "l18"), ("l21", "l22")))
+
+
 def make_fast_inverter(dims: Dims, noise_dim: int, noise_method: str,
                        dtype: torch.dtype = torch.bfloat16) -> FastForward:
     """Returns ``invert(r_variables, images) -> z_hat`` (a
@@ -149,14 +169,12 @@ def make_fast_inverter(dims: Dims, noise_dim: int, noise_method: str,
     evaluation on the same weights; z_hat is in ``dtype``."""
     if noise_method not in ("normal", "uniform"):
         raise ValueError(noise_method)
-    blocks = ((("l0", "l1"), ("l4", "l5"), ("l8", "l9")),
-              (("l13", "l14"), ("l17", "l18"), ("l21", "l22")))
 
     def prepare(variables):
         p, s = variables["params"], variables["state"]
         on_card = p["l0"]["kernel"].is_cuda  # as in the generator
         prep = {"blocks": []}
-        for layers in blocks:
+        for layers in R_BLOCKS:
             block = {"kernels": [], "scales": [], "shifts": []}
             for conv, bn in layers:
                 sc, sh_ = fold_batchnorm(p[bn], s[bn], p[conv]["bias"])
@@ -186,6 +204,122 @@ def make_fast_inverter(dims: Dims, noise_dim: int, noise_method: str,
         if noise_method != "normal":
             z = torch.tanh(z)  # models.lua:452-454
         return z.to(dtype)
+
+    return FastForward(prepare, run)
+
+
+def make_fast_inverter_int8(dims: Dims, noise_dim: int, noise_method: str,
+                            dtype: torch.dtype = torch.bfloat16
+                            ) -> FastForward:
+    """Returns ``invert(r_variables, images) -> z_hat`` (a
+    :class:`FastForward`), the plain R in evaluation with every conv and
+    dense layer in int8 x int8 -> int32 on folded-BN weights (the JAX
+    package's ``make_fast_inverter_int8``): an approximation of
+    :func:`make_fast_inverter`; z_hat is in ``dtype``."""
+    if noise_method not in ("normal", "uniform"):
+        raise ValueError(noise_method)
+
+    def prepare(variables):
+        p, s = variables["params"], variables["state"]
+        on_card = p["l0"]["kernel"].is_cuda  # the kernels' layouts there
+        layers = []
+        for block in R_BLOCKS:
+            for i, (conv, bn) in enumerate(block):
+                sc, sh_ = fold_batchnorm(p[bn], s[bn], p[conv]["bias"])
+                wq, ws, b = quant.fold_quantize_conv(p[conv]["kernel"], sc,
+                                                     sh_)
+                layers.append({"wq": wq, "w_scale": ws, "bias": b,
+                               "pool": i == len(block) - 1,
+                               "operand": (quant.conv_operand(wq)
+                                           if on_card else None)})
+        scd, shd = fold_batchnorm(p["l28"], s["l28"], p["l27"]["bias"])
+        dense = [quant.fold_quantize_dense(p["l27"]["kernel"], scd, shd),
+                 quant.fold_quantize_dense(
+                     p["l31"]["kernel"],
+                     torch.ones((), device=p["l31"]["kernel"].device),
+                     p["l31"]["bias"])]
+        return {"layers": layers,
+                "dense": [{"wq": wq, "w_scale": ws, "bias": b,
+                           "operand": (quant.dense_operand(wq)
+                                       if on_card else None)}
+                          for wq, ws, b in dense]}
+
+    def run(prep, images):
+        # two blocks of 3x [conv + BN + ELU] + maxpool2 (models.lua:409-440)
+        x = images.float()
+        for layer in prep["layers"]:
+            xq, xs = quant.quant_act(x)
+            x = quant.quant_conv3x3_same(
+                xq, xs, layer["wq"], layer["w_scale"], layer["bias"],
+                act="elu", pool=layer["pool"], operand=layer["operand"])
+        # head: Dense(+BN folded)+ELU -> Dense (models.lua:446-451)
+        x = x.reshape(x.shape[0], -1)
+        for d, act in zip(prep["dense"], ("elu", "none")):
+            xq, xs = quant.quant_act(x)
+            x = quant.quant_dense(xq, xs, d["wq"], d["w_scale"], d["bias"],
+                                  act=act, operand=d["operand"])
+        if noise_method != "normal":
+            x = torch.tanh(x)  # models.lua:452-454
+        return x.to(dtype)
+
+    return FastForward(prepare, run)
+
+
+def make_fast_generator_int8(dims: Dims, noise_dim: int,
+                             dtype: torch.dtype = torch.bfloat16
+                             ) -> FastForward:
+    """Returns ``generate(g_variables, z) -> images`` (a
+    :class:`FastForward`), G3 in evaluation with its dense layer, both
+    upsample stages (kernel U's phase convs, the 16 phase taps quantised
+    per output channel) and its output conv in int8 x int8 -> int32 (the
+    JAX package's ``make_fast_generator_xla_int8``, whose lhs-dilated 4x4
+    kernel holds the same taps); images NHWC in ``dtype``."""
+    c, h, w = dims
+    sh, sw = h // 4, w // 4
+
+    def prepare(variables):
+        p, s = variables["params"], variables["state"]
+        on_card = p["l0"]["kernel"].is_cuda
+        scale0, shift0 = fold_batchnorm(p["l1"], s["l1"], p["l0"]["bias"])
+        wq0, ws0, b0 = quant.fold_quantize_dense(p["l0"]["kernel"], scale0,
+                                                 shift0)
+        stages = []
+        for conv, bn in (("l5", "l6"), ("l9", "l10")):
+            scale, shift = fold_batchnorm(p[bn], s[bn], p[conv]["bias"])
+            wq16, ws = quant.quant_phase_weights(p[conv]["kernel"], scale)
+            stages.append({"wq16": wq16, "w_scale": ws, "shift": shift,
+                           "operand": (quant.phase_operand(wq16)
+                                       if on_card else None)})
+        wq3, ws3 = quant.quantize_plain(p["l12"]["kernel"], axis=(0, 1, 2))
+        return {"dense": {"wq": wq0, "w_scale": ws0, "bias": b0,
+                          "operand": (quant.dense_operand(wq0)
+                                      if on_card else None)},
+                "stages": stages,
+                "head": {"wq": wq3, "w_scale": ws3,
+                         "bias": p["l12"]["bias"].float(),
+                         "operand": (quant.conv_operand(wq3)
+                                     if on_card else None)}}
+
+    def run(prep, z):
+        # Dense + folded BN + ReLU (models.lua:115-117)
+        d = prep["dense"]
+        zq, zs = quant.quant_act(z.float())
+        y = quant.quant_dense(zq, zs, d["wq"], d["w_scale"], d["bias"],
+                              act="relu", operand=d["operand"])
+        x = y.reshape(z.shape[0], sh, sw, 512)
+        # two upsample + conv + BN + ReLU stages (models.lua:121-130)
+        for st in prep["stages"]:
+            xq, xs = quant.quant_act(x)
+            x = quant.quant_upsample2_conv3x3(
+                xq, xs, st["wq16"], st["w_scale"], st["shift"], act="relu",
+                operand=st["operand"])
+        # final 3x3 conv + sigmoid (models.lua:132-133)
+        hd = prep["head"]
+        xq, xs = quant.quant_act(x)
+        y = quant.quant_conv3x3_same(xq, xs, hd["wq"], hd["w_scale"],
+                                     hd["bias"], act="sigmoid",
+                                     operand=hd["operand"])
+        return y.to(dtype)
 
     return FastForward(prepare, run)
 

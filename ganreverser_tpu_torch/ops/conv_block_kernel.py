@@ -11,7 +11,8 @@ from the TPU kernel: every layer's input is zero-padded at the image border
 (each launch pads anew), each intermediate is rounded to ``x.dtype``, ELU is
 ``exp(min(y, 0)) - 1`` and the pool follows the last layer only.
 
-``conv_block`` launches the kernel on CUDA tensors and takes the plain
+``conv_block`` (the custom operator ``ganreverser::conv_block`` of
+ops/library.py) launches the kernel on CUDA tensors and takes the plain
 version ``conv_block_plain`` on CPU tensors; no other device is accepted.
 ``conv_block.launches`` counts kernel launches (one per layer).
 """
@@ -67,7 +68,8 @@ def conv_block(x: torch.Tensor, kernels: Sequence[torch.Tensor],
     ``pool``, in ``x.dtype``. Eval-mode only; N takes any value.
     ``operands``: each kernel laid out beforehand by
     ``conv_kernel.conv3x3_operand`` for ``x.dtype`` (the launches then
-    skip the re-layout; the plain version reads ``kernels``)."""
+    skip the re-layout; the plain version reads ``kernels``). Runs as the
+    custom operator ``ganreverser::conv_block`` (ops/library.py)."""
     if act not in _ACTS:
         raise ValueError(f"act must be one of {_ACTS}, got {act!r}")
     if not len(kernels) == len(scales) == len(shifts) or not kernels:
@@ -75,6 +77,19 @@ def conv_block(x: torch.Tensor, kernels: Sequence[torch.Tensor],
     n, h, w, _ = x.shape
     if pool and (h % 2 or w % 2):
         raise ValueError(f"pool needs even H and W, got {h}x{w}")
+    cuda_lib.dispatch_device(x, *kernels, *scales, *shifts)
+    return torch.ops.ganreverser.conv_block(
+        x, list(kernels), list(scales), list(shifts), act, pool,
+        None if operands is None else list(operands))
+
+
+def launch_conv_block(x: torch.Tensor, kernels: Sequence[torch.Tensor],
+                      scales: Sequence[torch.Tensor],
+                      shifts: Sequence[torch.Tensor], act: str, pool: bool,
+                      operands: Sequence[torch.Tensor] | None
+                      ) -> torch.Tensor:
+    """The body of ``ganreverser::conv_block``: one kernel launch per layer
+    on CUDA tensors, the plain version on CPU tensors."""
     if cuda_lib.dispatch_device(x, *kernels, *scales, *shifts) == "cpu":
         return conv_block_plain(x, kernels, scales, shifts, act=act,
                                 pool=pool)

@@ -1,0 +1,118 @@
+"""The kernels as ``torch.library`` custom operators, ``ganreverser::*``.
+
+Each kernel wrapper that a fast forward calls (``conv_block``,
+``upsample2_conv3x3_bn_act``, its fused head, ``cosine_scores``, and the
+int8 kernels Q1-Q4 of ``ops/quant.py``) goes through one operator here,
+so that ``torch.export`` can trace a program over the kernels
+(``io/serving.py``): the trace records one call of the operator, whose
+output shape and dtype come from its fake implementation, and a loaded
+program calls the operator again. The operator's body is the wrapper's
+launch: the kernel on CUDA tensors, the plain version on CPU tensors, a
+raise on anything else (``cuda_lib.dispatch_device``). The launch counts
+stay in the bodies, so a trace (which runs the fake implementations)
+counts no launch.
+
+The operators are registered with ``torch.library.Library`` for the CPU
+and CUDA dispatch keys: one dispatcher call on the host, lighter than
+``torch.library.custom_op``'s Python layers, and nothing inside a CUDA
+graph. None returns an alias of an input. Importing
+``ganreverser_tpu_torch.ops`` registers them (``ops/__init__.py``); a
+process that loads an exported program needs this module and the kernel
+modules it imports, nothing under ``models/`` or ``cli/``.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import conv_block_kernel, quant, topk_kernel, upsample_conv_kernel
+
+NAMESPACE = "ganreverser"
+
+_LIB = torch.library.Library(NAMESPACE, "DEF")
+
+# the registered operators' names
+OPS: list = []
+
+
+def _define(name: str, schema: str, body, fake) -> None:
+    _LIB.define(f"{name}{schema}")
+    for key in ("CPU", "CUDA"):
+        _LIB.impl(name, body, key)
+    torch.library.register_fake(f"{NAMESPACE}::{name}", fake, lib=_LIB)
+    OPS.append(name)
+
+
+def _conv_block_fake(x, kernels, scales, shifts, act, pool, operands):
+    n, h, w, _ = x.shape
+    if pool:
+        h, w = h // 2, w // 2
+    return x.new_empty((n, h, w, kernels[-1].shape[-1]))
+
+
+def _upsample_fake(x, kernel, scale, shift, act, operand):
+    n, h, w, _ = x.shape
+    return x.new_empty((n, 2 * h, 2 * w, kernel.shape[-1]))
+
+
+def _head_fake(x, kernel, scale, shift, final_kernel, final_bias, act,
+               final_act, operand, final_operand):
+    n, h, w, _ = x.shape
+    return x.new_empty((n, 2 * h, 2 * w, final_kernel.shape[-1]))
+
+
+def _cosine_fake(embeddings, needle_idx):
+    return embeddings.new_empty((needle_idx.shape[0], embeddings.shape[0]),
+                                dtype=torch.float32)
+
+
+def _quantize_fake(x):
+    return (x.new_empty(x.shape, dtype=torch.int8),
+            x.new_empty((), dtype=torch.float32))
+
+
+def _quant_conv_fake(xq, x_scale, wq, w_scale, bias, act, pool, operand):
+    n, h, w, _ = xq.shape
+    if pool:
+        h, w = h // 2, w // 2
+    return xq.new_empty((n, h, w, wq.shape[-1]), dtype=torch.float32)
+
+
+def _quant_upsample_fake(xq, x_scale, wq16, w_scale, shift, act, operand):
+    n, h, w, _ = xq.shape
+    return xq.new_empty((n, 2 * h, 2 * w, wq16.shape[-1]),
+                        dtype=torch.float32)
+
+
+def _quant_dense_fake(xq, x_scale, wq, w_scale, bias, act, operand):
+    return xq.new_empty((xq.shape[0], wq.shape[-1]), dtype=torch.float32)
+
+
+_define("conv_block",
+        "(Tensor x, Tensor[] kernels, Tensor[] scales, Tensor[] shifts, "
+        "str act, bool pool, Tensor[]? operands) -> Tensor",
+        conv_block_kernel.launch_conv_block, _conv_block_fake)
+_define("upsample2_conv3x3_bn_act",
+        "(Tensor x, Tensor kernel, Tensor scale, Tensor shift, str act, "
+        "Tensor? operand) -> Tensor",
+        upsample_conv_kernel.launch_upsample2_conv3x3_bn_act, _upsample_fake)
+_define("upsample2_conv3x3_head",
+        "(Tensor x, Tensor kernel, Tensor scale, Tensor shift, "
+        "Tensor final_kernel, Tensor final_bias, str act, str final_act, "
+        "Tensor? operand, Tensor? final_operand) -> Tensor",
+        upsample_conv_kernel.launch_upsample2_conv3x3_head, _head_fake)
+_define("cosine_scores", "(Tensor embeddings, Tensor needle_idx) -> Tensor",
+        topk_kernel.launch_cosine_scores, _cosine_fake)
+_define("quantize_act", "(Tensor x) -> (Tensor, Tensor)",
+        quant.launch_quantize_act, _quantize_fake)
+_define("quant_conv3x3",
+        "(Tensor xq, Tensor x_scale, Tensor wq, Tensor w_scale, Tensor bias, "
+        "str act, bool pool, Tensor? operand) -> Tensor",
+        quant.launch_quant_conv3x3, _quant_conv_fake)
+_define("quant_upsample2_conv3x3",
+        "(Tensor xq, Tensor x_scale, Tensor wq16, Tensor w_scale, "
+        "Tensor shift, str act, Tensor? operand) -> Tensor",
+        quant.launch_quant_upsample2_conv3x3, _quant_upsample_fake)
+_define("quant_dense",
+        "(Tensor xq, Tensor x_scale, Tensor wq, Tensor w_scale, Tensor bias, "
+        "str act, Tensor? operand) -> Tensor",
+        quant.launch_quant_dense, _quant_dense_fake)

@@ -1,0 +1,424 @@
+"""Symmetric int8 with exact int32 sums: the int8 legs of G and R, the
+counterpart of ganreverser_tpu/ops/quant.py (whose products XLA computes),
+on kernels Q1-Q4 (``csrc/quant.cu``).
+
+Scheme, as in the JAX package: weights int8 with one scale per output
+channel (``s_w = max|w| / 127``), the eval BatchNorm folded in first;
+activations int8 with one scale per tensor, computed on the device per call
+(``quant_act``, kernel Q4); products summed in int32 (exact) and
+dequantised as ``fma(float(acc), s_x * s_w[c], bias[c])``, one rounding:
+what XLA's CPU fusion of ``y * s + b`` computes, emulated in f64 by the
+plain versions; q is never -128, so the grid is symmetric and zero padding
+stays exact.
+
+* Q4 ``quantize_symmetric(x, axis=None)`` / ``quant_act``: per-tensor max,
+  ``scale = max(m, 1e-12) / 127``, ``q = clip(round(x / scale), -127,
+  127)`` (IEEE division, round half to even). The scale is a 0-dimensional
+  f32 tensor on the device that Q1-Q3 read there: no ``.item()``.
+* Q1 ``quant_conv3x3_same``: int8 SAME 3x3 conv, the epilogue, an optional
+  activation and 2x2 max pool (R's layers; G's Co = 3 output conv).
+* Q2 ``quant_upsample2_conv3x3``: kernel U's four 2x2 phase convs on int8
+  operands, the 16 phase taps ``[a, ta, b, tb]`` quantised per output
+  channel over all 16 taps x Ci (``quant_phase_weights``): the lhs-dilated
+  int8 conv of the JAX ``make_fast_generator_xla_int8``.
+* Q3 ``quant_dense``: (N, K) x (K, M) int8, the epilogue, an activation.
+
+Each launches its kernel on CUDA tensors, through the custom ops of
+``ops/library.py``, and takes its plain version (``*_plain``: int32 sums
+from an exact f64 product, then the epilogue in JAX's order) on CPU
+tensors; no other device is accepted. Weight quantisation per channel
+(``axis`` given) is plain PyTorch, run once when a fast forward prepares
+its weights. ``*_operand`` lays int8 weights out as the kernels read them:
+words of four input channels, ``(taps, Ci/4, Co)`` int32.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from . import cuda_lib
+from .topk_kernel import SMS
+from .upsample_conv_kernel import phase_kernels
+
+QMAX = 127.0
+EPS = 1e-12
+ACTS = ("none", "relu", "elu", "sigmoid")
+QUANT_PARTS = 1024       # Q4's workspace of partial maxima (csrc/quant.cu)
+DENSE_TILES = 64         # Q3's rows and columns a block
+
+
+# ----------------------------------------------------------------- plain
+
+def quantize_plain(x: torch.Tensor, axis=None, eps: float = EPS):
+    """(q int8, scale f32): ``scale`` the max |x| over ``axis`` (all of x
+    for None, a 0-d tensor; else kept as size-1 dims) clamped at ``eps``,
+    over 127; ``q = clip(round(x / scale), -127, 127)``."""
+    xf = x.float()
+    a = xf.abs()
+    m = a.amax() if axis is None else a.amax(dim=axis, keepdim=True)
+    scale = torch.clamp_min(m, eps) / QMAX
+    q = torch.clamp(torch.round(xf / scale), -QMAX, QMAX)
+    return q.to(torch.int8), scale
+
+
+def _act(y: torch.Tensor, act: str) -> torch.Tensor:
+    if act == "relu":
+        return torch.clamp_min(y, 0.0)
+    if act == "elu":  # jax.nn.elu: where(y > 0, y, expm1(y))
+        return torch.where(y > 0, y, torch.expm1(torch.clamp_max(y, 0.0)))
+    if act == "sigmoid":
+        return torch.sigmoid(y)
+    if act == "none":
+        return y
+    raise ValueError(act)
+
+
+def dequantize_plain(acc: torch.Tensor, x_scale: torch.Tensor,
+                     w_scale: torch.Tensor, bias: torch.Tensor,
+                     act: str = "none") -> torch.Tensor:
+    """The kernels' epilogue on int32 sums ``acc`` (..., C): f32(acc) times
+    the f32 product ``x_scale * w_scale[c]``, plus ``bias[c]``, rounded
+    once to f32 (an f64 product of two f32 values is exact), then ``act``."""
+    deq = (x_scale.float() * w_scale.float().reshape(-1)).double()
+    y = acc.float().double() * deq + bias.float().double()
+    return _act(y.float(), act)
+
+
+def conv3x3_int32_plain(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """int8 (N,H,W,Ci) * (3,3,Ci,Co) SAME conv, int32 sums (exact in f64:
+    at most 127^2 * 9 * Ci)."""
+    y = F.conv2d(xq.double().permute(0, 3, 1, 2),
+                 wq.double().permute(3, 2, 0, 1), padding=1)
+    return y.permute(0, 2, 3, 1).to(torch.int32)
+
+
+def phase_conv_int32_plain(xq: torch.Tensor, wq16: torch.Tensor):
+    """int8 (N,H,W,Ci) through the phase taps (2,2,2,2,Ci,Co) ``[a, ta, b,
+    tb]``: output pixel (2i + a, 2j + b) sums input (i + a + ta - 1, j + b +
+    tb - 1), zero outside. Returns (N,2H,2W,Co) int32."""
+    n, h, w, _ = xq.shape
+    co = wq16.shape[-1]
+    xp = F.pad(xq.double(), (0, 0, 1, 1, 1, 1))
+    out = torch.empty((n, h, 2, w, 2, co), dtype=torch.float64,
+                      device=xq.device)
+    for a in (0, 1):
+        for b in (0, 1):
+            wt = wq16[a, :, b].double().permute(3, 2, 0, 1)
+            y = F.conv2d(xp[:, a:a + h + 1, b:b + w + 1].permute(0, 3, 1, 2),
+                         wt)
+            out[:, :, a, :, b] = y.permute(0, 2, 3, 1)
+    return out.reshape(n, 2 * h, 2 * w, co).to(torch.int32)
+
+
+def dense_int32_plain(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """(N,K) int8 x (K,M) int8, int32 sums (exact in f64)."""
+    return (xq.double() @ wq.double()).to(torch.int32)
+
+
+def _pool2(y: torch.Tensor) -> torch.Tensor:
+    n, h, w, c = y.shape
+    return y.reshape(n, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
+
+
+def quant_conv3x3_plain(xq, x_scale, wq, w_scale, bias, *, act="none",
+                        pool=False) -> torch.Tensor:
+    """Plain version of Q1 on any device."""
+    y = dequantize_plain(conv3x3_int32_plain(xq, wq), x_scale, w_scale, bias,
+                         act)
+    return _pool2(y) if pool else y
+
+
+def quant_upsample2_conv3x3_plain(xq, x_scale, wq16, w_scale, shift, *,
+                                  act="relu") -> torch.Tensor:
+    """Plain version of Q2 on any device."""
+    return dequantize_plain(phase_conv_int32_plain(xq, wq16), x_scale,
+                            w_scale, shift, act)
+
+
+def quant_dense_plain(xq, x_scale, wq, w_scale, bias, *,
+                      act="none") -> torch.Tensor:
+    """Plain version of Q3 on any device."""
+    return dequantize_plain(dense_int32_plain(xq, wq), x_scale, w_scale,
+                            bias, act)
+
+
+# ------------------------------------------------------ weight layouts
+
+def fold_quantize_conv(kernel: torch.Tensor, scale: torch.Tensor,
+                       shift: torch.Tensor):
+    """Fold an eval BatchNorm's (scale, shift) (``conv_kernel.
+    fold_batchnorm``) into a (3,3,Ci,Co) HWIO kernel, then quantise per
+    output channel. Returns (wq int8 HWIO, w_scale (1,1,1,Co), bias f32
+    (Co,))."""
+    w = kernel.float() * scale.float().reshape(1, 1, 1, -1)
+    wq, w_scale = quantize_plain(w, axis=(0, 1, 2))
+    return wq, w_scale, shift.float()
+
+
+def fold_quantize_dense(kernel: torch.Tensor, scale: torch.Tensor,
+                        shift: torch.Tensor):
+    """The same for a dense (K, M) kernel with per-column scales. Returns
+    (wq int8, w_scale (1, M), bias f32 (M,))."""
+    w = kernel.float() * scale.float().reshape(1, -1)
+    wq, w_scale = quantize_plain(w, axis=(0,))
+    return wq, w_scale.reshape(1, -1), shift.float()
+
+
+def quant_phase_weights(kernel: torch.Tensor, scale: torch.Tensor):
+    """G's upsample stage in int8: the (3,3,Ci,Co) kernel times the folded
+    BatchNorm scale, aggregated in f32 into the 16 phase taps (kernel U's
+    ``phase_kernels``, bitwise the JAX package's 4x4 lhs-dilated kernel:
+    tap [a, ta, b, tb] is its [2 ta + a, 2 tb + b]), quantised per output
+    channel over all 16 taps x Ci. Returns (wq16 (2,2,2,2,Ci,Co) int8,
+    w_scale (Co,))."""
+    w = kernel.float() * scale.float().reshape(1, 1, 1, -1)
+    wq16, w_scale = quantize_plain(phase_kernels(w),
+                                   axis=(0, 1, 2, 3, 4))
+    return wq16, w_scale.reshape(-1)
+
+
+def _words(wq: torch.Tensor) -> torch.Tensor:
+    """(T, K, Co) int8 -> (T, K'/4, Co) int32 words of four K values (K
+    zero-padded to a multiple of 4), byte i of a word the value 4k + i."""
+    t, k, co = wq.shape
+    kp = -(-k // 4) * 4
+    w = F.pad(wq, (0, 0, 0, kp - k)) if kp != k else wq
+    return (w.reshape(t, kp // 4, 4, co).permute(0, 1, 3, 2).contiguous()
+            .view(torch.int32).reshape(t, kp // 4, co))
+
+
+def conv_operand(wq: torch.Tensor) -> torch.Tensor:
+    """A (3,3,Ci,Co) int8 kernel as Q1 reads it: (9, Ci'/4, Co) words."""
+    return _words(wq.reshape(9, *wq.shape[2:]))
+
+
+def phase_operand(wq16: torch.Tensor) -> torch.Tensor:
+    """The (2,2,2,2,Ci,Co) int8 phase taps as Q2 reads them: (16, Ci'/4,
+    Co) words."""
+    return _words(wq16.reshape(16, *wq16.shape[4:]))
+
+
+def dense_operand(wq: torch.Tensor) -> torch.Tensor:
+    """A (K, M) int8 kernel as Q3 reads it: (K'/4, M) words."""
+    return _words(wq[None])[0]
+
+
+def _pad_words(xq: torch.Tensor) -> torch.Tensor:
+    """int8 ``xq`` with its last dim zero-padded to a multiple of 4 (the
+    kernels read words of four), contiguous."""
+    c = xq.shape[-1]
+    if c % 4:
+        return F.pad(xq, (0, -(-c // 4) * 4 - c))
+    return xq.contiguous()
+
+
+def _flat_scale(t: torch.Tensor, n: int, device, name: str):
+    t = t.float().reshape(-1).contiguous()
+    cuda_lib.require(t, name, device, torch.float32, (n,))
+    return t
+
+
+# ------------------------------------------------- the kernels' launches
+
+def launch_quantize_act(x: torch.Tensor):
+    """Q4 on CUDA, its plain version on the CPU: the body of the
+    ``ganreverser::quantize_act`` op."""
+    if cuda_lib.dispatch_device(x) == "cpu":
+        return quantize_plain(x)
+    xf = x.float().contiguous()
+    q = torch.empty(xf.shape, dtype=torch.int8, device=x.device)
+    scale = torch.empty((), dtype=torch.float32, device=x.device)
+    parts = torch.empty(QUANT_PARTS, dtype=torch.float32, device=x.device)
+    with cuda_lib.on_device(x):
+        rc = cuda_lib.library().gr_quantize_act(
+            xf.data_ptr(), q.data_ptr(), scale.data_ptr(), parts.data_ptr(),
+            xf.numel(), cuda_lib.stream_of(x))
+    cuda_lib.check(rc, "quantize_act")
+    quant_act.launches += 1
+    return q, scale
+
+
+def _check_act(act: str) -> None:
+    if act not in ACTS:
+        raise ValueError(f"act must be one of {ACTS}, got {act!r}")
+
+
+def launch_quant_conv3x3(xq, x_scale, wq, w_scale, bias, act, pool,
+                         operand):
+    """Q1 on CUDA, its plain version on the CPU: the body of the
+    ``ganreverser::quant_conv3x3`` op."""
+    _check_act(act)
+    if cuda_lib.dispatch_device(xq, x_scale, wq, w_scale, bias) == "cpu":
+        return quant_conv3x3_plain(xq, x_scale, wq, w_scale, bias, act=act,
+                                   pool=pool)
+    n, h, w, ci = xq.shape
+    co = wq.shape[-1]
+    if tuple(wq.shape[:3]) != (3, 3, ci):
+        raise ValueError(f"quant_conv3x3: kernel {tuple(wq.shape)} does not "
+                         f"take the input's {ci} channels")
+    if pool and (h % 2 or w % 2):
+        raise ValueError(f"pool needs even H and W, got {h}x{w}")
+    xk = _pad_words(xq)
+    wk = conv_operand(wq) if operand is None else operand
+    cuda_lib.require(xk, "xq", xq.device, torch.int8, (n, h, w, xk.shape[-1]))
+    cuda_lib.require(wk, "kernel", xq.device, torch.int32,
+                     (9, xk.shape[-1] // 4, co))
+    xs = _flat_scale(x_scale, 1, xq.device, "x_scale")
+    ws = _flat_scale(w_scale, co, xq.device, "w_scale")
+    b = _flat_scale(bias, co, xq.device, "bias")
+    oh, ow = (h // 2, w // 2) if pool else (h, w)
+    out = torch.empty((n, oh, ow, co), dtype=torch.float32, device=xq.device)
+    with cuda_lib.on_device(xq):
+        rc = cuda_lib.library().gr_quant_conv3x3(
+            xk.data_ptr(), wk.data_ptr(), xs.data_ptr(), ws.data_ptr(),
+            b.data_ptr(), out.data_ptr(), n, h, w, xk.shape[-1], co,
+            cuda_lib.ACT_CODES[act], int(pool), cuda_lib.stream_of(xq))
+    cuda_lib.check(rc, "quant_conv3x3")
+    quant_conv3x3_same.launches += 1
+    return out
+
+
+def launch_quant_upsample2_conv3x3(xq, x_scale, wq16, w_scale, shift, act,
+                                   operand):
+    """Q2 on CUDA, its plain version on the CPU: the body of the
+    ``ganreverser::quant_upsample2_conv3x3`` op."""
+    _check_act(act)
+    if cuda_lib.dispatch_device(xq, x_scale, wq16, w_scale, shift) == "cpu":
+        return quant_upsample2_conv3x3_plain(xq, x_scale, wq16, w_scale,
+                                             shift, act=act)
+    n, h, w, ci = xq.shape
+    co = wq16.shape[-1]
+    if tuple(wq16.shape[:5]) != (2, 2, 2, 2, ci):
+        raise ValueError(f"quant_upsample2_conv3x3: phase taps "
+                         f"{tuple(wq16.shape)} do not take the input's {ci} "
+                         "channels")
+    xk = _pad_words(xq)
+    wk = phase_operand(wq16) if operand is None else operand
+    cuda_lib.require(xk, "xq", xq.device, torch.int8, (n, h, w, xk.shape[-1]))
+    cuda_lib.require(wk, "kernel", xq.device, torch.int32,
+                     (16, xk.shape[-1] // 4, co))
+    xs = _flat_scale(x_scale, 1, xq.device, "x_scale")
+    ws = _flat_scale(w_scale, co, xq.device, "w_scale")
+    b = _flat_scale(shift, co, xq.device, "shift")
+    out = torch.empty((n, 2 * h, 2 * w, co), dtype=torch.float32,
+                      device=xq.device)
+    with cuda_lib.on_device(xq):
+        rc = cuda_lib.library().gr_quant_upsample2_conv3x3(
+            xk.data_ptr(), wk.data_ptr(), xs.data_ptr(), ws.data_ptr(),
+            b.data_ptr(), out.data_ptr(), n, h, w, xk.shape[-1], co,
+            cuda_lib.ACT_CODES[act], cuda_lib.stream_of(xq))
+    cuda_lib.check(rc, "quant_upsample2_conv3x3")
+    quant_upsample2_conv3x3.launches += 1
+    return out
+
+
+def dense_splits(n: int, k: int, m: int) -> int:
+    """Q3's K splits: enough to give the card's SMs two blocks each where
+    the (N, M) tiles alone do not, at most one per 64 words of K."""
+    tiles = -(-n // DENSE_TILES) * -(-m // DENSE_TILES)
+    return max(1, min(-(-k // 256), (2 * SMS) // tiles))
+
+
+def launch_quant_dense(xq, x_scale, wq, w_scale, bias, act, operand):
+    """Q3 on CUDA, its plain version on the CPU: the body of the
+    ``ganreverser::quant_dense`` op."""
+    _check_act(act)
+    if cuda_lib.dispatch_device(xq, x_scale, wq, w_scale, bias) == "cpu":
+        return quant_dense_plain(xq, x_scale, wq, w_scale, bias, act=act)
+    n, k = xq.shape
+    m = wq.shape[-1]
+    if wq.shape[0] != k:
+        raise ValueError(f"quant_dense: kernel {tuple(wq.shape)} does not "
+                         f"take the input's {k} features")
+    xk = _pad_words(xq)
+    wk = dense_operand(wq) if operand is None else operand
+    cuda_lib.require(xk, "xq", xq.device, torch.int8, (n, xk.shape[-1]))
+    cuda_lib.require(wk, "kernel", xq.device, torch.int32,
+                     (xk.shape[-1] // 4, m))
+    xs = _flat_scale(x_scale, 1, xq.device, "x_scale")
+    ws = _flat_scale(w_scale, m, xq.device, "w_scale")
+    b = _flat_scale(bias, m, xq.device, "bias")
+    splits = dense_splits(n, xk.shape[-1], m)
+    work = (torch.empty((n, m), dtype=torch.int32, device=xq.device)
+            if splits > 1 else None)
+    out = torch.empty((n, m), dtype=torch.float32, device=xq.device)
+    with cuda_lib.on_device(xq):
+        rc = cuda_lib.library().gr_quant_dense(
+            xk.data_ptr(), wk.data_ptr(), xs.data_ptr(), ws.data_ptr(),
+            b.data_ptr(), out.data_ptr(),
+            None if work is None else work.data_ptr(), n, xk.shape[-1], m,
+            cuda_lib.ACT_CODES[act], splits, cuda_lib.stream_of(xq))
+    cuda_lib.check(rc, "quant_dense")
+    quant_dense.launches += 1
+    return out
+
+
+# ---------------------------------------------- the JAX package's API
+
+def quantize_symmetric(x: torch.Tensor, axis=None):
+    """(q int8, scale): x ~= q * scale, q in [-127, 127], the scale's max
+    clamped at 1e-12 (JAX's default ``eps``). ``axis`` None: one per-tensor
+    scale (shape ()), kernel Q4 on a CUDA tensor; otherwise the axes to
+    reduce over, leaving per-slice scales (the weights' case, quantised
+    once when a fast forward prepares them, plain PyTorch on any
+    device)."""
+    if axis is None:
+        return quant_act(x)
+    return quantize_plain(x, axis)
+
+
+@cuda_lib.counted
+def quant_act(x: torch.Tensor):
+    """Dynamic per-tensor activation quantisation (Q4): (q int8 of
+    ``x``'s shape, scale 0-d f32)."""
+    cuda_lib.dispatch_device(x)
+    return torch.ops.ganreverser.quantize_act(x)
+
+
+@cuda_lib.counted
+def quant_conv3x3_same(xq: torch.Tensor, x_scale: torch.Tensor,
+                       wq: torch.Tensor, w_scale: torch.Tensor,
+                       bias: torch.Tensor, *, act: str = "none",
+                       pool: bool = False,
+                       operand: torch.Tensor | None = None) -> torch.Tensor:
+    """Q1: ``conv(xq, wq) * (x_scale * w_scale) + bias`` (one rounding), then
+    ``act`` and with ``pool`` the 2x2 max pool; f32 (N,H,W,Co), or
+    (N,H/2,W/2,Co). xq (N,H,W,Ci) int8, x_scale 0-d; wq (3,3,Ci,Co) int8,
+    w_scale (1,1,1,Co) (or (Co,)), bias (Co,). ``operand``: ``wq`` laid
+    out beforehand by :func:`conv_operand`."""
+    _check_act(act)
+    cuda_lib.dispatch_device(xq, x_scale, wq, w_scale, bias)
+    return torch.ops.ganreverser.quant_conv3x3(xq, x_scale, wq, w_scale,
+                                               bias, act, pool, operand)
+
+
+@cuda_lib.counted
+def quant_upsample2_conv3x3(xq: torch.Tensor, x_scale: torch.Tensor,
+                            wq16: torch.Tensor, w_scale: torch.Tensor,
+                            shift: torch.Tensor, *, act: str = "relu",
+                            operand: torch.Tensor | None = None
+                            ) -> torch.Tensor:
+    """Q2: nearest-upsample x2 + 3x3 conv as kernel U's four phase convs on
+    int8 operands (:func:`quant_phase_weights`), dequantised with
+    ``x_scale * w_scale[c]`` + ``shift``, then ``act``. xq (N,H,W,Ci)
+    int8; returns (N,2H,2W,Co) f32. ``operand``: ``wq16`` laid out
+    beforehand by :func:`phase_operand`."""
+    _check_act(act)
+    cuda_lib.dispatch_device(xq, x_scale, wq16, w_scale, shift)
+    return torch.ops.ganreverser.quant_upsample2_conv3x3(
+        xq, x_scale, wq16, w_scale, shift, act, operand)
+
+
+@cuda_lib.counted
+def quant_dense(xq: torch.Tensor, x_scale: torch.Tensor, wq: torch.Tensor,
+                w_scale: torch.Tensor, bias: torch.Tensor, *,
+                act: str = "none",
+                operand: torch.Tensor | None = None) -> torch.Tensor:
+    """Q3: ``(xq @ wq) * (x_scale * w_scale) + bias`` (one rounding), then
+    ``act``. xq (N,K) int8; wq (K,M) int8, w_scale (1,M) (or (M,)), bias
+    (M,). Returns (N,M) f32. ``operand``: ``wq`` laid out beforehand by
+    :func:`dense_operand`."""
+    _check_act(act)
+    cuda_lib.dispatch_device(xq, x_scale, wq, w_scale, bias)
+    return torch.ops.ganreverser.quant_dense(xq, x_scale, wq, w_scale, bias,
+                                             act, operand)

@@ -18,8 +18,9 @@ bytes, so where D % 8 != 0 the wrapper zero-pads E's rows to a multiple of
 search's D = 12,288 needs none). In f32 one launch on the CUDA cores loops
 over D and masks the ragged end of N, padding nothing.
 
-``cosine_scores`` launches the kernel on CUDA tensors and takes the plain
-version ``cosine_scores_plain`` on CPU tensors; no other device is accepted.
+``cosine_scores`` (a custom operator of ops/library.py) launches the kernel
+on CUDA tensors and takes the plain version ``cosine_scores_plain`` on CPU
+tensors; no other device is accepted.
 ``cosine_scores.launches`` counts the calls that launched it.
 """
 from __future__ import annotations
@@ -145,9 +146,18 @@ def padded_corpus(embeddings: torch.Tensor) -> torch.Tensor:
 def cosine_scores(embeddings: torch.Tensor,
                   needle_idx: torch.Tensor) -> torch.Tensor:
     """embeddings: (N, D) f32 or bf16; needle_idx: (Q,) int64 row indices.
-    Returns (Q, N) f32 cosine scores."""
-    needle_idx = needle_idx.to(device=embeddings.device, dtype=torch.int64)
-    if cuda_lib.dispatch_device(embeddings) == "cpu":
+    Returns (Q, N) f32 cosine scores. Runs as the custom operator
+    ``ganreverser::cosine_scores`` (ops/library.py)."""
+    cuda_lib.dispatch_device(embeddings)
+    return torch.ops.ganreverser.cosine_scores(
+        embeddings, needle_idx.to(device=embeddings.device, dtype=torch.int64))
+
+
+def launch_cosine_scores(embeddings: torch.Tensor,
+                         needle_idx: torch.Tensor) -> torch.Tensor:
+    """The body of ``ganreverser::cosine_scores``: the kernel on CUDA
+    tensors, the plain version on CPU tensors."""
+    if cuda_lib.dispatch_device(embeddings, needle_idx) == "cpu":
         return cosine_scores_plain(embeddings, needle_idx)
     code = cuda_lib.dtype_code(embeddings)
     n, d = embeddings.shape

@@ -9,9 +9,10 @@ implicit GEMM with the scale/shift and activation in the epilogue: bf16 on
 the tensor cores (``csrc/conv_wgmma.cuh``, operands laid out by
 ``conv_operands``), f32 on the CUDA cores.
 
-``upsample2_conv3x3_bn_act`` launches the kernel on CUDA tensors and takes
-the plain version ``upsample2_conv3x3_bn_act_plain`` on CPU tensors; no
-other device is accepted. ``upsample2_conv3x3_bn_act.launches`` counts the
+``upsample2_conv3x3_bn_act`` (a custom operator of ops/library.py)
+launches the kernel on CUDA tensors and takes the plain version
+``upsample2_conv3x3_bn_act_plain`` on CPU tensors; no other device is
+accepted. ``upsample2_conv3x3_bn_act.launches`` counts the
 kernel launches.
 
 With ``final_kernel``/``final_bias`` the call is the TPU kernel's fused
@@ -182,7 +183,8 @@ def upsample2_conv3x3_bn_act(x: torch.Tensor, kernel: torch.Tensor,
     a plain conv). Returns (N,2H,2W,Co) in ``x.dtype``. Eval-mode only.
     ``operand``: ``kernel`` laid out beforehand by :func:`phase_operand`
     for ``x.dtype`` (else on every call; the plain version reads
-    ``kernel``).
+    ``kernel``). Runs as the custom operator
+    ``ganreverser::upsample2_conv3x3_bn_act`` (ops/library.py).
 
     With ``final_kernel`` (3,3,Co,Cf) and ``final_bias`` (Cf,), the fused
     head (:func:`upsample2_conv3x3_head`): returns (N,2H,2W,Cf)."""
@@ -193,6 +195,17 @@ def upsample2_conv3x3_bn_act(x: torch.Tensor, kernel: torch.Tensor,
                                       final_operand=final_operand)
     if act not in _ACTS:
         raise ValueError(f"act must be one of {_ACTS}, got {act!r}")
+    cuda_lib.dispatch_device(x, kernel, scale, shift)
+    return torch.ops.ganreverser.upsample2_conv3x3_bn_act(
+        x, kernel, scale, shift, act, operand)
+
+
+def launch_upsample2_conv3x3_bn_act(x: torch.Tensor, kernel: torch.Tensor,
+                                    scale: torch.Tensor, shift: torch.Tensor,
+                                    act: str, operand: torch.Tensor | None
+                                    ) -> torch.Tensor:
+    """The body of ``ganreverser::upsample2_conv3x3_bn_act``: the kernel on
+    CUDA tensors, the plain version on CPU tensors."""
     if cuda_lib.dispatch_device(x, kernel, scale, shift) == "cpu":
         return upsample2_conv3x3_bn_act_plain(x, kernel, scale, shift,
                                               act=act)
@@ -241,12 +254,31 @@ def upsample2_conv3x3_head(x: torch.Tensor, kernel: torch.Tensor,
     workspace of ``conv_operands.head_workspace_shape``, 113 MB at G3's
     stage 2 and N = 256), the plain version on CPU tensors. ``operand``
     and ``final_operand``: the weights laid out beforehand by
-    :func:`phase_operand` and :func:`head_operand` (else on every call)."""
+    :func:`phase_operand` and :func:`head_operand` (else on every call).
+    Runs as the custom operator ``ganreverser::upsample2_conv3x3_head``
+    (ops/library.py)."""
     for name, a in (("act", act), ("final_act", final_act)):
         if a not in _ACTS:
             raise ValueError(f"{name} must be one of {_ACTS}, got {a!r}")
     if final_bias is None:
         raise ValueError("final_kernel needs final_bias")
+    cuda_lib.dispatch_device(x, kernel, scale, shift, final_kernel,
+                             final_bias)
+    return torch.ops.ganreverser.upsample2_conv3x3_head(
+        x, kernel, scale, shift, final_kernel, final_bias, act, final_act,
+        operand, final_operand)
+
+
+def launch_upsample2_conv3x3_head(x: torch.Tensor, kernel: torch.Tensor,
+                                  scale: torch.Tensor, shift: torch.Tensor,
+                                  final_kernel: torch.Tensor,
+                                  final_bias: torch.Tensor, act: str,
+                                  final_act: str,
+                                  operand: torch.Tensor | None,
+                                  final_operand: torch.Tensor | None
+                                  ) -> torch.Tensor:
+    """The body of ``ganreverser::upsample2_conv3x3_head``: the kernel on
+    CUDA tensors, the plain version on CPU tensors."""
     if cuda_lib.dispatch_device(x, kernel, scale, shift, final_kernel,
                                 final_bias) == "cpu":
         return upsample2_conv3x3_bn_act_plain(

@@ -925,3 +925,112 @@ def test_imported_g3_and_r_fast_paths_on_card(dev, tmp_path):
     torch.cuda.synchronize()
     assert [fn.launches - b for fn, b in zip(counters, before)] == \
         [3, 1, 6, 5]
+
+
+# -- the int8 kernels Q1-Q4 and serving artifacts -------------------------
+
+@pytest.mark.parametrize("shape", [(5, 3, 7), (37,), (2, 9, 6, 64)])
+def test_quant_act_kernel_bitwise(dev, shape):
+    """Q4: q and the scale bitwise the plain version's, ragged sizes (no
+    16-byte packs) included; one launch counted."""
+    from ganreverser_tpu_torch.ops import quant
+    x = torch.randn(shape, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(2))
+    before = quant.quant_act.launches
+    q, s = quant.quant_act(x)
+    torch.cuda.synchronize()
+    qp, sp = quant.quantize_plain(x)
+    assert quant.quant_act.launches == before + 1
+    assert torch.equal(q, qp) and torch.equal(s, sp) and s.shape == ()
+
+
+@pytest.mark.parametrize("n,h,w,ci,co,act,pool", [
+    (3, 10, 6, 5, 70, "none", False), (2, 8, 12, 8, 2, "relu", True),
+    (1, 17, 33, 4, 3, "sigmoid", False), (2, 6, 6, 12, 130, "elu", True)])
+def test_quant_conv3x3_kernel_bitwise(dev, n, h, w, ci, co, act, pool):
+    """Q1 at ragged shapes (Ci off the word, Co off both tiles, H and W off
+    the patch): bitwise the plain version (one FMA rounding on both sides;
+    expm1f and expf against PyTorch's, equal on these inputs)."""
+    from ganreverser_tpu_torch.ops import quant
+    g = torch.Generator(device=dev).manual_seed(3)
+    xq, xs = quant.quantize_plain(torch.randn(n, h, w, ci, device=dev,
+                                              generator=g))
+    wq, ws = quant.quantize_plain(torch.randn(3, 3, ci, co, device=dev,
+                                              generator=g), axis=(0, 1, 2))
+    b = torch.randn(co, device=dev, generator=g)
+    out = quant.quant_conv3x3_same(xq, xs, wq, ws, b, act=act, pool=pool)
+    torch.cuda.synchronize()
+    ref = quant.quant_conv3x3_plain(xq, xs, wq, ws, b, act=act, pool=pool)
+    assert out.shape == ref.shape
+    _close(out, ref, torch.float32)
+    assert (out - ref).abs().max().item() <= 1e-6 * max(
+        1.0, ref.abs().max().item())
+
+
+@pytest.mark.parametrize("n,h,w,ci,co", [(2, 5, 3, 6, 9), (1, 9, 17, 16, 64)])
+def test_quant_upsample_kernel_bitwise(dev, n, h, w, ci, co):
+    from ganreverser_tpu_torch.ops import quant
+    g = torch.Generator(device=dev).manual_seed(4)
+    xq, xs = quant.quantize_plain(torch.randn(n, h, w, ci, device=dev,
+                                              generator=g).relu())
+    wq16, ws = quant.quant_phase_weights(
+        torch.randn(3, 3, ci, co, device=dev, generator=g),
+        torch.rand(co, device=dev, generator=g) + 0.5)
+    sh = torch.randn(co, device=dev, generator=g)
+    out = quant.quant_upsample2_conv3x3(xq, xs, wq16, ws, sh)
+    torch.cuda.synchronize()
+    assert torch.equal(out, quant.quant_upsample2_conv3x3_plain(
+        xq, xs, wq16, ws, sh))
+
+
+@pytest.mark.parametrize("n,k,m", [(7, 10, 13), (70, 4096, 130),
+                                   (256, 32768, 512)])
+def test_quant_dense_kernel_bitwise(dev, n, k, m):
+    """Q3 with one K slice and with K split across blocks (int32 atomics:
+    exact in any order)."""
+    from ganreverser_tpu_torch.ops import quant
+    g = torch.Generator(device=dev).manual_seed(5)
+    xq, xs = quant.quantize_plain(torch.randn(n, k, device=dev, generator=g))
+    wq, ws = quant.quantize_plain(torch.randn(k, m, device=dev, generator=g),
+                                  axis=(0,))
+    b = torch.randn(m, device=dev, generator=g)
+    out = quant.quant_dense(xq, xs, wq, ws, b, act="elu")
+    torch.cuda.synchronize()
+    assert torch.equal(out, quant.quant_dense_plain(xq, xs, wq, ws, b,
+                                                    act="elu"))
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_exported_programs_on_card(dev, tmp_path, int8):
+    """export (invert, generate, e2e) on the card from seeded checkpoints:
+    --check passes, the loaded artifacts give the live legs' outputs, run
+    as one CUDA graph each, and the CPU loads the invert artifact."""
+    from ganreverser_tpu_torch.cli import export
+    from ganreverser_tpu_torch.io import serving
+    cs = _chip_smoke()
+    dims, nd = (3, 16, 16), 8
+    G, R, RF = cs.make_models(dev, dims, nd)
+    save = str(tmp_path / "logs")
+    g_path = cs.save_models(G, R, RF, save, dims, nd)
+    for what in ("invert", "generate", "e2e"):
+        out = str(tmp_path / what)
+        res = export.main(["--G", g_path, "--save", save, "--out", out,
+                           "--what", what, "--batch", "16", "--N", "48",
+                           "--k", "5", "--compute_dtype", "bfloat16",
+                           "--check", *(["--int8"] if int8 else [])])
+        assert res["check_err"] <= (0.05 if int8 else 1e-3) * max(
+            1.0, res["check_scale"])
+        call, meta = serving.load_serving_program(out)
+        assert meta["platforms"] == ["cuda", "cpu"]
+        x = (torch.rand(16, 16, 16, 3, device=dev).to(torch.bfloat16)
+             if what == "invert" else torch.randn(
+                 48 if what == "e2e" else 16, nd, device=dev))
+        first = call(x)
+        second = call(x)
+        for a, b in zip(first if isinstance(first, tuple) else (first,),
+                        second if isinstance(second, tuple) else (second,)):
+            assert torch.equal(a, b)
+    cpu_call, _ = serving.load_serving_program(str(tmp_path / "invert"),
+                                               "cpu")
+    got = cpu_call(torch.rand(16, 16, 16, 3).to(torch.bfloat16))
+    assert got.shape == (16, nd) and got.device.type == "cpu"
