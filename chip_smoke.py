@@ -181,11 +181,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
    phase 4's checks) and its stage seconds beside phase 4's; the top-100
    recall of the int8 e2e program against the bf16 one on phase 8's x3
    weights (printed, not gated); ``export --what e2e --int8 --check`` at
-   N = 2,560 (its trace at 10,240 alone takes longer than the phase should).
+   N = 2,560 (its trace at 10,240 alone takes longer than the phase should);
+11. approximate selection: kernel S (csrc/approx_topk.cu) against its
+   plain version, indices and values bitwise, on kernel C's scores of
+   seeded bf16 rows at apply_r's two searches (10 needles, 10,000 rows,
+   D = 100 and 12,288) and the fused program's needle chunks (256 needles,
+   10,240 rows, both D), at recall targets 0.95, 0.99 and 1 (at 1 the values
+   must be torch.topk's), and at 256 x 20,480 with r = 1, the large-L
+   path; S's, its plain version's and torch.topk's times (the exact
+   selection S stands in for, not the same function) and S's bound (4 Q N
+   + 12 Q k bytes over 3.35 TB/s). tiled_topk at tiles 512, 1,024 and 2,048
+   beside one torch.topk on the pixel chunk's scores (values equal). Then
+   phase 4's G3, R and fixer-R with every kernel x 3 (phase 8's other
+   weights; the random G ties every score) as checkpoints, ``apply_r``
+   with phase 4's arguments, exact and ``--approx --recall_target 0.95``:
+   S must launch once per search, phase 4's checks but the score check,
+   the latents equal, each returned value the plain score of its index,
+   descending, and the top-100 recall of both searches against the exact
+   run at least 0.93; stage ④ seconds of both. The fused program on phase
+   8's x3 weights with approx=True and pixel_k = 100: S launched 160 times
+   in its first call (warm-up and one replay of 2 x 40 chunks) and 80
+   kernels in a traced replay, the embeddings equal to the exact
+   program's, and the recall of both measures against it at least 0.93;
+   img/s of the approximate and exact graphs, with and without the pixel
+   measure.
 
 The last two lines are a JSON object with each kernel's route, source,
 launch count in the main path (Q1-Q4's: ``apply_r --int8`` and the int8
-e2e export's check), error, times and bound, and
+e2e export's check; S's: phase 11's ``apply_r --approx`` and approximate
+fused program), error, times and bound, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without a result when CUDA is absent or the package is not
 beside this file.
@@ -944,10 +968,13 @@ def run_main_path(g_path: str, save: str, out_dir: str, n: int = N_MAIN,
 
 
 def check_main_path(result, out_dir: str, n: int = N_MAIN,
-                    needles: int = NEEDLES, noise_dim: int = NOISE_DIM):
+                    needles: int = NEEDLES, noise_dim: int = NOISE_DIM,
+                    exact: bool = True):
     """Phase 4c: every artifact, finite latents, cluster counts summing to
-    N, the anomaly count the threshold implies, search scores vs plain.
-    Returns the two top-k score errors."""
+    N, the anomaly count the threshold implies, and with ``exact`` the
+    search scores vs plain (an approximate search is held by its recall,
+    phase 11). Returns the two top-k score errors (none without
+    ``exact``)."""
     import torch
     from ganreverser_tpu_torch.ops.topk_kernel import cosine_scores_plain
     names = ["variations.jpg", "fixed_pairs.jpg", "fixed_images_528.jpg",
@@ -981,6 +1008,8 @@ def check_main_path(result, out_dir: str, n: int = N_MAIN,
         check(bool(torch.isfinite(result[name]).all()), f"non-finite {name}")
     for name in ("images", "fixed", "variations"):
         check(bool(torch.isfinite(result[name]).all()), f"non-finite {name}")
+    if not exact:
+        return []
     idx = torch.tensor([(i + 1) * 100 - 1 for i in range(needles)],
                        device=attrs.device)
     errs = []
@@ -3035,6 +3064,236 @@ def check_serving(dev, card: str, tmp: str, secs4: dict, rate8: float):
     return records, q_launches
 
 
+# -- phase 11: approximate selection (kernel S) and the two-pass tiled_topk --
+
+APPROX_RECALLS = (0.95, 0.99, 1.0)
+APPROX_R = 0.95          # --recall_target's default: the main path's
+# kernel S's shapes: label, needles Q, rows N, D of kernel C's scores, k,
+# on the main path; apply_r's two searches and the fused program's needle
+# chunk (both measures), then one shape on the large-L path at r = 1
+APPROX_SHAPES = [("apply_r attributes", NEEDLES, N_MAIN, NOISE_DIM, 100),
+                 ("apply_r pixels", NEEDLES, N_MAIN, 3 * 64 * 64, 100),
+                 ("e2e needle chunk", E2E_CHUNK, E2E_N, NOISE_DIM, E2E_K),
+                 ("e2e pixel chunk", E2E_CHUNK, E2E_N, 3 * 64 * 64,
+                  E2E_PIXEL_K)]
+APPROX_LARGE = ("large-L path", E2E_CHUNK, 2 * E2E_N, NOISE_DIM, E2E_K, 1.0)
+TILES = (512, 1024, 2048)
+
+
+def approx_cases(dev, card: str):
+    """Phase 11a: kernel S against its plain version on kernel C's scores,
+    bitwise, at APPROX_SHAPES x APPROX_RECALLS and the large-L shape; at
+    r = 1 the values must be torch.topk's. Prints and returns the records
+    (on the main path: r = APPROX_R) and the e2e pixel chunk's scores."""
+    import torch
+    from ganreverser_tpu_torch.ops import approx_topk_kernel as S
+    from ganreverser_tpu_torch.ops import topk_kernel
+    gen = torch.Generator(device=dev).manual_seed(SEED + 110)
+    records, pixel_scores = [], None
+    cases = [(*shape, r) for shape in APPROX_SHAPES for r in APPROX_RECALLS]
+    for label, q, n, d, k, r in cases + [APPROX_LARGE]:
+        emb = torch.randn(n, d, device=dev, generator=gen).to(torch.bfloat16)
+        scores = topk_kernel.cosine_scores(emb, torch.arange(q, device=dev))
+        del emb
+        plan = S.select_plan(n, k, r)
+        check(plan.path == ("global" if label == APPROX_LARGE[0]
+                            else "shared"),
+              f"S {label}: plan {plan} is not the expected path")
+        v, i = S.approx_topk(scores, k, r)
+        torch.cuda.synchronize()
+        pv, pi = S.approx_topk_plain(scores, k, r)
+        check(torch.equal(i, pi) and torch.equal(v.view(torch.int32),
+                                                 pv.view(torch.int32)),
+              f"S {label} Q={q} N={n} k={k} r={r}: differs from the plain "
+              "version")
+        if r == 1.0:
+            check(torch.equal(v, torch.topk(scores, k, dim=1).values),
+                  f"S {label} r=1: values differ from torch.topk's")
+        ms = time_ms(lambda: S.approx_topk(scores, k, r))
+        plain_ms = time_ms(lambda: S.approx_topk_plain(scores, k, r))
+        exact_ms = time_ms(lambda: torch.topk(scores, k, dim=1))
+        b_ms, b_by = bound(0.0, q * n * 4 + q * k * 12, "float32")
+        print(f"[approx] S {label} Q={q} N={n} (C's scores at D={d}) k={k} "
+              f"r={r}: L={plan.bins}, {plan.entries} keys, {plan.path} "
+              f"path; indices and values bitwise the plain version; S "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, exact torch.topk "
+              f"{exact_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})  [{card}]")
+        records.append({"name": "approx_topk", "label": f"{label} r={r}",
+                        "dtype": "float32", "max_abs_err": 0.0, "ms": ms,
+                        "plain_ms": plain_ms, "library_ms": None,
+                        "bound_ms": b_ms,
+                        "bound_by": b_by, "on_path": r == APPROX_R
+                        and label != APPROX_LARGE[0]})
+        if label == "e2e pixel chunk" and r == APPROX_R:
+            pixel_scores = scores
+        del scores, v, i, pv, pi
+    torch.cuda.empty_cache()
+    return records, pixel_scores
+
+
+def check_tiled(scores, card: str, k: int = E2E_PIXEL_K):
+    """Phase 11b: tiled_topk at TILES against one torch.topk on the e2e
+    pixel chunk's scores: values equal, and the times (ROADMAP item 7's
+    A/B)."""
+    import torch
+    from ganreverser_tpu_torch.analysis import tiled_topk
+    ref = torch.topk(scores, k, dim=1)
+    parts = [f"torch.topk {time_ms(lambda: torch.topk(scores, k, dim=1)):.4f}"
+             " ms"]
+    for tile in TILES:
+        v, i = tiled_topk(scores, k, tile)
+        check(torch.equal(v, ref.values) and torch.equal(
+            scores.gather(1, i), v), f"tiled_topk tile {tile}: values differ "
+              "from torch.topk's")
+        parts.append(f"tile {tile} "
+                     f"{time_ms(lambda: tiled_topk(scores, k, tile)):.4f} ms")
+    print(f"[approx] tiled_topk vs one torch.topk, Q={scores.shape[0]} "
+          f"N={scores.shape[1]} k={k}, values equal (median of 10, CUDA "
+          f"events): " + ", ".join(parts) + f"  [{card}]")
+
+
+def amplify_models(*models) -> None:
+    """Every kernel of ``models`` x E2E_AMPLIFY, in place: phase 8's other
+    weights as modules, whose checkpoints apply_r reads."""
+    import torch
+    from ganreverser_tpu_torch.models import bridge
+    with torch.no_grad():
+        for model in models:
+            for leaves in bridge.module_variables(model)["params"].values():
+                if "kernel" in leaves:
+                    leaves["kernel"].mul_(E2E_AMPLIFY)
+
+
+def check_approx(dev, card: str, tmp: str):
+    """Phase 11 (see the module docstring). Returns S's records and its
+    launches on the main path (apply_r --approx, then the approximate
+    fused program's first call)."""
+    import torch
+    from ganreverser_tpu_torch.analysis import e2e
+    from ganreverser_tpu_torch.analysis.similarity import topk_recall
+    from ganreverser_tpu_torch.cli import apply_r
+    from ganreverser_tpu_torch.ops import approx_topk_kernel as S
+    from ganreverser_tpu_torch.ops.topk_kernel import cosine_scores_plain
+    t_phase = time.perf_counter()
+    records, pixel_scores = approx_cases(dev, card)
+    check_tiled(pixel_scores, card)
+    del pixel_scores
+
+    # apply_r, exact and --approx, on phase 8's x3 weights as checkpoints
+    G, R, RF = make_models(dev)
+    amplify_models(G, R, RF)
+    save = os.path.join(tmp, "logs")
+    g_path = save_models(G, R, RF, save)
+    del G, R, RF
+    counters = {**kernel_counters(), "approx_topk": S.approx_topk}
+    runs = {}
+    for label, flags in (("exact", []), ("approx", [
+            "--approx", "--recall_target", str(APPROX_R)])):
+        for fn in counters.values():
+            fn.launches = 0
+        out_dir = os.path.join(tmp, f"out_{label}")
+        t0 = time.perf_counter()
+        result = apply_r.main(["--G", g_path, "--save", save, "--writeto",
+                               out_dir, "--N", str(N_MAIN), "--needles",
+                               str(NEEDLES), "--batchSize", "256",
+                               "--compute_dtype", "bfloat16", *flags])
+        whole_s = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+        runs[label] = (result, launches, whole_s)
+    (exact, _, exact_s), (approx, launches, approx_s) = runs["exact"], \
+        runs["approx"]
+    for name, count in launches.items():
+        check(count > 0, f"apply_r --approx: {name} launched no time")
+    check(launches["approx_topk"] == 2, f"apply_r --approx: S launched "
+          f"{launches['approx_topk']} times, not once per search")
+    check_main_path(approx, os.path.join(tmp, "out_approx"), exact=False)
+    check(torch.equal(approx["attributes"], exact["attributes"]),
+          "apply_r --approx: the latents differ from the exact run's")
+    idx = torch.tensor([(i + 1) * 100 - 1 for i in range(NEEDLES)],
+                       device=dev)
+    recalls = []
+    for what, rows in (("attr_topk", approx["attributes"]),
+                       ("pix_topk", approx["images"].reshape(N_MAIN, -1))):
+        v, i = approx[what]
+        named = (cosine_scores_plain(rows, idx).gather(1, i) - v).abs().max()
+        check(named.item() <= TOL_SCORES and bool((v[:, :-1] >= v[:, 1:])
+                                                   .all()),
+              f"apply_r --approx {what}: values not the scores at their "
+              f"indices ({named.item()}) or not descending")
+        recalls.append(topk_recall(exact[what][1].cpu().numpy(),
+                                   i.cpu().numpy()))
+    check(min(recalls) >= APPROX_R - 0.02, f"apply_r --approx: recall "
+          f"{recalls} below {APPROX_R} - 0.02")
+    s_launches = launches["approx_topk"]
+    print(f"[approx] apply_r --approx --recall_target {APPROX_R} N={N_MAIN} "
+          f"bf16 batch 256, weights x{E2E_AMPLIFY:g}: whole call "
+          f"{approx_s:.2f} s (exact {exact_s:.2f} s); stage ④ "
+          f"{approx['seconds']['search']:.4f} s (exact "
+          f"{exact['seconds']['search']:.4f} s); launches {launches}; "
+          f"top-100 recall against the exact run: attributes "
+          f"{recalls[0]:.4f}, pixels {recalls[1]:.4f}  [{card}]")
+    del runs, exact, approx
+
+    # the fused program, approximate and exact, both measures, on the x3
+    # weights (phase 4's random G ties every score)
+    G, R, _, _, gv2, rv2, z = e2e_inputs(dev)
+
+    def program(approx, pixel_k):
+        return e2e.make_e2e_program(
+            G, R, batch_size=E2E_BATCHES[0], k=E2E_K, needle_chunk=E2E_CHUNK,
+            approx=approx, recall_target=APPROX_R, pixel_k=pixel_k,
+            **e2e.fast_legs(DIMS, NOISE_DIM, "normal"))
+
+    fused = program(True, E2E_PIXEL_K)
+    S.approx_topk.launches = 0
+    out = fused(gv2, rv2, z)
+    torch.cuda.synchronize()
+    first = S.approx_topk.launches
+    chunks = -(-E2E_N // E2E_CHUNK)
+    check(first == 4 * chunks, f"e2e approx: S launched {first} times in "
+          f"the first call, expected {4 * chunks} (warm-up and one replay, "
+          f"two searches of {chunks} chunks)")
+    s_launches += first
+    traced = device_counts(lambda: fused(gv2, rv2, z),
+                           {"approx_topk": "approx_topk_chunk_kernel"})
+    check(traced["approx_topk"] == 2 * chunks, f"e2e approx: S kernels in "
+          f"a traced replay {traced}, expected {2 * chunks}")
+    exact_prog = program(False, E2E_PIXEL_K)
+    ref = exact_prog(gv2, rv2, z)
+    check(torch.equal(out[0], ref[0]), "e2e approx: the embeddings differ "
+          "from the exact program's")
+    e_recalls = []
+    for j, what in ((2, "attributes"), (4, "pixels")):
+        v = out[j - 1]
+        check(bool(torch.isfinite(v).all()) and bool(
+            (v[:, :-1] >= v[:, 1:]).all()), f"e2e approx {what}: values "
+              "non-finite or not descending")
+        e_recalls.append(topk_recall(ref[j].cpu().numpy(),
+                                     out[j].cpu().numpy()))
+    check(min(e_recalls) >= APPROX_R - 0.02, f"e2e approx: recall "
+          f"{e_recalls} below {APPROX_R} - 0.02")
+    rates = {}
+    for label, prog in (("approx, pixel measure", fused),
+                        ("exact, pixel measure", exact_prog),
+                        ("approx", program(True, 0)),
+                        ("exact", program(False, 0))):
+        prog(gv2, rv2, z)
+        rates[label] = E2E_N / statistics.median(
+            wall_s(lambda: prog(gv2, rv2, z), E2E_TIMES))
+    del fused, exact_prog, out, ref
+    torch.cuda.empty_cache()
+    print(f"[approx] fused program N={E2E_N} bf16 batch {E2E_BATCHES[0]} "
+          f"k={E2E_K} pixel_k={E2E_PIXEL_K}, weights x{E2E_AMPLIFY:g}, "
+          f"approx=True r={APPROX_R}: top-k recall against the exact program"
+          f": attributes {e_recalls[0]:.4f}, pixels {e_recalls[1]:.4f}; S "
+          f"{first} launches in the first call, {traced['approx_topk']} "
+          f"kernels in a traced replay; graph img/s (median of "
+          f"{E2E_TIMES}): " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                        rates.items()) + f"  [{card}]")
+    print(f"[time] phase 11 {time.perf_counter() - t_phase:.1f} s  [{card}]")
+    return records, s_launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3186,10 +3445,15 @@ def main() -> int:
         q_records, q_launches = check_serving(dev, card, tmp, secs, rate8)
     records += q_records
     launches.update(q_launches)
+    t11 = time.perf_counter()
+    # 11. approximate selection (kernel S) and the two-pass tiled_topk
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        s_records, launches["approx_topk"] = check_approx(dev, card, tmp)
+    records += s_records
     print(f"[time] phases 6 and 7 {t8 - t6:.1f} s (7: {secs7:.1f} s), phase "
           f"8 {t9 - t8:.1f} s, phase 9 {t10 - t9:.1f} s, phase 10 "
-          f"{time.perf_counter() - t10:.1f} s, the whole run "
-          f"{time.perf_counter() - t_start:.1f} s  [{card}]")
+          f"{t11 - t10:.1f} s, phase 11 {time.perf_counter() - t11:.1f} s, "
+          f"the whole run {time.perf_counter() - t_start:.1f} s  [{card}]")
 
     sources = {"conv_block": ("ganreverser_tpu_torch/csrc/conv_block.cu",
                               "ganreverser_tpu/ops/conv_block_kernel.py:86"),
@@ -3226,14 +3490,19 @@ def main() -> int:
                "quant_dense": ("ganreverser_tpu_torch/csrc/quant.cu",
                                "ganreverser_tpu/ops/quant.py:77"),
                "quant_act": ("ganreverser_tpu_torch/csrc/quant.cu",
-                             "ganreverser_tpu/ops/quant.py:43")}
-    f32_lines = ("kmeans_lloyd", "add_one", "times_two")
+                             "ganreverser_tpu/ops/quant.py:43"),
+               # S replaces jax.lax.approx_max_k in _select_topk (XLA)
+               "approx_topk": ("ganreverser_tpu_torch/csrc/approx_topk.cu",
+                               "ganreverser_tpu/analysis/similarity.py:34")}
+    f32_lines = ("kmeans_lloyd", "add_one", "times_two", "approx_topk")
     kernels = []
     for name, (source, replaces) in sources.items():
         # the main path's dtype (bf16; kmeans and two probes run in f32),
         # summed over the path's shapes (the head's C = 3 row: G_prev is
         # rgb); B, U, C and K's launches are apply_r's and the fused e2e
-        # program's first call's (phases 4, 8 and 9), B5's those of the three
+        # program's first call's (phases 4, 8 and 9), S's (f32 scores) those
+        # of apply_r --approx and the approximate e2e program's first call
+        # (phase 11, r = 0.95), B5's those of the three
         # train_r runs, B6's those of the three train runs and the sample run,
         # the head's those of the two pretrain_prev runs and the e2e
         # program's, B7-B9's those of their probes; Q1-Q4's (int8) those

@@ -9,7 +9,9 @@ the needle-by-needle cosine search (apply_r.lua:265-318). Here:
   once, so the full (N, H, W, C) image tensor is never stored;
 * the similarity search takes every generated face as a needle, in
   needle chunks over the embeddings, each chunk one launch of kernel C
-  (ops/topk_kernel.py, row-normalisation and scores) and ``torch.topk``;
+  (ops/topk_kernel.py, row-normalisation and scores) and a selection:
+  ``torch.topk``, or with ``approx=True`` kernel S
+  (ops/approx_topk_kernel.py) at ``recall_target``;
 * ``pixel_k > 0`` adds the reference's second measure, cosine over the
   flattened pixels (apply_r.lua:307-314): the chunk loop also keeps each
   chunk's flat images in the compute dtype, and the same search ranks
@@ -29,9 +31,8 @@ G and R are the port's modules (models/zoo.py); with no ``g_apply`` or
 (JAX's ``G.apply(variables, x, train=False)``). The fast forwards of
 models/fastpath.py (kernels U and B) are the overrides the card runs; a
 :class:`~..models.fastpath.FastForward` is prepared once per call,
-outside the chunk loop. Only the exact selection is ported: ``approx=True``
-raises (ROADMAP.md, queue A item 6). ``make_distributed_e2e_program`` is
-not ported (queue A item 8).
+outside the chunk loop. ``make_distributed_e2e_program`` is not ported
+(ROADMAP.md, queue A item 8).
 """
 from __future__ import annotations
 
@@ -47,7 +48,7 @@ from ..models.fastpath import (FastForward, make_fast_generator,
 from ..ops import topk_kernel
 from .batched import forward_batched
 from .graphs import CapturedProgram
-from .similarity import refuse_approx, scores_against
+from .similarity import scores_against, select_topk
 
 
 # the fast G the fused program runs: U's fused head on G3's second stage,
@@ -76,12 +77,14 @@ def fast_legs(dims: tuple, noise_dim: int, noise_method: str,
 
 def chunked_topk_search(queries_normed: torch.Tensor,
                         corpus_normed: torch.Tensor, k: int,
-                        needle_chunk: int = 256, approx: bool = False):
+                        needle_chunk: int = 256, approx: bool = False,
+                        recall_target: float = 0.95):
     """Top-k corpus rows per query, the queries streamed in chunks of
     ``needle_chunk``; both operands row-normalised. Each chunk is one plain
-    product (JAX's ``jnp.dot``, f32 sums) and ``torch.topk``, so the (Q, N)
-    score matrix is never whole. Returns (values (Q, k), indices (Q, k))."""
-    refuse_approx(approx)
+    product (JAX's ``jnp.dot``, f32 sums) and a selection
+    (``similarity.select_topk``: ``torch.topk``, or kernel S with
+    ``approx``), so the (Q, N) score matrix is never whole. Returns
+    (values (Q, k), indices (Q, k))."""
     q = queries_normed.shape[0]
     pad = -(-q // needle_chunk) * needle_chunk - q
     # zero-row padding, not a repeat of the first rows, which would
@@ -89,27 +92,28 @@ def chunked_topk_search(queries_normed: torch.Tensor,
     qq = F.pad(queries_normed, (0, 0, 0, pad)) if pad else queries_normed
     vs, ids = [], []
     for qc in qq.split(needle_chunk):
-        v, i = torch.topk(scores_against(qc, corpus_normed), k, dim=1)
+        v, i = select_topk(scores_against(qc, corpus_normed), k, approx,
+                           recall_target)
         vs.append(v)
         ids.append(i)
     return torch.cat(vs)[:q], torch.cat(ids)[:q]
 
 
 def topk_all(embeddings: torch.Tensor, k: int, needle_chunk: int = 256,
-             approx: bool = False):
+             approx: bool = False, recall_target: float = 0.95):
     """Top-k most similar rows for every row, in chunks of needles: each
     chunk is one call of kernel C with the chunk's rows as needles
     (``needle_idx = arange(s, s + chunk)``) on the un-normalised corpus,
-    then ``torch.topk``; the last chunk is shorter. The corpus is padded
-    for the kernel once per search (``topk_kernel.padded_corpus``)."""
-    refuse_approx(approx)
+    then the selection (``torch.topk``, or kernel S with ``approx``); the
+    last chunk is shorter. The corpus is padded for the kernel once per
+    search (``topk_kernel.padded_corpus``)."""
     n = embeddings.shape[0]
     corpus = topk_kernel.padded_corpus(embeddings)
     rows = torch.arange(n, device=embeddings.device)
     vs, ids = [], []
     for s in range(0, n, needle_chunk):
-        v, i = torch.topk(topk_kernel.cosine_scores(
-            corpus, rows[s:s + needle_chunk]), k, dim=1)
+        v, i = select_topk(topk_kernel.cosine_scores(
+            corpus, rows[s:s + needle_chunk]), k, approx, recall_target)
         vs.append(v)
         ids.append(i)
     return torch.cat(vs), torch.cat(ids)
@@ -172,14 +176,14 @@ def make_e2e_forward(G: Optional[nn.Module], R: Optional[nn.Module], *,
                      needle_chunk: int = 256,
                      g_apply: Optional[Callable] = None,
                      r_apply: Optional[Callable] = None,
-                     approx: bool = False, pixel_k: int = 0) -> FastForward:
+                     approx: bool = False, recall_target: float = 0.95,
+                     pixel_k: int = 0) -> FastForward:
     """The program of :func:`make_e2e_program` as a :class:`FastForward`
     over the pair ``(g_variables, r_variables)``: ``prepare`` prepares both
     legs once, ``run(prepared, z)`` is the chunk loop and the searches.
     ``export --what e2e`` traces ``run`` on prepared weights
     (cli/export.py). G and R may be None where ``g_apply`` and ``r_apply``
     are given."""
-    refuse_approx(approx)
     g, r = _as_forward(g_apply, G), _as_forward(r_apply, R)
     g_then_r = _g_then_r_fn(g, r, pixel_k > 0)
 
@@ -193,10 +197,11 @@ def make_e2e_forward(G: Optional[nn.Module], R: Optional[nn.Module], *,
             lambda zc: g_then_r(g_prepared, r_prepared, zc), z, batch_size)
         if pixel_k > 0:
             emb, flat = out
-            v, i = topk_all(emb, k, needle_chunk)
-            pv, pi = topk_all(flat, pixel_k, needle_chunk)
+            v, i = topk_all(emb, k, needle_chunk, approx, recall_target)
+            pv, pi = topk_all(flat, pixel_k, needle_chunk, approx,
+                              recall_target)
             return emb, v, i, pv, pi
-        v, i = topk_all(out, k, needle_chunk)
+        v, i = topk_all(out, k, needle_chunk, approx, recall_target)
         return out, v, i
 
     return FastForward(prepare, run)
@@ -206,8 +211,9 @@ def make_e2e_program(G: nn.Module, R: nn.Module, *, batch_size: int = 128,
                      k: int = 100, needle_chunk: int = 256,
                      g_apply: Optional[Callable] = None,
                      r_apply: Optional[Callable] = None,
-                     approx: bool = False, pixel_k: int = 0,
-                     capture: bool = True) -> CapturedProgram:
+                     approx: bool = False, recall_target: float = 0.95,
+                     pixel_k: int = 0, capture: bool = True
+                     ) -> CapturedProgram:
     """``run(g_variables, r_variables, z) -> (emb, v, i)``, or ``(emb, v,
     i, pv, pi)`` with ``pixel_k > 0``: chunks of ``batch_size`` latents
     through G then R, then the top-``k`` rows by cosine of every embedding
@@ -217,13 +223,15 @@ def make_e2e_program(G: nn.Module, R: nn.Module, *, batch_size: int = 128,
     ``g_apply(g_variables, z_chunk) -> images`` and ``r_apply(r_variables,
     images) -> embeddings`` override the module legs, e.g. the fast
     forwards of models/fastpath.py on the same variable trees; a
-    ``FastForward`` is prepared once per call. On CUDA tensors ``run`` is
+    ``FastForward`` is prepared once per call. ``approx`` selects both
+    searches' top-k with kernel S at ``recall_target`` (JAX's
+    ``approx_max_k``) instead of ``torch.topk``. On CUDA tensors ``run`` is
     one CUDA graph per (N, dtype) of its inputs (analysis/graphs.py);
     ``capture=False`` runs it eagerly, to time the graph against it."""
     forward = make_e2e_forward(G, R, batch_size=batch_size, k=k,
                                needle_chunk=needle_chunk, g_apply=g_apply,
                                r_apply=r_apply, approx=approx,
-                               pixel_k=pixel_k)
+                               recall_target=recall_target, pixel_k=pixel_k)
 
     def program(g_variables, r_variables, z):
         return forward((g_variables, r_variables), z)

@@ -11,6 +11,8 @@ artifact names:
                                     (the average first, then the top 71)
   ④ similar_attributes_NN.jpg       cosine top-k on kernel C, over the
     similar_pixelwise_NN.jpg        recovered latents and over raw pixels
+                                    (--approx: selected by kernel S at
+                                    --recall_target)
   ⑤ fixed_pairs.jpg, fixed_images_528[_unfixed].jpg   G on the (fixer)
                                     latents
   ⑥ anomalies.jpg                   1 - L2 scores, 15 % quantile threshold
@@ -20,8 +22,8 @@ artifact names:
 It reads the checkpoints the JAX package writes (io/checkpoint.py). On CUDA
 (GANREVERSER_PLATFORM unset or gpu) the kernels run; with
 GANREVERSER_PLATFORM=cpu their plain versions run. Each stage draws its
-random numbers from a generator of its own (core/prng.py). --approx and
---mesh_* > 1 are refused.
+random numbers from a generator of its own (core/prng.py). --mesh_* > 1
+is refused.
 
 Usage: python -m ganreverser_tpu_torch.cli.apply_r --G logs/adversarial \
            --N 10000 --compute_dtype bfloat16
@@ -70,8 +72,7 @@ def _side_grid(images_rgb: np.ndarray):
 
 def _refuse_unported(cfg: ApplyConfig):
     refused = [flag for flag, on in (
-        ("--approx (ROADMAP.md, queue A item 6)", cfg.approx),
-        ("--mesh_data > 1 (queue A item 8)", cfg.mesh_data > 1),
+        ("--mesh_data > 1 (ROADMAP.md, queue A item 8)", cfg.mesh_data > 1),
         ("--mesh_model > 1 (queue A item 8)", cfg.mesh_model > 1)) if on]
     if refused:
         sys.exit(f"[apply_r] not ported yet: {', '.join(refused)}")
@@ -120,6 +121,8 @@ def main(argv=None) -> dict:
         sys.exit(f"--needles {cfg.needles} requires --N >= "
                  f"{cfg.needles * 100} (needle indices are (i+1)*100-1, "
                  "apply_r.lua:272)")
+    if cfg.approx and not 0 < cfg.recall_target <= 1:
+        sys.exit(f"--recall_target {cfg.recall_target} must lie in (0, 1]")
     if not 0 < cfg.clusters <= cfg.N:
         sys.exit(f"--clusters {cfg.clusters} must lie in 1..N ({cfg.N})")
     os.makedirs(cfg.writeto, exist_ok=True)
@@ -216,9 +219,12 @@ def main(argv=None) -> dict:
     needles = torch.tensor([(i + 1) * 100 - 1 for i in range(cfg.needles)],
                            device=device)
     with torch.inference_mode():
-        attr_topk = cosine_topk(attributes, needles, 100)
-        pix_topk = pixel_cosine_topk(images, needles, 100)
-    clock.stop("search")
+        attr_topk = cosine_topk(attributes, needles, 100, cfg.approx,
+                                cfg.recall_target)
+        pix_topk = pixel_cosine_topk(images, needles, 100, cfg.approx,
+                                     cfg.recall_target)
+    clock.stop("search", f", approximate at recall target "
+               f"{cfg.recall_target}" if cfg.approx else "")
     for tag, (_, idx) in (("attributes", attr_topk),
                           ("pixelwise", pix_topk)):
         idx = idx.cpu().numpy()

@@ -61,8 +61,8 @@ def _f(default, help=""):
 @dataclass
 class ApplyConfig(Config):
     """Flags of apply_r.lua:13-23 plus the JAX package's additions. The port
-    refuses the flags of modes it does not have yet (--approx, --mesh_* >
-    1) rather than ignoring them."""
+    refuses the flags of modes it does not have yet (--mesh_* > 1) rather
+    than ignoring them."""
     save: str = _f("logs", "directory with checkpoints / for outputs")
     G: str = _f("logs/adversarial", "G checkpoint")
     R: str = _f("", "R checkpoint (default derived from G's geometry)")
@@ -81,8 +81,8 @@ class ApplyConfig(Config):
     mesh_data: int = _f(1, "data-parallel axis (not ported yet: must be 1)")
     mesh_model: int = _f(1, "tensor-parallel axis (not ported yet: must be 1)")
     int8: bool = _f(False, "int8 serving mode: stage ② on the int8 G and R (ops/quant.py)")
-    approx: bool = _f(False, "approximate top-k selection (not ported yet: refused)")
-    recall_target: float = _f(0.95, "per-row recall target for --approx")
+    approx: bool = _f(False, "approximate top-k selection in stage ④'s two searches (kernel S, ops/approx_topk_kernel.py); exact when off")
+    recall_target: float = _f(0.95, "per-row recall target for --approx, in (0, 1]; 1 is the exact selection")
     compute_dtype: str = _f("float32", "compute dtype: float32|bfloat16")
 
 

@@ -94,6 +94,9 @@ _SIGNATURES = {
     "gr_quant_upsample2_conv3x3": [*[_P] * 6, *[_I] * 6, _P],
     # x, w, x_scale, w_scale, bias, out, ws, n, k, m, act, splits, stream
     "gr_quant_dense": [*[_P] * 7, *[_I] * 5, _P],
+    # scores, values, indices, ws, q, n, k, then the plan (bins, entries,
+    # chunk), stream
+    "gr_approx_topk": [*[_P] * 4, *[_I] * 6, _P],
 }
 
 

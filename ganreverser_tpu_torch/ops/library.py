@@ -1,8 +1,9 @@
 """The kernels as ``torch.library`` custom operators, ``ganreverser::*``.
 
-Each kernel wrapper that a fast forward calls (``conv_block``,
-``upsample2_conv3x3_bn_act``, its fused head, ``cosine_scores``, and the
-int8 kernels Q1-Q4 of ``ops/quant.py``) goes through one operator here,
+Each kernel wrapper that a fast forward or a search calls (``conv_block``,
+``upsample2_conv3x3_bn_act``, its fused head, ``cosine_scores``,
+``approx_topk`` and the int8 kernels Q1-Q4 of ``ops/quant.py``) goes
+through one operator here,
 so that ``torch.export`` can trace a program over the kernels
 (``io/serving.py``): the trace records one call of the operator, whose
 output shape and dtype come from its fake implementation, and a loaded
@@ -24,7 +25,8 @@ from __future__ import annotations
 
 import torch
 
-from . import conv_block_kernel, quant, topk_kernel, upsample_conv_kernel
+from . import (approx_topk_kernel, conv_block_kernel, quant, topk_kernel,
+               upsample_conv_kernel)
 
 NAMESPACE = "ganreverser"
 
@@ -65,6 +67,11 @@ def _cosine_fake(embeddings, needle_idx):
                                 dtype=torch.float32)
 
 
+def _approx_topk_fake(scores, k, recall_target):
+    return (scores.new_empty((scores.shape[0], k), dtype=torch.float32),
+            scores.new_empty((scores.shape[0], k), dtype=torch.int64))
+
+
 def _quantize_fake(x):
     return (x.new_empty(x.shape, dtype=torch.int8),
             x.new_empty((), dtype=torch.float32))
@@ -102,6 +109,9 @@ _define("upsample2_conv3x3_head",
         upsample_conv_kernel.launch_upsample2_conv3x3_head, _head_fake)
 _define("cosine_scores", "(Tensor embeddings, Tensor needle_idx) -> Tensor",
         topk_kernel.launch_cosine_scores, _cosine_fake)
+_define("approx_topk",
+        "(Tensor scores, int k, float recall_target) -> (Tensor, Tensor)",
+        approx_topk_kernel.launch_approx_topk, _approx_topk_fake)
 _define("quantize_act", "(Tensor x) -> (Tensor, Tensor)",
         quant.launch_quantize_act, _quantize_fake)
 _define("quant_conv3x3",

@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from ganreverser_tpu_torch.ops import (conv_block_kernel, conv_kernel,
+from ganreverser_tpu_torch.ops import (approx_topk_kernel, conv_block_kernel,
+                                       conv_kernel,
                                        conv_stats_kernel, cuda_lib,
                                        dropout_kernel, kmeans_kernel,
                                        probe_kernels, topk_kernel,
@@ -1034,3 +1035,86 @@ def test_exported_programs_on_card(dev, tmp_path, int8):
                                                "cpu")
     got = cpu_call(torch.rand(16, 16, 16, 3).to(torch.bfloat16))
     assert got.shape == (16, nd) and got.device.type == "cpu"
+
+
+def _planted(dev, q, n, seed):
+    """(q, n) f32 scores with planted ties: repeated values in and across
+    bins, -0.0 beside +0.0, -inf."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(q, n, device=dev, generator=g)
+    x[:, ::7] = x[:, 3:4]
+    x[:, 1::11] = 2.5
+    x[0, :4] = torch.tensor([-0.0, 0.0, -float("inf"), 0.0], device=dev)
+    x[-1, ::2] = -float("inf")
+    return x
+
+
+@pytest.mark.parametrize("q,n,k,r", [
+    (10, 10_000, 100, 0.95), (256, 10_240, 100, 0.99), (7, 777, 5, 1.0),
+    (3, 300, 7, 0.5), (2, 16_384, 100, 1.0),
+    # the global path: one merge stride, then a k spanning two chunks
+    (3, 20_000, 10, 1.0), (2, 20_000, 17_000, 1.0)])
+def test_approx_topk_kernel_bitwise(dev, q, n, k, r):
+    """Kernel S against its plain version, indices and values bitwise, on
+    both paths; at r = 1 the values are torch.topk's."""
+    x = _planted(dev, q, n, q + n + k)
+    path = approx_topk_kernel.select_plan(n, k, r).path
+    assert path == ("global" if n > 16_384 else "shared")
+    before = approx_topk_kernel.approx_topk.launches
+    v, i = approx_topk_kernel.approx_topk(x, k, r)
+    torch.cuda.synchronize()
+    assert approx_topk_kernel.approx_topk.launches == before + 1
+    pv, pi = approx_topk_kernel.approx_topk_plain(x, k, r)
+    assert v.dtype == torch.float32 and i.dtype == torch.int64
+    assert torch.equal(i, pi)
+    assert torch.equal(v.view(torch.int32), pv.view(torch.int32))
+    if r == 1.0:
+        assert torch.equal(v, torch.topk(x, k, dim=1).values)
+
+
+def test_approx_topk_kernel_in_a_graph(dev):
+    """S captures in a CUDA graph on both paths: replays give the eager
+    call's result on the scores copied in."""
+    for n, k, r in ((10_240, 100, 0.95), (20_000, 50, 1.0)):
+        x = _planted(dev, 4, n, n)
+        static = torch.zeros_like(x)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = approx_topk_kernel.approx_topk(static, k, r)
+        static.copy_(x)
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(out, approx_topk_kernel.approx_topk(x, k, r)):
+            assert torch.equal(a, b)
+
+
+def test_approx_topk_refuses_bad_arguments(dev):
+    x = torch.randn(3, 100, device=dev)
+    with pytest.raises(TypeError):
+        approx_topk_kernel.approx_topk(x.double(), 5)
+    with pytest.raises(ValueError):
+        approx_topk_kernel.approx_topk(x, 101)
+    with pytest.raises(ValueError):
+        approx_topk_kernel.approx_topk(x, 5, 0.0)
+
+
+@pytest.mark.parametrize("pixel_k", [0, 7])
+def test_e2e_approx_graph_matches_eager(dev, pixel_k):
+    """The fused program with approx=True: the graph's replay is bitwise
+    the eager program, and S launches once per needle chunk and search."""
+    from ganreverser_tpu_torch.analysis import e2e
+    G, R, gv, rv, _, z, dims, nd = _e2e_case(dev)
+    kw = dict(batch_size=16, k=5, needle_chunk=16, pixel_k=pixel_k,
+              approx=True, recall_target=0.9,
+              **e2e.fast_legs(dims, nd, "normal"))
+    graph = e2e.make_e2e_program(G, R, **kw)
+    eager = e2e.make_e2e_program(G, R, capture=False, **kw)
+    out = graph(gv, rv, z)
+    for a, b in zip(out, eager(gv, rv, z)):
+        assert torch.equal(a, b)
+    before = approx_topk_kernel.approx_topk.launches
+    graph(gv, rv, z)
+    torch.cuda.synchronize()
+    assert (approx_topk_kernel.approx_topk.launches - before
+            == (6 if pixel_k else 3))

@@ -191,14 +191,55 @@ def test_similarity_index_matches_jax(rng):
     _same(i, ji)
 
 
+def _approx_index(rng, case, by_index):
+    """SimilarityIndex with approx=True at 64 rows and k = 6, where the
+    plan's bins are the rows (exact on both sides)."""
+    emb = rng.normal(size=(64, 16)).astype(np.float32)
+    index, jindex = TA.SimilarityIndex(T(emb)), JA.SimilarityIndex(emb)
+    if by_index:
+        needles = np.array([0, 7, 63])
+        return (index.topk_by_index(T(needles), 6, approx=True),
+                jindex.topk_by_index(jnp.asarray(needles), 6, approx=True))
+    queries = rng.normal(size=(5, 16)).astype(np.float32)
+    return (index.topk(T(queries), 6, approx=True, recall_target=0.95),
+            jindex.topk(jnp.asarray(queries), 6, approx=True,
+                        recall_target=0.95))
+
+
+def _approx_topk_all(rng, case):
+    emb = rng.normal(size=(37, 16)).astype(np.float32)
+    return (TA.topk_all(T(emb), 5, 8, True, 0.95),
+            JA.topk_all(jnp.asarray(emb), 5, 8, True, 0.95))
+
+
+def _approx_program(rng, case):
+    """The fused program with approx=True and the pixel leg: N = 24 rows,
+    k = 4 and pixel_k = 3 at recall 0.95 take 24 bins."""
+    G, R, gv, rv, z = _port(case)
+    out = TA.make_e2e_program(G, R, batch_size=BATCH, k=K,
+                              needle_chunk=CHUNK, approx=True,
+                              recall_target=0.95, pixel_k=PIXEL_K)(gv, rv, z)
+    ref = JA.make_e2e_program(case["G"], case["R"], batch_size=BATCH, k=K,
+                              needle_chunk=CHUNK, approx=True,
+                              recall_target=0.95, pixel_k=PIXEL_K)(
+        case["gv"], case["rv"], case["z"])
+    _close_emb(out[0], ref[0])
+    return out[1:], ref[1:]
+
+
 @pytest.mark.parametrize("call", [
-    lambda x: TA.SimilarityIndex(x).topk(x[:2], 3, approx=True),
-    lambda x: TA.SimilarityIndex(x).topk_by_index(
-        torch.arange(2), 3, approx=True),
-    lambda x: TA.topk_all(x, 3, approx=True),
-    lambda x: TA.make_e2e_program(None, None, approx=True),
+    lambda rng, case: _approx_index(rng, case, False),
+    lambda rng, case: _approx_index(rng, case, True),
+    _approx_topk_all, _approx_program,
 ], ids=["topk", "topk_by_index", "topk_all", "make_e2e_program"])
-def test_approx_is_refused(call):
-    """Approximate selection is not ported: it raises, naming the queue."""
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        call(torch.randn(8, 4))
+def test_approx_matches_jax(rng, case, call):
+    """approx=True through the port's search entry points against JAX's
+    approx=True on the same inputs, where the plan's bin count is the
+    row count: the selection is exact on both sides (approx_max_k is exact
+    on the CPU), so values within the tolerance and indices equal."""
+    out, ref = call(rng, case)
+    assert len(out) == len(ref)
+    for j, (a, b) in enumerate(zip(out, ref)):
+        (_same if j % 2 else _close)(a, b)  # values, indices
+        if j % 2:
+            assert a.dtype == torch.int64

@@ -256,6 +256,7 @@ def _ops_samples():
                                    None, None),
         "cosine_scores": (torch.randn(7, 5, generator=g),
                           torch.tensor([0, 3])),
+        "approx_topk": (torch.randn(3, 40, generator=g), 5, 0.95),
         "quantize_act": (torch.randn(3, 5, generator=g),),
         "quant_conv3x3": (xq, xs, wq, ws.reshape(-1), sh, "elu", True, None),
         "quant_upsample2_conv3x3": (xq, xs, wq16, ws16, sh, "relu", None),

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from ganreverser_tpu import analysis as JA
 from ganreverser_tpu import io as gio
 from ganreverser_tpu import models as M
 from ganreverser_tpu.models.fastpath import (make_fast_generator as j_fast_g,
@@ -174,15 +175,51 @@ def test_apply_r_on_cpu_writes_artifacts(tmp_path, rng, capsys):
             topk_kernel.cosine_scores.launches) == (0, 0, 0)
 
 
-@pytest.mark.parametrize("flag", [["--int8", "--approx"], ["--approx"],
-                                  ["--mesh_data", "2"], ["--mesh_model", "2"]])
+@pytest.mark.parametrize("flag", [["--int8", "--approx"], ["--approx"]],
+                         ids=["int8-approx", "approx"])
+def test_apply_r_approx_matches_jax(tmp_path, rng, capsys, flag):
+    """apply_r --approx (with and without --int8) runs all six stages, and
+    stage ④'s two searches are what the JAX CLI's stage ④ gives on the
+    same latents and images (JAX's cosine_topk and pixel_cosine_topk with
+    approx=True at --recall_target): at N = 200 and k = 100 the plan takes
+    200 bins, so both sides are exact. Scores at 1e-5, index sets equal
+    but for ties."""
+    save, out = str(tmp_path / "logs"), str(tmp_path / "out")
+    _write_jax_checkpoints(save, rng, (1, 8, 8), 6, "y")
+    result = apply_r.main(["--G", os.path.join(save, "adversarial"),
+                           "--save", save, "--writeto", out, "--N", "200",
+                           "--needles", "2", "--batchSize", "64",
+                           "--clusters", "3", "--kmeans_iters", "3",
+                           "--anomalies_n", "128", "--recall_target", "0.95",
+                           *flag])
+    printed = capsys.readouterr().out
+    for stage in "①②③④⑤⑥":
+        assert f"stage {stage}" in printed
+    assert "approximate at recall target 0.95" in printed
+    needles = jnp.asarray([99, 199])
+    attributes = result["attributes"].numpy()
+    flat = result["images"].numpy()
+    for (v, i), rows, jfn in ((result["attr_topk"], attributes,
+                               JA.cosine_topk),
+                              (result["pix_topk"], flat,
+                               JA.pixel_cosine_topk)):
+        jv, ji = jfn(jnp.asarray(rows), needles, 100, True, 0.95)
+        assert i.dtype == torch.int64 and v.shape == (2, 100)
+        _assert_same_topk(v.numpy(), i.numpy(), np.asarray(jv),
+                          np.asarray(ji), np.asarray(JA.cosine_scores(
+                              jnp.asarray(rows.reshape(200, -1)), needles)))
+
+
+@pytest.mark.parametrize("flag", [["--mesh_data", "2"],
+                                  ["--mesh_model", "2"]])
 def test_apply_r_refuses_unported_modes(tmp_path, flag):
-    """--approx and the mesh are refused, naming their ROADMAP items;
-    --int8 is ported and not among the refused."""
+    """The mesh is refused, naming its ROADMAP item; --int8 and --approx
+    are ported and not among the refused."""
     with pytest.raises(SystemExit) as e:
         apply_r.main(["--G", str(tmp_path / "none"), *flag])
     assert "not ported yet" in str(e.value)
-    assert "--int8" not in str(e.value) and "queue A item" in str(e.value)
+    assert "--int8" not in str(e.value) and "--approx" not in str(e.value)
+    assert "queue A item 8" in str(e.value)
 
 
 def test_apply_r_has_no_pallas_flag(tmp_path, capsys):
