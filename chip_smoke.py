@@ -204,12 +204,51 @@ Phases, each of which fails the run (non-zero exit, no result line):
    kernels in a traced replay, the embeddings equal to the exact
    program's, and the recall of both measures against it at least 0.93;
    img/s of the approximate and exact graphs, with and without the pixel
-   measure.
+   measure;
+12. the parallel layer (ganreverser_tpu_torch/parallel): (a) a one-rank
+   NCCL world on the card (the backend chosen from the topology and
+   printed): make_distributed_e2e_program at phase 8's shapes on its x3
+   weights, pixel_k 0 and 100, against phase 8's program: embeddings
+   within 1e-2 of scale, top-k values within 1e-5, the attribute indices
+   equal, and the pixel ring's at every position whose value is unique in
+   its row (not the last: a tie with the unseen (k+1)-th); its img/s beside
+   phase 8's graph (the collective-wrapping overhead). (b) 2 ranks started
+   on the one card (this script with ``--parallel-rank``), which join over
+   gloo: the same program at N = 10,240 with the pixel measure (each
+   rank's chunk loop a CUDA graph), gathered and held to (a)'s one-rank
+   results (values within 1e-5, indices at the positions of unique
+   values, both measures); distributed_cosine_topk of 10 needles, exact
+   (values within 1e-5 of cosine_topk's, indices as above) and
+   approximate on kernel S (recall >= 0.93); kernel B5 with the counter
+   base bitwise the rows of the whole mask; one R train step (bf16, batch
+   256, --dropout kernel) and one G/D batch pair (bf16, batch 256) on the
+   mesh against one rank on the whole batch: the loss relative to itself,
+   each leaf's gradients and buffers in the L2 norm relative to the leaf's
+   own (the biases that feed a BatchNorm, whose gradient is only rounding,
+   relative to the largest gradient), and the share of parameter elements
+   stepping more than 10 % of their leaf's largest one-rank step away from
+   it; each within 2e-2 (the share 1 %) or twice what bf16 rounding alone
+   moves the one-rank step (the one-rank step in f32 on the same weights,
+   inputs and masks), a bound that must stay under 0.5 so that a summed
+   gradient (1.0) fails; every parameter step within adam's 2 lr; the
+   confusion counts equal; stage
+   ② of 2,048 rows on a (1, 2) 'model' mesh against one rank (within 1e-2
+   of scale, a rank holding part of G). The counters are set to 0 just
+   before each mesh-path run and read just after it (the one-rank
+   references and B5's bitwise check count nothing); each rank prints
+   each run's launches, and the program's run must launch U, U's head, B
+   and C, the search C and S, the R step B5 and the invert U and B. (c)
+   ``cli.train.main --async_save`` at phase 6's size (2 epochs, then one
+   more after --network latest, --noplot) against the same run without it,
+   cuDNN held to deterministic algorithms: the checkpoints equal leaf for
+   leaf. (d) the host image ops (native/imageops.cc, built with g++)
+   against their numpy paths at a realistic batch, with host times.
 
 The last two lines are a JSON object with each kernel's route, source,
 launch count in the main path (Q1-Q4's: ``apply_r --int8`` and the int8
 e2e export's check; S's: phase 11's ``apply_r --approx`` and approximate
-fused program), error, times and bound, and
+fused program; phase 12's distributed paths add theirs to U's, the
+head's, B's, C's, S's and B5's), error, times and bound, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without a result when CUDA is absent or the package is not
 beside this file.
@@ -3294,6 +3333,674 @@ def check_approx(dev, card: str, tmp: str):
     return records, s_launches
 
 
+# -- phase 12: the parallel layer ------------------------------------------
+
+PAR_RANKS = 2            # ranks spawned on the one card, over gloo
+PAR_TP_N = 2048          # rows of the (1, 2) 'model' mesh invert
+PAR_NEEDLES = 10         # distributed_cosine_topk's needles (apply_r's)
+PAR_TIMEOUT_S = 600      # a spawned rank's limit
+HALF_FRACTION = 0.25     # mesh step vs 1 rank, of a rank's own rows' error
+BF16_EPS = 2.0 ** -8     # ... or one bf16 rounding, whichever is larger
+ADAM_LR = 1e-3           # adam's step bound per element: 2 lr
+PARAM_STEP_TOL = 0.1     # a parameter's step off by this of its leaf's
+# the kernels each mesh-path run of a rank must launch
+PAR_GATES = {"e2e": ("upsample2_conv3x3_bn_act", "upsample2_conv3x3_head",
+                     "conv_block", "cosine_scores"),
+             "topk": ("cosine_scores", "approx_topk"),
+             "r_step": ("fused_dropout",),
+             "gan_step": (),
+             "tp": ("upsample2_conv3x3_bn_act", "conv_block")}
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def par_counters() -> dict:
+    from ganreverser_tpu_torch.ops import (approx_topk_kernel,
+                                           conv_block_kernel, topk_kernel,
+                                           upsample_conv_kernel)
+    from ganreverser_tpu_torch.ops import dropout_kernel as dk
+    uc = upsample_conv_kernel
+    return {"upsample2_conv3x3_bn_act": uc.upsample2_conv3x3_bn_act,
+            "upsample2_conv3x3_head": uc.upsample2_conv3x3_head,
+            "conv_block": conv_block_kernel.conv_block,
+            "cosine_scores": topk_kernel.cosine_scores,
+            "approx_topk": approx_topk_kernel.approx_topk,
+            "fused_dropout": dk.fused_dropout}
+
+
+def e2e_program(G, R, distributed_mesh=None, pixel_k: int = 0):
+    """Phase 8's fused program (batch 128, bf16, k 100, chunk 256, the fast
+    legs), or with ``distributed_mesh`` its distributed form."""
+    from ganreverser_tpu_torch.analysis import e2e
+    kw = dict(batch_size=E2E_BATCHES[0], k=E2E_K, needle_chunk=E2E_CHUNK,
+              pixel_k=pixel_k, **e2e.fast_legs(DIMS, NOISE_DIM, "normal"))
+    if distributed_mesh is None:
+        return e2e.make_e2e_program(G, R, **kw)
+    return e2e.make_distributed_e2e_program(G, R, mesh=distributed_mesh, **kw)
+
+
+def _scale_err(a, b) -> float:
+    b = b.float()
+    return (a.float() - b).abs().max().item() / max(1.0,
+                                                    b.abs().max().item())
+
+
+def check_parallel_one_rank(dev, card: str, rate8: float, tmp: str):
+    """Phase 12a: the distributed program in a one-rank NCCL world against
+    phase 8's program on the x3 weights, with and without the pixel
+    measure; saves the one-rank results for 12b. Returns its launches."""
+    import torch
+    from ganreverser_tpu_torch import parallel as par
+    check(par.initialize_distributed(f"localhost:{free_port()}", 1, 0),
+          "parallel: the one-rank world did not start")
+    import torch.distributed as dist
+    check(dist.get_backend() == "nccl", f"parallel: one rank on one card "
+          f"took backend {dist.get_backend()}, expected nccl")
+    launches = {}
+    try:
+        mesh = par.make_mesh()
+        G, R, _, _, gv2, rv2, z = e2e_inputs(dev)
+        lines = []
+        for pixel_k in (0, E2E_PIXEL_K):
+            single = e2e_program(G, R, pixel_k=pixel_k)(gv2, rv2, z)
+            program = e2e_program(G, R, mesh, pixel_k)
+            out, counts = _launches_of(lambda: program(gv2, rv2, z),
+                                       par_counters())
+            for name, n in counts.items():
+                launches[name] = launches.get(name, 0) + n
+            emb_err = _scale_err(out[0], single[0])
+            check(emb_err <= TOL["bfloat16"], f"parallel 1 rank: embeddings "
+                  f"{emb_err} from phase 8's program")
+            for v, i, sv, si, what in ((out[1], out[2], single[1],
+                                        single[2], "attributes"),
+                                       *(((out[3], out[4], single[3],
+                                           single[4], "pixels"),)
+                                         if pixel_k else ())):
+                err = (v - sv).abs().max().item()
+                same = int((i == si).all(1).sum())
+                checked, bad = _index_mismatch(v, i, sv, si)
+                check(err <= TOL_TOPK, f"parallel 1 rank {what}: top-k "
+                      f"values {err} from phase 8's program")
+                # the attribute search is the one-rank program's, bit for
+                # bit; the ring scores the pixels on a corpus of its own
+                # rows and block (kernel C may slice D otherwise): indices
+                # equal at every position of a unique value
+                check(what == "pixels" or same == v.shape[0],
+                      f"parallel 1 rank {what}: {v.shape[0] - same} rows "
+                      "with other indices")
+                check(checked > 0 and bad == 0, f"parallel 1 rank {what}: "
+                      f"{bad} rows with another index at a position of a "
+                      f"unique value ({checked} positions checked)")
+                lines.append(f"{what} (pixel_k {pixel_k}) values "
+                             f"max_abs_err {err:.3e}, indices equal on "
+                             f"{same} of {v.shape[0]} rows and at all "
+                             f"{checked} positions of unique values")
+            t = wall_s(lambda: program(gv2, rv2, z), E2E_TIMES)
+            print(f"[parallel] 1-rank NCCL world, make_distributed_e2e_"
+                  f"program N={E2E_N} bf16 batch {E2E_BATCHES[0]} k={E2E_K} "
+                  f"pixel_k={pixel_k}: {E2E_N / statistics.median(t):.1f} "
+                  f"img/s (median of {E2E_TIMES}) beside phase 8's graph "
+                  f"{rate8:.1f} img/s (pixel_k 0); embeddings max err "
+                  f"{emb_err:.3e} of scale  [{card}]")
+            if pixel_k:
+                torch.save({"emb": single[0], "v": single[1],
+                            "i": single[2], "pv": single[3],
+                            "pi": single[4]},
+                           os.path.join(tmp, "single.pt"))
+            del program, out, single
+            torch.cuda.empty_cache()
+        print(f"[parallel] 1-rank checks: {'; '.join(lines)}; launches "
+              f"{launches}  [{card}]")
+    finally:
+        par.shutdown_distributed()
+    return launches
+
+
+def _capture_grads(opt, log: list):
+    from ganreverser_tpu_torch.optim import Optimizer
+
+    def update(grads, state, params):
+        log.append([g.detach().clone() for g in grads])
+        return opt.update(grads, state, params)
+
+    return Optimizer(opt.init, update)
+
+
+def _rounding_leaves(module) -> list:
+    """For each of ``module.parameters()``: whether it is the bias of a
+    layer that feeds a training-mode BatchNorm directly. The normalisation
+    takes every per-channel shift away, so its gradient is zero but for the
+    rounding of a sum, and has no scale of its own."""
+    from ganreverser_tpu_torch.models.modules import BatchNorm, Sequential
+    fed = set()
+    for m in module.modules():
+        if isinstance(m, Sequential):
+            kids = list(m.children())
+            for layer, nxt in zip(kids, kids[1:]):
+                bias = getattr(layer, "bias", None)
+                if isinstance(nxt, BatchNorm) and bias is not None:
+                    fed.add(id(bias))
+    return [id(p) in fed for p in module.parameters()]
+
+
+def _leaf_errs(mesh: list, one: list, rounding: list) -> list:
+    """Each leaf's error against the one-rank step: the L2 norm of the
+    difference over the leaf's own norm, so that a summed or half-batch
+    gradient fails whatever its scale; a ``rounding`` leaf's largest
+    difference over the largest value of all leaves."""
+    top = max((b.float().abs().max().item() for b in one), default=0.0)
+    errs = []
+    for a, b, r in zip(mesh, one, rounding):
+        d = a.float() - b.float()
+        if r:
+            errs.append(d.abs().max().item() / max(top, 1e-30))
+        else:
+            errs.append(d.norm().item() / max(b.float().norm().item(), 1e-30))
+    return errs
+
+
+def _step_errors(one: dict, mesh: dict) -> dict:
+    """The mesh step against the one-rank step: the loss's relative error,
+    the gradients' and buffers' largest leaf errors (_leaf_errs), the
+    largest step of a parameter, and the share of parameter elements whose
+    step differs from the one-rank step by more than PARAM_STEP_TOL of its
+    leaf's largest one-rank step."""
+    steps = {t: [a.float() - b.float() for a, b in zip(d["params"],
+                                                       d["before"])]
+             for t, d in (("one", one), ("mesh", mesh))}
+    off = total = 0
+    for a, b in zip(steps["mesh"], steps["one"]):
+        off += int(((a - b).abs() > PARAM_STEP_TOL * b.abs().max()).sum())
+        total += b.numel()
+    return {"loss": (mesh["loss"].float() - one["loss"].float()).abs().item()
+            / max(one["loss"].float().abs().item(), 1e-30),
+            "grads": max(_leaf_errs(mesh["grads"], one["grads"],
+                                    one["rounding"]), default=0.0),
+            "buffers": max(_leaf_errs(mesh["buffers"], one["buffers"],
+                                      [False] * len(one["buffers"])),
+                           default=0.0),
+            "param_max": max(d.abs().max().item() for d in steps["mesh"]),
+            "param_off": off / total}
+
+
+def _params_of(ts) -> list:
+    return [p.detach().clone() for p in ts.module.parameters()]
+
+
+def _train_state_out(ts, before, loss, grads) -> dict:
+    return {"loss": loss, "grads": grads, "before": before,
+            "rounding": _rounding_leaves(ts.module), "params": _params_of(ts),
+            "buffers": [b.clone() for b in ts.module.buffers()]}
+
+
+def _launches_of(fn, counters: dict):
+    """``fn()`` with every counter set to 0 just before it, and the counts
+    read just after it: (its result, the launches of this run alone)."""
+    import torch
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: c.launches for name, c in counters.items()}
+
+
+def _index_mismatch(v, i, v_ref, i_ref) -> tuple:
+    """Top-k indices against a reference where they are determined: at
+    every position but the last whose reference value is unique in its row
+    (a tie, also one with the unseen (k+1)-th, may take either index).
+    Returns (positions checked, rows with a checked position whose index
+    differs); the reference rows must be sorted descending."""
+    import torch
+    check(bool((v_ref[:, :-1] >= v_ref[:, 1:]).all()),
+          "parallel: a reference top-k row is not sorted")
+    unique = torch.ones_like(v_ref, dtype=torch.bool)
+    unique[:, 1:] &= v_ref[:, 1:] != v_ref[:, :-1]
+    unique[:, :-1] &= v_ref[:, :-1] != v_ref[:, 1:]
+    unique[:, -1] = False
+    bad = (unique & (i != i_ref)).any(1)
+    return int(unique.sum()), int(bad.sum())
+
+
+def _with_half(out: dict, nets=("",)) -> dict:
+    """The mesh step's errors against the one-rank step on the whole batch,
+    and beside each under ``half_`` those of the one-rank step on this
+    rank's rows alone: how far the fault of a rank that steps on its own
+    rows moves the step."""
+    errs = {}
+    for net in nets:
+        pre = f"{net}_" if net else ""
+        for tag, x in (("", "mesh"), ("half_", "half")):
+            for k, v in _step_errors(out[f"one{net}"],
+                                     out[f"{x}{net}"]).items():
+                errs[f"{tag}{pre}{k}"] = v
+    return errs
+
+
+def rank_r_step(dev, mesh, counters: dict) -> tuple:
+    """12b: one R step (bf16, batch 256, ``--dropout kernel``) on the mesh
+    against the same step of one rank on the whole batch, beside the step of
+    one rank on this rank's rows (_with_half): (errors, the mesh step's
+    launches)."""
+    import torch
+    from ganreverser_tpu_torch.core.prng import noise_inputs
+    from ganreverser_tpu_torch.models import modules, zoo
+    from ganreverser_tpu_torch.optim import adam
+    from ganreverser_tpu_torch.train.r_loop import make_r_train_step
+    from ganreverser_tpu_torch.train.state import TrainState
+    bf16 = torch.bfloat16
+    G = make_calibrated_g(dev, n_batches=5)
+    z = noise_inputs(torch.Generator(device=dev).manual_seed(SEED + 41),
+                     TRAIN_BATCH, NOISE_DIM, device=dev)
+    out = {}
+    rows = mesh.rows(TRAIN_BATCH)
+    for tag, m, batch in (("one", None, z), ("half", None, z[rows]),
+                          ("mesh", mesh, z[rows])):
+        Rm = modules.init_parameters(
+            zoo.create_R(DIMS, NOISE_DIM, "normal", dtype=bf16,
+                         dropout_impl="kernel"),
+            torch.Generator().manual_seed(SEED + 40)).to(dev)
+        modules.set_dropout_generator(
+            Rm, torch.Generator(device=dev).manual_seed(SEED + 42))
+        if m is not None:
+            modules.set_data_parallel(Rm, m)
+        grads: list = []
+        opt = _capture_grads(adam(), grads)
+        ts = TrainState.create(Rm, opt)
+        before = _params_of(ts)
+        step = make_r_train_step(G, dtype=bf16, opt=opt, mesh=m)
+        if m is None:
+            loss = step(ts, batch)
+        else:
+            loss, launches = _launches_of(lambda: step(ts, batch), counters)
+        out[tag] = _train_state_out(ts, before, loss, grads[-1])
+    return _with_half(out), launches
+
+
+def rank_gan_step(dev, mesh, counters: dict) -> tuple:
+    """12b: one G/D batch pair (bf16, batch 256, adam) on the mesh against
+    the same pair of one rank on the whole batch, beside the pair of one
+    rank on this rank's rows (_with_half): (errors, the mesh pair's
+    launches)."""
+    import torch
+    from ganreverser_tpu_torch.models import modules
+    from ganreverser_tpu_torch.optim import adam
+    from ganreverser_tpu_torch.parallel import psum
+    from ganreverser_tpu_torch.train.adversarial import (
+        Confusion, make_adversarial_steps)
+    bf16 = torch.bfloat16
+    real, zd, zg = _gan_batches(dev, TRAIN_BATCH, 1)[0]
+    half = tuple(x[mesh.rows(x.shape[0])] for x in (real, zd, zg))
+    out, counts = {}, {}
+    for tag, m, (xr, xd, xg) in (("one", None, (real, zd, zg)),
+                                 ("half", None, half),
+                                 ("mesh", mesh, (real, zd, zg))):
+        gs = make_gan(dev, bf16, adam())
+        if m is not None:
+            for ts in (gs.g, gs.d):
+                modules.set_data_parallel(ts.module, m)
+        dg, gg = [], []
+        d_step, g_step = make_adversarial_steps(
+            dtype=bf16, d_optimizer=_capture_grads(adam(), dg),
+            g_optimizer=_capture_grads(adam(), gg), mesh=m)
+        conf = Confusion.zero(dev)
+        before = {"d": _params_of(gs.d), "g": _params_of(gs.g)}
+
+        def pair():
+            return d_step(gs, xr, xd, conf), g_step(gs, xg)
+        if m is None:
+            dl, gl = pair()
+        else:
+            (dl, gl), launches = _launches_of(pair, counters)
+        counts[tag] = conf.counts.float() if m is None else psum(
+            conf.counts.float(), m)
+        for net, ts, grads, loss in (("d", gs.d, dg, dl), ("g", gs.g, gg, gl)):
+            out[f"{tag}{net}"] = _train_state_out(ts, before[net], loss,
+                                                  grads[-1])
+    errs = _with_half(out, ("d", "g"))
+    errs["counts_equal"] = float(torch.equal(counts["one"], counts["mesh"]))
+    return errs, launches
+
+
+def rank_tp_invert(dev, model_mesh, counters: dict) -> tuple:
+    """12b: stage ② of PAR_TP_N rows on a (1, 2) mesh, G's and R's big
+    kernels cut over 'model' (gathered once per call), against the one-rank
+    generate_and_invert on the same generator: (errors, the mesh run's
+    launches)."""
+    import torch
+    from ganreverser_tpu_torch import parallel as par
+    from ganreverser_tpu_torch.analysis.distributed import \
+        distributed_generate_and_invert
+    from ganreverser_tpu_torch.analysis.pipeline import generate_and_invert
+    from ganreverser_tpu_torch.models import bridge
+    G, R, _ = make_models(dev)
+    gv, rv = bridge.module_variables(G), bridge.module_variables(R)
+    placed = {}
+    for k, v in (("g", gv), ("r", rv)):
+        placed[k] = ({"params": par.shard_params(v["params"], model_mesh),
+                      "state": v["state"]},
+                     {"params": par.param_specs(v["params"], model_mesh),
+                      "state": {a: {b: par.P() for b in s}
+                                for a, s in v["state"].items()}})
+    kw = dict(dims=DIMS, n=PAR_TP_N, noise_dim=NOISE_DIM,
+              noise_method="normal", batch_size=TRAIN_BATCH,
+              dtype=torch.bfloat16)
+    (_, images, attrs), launches = _launches_of(
+        lambda: distributed_generate_and_invert(
+            placed["g"][0], placed["r"][0], mesh=model_mesh,
+            generator=torch.Generator(device=dev).manual_seed(SEED + 43),
+            g_specs=placed["g"][1], r_specs=placed["r"][1], **kw), counters)
+    _, images1, attrs1 = generate_and_invert(
+        gv, rv, generator=torch.Generator(device=dev).manual_seed(SEED + 43),
+        **kw)
+    local = sum(t.numel() for t in torch.utils._pytree.tree_leaves(
+        placed["g"][0]["params"]))
+    whole = sum(t.numel() for t in torch.utils._pytree.tree_leaves(
+        gv["params"]))
+    return {"images": _scale_err(images, images1),
+            "attrs": _scale_err(attrs, attrs1),
+            "g_share": local / whole}, launches
+
+
+def parallel_rank(rank: int, port: int, tmp: str) -> int:
+    """Phase 12b, one of PAR_RANKS processes on the one card: its rows of
+    the distributed program (x3 weights, pixel_k 100), the distributed
+    search exact and approximate, B5's counter base against the whole
+    mask, a DP R step, a DP G/D pair and a (1, 2) 'model' mesh invert.
+    The launch counts are each mesh-path run's alone (_launches_of): the
+    one-rank references and B5's bitwise check count nothing. Writes its
+    results to ``<tmp>/rank<r>.pt``."""
+    import torch
+    from ganreverser_tpu_torch import parallel as par
+    from ganreverser_tpu_torch.analysis.distributed import \
+        distributed_cosine_topk
+    from ganreverser_tpu_torch.ops import dropout_kernel as dk
+    # the device as main() set it in the environment the rank inherits
+    par.initialize_distributed(f"localhost:{port}", PAR_RANKS, rank)
+    import torch.distributed as dist
+    res = {"backend": dist.get_backend(), "launches": {}}
+    counters = par_counters()
+    mesh = par.make_mesh()
+    dev = mesh.device
+    G, R, _, _, gv2, rv2, z = e2e_inputs(dev)
+    rows = mesh.rows(E2E_N)
+    program = e2e_program(G, R, mesh, E2E_PIXEL_K)
+    out, res["launches"]["e2e"] = _launches_of(
+        lambda: program(gv2, rv2, z[rows]), counters)
+    t = wall_s(lambda: program(gv2, rv2, z[rows]), 3)
+    res["e2e"] = dict(zip(("emb", "v", "i", "pv", "pi"),
+                          (x.cpu() for x in out)))
+    res["e2e_s"] = statistics.median(t)
+    needles = torch.arange(PAR_NEEDLES, device=dev) * (E2E_N // PAR_NEEDLES)
+    res["topk"], res["launches"]["topk"] = _launches_of(
+        lambda: [tuple(x.cpu() for x in distributed_cosine_topk(
+            out[0], needles, E2E_K, mesh, approx=approx))
+            for approx in (False, True)], counters)
+    del program, out
+    torch.cuda.empty_cache()
+    x = torch.randn(DROPOUT_SHAPES[0], device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(
+                        SEED + 44)).to(torch.bfloat16)
+    seed = torch.tensor([DROPOUT_SEEDS[0]], dtype=torch.int32, device=dev)
+    r = mesh.rows(x.shape[0])
+    part = x[r].contiguous()
+    res["b5_bitwise"] = bool(torch.equal(
+        dk.fused_dropout(part, seed, 0.5, base=r.start * part[0].numel()),
+        dk.fused_dropout_plain(x, seed, 0.5)[r]))
+    del x, part
+    for what, fn in (("r_step", rank_r_step), ("gan_step", rank_gan_step)):
+        res[what], res["launches"][what] = fn(dev, mesh, counters)
+    res["tp"], res["launches"]["tp"] = rank_tp_invert(
+        dev, par.make_mesh(data=1, model=2), counters)
+    torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
+    par.shutdown_distributed()
+    return 0
+
+
+def _check_step(what: str, e: dict) -> None:
+    """Phase 12b's gate on a mesh step's errors (_with_half): each at most
+    HALF_FRACTION of the distance of a step on the rank's rows alone, and
+    of a summed gradient's 1.0, or one bf16 rounding where that distance is
+    nil; adam's step bound on every parameter."""
+    for key in [k for k in e if k.endswith(("loss", "grads", "buffers",
+                                            "param_off"))
+                and not k.startswith("half_")]:
+        bound = max(HALF_FRACTION * min(1.0, e[f"half_{key}"]), BF16_EPS)
+        check(e[key] <= bound, f"parallel {what} {key}: {e[key]} > {bound}"
+              f" ({HALF_FRACTION} of the rank's own rows' "
+              f"{e[f'half_{key}']})")
+    for key in [k for k in e if k.endswith("param_max")
+                and not k.startswith("half_")]:
+        # adam's first step is below lr in every element, either way
+        check(e[key] <= 2 * ADAM_LR + 1e-6, f"parallel {what} {key}: "
+              f"{e[key]} beyond adam's step")
+
+
+def check_parallel_ranks(dev, card: str, tmp: str) -> dict:
+    """Phase 12b: PAR_RANKS processes on the one card over gloo (module
+    docstring); their rows against 12a's one-rank results. Returns the
+    launches of the ranks' mesh-path runs, summed."""
+    import torch
+    from ganreverser_tpu_torch.analysis.similarity import (cosine_topk,
+                                                           topk_recall)
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--parallel-rank",
+         str(r), str(port), tmp], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(PAR_RANKS)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=PAR_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    secs = time.perf_counter() - t0
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines():
+            if line.startswith("<dist>"):
+                print(f"[parallel] rank {r}: {line}")
+        check(p.returncode == 0, f"parallel rank {r} exited {p.returncode}:"
+              f"\n{out[-4000:]}")
+    res = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+           for r in range(PAR_RANKS)]
+    single = torch.load(os.path.join(tmp, "single.pt"))
+    gathered = {k: torch.cat([r["e2e"][k] for r in res]) for k in res[0]["e2e"]}
+    emb_err = _scale_err(gathered["emb"], single["emb"].cpu())
+    check(emb_err <= TOL["bfloat16"], f"parallel {PAR_RANKS} ranks: "
+          f"embeddings {emb_err} from the one-rank program")
+    lines = []
+    for v, i, what in (("v", "i", "attributes"), ("pv", "pi", "pixels")):
+        err = (gathered[v] - single[v].cpu()).abs().max().item()
+        checked, bad = _index_mismatch(gathered[v], gathered[i],
+                                     single[v].cpu(), single[i].cpu())
+        check(err <= TOL_TOPK, f"parallel {PAR_RANKS} ranks {what}: top-k "
+              f"values {err} from the one-rank program")
+        check(checked > 0 and bad == 0, f"parallel {PAR_RANKS} ranks {what}:"
+              f" {bad} rows with another index at a position of a unique "
+              f"value ({checked} positions checked)")
+        lines.append(f"{what} values max_abs_err {err:.3e}, indices equal "
+                     f"at all {checked} positions of unique values")
+    emb = single["emb"].cpu()
+    needles = torch.arange(PAR_NEEDLES) * (E2E_N // PAR_NEEDLES)
+    ev, ei = cosine_topk(emb.to(dev), needles.to(dev), E2E_K)
+    ev, ei = ev.cpu(), ei.cpu()
+    for r in res:
+        (xv, xi), (av, ai) = r["topk"]
+        err = (xv - ev).abs().max().item()
+        check(err <= TOL_TOPK, f"parallel distributed_cosine_topk: values "
+              f"{err} from cosine_topk")
+        checked, bad = _index_mismatch(xv, xi, ev, ei)
+        check(checked > 0 and bad == 0, f"parallel distributed_cosine_topk: "
+              f"{bad} rows with another index at a unique value")
+        recall = topk_recall(ei.numpy(), ai.numpy())
+        check(recall >= 0.95 - 0.02, f"parallel distributed_cosine_topk "
+              f"approx: recall {recall}")
+        check(r["b5_bitwise"], "parallel: B5 with a counter base differs "
+              "from the rows of the whole mask")
+        check(r["backend"] == "gloo", f"parallel: {PAR_RANKS} ranks on one "
+              f"card took backend {r['backend']}, expected gloo")
+        for run, names in PAR_GATES.items():
+            for name in names:
+                check(r["launches"][run][name] > 0, f"parallel: a rank's "
+                      f"{run} run launched {name} no time")
+        for what in ("r_step", "gan_step"):
+            _check_step(what, r[what])
+        check(r["gan_step"]["counts_equal"] == 1.0, "parallel G/D pair: "
+              "the confusion counts differ")
+        check(r["tp"]["attrs"] <= TOL["bfloat16"]
+              and r["tp"]["images"] <= TOL["bfloat16"]
+              and r["tp"]["g_share"] < 1.0, f"parallel (1, 2) invert: "
+              f"{r['tp']}")
+    fmt = lambda d: ", ".join(f"{k} {v:.3e}" for k, v in d.items())  # noqa
+    print(f"[parallel] {PAR_RANKS} ranks on one card over gloo, "
+          f"{secs:.1f} s with start-up: distributed program N={E2E_N} "
+          f"pixel_k {E2E_PIXEL_K} (x3 weights) "
+          f"{E2E_N / max(r['e2e_s'] for r in res):.1f} img/s (median of 3); "
+          f"embeddings max err {emb_err:.3e} of scale; {'; '.join(lines)}; "
+          f"distributed_cosine_topk exact values equal cosine_topk's within "
+          f"{TOL_TOPK:.0e} and indices at unique values, approx recall >= "
+          f"0.93; B5 with the counter base bitwise the whole mask's rows  "
+          f"[{card}]")
+    for rank, r in enumerate(res):
+        print(f"[parallel] rank {rank}: R step (bf16 b{TRAIN_BATCH}, B5) vs "
+              f"one rank: {fmt(r['r_step'])}; G/D pair: {fmt(r['gan_step'])}"
+              f"; (1, 2) invert N={PAR_TP_N}: {fmt(r['tp'])}; launches of "
+              f"each mesh-path run: " + "; ".join(
+                  f"{run} {n}" for run, n in r["launches"].items())
+              + f"  [{card}]")
+    total = {}
+    for r in res:
+        for run in r["launches"].values():
+            for name, n in run.items():
+                total[name] = total.get(name, 0) + n
+    return total
+
+
+def tree_leaves_equal(a: dict, b: dict) -> list:
+    """The keys of the leaves of two checkpoint trees that differ."""
+    import numpy as np
+    diff = []
+    for k in a:
+        if isinstance(a[k], dict):
+            diff += [f"{k}/{d}" for d in tree_leaves_equal(a[k], b[k])]
+        elif not np.array_equal(np.asarray(a[k]), np.asarray(b[k])):
+            diff.append(k)
+    return diff
+
+
+def check_async_save(dev, card: str, tmp: str):
+    """Phase 12c: ``cli.train.main`` with --async_save, 2 epochs then one
+    more after --network latest, and the same without it, cuDNN held to
+    its deterministic algorithms: the checkpoints equal leaf for leaf."""
+    import torch
+    from ganreverser_tpu_torch.cli import train
+    from ganreverser_tpu_torch.io import checkpoint as ckpt
+    c, h, w = DIMS
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    secs, trees = {}, {}
+    try:
+        for mode in ("sync", "async"):
+            save = os.path.join(tmp, mode)
+            base = ["--dataset", "synthetic", "--save", save, "--height",
+                    str(h), "--width", str(w), "--noiseDim", str(NOISE_DIM),
+                    "--batchSize", str(TRAIN_BATCH), "--compute_dtype",
+                    "bfloat16", "--N_epoch", str(GAN_EPOCH_BATCHES),
+                    "--saveFreq", "1", "--noplot", "--nopretraining"] + (
+                        ["--async_save"] if mode == "async" else [])
+            t0 = time.perf_counter()
+            for extra in (["--epochs", "2"],
+                          ["--epochs", "3", "--network", "latest"]):
+                train.main(base + extra)
+            torch.cuda.synchronize()
+            secs[mode] = time.perf_counter() - t0
+            trees[mode] = ckpt.load_checkpoint(ckpt.adversarial_name(save))
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            saved
+    diff = tree_leaves_equal(trees["async"][0], trees["sync"][0])
+    check(not diff, f"async_save: checkpoint leaves differ: {diff[:5]}")
+    check(trees["async"][2]["plot_data"] == trees["sync"][2]["plot_data"]
+          and trees["async"][2]["epoch"] == 3, "async_save: the loss "
+          "history or the epoch differs")
+    check(trees["async"][1]["async_save"], "async_save: not in the config")
+    print(f"[parallel] train --async_save, 2 + 1 epochs of "
+          f"{GAN_EPOCH_BATCHES} batches (b{TRAIN_BATCH} bf16, 3x64x64): "
+          f"checkpoint equal leaf for leaf to the run without it; "
+          f"{secs['async']:.2f} s against {secs['sync']:.2f} s  [{card}]")
+
+
+def check_native(card: str):
+    """Phase 12d: the host image ops (native/imageops.cc), built with g++,
+    against their numpy paths at a realistic batch: 256 CelebA-sized
+    218x178 images resized to 64x64, the colour conversions and a 32x32
+    grid of 1,024 64x64 faces; host milliseconds of each."""
+    import numpy as np
+    from ganreverser_tpu_torch.data import colorspace as cs
+    from ganreverser_tpu_torch.data import dataset
+    from ganreverser_tpu_torch.native import imageops
+    check(imageops.available(), f"native: the image ops did not build: "
+          f"{imageops._LIBRARY.failure}")
+    rng = np.random.default_rng(SEED)
+    big = rng.random((256, 218, 178, 3), np.float32)
+    faces = rng.random((1024, 64, 64, 3), np.float32)
+
+    def host_ms(fn, reps=3):
+        times = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times)
+
+    cases = [("resize 256x218x178 -> 64x64",
+              lambda: imageops.resize_bilinear_batch(big, 64, 64),
+              lambda: dataset.resize_bilinear_numpy(big, 64, 64), 1e-5),
+             ("rgb2y", lambda: imageops.rgb2y_native(faces),
+              lambda: cs.rgb2y(faces), 1e-5),
+             ("rgb2yuv", lambda: imageops.rgb2yuv_native(faces),
+              lambda: cs.rgb2yuv(faces), 1e-5),
+             ("yuv2rgb", lambda: imageops.yuv2rgb_native(faces),
+              lambda: cs.yuv2rgb(faces), 1e-4),
+             ("grid 32x32", lambda: imageops.assemble_grid(faces, 32, 32),
+              lambda: _numpy_grid(faces, 32, 32), 0.0)]
+    parts = []
+    for label, native_fn, numpy_fn, tol in cases:
+        a, b = native_fn(), numpy_fn()
+        err = float(np.abs(a - b).max())
+        check(err <= tol * max(1.0, float(np.abs(b).max())),
+              f"native {label}: {err} from numpy")
+        parts.append(f"{label} err {err:.1e}, {host_ms(native_fn):.2f} ms "
+                     f"(numpy {host_ms(numpy_fn):.2f} ms)")
+    x = faces.copy()
+    check(imageops.normalize_pm1_inplace(x) and np.array_equal(
+        x, np.clip(faces * 2 - 1, -1, 1)), "native normalize differs")
+    print(f"[parallel] native image ops ({imageops._LIBRARY.path().name}, "
+          f"built with g++ at their first use) against numpy, host times "
+          f"(median of 3): {'; '.join(parts)}")
+
+
+def _numpy_grid(images, gh: int, gw: int):
+    """utils/grids.py's numpy path (no epoch strip)."""
+    import numpy as np
+    n, ih, iw, c = images.shape
+    grid = np.zeros((gh * ih, gw * iw, c), np.float32)
+    for i in range(min(n, gh * gw)):
+        gy, gx = divmod(i, gw)
+        grid[gy * ih:(gy + 1) * ih, gx * iw:(gx + 1) * iw] = images[i]
+    return grid
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3450,10 +4157,21 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         s_records, launches["approx_topk"] = check_approx(dev, card, tmp)
     records += s_records
+    t12 = time.perf_counter()
+    # 12. the parallel layer: a one-rank NCCL world, ranks sharing the card
+    # over gloo, --async_save, the native image ops
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        for phase in (check_parallel_one_rank(dev, card, rate8, tmp),
+                      check_parallel_ranks(dev, card, tmp)):
+            for name, count in phase.items():
+                launches[name] += count
+        check_async_save(dev, card, tmp)
+    check_native(card)
     print(f"[time] phases 6 and 7 {t8 - t6:.1f} s (7: {secs7:.1f} s), phase "
           f"8 {t9 - t8:.1f} s, phase 9 {t10 - t9:.1f} s, phase 10 "
-          f"{t11 - t10:.1f} s, phase 11 {time.perf_counter() - t11:.1f} s, "
-          f"the whole run {time.perf_counter() - t_start:.1f} s  [{card}]")
+          f"{t11 - t10:.1f} s, phase 11 {t12 - t11:.1f} s, phase 12 "
+          f"{time.perf_counter() - t12:.1f} s, the whole run "
+          f"{time.perf_counter() - t_start:.1f} s  [{card}]")
 
     sources = {"conv_block": ("ganreverser_tpu_torch/csrc/conv_block.cu",
                               "ganreverser_tpu/ops/conv_block_kernel.py:86"),
@@ -3530,6 +4248,9 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--parallel-rank"]:  # phase 12b's ranks
+            sys.exit(parallel_rank(int(sys.argv[2]), int(sys.argv[3]),
+                                   sys.argv[4]))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

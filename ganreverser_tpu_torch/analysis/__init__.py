@@ -18,8 +18,10 @@ _NAMES = {
                 "kmeans"),
     ".pipeline": ("anomaly_scores", "anomaly_threshold", "detect_anomalies",
                   "fix_images", "generate_and_invert", "variation_sweep"),
-    ".e2e": ("chunked_topk_search", "make_e2e_program",
-             "make_serial_programs", "topk_all"),
+    ".e2e": ("chunked_topk_search", "make_distributed_e2e_program",
+             "make_e2e_program", "make_serial_programs", "topk_all"),
+    ".distributed": ("distributed_cosine_topk",
+                     "distributed_generate_and_invert"),
     ".refine": ("make_refiner",),
     "..ops.tiled_topk": ("pixel_cosine_topk_tiled", "tiled_topk"),
 }

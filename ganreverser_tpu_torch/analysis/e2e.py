@@ -31,8 +31,14 @@ G and R are the port's modules (models/zoo.py); with no ``g_apply`` or
 (JAX's ``G.apply(variables, x, train=False)``). The fast forwards of
 models/fastpath.py (kernels U and B) are the overrides the card runs; a
 :class:`~..models.fastpath.FastForward` is prepared once per call,
-outside the chunk loop. ``make_distributed_e2e_program`` is not ported
-(ROADMAP.md, queue A item 8).
+outside the chunk loop.
+
+``make_distributed_e2e_program`` is the same program with z cut over a
+mesh's 'data' axis (parallel/mesh.py): each rank runs the chunk loop on
+its rows (one CUDA graph), one tiled all-gather brings every rank the
+whole embedding corpus, and each rank searches its own rows against it;
+the pixel measure passes the flat-image blocks around a ``ppermute`` ring
+instead of gathering them.
 """
 from __future__ import annotations
 
@@ -47,6 +53,8 @@ from ..models.fastpath import (FastForward, make_fast_generator,
                                make_fast_inverter_int8)
 from ..ops import topk_kernel
 from .batched import forward_batched
+from ..parallel.comm import all_gather, ppermute
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
 from .graphs import CapturedProgram
 from .similarity import scores_against, select_topk
 
@@ -100,20 +108,23 @@ def chunked_topk_search(queries_normed: torch.Tensor,
 
 
 def topk_all(embeddings: torch.Tensor, k: int, needle_chunk: int = 256,
-             approx: bool = False, recall_target: float = 0.95):
-    """Top-k most similar rows for every row, in chunks of needles: each
-    chunk is one call of kernel C with the chunk's rows as needles
-    (``needle_idx = arange(s, s + chunk)``) on the un-normalised corpus,
-    then the selection (``torch.topk``, or kernel S with ``approx``); the
-    last chunk is shorter. The corpus is padded for the kernel once per
-    search (``topk_kernel.padded_corpus``)."""
+             approx: bool = False, recall_target: float = 0.95,
+             rows: slice | None = None):
+    """Top-k most similar rows for every row (or for the needle rows
+    ``rows`` only), in chunks of needles: each chunk is one call of kernel
+    C with the chunk's rows as needles (``needle_idx = arange(s, s +
+    chunk)``) on the un-normalised corpus, then the selection
+    (``torch.topk``, or kernel S with ``approx``); the last chunk is
+    shorter. The corpus is padded for the kernel once per search
+    (``topk_kernel.padded_corpus``)."""
     n = embeddings.shape[0]
+    rows = rows or slice(0, n)
     corpus = topk_kernel.padded_corpus(embeddings)
-    rows = torch.arange(n, device=embeddings.device)
+    needles = torch.arange(rows.start, rows.stop, device=embeddings.device)
     vs, ids = [], []
-    for s in range(0, n, needle_chunk):
+    for s in range(0, needles.shape[0], needle_chunk):
         v, i = select_topk(topk_kernel.cosine_scores(
-            corpus, rows[s:s + needle_chunk]), k, approx, recall_target)
+            corpus, needles[s:s + needle_chunk]), k, approx, recall_target)
         vs.append(v)
         ids.append(i)
     return torch.cat(vs), torch.cat(ids)
@@ -237,6 +248,113 @@ def make_e2e_program(G: nn.Module, R: nn.Module, *, batch_size: int = 128,
         return forward((g_variables, r_variables), z)
 
     return CapturedProgram(program, capture=capture)
+
+
+def make_distributed_e2e_program(G: Optional[nn.Module],
+                                 R: Optional[nn.Module], *, mesh,
+                                 batch_size: int = 128, k: int = 100,
+                                 needle_chunk: int = 256,
+                                 g_apply: Optional[Callable] = None,
+                                 r_apply: Optional[Callable] = None,
+                                 approx: bool = False,
+                                 recall_target: float = 0.95,
+                                 pixel_k: int = 0, capture: bool = True):
+    """The fused program of :func:`make_e2e_program` with z cut over the
+    mesh's 'data' axis (JAX's ``make_distributed_e2e_program``, the
+    north-star workload scaled out; apply_r.lua:143-153 + 265-318).
+
+    ``run(g_variables, r_variables, z_local)`` takes this rank's rows of z
+    (``mesh.rows(N)``, every rank as many) and returns the results of its
+    rows in global numbering: ``(emb, v, i)``, or ``(emb, v, i, pv, pi)``
+    with ``pixel_k > 0``.
+
+    * Each rank runs the chunk loop (G then R, prepared once) on its rows:
+      one CUDA graph on the card, as in :func:`make_e2e_program`.
+    * One tiled all-gather brings every rank the whole (N, D) embedding
+      corpus in row order (the embeddings as the chunk loop gives them:
+      kernel C normalises, as in the one-rank search); each rank then
+      searches its own rows as needles against it (:func:`topk_all` on
+      ``rows``: kernel C, then ``torch.topk`` or kernel S), a second
+      graph.
+    * The pixel measure scores every row against all N flat images, a
+      corpus about 125 times wider than the embeddings at the flagship
+      shape: instead of gathering it, the flat-image blocks pass around a
+      ``ppermute`` ring (n_shards steps). At each step a rank scores its
+      rows against the visiting block with kernel C (on its rows with the
+      block appended, the block's columns kept) and folds the candidates
+      into a running top-``pixel_k`` (a third graph, the block's global
+      offset an input). A rank holds at most two blocks.
+
+    The collectives run between the graphs. Parameters are replicated
+    (pure data parallelism); a mesh with a 'model' axis other than 1 is
+    refused, as in JAX: analysis/distributed.py takes 'model'-sharded
+    weights. Results equal the one-rank program's when (N / n_shards) %
+    batch_size == 0 (the same chunk boundaries)."""
+    if mesh.shape[MODEL_AXIS] != 1:
+        raise ValueError(
+            "make_distributed_e2e_program is the pure-DP north-star "
+            f"pipeline; got model axis {mesh.shape[MODEL_AXIS]} != 1 — "
+            "use analysis/distributed.py for TP-sharded params")
+    n_shards = mesh.shape[DATA_AXIS]
+    me = mesh.axis_index(DATA_AXIS)
+    g, r = _as_forward(g_apply, G), _as_forward(r_apply, R)
+    g_then_r = _g_then_r_fn(g, r, pixel_k > 0)
+
+    def chunk_loop(g_variables, r_variables, z):
+        g_prepared, r_prepared = g.prepare(g_variables), r.prepare(r_variables)
+        return forward_batched(
+            lambda zc: g_then_r(g_prepared, r_prepared, zc), z, batch_size)
+
+    def search(corpus):
+        local_n = corpus.shape[0] // n_shards
+        return topk_all(corpus, k, needle_chunk, approx, recall_target,
+                        rows=slice(me * local_n, (me + 1) * local_n))
+
+    def ring_step(flat, block, vbest, ibest, offset):
+        """Fold the top-k of ``flat``'s rows against ``block`` (global
+        rows ``offset`` on) into the running (vbest, ibest)."""
+        local_n = flat.shape[0]
+        both = topk_kernel.padded_corpus(torch.cat([flat, block]))
+        needles = torch.arange(local_n, device=flat.device)
+        kk = min(pixel_k, block.shape[0])
+        vs, ids = [], []
+        for s in range(0, local_n, needle_chunk):
+            scores = topk_kernel.cosine_scores(
+                both, needles[s:s + needle_chunk])[:, local_n:]
+            v, i = select_topk(scores, kk, approx, recall_target)
+            vs.append(v)
+            ids.append(i)
+        vcat = torch.cat([vbest, torch.cat(vs)], dim=1)
+        icat = torch.cat([ibest, torch.cat(ids) + offset], dim=1)
+        vbest, sel = torch.topk(vcat, pixel_k, dim=1)
+        return vbest, torch.gather(icat, 1, sel)
+
+    legs = [CapturedProgram(fn, capture=capture)
+            for fn in (chunk_loop, search, ring_step)]
+    perm = [(s, (s + 1) % n_shards) for s in range(n_shards)]
+
+    def run(g_variables, r_variables, z):
+        out = legs[0](g_variables, r_variables, z)
+        emb, flat = out if pixel_k > 0 else (out, None)
+        v, i = legs[1](all_gather(emb, mesh, DATA_AXIS))
+        if pixel_k == 0:
+            return emb, v, i
+        local_n = flat.shape[0]
+        vbest = torch.full((local_n, pixel_k), float("-inf"),
+                           device=flat.device)
+        ibest = torch.zeros((local_n, pixel_k), dtype=torch.int64,
+                            device=flat.device)
+        block = flat
+        for s in range(n_shards):
+            # the visiting block started at shard (me - s) mod n_shards
+            offset = torch.tensor((me - s) % n_shards * local_n,
+                                  device=flat.device)
+            vbest, ibest = legs[2](flat, block, vbest, ibest, offset)
+            if s < n_shards - 1:
+                block = ppermute(block, perm, mesh, DATA_AXIS)
+        return emb, v, i, vbest, ibest
+
+    return run
 
 
 def make_serial_programs(G: nn.Module, R: nn.Module, *,

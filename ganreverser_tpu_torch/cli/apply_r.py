@@ -22,8 +22,21 @@ artifact names:
 It reads the checkpoints the JAX package writes (io/checkpoint.py). On CUDA
 (GANREVERSER_PLATFORM unset or gpu) the kernels run; with
 GANREVERSER_PLATFORM=cpu their plain versions run. Each stage draws its
-random numbers from a generator of its own (core/prng.py). --mesh_* > 1
-is refused.
+random numbers from a generator of its own (core/prng.py).
+
+``--mesh_data``/``--mesh_model`` run stage ② on a ('data', 'model') mesh
+of ranks (analysis/distributed.py): each rank generates, inverts (and
+refines) its rows of the N faces on the fast G and R, G's and R's big
+kernels cut over 'model' and gathered once per call; with ``--approx``
+stage ④'s two searches run on the ranks' rows too
+(``distributed_cosine_topk``), else over the gathered arrays. Stages ①,
+③, ⑤ and ⑥ run on rank 0, on the arrays gathered from all ranks, and
+rank 0 alone writes files. The JAX CLI has no coordinator flags: started
+as one process with a mesh larger than 1, this CLI starts its ranks
+itself, one per card (a mesh larger than the visible cards is refused
+with make_mesh's message) or, on the CPU, one per mesh place, joined over
+a localhost rendezvous; ranks started by torchrun join its world. As in
+the JAX package, ``--int8`` is bypassed under a mesh.
 
 Usage: python -m ganreverser_tpu_torch.cli.apply_r --G logs/adversarial \
            --N 10000 --compute_dtype bfloat16
@@ -38,9 +51,12 @@ import time
 import numpy as np
 import torch
 
+from .. import parallel as par
 from ..analysis.kmeans import assign_min_cosine, cluster_members, kmeans
 from ..analysis.pipeline import (detect_anomalies, fix_images,
                                  generate_and_invert, variation_sweep)
+from ..analysis.distributed import (distributed_cosine_topk,
+                                    distributed_generate_and_invert)
 from ..analysis.refine import make_refiner
 from ..analysis.similarity import cosine_topk, pixel_cosine_topk
 from ..core.config import ApplyConfig
@@ -68,14 +84,6 @@ def _side_grid(images_rgb: np.ndarray):
     n = images_rgb.shape[0]
     side = int(math.sqrt(n))
     return images_to_grid(images_rgb, math.ceil(n / side), side)
-
-
-def _refuse_unported(cfg: ApplyConfig):
-    refused = [flag for flag, on in (
-        ("--mesh_data > 1 (ROADMAP.md, queue A item 8)", cfg.mesh_data > 1),
-        ("--mesh_model > 1 (queue A item 8)", cfg.mesh_model > 1)) if on]
-    if refused:
-        sys.exit(f"[apply_r] not ported yet: {', '.join(refused)}")
 
 
 class _StageClock:
@@ -108,15 +116,56 @@ def _load_variables(path: str, key: str, device: torch.device) -> dict:
                      "state": tree[key]["state"]}, device)
 
 
+def _on_mesh(variables: dict, mesh: par.Mesh) -> tuple:
+    """(this rank's variables, their specs): the params cut over 'model'
+    by the TP layout rule, the module state replicated."""
+    specs = {"params": par.param_specs(variables["params"], mesh),
+             "state": {k: {n: par.P() for n in v}
+                       for k, v in variables["state"].items()}}
+    return {"params": par.shard_params(variables["params"], mesh),
+            "state": variables["state"]}, specs
+
+
+def _launch(cfg: ApplyConfig, argv) -> dict:
+    """Start the mesh's ranks (module docstring) and wait for them."""
+    if not ckpt.exists(cfg.G):  # fail here, once, not in every rank
+        ckpt.load_checkpoint(cfg.G)
+    device = common.resolve_device()
+    if device.type == "cuda":
+        data, model = par.mesh_shape(cfg.mesh_data, cfg.mesh_model,
+                                     torch.cuda.device_count())
+    else:
+        data, model = max(cfg.mesh_data, 1), max(cfg.mesh_model, 1)
+    argv = list(sys.argv[1:] if argv is None else argv)
+    print(f"[apply_r] starting {data * model} ranks for the ({data} data x "
+          f"{model} model) mesh on {device.type}")
+    common.launch_ranks("ganreverser_tpu_torch.cli.apply_r",
+                        argv + ["--mesh_data", str(data), "--mesh_model",
+                                str(model)], data * model)
+    return {"ranks": data * model, "writeto": cfg.writeto}
+
+
 def main(argv=None) -> dict:
     """Run the six stages; returns the recovered latents (plain and fixer),
     the images, the variations, the kmeans centroids, counts and
     assignment, both top-k results, the fixed images, the anomaly scores,
-    threshold and flags, the stage times in seconds and the device."""
+    threshold and flags, the stage times in seconds and the device. A
+    process that starts the ranks of a mesh returns their count and the
+    output directory; a rank other than 0 returns its rank."""
     cfg = ApplyConfig.from_args(argv, "inversion/analysis suite (apply_r.lua)")
-    _refuse_unported(cfg)
-    device = common.resolve_device()
-    dtype = common.compute_dtype(cfg)
+    _check_flags(cfg)
+    if ((cfg.mesh_data != 1 or cfg.mesh_model != 1)
+            and par.mesh.world()[1] == 1 and "RANK" not in os.environ):
+        return _launch(cfg, argv)
+    started = par.initialize_distributed()  # the ranks' environment
+    try:
+        return _apply(cfg)
+    finally:
+        if started:
+            par.shutdown_distributed()
+
+
+def _check_flags(cfg: ApplyConfig):
     if cfg.N < cfg.needles * 100:
         sys.exit(f"--needles {cfg.needles} requires --N >= "
                  f"{cfg.needles * 100} (needle indices are (i+1)*100-1, "
@@ -125,7 +174,21 @@ def main(argv=None) -> dict:
         sys.exit(f"--recall_target {cfg.recall_target} must lie in (0, 1]")
     if not 0 < cfg.clusters <= cfg.N:
         sys.exit(f"--clusters {cfg.clusters} must lie in 1..N ({cfg.N})")
-    os.makedirs(cfg.writeto, exist_ok=True)
+
+
+def _apply(cfg: ApplyConfig) -> dict:
+    device = common.resolve_device()
+    dtype = common.compute_dtype(cfg)
+    mesh = None
+    if common.wants_mesh(cfg):
+        mesh = par.make_mesh(data=cfg.mesh_data, model=cfg.mesh_model)
+        if cfg.int8:
+            print("[apply_r] note: --int8 is bypassed under "
+                  "--mesh_data/--mesh_model>1, as in the JAX package",
+                  file=sys.stderr)
+    main_rank = par.is_main_process()
+    if main_rank:
+        os.makedirs(cfg.writeto, exist_ok=True)
     batch = max(cfg.batchSize, 256)
 
     # --- load G (inherit geometry) + R + R_fixer (apply_r.lua:59-109) ---
@@ -151,38 +214,60 @@ def main(argv=None) -> dict:
               "for fixing/anomalies")
     print(f"[apply_r] G {cfg.G}, R {r_path}, fixer "
           f"{rf_path if rf_vars is not None else '-'}: {c}x{h}x{w}, noise "
-          f"{noise_method}/{noise_dim}, {cfg.compute_dtype} on {device}")
+          f"{noise_method}/{noise_dim}, {cfg.compute_dtype} on {device}"
+          + (f", mesh {mesh.shape} rank {mesh.rank}" if mesh else ""))
     clock = _StageClock(device)
 
     def rgb(x: torch.Tensor) -> np.ndarray:
         return to_rgb(x.float().cpu().numpy(), colorspace)
 
-    # --- ① variation sweep (apply_r.lua:115-138) ---
-    clock.start("stage ① variation sweep")
-    variations = variation_sweep(
-        g_vars, dims=dims, noise_dim=noise_dim, noise_method=noise_method,
-        generator=stage_generator(cfg.seed, 1, device), nb_steps=NB_STEPS,
-        batch_size=batch, dtype=dtype)
-    clock.stop("variations")
-    save_image(os.path.join(cfg.writeto, "variations.jpg"),
-               images_to_grid(rgb(variations), noise_dim, NB_STEPS))
+    # --- ① variation sweep (apply_r.lua:115-138), on rank 0 ---
+    if main_rank:
+        clock.start("stage ① variation sweep")
+        variations = variation_sweep(
+            g_vars, dims=dims, noise_dim=noise_dim,
+            noise_method=noise_method,
+            generator=stage_generator(cfg.seed, 1, device),
+            nb_steps=NB_STEPS, batch_size=batch, dtype=dtype)
+        clock.stop("variations")
+        save_image(os.path.join(cfg.writeto, "variations.jpg"),
+                   images_to_grid(rgb(variations), noise_dim, NB_STEPS))
 
     # --- ② generate N + invert (apply_r.lua:143-153) ---
     clock.start("stage ② generate + invert")
-    out = generate_and_invert(
-        g_vars, r_vars, dims=dims, n=cfg.N, noise_dim=noise_dim,
-        noise_method=noise_method,
-        generator=stage_generator(cfg.seed, 2, device), batch_size=batch,
-        dtype=dtype, rf_variables=rf_vars,
-        fixer_generator=stage_generator(cfg.seed, 5, device), int8=cfg.int8)
+    if mesh is None:
+        out = generate_and_invert(
+            g_vars, r_vars, dims=dims, n=cfg.N, noise_dim=noise_dim,
+            noise_method=noise_method,
+            generator=stage_generator(cfg.seed, 2, device),
+            batch_size=batch, dtype=dtype, rf_variables=rf_vars,
+            fixer_generator=stage_generator(cfg.seed, 5, device),
+            int8=cfg.int8)
+    else:
+        # N cut over 'data'; with a 'model' axis each rank keeps its slices
+        # of G's, R's and the fixer's big kernels (gathered once per call)
+        placed = [_on_mesh(v, mesh) if v is not None else (None, None)
+                  for v in (g_vars, r_vars, rf_vars)]
+        if not main_rank:
+            g_vars = None  # rank 0 keeps the whole G for stages ① and ⑤
+        out = distributed_generate_and_invert(
+            placed[0][0], placed[1][0], dims=dims, n=cfg.N,
+            noise_dim=noise_dim, noise_method=noise_method,
+            generator=stage_generator(cfg.seed, 2, device), mesh=mesh,
+            batch_size=batch, dtype=dtype, g_specs=placed[0][1],
+            r_specs=placed[1][1], rf_variables=placed[2][0],
+            rf_specs=placed[2][1],
+            fixer_generator=stage_generator(cfg.seed, 5, device))
+        del placed
     _, images, attributes = out[:3]
     attributes_fixer = out[3] if rf_vars is not None else attributes
     t = clock.stop("generate_invert")
-    print(f"[apply_r]   {cfg.N} images ({cfg.N / t:.1f} img/s)"
-          f"{', int8 G and R' if cfg.int8 else ''}"
+    print(f"[apply_r]   {images.shape[0]} images ({images.shape[0] / t:.1f} "
+          f"img/s){', int8 G and R' if cfg.int8 and mesh is None else ''}"
           f"{', fixer-R included' if rf_vars is not None else ''}")
 
-    # --- optional: gradient-based latent refinement ---
+    # --- optional: gradient-based latent refinement (on each rank's rows:
+    # every image is refined on its own) ---
     if cfg.refine_steps > 0:
         clock.start(f"refining latents ({cfg.refine_steps} adam steps on z)")
         G = load_jax_variables(zoo.create_G3(dims, noise_dim, dtype),
@@ -195,6 +280,28 @@ def main(argv=None) -> dict:
             attributes_fixer = attributes
         clock.stop("refine",
                    f", final pixel MSE {final_loss.mean().item():.6f}")
+
+    if mesh is not None:
+        local = (attributes, images)
+        with torch.inference_mode():
+            images, attributes, attributes_fixer = (
+                par.all_gather(x, mesh) for x in
+                (images, attributes, attributes_fixer))
+            if cfg.approx:
+                # stage ④'s searches on the ranks' rows (JAX: the tested
+                # shard_map collective merge for approx under a mesh)
+                clock.start("stage ④ similarity search on the mesh")
+                needles = torch.tensor(
+                    [(i + 1) * 100 - 1 for i in range(cfg.needles)],
+                    device=device)
+                mesh_topk = [distributed_cosine_topk(
+                    x.reshape(x.shape[0], -1), needles, 100, mesh,
+                    approx=True, recall_target=cfg.recall_target)
+                    for x in local]
+                clock.stop("search_mesh")
+        if not main_rank:
+            print(f"[apply_r] rank {mesh.rank}: stage ② done")
+            return {"rank": mesh.rank}
 
     # --- ③ clustering (apply_r.lua:158-163, 197-260) ---
     clock.start("stage ③ clustering")
@@ -219,10 +326,13 @@ def main(argv=None) -> dict:
     needles = torch.tensor([(i + 1) * 100 - 1 for i in range(cfg.needles)],
                            device=device)
     with torch.inference_mode():
-        attr_topk = cosine_topk(attributes, needles, 100, cfg.approx,
-                                cfg.recall_target)
-        pix_topk = pixel_cosine_topk(images, needles, 100, cfg.approx,
-                                     cfg.recall_target)
+        if mesh is not None and cfg.approx:
+            attr_topk, pix_topk = mesh_topk
+        else:
+            attr_topk = cosine_topk(attributes, needles, 100, cfg.approx,
+                                    cfg.recall_target)
+            pix_topk = pixel_cosine_topk(images, needles, 100, cfg.approx,
+                                         cfg.recall_target)
     clock.stop("search", f", approximate at recall target "
                f"{cfg.recall_target}" if cfg.approx else "")
     for tag, (_, idx) in (("attributes", attr_topk),

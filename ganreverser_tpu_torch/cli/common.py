@@ -1,20 +1,31 @@
-"""Shared CLI glue: device selection, compute dtype, models and train
-states <-> checkpoint trees, the dataset, host images for artifacts."""
+"""Shared CLI glue: device selection, compute dtype, multi-process start-up
+and the mesh, models and train states <-> checkpoint trees, the dataset,
+host images for artifacts."""
 from __future__ import annotations
 
+import os
+import socket
+import subprocess
 import sys
+import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from .. import parallel as par
 from ..core.platform import resolve_device  # noqa: F401
 from ..core.prng import INIT_STAGE, stage_generator
 from ..data.colorspace import to_rgb
 from ..data.dataset import Dataset
+from ..io.metrics import MetricsWriter
 from ..models import bridge, zoo
-from ..models.modules import init_parameters
+from ..models.modules import init_parameters, set_data_parallel
 from ..optim import Optimizer, make_optimizer
 from ..train.state import GanState, TrainState
+
+# the directory that holds the package, for the ranks a CLI starts
+_ROOT = str(Path(__file__).resolve().parents[2])
 
 
 def compute_dtype(cfg) -> torch.dtype:
@@ -22,15 +33,120 @@ def compute_dtype(cfg) -> torch.dtype:
         getattr(cfg, "compute_dtype", "float32")]
 
 
+def maybe_distributed(cfg) -> bool:
+    """Join the process group when --coordinator_address (or torchrun's
+    environment) says so; before any device use (parallel/multihost.py)."""
+    started = par.initialize_distributed(
+        getattr(cfg, "coordinator_address", ""),
+        getattr(cfg, "num_processes", 0), getattr(cfg, "process_id", -1))
+    if started:
+        rank, n = par.mesh.world()
+        print(f"<trainer> joined distributed runtime: process {rank}/{n}")
+    return started
+
+
+def wants_mesh(cfg) -> bool:
+    """Whether the flags or the process group ask for a mesh."""
+    return (cfg.mesh_data != 1 or cfg.mesh_model != 1
+            or par.mesh.world()[1] > 1)
+
+
+def place_gan_on_mesh(gs: GanState, mesh: par.Mesh) -> GanState:
+    """G and D on the mesh (JAX's place_gan_on_mesh): module state
+    replicated from rank 0, BatchNorm and dropouts set for rows of a batch
+    cut over 'data', and with a 'model' axis only this rank's slices of the
+    parameters and of the optimizer state kept."""
+    for ts in (gs.g, gs.d):
+        for name, buf in par.replicate(dict(ts.module.named_buffers()),
+                                       mesh).items():
+            ts.module.get_buffer(name).copy_(buf)
+        set_data_parallel(ts.module, mesh)
+        if mesh.shape[par.MODEL_AXIS] > 1:
+            ts.shard_model_axis(mesh)
+    return gs
+
+
+class SilentWriter:
+    """The metrics writer of a rank other than 0: it records nothing, as
+    only rank 0 writes files."""
+
+    def scalar(self, *args, **kwargs):
+        pass
+
+    def image_grid(self, *args, **kwargs):
+        pass
+
+    def chart(self, *args, **kwargs):
+        pass
+
+    def close(self):
+        pass
+
+
+def make_writer(save: str, name: str = "events"):
+    """A MetricsWriter on rank 0, a SilentWriter on the other ranks."""
+    return MetricsWriter(save, name) if par.is_main_process() else \
+        SilentWriter()
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def launch_ranks(module: str, argv: list, n: int) -> None:
+    """Run ``python -m module argv`` as ``n`` ranks on this host, joined
+    over a localhost rendezvous by torchrun's environment (RANK,
+    WORLD_SIZE, MASTER_ADDR, MASTER_PORT, LOCAL_RANK, LOCAL_WORLD_SIZE).
+    Waits for all; when one fails the others are killed and SystemExit
+    names it. The kernels are built here first, so that the ranks load
+    one library rather than each building it."""
+    if resolve_device().type == "cuda":
+        from ..ops import cuda_lib
+        cuda_lib.library()
+    port = _free_port()
+    procs = []
+    for rank in range(n):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(n),
+                   MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                   LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(n),
+                   PYTHONPATH=os.pathsep.join(
+                       p for p in (_ROOT, os.environ.get("PYTHONPATH"))
+                       if p))
+        procs.append(subprocess.Popen([sys.executable, "-m", module, *argv],
+                                      env=env))
+    failed = None
+    try:
+        while True:
+            codes = [p.poll() for p in procs]
+            failed = next(((r, c) for r, c in enumerate(codes)
+                           if c not in (None, 0)), None)
+            if failed is not None or all(c == 0 for c in codes):
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if failed is not None:
+        sys.exit(f"{module}: rank {failed[0]} of {n} exited with code "
+                 f"{failed[1]}")
+
+
 def ts_to_tree(ts: TrainState) -> dict:
     """The JAX package's train-state tree (its cli/common.py::ts_to_tree):
     ``{"params", "state", "opt_state", "step"}``, the optimizer's
-    per-parameter lists nested like the params, the step counts int32."""
-    names = [n for n, _ in ts.module.named_parameters()]
-    variables = bridge.export_variables(ts.module)
+    per-parameter lists nested like the params, the step counts int32.
+    With 'model' shards the whole leaves are gathered first (a collective:
+    every rank of the group must call it)."""
+    with par.whole_params(ts):
+        names = [n for n, _ in ts.module.named_parameters()]
+        variables = bridge.export_variables(ts.module)
     opt_state = {k: (bridge.nest_by_name(dict(zip(names, v)))
                      if isinstance(v, list) else bridge.leaf_array(v))
-                 for k, v in ts.opt_state.items()}
+                 for k, v in ts.whole_opt_state().items()}
     return {"params": variables["params"], "state": variables["state"],
             "opt_state": opt_state, "step": bridge.leaf_array(ts.step)}
 
@@ -103,8 +219,9 @@ def gan_from_tree(tree: dict, G, D, g_opt: Optimizer, d_opt: Optimizer,
 
 
 def make_dataset(cfg) -> Dataset:
-    """The flags' dataset; the numpy stream is seeded ``--seed`` (+ 7919 per
-    process rank in the JAX package; the port runs one process)."""
+    """The flags' dataset; the numpy stream is seeded ``--seed`` on every
+    rank, which loads the whole epoch and trains on its rows (the JAX
+    package seeds ``--seed`` + 7919 per process, each loading its share)."""
     if cfg.dataset == "NONE":
         sys.exit("--dataset is required (a directory of *.jpg images, or "
                  "'synthetic' for the built-in procedural faces)")

@@ -26,8 +26,18 @@ SIGTERM checkpoints at the end of the epoch and exits. On CUDA
 (GANREVERSER_PLATFORM unset or gpu) kernel B6 runs; with
 GANREVERSER_PLATFORM=cpu its plain version. ``--init`` picks the weight
 init of fresh G and D (models/zoo.py); ``--profile_dir`` writes a
-torch.profiler trace of epoch 2 there. Refused: --mesh_* other than 1, a
-coordinator, --async_save; --prng is inert.
+torch.profiler trace of epoch 2 there; ``--async_save`` writes the
+checkpoints in a background thread (io/checkpoint.py); --prng is inert.
+
+Several processes (``--coordinator_address/--num_processes/--process_id``
+or torchrun) train one G/D pair on a ('data', 'model') mesh
+(``--mesh_data``, ``--mesh_model``, parallel/): every rank loads the
+epoch's images and draws the latents as one process would and trains on
+its rows of each batch, the gradients averaged over 'data', so the run
+equals the one-process run; a 'model' axis keeps each rank's slices of
+the parameters and moments. Each checkpoint is gathered by every rank and
+written by rank 0, which alone writes files; the per-epoch grids are
+skipped in a multi-process run, as in the JAX package.
 
 Usage: python -m ganreverser_tpu_torch.cli.train --dataset synthetic \\
            --height 64 --width 64 --noiseDim 100 --batchSize 256 \\
@@ -36,11 +46,11 @@ Usage: python -m ganreverser_tpu_torch.cli.train --dataset synthetic \\
 from __future__ import annotations
 
 import os
-import sys
 
 import numpy as np
 import torch
 
+from .. import parallel as par
 from ..core.config import GanConfig
 from ..core.prng import (PREVIEW_STAGE, noise_inputs, stage_generator,
                          trainer_generators)
@@ -55,17 +65,6 @@ from ..models.modules import set_dropout_generator
 from ..train.adversarial import Confusion, make_epoch_program
 from ..train.state import GanState, TrainState
 from . import common
-
-
-def _refuse_unported(cfg: GanConfig):
-    refused = [flag for flag, on in (
-        ("--mesh_data other than 1", cfg.mesh_data != 1),
-        ("--mesh_model other than 1", cfg.mesh_model != 1),
-        ("--coordinator_address", bool(cfg.coordinator_address)),
-        ("--async_save", cfg.async_save)) if on]
-    if refused:
-        sys.exit(f"<trainer> not ported yet: {', '.join(refused)} "
-                 "(ROADMAP.md, queue A)")
 
 
 def visualize_progress(writer: MetricsWriter, rate, gs: GanState,
@@ -130,7 +129,16 @@ def main(argv=None) -> dict:
     run's epochs (``epoch``, ``d_losses``, ``g_losses``, ``counts``), the
     loss history and the checkpoint path."""
     cfg = GanConfig.from_args(argv, "adversarial G/D training (train.lua)")
-    _refuse_unported(cfg)
+    started = common.maybe_distributed(cfg)
+    try:
+        return _train(cfg)
+    finally:
+        ckpt.wait_for_saves()  # join an in-flight async write before exit
+        if started:
+            par.shutdown_distributed()
+
+
+def _train(cfg: GanConfig) -> dict:
     device = common.resolve_device()
     dtype = common.compute_dtype(cfg)
     print(f"<trainer> --prng {cfg.prng}: the port draws latents, dropouts "
@@ -165,6 +173,13 @@ def main(argv=None) -> dict:
           f"{sum(p.numel() for p in gs.d.module.parameters())}")
     print(f"Number of free parameters in G: "
           f"{sum(p.numel() for p in gs.g.module.parameters())}")
+    multi = par.mesh.world()[1] > 1
+    mesh = None
+    if common.wants_mesh(cfg):
+        # dp: batches cut over 'data'; tp: big kernels over 'model'
+        mesh = par.make_mesh(data=cfg.mesh_data, model=cfg.mesh_model)
+        print(f"<trainer> mesh: {mesh.shape}")
+        gs = common.place_gan_on_mesh(gs, mesh)
 
     if vis_noise is None:
         vis_noise = noise_inputs(stage_generator(cfg.seed, PREVIEW_STAGE,
@@ -179,10 +194,10 @@ def main(argv=None) -> dict:
         d_iterations=cfg.D_iterations, g_iterations=cfg.G_iterations,
         d_l1=cfg.D_L1, d_l2=cfg.D_L2, g_l1=cfg.G_L1, g_l2=cfg.G_L2,
         d_clamp=cfg.D_clamp, g_clamp=cfg.G_clamp, d_optimizer=d_opt,
-        g_optimizer=g_opt)
+        g_optimizer=g_opt, mesh=mesh)
     rate = make_fast_discriminator(dims, dtype)
 
-    writer = MetricsWriter(cfg.save)
+    writer = common.make_writer(cfg.save)
     timer = StepTimer(writer, log_every=10, tag="epoch_time")
     guard = PreemptionGuard()  # SIGTERM -> checkpoint + clean exit
     last_saved = None
@@ -190,7 +205,11 @@ def main(argv=None) -> dict:
     def save(completed_epoch):
         nonlocal last_saved
         last_saved = completed_epoch
+        # every rank gathers (a collective with 'model' shards), then
+        # only rank 0 writes
         tree = common.gan_to_tree(gs, {"vis_noise_inputs": vis_noise})
+        if not par.is_main_process():
+            return
         # train.lua:256's checkpoint: epoch, the loss history and the
         # normalisation statistics travel with the weights
         extra = {"epoch": completed_epoch, "plot_data": plot_data,
@@ -198,12 +217,13 @@ def main(argv=None) -> dict:
                                     else None),
                  "normalize_std": (normalize_stats[1] if normalize_stats
                                    else None)}
-        ckpt.save_checkpoint(ckpt_path, tree, config=cfg.to_dict(),
-                             extra=extra)
+        saver = (ckpt.save_checkpoint_async if cfg.async_save
+                 else ckpt.save_checkpoint)
+        saver(ckpt_path, tree, config=cfg.to_dict(), extra=extra)
         if cfg.keep_history > 0:
-            ckpt.save_checkpoint(f"{ckpt_path}.step{completed_epoch}", tree,
-                                 config=cfg.to_dict(), extra=extra,
-                                 backup_old=False)
+            saver(f"{ckpt_path}.step{completed_epoch}", tree,
+                  config=cfg.to_dict(), extra=extra, backup_old=False)
+            ckpt.wait_for_saves()  # the step directory must exist first
             ckpt.retain(ckpt_path, cfg.keep_history)
         print(f"<trainer> saving network to {ckpt_path}")
 
@@ -233,7 +253,10 @@ def main(argv=None) -> dict:
             train_data = next(data_iter)
             if cfg.normalize:
                 normalize_stats = NORMALIZE_STATS
-            if not cfg.noplot:
+            if not cfg.noplot and not multi:
+                # a multi-process run renders no grids (JAX: they need
+                # host fetches of global arrays); the sample CLI renders
+                # rank 0's checkpoints
                 visualize_progress(writer, rate, gs, vis_noise, cfg, epoch,
                                    train_data)
 
@@ -242,6 +265,10 @@ def main(argv=None) -> dict:
                                 device):
                 d_losses, g_losses = epoch_program(gs, confusion,
                                                    train_data, noise_gen)
+            if mesh is not None:  # each rank counted its rows (summed in
+                # f32, exact to 2^24, which every backend reduces)
+                confusion.counts = par.psum(confusion.counts.float(),
+                                            mesh).to(torch.int32)
             # the epoch's one host fetch
             host = torch.cat([
                 d_losses, g_losses, d_losses.mean()[None],

@@ -17,8 +17,20 @@ z), L1 -> L2 -> clamp, adam, in segments up to the next boundary:
 ``r_batch_time`` (mean seconds per batch over 100) goes to the same event
 file. On CUDA (GANREVERSER_PLATFORM unset or gpu) ``--dropout kernel`` runs
 R's dropouts on kernel B5, forward and backward; with
-GANREVERSER_PLATFORM=cpu the kernel's plain version runs. --mesh_* other
-than 1, --async_save and a multi-process coordinator are refused.
+GANREVERSER_PLATFORM=cpu the kernel's plain version runs.
+``--async_save`` writes the checkpoints in a background thread.
+
+Several processes (``--coordinator_address/--num_processes/--process_id``
+or torchrun) train one R on a ('data', 'model') mesh (``--mesh_data``,
+``--mesh_model``, parallel/): every rank draws each batch's latents as one
+process would and trains on its rows, the gradients averaged over 'data',
+so the run equals the one-process run. ``--dropout kernel`` stays on
+kernel B5 on every rank, each rank's masks the rows of the whole batch's
+(the counter base, ops/dropout_kernel.py; the JAX package draws threefry
+masks under a mesh). A 'model' axis keeps each rank's slices of R's and
+G's parameters and of the moments. Rank 0 alone writes files; the
+"Example:" printout and the previews are skipped in a multi-process run,
+as in the JAX package.
 
 Usage: python -m ganreverser_tpu_torch.cli.train_r --G logs/adversarial \\
            --nbBatches 2000 --compute_dtype bfloat16 --dropout kernel
@@ -30,15 +42,17 @@ import sys
 import numpy as np
 import torch
 
+from .. import parallel as par
 from ..core.config import RConfig
 from ..core.prng import (INIT_STAGE, PREVIEW_STAGE, noise_inputs,
                          stage_generator, trainer_generators)
 from ..io import checkpoint as ckpt
-from ..io.metrics import MetricsWriter, StepTimer
+from ..io.metrics import StepTimer
 from ..io.preemption import PreemptionGuard
 from ..models import zoo
 from ..models.bridge import load_jax_variables
-from ..models.modules import init_parameters, set_dropout_generator
+from ..models.modules import (init_parameters, set_data_parallel,
+                              set_dropout_generator)
 from ..optim import adam
 from ..train.r_loop import make_r_eval_step, make_r_segment_program
 from ..train.state import TrainState
@@ -47,15 +61,7 @@ from . import common
 DROPOUT_IMPLS = {"threefry": "plain", "kernel": "kernel"}
 
 
-def _refuse_unported(cfg: RConfig):
-    refused = [flag for flag, on in (
-        ("--mesh_data other than 1", cfg.mesh_data != 1),
-        ("--mesh_model other than 1", cfg.mesh_model != 1),
-        ("--async_save", cfg.async_save),
-        ("--coordinator_address", bool(cfg.coordinator_address))) if on]
-    if refused:
-        sys.exit(f"<trainer> not ported yet: {', '.join(refused)} "
-                 "(ROADMAP.md, queue A)")
+def _check_flags(cfg: RConfig):
     if cfg.dropout not in DROPOUT_IMPLS:
         sys.exit(f"--dropout {cfg.dropout!r}: expected threefry or kernel")
 
@@ -68,7 +74,17 @@ def main(argv=None) -> dict:
     """Train R; returns the train state and the per-batch losses of this
     run (a host list)."""
     cfg = RConfig.from_args(argv, "Reverser training (train_r.lua)")
-    _refuse_unported(cfg)
+    _check_flags(cfg)
+    started = common.maybe_distributed(cfg)
+    try:
+        return _train_r(cfg)
+    finally:
+        ckpt.wait_for_saves()  # join an in-flight async write before exit
+        if started:
+            par.shutdown_distributed()
+
+
+def _train_r(cfg: RConfig) -> dict:
     device = common.resolve_device()
     dtype = common.compute_dtype(cfg)
     print(f"<trainer> --prng {cfg.prng}: the port draws latents, dropouts "
@@ -107,6 +123,17 @@ def main(argv=None) -> dict:
     print(f"Number of free parameters in R: "
           f"{sum(p.numel() for p in R.parameters())}")
 
+    multi = par.mesh.world()[1] > 1
+    mesh = g_shards = None
+    if common.wants_mesh(cfg):
+        # dp over the synthetic batch + tp over the big kernels
+        mesh = par.make_mesh(data=cfg.mesh_data, model=cfg.mesh_model)
+        print(f"<trainer> mesh: {mesh.shape}")
+        set_data_parallel(R, mesh)
+        if mesh.shape[par.MODEL_AXIS] > 1:
+            ts.shard_model_axis(mesh)
+            g_shards = par.ModelShards(G, mesh)
+
     noise_gen, drop_gen = trainer_generators(cfg.seed, device)
     preview_gen = stage_generator(cfg.seed, PREVIEW_STAGE, device)
     set_dropout_generator(R, drop_gen)
@@ -123,7 +150,7 @@ def main(argv=None) -> dict:
         set_dropout_generator(R, drop_gen)
         return imgs, z_hat, fixed
 
-    writer = MetricsWriter(cfg.save, name="events_r")
+    writer = common.make_writer(cfg.save, name="events_r")
     timer = StepTimer(writer, log_every=100, tag="r_batch_time")
     guard = PreemptionGuard()  # SIGTERM -> checkpoint + clean exit
     ckpt_path = ckpt.r_name(cfg.save, c, h, w, cfg.noiseDim, cfg.noiseMethod,
@@ -133,17 +160,23 @@ def main(argv=None) -> dict:
     def save():
         nonlocal last_saved
         last_saved = ts.step
-        ckpt.save_checkpoint(ckpt_path, {"R": common.ts_to_tree(ts)},
-                             config=cfg.to_dict(),
-                             extra={"batch": ts.step, "plot_data": plot_data})
+        # every rank gathers (a collective with 'model' shards), then only
+        # rank 0 writes
+        tree = {"R": common.ts_to_tree(ts)}
+        if not par.is_main_process():
+            return
+        saver = (ckpt.save_checkpoint_async if cfg.async_save
+                 else ckpt.save_checkpoint)
+        saver(ckpt_path, tree, config=cfg.to_dict(),
+              extra={"batch": ts.step, "plot_data": plot_data})
         print(f"<trainer> saving network to {ckpt_path}")
 
     # batches run in segments up to the next print/preview/save boundary,
     # with one host fetch of the segment's losses (train/r_loop.py)
     segment = make_r_segment_program(
         G, batch_size=cfg.batchSize, noise_dim=cfg.noiseDim,
-        noise_method=cfg.noiseMethod, dtype=dtype, r_l1=cfg.R_L1,
-        r_l2=cfg.R_L2, r_clamp=cfg.R_clamp)
+        noise_method=cfg.noiseMethod, dtype=dtype, mesh=mesh,
+        g_shards=g_shards, r_l1=cfg.R_L1, r_l2=cfg.R_L2, r_clamp=cfg.R_clamp)
     cadences = [100, cfg.saveFreq] + ([] if cfg.noplot else [25])
 
     def next_boundary(i):
@@ -177,14 +210,15 @@ def main(argv=None) -> dict:
                 lo, avg, hi = min(tail), float(np.mean(tail)), max(tail)
                 print(f"<trainer> batch {batch_idx} loss "
                       f"low/avg/high: {lo:.4f}/{avg:.4f}/{hi:.4f}")
-                # noise-vs-recovered printout of the first 10 components
-                # (train_r.lua:178-183)
-                z_ex = noise_inputs(preview_gen, 2, cfg.noiseDim,
-                                    cfg.noiseMethod, device=device)
-                _, z_hat, _ = roundtrip(z_ex)
-                print("Example:")
-                print(f"Noise for G: {_fmt10(z_ex[0])}")
-                print(f"Result by R: {_fmt10(z_hat[0])}")
+                if not multi:
+                    # noise-vs-recovered printout of the first 10
+                    # components (train_r.lua:178-183)
+                    z_ex = noise_inputs(preview_gen, 2, cfg.noiseDim,
+                                        cfg.noiseMethod, device=device)
+                    _, z_hat, _ = roundtrip(z_ex)
+                    print("Example:")
+                    print(f"Noise for G: {_fmt10(z_ex[0])}")
+                    print(f"Result by R: {_fmt10(z_hat[0])}")
                 writer.scalar("r_loss_low", lo, step=batch_idx)
                 writer.scalar("r_loss_avg", avg, step=batch_idx)
                 writer.scalar("r_loss_high", hi, step=batch_idx)
@@ -196,7 +230,7 @@ def main(argv=None) -> dict:
                                  ["batch", "R loss (low)", "R loss (avg)",
                                   "R loss (high)"],
                                  title="R Loss", subdir="images_r")
-            if batch_idx % 25 == 0 and not cfg.noplot:
+            if batch_idx % 25 == 0 and not cfg.noplot and not multi:
                 # G -> R -> G round-trip preview grid (train_r.lua:207-218)
                 z = noise_inputs(preview_gen, 16, cfg.noiseDim,
                                  cfg.noiseMethod, device=device)

@@ -60,9 +60,7 @@ def _f(default, help=""):
 
 @dataclass
 class ApplyConfig(Config):
-    """Flags of apply_r.lua:13-23 plus the JAX package's additions. The port
-    refuses the flags of modes it does not have yet (--mesh_* > 1) rather
-    than ignoring them."""
+    """Flags of apply_r.lua:13-23 plus the JAX package's additions."""
     save: str = _f("logs", "directory with checkpoints / for outputs")
     G: str = _f("logs/adversarial", "G checkpoint")
     R: str = _f("", "R checkpoint (default derived from G's geometry)")
@@ -78,8 +76,8 @@ class ApplyConfig(Config):
     seed: int = _f(1, "RNG seed")
     refine_steps: int = _f(0, "gradient-based latent refinement steps (0 = off)")
     refine_lr: float = _f(0.05, "refinement learning rate (adam on z)")
-    mesh_data: int = _f(1, "data-parallel axis (not ported yet: must be 1)")
-    mesh_model: int = _f(1, "tensor-parallel axis (not ported yet: must be 1)")
+    mesh_data: int = _f(1, "shard the N-axis of generation/inversion/search over this many devices (SURVEY.md §5.7 large-N path)")
+    mesh_model: int = _f(1, "tensor-parallel axis: shard G/R's big Dense kernels over this many devices (the 128x128/z=256 workload, SURVEY.md §7 step 6); composes with --mesh_data")
     int8: bool = _f(False, "int8 serving mode: stage ② on the int8 G and R (ops/quant.py)")
     approx: bool = _f(False, "approximate top-k selection in stage ④'s two searches (kernel S, ops/approx_topk_kernel.py); exact when off")
     recall_target: float = _f(0.95, "per-row recall target for --approx, in (0, 1]; 1 is the exact selection")
@@ -89,9 +87,8 @@ class ApplyConfig(Config):
 @dataclass
 class GanConfig(Config):
     """Flags of train.lua:15-49 plus the JAX package's additions, with its
-    defaults. The port refuses the flags of modes it does not have yet
-    (--mesh_* other than 1, a multi-process coordinator, --async_save);
-    --prng is accepted and inert (both values mean torch's generators)."""
+    defaults. --prng is accepted and inert (both values mean torch's
+    generators)."""
     save: str = _f("logs", "subdirectory to save logs")
     saveFreq: int = _f(30, "save every saveFreq epochs")
     epochs: int = _f(-1, "stop after that many epochs (<0 = run forever; the reference's inverted check, train.lua:208, is fixed as in the JAX package)")
@@ -126,14 +123,14 @@ class GanConfig(Config):
     decode_cache: str = _f("", "directory for the decoded-tensor disk cache (data/cache.py), uint8-quantized; parity audits leave it off")
     normalize: bool = _f(False, "normalize training data to [-1,1] (train.lua:51,217-218); mean/std travel in the checkpoint")
     init: str = _f("heuristic", "weight init: heuristic (clean default) | torch (reproduce the reference's accidental initial distributions, models/zoo.py) | xavier | xavier_caffe | kaiming")
-    mesh_data: int = _f(1, "data-parallel axis (not ported yet: must be 1)")
-    mesh_model: int = _f(1, "tensor-parallel axis (not ported yet: must be 1)")
+    mesh_data: int = _f(1, "data-parallel mesh axis size (0 = all devices, 1 = single-device)")
+    mesh_model: int = _f(1, "tensor-parallel mesh axis size")
     compute_dtype: str = _f("float32", "compute dtype: float32|bfloat16")
     profile_dir: str = _f("", "write a torch.profiler Chrome trace of epoch 2 here (io/metrics.py::profiler_trace)")
     prng: str = _f("threefry", "accepted for the JAX CLI's sake: threefry|rbg; the port draws from torch generators either way")
-    async_save: bool = _f(False, "overlap checkpoint writes with training (not ported yet: refused)")
+    async_save: bool = _f(False, "overlap checkpoint file IO with the next epoch's device work (device snapshot stays synchronous; errors surface at the next save)")
     keep_history: int = _f(0, "also keep the newest N epoch-stamped checkpoints (adversarial.step<E>); 0 = only latest + .old")
-    coordinator_address: str = _f("", "multi-process coordinator (not ported yet: must be empty)")
+    coordinator_address: str = _f("", "multi-process: host:port of process 0 (torch.distributed); empty = single-process")
     num_processes: int = _f(0, "multi-process: total process count")
     process_id: int = _f(-1, "multi-process: this process's index")
 
@@ -161,9 +158,8 @@ class SampleConfig(Config):
 @dataclass
 class RConfig(Config):
     """Flags of train_r.lua:12-29 plus the JAX package's additions, with
-    its defaults. The port refuses the flags of modes it does not have yet
-    (--mesh_* other than 1, --async_save, a multi-process coordinator);
-    --prng is accepted and inert (both values mean torch's generators)."""
+    its defaults. --prng is accepted and inert (both values mean torch's
+    generators)."""
     save: str = _f("logs", "subdirectory to save logs")
     batchSize: int = _f(32, "batch size")
     nbBatches: int = _f(-1, "max number of batches, <0 is infinite")
@@ -179,17 +175,17 @@ class RConfig(Config):
     fixer: bool = _f(False, "train the error fixer (always-on input dropout)")
     prng: str = _f("rbg", "accepted for the JAX CLI's sake: threefry|rbg; the port draws from torch generators either way")
     dropout: str = _f("threefry", "mask source of R's dropouts: threefry (plain Bernoulli masks from a torch generator) | kernel (kernel B5, in-pass counter-hash masks, csrc/dropout.cu)")
-    async_save: bool = _f(False, "overlap checkpoint writes with training (not ported yet: refused)")
+    async_save: bool = _f(False, "overlap checkpoint file IO with the next segment's device work (device snapshot stays synchronous; errors surface at the next save)")
     # inherited from the G checkpoint at load time (train_r.lua:71-75):
     noiseDim: int = _f(32, "")
     noiseMethod: str = _f("normal", "")
     colorSpace: str = _f("rgb", "")
     height: int = _f(32, "")
     width: int = _f(32, "")
-    mesh_data: int = _f(1, "data-parallel axis (not ported yet: must be 1)")
-    mesh_model: int = _f(1, "tensor-parallel axis (not ported yet: must be 1)")
+    mesh_data: int = _f(1, "data-parallel mesh axis size (0 = all devices, 1 = single-device)")
+    mesh_model: int = _f(1, "tensor-parallel mesh axis size")
     compute_dtype: str = _f("float32", "compute dtype: float32|bfloat16")
-    coordinator_address: str = _f("", "multi-process coordinator (not ported yet: must be empty)")
+    coordinator_address: str = _f("", "multi-process: host:port of process 0 (torch.distributed); empty = single-process")
     num_processes: int = _f(0, "multi-process: total process count")
     process_id: int = _f(-1, "multi-process: this process's index")
 

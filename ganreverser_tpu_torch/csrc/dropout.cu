@@ -7,9 +7,12 @@
 // this same kernel on the incoming gradient with the saved seed: identical
 // (seed, index) pairs give identical bits, so the forward's mask comes back.
 //
-// What it computes, to the bit (the TPU kernel's):
-//   idx  = the element's flat index mod 2^32 (the TPU's (row * 1024 + col)
-//          in uint32 over its 1024-column view is the same number)
+// What it computes, to the bit (the TPU kernel's at base 0):
+//   idx  = (base + the element's flat index) mod 2^32 (the TPU's
+//          (row * 1024 + col) in uint32 over its 1024-column view is the
+//          same number at base 0; a rank holding rows [r, r + n) of a batch
+//          passes base = r * row elements and gets those rows of the whole
+//          batch's mask)
 //   h    = fmix32(idx ^ (uint32(seed) * 0x9E3779B9))   (murmur3 finalizer)
 //   keep = h < thresh, thresh = min(round(keep_p * 2^32), 2^32 - 1), host
 //   y    = keep ? T(float(x) * inv_keep) : 0, inv_keep = f32(1 / keep_p):
@@ -25,8 +28,8 @@
 //    with streaming cache hints (ld.global.cs / st.global.cs: every byte is
 //    touched once), so several loads per thread are in flight;
 //  - 32-bit arithmetic per element: the hash takes the index mod 2^32, so
-//    a pack's base index is one 32-bit multiply of its pack number and an
-//    element's index is base + j;
+//    a pack's first index is one 32-bit multiply-add of its pack number and
+//    the counter base, and an element's index is that + j;
 //  - in bf16, pairs are widened with __bfloat1622float2 and rounded with
 //    __floats2bfloat162_rn after the f32 multiply (not __hmul2, which would
 //    round the product in bf16 arithmetic: the TPU kernel multiplies in f32
@@ -97,7 +100,8 @@ template <typename T>
 __global__ void __launch_bounds__(kDropThreads)
     fused_dropout_pack_kernel(const uint4* __restrict__ x, uint4* __restrict__ y,
                               const int* __restrict__ seed, long long npack,
-                              long long n, unsigned int thresh, float inv_keep) {
+                              long long n, unsigned int base,
+                              unsigned int thresh, float inv_keep) {
   constexpr unsigned int kVec = 16 / sizeof(T);
   const unsigned int seed_mix = static_cast<unsigned int>(__ldg(seed)) * 0x9E3779B9u;
   const long long stride = static_cast<long long>(gridDim.x) * kDropThreads;
@@ -109,21 +113,22 @@ __global__ void __launch_bounds__(kDropThreads)
 #pragma unroll
     for (int u = 0; u < kDropUnroll; ++u) {
       // the pack number mod 2^32 times kVec: the index of its first element
-      const unsigned int base =
-          static_cast<unsigned int>(p + u * stride) * kVec;
+      const unsigned int first =
+          static_cast<unsigned int>(p + u * stride) * kVec + base;
       __stcs(y + p + u * stride,
-             drop_pack(v[u], T(), base, seed_mix, thresh, inv_keep));
+             drop_pack(v[u], T(), first, seed_mix, thresh, inv_keep));
     }
   }
   for (; p < npack; p += stride)
-    __stcs(y + p, drop_pack(__ldcs(x + p), T(), static_cast<unsigned int>(p) * kVec,
-                            seed_mix, thresh, inv_keep));
+    __stcs(y + p, drop_pack(__ldcs(x + p), T(),
+                            static_cast<unsigned int>(p) * kVec + base, seed_mix,
+                            thresh, inv_keep));
   // the ragged tail, fewer than kVec elements after the last pack
   const long long i = npack * kVec + threadIdx.x;
   if (blockIdx.x == 0 && i < n) {
     const T* xe = reinterpret_cast<const T*>(x);
     T* ye = reinterpret_cast<T*>(y);
-    ye[i] = from_f32<T>(drop_f32(to_f32(xe[i]), static_cast<unsigned int>(i),
+    ye[i] = from_f32<T>(drop_f32(to_f32(xe[i]), static_cast<unsigned int>(i) + base,
                                  seed_mix, thresh, inv_keep));
   }
 }
@@ -134,12 +139,13 @@ template <typename T>
 __global__ void __launch_bounds__(kDropThreads)
     fused_dropout_elem_kernel(const T* __restrict__ x, T* __restrict__ y,
                               const int* __restrict__ seed, long long n,
-                              unsigned int thresh, float inv_keep) {
+                              unsigned int base, unsigned int thresh,
+                              float inv_keep) {
   const unsigned int seed_mix = static_cast<unsigned int>(__ldg(seed)) * 0x9E3779B9u;
   const long long stride = static_cast<long long>(gridDim.x) * kDropThreads;
   for (long long i = static_cast<long long>(blockIdx.x) * kDropThreads + threadIdx.x;
        i < n; i += stride)
-    y[i] = from_f32<T>(drop_f32(to_f32(x[i]), static_cast<unsigned int>(i),
+    y[i] = from_f32<T>(drop_f32(to_f32(x[i]), static_cast<unsigned int>(i) + base,
                                 seed_mix, thresh, inv_keep));
 }
 
@@ -166,8 +172,8 @@ int wave_grid(long long units, int resident) {
 
 template <typename T>
 cudaError_t launch_dropout(const void* x, void* y, const void* seed,
-                           long long n, unsigned int thresh, float inv_keep,
-                           cudaStream_t s) {
+                           long long n, unsigned int base, unsigned int thresh,
+                           float inv_keep, cudaStream_t s) {
   static int pack_wave[kMaxDevices] = {};
   static int elem_wave[kMaxDevices] = {};
   constexpr long long kVec = 16 / static_cast<long long>(sizeof(T));
@@ -181,13 +187,13 @@ cudaError_t launch_dropout(const void* x, void* y, const void* seed,
     if (resident <= 0) return cudaErrorInvalidConfiguration;
     const long long npack = n / kVec;
     fused_dropout_pack_kernel<T><<<wave_grid(npack, resident), kDropThreads, 0, s>>>(
-        static_cast<const uint4*>(x), static_cast<uint4*>(y), st, npack, n, thresh,
-        inv_keep);
+        static_cast<const uint4*>(x), static_cast<uint4*>(y), st, npack, n, base,
+        thresh, inv_keep);
   } else {
     const int resident = resident_blocks(fused_dropout_elem_kernel<T>, elem_wave);
     if (resident <= 0) return cudaErrorInvalidConfiguration;
     fused_dropout_elem_kernel<T><<<wave_grid(n, resident), kDropThreads, 0, s>>>(
-        xt, yt, st, n, thresh, inv_keep);
+        xt, yt, st, n, base, thresh, inv_keep);
   }
   return cudaGetLastError();
 }
@@ -195,21 +201,23 @@ cudaError_t launch_dropout(const void* x, void* y, const void* seed,
 }  // namespace gr
 
 // x and y: n contiguous elements of dtype (DT_F32 or DT_BF16); seed: one
-// int32 in device memory. y may not alias x.
+// int32 in device memory; base: the counter of x's first element (mod
+// 2^32). y may not alias x.
 extern "C" int gr_fused_dropout(int dtype, const void* x, void* y,
                                 const void* seed, long long n,
-                                unsigned int thresh, float inv_keep,
-                                void* stream) {
+                                unsigned int base, unsigned int thresh,
+                                float inv_keep, void* stream) {
   using namespace gr;
   if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return static_cast<int>(cudaSuccess);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case DT_F32:
-      return static_cast<int>(launch_dropout<float>(x, y, seed, n, thresh, inv_keep, s));
+      return static_cast<int>(
+          launch_dropout<float>(x, y, seed, n, base, thresh, inv_keep, s));
     case DT_BF16:
       return static_cast<int>(
-          launch_dropout<__nv_bfloat16>(x, y, seed, n, thresh, inv_keep, s));
+          launch_dropout<__nv_bfloat16>(x, y, seed, n, base, thresh, inv_keep, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,18 +1,22 @@
-"""Colour-space conversions — the numpy paths of
-ganreverser_tpu/data/colorspace.py (utils/nn_utils.lua:133-246), vectorised
-over whole NHWC batches on the host.
+"""Colour-space conversions — the counterpart of
+ganreverser_tpu/data/colorspace.py (utils/nn_utils.lua:133-246), over whole
+NHWC batches on the host.
 
 * ``y``  — the reference's custom grayscale weights 0.21/0.72/0.07
            (nn_utils.lua:237-239);
 * ``yuv`` — torch image.rgb2yuv / yuv2rgb matrices;
 * ``hsl`` — torch image.rgb2hsl / hsl2rgb formulas, h/s/l all in [0, 1].
 
-The JAX package may take C++ versions of ``y`` and ``yuv``
-(native/imageops.cc), which sum in another order; the port keeps numpy.
+As in the JAX package, ``rgb_to_colorspace`` and ``to_rgb`` take the C++
+versions of ``y`` and ``yuv`` (native/imageops.cc) where the library is
+built, and the numpy functions below otherwise; the two sum in another
+order (within 1e-5, tests/test_torch_port_native.py).
 """
 from __future__ import annotations
 
 import numpy as np
+
+from ..native import imageops
 
 COLOR_SPACES = ("rgb", "y", "yuv", "hsl")
 
@@ -42,6 +46,12 @@ def rgb2yuv(images: np.ndarray) -> np.ndarray:
 
 def yuv2rgb(images: np.ndarray) -> np.ndarray:
     return (images @ _RGB_FROM_YUV.T).astype(np.float32)
+
+
+def _native_or(fn_native, fn_numpy, images: np.ndarray) -> np.ndarray:
+    """The C++ image op where the library is built, else numpy."""
+    out = fn_native(images)
+    return out if out is not None else fn_numpy(images)
 
 
 def rgb2hsl(images: np.ndarray) -> np.ndarray:
@@ -89,9 +99,9 @@ def rgb_to_colorspace(images: np.ndarray, colorspace: str) -> np.ndarray:
     if colorspace == "rgb":
         return images
     if colorspace == "y":
-        return rgb2y(images)
+        return _native_or(imageops.rgb2y_native, rgb2y, images)
     if colorspace == "yuv":
-        return rgb2yuv(images)
+        return _native_or(imageops.rgb2yuv_native, rgb2yuv, images)
     if colorspace == "hsl":
         return rgb2hsl(images)
     raise ValueError(f"Unknown color space {colorspace!r}")
@@ -105,7 +115,7 @@ def to_rgb(images: np.ndarray, colorspace: str) -> np.ndarray:
     if colorspace == "y":
         return np.repeat(images, 3, axis=-1)
     if colorspace == "yuv":
-        return yuv2rgb(images)
+        return _native_or(imageops.yuv2rgb_native, yuv2rgb, images)
     if colorspace == "hsl":
         return hsl2rgb(images)
     raise ValueError(f"Unknown color space {colorspace!r}")

@@ -16,6 +16,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from ..native import imageops
 from .colorspace import rgb_to_colorspace
 from .hostmem import disable_hugepage_madvise
 from .synthetic import synthetic_faces
@@ -50,7 +51,16 @@ def scan_image_paths(dirs: Sequence[str], ext: str = "jpg") -> List[str]:
 
 def resize_bilinear(images: np.ndarray, dh: int, dw: int) -> np.ndarray:
     """(n, sh, sw, c) float32 -> (n, dh, dw, c), bilinear with half-pixel
-    centres (align_corners=False), edges clamped: the numpy path of
+    centres (align_corners=False), edges clamped: the C++ image op
+    (native/imageops.cc) where the library is built, else
+    :func:`resize_bilinear_numpy`."""
+    out = imageops.resize_bilinear_batch(images, dh, dw)
+    return out if out is not None else resize_bilinear_numpy(images, dh, dw)
+
+
+def resize_bilinear_numpy(images: np.ndarray, dh: int,
+                          dw: int) -> np.ndarray:
+    """The numpy path of :func:`resize_bilinear`,
     ganreverser_tpu/native/imageops.py::_resize_numpy."""
     n, sh, sw, c = images.shape
     fy = (np.arange(dh, dtype=np.float32) + 0.5) * (sh / dh) - 0.5
@@ -204,7 +214,8 @@ def normalize_images(images: np.ndarray):
     if not images.flags.writeable:
         raise ValueError("normalize_images mutates in place — pass a "
                          "writable array (np.array(...), not a view)")
-    images *= 2.0
-    images -= 1.0
-    np.clip(images, -1.0, 1.0, out=images)
+    if not imageops.normalize_pm1_inplace(images):
+        images *= 2.0
+        images -= 1.0
+        np.clip(images, -1.0, 1.0, out=images)
     return NORMALIZE_STATS

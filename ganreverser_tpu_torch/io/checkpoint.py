@@ -7,12 +7,21 @@ are ``{"__tuple__": [...]}``, plus the run config and extra metadata) and
 ``arrays.npz`` (the arrays by key). Checkpoints written by either package
 load in the other. Leaves may be numpy arrays or torch tensors; loading
 gives numpy arrays (``models/bridge.py`` moves them into modules).
+
+:func:`save_checkpoint_async` (``--async_save``) writes in a background
+thread: at most one save is in flight, the tree is copied to the host
+first, and an error surfaces at the next save or at
+:func:`wait_for_saves`.
 """
 from __future__ import annotations
 
+import atexit
+import copy
 import json
 import os
 import shutil
+import sys
+import threading
 from typing import Any, Optional
 
 import numpy as np
@@ -78,6 +87,96 @@ def save_checkpoint(path: str, tree: Any, *, config: Optional[dict] = None,
         else:
             shutil.rmtree(path)
     os.rename(tmp, path)
+    return path
+
+
+class _AsyncSaver:
+    """The one in-flight background save of the process and the error of
+    the last one that failed."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.thread: Optional[threading.Thread] = None
+        self.error: Optional[BaseException] = None
+
+    def join(self) -> Optional[BaseException]:
+        """Wait for the in-flight save; returns (and clears) the stored
+        error."""
+        with self.lock:
+            t, self.thread = self.thread, None
+        if t is not None:
+            t.join()
+        err, self.error = self.error, None
+        return err
+
+    def start(self, work) -> None:
+        def run():
+            try:
+                work()
+            except BaseException as e:  # noqa: BLE001 - raised at the join
+                self.error = e
+
+        # not a daemon: an interpreter that exits while the writer renames
+        # would otherwise kill it half-way and leave only <path>.old
+        t = threading.Thread(target=run, name="ckpt-save", daemon=False)
+        with self.lock:
+            self.thread = t
+        t.start()
+
+
+_SAVER = _AsyncSaver()
+
+
+def _report_at_exit():
+    err = _SAVER.join()
+    if err is not None:
+        print(f"[checkpoint] background save failed: {err!r}",
+              file=sys.stderr)
+
+
+atexit.register(_report_at_exit)
+
+
+def wait_for_saves() -> None:
+    """Join the in-flight async save; re-raise its error here (the train
+    CLIs call this before they exit, so a failed background write is never
+    dropped)."""
+    err = _SAVER.join()
+    if err is not None:
+        raise err
+
+
+def _host_copy(tree):
+    """``tree`` with every tensor and array leaf copied to a host numpy
+    array: ``.cpu()`` of a CPU tensor is the same storage, which the next
+    step's in-place update would change while the thread writes it."""
+    if isinstance(tree, dict):
+        return {k: _host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        out = [_host_copy(v) for v in tree]
+        return tuple(out) if isinstance(tree, tuple) else out
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True).numpy()
+    if isinstance(tree, np.ndarray):
+        return tree.copy()
+    return tree
+
+
+def save_checkpoint_async(path: str, tree: Any, *,
+                          config: Optional[dict] = None,
+                          extra: Optional[dict] = None,
+                          backup_old: bool = True) -> str:
+    """:func:`save_checkpoint` with the file writes in a background thread.
+
+    Joins the previous save first (one in flight, so the ``.old`` backups
+    stay in order) and raises its error, copies the tree, config and extra
+    to the host here, then writes and renames in the thread. An error of
+    this save surfaces at the next call or at :func:`wait_for_saves`."""
+    wait_for_saves()
+    host_tree = _host_copy(tree)
+    config, extra = copy.deepcopy(config), copy.deepcopy(extra)
+    _SAVER.start(lambda: save_checkpoint(path, host_tree, config=config,
+                                         extra=extra, backup_old=backup_old))
     return path
 
 

@@ -340,12 +340,15 @@ def make_fast_fixer(dims: Dims, noise_dim: int, noise_method: str,
     (``modules.dropout_keep_mask``, the module's draw), the survivors are
     doubled, and the kernel-B inverter runs on the fixer's variables with
     their layer indices shifted back by one. Each call draws a fresh mask,
-    as the reference's nn.Dropout does on every forward."""
+    as the reference's nn.Dropout does on every forward; ``keep=`` gives
+    the mask instead (a rank's rows of a mask drawn for more rows,
+    analysis/distributed.py)."""
     invert = make_fast_inverter(dims, noise_dim, noise_method, dtype)
 
-    def invert_fixer(variables, images, generator):
-        keep = dropout_keep_mask(images.shape, FIXER_DROPOUT, generator,
-                                 images.device)
+    def invert_fixer(variables, images, generator=None, keep=None):
+        if keep is None:
+            keep = dropout_keep_mask(images.shape, FIXER_DROPOUT, generator,
+                                     images.device)
         return invert(_unshift_layers(variables),
                       apply_dropout(images, keep, FIXER_DROPOUT))
 

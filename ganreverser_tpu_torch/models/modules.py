@@ -25,9 +25,18 @@ plain convolutions here go through ``F.conv2d`` on NCHW views.
 Dense and Conv carry their init scheme (``init_scheme``,
 ``init_zero_bias``) and BatchNorm its ``scale_init``, as the JAX layers
 do; :func:`init_parameters` draws every layer by its own (models/init.py).
+
+Under data parallelism (:func:`set_data_parallel`) a rank holds its rows
+of a batch cut over the mesh's 'data' axis, and a training forward gives
+what one rank gives on the whole batch, as GSPMD does for JAX's sharded
+batch: BatchNorm takes its statistics over the whole batch (sums
+all-reduced over the 'data' group, differentiably) and every dropout draws
+the whole batch's mask and keeps this rank's rows (kernel B5: the counter
+of its first element).
 """
 from __future__ import annotations
 
+import math
 from collections import OrderedDict
 from functools import partial
 from typing import Sequence
@@ -41,6 +50,7 @@ from torch import nn
 from ..core.precision import pinned_precision
 from ..ops.dropout_kernel import draw_seed, fused_dropout
 from ..ops.upsample_conv import conv_nhwc, upsample2_conv3x3_dilated
+from ..parallel.comm import psum
 from .init import SCHEMES, init_bn_scale, init_conv, init_dense
 
 _BN_EPS = 1e-5
@@ -138,7 +148,10 @@ class BatchNorm(nn.Module):
     normalises with the batch mean and biased variance over all other axes
     (gradients flow through them) and moves the running buffers by momentum
     0.1 towards the batch mean and the unbiased variance, as torch does.
-    ``scale_init="torch"`` draws the scale from uniform(0, 1)."""
+    With ``data_mesh`` set the batch is the whole one cut over the mesh's
+    'data' axis: the sums behind the mean and the variance are all-reduced
+    over the 'data' group. ``scale_init="torch"`` draws the scale from
+    uniform(0, 1)."""
 
     def __init__(self, features: int, dtype: torch.dtype = torch.float32,
                  scale_init: str = "ones"):
@@ -149,18 +162,32 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(features))
         self.dtype = dtype
         self.scale_init = scale_init
+        self.data_mesh = None
 
     def reset_parameters(self, generator: torch.Generator):
         init_bn_scale(self.scale, generator, self.scale_init)
         nn.init.zeros_(self.bias)
 
+    def _global_stats(self, xf: torch.Tensor, red: tuple):
+        """(mean, biased variance, count) over the whole batch cut over
+        ``data_mesh``'s 'data' axis: two all-reductions, of the sums, then
+        of the squared deviations from the mean."""
+        count = xf.numel() // xf.shape[-1] * self.data_mesh.shape["data"]
+        mean = psum(xf.sum(dim=red), self.data_mesh) / count
+        d = xf - mean
+        var = psum((d * d).sum(dim=red), self.data_mesh) / count
+        return mean, var, count
+
     def forward(self, x):
         xf = x.float()
         if self.training:
             red = tuple(range(x.ndim - 1))
-            mean = xf.mean(dim=red)
-            var = xf.var(dim=red, correction=0)
-            count = x.numel() // x.shape[-1]
+            if self.data_mesh is not None:
+                mean, var, count = self._global_stats(xf, red)
+            else:
+                mean = xf.mean(dim=red)
+                var = xf.var(dim=red, correction=0)
+                count = x.numel() // x.shape[-1]
             with torch.no_grad():
                 m = _BN_MOMENTUM
                 unbiased = var * (count / max(count - 1, 1))
@@ -211,7 +238,9 @@ class Dropout(nn.Module):
     Bernoulli keep mask (the JAX default threefry path; the stream differs
     from JAX's), with ``impl="kernel"`` one int32 seed for kernel B5
     (ops/dropout_kernel.py), whose mask is the JAX kernel's for that
-    seed."""
+    seed. With ``data_mesh`` set the input is this rank's rows of a batch
+    cut over the mesh's 'data' axis, and the mask is those rows of the
+    whole batch's mask."""
 
     def __init__(self, rate: float = 0.5, always_on: bool = False,
                  impl: str = "plain"):
@@ -222,6 +251,7 @@ class Dropout(nn.Module):
         self.always_on = always_on
         self.impl = impl
         self.generator: torch.Generator | None = None
+        self.data_mesh = None
 
     def _active_generator(self) -> torch.Generator | None:
         """The generator of an active call, None when the call is the
@@ -233,13 +263,32 @@ class Dropout(nn.Module):
                              ".generator set (set_dropout_generator)")
         return self.generator
 
+    def _rows(self, n: int) -> slice:
+        """This rank's rows of the whole batch whose part has ``n`` rows
+        (all of them without ``data_mesh``)."""
+        if self.data_mesh is None:
+            return slice(0, n)
+        return self.data_mesh.rows(n * self.data_mesh.shape["data"])
+
+    def _keep_mask(self, shape: tuple, gen: torch.Generator,
+                   device) -> torch.Tensor:
+        """The keep mask of this rank's rows: the whole batch's mask is
+        drawn and cut."""
+        if self.data_mesh is None:
+            return dropout_keep_mask(shape, self.rate, gen, device)
+        whole = (shape[0] * self.data_mesh.shape["data"],) + tuple(shape[1:])
+        return dropout_keep_mask(whole, self.rate, gen,
+                                 device)[self._rows(shape[0])]
+
     def forward(self, x):
         gen = self._active_generator()
         if gen is None:
             return x
         if self.impl == "kernel":
-            return fused_dropout(x, draw_seed(gen, x.device), self.rate)
-        keep = dropout_keep_mask(x.shape, self.rate, gen, x.device)
+            base = self._rows(x.shape[0]).start * math.prod(x.shape[1:])
+            return fused_dropout(x, draw_seed(gen, x.device), self.rate,
+                                 base=base)
+        keep = self._keep_mask(x.shape, gen, x.device)
         return apply_dropout(x, keep, self.rate)
 
 
@@ -255,7 +304,7 @@ class SpatialDropout(Dropout):
         if gen is None:
             return x
         shape = (x.shape[0],) + (1,) * (x.ndim - 2) + (x.shape[-1],)
-        keep = dropout_keep_mask(shape, self.rate, gen, x.device)
+        keep = self._keep_mask(shape, gen, x.device)
         return apply_dropout(x, keep, self.rate)
 
 
@@ -266,6 +315,17 @@ def set_dropout_generator(module: nn.Module,
     for m in module.modules():
         if isinstance(m, Dropout):
             m.generator = generator
+    return module
+
+
+def set_data_parallel(module: nn.Module, mesh) -> nn.Module:
+    """Make every BatchNorm and dropout of ``module`` treat its input as
+    this rank's rows of a batch cut over ``mesh``'s 'data' axis (None:
+    the input is the whole batch). Each rank's generators must be in the
+    same state."""
+    for m in module.modules():
+        if isinstance(m, (BatchNorm, Dropout)):
+            m.data_mesh = mesh
     return module
 
 

@@ -47,8 +47,8 @@ _U = ctypes.c_uint
 _F = ctypes.c_float
 # name -> argtypes; every function returns the cudaError_t of its launch
 _SIGNATURES = {
-    # dtype, x, y, seed, n, thresh, inv_keep, stream
-    "gr_fused_dropout": [_I, _P, _P, _P, _L, _U, _F, _P],
+    # dtype, x, y, seed, n, base, thresh, inv_keep, stream
+    "gr_fused_dropout": [_I, _P, _P, _P, _L, _U, _U, _F, _P],
     # dtype, x, w9, scale, shift, alpha, out, n, h, w, ci, co, act, pool,
     # then the bf16 plan (bh, bw, bn, bk, stages, smem), stream
     "gr_conv3x3_bn_act": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

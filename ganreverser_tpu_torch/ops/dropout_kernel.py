@@ -10,6 +10,14 @@ function of the source alone, so the port's masks are bit for bit the JAX
 kernel's for the same int32 seed and shape. The gradient is dropout of the
 incoming gradient with the same seed: the mask is regenerated, never stored.
 
+``base`` (the counter base) is added to every flat index before it is
+hashed: a tensor that holds rows [r, r + n) of a batch takes the first
+row's flat index, ``r * (elements per row)``, and its mask is those rows
+of the whole batch's mask, bit for bit (a rank's part of a batch cut over
+the mesh's 'data' axis, models/modules.py). The JAX package has no such
+base: under a mesh it draws threefry masks instead. At base 0 the mask is
+the JAX kernel's.
+
 ``fused_dropout`` launches the CUDA kernel (``csrc/dropout.cu``) on CUDA
 tensors, its backward too (``fused_dropout.launches`` counts both;
 ``fused_dropout.copies`` counts the non-contiguous tensors or gradients it
@@ -51,9 +59,12 @@ def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
     return (h * (c & 0xFFFF) + (((h * (c >> 16)) & 0xFFFF) << 16)) & _MASK32
 
 
-def hash_bits(n: int, seed: torch.Tensor, device) -> torch.Tensor:
-    """The kernel's uint32 bits of flat indices 0..n-1, as int64."""
-    idx = torch.arange(n, dtype=torch.int64, device=device) & _MASK32
+def hash_bits(n: int, seed: torch.Tensor, device,
+              base: int = 0) -> torch.Tensor:
+    """The kernel's uint32 bits of flat indices base..base+n-1, as
+    int64."""
+    idx = (torch.arange(n, dtype=torch.int64, device=device) + base) \
+        & _MASK32
     h = idx ^ _mul32(seed.reshape(()).to(torch.int64) & _MASK32, _GOLDEN)
     h = h ^ (h >> 16)
     h = _mul32(h, _MIX1)
@@ -63,10 +74,10 @@ def hash_bits(n: int, seed: torch.Tensor, device) -> torch.Tensor:
 
 
 def fused_dropout_plain(x: torch.Tensor, seed: torch.Tensor,
-                        rate: float) -> torch.Tensor:
+                        rate: float, base: int = 0) -> torch.Tensor:
     """Plain PyTorch version on any device, with plain autograd: the same
     hash in int64 arithmetic masked to 32 bits, the same f32 multiply."""
-    keep = hash_bits(x.numel(), seed, x.device).reshape(x.shape) < \
+    keep = hash_bits(x.numel(), seed, x.device, base).reshape(x.shape) < \
         keep_threshold(rate)
     return torch.where(keep, x.float() * inv_keep_f32(rate), 0.0).to(x.dtype)
 
@@ -84,7 +95,8 @@ def dropout_plan(rate: float, dtype: torch.dtype) -> DropoutPlan:
                        inv_keep_f32(rate))
 
 
-def _launch(x: torch.Tensor, seed: torch.Tensor, rate: float) -> torch.Tensor:
+def _launch(x: torch.Tensor, seed: torch.Tensor, rate: float,
+            base: int) -> torch.Tensor:
     if not x.is_contiguous():
         x = x.contiguous()
         fused_dropout.copies += 1
@@ -95,7 +107,8 @@ def _launch(x: torch.Tensor, seed: torch.Tensor, rate: float) -> torch.Tensor:
     cuda_lib.require(seed, "seed", dev, torch.int32, (1,))
     y = torch.empty_like(x)
     args = (plan.code, x.data_ptr(), y.data_ptr(), seed.data_ptr(),
-            x.numel(), plan.thresh, plan.inv_keep, cuda_lib.stream_of(x))
+            x.numel(), base & _MASK32, plan.thresh, plan.inv_keep,
+            cuda_lib.stream_of(x))
     with cuda_lib.on_device(x):
         rc = cuda_lib.library().gr_fused_dropout(*args)
     cuda_lib.check(rc, "fused_dropout")
@@ -108,31 +121,34 @@ class _FusedDropout(torch.autograd.Function):
     the kernel again on the gradient (the TPU wrapper's ``_bwd``)."""
 
     @staticmethod
-    def forward(ctx, x, seed, rate):
+    def forward(ctx, x, seed, rate, base):
         ctx.save_for_backward(seed)
-        ctx.rate = rate
-        return _launch(x, seed, rate)
+        ctx.rate, ctx.base = rate, base
+        return _launch(x, seed, rate, base)
 
     @staticmethod
     def backward(ctx, grad):
         (seed,) = ctx.saved_tensors
-        return _launch(grad, seed, ctx.rate), None, None
+        return _launch(grad, seed, ctx.rate, ctx.base), None, None, None
 
 
-def fused_dropout(x: torch.Tensor, seed: torch.Tensor,
-                  rate: float) -> torch.Tensor:
+def fused_dropout(x: torch.Tensor, seed: torch.Tensor, rate: float,
+                  base: int = 0) -> torch.Tensor:
     """Dropout(rate) of ``x`` (f32 or bf16 on CUDA) with the mask of the
-    int32 ``seed`` (one element, on x's device); differentiable in x."""
+    int32 ``seed`` (one element, on x's device) and the counter base
+    ``base`` (module docstring); differentiable in x."""
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout rate {rate} outside [0, 1)")
     if seed.numel() != 1 or seed.dtype != torch.int32:
         raise ValueError(f"seed must be one int32, got {seed.dtype} "
                          f"{tuple(seed.shape)}")
+    if base < 0:
+        raise ValueError(f"counter base {base} is negative")
     if cuda_lib.dispatch_device(x, seed) == "cpu":
-        return fused_dropout_plain(x, seed, rate)
+        return fused_dropout_plain(x, seed, rate, base)
     if not (x.requires_grad and torch.is_grad_enabled()):
-        return _launch(x, seed, rate)  # no graph to record
-    return _FusedDropout.apply(x, seed, rate)
+        return _launch(x, seed, rate, base)  # no graph to record
+    return _FusedDropout.apply(x, seed, rate, base)
 
 
 cuda_lib.counted(fused_dropout)

@@ -21,6 +21,18 @@ one ``pinned_precision(dtype)``. Nothing in an epoch waits for the host:
 losses and the confusion counts stay on the device until the caller reads
 them, once per epoch (the counterpart of JAX's one-dispatch ``lax.scan``
 epoch).
+
+With a ``mesh`` (JAX's ``mesh=``, the batches sharded over 'data') every
+rank holds the same epoch data and draws the same latents, and keeps rows
+``mesh.rows(n)`` of each batch: G runs on its rows of the fake half, the
+fakes are all-gathered, and D trains on its rows of the concatenated real
+and fake batch; G and D's BatchNorm and dropouts treat the rows as part of
+the whole batch (models/modules.py::set_data_parallel, set by the caller),
+and losses and gradients are averaged over the 'data' group before the
+penalties, so a step on R ranks gives the step of one rank on the whole
+batch. Each rank counts the confusion of its rows (the caller sums the
+counts over the group). Train states with 'model' shards gather their whole
+parameters for each step and update their slices.
 """
 from __future__ import annotations
 
@@ -31,8 +43,10 @@ import torch
 from ..core.precision import pinned_precision
 from ..core.prng import noise_inputs
 from ..optim import Optimizer, make_optimizer, regularize
+from ..parallel.comm import all_gather, pmean
+from ..parallel.mesh import Mesh, whole_params
 from .losses import bce
-from .state import GanState
+from .state import GanState, TrainState
 
 Y_GENERATOR = 0
 Y_NOT_GENERATOR = 1
@@ -84,7 +98,8 @@ def make_adversarial_steps(*, dtype: torch.dtype, d_l1: float = 0.0,
                            g_l2: float = 0.0, d_clamp: float = 1.0,
                            g_clamp: float = 5.0,
                            d_optimizer: Optional[Optimizer] = None,
-                           g_optimizer: Optional[Optimizer] = None):
+                           g_optimizer: Optional[Optimizer] = None,
+                           mesh: Optional[Mesh] = None):
     """Returns ``(d_step, g_step)``, which update ``gs`` (modules,
     optimizer states, step counts) in place:
 
@@ -95,46 +110,65 @@ def make_adversarial_steps(*, dtype: torch.dtype, d_l1: float = 0.0,
 
     Losses are f32 0-d device tensors with the penalty terms. ``dtype`` is
     the models' compute dtype; the dropouts of D draw from the generator
-    set on it (``modules.set_dropout_generator``)."""
+    set on it (``modules.set_dropout_generator``). With ``mesh`` the steps
+    take the whole batch's reals and latents and train on this rank's rows
+    (module docstring)."""
     d_opt = d_optimizer or make_optimizer("adam")
     g_opt = g_optimizer or make_optimizer("adam")
+
+    def rows(x: torch.Tensor) -> torch.Tensor:
+        return x if mesh is None else x[mesh.rows(x.shape[0])]
+
+    def update(ts: TrainState, opt: Optimizer, params: list, grads,
+               loss: torch.Tensor, l1: float, l2: float, clamp: float):
+        """The mean over the 'data' group, the penalties, the update;
+        returns the loss with its penalty terms."""
+        grads, loss = list(grads), loss.detach()
+        if mesh is not None:
+            grads, loss = pmean((grads, loss), mesh)
+        grads, loss = regularize(params, grads, loss, l1, l2, clamp)
+        grads, tensors = ts.update_targets(grads)
+        opt.update(grads, ts.opt_state, tensors)
+        ts.step += 1
+        return loss
 
     def d_step(gs: GanState, real_half: torch.Tensor, z: torch.Tensor,
                confusion: Confusion) -> torch.Tensor:
         G, D = gs.g.module.train(), gs.d.module.train()
-        params = list(D.parameters())
         half = z.shape[0]
-        with pinned_precision(dtype):
-            with torch.no_grad():
-                fakes = G(z)  # adversarial.lua:140, G's BN statistics move
-            inputs = torch.cat([real_half.to(fakes.dtype), fakes])
-            targets = torch.cat([
-                torch.full((real_half.shape[0],), float(Y_NOT_GENERATOR),
-                           device=z.device),
-                torch.full((half,), float(Y_GENERATOR), device=z.device)])
-            out = D(inputs).reshape(-1)
-            loss = bce(out, targets)
-            grads = torch.autograd.grad(loss, params)
-        grads, loss = regularize(params, list(grads), loss.detach(), d_l1,
-                                 d_l2, d_clamp)
-        d_opt.update(grads, gs.d.opt_state, params)
-        gs.d.step += 1
+        with whole_params(gs.g, gs.d):
+            params = list(D.parameters())
+            with pinned_precision(dtype):
+                with torch.no_grad():
+                    # adversarial.lua:140, G's BN statistics move
+                    fakes = G(rows(z))
+                    if mesh is not None:
+                        fakes = all_gather(fakes, mesh)
+                inputs = rows(torch.cat([real_half.to(fakes.dtype), fakes]))
+                targets = rows(torch.cat([
+                    torch.full((real_half.shape[0],), float(Y_NOT_GENERATOR),
+                               device=z.device),
+                    torch.full((half,), float(Y_GENERATOR),
+                               device=z.device)]))
+                out = D(inputs).reshape(-1)
+                loss = bce(out, targets)
+                grads = torch.autograd.grad(loss, params)
+            loss = update(gs.d, d_opt, params, grads, loss, d_l1, d_l2,
+                          d_clamp)
         confusion.add_batch(out.detach(), targets)
         return loss
 
     def g_step(gs: GanState, z: torch.Tensor) -> torch.Tensor:
         G, D = gs.g.module.train(), gs.d.module.train()
-        params = list(G.parameters())
-        with pinned_precision(dtype):
-            out = D(G(z)).reshape(-1)
-            loss = bce(out, torch.full(out.shape, float(Y_NOT_GENERATOR),
-                                       device=out.device))
-            grads = torch.autograd.grad(loss, params)
-        grads, loss = regularize(params, list(grads), loss.detach(), g_l1,
-                                 g_l2, g_clamp)
-        g_opt.update(grads, gs.g.opt_state, params)
-        gs.g.step += 1
-        return loss
+        with whole_params(gs.g, gs.d):
+            params = list(G.parameters())
+            with pinned_precision(dtype):
+                out = D(G(rows(z))).reshape(-1)
+                loss = bce(out, torch.full(out.shape, float(Y_NOT_GENERATOR),
+                                           device=out.device))
+                grads = torch.autograd.grad(loss, params)
+            return update(gs.g, g_opt, params, grads, loss, g_l1, g_l2,
+                          g_clamp)
 
     return d_step, g_step
 
@@ -174,14 +208,17 @@ def train_epoch(d_step: Callable, g_step: Callable, gs: GanState,
 def make_epoch_program(*, batch_size: int, noise_dim: int, noise_method: str,
                        n_batches: int, dtype: torch.dtype,
                        d_iterations: int = 1, g_iterations: int = 1,
+                       mesh: Optional[Mesh] = None,
                        **penalties) -> Callable:
     """Returns ``epoch(gs, confusion, train_data, generator) -> (d_losses,
     g_losses)``: the whole epoch of :func:`train_epoch`, the latents of
     every step drawn from ``generator`` in step order (on the device of
     ``train_data``), ``confusion`` counted in place; losses of shape
     (n_batches * d_iterations,) and (n_batches * g_iterations,) stay on the
-    device. ``penalties`` go to :func:`make_adversarial_steps`."""
-    d_step, g_step = make_adversarial_steps(dtype=dtype, **penalties)
+    device. ``mesh`` and ``penalties`` go to
+    :func:`make_adversarial_steps`."""
+    d_step, g_step = make_adversarial_steps(dtype=dtype, mesh=mesh,
+                                            **penalties)
 
     def epoch(gs: GanState, confusion: Confusion, train_data: torch.Tensor,
               generator: torch.Generator):

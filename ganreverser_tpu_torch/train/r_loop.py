@@ -10,6 +10,16 @@ program. Here the step is eager: the forward and the backward run under
 matrix products in IEEE f32 whatever the process-wide TF32 flags say (the
 backward runs outside the layers' own pins), and nothing in a segment
 waits for the host until its losses are read, once.
+
+With a ``mesh`` (JAX's ``mesh=``, a batch sharded over 'data') each rank
+trains on its rows of the batch: every rank draws the whole batch's
+latents from its generator (the same stream on every rank) and keeps its
+rows, R's BatchNorm and dropouts treat the rows as part of the whole batch
+(models/modules.py::set_data_parallel, set by the caller), and the loss
+and the gradients are averaged over the 'data' group before the penalties
+and the update, so a step on R ranks gives the step of one rank on the
+whole batch. A train state with 'model' shards gathers R's (and with
+``g_shards`` G's) whole parameters for the step and updates its slices.
 """
 from __future__ import annotations
 
@@ -22,6 +32,8 @@ from ..core.precision import pinned_precision
 from ..core.prng import noise_inputs
 from ..models.modules import set_dropout_generator
 from ..optim import Optimizer, adam, regularize
+from ..parallel.comm import pmean
+from ..parallel.mesh import Mesh, ModelShards, whole_params
 from .losses import mse
 from .state import TrainState
 
@@ -29,26 +41,34 @@ from .state import TrainState
 def make_r_train_step(G: nn.Module, *, dtype: torch.dtype,
                       r_l1: float = 0.0, r_l2: float = 1e-4,
                       r_clamp: float = 1.0,
-                      opt: Optional[Optimizer] = None) -> Callable:
+                      opt: Optional[Optimizer] = None,
+                      mesh: Optional[Mesh] = None,
+                      g_shards: Optional[ModelShards] = None) -> Callable:
     """Returns ``step(ts, z) -> loss``: one update of ``ts.module`` (R, in
     training mode; its dropouts draw from the generator set on them) on the
-    latents ``z``, in place. ``loss`` is the f32 0-d device tensor of the
-    MSE plus the penalties. ``G`` is frozen and runs in evaluation under
+    latents ``z`` (with ``mesh``: this rank's rows of the batch), in place.
+    ``loss`` is the f32 0-d device tensor of the MSE plus the penalties,
+    the whole batch's. ``G`` is frozen and runs in evaluation under
     ``no_grad``; ``dtype`` is the models' compute dtype."""
     opt = opt or adam()
     G.eval().requires_grad_(False)
 
     def step(ts: TrainState, z: torch.Tensor) -> torch.Tensor:
         R = ts.module.train()
-        params = list(R.parameters())
-        with pinned_precision(dtype):
-            with torch.no_grad():
-                images = G(z)
-            loss = mse(R(images), z)
-            grads = torch.autograd.grad(loss, params)
-        grads, loss = regularize(params, list(grads), loss.detach(), r_l1,
-                                 r_l2, r_clamp)
-        opt.update(grads, ts.opt_state, params)
+        with whole_params(ts, g_shards):
+            params = list(R.parameters())
+            with pinned_precision(dtype):
+                with torch.no_grad():
+                    images = G(z)
+                loss = mse(R(images), z)
+                grads = list(torch.autograd.grad(loss, params))
+            loss = loss.detach()
+            if mesh is not None:
+                grads, loss = pmean((grads, loss), mesh)
+            grads, loss = regularize(params, grads, loss, r_l1, r_l2,
+                                     r_clamp)
+            grads, tensors = ts.update_targets(grads)
+            opt.update(grads, ts.opt_state, tensors)
         ts.step += 1
         return loss
 
@@ -57,23 +77,25 @@ def make_r_train_step(G: nn.Module, *, dtype: torch.dtype,
 
 def make_r_segment_program(G: nn.Module, *, batch_size: int, noise_dim: int,
                            noise_method: str, dtype: torch.dtype,
+                           mesh: Optional[Mesh] = None,
                            **penalties) -> Callable:
     """Returns ``segment(ts, generator, n_batches) -> losses``: that many
     train steps, each on a fresh batch of latents drawn from ``generator``
-    (on the device of R's parameters). ``losses`` (n_batches,) stays on the
-    device: one host fetch per segment, the counterpart of the JAX
-    segment's single ``lax.scan`` dispatch (train_r's low/avg/high records
-    come from it)."""
-    step = make_r_train_step(G, dtype=dtype, **penalties)
+    (on its device; with ``mesh`` every rank draws the whole batch and
+    trains on its rows). ``losses`` (n_batches,) stays on the device: one
+    host fetch per segment, the counterpart of the JAX segment's single
+    ``lax.scan`` dispatch (train_r's low/avg/high records come from it).
+    ``penalties`` go to :func:`make_r_train_step`."""
+    step = make_r_train_step(G, dtype=dtype, mesh=mesh, **penalties)
+    rows = mesh.rows(batch_size) if mesh is not None else slice(None)
 
     def segment(ts: TrainState, generator: torch.Generator,
                 n_batches: int) -> torch.Tensor:
-        device = next(ts.module.parameters()).device
         losses = []
         for _ in range(n_batches):
             z = noise_inputs(generator, batch_size, noise_dim, noise_method,
-                             device=device)
-            losses.append(step(ts, z))
+                             device=generator.device)
+            losses.append(step(ts, z[rows]))
         return torch.stack(losses)
 
     return segment

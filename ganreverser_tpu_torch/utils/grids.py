@@ -1,12 +1,15 @@
-"""Image grids, borders, the epoch stamp and saving — the numpy path of
-ganreverser_tpu/utils/grids.py (nn_utils.lua:429-548). The C++ grid
-assembly is not ported."""
+"""Image grids, borders, the epoch stamp and saving — the counterpart of
+ganreverser_tpu/utils/grids.py (nn_utils.lua:429-548). The grid is
+assembled by the C++ image op (native/imageops.cc) where the library is
+built, else by numpy."""
 from __future__ import annotations
 
 import os
 from typing import Optional, Sequence
 
 import numpy as np
+
+from ..native import imageops
 
 BLUE = (0.0, 0.0, 1.0)   # similarity needle (apply_r.lua:281-296)
 RED = (1.0, 0.0, 0.0)    # anomaly (apply_r.lua:376-388)
@@ -33,10 +36,12 @@ def images_to_grid(images: np.ndarray, height: int, width: int,
     images = np.asarray(images, np.float32)
     n, ih, iw, c = images.shape
     strip = 1 + 5 + 1 if epoch is not None else 0
-    grid = np.zeros((height * ih + strip, width * iw, c), np.float32)
-    for i in range(min(n, height * width)):
-        gy, gx = divmod(i, width)
-        grid[gy * ih:(gy + 1) * ih, gx * iw:(gx + 1) * iw] = images[i]
+    grid = imageops.assemble_grid(images, height, width, strip)
+    if grid is None:  # the numpy path, without the C++ library
+        grid = np.zeros((height * ih + strip, width * iw, c), np.float32)
+        for i in range(min(n, height * width)):
+            gy, gx = divmod(i, width)
+            grid[gy * ih:(gy + 1) * ih, gx * iw:(gx + 1) * iw] = images[i]
     if epoch is not None:
         _stamp_epoch(grid, int(epoch))
     return grid

@@ -1118,3 +1118,62 @@ def test_e2e_approx_graph_matches_eager(dev, pixel_k):
     torch.cuda.synchronize()
     assert (approx_topk_kernel.approx_topk.launches - before
             == (6 if pixel_k else 3))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,parts", [((256, 64, 64, 8), 2),
+                                         ((12, 37, 5), 3), ((256, 512), 4)])
+def test_dropout_kernel_counter_base(dev, dtype, shape, parts):
+    """Kernel B5 with a counter base (a rank's rows of a batch): each part
+    is bitwise the rows of the whole batch's mask, the kernel's and the
+    plain version's, forward and backward; base 0 is the mask without
+    one."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(shape, device=dev, generator=g).to(dtype)
+    s = torch.tensor([-99], dtype=torch.int32, device=dev)
+    whole = dropout_kernel.fused_dropout(x, s, 0.5)
+    assert torch.equal(whole, dropout_kernel.fused_dropout_plain(x, s, 0.5))
+    assert torch.equal(dropout_kernel.fused_dropout(x, s, 0.5, base=0),
+                       whole)
+    row = x[0].numel()
+    for rows in torch.arange(shape[0]).chunk(parts):
+        lo, hi = int(rows[0]), int(rows[-1]) + 1
+        part = x[lo:hi].clone().requires_grad_(True)
+        y = dropout_kernel.fused_dropout(part, s, 0.5, base=lo * row)
+        y.float().sum().backward()
+        torch.cuda.synchronize()
+        assert torch.equal(y, whole[lo:hi])
+        assert torch.equal(part.grad, dropout_kernel.fused_dropout(
+            torch.ones_like(part), s, 0.5, base=lo * row))
+
+
+def test_distributed_e2e_one_rank_nccl(dev):
+    """make_distributed_e2e_program in a one-rank NCCL world (the
+    collectives run, on one card) against make_e2e_program: the embeddings
+    and the attribute search bitwise, the pixel ring's values within 1e-5
+    (the random G's images tie their pixel scores, so the order of tied
+    indices is free; tests/test_torch_port_parallel.py holds the ring's
+    indices on separated rows)."""
+    import socket
+    import torch.distributed as dist
+    from ganreverser_tpu_torch import parallel as par
+    from ganreverser_tpu_torch.analysis import e2e
+    G, R, gv, rv, _, z, dims, nd = _e2e_case(dev)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    assert par.initialize_distributed(f"localhost:{port}", 1, 0)
+    try:
+        assert dist.get_backend() == "nccl"
+        kw = dict(batch_size=16, k=5, needle_chunk=16, pixel_k=7,
+                  **e2e.fast_legs(dims, nd, "normal"))
+        one = e2e.make_e2e_program(G, R, **kw)(gv, rv, z)
+        out = e2e.make_distributed_e2e_program(
+            G, R, mesh=par.make_mesh(), **kw)(gv, rv, z)
+        torch.cuda.synchronize()
+    finally:
+        par.shutdown_distributed()
+    for a, b in zip(out[:3], one[:3]):
+        assert torch.equal(a, b)
+    assert (out[3] - one[3]).abs().max().item() <= 1e-5
+    assert out[4].shape == one[4].shape

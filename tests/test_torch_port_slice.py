@@ -213,13 +213,12 @@ def test_apply_r_approx_matches_jax(tmp_path, rng, capsys, flag):
 @pytest.mark.parametrize("flag", [["--mesh_data", "2"],
                                   ["--mesh_model", "2"]])
 def test_apply_r_refuses_unported_modes(tmp_path, flag):
-    """The mesh is refused, naming its ROADMAP item; --int8 and --approx
-    are ported and not among the refused."""
-    with pytest.raises(SystemExit) as e:
+    """The mesh is no longer refused as unported: a one-process call with a
+    mesh starts its ranks, after it has found the G checkpoint, so a
+    missing one fails once, in the caller, before any rank starts."""
+    with pytest.raises(FileNotFoundError) as e:
         apply_r.main(["--G", str(tmp_path / "none"), *flag])
-    assert "not ported yet" in str(e.value)
-    assert "--int8" not in str(e.value) and "--approx" not in str(e.value)
-    assert "queue A item 8" in str(e.value)
+    assert "no checkpoint at" in str(e.value)
 
 
 def test_apply_r_has_no_pallas_flag(tmp_path, capsys):

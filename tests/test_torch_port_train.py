@@ -73,9 +73,30 @@ def test_cli_writes_every_artifact(tmp_path, capsys):
                                    ["--mesh_model", "4"],
                                    ["--coordinator_address", "localhost:1"]])
 def test_cli_refuses_unported_flags(tmp_path, flags):
-    with pytest.raises(SystemExit):
-        train.main(GEOM + ["--save", str(tmp_path), "--epochs", "1"] + flags)
-    assert not os.path.exists(os.path.join(str(tmp_path), "events.jsonl"))
+    """None of these flags is refused as unported any more. One process is
+    one rank: a mesh larger than it, and a coordinator without a process
+    count, are refused with the JAX package's messages before anything is
+    written; --async_save and --mesh_data 0 (all ranks: one) train."""
+    refused = {"--mesh_data 2": "mesh (2 data x 1 model) does not fit 1 "
+                                "devices",
+               "--mesh_model 2": "model axis 2 exceeds the 1 available "
+                                 "devices",
+               "--mesh_model 4": "model axis 4 exceeds the 1 available "
+                                 "devices",
+               "--coordinator_address localhost:1": "--coordinator_address "
+               "needs --num_processes > 0 and --process_id >= 0 (got 0, -1)"}
+    args = GEOM + ["--save", str(tmp_path), "--epochs", "1"] + flags
+    message = refused.get(" ".join(flags))
+    if message is not None:
+        with pytest.raises(ValueError) as e:
+            train.main(args)
+        assert str(e.value) == message
+        assert not os.path.exists(os.path.join(str(tmp_path),
+                                               "events.jsonl"))
+        return
+    out = train.main(args)
+    assert [r["epoch"] for r in out["epochs"]] == [1]
+    assert ckpt.load_checkpoint(out["checkpoint"])[2]["epoch"] == 1
 
 
 def test_jax_run_resumes_in_port(tmp_path):

@@ -334,6 +334,17 @@ def test_dropouts_need_a_generator_and_stay_off_in_evaluation():
 
 # -- learning and the segment program ------------------------------------------
 
+@pytest.fixture
+def one_thread():
+    """A test of many small steps on one intra-op thread: the test workers
+    share the host, and their threads otherwise spend the run waiting on
+    each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def calibrated_g():
     """A random port G3 at 1x8x8, noise 8, its BN statistics settled by
@@ -348,7 +359,7 @@ def calibrated_g():
 
 
 @pytest.mark.parametrize("impl", ["plain", "kernel"])
-def test_r_training_reduces_loss(calibrated_g, impl):
+def test_r_training_reduces_loss(calibrated_g, impl, one_thread):
     """tests/test_train.py's bar for the JAX trainer: after 150 steps of
     batch 16 the evaluation MSE on held-out latents is below the
     predict-zero loss (Var z = 1), here with either dropout."""
@@ -520,7 +531,8 @@ def _events(save):
 
 
 @pytest.mark.parametrize("fixer", [False, True])
-def test_cli_writes_every_artifact(g_checkpoint, tmp_path, capsys, fixer):
+def test_cli_writes_every_artifact(g_checkpoint, tmp_path, capsys, fixer,
+                                   one_thread):
     save = str(tmp_path / "logs")
     args = ["--G", gio.adversarial_name(g_checkpoint), "--save", save,
             "--nbBatches", "100", "--batchSize", "8", "--saveFreq", "50",
@@ -547,7 +559,7 @@ def test_cli_writes_every_artifact(g_checkpoint, tmp_path, capsys, fixer):
     assert dk.fused_dropout.launches == 0  # the CPU runs the plain version
 
 
-def test_cli_cont_continues_plot_data(g_checkpoint, tmp_path):
+def test_cli_cont_continues_plot_data(g_checkpoint, tmp_path, one_thread):
     save = str(tmp_path / "logs")
     base = ["--G", gio.adversarial_name(g_checkpoint), "--save", save,
             "--batchSize", "4", "--saveFreq", "100"]
@@ -567,7 +579,28 @@ def test_cli_cont_continues_plot_data(g_checkpoint, tmp_path):
                                    ["--coordinator_address", "localhost:1"],
                                    ["--dropout", "rbg"]])
 def test_cli_refuses_unported_flags(g_checkpoint, tmp_path, flags):
-    with pytest.raises(SystemExit):
-        train_r.main(["--G", gio.adversarial_name(g_checkpoint), "--save",
-                      str(tmp_path), "--nbBatches", "1"] + flags)
+    """An unknown --dropout is refused; no mesh flag is refused as
+    unported any more. One process is one rank: a mesh larger than it, and
+    a coordinator without a process count, are refused with the JAX
+    package's messages before anything is written; --async_save trains and
+    writes its checkpoint."""
+    args = ["--G", gio.adversarial_name(g_checkpoint), "--save",
+            str(tmp_path), "--nbBatches", "1"] + flags
+    refused = {"--mesh_data 2": "mesh (2 data x 1 model) does not fit 1 "
+                                "devices",
+               "--mesh_model 2": "model axis 2 exceeds the 1 available "
+                                 "devices",
+               "--coordinator_address localhost:1": "--coordinator_address "
+               "needs --num_processes > 0 and --process_id >= 0 (got 0, -1)"}
+    if flags == ["--async_save"]:
+        out = train_r.main(args)
+        assert int(ckpt.load_checkpoint(out["checkpoint"])[2]["batch"]) == 1
+        return
+    if flags[0] == "--dropout":
+        with pytest.raises(SystemExit):
+            train_r.main(args)
+    else:
+        with pytest.raises(ValueError) as e:
+            train_r.main(args)
+        assert str(e.value) == refused[" ".join(flags)]
     assert not os.path.exists(os.path.join(str(tmp_path), "events_r.jsonl"))
