@@ -18,7 +18,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    six bf16 kernels, conv3x3_wgmma_kernel (B, B6), upsample2_wgmma_kernel
    (U), conv_stats_wgmma_kernel (B7), upsample_v2_wgmma_kernel (B8),
    upsample2_head_wgmma_kernel (U's fused head, BN 16 to 128) and
-   cosine_wgmma_kernel (C);
+   cosine_wgmma_kernel (C), as many per instance as before Q1 and Q2 moved
+   onto their mainloop (HGMMA_COUNTS); IGMMA (the int8 tensor cores' s8
+   wgmma) in every instance of Q1's and Q2's quant_conv3x3_s8_kernel and
+   quant_upsample2_s8_kernel, and neither in Q3's and Q4's kernels;
 3. each kernel against its plain PyTorch version on the card at the shapes
    of the main path (N = 256, f32 and bf16, TF32 off for the plain f32
    reference): max error against the stated tolerance, median times of the
@@ -176,12 +179,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
    output conv, G's two upsample stages, the three dense layers, five
    activation sizes): q and the scale bitwise, outputs within 1e-6 of
    scale, kernel, plain and bound times (bound: operations over 1,979
-   TOPS or bytes over 3.35 TB/s), Q3 beside torch._int_mm; ``apply_r
-   --int8`` with phase 4's arguments (Q1-Q4, B, U, C and K must launch;
-   phase 4's checks) and its stage seconds beside phase 4's; the top-100
-   recall of the int8 e2e program against the bf16 one on phase 8's x3
-   weights (printed, not gated); ``export --what e2e --int8 --check`` at
-   N = 2,560 (its trace at 10,240 alone takes longer than the phase should);
+   TOPS or bytes over 3.35 TB/s), Q3 beside torch._int_mm. Q1 and Q2 (on
+   the int8 tensor cores) are called twice, which must be bitwise equal,
+   and must be bitwise their plain versions with the activation none or
+   relu (each main-path shape with ELU or the sigmoid is also run with
+   none, the pool kept); their times stand beside the __dp4a kernels'
+   they replaced and beside B's or U's bf16 kernel on the same layer; ragged
+   Q1 and Q2 cases off every tile edge (batch 1) hold the same. Then
+   ``apply_r --int8`` with phase 4's arguments (Q1-Q4, B, U, C and K must
+   launch; phase 4's checks) and its stage seconds beside phase 4's; the
+   top-100 recall of the int8 e2e program against the bf16 one on phase
+   8's x3 weights, which must read INT8_RECALL (the int8 sums are exact,
+   so a different value is a fault); ``export --what e2e --int8 --check``
+   at N = 2,560 (its trace at 10,240 alone takes longer than the phase
+   should);
 11. approximate selection: kernel S (csrc/approx_topk.cu) against its
    plain version, indices and values bitwise, on kernel C's scores of
    seeded bf16 rows at apply_r's two searches (10 needles, 10,000 rows,
@@ -362,6 +373,18 @@ WGMMA_KERNELS = ("conv3x3_wgmma_kernel", "upsample2_wgmma_kernel",
                  "conv_stats_wgmma_kernel", "upsample_v2_wgmma_kernel",
                  "upsample2_head_wgmma_kernel", "cosine_wgmma_kernel")
 HEAD_WGMMA = "upsample2_head_wgmma_kernel"   # built for BN up to 128 only
+# their HGMMA instructions per instance, as built before Q1 and Q2 moved
+# onto the same mainloop (every instance but the head's: one count for all
+# widths)
+HGMMA_COUNTS = {"conv3x3_wgmma_kernel": 8, "upsample2_wgmma_kernel": 8,
+                "conv_stats_wgmma_kernel": 8, "upsample_v2_wgmma_kernel": 8,
+                "cosine_wgmma_kernel": 4,
+                HEAD_WGMMA: {16: 12, 32: 15, 64: 21, 128: 33}}
+# Q1's and Q2's kernels on the int8 tensor cores: IGMMA in every instance
+S8_KERNELS = ("quant_conv3x3_s8_kernel", "quant_upsample2_s8_kernel")
+# Q3's and Q4's kernels, on the CUDA cores: no tensor-core instruction
+INT8_CUDA_CORE_KERNELS = ("quant_dense_kernel", "quant_dense_finish_kernel",
+                          "quant_absmax_kernel", "quant_apply_kernel")
 # the bf16 kernels whose second launch adds partials: a second call must be
 # bitwise the first
 REPEATABLE = ("upsample2_conv3x3_head", "cosine_scores")
@@ -395,21 +418,42 @@ def sass_hgmma(lib_path, opcode: str = "HGMMA") -> dict:
     return counts
 
 
+def _instances(counts: dict, stem: str) -> dict:
+    """``counts`` of the instances of the kernel template ``stem``, by BN
+    (the template argument of the mangled name)."""
+    return {int(re.search(r"ILi(\d+)E", n).group(1)): c
+            for n, c in counts.items() if re.search(rf"\d{stem}I", n)}
+
+
 def check_hgmma(lib_path) -> dict:
     """The SASS guard: every instance of the bf16 kernels (one per tile
-    width BN) holds HGMMA instructions. Returns their counts."""
+    width BN) holds as many HGMMA instructions as HGMMA_COUNTS says; every
+    instance of Q1's and Q2's s8 kernels holds IGMMA, and Q3's and Q4's
+    kernels neither. Returns the counts by kernel and BN."""
     from ganreverser_tpu_torch.ops.conv_operands import HEAD_MAX_BN, WIDTHS_N
-    counts = sass_hgmma(lib_path)
+    hgmma, igmma = sass_hgmma(lib_path), sass_hgmma(lib_path, "IGMMA")
     found = {}
     for stem in WGMMA_KERNELS:
         widths = tuple(b for b in WIDTHS_N
                        if stem != HEAD_WGMMA or b <= HEAD_MAX_BN)
-        mine = {n: c for n, c in counts.items() if stem in n}
-        check(len(mine) == len(widths), f"SASS: {len(mine)} instances of "
-              f"{stem}, expected one per BN in {widths}")
-        check(all(mine.values()), f"SASS: an instance of {stem} has no "
-              f"HGMMA: {mine}")
-        found.update(mine)
+        mine = _instances(hgmma, stem)
+        want = HGMMA_COUNTS[stem]
+        want = {b: want if isinstance(want, int) else want[b]
+                for b in widths}
+        check(mine == want, f"SASS: HGMMA per instance of {stem} {mine}, "
+              f"expected {want}")
+        found[stem] = mine
+    for stem in S8_KERNELS:
+        mine = _instances(igmma, stem)
+        check(sorted(mine) == list(WIDTHS_N) and all(mine.values()),
+              f"SASS: IGMMA per instance of {stem} {mine}, expected some in "
+              f"one instance per BN in {WIDTHS_N}")
+        found[stem] = mine
+    for stem in INT8_CUDA_CORE_KERNELS:
+        names = [n for n in hgmma if re.search(rf"\d{stem}E", n)]
+        check(len(names) == 1 and not hgmma[names[0]]
+              and not igmma[names[0]], f"SASS: {stem} ({names}) is not one "
+              "kernel free of tensor-core instructions")
     return found
 
 
@@ -2730,6 +2774,25 @@ TOL_INT8 = 1e-6
 PEAK_INT8_OPS = 1979e12  # dense int8 tensor-core peak of an H100 SXM
 INT8_LINES = ("quant_conv3x3_same", "quant_upsample2_conv3x3", "quant_dense",
               "quant_act")
+S8_LINES = INT8_LINES[:2]   # Q1 and Q2, on the int8 tensor cores
+# their __dp4a predecessors' wrapper times at the same shapes (this phase
+# before the tensor-core redesign; NVIDIA H100 80GB HBM3, 700.00 W): by
+# label, and summed
+Q_BEFORE_MS = {"G l12": 0.34, "G stage 1": 3.92, "G stage 2": 4.12}
+Q_BEFORE_SUMS = {"quant_conv3x3_same": 5.549, "quant_upsample2_conv3x3": 8.036}
+# Q1 and Q2 off every tile edge, batch 1: H and W off the 8 x 16 patch, Ci
+# off 32 bytes (5, 40, 70, 130: rows of 32, 64, 80 and 144), Co off BN
+# (3, 70, 130; 300 over two blocks of 256); (N, H, W, Ci, Co, act[, pool])
+Q1_RAGGED = [(1, 13, 21, 40, 70, "none", False),
+             (1, 10, 18, 5, 3, "relu", True),
+             (1, 13, 21, 130, 300, "elu", False),
+             (1, 6, 10, 70, 130, "sigmoid", True)]
+Q2_RAGGED = [(1, 5, 7, 40, 130, "relu"), (1, 9, 17, 130, 300, "none"),
+             (1, 3, 5, 5, 3, "sigmoid")]
+# the int8 e2e program's top-100 recall against the bf16 program on phase
+# 8's x3 weights (as with the __dp4a kernels): both programs are
+# deterministic and the int8 sums exact, so another value is a fault
+INT8_RECALL = 0.6229
 # a process that loads artifacts with io.serving alone: loads each on the
 # card, runs it on the saved input (first call: capture + replay), saves
 # its outputs, counts its kernels in one traced call and times the e2e
@@ -2786,7 +2849,9 @@ def quant_cases(dev, n: int):
     others: no PyTorch call computes them), operations and bytes."""
     import torch
     import torch.nn.functional as F
+    from ganreverser_tpu_torch.ops import conv_kernel as ck
     from ganreverser_tpu_torch.ops import quant as Q
+    from ganreverser_tpu_torch.ops import upsample_conv_kernel as uc
     gen = torch.Generator(device=dev).manual_seed(SEED + 40)
     c, h, w = DIMS
     cases = []
@@ -2803,31 +2868,59 @@ def quant_cases(dev, n: int):
         b = torch.randn(co, device=dev, generator=gen)
         op = Q.conv_operand(wq)
         oh, ow = (hh // 2, ww // 2) if pool else (hh, ww)
-        cases.append(("quant_conv3x3_same", label, lambda: {
-            "kernel": lambda: Q.quant_conv3x3_same(xq, xs, wq, ws, b, act=act,
-                                                   pool=pool, operand=op),
-            "plain": lambda: Q.quant_conv3x3_plain(xq, xs, wq, ws, b, act=act,
-                                                   pool=pool),
-            "library": None,
-            "ops": 2 * nb * hh * ww * 9 * ci * co,
-            "bytes": _nbytes(xq, xs, op, ws, b) + nb * oh * ow * co * 4}))
+
+        def make():
+            # kernel B's bf16 tile on the same layer (its launch, operands
+            # laid out beforehand as the fast R does)
+            xb = (xq.float() * xs).to(torch.bfloat16)
+            kb = (wq.float() * ws.reshape(1, 1, 1, -1)).to(torch.bfloat16)
+            kop = ck.conv3x3_operand(kb, torch.bfloat16)
+            ones = torch.ones(co, device=dev)
+            return {
+                "kernel": lambda: Q.quant_conv3x3_same(
+                    xq, xs, wq, ws, b, act=act, pool=pool, operand=op),
+                "plain": lambda: Q.quant_conv3x3_plain(
+                    xq, xs, wq, ws, b, act=act, pool=pool),
+                "exact": (lambda: Q.quant_conv3x3_same(
+                    xq, xs, wq, ws, b, pool=pool, operand=op),
+                    lambda: Q.quant_conv3x3_plain(xq, xs, wq, ws, b,
+                                                  pool=pool)),
+                "bf16": ("B", lambda: ck.launch_conv3x3(
+                    xb, kb, ones, b, act=act,
+                    pool=pool, name="conv3x3", operand=kop)),
+                "library": None,
+                "ops": 2 * nb * hh * ww * 9 * ci * co,
+                "bytes": _nbytes(xq, xs, op, ws, b) + nb * oh * ow * co * 4}
+        cases.append(("quant_conv3x3_same", label, make))
 
     def upsample(label, shape, co):
         nb, hh, ww, ci = shape
         xq, xs = act_input(shape, True)
-        wq16, ws = Q.quant_phase_weights(
-            torch.randn(3, 3, ci, co, device=dev, generator=gen),
-            0.5 + torch.rand(co, device=dev, generator=gen))
+        k = torch.randn(3, 3, ci, co, device=dev, generator=gen)
+        sc = 0.5 + torch.rand(co, device=dev, generator=gen)
+        wq16, ws = Q.quant_phase_weights(k, sc)
         sh = torch.randn(co, device=dev, generator=gen)
         op = Q.phase_operand(wq16)
-        cases.append(("quant_upsample2_conv3x3", label, lambda: {
-            "kernel": lambda: Q.quant_upsample2_conv3x3(xq, xs, wq16, ws, sh,
-                                                        operand=op),
-            "plain": lambda: Q.quant_upsample2_conv3x3_plain(xq, xs, wq16, ws,
-                                                             sh),
-            "library": None,
-            "ops": 2 * nb * 4 * hh * ww * 4 * ci * co,
-            "bytes": _nbytes(xq, xs, op, ws, sh) + nb * 4 * hh * ww * co * 4}))
+
+        def make():
+            # kernel U's bf16 tile on the same layer, its operand laid out
+            # beforehand as the fast G does
+            xb = (xq.float() * xs).to(torch.bfloat16)
+            kb = k.to(torch.bfloat16)
+            kop = uc.phase_operand(kb, torch.bfloat16)
+            return {
+                "kernel": lambda: Q.quant_upsample2_conv3x3(
+                    xq, xs, wq16, ws, sh, operand=op),
+                "plain": lambda: Q.quant_upsample2_conv3x3_plain(
+                    xq, xs, wq16, ws, sh),
+                "exact": None,   # ReLU: the call above is held bitwise
+                "bf16": ("U", lambda: uc.launch_upsample2_conv3x3_bn_act(
+                    xb, kb, sc, sh, "relu", kop)),
+                "library": None,
+                "ops": 2 * nb * 4 * hh * ww * 4 * ci * co,
+                "bytes": (_nbytes(xq, xs, op, ws, sh)
+                          + nb * 4 * hh * ww * co * 4)}
+        cases.append(("quant_upsample2_conv3x3", label, make))
 
     def dense(label, nb, k, m, act):
         xq, xs = act_input((nb, k), act == "elu")
@@ -2882,16 +2975,89 @@ def quant_cases(dev, n: int):
     return cases
 
 
+def _s8_exact(name: str, label: str, out, ref, again, exact) -> str:
+    """Q1's or Q2's checks beyond the tolerance: a second call bitwise the
+    first; bitwise the plain version with the activation none or relu
+    (``exact``: the same inputs with none, else the call itself)."""
+    import torch
+    check(torch.equal(again, out), f"{name} {label}: a second call differs "
+          "from the first")
+    if exact is None:
+        check(torch.equal(out, ref), f"{name} {label}: not bitwise the plain "
+              "version")
+        return "bitwise the plain version and a second call"
+    kern, plain = exact
+    check(torch.equal(kern(), plain()), f"{name} {label}: with act none not "
+          "bitwise the plain version")
+    return ("a second call bitwise the first, with act none bitwise the "
+            "plain version")
+
+
+def check_quant_ragged(dev, card: str) -> None:
+    """Phase 10: Q1 and Q2 off every tile edge (Q1_RAGGED, Q2_RAGGED) on
+    the card against their plain versions: bitwise with none or relu (and
+    with none where the case's act is ELU or the sigmoid, which stay
+    within TOL_INT8), a second call bitwise the first."""
+    import torch
+    from ganreverser_tpu_torch.ops import quant as Q
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    for case in Q1_RAGGED + Q2_RAGGED:
+        nb, hh, ww, ci, co, act, *pool = case
+        phase = not pool
+        xq, xs = Q.quantize_plain(torch.randn(nb, hh, ww, ci, device=dev,
+                                              generator=gen))
+        b = torch.randn(co, device=dev, generator=gen)
+        k = torch.randn(3, 3, ci, co, device=dev, generator=gen)
+        if phase:
+            wq, ws = Q.quant_phase_weights(k, 0.5 + torch.rand(
+                co, device=dev, generator=gen))
+            name = "quant_upsample2_conv3x3"
+
+            def run(a, plain=False):
+                fn = (Q.quant_upsample2_conv3x3_plain if plain
+                      else Q.quant_upsample2_conv3x3)
+                return fn(xq, xs, wq, ws, b, act=a)
+        else:
+            wq, ws = Q.quantize_plain(k, axis=(0, 1, 2))
+            name = "quant_conv3x3_same"
+
+            def run(a, plain=False):
+                fn = Q.quant_conv3x3_plain if plain else Q.quant_conv3x3_same
+                return fn(xq, xs, wq, ws, b, act=a, pool=pool[0])
+        out = run(act)
+        torch.cuda.synchronize()
+        ref = run(act, plain=True)
+        check(out.shape == ref.shape, f"{name} {case}: {tuple(out.shape)} vs "
+              f"{tuple(ref.shape)}")
+        err = (out - ref).abs().max().item()
+        tol = TOL_INT8 * max(1.0, ref.abs().max().item())
+        check(err <= tol, f"{name} {case}: max_abs_err {err} > {tol}")
+        how = _s8_exact(name, str(case), out, ref, run(act), None if act in (
+            "none", "relu") else (lambda: run("none"),
+                                  lambda: run("none", plain=True)))
+        print(f"[int8] {name} ragged {case}: max_abs_err {err:.3e} (tol "
+              f"{tol:.1e}), {how}  [{card}]")
+
+
 def check_quant_kernels(dev, card: str, n: int = N_CHECK) -> list:
     """Phase 10: Q1-Q4 against their plain versions on the card at the int8
-    legs' shapes; records as check_kernels' (dtype "int8")."""
+    legs' shapes; Q1 and Q2 also bitwise (``_s8_exact``), timed beside
+    their __dp4a predecessors' times and B's or U's bf16 kernel on the same
+    layer, and off every tile edge (``check_quant_ragged``); records as
+    check_kernels' (dtype "int8")."""
     import torch
     records = []
+    sums = {name: {"ms": 0.0, "bf16": 0.0, "bound": 0.0}
+            for name in S8_LINES}
     for name, label, make in quant_cases(dev, n):
         case = make()
         out = case["kernel"]()
         torch.cuda.synchronize()
         ref = case["plain"]()
+        how = ""
+        if name in S8_LINES:
+            how = ", " + _s8_exact(name, label, out, ref, case["kernel"](),
+                                   case["exact"])
         if name == "quant_act":
             check(torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1]),
                   f"{name} {label}: q or scale differ from the plain version")
@@ -2914,14 +3080,33 @@ def check_quant_kernels(dev, card: str, n: int = N_CHECK) -> list:
         b_ms, b_by = ((t_ops, "operations") if t_ops >= t_mem
                       else (t_mem, "bytes"))
         lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+        beside = ""
+        if name in S8_LINES:
+            which, fn = case["bf16"]
+            bf16_ms = time_ms(fn)
+            before = next((v for k, v in Q_BEFORE_MS.items()
+                           if label.startswith(k)), None)
+            beside = (f", {which}'s bf16 kernel on the layer {bf16_ms:.4f} ms"
+                      + ("" if before is None else
+                         f", the __dp4a kernel {before:.2f} ms"))
+            for key, v in (("ms", ms), ("bf16", bf16_ms), ("bound", b_ms)):
+                sums[name][key] += v
         print(f"[int8] {name} {label}: max_abs_err {err:.3e} (q and scale "
-              f"bitwise; outputs tol {TOL_INT8:.0e} of scale), kernel "
+              f"bitwise; outputs tol {TOL_INT8:.0e} of scale){how}, kernel "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib}, bound "
-              f"{b_ms:.4f} ms ({b_by})  [{card}]")
+              f"{b_ms:.4f} ms ({b_by}){beside}  [{card}]")
         records.append({"name": name, "label": label, "dtype": "int8",
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                         "library_ms": lib_ms, "bound_ms": b_ms,
                         "bound_by": b_by})
+    for name, s in sums.items():
+        what = ("R's six layers and G's output conv" if name == S8_LINES[0]
+                else "G's two stages")
+        print(f"[int8] {name} on the int8 tensor cores, {what}: {s['ms']:.4f}"
+              f" ms (the __dp4a kernel {Q_BEFORE_SUMS[name]:.3f} ms), "
+              f"bf16 kernel on the same layers {s['bf16']:.4f} ms, bound "
+              f"{s['bound']:.4f} ms  [{card}]")
+    check_quant_ragged(dev, card)
     torch.cuda.empty_cache()
     return records
 
@@ -3077,10 +3262,12 @@ def check_serving(dev, card: str, tmp: str, secs4: dict, rate8: float):
         for label, int8 in (("bf16", False), ("int8", True))}
     (_, _, i_bf), (_, _, i_q) = (progs[k](gv2, rv2, z) for k in progs)
     recall = topk_recall(i_bf.cpu().numpy(), i_q.cpu().numpy())
+    check(abs(recall - INT8_RECALL) <= 5e-5, f"int8 e2e program: top-k "
+          f"recall against bf16 {recall:.6f}, not {INT8_RECALL}")
     t_q = wall_s(lambda: progs["int8"](gv2, rv2, z), 3)
     print(f"[serving] int8 e2e program (N={E2E_N}, batch {E2E_BATCHES[0]}, "
           f"k={E2E_K}, weights x{E2E_AMPLIFY:g}): top-k recall against the "
-          f"bf16 program {recall:.4f} (printed, not gated); graph "
+          f"bf16 program {recall:.4f} (must be {INT8_RECALL}); graph "
           f"{E2E_N / statistics.median(t_q):.1f} img/s  [{card}]")
     del progs, i_bf, i_q, G, R, gv2, rv2, z
     torch.cuda.empty_cache()
@@ -4034,9 +4221,12 @@ def main() -> int:
     if log.is_file():
         for line in ptxas_lines(log.read_text()):
             print(f"[build] {line}")
-    hgmma = check_hgmma(lib_path)
-    print("[build] SASS guard, HGMMA instructions per bf16 kernel: " +
-          ", ".join(f"{n} {c}" for n, c in sorted(hgmma.items())))
+    gmma = check_hgmma(lib_path)
+    print("[build] SASS guard, HGMMA instructions per bf16 kernel (by BN): "
+          + ", ".join(f"{n} {gmma[n]}" for n in WGMMA_KERNELS) + "; IGMMA "
+          "(s8 wgmma) per int8 kernel: " + ", ".join(
+              f"{n} {gmma[n]}" for n in S8_KERNELS) + "; none in " +
+          ", ".join(INT8_CUDA_CORE_KERNELS))
     wide = {n: c for n, c in sass_hgmma(lib_path, "IMAD.WIDE").items()
             if "fused_dropout_pack_kernel" in n}
     check(len(wide) == 2, f"SASS: {len(wide)} instances of "

@@ -1,18 +1,21 @@
-// The bf16 tensor-core mainloop shared by kernels B (and B6), U (and its
-// fused head), B7 and B8, and the helpers kernel C's own loop reuses:
-// an implicit GEMM for a 3x3 convolution, or one output phase of U's 2x2
-// phase convolution, over an NHWC bf16 input, on Hopper's wgmma fed by TMA.
+// The tensor-core mainloop shared by kernels B (and B6), U (and its fused
+// head), B7 and B8 in bf16 and Q1 and Q2 in int8, and the helpers kernel
+// C's own loop reuses: an implicit GEMM for a 3x3 convolution, or one
+// output phase of U's 2x2 phase convolution, over an NHWC input, on
+// Hopper's wgmma fed by TMA.
 //
 //   acc[m][co] = sum_stage x[n, i(m) + dy(stage), j(m) + dx(stage), c0 + ci]
 //                         * w[wz(stage)][co][wk(stage) + ci]
 //
 // M is a patch of BH x BW = 128 output pixels of one image, N is BN output
 // channels (16 to 256), K is streamed BK channels of one tap per pipeline
-// stage. Sums are f32 in registers. Three policies are template parameters:
-// the tap policy (Conv3x3Taps, PhaseTaps, StackedPhaseTaps) maps a stage to
-// the two boxes it reads, and the epilogue (BnActEpilogue, StatsEpilogue,
-// HeadTapsEpilogue) takes the sums from the registers; the ring between
-// them is the same for every kernel.
+// stage. Sums are f32 (bf16 operands) or s32 (int8) in registers. Three
+// policies are template parameters: the tap policy (Conv3x3Taps, PhaseTaps,
+// StackedPhaseTaps) maps a stage to the two boxes it reads, the epilogue
+// (BnActEpilogue, StatsEpilogue, HeadTapsEpilogue, DequantActEpilogue) takes
+// the sums from the registers, and the operand type (Bf16Operands, the
+// default, or S8Operands) picks the instruction; the ring between them is
+// the same for every kernel.
 //
 // Operands. x is (N, H, W, C) with C % 8 == 0 (the wrapper zero-pads the
 // channels, ops/conv_operands.py), read through one 4D tiled tensor map over
@@ -30,6 +33,13 @@
 // where C is that narrow, so a stem of 3 channels computes 16 deep, not 64
 // (the wrapper pads such a C to BK: TMA is slow on rows that are half out of
 // bounds).
+//
+// int8 (S8Operands). The same maps over int8 tensors (carried as uint8), BK
+// counted in elements: a k step of wgmma m64nNk32.s32.s8.s8 reads the same
+// 32 bytes of a row that a bf16 k16 step reads, so BK = 128, 64 or 32 gives
+// the 128-, 64- and 32-byte rows, swizzles and descriptor advance of bf16's
+// 64, 32 and 16 (ops/quant.py pads int8 channels to 32, 64 or a multiple of
+// 16). The s32 sums are exact and take the f32 sums' registers.
 //
 // Pipeline. One producer warp (one elected lane) issues both loads of a
 // stage with cp.async.bulk.tensor on the stage's "full" mbarrier
@@ -51,6 +61,8 @@
 // output. StatsEpilogue (B7): y in f32 and per-tile channel sums and sums of
 // squares, in a fixed order. HeadTapsEpilogue (U's fused head): the head's
 // nine tap partials per pixel from a second product on the rounded tile.
+// DequantActEpilogue (Q1, Q2): the s32 sums dequantised (dequant.cuh), the
+// activation, R's pool or U's phase, stored in f32.
 //
 // The tile plan (BH, BW, BN, BK, stages, shared bytes) is computed once, by
 // ops/conv_operands.py::tile_plan; the host side here only checks it against
@@ -64,6 +76,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "dequant.cuh"
 
 namespace gr {
 namespace wg {
@@ -89,16 +102,20 @@ struct ConvArgs {
   const __nv_bfloat16* head_w;  // HeadTapsEpilogue's (rows, Co') weights
   float* taps;                  // its tap partials (see HeadTapsEpilogue)
   int cf;                       // the head's output channels
+  const float* x_scale;  // DequantActEpilogue's activation scale (one f32)
 };
 
-__host__ __device__ constexpr int stage_bytes(int bn, int bk) {
-  return (kBM * bk * 2 + bn * bk * 2 + kAlign - 1) / kAlign * kAlign;
+// Bytes of one ring stage: the 128 x BK A tile and the BN x BK weight tile
+// of ``eb``-byte elements (2 bf16, 1 int8), on the swizzle's period.
+__host__ __device__ constexpr int stage_bytes(int bn, int bk, int eb = 2) {
+  return (kBM * bk * eb + bn * bk * eb + kAlign - 1) / kAlign * kAlign;
 }
 
 // Shared bytes of a plan's layout: the alignment slack, the ring, its
 // full/empty barriers. The epilogue's staged tile reuses the ring.
-__host__ __device__ constexpr int smem_need(int bn, int bk, int stages) {
-  return kAlign + stages * stage_bytes(bn, bk) + 16 * stages;
+__host__ __device__ constexpr int smem_need(int bn, int bk, int stages,
+                                            int eb = 2) {
+  return kAlign + stages * stage_bytes(bn, bk, eb) + 16 * stages;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -206,6 +223,12 @@ template <int R>
 __device__ __forceinline__ void fence_operands(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int R>
+__device__ __forceinline__ void fence_operands(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // The same for A fragments held in registers: the product reads them
@@ -378,6 +401,193 @@ struct Wgmma<256> {
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
           "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
         : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+// wgmma.mma_async m64nNk32, s32 += s8 x s8, A and B from shared memory,
+// both K-major (s8 allows no other layout); d is this thread's N / 2 sums,
+// in the same fragment layout as the f32 ones. The sums are exact: without
+// .satfinite they wrap, which no int8 convolution here comes near (at most
+// 127^2 * 16 * 512 < 2^31 at G's stage 1).
+template <int N>
+struct WgmmaS8;
+
+template <>
+struct WgmmaS8<16> {
+  static __device__ __forceinline__ void mma(int (&d)[8], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+          "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaS8<32> {
+  static __device__ __forceinline__ void mma(int (&d)[16], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+          "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaS8<64> {
+  static __device__ __forceinline__ void mma(int (&d)[32], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+          "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+          "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaS8<128> {
+  static __device__ __forceinline__ void mma(int (&d)[64], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+          "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+          "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+          "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+          "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+          "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+          "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+          "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+          "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+          "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaS8<256> {
+  static __device__ __forceinline__ void mma(int (&d)[128], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, "
+        "%88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, "
+        "%104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, "
+        "%120, %121, %122, %123, %124, %125, %126, %127"
+        "}, %128, %129, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+          "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+          "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+          "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+          "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+          "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+          "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+          "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+          "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+          "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+          "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]),
+          "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+          "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]),
+          "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+          "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+          "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+          "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]),
+          "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+          "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]),
+          "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+          "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
+          "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+          "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]),
+          "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+          "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]),
+          "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+// The mainloop's operand type. A k step reads 32 bytes of every row of
+// both tiles in both: kStep bf16 values (f32 sums, m64nNk16) or int8 values
+// (s32 sums, m64nNk32), so the ring, the swizzles and the descriptors' K
+// advance are the same; BK counts elements, kBytes bytes each.
+struct Bf16Operands {
+  using Acc = float;
+  static constexpr int kStep = 16;
+  static constexpr int kBytes = 2;
+  template <int BN>
+  static __device__ __forceinline__ void mma(float (&d)[BN / 2], uint64_t da,
+                                             uint64_t db) {
+    Wgmma<BN>::mma(d, da, db);
+  }
+};
+
+struct S8Operands {
+  using Acc = int;
+  static constexpr int kStep = 32;
+  static constexpr int kBytes = 1;
+  template <int BN>
+  static __device__ __forceinline__ void mma(int (&d)[BN / 2], uint64_t da,
+                                             uint64_t db) {
+    WgmmaS8<BN>::mma(d, da, db);
   }
 };
 
@@ -815,20 +1025,97 @@ struct HeadTapsEpilogue {
   }
 };
 
+// Kernels Q1 and Q2 (quant.cu): the int8 convolutions' exact s32 sums
+// dequantised by dequant.cuh's dequant_act (the code Q3's epilogue runs),
+// deq = x_scale * w_scale[c] (``scale``) and bias[c] (``shift``), then the
+// activation; staged as f32 [128][BN + 4] on the freed ring and stored 16
+// bytes a thread (scalar where Co % 4 != 0) into ``y32``, ragged pixels and
+// channels masked. With the pool (Q1), the 2x2 max from the staged tile,
+// exact in f32; with kPhase (Q2), phase (a, b) writes pixel (2i + a, 2j + b)
+// of the (N, 2H, 2W, Co) output.
+template <bool kPhase>
+struct DequantActEpilogue {
+  template <int BN>
+  static __device__ __forceinline__ void prologue(unsigned char*, const Tile&,
+                                                  const ConvArgs&) {}
+  template <int BN>
+  static __device__ __forceinline__ void run(int (&acc)[BN / 2],
+                                             unsigned char* buf, const Tile& t,
+                                             const ConvArgs& p) {
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    constexpr int kLdc = BN + 4;
+    float* cs = reinterpret_cast<float*>(buf);
+    const float xs = *p.x_scale;
+    const int row0 = acc_row(warp, lane);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = j * 8 + 2 * (lane & 3);
+      const int co = t.co0 + col;
+      const float dq0 = co < p.Co ? __fmul_rn(xs, p.scale[co]) : 0.0f;
+      const float b0 = co < p.Co ? p.shift[co] : 0.0f;
+      const float dq1 = co + 1 < p.Co ? __fmul_rn(xs, p.scale[co + 1]) : 0.0f;
+      const float b1 = co + 1 < p.Co ? p.shift[co + 1] : 0.0f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(cs + (row0 + 8 * h) * kLdc + col) =
+            make_float2(dequant_act(acc[j * 4 + 2 * h], dq0, b0, p.act),
+                        dequant_act(acc[j * 4 + 2 * h + 1], dq1, b1, p.act));
+    }
+    consumer_sync();
+
+    constexpr int kVecs = BN / 4;
+    const int H = p.H, W = p.W, Co = p.Co;
+    const bool vec = Co % 4 == 0;
+    if (!kPhase && p.pool) {
+      const int pw = p.bw / 2;
+      for (int c = tid; c < (kBM / 4) * kVecs; c += kConsumerThreads) {
+        const int pr = c / kVecs, v = c - pr * kVecs;
+        const int py = pr / pw, px = pr - py * pw;
+        const int P = t.i0 / 2 + py, Q = t.j0 / 2 + px, co = t.co0 + v * 4;
+        if (P >= H / 2 || Q >= W / 2 || co >= Co) continue;
+        const float* s0 = cs + ((2 * py) * p.bw + 2 * px) * kLdc + v * 4;
+        const float* s2 = s0 + p.bw * kLdc;
+        __align__(16) float m[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          m[e] = fmaxf(fmaxf(s0[e], s0[kLdc + e]), fmaxf(s2[e], s2[kLdc + e]));
+        const long long pix =
+            (static_cast<long long>(t.n) * (H / 2) + P) * (W / 2) + Q;
+        store4(p.y32 + pix * Co + co, m, Co - co, vec);
+      }
+    } else {
+      const int pa = t.phase >> 1, pb = t.phase & 1;
+      for (int c = tid; c < kBM * kVecs; c += kConsumerThreads) {
+        const int row = c / kVecs, v = c - row * kVecs;
+        const int pi = t.i0 + row / p.bw, pj = t.j0 + row % p.bw;
+        const int co = t.co0 + v * 4;
+        if (pi >= H || pj >= W || co >= Co) continue;
+        const long long pix =
+            kPhase ? ((static_cast<long long>(t.n) * 2 * H + 2 * pi + pa) * 2 *
+                          W +
+                      2 * pj + pb)
+                   : ((static_cast<long long>(t.n) * H + pi) * W + pj);
+        store4(p.y32 + pix * Co + co, cs + row * kLdc + v * 4, Co - co, vec);
+      }
+    }
+  }
+};
+
 // ---- the mainloop ------------------------------------------------------------
 
 // One block: the tile of block_tile, its K loop of Taps::kTaps * kchunks
-// stages through the ring, then Epilogue on the f32 sums.
-template <int BN, class Taps, class Epilogue>
+// stages through the ring, then Epilogue on the sums (f32 for bf16
+// operands, s32 for int8: Op).
+template <int BN, class Taps, class Epilogue, class Op = Bf16Operands>
 __device__ __forceinline__ void conv_wgmma_body(const CUtensorMap& xmap,
                                                 const CUtensorMap& wmap,
                                                 const ConvArgs& p) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* buf =
       smem_raw + ((kAlign - (smem_u32(smem_raw) & (kAlign - 1))) & (kAlign - 1));
-  const int a_bytes = kBM * p.bk * 2;
-  const int b_bytes = BN * p.bk * 2;
-  const int sbytes = stage_bytes(BN, p.bk);
+  const int a_bytes = kBM * p.bk * Op::kBytes;
+  const int b_bytes = BN * p.bk * Op::kBytes;
+  const int sbytes = stage_bytes(BN, p.bk, Op::kBytes);
   uint64_t* full = reinterpret_cast<uint64_t*>(buf + p.stages * sbytes);
   uint64_t* empty = full + p.stages;
 
@@ -869,23 +1156,26 @@ __device__ __forceinline__ void conv_wgmma_body(const CUtensorMap& xmap,
   // the consumers: warpgroup wgi owns rows wgi * 64 .. + 64 of the tile
   Epilogue::template prologue<BN>(buf, t, p);
   const int wgi = warp >> 2;
-  const int layout = p.bk == 64 ? 1 : (p.bk == 32 ? 2 : 3);
-  const int sbo = 8 * p.bk * 2;
-  float acc[BN / 2];
+  // rows of 128, 64 or 32 bytes: the 128-, 64- or 32-byte swizzle
+  const int layout =
+      p.bk == 4 * Op::kStep ? 1 : (p.bk == 2 * Op::kStep ? 2 : 3);
+  const int sbo = 8 * p.bk * Op::kBytes;
+  typename Op::Acc acc[BN / 2];
 #pragma unroll
-  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
   fence_operands(acc);
   int stage = 0, prev = 0;
   uint32_t phase = 0;
   for (int it = 0; it < iters; ++it) {
     mbar_wait(&full[stage], phase);
     const unsigned char* sa = buf + stage * sbytes;
-    const uint64_t da = make_desc(sa + wgi * 64 * p.bk * 2, layout, sbo);
+    const uint64_t da =
+        make_desc(sa + wgi * 64 * p.bk * Op::kBytes, layout, sbo);
     const uint64_t db = make_desc(sa + a_bytes, layout, sbo);
     wgmma_fence();
-    // each k16 step is 32 bytes further along the rows: +2 in 16-byte units
-    for (int kk = 0; kk < p.bk / 16; ++kk)
-      Wgmma<BN>::mma(acc, da + 2 * kk, db + 2 * kk);
+    // each k step is 32 bytes further along the rows: +2 in 16-byte units
+    for (int kk = 0; kk < p.bk / Op::kStep; ++kk)
+      Op::template mma<BN>(acc, da + 2 * kk, db + 2 * kk);
     wgmma_commit();
     wgmma_wait<1>();  // the previous stage's products are done
     if (it > 0 && lane == 0) mbar_arrive(&empty[prev]);
@@ -936,16 +1226,20 @@ __host__ __device__ constexpr int staged_bytes(int bn, int out_bytes) {
 }
 
 // Does the plan fit this layout? (the tile, the widths the kernel is built
-// for, even sides with the pool, the staged tile inside the ring, and the
-// shared bytes of the layout within what the plan asks for and the card has)
-inline bool plan_ok(const Plan& pl, bool pool, int out_bytes = 2) {
+// for, rows of 32, 64 or 128 bytes of ``elem_bytes``-byte operands, even
+// sides with the pool, the staged tile inside the ring, and the shared
+// bytes of the layout within what the plan asks for and the card has)
+inline bool plan_ok(const Plan& pl, bool pool, int out_bytes = 2,
+                    int elem_bytes = 2) {
+  const int row = pl.bk * elem_bytes;
   return pl.bh * pl.bw == kBM && pl.bh > 0 &&
          (pl.bn == 16 || pl.bn == 32 || pl.bn == 64 || pl.bn == 128 ||
           pl.bn == 256) &&
-         (pl.bk == 16 || pl.bk == 32 || pl.bk == 64) && pl.stages >= 2 &&
+         (row == 32 || row == 64 || row == 128) && pl.stages >= 2 &&
          (!pool || (pl.bh % 2 == 0 && pl.bw % 2 == 0)) &&
-         staged_bytes(pl.bn, out_bytes) <= pl.stages * stage_bytes(pl.bn, pl.bk) &&
-         smem_need(pl.bn, pl.bk, pl.stages) <= pl.smem &&
+         staged_bytes(pl.bn, out_bytes) <=
+             pl.stages * stage_bytes(pl.bn, pl.bk, elem_bytes) &&
+         smem_need(pl.bn, pl.bk, pl.stages, elem_bytes) <= pl.smem &&
          pl.smem <= kMaxSharedBytes;
 }
 
@@ -959,16 +1253,20 @@ inline bool head_plan_ok(const Plan& pl, int cf) {
                  head_w_bytes(pl.bn, cf) <= pl.smem;
 }
 
-// Tiled bf16 map over a tensor whose dims (innermost first) are dims[0..r)
-// and whose innermost dim is contiguous; box box[0..r).
+// Tiled map over a tensor of bf16 (elem_bytes 2) or int8 (1, carried as
+// uint8: the bits as they are, the sign the instruction's business) whose
+// dims (innermost first) are dims[0..r) and whose innermost dim is
+// contiguous; box box[0..r), the innermost bk elements, swizzled by their
+// bytes.
 inline bool encode_map(CUtensorMap* map, const void* base, int rank,
-                       const long long* dims, const int* box, int bk) {
+                       const long long* dims, const int* box, int bk,
+                       int elem_bytes = 2) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr || (reinterpret_cast<uintptr_t>(base) & 15) != 0)
     return false;
   cuuint64_t gdim[4], gstride[3];
   cuuint32_t gbox[4], estride[4];
-  long long stride = 2;
+  long long stride = elem_bytes;
   for (int i = 0; i < rank; ++i) {
     gdim[i] = static_cast<cuuint64_t>(dims[i]);
     gbox[i] = static_cast<cuuint32_t>(box[i]);
@@ -976,26 +1274,34 @@ inline bool encode_map(CUtensorMap* map, const void* base, int rank,
     stride *= dims[i];
     if (i + 1 < rank) gstride[i] = static_cast<cuuint64_t>(stride);
   }
+  const int row = bk * elem_bytes;
   const CUtensorMapSwizzle sw =
-      bk == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-               : (bk == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B);
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, static_cast<cuuint32_t>(rank),
+      row == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                 : (row == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                              : CU_TENSOR_MAP_SWIZZLE_32B);
+  const CUtensorMapDataType type = elem_bytes == 1
+                                       ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return fn(map, type, static_cast<cuuint32_t>(rank),
             const_cast<void*>(base), gdim, gstride, gbox, estride,
             CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // The two maps of a launch: x (N, H, W, C) with box (bk, bw, bh, 1), and the
-// K-major weights (slices, Co, K) with box (bk, bn, 1).
+// K-major weights (slices, Co, K) with box (bk, bn, 1); rows (C and K) a
+// multiple of 16 bytes, as TMA's strides must be.
 inline bool encode_maps(CUtensorMap* xmap, CUtensorMap* wmap, const void* x,
                         const void* w, int n, int h, int wd, int c, int co,
-                        int k, int slices, const Plan& pl) {
+                        int k, int slices, const Plan& pl,
+                        int elem_bytes = 2) {
   const long long xd[4] = {c, wd, h, n};
   const int xb[4] = {pl.bk, pl.bw, pl.bh, 1};
   const long long wdims[3] = {k, co, slices};
   const int wb[3] = {pl.bk, pl.bn, 1};
-  return c % 8 == 0 && k % 8 == 0 && encode_map(xmap, x, 4, xd, xb, pl.bk) &&
-         encode_map(wmap, w, 3, wdims, wb, pl.bk);
+  return c * elem_bytes % 16 == 0 && k * elem_bytes % 16 == 0 &&
+         encode_map(xmap, x, 4, xd, xb, pl.bk, elem_bytes) &&
+         encode_map(wmap, w, 3, wdims, wb, pl.bk, elem_bytes);
 }
 
 // The launch grid of a plan: one block per tile and BN channels, ``phases``

@@ -12,36 +12,42 @@
 //    writes scale = max(m, 1e-12) / 127, and each block writes
 //    q = clip(rint(x / scale), -127, 127) for its range (IEEE division,
 //    round half to even, as jnp.round and torch.round).
-//  * Q1 gr_quant_conv3x3 (mode 0): int8 x int8 -> int32 SAME 3x3 conv,
+//  * Q1 gr_quant_conv3x3: int8 x int8 -> int32 SAME 3x3 conv,
 //    quant_conv3x3_same;
-//  * Q2 gr_quant_upsample2_conv3x3 (mode 1): the four 2x2 phase convs of
+//  * Q2 gr_quant_upsample2_conv3x3: the four 2x2 phase convs of
 //    kernel U on int8 operands (make_fast_generator_xla_int8's lhs-dilated
 //    conv: output phase (a, b) at low-resolution pixel (i, j) reads input
 //    (i + a + ta - 1, j + b + tb - 1) with the phase tap [a, ta, b, tb]);
 //  * Q3 gr_quant_dense: (N, K) x (K, M) int8 -> int32, quant_dense.
 //
-// Q1-Q3 share the epilogue: y = fma(float(acc), x_scale * w_scale[c],
-// bias[c]) -- one rounding, what XLA's CPU fusion of y * s + b computes and
-// what the plain versions emulate in f64 -- then the activation (ELU as
-// jax.nn.elu, expm1; ReLU; sigmoid) and, for Q1, an optional 2x2 max pool
-// (the pool of an f32 tile is exact, so fusing it changes nothing). The
-// activation scale is a device scalar (Q4's output): no host sync.
+// Q1-Q3 share the epilogue, dequant.cuh's dequant_act: y = fma(float(acc),
+// x_scale * w_scale[c], bias[c]) -- one rounding, what XLA's CPU fusion of
+// y * s + b computes and what the plain versions emulate in f64 -- then the
+// activation (ELU as jax.nn.elu, expm1; ReLU; sigmoid) and, for Q1, an
+// optional 2x2 max pool (the pool of an f32 tile is exact, so fusing it
+// changes nothing). The activation scale is a device scalar (Q4's output):
+// no host sync.
 //
-// What bounds them on an H100: operations. The sums run on the CUDA cores
-// with __dp4a (four int8 products a word), not on the int8 tensor cores:
-// a simple kernel first. A Q1/Q2 block computes 128 output pixels (an 8 x
-// 16 patch) x 64 output channels, each thread 8 pixels x 4 channels,
-// staging the (BH + 2) x (BW + 2) input patch and the taps' weights for 32
-// input channels at a time in shared memory (G's Co = 3 output conv takes
-// a 16 x 32 patch x 4 channels instead); each pixel's words in the patch
-// are padded by one so that the pixels of a warp fall in distinct banks.
-// Q3 splits K
-// over blocks when its tiles alone do not fill the card, adding int32
-// partials with atomics (integer sums: exact in any order) and finishing
-// in a second launch.
+// What bounds them on an H100: Q1 and Q2 operations (R's layers and G's
+// stages do 2.4e10-2.8e11 int8 operations on 1-34 MB a call), Q3 and Q4
+// bytes. Q1 and Q2 run on the int8 tensor cores: conv_wgmma.cuh's mainloop
+// with S8Operands (wgmma m64nNk32.s32.s8.s8 on the TMA ring, exact s32
+// sums), Q1 with Conv3x3Taps over (9, Co, Ci') K-major int8 weights, Q2
+// with U's PhaseTaps over (16, Co, Ci'), and DequantActEpilogue: the
+// epilogue above on the s32 registers, the f32 tile staged on the freed
+// ring, R's pool from it, U's phase interleave in the store. The int8
+// channels are padded to rows of 32, 64 or a multiple of 16 bytes
+// (ops/quant.py: R's 3-channel stem to 32). The plan is
+// ops/conv_operands.py::tile_plan's with elem_bytes = 1 and out_bytes = 4.
+// Q3 (__dp4a on the CUDA cores, four int8 products a word) splits K over
+// blocks when its tiles alone do not fill the card, adding int32 partials
+// with atomics (integer sums: exact in any order) and finishing in a
+// second launch.
 #include <cstdint>
 
 #include "common.cuh"
+#include "conv_wgmma.cuh"
+#include "dequant.cuh"
 
 namespace gr {
 
@@ -122,149 +128,6 @@ __global__ void __launch_bounds__(kQThreads)
     }
   } else {
     for (long long i = t0; i < n; i += stride) q[i] = quantize_one(x[i], s);
-  }
-}
-
-// ------------------------------------------------------- the epilogue
-
-__device__ __forceinline__ float dequant_act(int acc, float deq, float bias,
-                                             int act) {
-  const float y = __fmaf_rn(__int2float_rn(acc), deq, bias);
-  switch (act) {
-    case ACT_RELU:
-      return fmaxf(y, 0.0f);
-    case ACT_ELU:  // jax.nn.elu: where(y > 0, y, expm1(y))
-      return y > 0.0f ? y : expm1f(y);
-    case ACT_SIGMOID:
-      return 1.0f / (1.0f + expf(-y));
-    default:
-      return y;
-  }
-}
-
-// ------------------------------------------------------------ Q1, Q2
-
-constexpr int kQKW = 8;  // 4-byte words of input channels a stage (32 ci)
-
-// Block tile: kBH x kBW output pixels (low-resolution pixels of one phase
-// in mode 1) x kTX * kCoT output channels; thread (tx, ty) holds a 2 x 4
-// sub-tile of pixels and channels tx + kTX * j. kMode 0: 9 taps, 1: the
-// four taps of phase blockIdx.z % 4.
-template <int kMode, int kTX, int kCoT, int kBH, int kBW>
-__global__ void __launch_bounds__(kQThreads)
-    quant_tapconv_kernel(const int8_t* __restrict__ x,
-                         const int32_t* __restrict__ w,
-                         const float* __restrict__ x_scale,
-                         const float* __restrict__ w_scale,
-                         const float* __restrict__ bias,
-                         float* __restrict__ out, int H, int W, int Ci,
-                         int Co, int act, int pool) {
-  constexpr int kTY = kQThreads / kTX;
-  static_assert((kBH / 2) * (kBW / 4) == kTY, "2 x 4 pixels a thread");
-  constexpr int kBCo = kTX * kCoT;
-  constexpr int kPH = kBH + 2, kPW = kBW + 2;
-  constexpr int kPS = kQKW + 1;  // patch words a pixel, padded
-  constexpr int kTaps = kMode == 0 ? 9 : 4;
-  __shared__ int32_t patch[kPH * kPW * kPS];
-  __shared__ int32_t wsm[kTaps * kQKW * kBCo];
-
-  const int tiles_w = (W + kBW - 1) / kBW;
-  const int oy0 = (blockIdx.x / tiles_w) * kBH;
-  const int ox0 = (blockIdx.x % tiles_w) * kBW;
-  const int co0 = blockIdx.y * kBCo;
-  const int phase = kMode == 0 ? 0 : blockIdx.z % 4;
-  const int n = kMode == 0 ? blockIdx.z : blockIdx.z / 4;
-  const int pa = phase >> 1, pb = phase & 1;
-  const int tx = threadIdx.x % kTX, ty = threadIdx.x / kTX;
-  const int r0 = (ty / (kBW / 4)) * 2, c0 = (ty % (kBW / 4)) * 4;
-  const int ciw = Ci / 4;
-  const int32_t* xw = reinterpret_cast<const int32_t*>(x);
-
-  int acc[8][kCoT];
-#pragma unroll
-  for (int p = 0; p < 8; ++p)
-#pragma unroll
-    for (int j = 0; j < kCoT; ++j) acc[p][j] = 0;
-
-  for (int k0 = 0; k0 < ciw; k0 += kQKW) {
-    const int kw = min(kQKW, ciw - k0);
-    __syncthreads();
-    for (int i = threadIdx.x; i < kPH * kPW * kQKW; i += kQThreads) {
-      const int pix = i / kQKW, k = i % kQKW;
-      const int gy = oy0 - 1 + pix / kPW, gx = ox0 - 1 + pix % kPW;
-      int32_t v = 0;
-      if (k < kw && gy >= 0 && gy < H && gx >= 0 && gx < W)
-        v = xw[((static_cast<long long>(n) * H + gy) * W + gx) * ciw + k0 + k];
-      patch[pix * kPS + k] = v;
-    }
-    for (int i = threadIdx.x; i < kTaps * kQKW * kBCo; i += kQThreads) {
-      const int t = i / (kQKW * kBCo), k = (i / kBCo) % kQKW, c = i % kBCo;
-      // mode 1: tap t = (ta, tb) of this phase, [a, ta, b, tb] of the 16
-      const int g = kMode == 0 ? t : ((pa * 2 + (t >> 1)) * 2 + pb) * 2 + (t & 1);
-      int32_t v = 0;
-      if (k < kw && co0 + c < Co)
-        v = w[(static_cast<long long>(g) * ciw + k0 + k) * Co + co0 + c];
-      wsm[i] = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int t = 0; t < kTaps; ++t) {
-      const int dy = kMode == 0 ? t / 3 : pa + (t >> 1);
-      const int dx = kMode == 0 ? t % 3 : pb + (t & 1);
-      for (int k = 0; k < kw; ++k) {
-        int xv[8], wv[kCoT];
-#pragma unroll
-        for (int p = 0; p < 8; ++p)
-          xv[p] = patch[((r0 + (p >> 2) + dy) * kPW + c0 + (p & 3) + dx) * kPS +
-                        k];
-#pragma unroll
-        for (int j = 0; j < kCoT; ++j)
-          wv[j] = wsm[(t * kQKW + k) * kBCo + tx + kTX * j];
-#pragma unroll
-        for (int p = 0; p < 8; ++p)
-#pragma unroll
-          for (int j = 0; j < kCoT; ++j)
-            acc[p][j] = __dp4a(xv[p], wv[j], acc[p][j]);
-      }
-    }
-  }
-
-  const float xs = *x_scale;
-#pragma unroll
-  for (int j = 0; j < kCoT; ++j) {
-    const int co = co0 + tx + kTX * j;
-    if (co >= Co) continue;
-    const float deq = __fmul_rn(xs, w_scale[co]);
-    const float b = bias[co];
-    float v[8];
-#pragma unroll
-    for (int p = 0; p < 8; ++p) v[p] = dequant_act(acc[p][j], deq, b, act);
-    if (kMode == 0 && pool) {
-      // the 2 x 4 sub-tile pools to 1 x 2 (H, W and the tile are even)
-      const int oy = oy0 + r0, ox = ox0 + c0;
-      if (oy >= H) continue;
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        if (ox + 2 * q >= W) continue;
-        const float m = fmaxf(fmaxf(v[2 * q], v[2 * q + 1]),
-                              fmaxf(v[4 + 2 * q], v[5 + 2 * q]));
-        out[((static_cast<long long>(n) * (H / 2) + oy / 2) * (W / 2) +
-             ox / 2 + q) * Co + co] = m;
-      }
-      continue;
-    }
-#pragma unroll
-    for (int p = 0; p < 8; ++p) {
-      const int oy = oy0 + r0 + (p >> 2), ox = ox0 + c0 + (p & 3);
-      if (oy >= H || ox >= W) continue;
-      long long o;
-      if (kMode == 0)
-        o = ((static_cast<long long>(n) * H + oy) * W + ox) * Co + co;
-      else
-        o = ((static_cast<long long>(n) * 2 * H + 2 * oy + pa) * 2 * W +
-             2 * ox + pb) * Co + co;
-      out[o] = v[p];
-    }
   }
 }
 
@@ -358,35 +221,65 @@ __global__ void __launch_bounds__(kQThreads)
   }
 }
 
-template <int kMode, int kTX, int kCoT, int kBH, int kBW>
-cudaError_t launch_tapconv(const int8_t* x, const int32_t* w,
-                           const float* x_scale, const float* w_scale,
-                           const float* bias, float* out, int N, int H, int W,
-                           int Ci, int Co, int act, int pool,
-                           cudaStream_t stream) {
-  const dim3 grid(((H + kBH - 1) / kBH) * ((W + kBW - 1) / kBW),
-                  (Co + kTX * kCoT - 1) / (kTX * kCoT),
-                  kMode == 0 ? N : 4 * N);
-  quant_tapconv_kernel<kMode, kTX, kCoT, kBH, kBW>
-      <<<grid, kQThreads, 0, stream>>>(x, w, x_scale, w_scale, bias, out, H,
-                                       W, Ci, Co, act, pool);
-  return cudaGetLastError();
+// ------------------------------------------------------------ Q1, Q2
+
+// Q1: conv_wgmma.cuh's tile on int8 operands, the 9 taps of a 3x3 conv.
+template <int BN>
+__global__ void __launch_bounds__(wg::kThreads, BN <= 64 ? 2 : 1)
+    quant_conv3x3_s8_kernel(const __grid_constant__ CUtensorMap xmap,
+                            const __grid_constant__ CUtensorMap wmap,
+                            const wg::ConvArgs args) {
+  wg::conv_wgmma_body<BN, wg::Conv3x3Taps, wg::DequantActEpilogue<false>,
+                      wg::S8Operands>(xmap, wmap, args);
 }
 
-// 64 channels a block where Co > 4; a block of 4 channels and 512 pixels
-// for G's Co = 3 output conv
-template <int kMode>
-cudaError_t tapconv(const int8_t* x, const int32_t* w, const float* x_scale,
-                    const float* w_scale, const float* bias, float* out, int N,
-                    int H, int W, int Ci, int Co, int act, int pool,
-                    cudaStream_t stream) {
-  if (Co <= 4)
-    return launch_tapconv<kMode, 4, 1, 16, 32>(x, w, x_scale, w_scale, bias,
-                                               out, N, H, W, Ci, Co, act, pool,
-                                               stream);
-  return launch_tapconv<kMode, 16, 4, 8, 16>(x, w, x_scale, w_scale, bias,
-                                             out, N, H, W, Ci, Co, act, pool,
-                                             stream);
+// Q2: the same on U's four phase taps, blockIdx.z the output phase.
+template <int BN>
+__global__ void __launch_bounds__(wg::kThreads, BN <= 64 ? 2 : 1)
+    quant_upsample2_s8_kernel(const __grid_constant__ CUtensorMap xmap,
+                              const __grid_constant__ CUtensorMap wmap,
+                              const wg::ConvArgs args) {
+  wg::conv_wgmma_body<BN, wg::PhaseTaps, wg::DequantActEpilogue<true>,
+                      wg::S8Operands>(xmap, wmap, args);
+}
+
+// One launch of Q1 (kPhase false: 9 weight slices, one phase) or Q2 (16
+// slices, four phases) on the plan, which must fit the int8 layout.
+template <bool kPhase>
+int launch_s8(const void* x, const void* w, const float* x_scale,
+              const float* w_scale, const float* bias, float* out, int n,
+              int h, int wd, int ci, int co, int act, int pool,
+              const wg::Plan& pl, cudaStream_t stream) {
+  CUtensorMap xmap, wmap;
+  if (!wg::plan_ok(pl, pool, 4, 1) ||
+      !wg::encode_maps(&xmap, &wmap, x, w, n, h, wd, ci, co, ci,
+                       kPhase ? 16 : 9, pl, 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  wg::ConvArgs args{};
+  args.scale = w_scale;
+  args.shift = bias;
+  args.x_scale = x_scale;
+  args.y32 = out;
+  args.H = h;
+  args.W = wd;
+  args.Co = co;
+  args.act = act;
+  args.pool = pool;
+  args.bh = pl.bh;
+  args.bw = pl.bw;
+  args.bk = pl.bk;
+  args.stages = pl.stages;
+  args.kchunks = (ci + pl.bk - 1) / pl.bk;
+  const dim3 grid = wg::plan_grid(pl, n, h, wd, co, kPhase ? 4 : 1);
+  return static_cast<int>(wg::by_width(pl.bn, [&](auto bn) {
+    constexpr int BN = decltype(bn)::value;
+    if constexpr (kPhase)
+      return wg::launch(quant_upsample2_s8_kernel<BN>, grid, pl.smem, stream,
+                        xmap, wmap, args);
+    else
+      return wg::launch(quant_conv3x3_s8_kernel<BN>, grid, pl.smem, stream,
+                        xmap, wmap, args);
+  }));
 }
 
 }  // namespace gr
@@ -408,27 +301,34 @@ int gr_quantize_act(const float* x, int8_t* q, float* scale, float* parts,
   return cudaGetLastError();
 }
 
-// x (N,H,W,Ci) int8, Ci % 4 == 0; w (9, Ci/4, Co) words; out (N,H,W,Co) f32
-// or (N,H/2,W/2,Co) with pool
-int gr_quant_conv3x3(const int8_t* x, const int32_t* w, const float* x_scale,
+// x (N,H,W,Ci') int8, Ci' padded (ops/quant.py::padded_int8_channels); w
+// (9, Co, Ci') int8, K-major; on the plan bh, bw, bn, bk, stages, smem
+// (ops/conv_operands.py::tile_plan with elem_bytes 1, out_bytes 4); out
+// (N,H,W,Co) f32 or (N,H/2,W/2,Co) with pool
+int gr_quant_conv3x3(const int8_t* x, const int8_t* w, const float* x_scale,
                      const float* w_scale, const float* bias, float* out,
                      int N, int H, int W, int Ci, int Co, int act, int pool,
+                     int bh, int bw, int bn, int bk, int stages, int smem,
                      cudaStream_t stream) {
-  if (Ci % 4 || (pool && (H % 2 || W % 2))) return cudaErrorInvalidValue;
-  return gr::tapconv<0>(x, w, x_scale, w_scale, bias, out, N, H, W, Ci, Co,
-                        act, pool, stream);
+  if (pool && (H % 2 || W % 2)) return cudaErrorInvalidValue;
+  return gr::launch_s8<false>(x, w, x_scale, w_scale, bias, out, N, H, W, Ci,
+                              Co, act, pool,
+                              gr::wg::Plan{bh, bw, bn, bk, stages, smem},
+                              stream);
 }
 
-// x (N,H,W,Ci) int8, Ci % 4 == 0; w (16, Ci/4, Co) words, the phase taps
-// [a, ta, b, tb]; out (N,2H,2W,Co) f32
-int gr_quant_upsample2_conv3x3(const int8_t* x, const int32_t* w,
+// x (N,H,W,Ci') int8 as gr_quant_conv3x3's; w (16, Co, Ci') int8, K-major,
+// the phase taps [a, ta, b, tb]; the plan as there; out (N,2H,2W,Co) f32
+int gr_quant_upsample2_conv3x3(const int8_t* x, const int8_t* w,
                                const float* x_scale, const float* w_scale,
                                const float* shift, float* out, int N, int H,
-                               int W, int Ci, int Co, int act,
+                               int W, int Ci, int Co, int act, int bh, int bw,
+                               int bn, int bk, int stages, int smem,
                                cudaStream_t stream) {
-  if (Ci % 4) return cudaErrorInvalidValue;
-  return gr::tapconv<1>(x, w, x_scale, w_scale, shift, out, N, H, W, Ci, Co,
-                        act, 0, stream);
+  return gr::launch_s8<true>(x, w, x_scale, w_scale, shift, out, N, H, W, Ci,
+                             Co, act, 0,
+                             gr::wg::Plan{bh, bw, bn, bk, stages, smem},
+                             stream);
 }
 
 // x (N,K) int8, K % 4 == 0; w (K/4, M) words; out (N,M) f32; ws: N*M int32

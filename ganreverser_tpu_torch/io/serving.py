@@ -11,10 +11,13 @@ exported programs' are: batch (and N for e2e) are fixed at export time.
 
 Artifact layout, the JAX package's: ``<dir>/manifest.json`` (what the
 program is: kind, geometry, batch, dtype, platforms, format, framework
-version) and ``<dir>/program.pt2``. The platforms are device types of
-PyTorch, ``cuda`` and ``cpu`` (the JAX package's are ``tpu`` and ``cpu``):
-one artifact runs on the card and on a CPU host, where each kernel's
-operator takes its plain version.
+version) and ``<dir>/program.pt2``. An int8 program (``"int8": true``)
+bakes the int8 kernels' weight operands in, so its manifest also records
+their layout (``int8_operands``, ``ops/quant.py::OPERAND_LAYOUT``), and the
+loader refuses an int8 artifact of another layout or none. The platforms
+are device types of PyTorch, ``cuda`` and ``cpu`` (the JAX package's are
+``tpu`` and ``cpu``): one artifact runs on the card and on a CPU host,
+where each kernel's operator takes its plain version.
 
 Build, check, load (``cli/export.py``):
 
@@ -42,11 +45,13 @@ from torch import nn
 from ..analysis.graphs import CapturedProgram
 from ..core.platform import resolve_device
 from ..ops import library  # noqa: F401  (registers the kernels' operators)
+from ..ops import quant
 
 MANIFEST = "manifest.json"
 PROGRAM = "program.pt2"
 FORMAT = "torch.export/pt2"
 PLATFORMS = ("cuda", "cpu")
+INT8_OPERANDS = "int8_operands"   # the manifest key of the int8 layout
 
 
 class _Closure(nn.Module):
@@ -105,6 +110,8 @@ def save_serving_program(path: str, fn: Callable, example_args: tuple,
     manifest["platforms"] = list(platforms)
     manifest["format"] = FORMAT
     manifest["torch_version"] = torch.__version__
+    if manifest.get("int8"):
+        manifest[INT8_OPERANDS] = quant.OPERAND_LAYOUT
     with open(os.path.join(path, MANIFEST), "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)
     with open(os.path.join(path, PROGRAM), "wb") as f:
@@ -116,9 +123,16 @@ def load_serving_program(path: str, device: torch.device | str | None = None):
     ``device`` (default: the card, or the CPU where GANREVERSER_PLATFORM
     asks for it), its inputs moved there; on the card it is one CUDA graph
     captured at the first call. ``meta`` is the manifest. Raises if the
-    device's type is not in the artifact's platforms."""
+    device's type is not in the artifact's platforms, and for an int8
+    artifact whose weight operands are not in the kernels' layout."""
     with open(os.path.join(path, MANIFEST)) as f:
         meta = json.load(f)
+    if meta.get("int8") and meta.get(INT8_OPERANDS) != quant.OPERAND_LAYOUT:
+        raise RuntimeError(
+            f"{path}: an int8 artifact whose baked weight operands are laid "
+            f"out as {meta.get(INT8_OPERANDS) or 'words of four channels'}, "
+            f"not as the int8 kernels read them ({quant.OPERAND_LAYOUT}); "
+            "export it again with this version (cli/export.py --int8)")
     dev = resolve_device() if device is None else torch.device(device)
     if dev.type not in meta["platforms"]:
         raise RuntimeError(f"{path}: exported for platforms "

@@ -1,6 +1,6 @@
-"""The operands and tile plan of the bf16 tensor-core convolutions
-(``csrc/conv_wgmma.cuh``, kernels B, B6, U, B7 and B8), and plain versions
-of their implicit GEMM in the kernel's K order.
+"""The operands and tile plan of the tensor-core convolutions
+(``csrc/conv_wgmma.cuh``: kernels B, B6, U, B7 and B8 in bf16, Q1 and Q2 in
+int8), and plain versions of their implicit GEMM in the kernel's K order.
 
 TMA reads rows that are a multiple of 16 bytes, so ``pad_channels`` zero-pads
 an NHWC input's channels up to a multiple of 8, and a narrow stem's up to
@@ -14,6 +14,11 @@ HWIO kernel (tap t is (t // 3, t % 3)); kernel U has the 16 phase taps
 stacks each phase's four taps on K instead (``stacked_kmajor``): (4 phases,
 Co, 4 * Kp), tap t at ``[t * Kp, t * Kp + Ci')``, Kp = Ci' rounded up to BK,
 so one weight box never spans two taps.
+
+The int8 kernels Q1 and Q2 (``ops/quant.py``) take the same layouts in int8,
+``elem_bytes=1``: the same rows in bytes (32 or 64 bytes where the channels
+are that narrow, else a multiple of 16), so 32 or 64 int8 channels, or a
+multiple of 16, and BK up to 128 elements.
 
 ``tile_plan`` is the one place where a launch's tile is chosen: 128 output
 pixels as a BH x BW patch of one image, BN output channels, BK input
@@ -61,19 +66,22 @@ def _round_up(v: int, m: int) -> int:
     return -(-v // m) * m
 
 
-def padded_channels(ci: int) -> int:
-    """Ci as the tensor-core tile reads it: a multiple of 8, and 16 or 32
-    where it is that narrow, so that the stage depth BK (16, 32 or 64)
-    never reaches past the tensor's channels."""
-    ci8 = _round_up(ci, 8)
-    return ci8 if ci8 > 32 else (16 if ci8 <= 16 else 32)
+def padded_channels(ci: int, elem_bytes: int = 2) -> int:
+    """Ci as the tensor-core tile reads it, in elements of ``elem_bytes``
+    (2 bf16, 1 int8): rows of a multiple of 16 bytes, and of 32 or 64
+    bytes where they are that narrow, so that the stage depth BK (rows of
+    32, 64 or 128 bytes) never reaches past the tensor's channels: bf16 16,
+    32 or a multiple of 8; int8 32, 64 or a multiple of 16."""
+    cp = _round_up(ci, 16 // elem_bytes)
+    narrow, wide = 32 // elem_bytes, 64 // elem_bytes
+    return cp if cp > wide else (narrow if cp <= narrow else wide)
 
 
-def pad_channels(x: torch.Tensor) -> torch.Tensor:
+def pad_channels(x: torch.Tensor, elem_bytes: int = 2) -> torch.Tensor:
     """``x`` with its last dim zero-padded to ``padded_channels`` (``x``
     itself, contiguous, when it needs none)."""
     c = x.shape[-1]
-    cp = padded_channels(c)
+    cp = padded_channels(c, elem_bytes)
     if cp == c:
         return x.contiguous()
     out = x.new_zeros((*x.shape[:-1], cp))
@@ -81,10 +89,11 @@ def pad_channels(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def kmajor(w_taps: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """(taps, Ci, Co) weights -> (taps, Co, padded_channels(Ci)) in
-    ``dtype``, zero-padded, contiguous."""
-    return pad_channels(w_taps.to(dtype).transpose(1, 2))
+def kmajor(w_taps: torch.Tensor, dtype: torch.dtype,
+           elem_bytes: int = 2) -> torch.Tensor:
+    """(taps, Ci, Co) weights -> (taps, Co, padded_channels(Ci,
+    elem_bytes)) in ``dtype``, zero-padded, contiguous."""
+    return pad_channels(w_taps.to(dtype).transpose(1, 2), elem_bytes)
 
 
 def conv3x3_weights(kernel: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -97,7 +106,8 @@ class TilePlan(NamedTuple):
     bh: int          # tile rows
     bw: int          # tile columns; bh * bw = 128, both even
     bn: int          # output channels per block
-    bk: int          # input channels per stage (64, or 32/16 for a stem)
+    bk: int          # input channels per stage: rows of 128 bytes (bf16
+                     # 64, int8 128), or of 64 or 32 for a stem
     stages: int      # stages of the TMA ring
     smem_bytes: int  # the block's dynamic shared memory
 
@@ -111,26 +121,27 @@ def staged_bytes(bn: int, out_bytes: int) -> int:
     return BM * (bn * out_bytes + 16)
 
 
-def tile_plan(h: int, w: int, ci: int, co: int,
-              out_bytes: int = 2) -> TilePlan:
+def tile_plan(h: int, w: int, ci: int, co: int, out_bytes: int = 2,
+              elem_bytes: int = 2) -> TilePlan:
     """The tile of one launch over an (H, W) input with Ci input and Co
-    output channels. BW is 16 where W > 8 (8 x 16 patches), else 8 or 4, so
-    narrow images waste little of the tile; BH = 128 / BW; both are even,
-    as the fused pool needs. BK is the padded Ci's depth up to 64 (64
-    channels are one 128-byte swizzled row). BN is the least width the
-    kernel is built for that covers Co, at most 256 (one tile reads each
-    input box once for all of Co). The ring takes ``RING_BYTES[BN]``: three
-    blocks per SM up to BN = 64, one above (64 or 128 accumulators a
-    thread), 2 to 8 stages, and at least as many as the staged output tile
-    of ``out_bytes`` per value needs (B7's f32 tile at BN = 256 and BK =
-    16 takes 11). The bytes add the 1 KB alignment slack and the 16 bytes
-    of barriers per stage."""
+    output channels of ``elem_bytes`` bytes (2 bf16, 1 int8). BW is 16
+    where W > 8 (8 x 16 patches), else 8 or 4, so narrow images waste
+    little of the tile; BH = 128 / BW; both are even, as the fused pool
+    needs. BK, in elements, is the padded Ci's depth up to one 128-byte
+    swizzled row (bf16 64, int8 128), so a stage holds BM * BK + BN * BK
+    elements. BN is the least width the kernel is built for that covers
+    Co, at most 256 (one tile reads each input box once for all of Co).
+    The ring takes ``RING_BYTES[BN]``: three blocks per SM up to BN = 64,
+    one above (64 or 128 accumulators a thread), 2 to 8 stages, and at
+    least as many as the staged output tile of ``out_bytes`` per value
+    needs (B7's f32 tile at BN = 256 and BK = 16 takes 11). The bytes add
+    the 1 KB alignment slack and the 16 bytes of barriers per stage."""
     bw = 16 if w > 8 else (8 if w > 4 else 4)
     bh = BM // bw
-    cp = padded_channels(ci)
-    bk = cp if cp <= 32 else 64
+    cp = padded_channels(ci, elem_bytes)
+    bk = cp if cp <= 64 // elem_bytes else 128 // elem_bytes
     bn = next((b for b in WIDTHS_N if co <= b), WIDTHS_N[-1])
-    stage = _round_up(BM * bk * 2 + bn * bk * 2, ALIGN)
+    stage = _round_up((BM + bn) * bk * elem_bytes, ALIGN)
     stages = max(2, min(MAX_STAGES, RING_BYTES[bn] // stage),
                  -(-staged_bytes(bn, out_bytes) // stage))
     return TilePlan(bh, bw, bn, bk, stages, ALIGN + stages * (stage + 16))
@@ -155,18 +166,19 @@ def stacked_kmajor(k4: torch.Tensor, dtype: torch.dtype,
 
 
 def implicit_gemm_plain(x: torch.Tensor, wk: torch.Tensor,
-                        taps: Sequence[tuple], bk: int) -> torch.Tensor:
-    """The tensor-core tile's sums in its K order, in f32 on any device:
-    for each tap (dy, dx, widx) in turn, then each ``bk``-channel chunk,
-    x shifted by (dy, dx) (zero outside the image) times ``wk[widx]``.
-    x: (N,H,W,C') padded; wk: (taps, Co, C'). Returns (N,H,W,Co) f32."""
+                        taps: Sequence[tuple], bk: int,
+                        dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The tensor-core tile's sums in its K order, in ``dtype`` (f32; f64
+    holds the int8 kernels' sums exactly) on any device: for each tap (dy,
+    dx, widx) in turn, then each ``bk``-channel chunk, x shifted by (dy,
+    dx) (zero outside the image) times ``wk[widx]``. x: (N,H,W,C') padded;
+    wk: (taps, Co, C'). Returns (N,H,W,Co) in ``dtype``."""
     n, h, w, c = x.shape
-    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
-    acc = torch.zeros((n, h, w, wk.shape[1]), dtype=torch.float32,
-                      device=x.device)
+    xp = F.pad(x.to(dtype), (0, 0, 1, 1, 1, 1))
+    acc = torch.zeros((n, h, w, wk.shape[1]), dtype=dtype, device=x.device)
     for dy, dx, widx in taps:
         xs = xp[:, 1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
-        wt = wk[widx].float()
+        wt = wk[widx].to(dtype)
         for c0 in range(0, c, bk):
             acc += xs[..., c0:c0 + bk] @ wt[:, c0:c0 + bk].T
     return acc

@@ -29,14 +29,20 @@ from an exact f64 product, then the epilogue in JAX's order) on CPU
 tensors; no other device is accepted. Weight quantisation per channel
 (``axis`` given) is plain PyTorch, run once when a fast forward prepares
 its weights. ``*_operand`` lays int8 weights out as the kernels read them:
-words of four input channels, ``(taps, Ci/4, Co)`` int32.
+Q1 and Q2 on the int8 tensor cores (``csrc/conv_wgmma.cuh`` with s8
+operands) take them K-major, ``(taps, Co, Ci')`` int8 with Ci' the padded
+channels of ``conv_operands.padded_channels(Ci, 1)`` (32, 64 or a
+multiple of 16), as the activations are padded (``pad_int8``);
+``OPERAND_LAYOUT`` names that layout, which serving artifacts record
+(``io/serving.py``). Q3 takes words of four input channels, ``(Ci/4,
+Co)`` int32.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from . import cuda_lib
+from . import conv_operands, cuda_lib
 from .topk_kernel import SMS
 from .upsample_conv_kernel import phase_kernels
 
@@ -45,6 +51,9 @@ EPS = 1e-12
 ACTS = ("none", "relu", "elu", "sigmoid")
 QUANT_PARTS = 1024       # Q4's workspace of partial maxima (csrc/quant.cu)
 DENSE_TILES = 64         # Q3's rows and columns a block
+# the layout of Q1's and Q2's weight operands (conv_operand, phase_operand),
+# recorded by int8 serving artifacts; one without it bakes an older layout
+OPERAND_LAYOUT = "taps-co-ci-int8"
 
 
 # ----------------------------------------------------------------- plain
@@ -108,6 +117,31 @@ def phase_conv_int32_plain(xq: torch.Tensor, wq16: torch.Tensor):
                          wt)
             out[:, :, a, :, b] = y.permute(0, 2, 3, 1)
     return out.reshape(n, 2 * h, 2 * w, co).to(torch.int32)
+
+
+def s8_sums_plain(xq: torch.Tensor, operand: torch.Tensor, bk: int,
+                  phases: bool = False) -> torch.Tensor:
+    """Q1's (``phases`` False) or Q2's s32 sums in the tensor-core tile's K
+    order, on any device, from the operands the kernel reads: ``xq``
+    padded by :func:`pad_int8` and ``operand`` (:func:`conv_operand`'s (9,
+    Co, Ci') or :func:`phase_operand`'s (16, Co, Ci')); each tap, then
+    each ``bk``-channel chunk, exact in f64
+    (``conv_operands.implicit_gemm_plain``). Returns (N,H,W,Co) or, with
+    ``phases``, (N,2H,2W,Co) int32."""
+    xk = pad_int8(xq)
+
+    def sums(taps):
+        return conv_operands.implicit_gemm_plain(
+            xk, operand, taps, bk, torch.float64).to(torch.int32)
+    if not phases:
+        return sums(conv_operands.CONV3X3_TAPS)
+    n, h, w, _ = xk.shape
+    out = torch.empty((n, h, 2, w, 2, operand.shape[1]), dtype=torch.int32,
+                      device=xq.device)
+    for a in (0, 1):
+        for b in (0, 1):
+            out[:, :, a, :, b] = sums(conv_operands.phase_taps(a, b))
+    return out.reshape(n, 2 * h, 2 * w, -1)
 
 
 def dense_int32_plain(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
@@ -188,14 +222,18 @@ def _words(wq: torch.Tensor) -> torch.Tensor:
 
 
 def conv_operand(wq: torch.Tensor) -> torch.Tensor:
-    """A (3,3,Ci,Co) int8 kernel as Q1 reads it: (9, Ci'/4, Co) words."""
-    return _words(wq.reshape(9, *wq.shape[2:]))
+    """A (3,3,Ci,Co) int8 kernel as Q1 reads it: (9, Co, Ci') int8,
+    K-major, tap t = (t // 3, t % 3), Ci' = ``padded_channels(Ci, 1)``,
+    the padding zero."""
+    return conv_operands.kmajor(wq.reshape(9, *wq.shape[2:]), torch.int8, 1)
 
 
 def phase_operand(wq16: torch.Tensor) -> torch.Tensor:
-    """The (2,2,2,2,Ci,Co) int8 phase taps as Q2 reads them: (16, Ci'/4,
-    Co) words."""
-    return _words(wq16.reshape(16, *wq16.shape[4:]))
+    """The (2,2,2,2,Ci,Co) int8 phase taps as Q2 reads them: (16, Co,
+    Ci') int8, K-major, tap [a, ta, b, tb] at ((a * 2 + ta) * 2 + b) * 2 +
+    tb, the padding zero."""
+    return conv_operands.kmajor(wq16.reshape(16, *wq16.shape[4:]),
+                                torch.int8, 1)
 
 
 def dense_operand(wq: torch.Tensor) -> torch.Tensor:
@@ -203,9 +241,17 @@ def dense_operand(wq: torch.Tensor) -> torch.Tensor:
     return _words(wq[None])[0]
 
 
+def pad_int8(xq: torch.Tensor) -> torch.Tensor:
+    """int8 NHWC ``xq`` with its channels zero-padded as Q1 and Q2 read
+    them (``padded_channels(C, 1)``: R's 3-channel stem to 32, a copy of
+    33.6 MB at batch 256 and 64 x 64), contiguous. Zero channels add exact
+    zeros to the s32 sums."""
+    return conv_operands.pad_channels(xq, 1)
+
+
 def _pad_words(xq: torch.Tensor) -> torch.Tensor:
-    """int8 ``xq`` with its last dim zero-padded to a multiple of 4 (the
-    kernels read words of four), contiguous."""
+    """int8 ``xq`` with its last dim zero-padded to a multiple of 4 (Q3
+    reads words of four), contiguous."""
     c = xq.shape[-1]
     if c % 4:
         return F.pad(xq, (0, -(-c // 4) * 4 - c))
@@ -258,11 +304,12 @@ def launch_quant_conv3x3(xq, x_scale, wq, w_scale, bias, act, pool,
                          f"take the input's {ci} channels")
     if pool and (h % 2 or w % 2):
         raise ValueError(f"pool needs even H and W, got {h}x{w}")
-    xk = _pad_words(xq)
+    xk = pad_int8(xq)
+    cp = xk.shape[-1]
+    plan = conv_operands.tile_plan(h, w, ci, co, out_bytes=4, elem_bytes=1)
     wk = conv_operand(wq) if operand is None else operand
-    cuda_lib.require(xk, "xq", xq.device, torch.int8, (n, h, w, xk.shape[-1]))
-    cuda_lib.require(wk, "kernel", xq.device, torch.int32,
-                     (9, xk.shape[-1] // 4, co))
+    cuda_lib.require(xk, "xq", xq.device, torch.int8, (n, h, w, cp))
+    cuda_lib.require(wk, "kernel", xq.device, torch.int8, (9, co, cp))
     xs = _flat_scale(x_scale, 1, xq.device, "x_scale")
     ws = _flat_scale(w_scale, co, xq.device, "w_scale")
     b = _flat_scale(bias, co, xq.device, "bias")
@@ -271,8 +318,9 @@ def launch_quant_conv3x3(xq, x_scale, wq, w_scale, bias, act, pool,
     with cuda_lib.on_device(xq):
         rc = cuda_lib.library().gr_quant_conv3x3(
             xk.data_ptr(), wk.data_ptr(), xs.data_ptr(), ws.data_ptr(),
-            b.data_ptr(), out.data_ptr(), n, h, w, xk.shape[-1], co,
-            cuda_lib.ACT_CODES[act], int(pool), cuda_lib.stream_of(xq))
+            b.data_ptr(), out.data_ptr(), n, h, w, cp, co,
+            cuda_lib.ACT_CODES[act], int(pool), *plan,
+            cuda_lib.stream_of(xq))
     cuda_lib.check(rc, "quant_conv3x3")
     quant_conv3x3_same.launches += 1
     return out
@@ -292,11 +340,12 @@ def launch_quant_upsample2_conv3x3(xq, x_scale, wq16, w_scale, shift, act,
         raise ValueError(f"quant_upsample2_conv3x3: phase taps "
                          f"{tuple(wq16.shape)} do not take the input's {ci} "
                          "channels")
-    xk = _pad_words(xq)
+    xk = pad_int8(xq)
+    cp = xk.shape[-1]
+    plan = conv_operands.tile_plan(h, w, ci, co, out_bytes=4, elem_bytes=1)
     wk = phase_operand(wq16) if operand is None else operand
-    cuda_lib.require(xk, "xq", xq.device, torch.int8, (n, h, w, xk.shape[-1]))
-    cuda_lib.require(wk, "kernel", xq.device, torch.int32,
-                     (16, xk.shape[-1] // 4, co))
+    cuda_lib.require(xk, "xq", xq.device, torch.int8, (n, h, w, cp))
+    cuda_lib.require(wk, "kernel", xq.device, torch.int8, (16, co, cp))
     xs = _flat_scale(x_scale, 1, xq.device, "x_scale")
     ws = _flat_scale(w_scale, co, xq.device, "w_scale")
     b = _flat_scale(shift, co, xq.device, "shift")
@@ -305,8 +354,8 @@ def launch_quant_upsample2_conv3x3(xq, x_scale, wq16, w_scale, shift, act,
     with cuda_lib.on_device(xq):
         rc = cuda_lib.library().gr_quant_upsample2_conv3x3(
             xk.data_ptr(), wk.data_ptr(), xs.data_ptr(), ws.data_ptr(),
-            b.data_ptr(), out.data_ptr(), n, h, w, xk.shape[-1], co,
-            cuda_lib.ACT_CODES[act], cuda_lib.stream_of(xq))
+            b.data_ptr(), out.data_ptr(), n, h, w, cp, co,
+            cuda_lib.ACT_CODES[act], *plan, cuda_lib.stream_of(xq))
     cuda_lib.check(rc, "quant_upsample2_conv3x3")
     quant_upsample2_conv3x3.launches += 1
     return out

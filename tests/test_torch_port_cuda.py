@@ -693,12 +693,20 @@ def test_bf16_runs_no_cuda_core_kernel(dev, tmp_path, kind, wgmma,
 
 def test_tensor_core_kernels_have_hgmma(dev):
     """chip_smoke's SASS guard: every instance of the six bf16 kernels
-    holds HGMMA instructions (the tensor cores): four conv kernels and C
-    for BN 16 to 256, U's fused head for BN 16 to 128; the CUDA-core f32
-    kernels and the finish launches hold none."""
+    holds HGMMA instructions (the tensor cores), as many as before Q1 and
+    Q2 moved onto their mainloop: four conv kernels and C for BN 16 to 256,
+    U's fused head for BN 16 to 128; every instance of Q1's and Q2's s8
+    kernels holds IGMMA (the int8 tensor cores), Q3's and Q4's neither;
+    the CUDA-core f32 kernels and the finish launches hold no HGMMA."""
     import chip_smoke
     counts = chip_smoke.check_hgmma(cuda_lib.build())
-    assert len(counts) == 4 * 5 + 4 + 5
+    assert sum(map(len, counts.values())) == 4 * 5 + 4 + 5 + 2 * 5
+    assert counts["conv3x3_wgmma_kernel"] == dict.fromkeys(
+        (16, 32, 64, 128, 256), chip_smoke.HGMMA_COUNTS[
+            "conv3x3_wgmma_kernel"])
+    for stem in chip_smoke.S8_KERNELS:
+        assert sorted(counts[stem]) == [16, 32, 64, 128, 256]
+        assert all(counts[stem].values()), (stem, counts[stem])
     for name, n in chip_smoke.sass_hgmma(cuda_lib.build()).items():
         if any(s in name for s in ("bn_act_kernel", "conv_stats_kernel",
                                    "upsample_v2_kernel", "head_kernel",
@@ -982,6 +990,89 @@ def test_quant_upsample_kernel_bitwise(dev, n, h, w, ci, co):
     torch.cuda.synchronize()
     assert torch.equal(out, quant.quant_upsample2_conv3x3_plain(
         xq, xs, wq16, ws, sh))
+
+
+# the int8 legs' Q1 and Q2 shapes with N cut to 16 (R's six convs, G's
+# output conv, G's two stages), and Ci 40 with Co 130 and 300 (two channel
+# blocks of 256); (kind, N, H, W, Ci, Co, act, pool)
+S8_MAIN_CASES = [
+    ("conv", 16, 64, 64, 3, 64, "elu", False),
+    ("conv", 16, 64, 64, 64, 64, "elu", False),
+    ("conv", 16, 64, 64, 64, 64, "elu", True),
+    ("conv", 16, 32, 32, 64, 128, "elu", False),
+    ("conv", 16, 32, 32, 128, 128, "elu", False),
+    ("conv", 16, 32, 32, 128, 128, "elu", True),
+    ("conv", 16, 64, 64, 128, 3, "sigmoid", False),
+    ("conv", 2, 9, 13, 40, 130, "relu", False),
+    ("conv", 2, 10, 14, 40, 300, "none", True),
+    ("phase", 16, 16, 16, 512, 256, "relu", False),
+    ("phase", 16, 32, 32, 256, 128, "relu", False),
+    ("phase", 2, 5, 7, 40, 130, "relu", False),
+    ("phase", 2, 5, 7, 40, 300, "none", False)]
+
+
+@pytest.mark.parametrize("kind,n,h,w,ci,co,act,pool", S8_MAIN_CASES)
+def test_quant_s8_kernels_at_main_path_shapes(dev, kind, n, h, w, ci, co,
+                                              act, pool):
+    """Q1 and Q2 on the int8 tensor cores at the main path's shapes: one
+    launch counted; bitwise the plain version with none or relu, within
+    1e-6 of scale with ELU or the sigmoid (CUDA's expm1f and expf) and
+    then bitwise with none; a second call bitwise the first."""
+    from ganreverser_tpu_torch.ops import quant
+    g = torch.Generator(device=dev).manual_seed(6)
+    xq, xs = quant.quantize_plain(torch.randn(n, h, w, ci, device=dev,
+                                              generator=g))
+    k = torch.randn(3, 3, ci, co, device=dev, generator=g)
+    b = torch.randn(co, device=dev, generator=g)
+    if kind == "conv":
+        wq, ws = quant.quantize_plain(k, axis=(0, 1, 2))
+        wrapper, op = quant.quant_conv3x3_same, quant.conv_operand(wq)
+
+        def run(a, plain=False):
+            if plain:
+                return quant.quant_conv3x3_plain(xq, xs, wq, ws, b, act=a,
+                                                 pool=pool)
+            return wrapper(xq, xs, wq, ws, b, act=a, pool=pool, operand=op)
+    else:
+        wq, ws = quant.quant_phase_weights(k, torch.rand(
+            co, device=dev, generator=g) + 0.5)
+        wrapper, op = (quant.quant_upsample2_conv3x3,
+                       quant.phase_operand(wq))
+
+        def run(a, plain=False):
+            if plain:
+                return quant.quant_upsample2_conv3x3_plain(xq, xs, wq, ws, b,
+                                                           act=a)
+            return wrapper(xq, xs, wq, ws, b, act=a, operand=op)
+    before = wrapper.launches
+    out = run(act)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    ref = run(act, plain=True)
+    assert out.shape == ref.shape and out.dtype == torch.float32
+    if act in ("none", "relu"):
+        assert torch.equal(out, ref)
+    else:
+        assert (out - ref).abs().max().item() <= 1e-6 * max(
+            1.0, ref.abs().max().item())
+        assert torch.equal(run("none"), run("none", plain=True))
+    assert torch.equal(run(act), out)
+
+
+def test_quant_s8_kernels_refuse_bad_operands(dev):
+    """A CUDA tensor launches the kernel or raises: an operand in the old
+    word layout (int32) or of the wrong width is refused."""
+    from ganreverser_tpu_torch.ops import quant
+    xq = torch.ones(1, 4, 4, 8, dtype=torch.int8, device=dev)
+    xs = torch.ones((), device=dev)
+    wq = torch.ones(3, 3, 8, 5, dtype=torch.int8, device=dev)
+    ws, b = torch.ones(5, device=dev), torch.zeros(5, device=dev)
+    with pytest.raises(TypeError):
+        quant.quant_conv3x3_same(xq, xs, wq, ws, b, operand=quant._words(
+            wq.reshape(9, 8, 5)))
+    with pytest.raises(ValueError):
+        quant.quant_conv3x3_same(xq, xs, wq, ws, b, operand=torch.ones(
+            9, 5, 64, dtype=torch.int8, device=dev))
 
 
 @pytest.mark.parametrize("n,k,m", [(7, 10, 13), (70, 4096, 130),

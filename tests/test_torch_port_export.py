@@ -260,3 +260,34 @@ def test_serving_roundtrip_of_a_closure(tmp_path):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     with pytest.raises(ValueError):
         serving.save_serving_program(out, fn, (x,), {}, platforms=("tpu",))
+
+
+@pytest.mark.parametrize("layout", [None, "words-of-four"])
+def test_loader_refuses_an_int8_artifact_of_another_operand_layout(
+        tmp_path, layout):
+    """An int8 artifact records the int8 kernels' operand layout and loads;
+    one without that record (exported before Q1 and Q2 read K-major int8
+    weights: its baked operands are words of four channels) or with
+    another layout is refused, with a message saying to export it again."""
+    w = torch.randn(5, 3)
+
+    def fn(x):
+        return x @ w
+
+    out = str(tmp_path / "serve")
+    serving.save_serving_program(out, fn, (torch.randn(4, 5),),
+                                 {"what": "toy", "int8": True},
+                                 platforms=("cpu",))
+    path = os.path.join(out, serving.MANIFEST)
+    meta = json.load(open(path))
+    assert meta[serving.INT8_OPERANDS] == "taps-co-ci-int8"
+    call, _ = serving.load_serving_program(out, "cpu")
+    x = torch.randn(4, 5)
+    assert torch.equal(call(x), fn(x))
+    if layout is None:
+        del meta[serving.INT8_OPERANDS]
+    else:
+        meta[serving.INT8_OPERANDS] = layout
+    json.dump(meta, open(path, "w"))
+    with pytest.raises(RuntimeError, match="export it again"):
+        serving.load_serving_program(out, "cpu")

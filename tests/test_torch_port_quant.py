@@ -41,6 +41,7 @@ from ganreverser_tpu_torch.analysis.batched import forward_batched
 from ganreverser_tpu_torch.cli import apply_r
 from ganreverser_tpu_torch.core.prng import noise_inputs, stage_generator
 from ganreverser_tpu_torch.models import bridge, fastpath
+from ganreverser_tpu_torch.ops import conv_operands as CO
 from ganreverser_tpu_torch.ops import cuda_lib, library
 from ganreverser_tpu_torch.ops import quant as Q
 
@@ -191,6 +192,87 @@ def test_int8_phase_conv_matches_jax(rng):
     _same(Q.phase_conv_int32_plain(xq_t, wq16), acc)
     _same(Q.quant_upsample2_conv3x3(xq_t, T(np.asarray(xs)), wq16, ws,
                                     T(shift)), ref)
+
+
+def _int8(rng, shape):
+    """int8 values over the whole symmetric grid, [-127, 127]."""
+    return T(rng.integers(-127, 128, size=shape).astype(np.int8))
+
+
+@pytest.mark.parametrize("co", [3, 70, 256])
+@pytest.mark.parametrize("ci,cp", [(3, 32), (5, 32), (64, 64), (130, 144)])
+def test_s8_operands_unpack_to_the_weights(rng, ci, cp, co):
+    """Q1's and Q2's operands, (taps, Co, Ci') int8 K-major: tap t of
+    conv_operand is wq[t // 3, t % 3] and tap ((a * 2 + ta) * 2 + b) * 2 +
+    tb of phase_operand is wq16[a, ta, b, tb], transposed; Ci' the rows of
+    32, 64 or a multiple of 16 bytes, the padded channels zero."""
+    wq, wq16 = _int8(rng, (3, 3, ci, co)), _int8(rng, (2, 2, 2, 2, ci, co))
+    assert CO.padded_channels(ci, 1) == cp
+    for op, taps in ((Q.conv_operand(wq), wq.reshape(9, ci, co)),
+                     (Q.phase_operand(wq16), wq16.reshape(16, ci, co))):
+        assert op.dtype == torch.int8 and op.is_contiguous()
+        assert tuple(op.shape) == (taps.shape[0], co, cp)
+        assert torch.equal(op[..., :ci].transpose(1, 2), taps)
+        assert not op[..., ci:].any()
+    assert Q.conv_operand(wq)[4, 7 % co, 1].item() == wq[1, 1, 1, 7 % co]
+    assert Q.phase_operand(wq16)[11, 2, 0].item() == wq16[1, 0, 1, 1, 0, 2]
+
+
+@pytest.mark.parametrize("n,h,w,ci,co", [(2, 5, 7, 3, 70), (1, 9, 17, 40, 3),
+                                         (1, 3, 4, 130, 19),
+                                         (2, 4, 6, 64, 5)])
+def test_s8_sums_in_kernel_order_are_exact(rng, n, h, w, ci, co):
+    """The tensor-core tile's s32 sums in its K order (each tap, then each
+    BK chunk of the padded K-major operands; s8_sums_plain) are exactly the
+    int32 convolutions' (conv3x3_int32_plain, JAX's int8 conv, and
+    phase_conv_int32_plain), on ragged shapes, at the grid's extremes (the
+    sums pass 2^24, what f32 holds exactly)."""
+    xq, wq = _int8(rng, (n, h, w, ci)), _int8(rng, (3, 3, ci, co))
+    wq16 = _int8(rng, (2, 2, 2, 2, ci, co))
+    xq[0, 0, 0] = wq[..., 0].flatten()[0] = 127
+    bk = CO.tile_plan(h, w, ci, co, out_bytes=4, elem_bytes=1).bk
+    got = Q.s8_sums_plain(xq, Q.conv_operand(wq), bk)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, Q.conv3x3_int32_plain(xq, wq))
+    _same(got, lax.conv_general_dilated(
+        jnp.asarray(xq.numpy()), jnp.asarray(wq.numpy()), (1, 1), "SAME",
+        dimension_numbers=("NHWC", "HWIO", "NHWC"),
+        preferred_element_type=jnp.int32))
+    assert torch.equal(
+        Q.s8_sums_plain(xq, Q.phase_operand(wq16), bk, phases=True),
+        Q.phase_conv_int32_plain(xq, wq16))
+
+
+# the int8 layers of G3 and R at 3x64x64 (H, W, Ci, Co at the input's
+# resolution: R's six convs, G's output conv, G's two upsample stages), and
+# the ragged shapes of chip_smoke's phase 10 and the card tests
+S8_PLAN_SHAPES = [(64, 64, 3, 64), (64, 64, 64, 64), (32, 32, 64, 128),
+                  (32, 32, 128, 128), (64, 64, 128, 3), (16, 16, 512, 256),
+                  (32, 32, 256, 128), (13, 21, 40, 70), (10, 18, 5, 3),
+                  (13, 21, 130, 300), (6, 10, 70, 130), (5, 7, 40, 130),
+                  (9, 17, 130, 300), (3, 5, 5, 3), (9, 13, 40, 130)]
+
+
+@pytest.mark.parametrize("h,w,ci,co", S8_PLAN_SHAPES)
+def test_s8_tile_plan(h, w, ci, co):
+    """The int8 plan (elem_bytes 1, f32 output): BK rows of 32, 64 or 128
+    bytes (the padded channels where they are 32 or 64, else 128), BN the least width covering Co (256
+    and more channel blocks above), the ring holding the f32 staged tile,
+    the shared bytes its layout's (csrc/conv_wgmma.cuh::plan_ok) within
+    what a block may use."""
+    p = CO.tile_plan(h, w, ci, co, out_bytes=4, elem_bytes=1)
+    cp = CO.padded_channels(ci, 1)
+    assert p.bk in (32, 64, 128) and p.bk == (cp if cp <= 64 else 128)
+    assert cp >= ci and cp % 16 == 0 and (cp in (32, 64) or cp > 64)
+    assert p.bn == next((b for b in CO.WIDTHS_N if co <= b), 256)
+    assert p.bh * p.bw == CO.BM and p.bh % 2 == 0 and p.bw % 2 == 0
+    stage = -(-(CO.BM + p.bn) * p.bk // CO.ALIGN) * CO.ALIGN
+    assert CO.staged_bytes(p.bn, 4) <= p.stages * stage
+    assert p.stages >= 2
+    assert p.smem_bytes == CO.ALIGN + p.stages * (stage + 16)
+    assert p.smem_bytes <= CO.MAX_SHARED_BYTES
+    if (h, w, ci, co) == (16, 16, 512, 256):  # G's stage 1: 133 KB staged
+        assert CO.staged_bytes(256, 4) == 133_120 and p.bk == 128
 
 
 def _variables(model, in_shape, seed, rng, amplify=4.0):

@@ -4,7 +4,7 @@
 Run from the root of a checkout:
 
     python3 tools/profile_port.py [--out build/profile]
-                                  [--what all|apply_r|e2e|train|gan|distill]
+                                  [--what all|apply_r|e2e|train|gan|distill|int8]
 
 With the models of chip_smoke.py (G3, R and the fixer-R at 3x64x64, noise
 100, random weights from its seed), bf16, batch 256, N = 10,000, it prints
@@ -54,10 +54,18 @@ and writes to ``<out>/profile.txt``:
   (``<out>/trace_e2e_{graph,eager}.json``): wall, device busy, idle share,
   device time by class and by kernel name.
 
+* ``[int8]``: apply_r's stage ② (generate + invert, G and R, no
+  fixer-R) on the int8 legs (kernels Q1-Q4) and on the bf16 legs, with the
+  models and N of ``[stage2+4]``: three warm runs each, then one under
+  torch.profiler (``<out>/trace_stage2_{int8,bf16}.json``): wall, device
+  busy, idle share, device time by class and by kernel name (Q1 and Q2 by
+  tile width, Q4's two launches, the channel padding's copy).
+
 ``--what apply_r`` runs the ``[stage2+4]``, ``[layer]``, ``[trace]``,
 ``[apply_r]`` and ``[native]`` sections; ``--what e2e`` only ``[e2e]``;
 ``--what train`` only ``[train]``; ``--what gan`` only ``[gan]``;
-``--what distill`` only ``[distill]``; ``--what all`` every section.
+``--what distill`` only ``[distill]``; ``--what int8`` only ``[int8]``;
+``--what all`` every section.
 
 Every line carries the card's name and power limit.
 """
@@ -88,6 +96,7 @@ _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # (class, substrings of a device operation's name); the first match wins
 _CLASSES = (
     ("B5 dropout kernel", ("fused_dropout_kernel",)),
+    ("hand-written kernels on the tensor cores (int8)", ("_s8_kernel",)),
     ("hand-written kernels on the tensor cores (bf16)", ("wgmma_kernel",)),
     ("hand-written kernels on the CUDA cores", ("gr::",)),
     ("convolution (cuDNN)", ("fprop", "dgrad", "wgrad", "cudnn",
@@ -359,6 +368,40 @@ def profile_e2e(dev, log, card: str, out_dir: str) -> bool:
     return True
 
 
+def profile_int8(dev, log, card: str, out_dir: str) -> bool:
+    """The ``[int8]`` lines: stage ② on the int8 and the bf16 legs, warm
+    times and one traced run each."""
+    from torch.profiler import ProfilerActivity, profile
+    G, R, _ = cs.make_models(dev)
+    gv = bridge.to_torch(bridge.export_variables(G), dev)
+    rv = bridge.to_torch(bridge.export_variables(R), dev)
+    del G, R
+    n = cs.N_MAIN
+    for label, int8 in (("int8", True), ("bf16", False)):
+        def stage2():
+            generate_and_invert(
+                gv, rv, dims=cs.DIMS, n=n, noise_dim=cs.NOISE_DIM,
+                noise_method="normal", generator=seeded_generator(1, dev),
+                batch_size=256, dtype=torch.bfloat16, int8=int8)
+        stage2()
+        times = cs.wall_s(stage2, 3)
+        log(f"[int8] stage ② (G and R) on the {label} legs, N={n} batch 256: "
+            + ", ".join(f"{t:.4f} s" for t in times)
+            + f" = {n / sorted(times)[1]:.1f} img/s (median)  [{card}]")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            stage2()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        if not summarise_trace(prof, os.path.join(
+                out_dir, f"trace_stage2_{label}.json"), wall_us,
+                f"int8 {label}", log, card, top=16):
+            return False
+    return True
+
+
 def profile_apply_r_sections(dev, log, card: str, out_dir: str) -> bool:
     """The ``[stage2+4]``, ``[layer]``, ``[trace]``, ``[apply_r]`` and
     ``[native]`` lines."""
@@ -472,7 +515,7 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="build/profile",
                     help="directory for profile.txt and the trace")
     ap.add_argument("--what", choices=("all", "apply_r", "e2e", "train",
-                                       "gan", "distill"),
+                                       "gan", "distill", "int8"),
                     default="all", help="the sections to run")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -490,7 +533,7 @@ def main(argv=None) -> int:
     log(card)
     sections = (("apply_r", profile_apply_r_sections), ("e2e", profile_e2e),
                 ("train", profile_train), ("gan", profile_gan),
-                ("distill", profile_distill))
+                ("distill", profile_distill), ("int8", profile_int8))
     for what, section in sections:
         if args.what in ("all", what) and not section(dev, log, card,
                                                       args.out):

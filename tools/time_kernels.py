@@ -10,8 +10,11 @@ commit unpacked into a directory can be timed by the same script; its
 kernels build into that checkout's ``build/kernels``. ``--names`` picks
 kernels by their ``chip_smoke.kernel_cases`` name (default: conv_block,
 upsample2_conv3x3_bn_act, conv3x3_bn_act, upsample2_conv3x3_head,
-cosine_scores: B, U, B6, U's fused head, C), or one of three cases built
-here from entry points every checkout of the port has:
+cosine_scores: B, U, B6, U's fused head, C), by their
+``chip_smoke.quant_cases`` name (``quant_conv3x3_same``,
+``quant_upsample2_conv3x3``: Q1 at R's six layers and G's output conv, Q2
+at G's two stages, int8, as phase 10 times them), or one of three cases
+built here from entry points every checkout of the port has:
 
 - ``fused_dropout`` (B5): the bf16 forward at each of chip_smoke's
   ``DROPOUT_STEP_SHAPES`` (one R step's six dropouts);
@@ -32,7 +35,8 @@ the device time per call of the hand-written kernels it launched, from a
 torch.profiler trace of ``--reps`` calls: the device operations whose name
 holds one of ``DEVICE_KERNELS`` (the tensor-core kernels, the head's and
 C's second launches, the CUDA-core head and C of a checkout that predates
-their tensor-core design, B5 and K). One JSON line per case with the
+their tensor-core design, B5 and K, Q1 and Q2 on the int8 tensor cores or
+their __dp4a kernel in a checkout before that). One JSON line per case with the
 card's name and power limit, then one line with the sums per kernel.
 Needs a CUDA device.
 """
@@ -49,7 +53,8 @@ DEFAULT_NAMES = ("conv_block,upsample2_conv3x3_bn_act,conv3x3_bn_act,"
                  "upsample2_conv3x3_head,cosine_scores")
 DEVICE_KERNELS = ("wgmma_kernel", "finish_kernel", "conv3x3_head_kernel",
                   "cosine_scores_kernel", "fused_dropout", "kmeans_",
-                  "probe_")
+                  "probe_", "_s8_kernel", "quant_tapconv_kernel")
+QUANT_NAMES = ("quant_conv3x3_same", "quant_upsample2_conv3x3")
 KMEANS_CASE = (10_000, 100, 15)   # N, D (noise 100), Lloyd iterations
 
 
@@ -144,9 +149,16 @@ def main(argv=None) -> int:
                     for name, label, make in chip_smoke.kernel_cases(
                         dev, chip_smoke.N_CHECK, chip_smoke.N_MAIN)
                     if name in sums)
+    quant_cases = ((name, label, make)
+                   for name, label, make in (chip_smoke.quant_cases(
+                       dev, chip_smoke.N_CHECK) if sums.keys() & set(
+                           QUANT_NAMES) else ())
+                   if name in sums)
     for name, label, fn in itertools.chain(
             ((n, lab, make(torch.bfloat16)["kernel"])
-             for n, lab, make in kernel_cases), local_cases(dev, names)):
+             for n, lab, make in kernel_cases),
+            ((n, lab, make()["kernel"]) for n, lab, make in quant_cases),
+            local_cases(dev, names)):
         if name == "r_step":  # a call is 3 warm-up + STEP_TIMES steps
             ms = statistics.median(fn())
             dms = device_ms(fn, 1) / (chip_smoke.STEP_TIMES + 3)
@@ -155,7 +167,8 @@ def main(argv=None) -> int:
             dms = device_ms(fn, args.reps)
         sums[name] += ms
         dev_sums[name] += dms
-        dtype = "f32 and bf16" if name == "probes" else "bfloat16"
+        dtype = ("f32 and bf16" if name == "probes" else
+                 "int8" if name in QUANT_NAMES else "bfloat16")
         print(json.dumps({"root": root, "name": name, "label": label,
                           "dtype": dtype, "ms": ms, "device_ms": dms,
                           "card": card}))
