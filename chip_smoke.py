@@ -20,8 +20,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    upsample2_head_wgmma_kernel (U's fused head, BN 16 to 128) and
    cosine_wgmma_kernel (C), as many per instance as before Q1 and Q2 moved
    onto their mainloop (HGMMA_COUNTS); IGMMA (the int8 tensor cores' s8
-   wgmma) in every instance of Q1's and Q2's quant_conv3x3_s8_kernel and
-   quant_upsample2_s8_kernel, and neither in Q3's and Q4's kernels;
+   wgmma) in every instance of Q1's, Q2's and Q3's
+   quant_conv3x3_s8_kernel, quant_upsample2_s8_kernel,
+   quant_dense_s8_kernel and quant_dense_split_s8_kernel, neither in Q3's
+   sum kernel and Q4's kernels, and no DP4A in any kernel;
 3. each kernel against its plain PyTorch version on the card at the shapes
    of the main path (N = 256, f32 and bf16, TF32 off for the plain f32
    reference): max error against the stated tolerance, median times of the
@@ -176,16 +178,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    seconds, artifact MB, load and first-call seconds, the loaded e2e
    artifact's warm img/s. Then kernels Q1-Q4 (csrc/quant.cu) against
    their plain versions at the int8 legs' shapes (R's six convs, G's
-   output conv, G's two upsample stages, the three dense layers, five
-   activation sizes): q and the scale bitwise, outputs within 1e-6 of
-   scale, kernel, plain and bound times (bound: operations over 1,979
-   TOPS or bytes over 3.35 TB/s), Q3 beside torch._int_mm. Q1 and Q2 (on
-   the int8 tensor cores) are called twice, which must be bitwise equal,
-   and must be bitwise their plain versions with the activation none or
-   relu (each main-path shape with ELU or the sigmoid is also run with
-   none, the pool kept); their times stand beside the __dp4a kernels'
-   they replaced and beside B's or U's bf16 kernel on the same layer; ragged
-   Q1 and Q2 cases off every tile edge (batch 1) hold the same. Then
+   output conv, G's two upsample stages, the three dense layers; Q4's two
+   launches at the two entry quantisers' sizes, its one pass at the eight
+   sizes that follow a producer): q and the scale bitwise, outputs within
+   1e-6 of scale, kernel, plain and bound times (bound: operations over
+   1,979 TOPS or bytes over 3.35 TB/s), Q3 beside torch._int_mm, Q4's one
+   pass beside its two launches on the same input. Q1, Q2 and Q3 (on the
+   int8 tensor cores) are called as the main path calls them, with their
+   max where a quantiser follows, and without: the two outputs must be
+   bitwise equal, bitwise their plain versions with the activation none
+   or relu (each main-path shape with ELU or the sigmoid is also run with
+   none, the pool kept), the max bitwise max |y| and Q4's one pass from
+   it bitwise quantize_plain; their device times with and without the
+   max, their times beside the kernels they replaced and beside B's or
+   U's bf16 kernel on the same layer; ragged Q1, Q2 and Q3 cases off every
+   tile edge hold the same. Stage ② of ``apply_r --int8``, traced, must
+   launch Q4's kernels 14 times a chunk (Q4_LAUNCHES_A_CHUNK). Then
    ``apply_r --int8`` with phase 4's arguments (Q1-Q4, B, U, C and K must
    launch; phase 4's checks) and its stage seconds beside phase 4's; the
    top-100 recall of the int8 e2e program against the bf16 one on phase
@@ -380,11 +388,18 @@ HGMMA_COUNTS = {"conv3x3_wgmma_kernel": 8, "upsample2_wgmma_kernel": 8,
                 "conv_stats_wgmma_kernel": 8, "upsample_v2_wgmma_kernel": 8,
                 "cosine_wgmma_kernel": 4,
                 HEAD_WGMMA: {16: 12, 32: 15, 64: 21, 128: 33}}
-# Q1's and Q2's kernels on the int8 tensor cores: IGMMA in every instance
-S8_KERNELS = ("quant_conv3x3_s8_kernel", "quant_upsample2_s8_kernel")
-# Q3's and Q4's kernels, on the CUDA cores: no tensor-core instruction
-INT8_CUDA_CORE_KERNELS = ("quant_dense_kernel", "quant_dense_finish_kernel",
-                          "quant_absmax_kernel", "quant_apply_kernel")
+# Q1's, Q2's and Q3's kernels on the int8 tensor cores: IGMMA in every
+# instance
+S8_KERNELS = ("quant_conv3x3_s8_kernel", "quant_upsample2_s8_kernel",
+              "quant_dense_s8_kernel", "quant_dense_split_s8_kernel")
+# Q3's split-K sum and Q4's kernels, streaming passes on the CUDA cores: no
+# tensor-core instruction
+INT8_CUDA_CORE_KERNELS = ("quant_dense_sum_kernel", "quant_absmax_kernel",
+                          "quant_apply_kernel", "quant_apply_max_kernel")
+# Q4's device kernels: the two launches of an entry quantiser, the one
+# pass after an int8 producer
+Q4_KERNELS = {"absmax": "quant_absmax_kernel", "apply": "quant_apply_kernel",
+              "one pass": "quant_apply_max_kernel"}
 # the bf16 kernels whose second launch adds partials: a second call must be
 # bitwise the first
 REPEATABLE = ("upsample2_conv3x3_head", "cosine_scores")
@@ -428,8 +443,10 @@ def _instances(counts: dict, stem: str) -> dict:
 def check_hgmma(lib_path) -> dict:
     """The SASS guard: every instance of the bf16 kernels (one per tile
     width BN) holds as many HGMMA instructions as HGMMA_COUNTS says; every
-    instance of Q1's and Q2's s8 kernels holds IGMMA, and Q3's and Q4's
-    kernels neither. Returns the counts by kernel and BN."""
+    instance of Q1's, Q2's and Q3's s8 kernels holds IGMMA, Q3's sum kernel
+    and Q4's kernels neither, and no kernel DP4A (the CUDA cores' int8
+    product, which Q3 ran on before). Returns the counts by kernel and
+    BN."""
     from ganreverser_tpu_torch.ops.conv_operands import HEAD_MAX_BN, WIDTHS_N
     hgmma, igmma = sass_hgmma(lib_path), sass_hgmma(lib_path, "IGMMA")
     found = {}
@@ -454,6 +471,8 @@ def check_hgmma(lib_path) -> dict:
         check(len(names) == 1 and not hgmma[names[0]]
               and not igmma[names[0]], f"SASS: {stem} ({names}) is not one "
               "kernel free of tensor-core instructions")
+    dp4a = {n: c for n, c in sass_hgmma(lib_path, "DP4A").items() if c}
+    check(not dp4a, f"SASS: DP4A in {dp4a}")
     return found
 
 
@@ -507,6 +526,32 @@ def device_ms(fn, names, reps: int = 10) -> float:
                 for ev in prof.key_averages()
                 if any(n in ev.key for n in names))
     return total / reps / 1e3
+
+
+def launch_ms(fn, names, reps: int = 10, tries: int = 3) -> float:
+    """Device time per call of ``fn`` that launches each kernel whose name
+    holds one of ``names`` once: the mean time per recorded launch of each
+    such kernel, summed, from a torch.profiler trace of ``reps`` calls,
+    traced again (up to ``tries`` times) while it records none. Late in
+    this script's run, a phase-10 trace now and then recorded a fifth of a
+    kernel's launches, or none; these means do not depend on how many."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [ev for ev in prof.key_averages()
+                  if ev.count and any(n in ev.key for n in names)]
+        if events:
+            return sum(getattr(ev, "device_time_total",
+                               getattr(ev, "cuda_time_total", 0.0))
+                       / ev.count for ev in events) / 1e3
+    check(False, f"no launch of {names} in {tries} traces")
+    return 0.0
 
 
 def device_counts(fn, names: dict) -> dict:
@@ -2773,13 +2818,15 @@ SERVE_CPU_ROWS = 16      # rows of the CPU leg held to the plain path
 TOL_INT8 = 1e-6
 PEAK_INT8_OPS = 1979e12  # dense int8 tensor-core peak of an H100 SXM
 INT8_LINES = ("quant_conv3x3_same", "quant_upsample2_conv3x3", "quant_dense",
-              "quant_act")
-S8_LINES = INT8_LINES[:2]   # Q1 and Q2, on the int8 tensor cores
-# their __dp4a predecessors' wrapper times at the same shapes (this phase
-# before the tensor-core redesign; NVIDIA H100 80GB HBM3, 700.00 W): by
-# label, and summed
+              "quant_act", "quant_act_max")
+S8_LINES = INT8_LINES[:3]   # Q1, Q2 and Q3, on the int8 tensor cores
+# the kernels' wrapper times before their redesign at the same shapes, from
+# this phase (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6): Q1's and
+# Q2's __dp4a kernels by label and summed, Q3's __dp4a kernel at its three
+# shapes, Q4's two launches at five sizes (R's and G's layer inputs)
 Q_BEFORE_MS = {"G l12": 0.34, "G stage 1": 3.92, "G stage 2": 4.12}
-Q_BEFORE_SUMS = {"quant_conv3x3_same": 5.549, "quant_upsample2_conv3x3": 8.036}
+Q_BEFORE_SUMS = {"quant_conv3x3_same": 5.549, "quant_upsample2_conv3x3": 8.036,
+                 "quant_dense": 0.521, "quant_act": 0.813}
 # Q1 and Q2 off every tile edge, batch 1: H and W off the 8 x 16 patch, Ci
 # off 32 bytes (5, 40, 70, 130: rows of 32, 64, 80 and 144), Co off BN
 # (3, 70, 130; 300 over two blocks of 256); (N, H, W, Ci, Co, act[, pool])
@@ -2789,6 +2836,15 @@ Q1_RAGGED = [(1, 13, 21, 40, 70, "none", False),
              (1, 6, 10, 70, 130, "sigmoid", True)]
 Q2_RAGGED = [(1, 5, 7, 40, 130, "relu"), (1, 9, 17, 130, 300, "none"),
              (1, 3, 5, 5, 3, "sigmoid")]
+# Q3 off every tile edge: N off 128 rows, K off 16 bytes and off the
+# chunk, M off BN; one K split over 8 (70 x 4096 . 4096 x 130);
+# (N, K, M, act)
+Q3_RAGGED = [(7, 10, 13, "elu"), (70, 4096, 130, "relu"),
+             (1, 40, 300, "sigmoid")]
+# Q4's launches a chunk of apply_r --int8 stage ②: two each for the two
+# entry quantisers (z, the images), one for each of the ten quantisers
+# after an int8 producer (24 before the producers took the max)
+Q4_LAUNCHES_A_CHUNK = 14
 # the int8 e2e program's top-100 recall against the bf16 program on phase
 # 8's x3 weights (as with the __dp4a kernels): both programs are
 # deterministic and the int8 sums exact, so another value is a fault
@@ -2843,7 +2899,9 @@ def quant_counters():
 
 def quant_cases(dev, n: int):
     """(kernel, label, make() -> case) for Q1-Q4 at the int8 legs' shapes:
-    the quantised operands from seeded f32 tensors, the kernel's call, its
+    the quantised operands from seeded f32 tensors, the kernel's call as
+    the main path makes it (``with_max`` where a quantiser follows: the
+    producer then returns (y, max |y|)), the call without the max, its
     plain version, the library call (torch._int_mm for Q3, its K or M
     zero-padded to a multiple of 8 where cuBLAS needs it; none for the
     others: no PyTorch call computes them), operations and bytes."""
@@ -2860,7 +2918,7 @@ def quant_cases(dev, n: int):
         x = torch.randn(shape, device=dev, generator=gen)
         return Q.quantize_plain(torch.clamp_min(x, 0) if relu else x)
 
-    def conv(label, shape, co, act, pool):
+    def conv(label, shape, co, act, pool, with_max=True):
         nb, hh, ww, ci = shape
         xq, xs = act_input(shape, False)
         wq, ws = Q.quantize_plain(torch.randn(3, 3, ci, co, device=dev,
@@ -2876,9 +2934,14 @@ def quant_cases(dev, n: int):
             kb = (wq.float() * ws.reshape(1, 1, 1, -1)).to(torch.bfloat16)
             kop = ck.conv3x3_operand(kb, torch.bfloat16)
             ones = torch.ones(co, device=dev)
+
+            def call(m=with_max):
+                return Q.quant_conv3x3_same(xq, xs, wq, ws, b, act=act,
+                                            pool=pool, operand=op,
+                                            with_max=m)
             return {
-                "kernel": lambda: Q.quant_conv3x3_same(
-                    xq, xs, wq, ws, b, act=act, pool=pool, operand=op),
+                "kernel": call, "nomax": lambda: call(False),
+                "max": with_max, "device": "quant_conv3x3_s8",
                 "plain": lambda: Q.quant_conv3x3_plain(
                     xq, xs, wq, ws, b, act=act, pool=pool),
                 "exact": (lambda: Q.quant_conv3x3_same(
@@ -2908,9 +2971,13 @@ def quant_cases(dev, n: int):
             xb = (xq.float() * xs).to(torch.bfloat16)
             kb = k.to(torch.bfloat16)
             kop = uc.phase_operand(kb, torch.bfloat16)
+
+            def call(m=True):
+                return Q.quant_upsample2_conv3x3(xq, xs, wq16, ws, sh,
+                                                 operand=op, with_max=m)
             return {
-                "kernel": lambda: Q.quant_upsample2_conv3x3(
-                    xq, xs, wq16, ws, sh, operand=op),
+                "kernel": call, "nomax": lambda: call(False), "max": True,
+                "device": "quant_upsample2_s8",
                 "plain": lambda: Q.quant_upsample2_conv3x3_plain(
                     xq, xs, wq16, ws, sh),
                 "exact": None,   # ReLU: the call above is held bitwise
@@ -2922,7 +2989,7 @@ def quant_cases(dev, n: int):
                           + nb * 4 * hh * ww * co * 4)}
         cases.append(("quant_upsample2_conv3x3", label, make))
 
-    def dense(label, nb, k, m, act):
+    def dense(label, nb, k, m, act, with_max):
         xq, xs = act_input((nb, k), act == "elu")
         wq, ws = Q.quantize_plain(torch.randn(k, m, device=dev,
                                               generator=gen), axis=(0,))
@@ -2931,10 +2998,17 @@ def quant_cases(dev, n: int):
         kp, mp = -(-k // 8) * 8, -(-m // 8) * 8
         xl = F.pad(xq, (0, kp - k)).contiguous()
         wl = F.pad(wq, (0, mp - m, 0, kp - k)).contiguous()
+
+        def call(mx=with_max):
+            return Q.quant_dense(xq, xs, wq, ws, b, act=act, operand=op,
+                                 with_max=mx)
         cases.append(("quant_dense", label, lambda: {
-            "kernel": lambda: Q.quant_dense(xq, xs, wq, ws, b, act=act,
-                                            operand=op),
+            "kernel": call, "nomax": lambda: call(False), "max": with_max,
+            "device": "quant_dense",
             "plain": lambda: Q.quant_dense_plain(xq, xs, wq, ws, b, act=act),
+            "exact": None if act in ("none", "relu") else (
+                lambda: Q.quant_dense(xq, xs, wq, ws, b, operand=op),
+                lambda: Q.quant_dense_plain(xq, xs, wq, ws, b)),
             "library": lambda: torch._int_mm(xl, wl),
             "ops": 2 * nb * k * m,
             "bytes": _nbytes(xq, xs, op, ws, b) + nb * m * 4}))
@@ -2948,6 +3022,18 @@ def quant_cases(dev, n: int):
             "ops": 4 * x.numel(),   # |x|, max, divide, round + clip
             "bytes": _nbytes(x) + x.numel() + 4}))
 
+    def one_pass(label, shape):
+        # a producer's output and its max, as the producer returns them
+        x = torch.randn(shape, device=dev, generator=gen)
+        m = x.abs().amax()
+        cases.append(("quant_act_max", label, lambda: {
+            "kernel": lambda: Q.quant_act_max(x, m),
+            "two_launches": lambda: Q.quant_act(x),
+            "plain": lambda: Q.quantize_with_max_plain(x, m),
+            "library": None,
+            "ops": 3 * x.numel(),   # divide, round, clip
+            "bytes": _nbytes(x, m) + x.numel() + 4}))
+
     conv(f"R l0 ({n},{h},{w},{c})->64 elu", (n, h, w, c), 64, "elu", False)
     conv(f"R l4 ({n},{h},{w},64)->64 elu", (n, h, w, 64), 64, "elu", False)
     conv(f"R l8 ({n},{h},{w},64)->64 elu+pool", (n, h, w, 64), 64, "elu",
@@ -2959,26 +3045,37 @@ def quant_cases(dev, n: int):
     conv(f"R l21 ({n},{h // 2},{w // 2},128)->128 elu+pool",
          (n, h // 2, w // 2, 128), 128, "elu", True)
     conv(f"G l12 ({n},{h},{w},128)->{c} sigmoid", (n, h, w, 128), c,
-         "sigmoid", False)
+         "sigmoid", False, with_max=False)
     upsample(f"G stage 1 ({n},{h // 4},{w // 4},512)->256",
              (n, h // 4, w // 4, 512), 256)
     upsample(f"G stage 2 ({n},{h // 2},{w // 2},256)->128",
              (n, h // 2, w // 2, 256), 128)
     dense(f"G l0 ({n},{NOISE_DIM})->{h * w * 32} relu", n, NOISE_DIM,
-          h * w * 32, "relu")
-    dense(f"R l27 ({n},{h * w * 8})->512 elu", n, h * w * 8, 512, "elu")
-    dense(f"R l31 ({n},512)->{NOISE_DIM}", n, 512, NOISE_DIM, "none")
-    # R's layers' inputs, largest first, and G's
-    for shape in ((n, h, w, 64), (n, h // 2, w // 2, 128), (n, h, w, c),
-                  (n, h // 2, w // 2, 256), (n, h // 4, w // 4, 512)):
-        quantize(f"{shape} f32", shape)
+          h * w * 32, "relu", True)
+    dense(f"R l27 ({n},{h * w * 8})->512 elu", n, h * w * 8, 512, "elu",
+          True)
+    dense(f"R l31 ({n},512)->{NOISE_DIM}", n, 512, NOISE_DIM, "none", False)
+    # the entry quantisers: R's images and G's noise
+    quantize(f"R's images ({n},{h},{w},{c}) f32", (n, h, w, c))
+    quantize(f"G's noise ({n},{NOISE_DIM}) f32", (n, NOISE_DIM))
+    # one pass after a producer: the eight sizes of the ten that follow
+    # one, largest first (R l0 and l4, R l13 and l17 share theirs)
+    for shape, what in (((n, h, w, 128), "G stage 2"),
+                        ((n, h, w, 64), "R l0, l4"),
+                        ((n, h // 2, w // 2, 256), "G stage 1"),
+                        ((n, h // 4, w // 4, 512), "G l0"),
+                        ((n, h // 2, w // 2, 128), "R l13, l17"),
+                        ((n, h // 2, w // 2, 64), "R l8"),
+                        ((n, h // 4, w // 4, 128), "R l21"),
+                        ((n, 512), "R l27")):
+        one_pass(f"after {what} {shape} f32", shape)
     return cases
 
 
 def _s8_exact(name: str, label: str, out, ref, again, exact) -> str:
-    """Q1's or Q2's checks beyond the tolerance: a second call bitwise the
-    first; bitwise the plain version with the activation none or relu
-    (``exact``: the same inputs with none, else the call itself)."""
+    """Q1's, Q2's or Q3's checks beyond the tolerance: a second call
+    bitwise the first; bitwise the plain version with the activation none
+    or relu (``exact``: the same inputs with none, else the call itself)."""
     import torch
     check(torch.equal(again, out), f"{name} {label}: a second call differs "
           "from the first")
@@ -2993,38 +3090,67 @@ def _s8_exact(name: str, label: str, out, ref, again, exact) -> str:
             "plain version")
 
 
+def _max_exact(name: str, label: str, y, m) -> str:
+    """A producer's max: a 0-d f32 bitwise max |y| of the output it
+    returned, and Q4's one pass from it bitwise quantize_plain(y)."""
+    import torch
+    from ganreverser_tpu_torch.ops import quant as Q
+    check(m.shape == () and torch.equal(m, y.abs().amax()),
+          f"{name} {label}: max {m} is not max |y| {y.abs().amax()}")
+    q, s = Q.quant_act_max(y, m)
+    qp, sp = Q.quantize_plain(y)
+    check(torch.equal(q, qp) and torch.equal(s, sp), f"{name} {label}: Q4's "
+          "one pass from the producer's max differs from quantize_plain")
+    return "; the max bitwise max |y| and Q4's one pass from it bitwise"
+
+
 def check_quant_ragged(dev, card: str) -> None:
-    """Phase 10: Q1 and Q2 off every tile edge (Q1_RAGGED, Q2_RAGGED) on
-    the card against their plain versions: bitwise with none or relu (and
-    with none where the case's act is ELU or the sigmoid, which stay
-    within TOL_INT8), a second call bitwise the first."""
+    """Phase 10: Q1, Q2 and Q3 off every tile edge (Q1_RAGGED, Q2_RAGGED,
+    Q3_RAGGED) on the card against their plain versions with their max:
+    bitwise with none or relu (and with none where the case's act is ELU
+    or the sigmoid, which stay within TOL_INT8), a second call bitwise the
+    first, the max bitwise max |y|, Q4's one pass from it bitwise."""
     import torch
     from ganreverser_tpu_torch.ops import quant as Q
     gen = torch.Generator(device=dev).manual_seed(SEED + 41)
-    for case in Q1_RAGGED + Q2_RAGGED:
-        nb, hh, ww, ci, co, act, *pool = case
-        phase = not pool
-        xq, xs = Q.quantize_plain(torch.randn(nb, hh, ww, ci, device=dev,
-                                              generator=gen))
-        b = torch.randn(co, device=dev, generator=gen)
-        k = torch.randn(3, 3, ci, co, device=dev, generator=gen)
-        if phase:
-            wq, ws = Q.quant_phase_weights(k, 0.5 + torch.rand(
-                co, device=dev, generator=gen))
-            name = "quant_upsample2_conv3x3"
+    for case in Q1_RAGGED + Q2_RAGGED + Q3_RAGGED:
+        if len(case) == 4:
+            nb, kk, m, act = case
+            xq, xs = Q.quantize_plain(torch.randn(nb, kk, device=dev,
+                                                  generator=gen))
+            wq, ws = Q.quantize_plain(torch.randn(kk, m, device=dev,
+                                                  generator=gen), axis=(0,))
+            b = torch.randn(m, device=dev, generator=gen)
+            name = "quant_dense"
 
-            def run(a, plain=False):
-                fn = (Q.quant_upsample2_conv3x3_plain if plain
-                      else Q.quant_upsample2_conv3x3)
-                return fn(xq, xs, wq, ws, b, act=a)
+            def run(a, plain=False, with_max=False):
+                fn = Q.quant_dense_plain if plain else Q.quant_dense
+                return fn(xq, xs, wq, ws, b, act=a, with_max=with_max)
         else:
-            wq, ws = Q.quantize_plain(k, axis=(0, 1, 2))
-            name = "quant_conv3x3_same"
+            nb, hh, ww, ci, co, act, *pool = case
+            xq, xs = Q.quantize_plain(torch.randn(nb, hh, ww, ci, device=dev,
+                                                  generator=gen))
+            b = torch.randn(co, device=dev, generator=gen)
+            k = torch.randn(3, 3, ci, co, device=dev, generator=gen)
+            if not pool:
+                wq, ws = Q.quant_phase_weights(k, 0.5 + torch.rand(
+                    co, device=dev, generator=gen))
+                name = "quant_upsample2_conv3x3"
 
-            def run(a, plain=False):
-                fn = Q.quant_conv3x3_plain if plain else Q.quant_conv3x3_same
-                return fn(xq, xs, wq, ws, b, act=a, pool=pool[0])
-        out = run(act)
+                def run(a, plain=False, with_max=False):
+                    fn = (Q.quant_upsample2_conv3x3_plain if plain
+                          else Q.quant_upsample2_conv3x3)
+                    return fn(xq, xs, wq, ws, b, act=a, with_max=with_max)
+            else:
+                wq, ws = Q.quantize_plain(k, axis=(0, 1, 2))
+                name = "quant_conv3x3_same"
+
+                def run(a, plain=False, with_max=False):
+                    fn = (Q.quant_conv3x3_plain if plain
+                          else Q.quant_conv3x3_same)
+                    return fn(xq, xs, wq, ws, b, act=a, pool=pool[0],
+                              with_max=with_max)
+        out, mx = run(act, with_max=True)
         torch.cuda.synchronize()
         ref = run(act, plain=True)
         check(out.shape == ref.shape, f"{name} {case}: {tuple(out.shape)} vs "
@@ -3035,20 +3161,25 @@ def check_quant_ragged(dev, card: str) -> None:
         how = _s8_exact(name, str(case), out, ref, run(act), None if act in (
             "none", "relu") else (lambda: run("none"),
                                   lambda: run("none", plain=True)))
+        how += _max_exact(name, str(case), out, mx)
         print(f"[int8] {name} ragged {case}: max_abs_err {err:.3e} (tol "
               f"{tol:.1e}), {how}  [{card}]")
 
 
 def check_quant_kernels(dev, card: str, n: int = N_CHECK) -> list:
     """Phase 10: Q1-Q4 against their plain versions on the card at the int8
-    legs' shapes; Q1 and Q2 also bitwise (``_s8_exact``), timed beside
-    their __dp4a predecessors' times and B's or U's bf16 kernel on the same
-    layer, and off every tile edge (``check_quant_ragged``); records as
-    check_kernels' (dtype "int8")."""
+    legs' shapes; Q1-Q3 also bitwise (``_s8_exact``) with their max
+    (``_max_exact``), their device times with and without the max, timed
+    beside their __dp4a predecessors' times and B's or U's bf16 kernel on
+    the same layer, Q3 beside torch._int_mm, and off every tile edge
+    (``check_quant_ragged``); Q4's one pass beside its two launches on the
+    same input; records as check_kernels' (dtype "int8")."""
     import torch
     records = []
-    sums = {name: {"ms": 0.0, "bf16": 0.0, "bound": 0.0}
+    sums = {name: {"ms": 0.0, "bf16": 0.0, "bound": 0.0, "device": 0.0,
+                   "device_nomax": 0.0, "library": 0.0}
             for name in S8_LINES}
+    q4 = {"one": 0.0, "two": 0.0, "bound": 0.0}
     for name, label, make in quant_cases(dev, n):
         case = make()
         out = case["kernel"]()
@@ -3056,9 +3187,14 @@ def check_quant_kernels(dev, card: str, n: int = N_CHECK) -> list:
         ref = case["plain"]()
         how = ""
         if name in S8_LINES:
-            how = ", " + _s8_exact(name, label, out, ref, case["kernel"](),
-                                   case["exact"])
-        if name == "quant_act":
+            y = out[0] if case["max"] else out
+            how = ", " + _s8_exact(name, label, y, ref, (
+                case["nomax"]() if case["max"] else case["kernel"]()),
+                case["exact"])
+            if case["max"]:
+                how += _max_exact(name, label, *out)
+            out = y
+        if name in ("quant_act", "quant_act_max"):
             check(torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1]),
                   f"{name} {label}: q or scale differ from the plain version")
             check(int(out[0].min()) >= -127, f"{name} {label}: q holds -128")
@@ -3082,15 +3218,30 @@ def check_quant_kernels(dev, card: str, n: int = N_CHECK) -> list:
         lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
         beside = ""
         if name in S8_LINES:
-            which, fn = case["bf16"]
-            bf16_ms = time_ms(fn)
+            dev_ms = launch_ms(case["kernel"], (case["device"],))
+            dev_nomax = launch_ms(case["nomax"], (case["device"],))
+            mode = "with" if case["max"] else "without"
+            beside = (f", device {dev_ms:.4f} ms ({mode} the max; "
+                      f"{dev_nomax:.4f} without)")
+            bf16_ms = 0.0
+            if "bf16" in case:
+                which, fn = case["bf16"]
+                bf16_ms = time_ms(fn)
+                beside += (f", {which}'s bf16 kernel on the layer "
+                           f"{bf16_ms:.4f} ms")
             before = next((v for k, v in Q_BEFORE_MS.items()
                            if label.startswith(k)), None)
-            beside = (f", {which}'s bf16 kernel on the layer {bf16_ms:.4f} ms"
-                      + ("" if before is None else
-                         f", the __dp4a kernel {before:.2f} ms"))
-            for key, v in (("ms", ms), ("bf16", bf16_ms), ("bound", b_ms)):
+            if before is not None:
+                beside += f", the __dp4a kernel {before:.2f} ms"
+            for key, v in (("ms", ms), ("bf16", bf16_ms), ("bound", b_ms),
+                           ("device", dev_ms), ("device_nomax", dev_nomax),
+                           ("library", lib_ms or 0.0)):
                 sums[name][key] += v
+        if name == "quant_act_max":
+            two_ms = time_ms(case["two_launches"])
+            beside = f", Q4's two launches on the same input {two_ms:.4f} ms"
+            for key, v in (("one", ms), ("two", two_ms), ("bound", b_ms)):
+                q4[key] += v
         print(f"[int8] {name} {label}: max_abs_err {err:.3e} (q and scale "
               f"bitwise; outputs tol {TOL_INT8:.0e} of scale){how}, kernel "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib}, bound "
@@ -3100,15 +3251,51 @@ def check_quant_kernels(dev, card: str, n: int = N_CHECK) -> list:
                         "library_ms": lib_ms, "bound_ms": b_ms,
                         "bound_by": b_by})
     for name, s in sums.items():
-        what = ("R's six layers and G's output conv" if name == S8_LINES[0]
-                else "G's two stages")
+        what = {S8_LINES[0]: "R's six layers and G's output conv",
+                S8_LINES[1]: "G's two stages",
+                S8_LINES[2]: "G l0, R l27 and R l31"}[name]
+        yard = (f"torch._int_mm {s['library']:.4f} ms" if name == "quant_dense"
+                else f"bf16 kernel on the same layers {s['bf16']:.4f} ms")
         print(f"[int8] {name} on the int8 tensor cores, {what}: {s['ms']:.4f}"
-              f" ms (the __dp4a kernel {Q_BEFORE_SUMS[name]:.3f} ms), "
-              f"bf16 kernel on the same layers {s['bf16']:.4f} ms, bound "
+              f" ms (the __dp4a kernel {Q_BEFORE_SUMS[name]:.3f} ms), device "
+              f"{s['device']:.4f} ms as the main path calls it, "
+              f"{s['device_nomax']:.4f} without the max; {yard}, bound "
               f"{s['bound']:.4f} ms  [{card}]")
+    print(f"[int8] quant_act_max, Q4's one pass after a producer, at the "
+          f"eight sizes: {q4['one']:.4f} ms; Q4's two launches on the same "
+          f"inputs {q4['two']:.4f} ms (the two launches at five sizes "
+          f"before: {Q_BEFORE_SUMS['quant_act']:.3f} ms); bound "
+          f"{q4['bound']:.4f} ms  [{card}]")
     check_quant_ragged(dev, card)
     torch.cuda.empty_cache()
     return records
+
+
+def check_int8_q4_launches(dev, card: str, gv: dict, rv: dict) -> None:
+    """Phase 10: apply_r --int8's stage ② (the int8 G and R over N_MAIN
+    latents, batch 256) traced: Q4's device kernels must launch
+    Q4_LAUNCHES_A_CHUNK times a chunk."""
+    import torch
+    from ganreverser_tpu_torch.analysis.pipeline import generate_and_invert
+    from ganreverser_tpu_torch.core.prng import seeded_generator
+    batch = 256
+    chunks = -(-N_MAIN // batch)
+
+    def stage2():
+        generate_and_invert(gv, rv, dims=DIMS, n=N_MAIN,
+                            noise_dim=NOISE_DIM, noise_method="normal",
+                            generator=seeded_generator(1, dev),
+                            batch_size=batch, dtype=torch.bfloat16,
+                            int8=True)
+    stage2()
+    counts = device_counts(stage2, Q4_KERNELS)
+    per_chunk = sum(counts.values()) / chunks
+    check(per_chunk == Q4_LAUNCHES_A_CHUNK, f"apply_r --int8 stage ②: "
+          f"{counts} Q4 launches over {chunks} chunks, {per_chunk} a chunk, "
+          f"not {Q4_LAUNCHES_A_CHUNK}")
+    print(f"[int8] apply_r --int8 stage ② traced, N={N_MAIN} batch {batch}: "
+          f"Q4's launches {counts} over {chunks} chunks = {per_chunk:g} a "
+          f"chunk (24 before the producers took the max)  [{card}]")
 
 
 def check_serving(dev, card: str, tmp: str, secs4: dict, rate8: float):
@@ -3226,6 +3413,7 @@ def check_serving(dev, card: str, tmp: str, secs4: dict, rate8: float):
 
     # Q1-Q4 against their plain versions
     records = check_quant_kernels(dev, card)
+    check_int8_q4_launches(dev, card, gv, rv)
 
     # apply_r --int8, the int8 legs' main path, with phase 4's arguments
     counters = {**kernel_counters(), **quant_counters()}
@@ -4226,7 +4414,7 @@ def main() -> int:
           + ", ".join(f"{n} {gmma[n]}" for n in WGMMA_KERNELS) + "; IGMMA "
           "(s8 wgmma) per int8 kernel: " + ", ".join(
               f"{n} {gmma[n]}" for n in S8_KERNELS) + "; none in " +
-          ", ".join(INT8_CUDA_CORE_KERNELS))
+          ", ".join(INT8_CUDA_CORE_KERNELS) + "; no DP4A in any kernel")
     wide = {n: c for n, c in sass_hgmma(lib_path, "IMAD.WIDE").items()
             if "fused_dropout_pack_kernel" in n}
     check(len(wide) == 2, f"SASS: {len(wide)} instances of "
@@ -4399,6 +4587,9 @@ def main() -> int:
                                "ganreverser_tpu/ops/quant.py:77"),
                "quant_act": ("ganreverser_tpu_torch/csrc/quant.cu",
                              "ganreverser_tpu/ops/quant.py:43"),
+               # Q4's one pass after an int8 producer, the same JAX op
+               "quant_act_max": ("ganreverser_tpu_torch/csrc/quant.cu",
+                                 "ganreverser_tpu/ops/quant.py:43"),
                # S replaces jax.lax.approx_max_k in _select_topk (XLA)
                "approx_topk": ("ganreverser_tpu_torch/csrc/approx_topk.cu",
                                "ganreverser_tpu/analysis/similarity.py:34")}

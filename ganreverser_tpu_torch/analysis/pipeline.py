@@ -2,7 +2,9 @@
 ganreverser_tpu/analysis/pipeline.py, on the fast forwards
 (models/fastpath.py): ① the variation sweep, ② generate + invert (and the
 fixer-R), ⑤ fixing and ⑥ the anomaly scores. Grids and borders stay on the
-host in the CLI.
+host in the CLI. Each call prepares each fast forward's weights once
+(``prepare``: BatchNorm folded, weights rounded or quantised and laid out)
+and runs it per chunk.
 """
 from __future__ import annotations
 
@@ -43,7 +45,8 @@ def variation_sweep(g_variables: dict, *, dims: tuple, noise_dim: int,
         base = noise_inputs(generator, 1, noise_dim, noise_method,
                             device=generator.device)[0]
     generate = make_fast_generator(dims, noise_dim, dtype)
-    return forward_batched(lambda z: generate(g_variables, z),
+    prep = generate.prepare(g_variables)
+    return forward_batched(lambda z: generate.run(prep, z),
                            variation_noise(base, noise_method, nb_steps),
                            batch_size)
 
@@ -71,15 +74,18 @@ def generate_and_invert(g_variables: dict, r_variables: dict, *, dims: tuple,
         invert = make_fast_inverter(dims, noise_dim, noise_method, dtype)
     noise = noise_inputs(generator, n, noise_dim, noise_method,
                          device=generator.device)
-    images = forward_batched(lambda z: generate(g_variables, z), noise,
+    g_prep = generate.prepare(g_variables)
+    images = forward_batched(lambda z: generate.run(g_prep, z), noise,
                              batch_size)
-    attributes = forward_batched(lambda x: invert(r_variables, x), images,
+    r_prep = invert.prepare(r_variables)
+    attributes = forward_batched(lambda x: invert.run(r_prep, x), images,
                                  batch_size)
     if rf_variables is None:
         return noise, images, attributes
     invert_fixer = make_fast_fixer(dims, noise_dim, noise_method, dtype)
+    rf_prep = invert_fixer.prepare(rf_variables)
     attributes_fixer = forward_batched(
-        lambda x: invert_fixer(rf_variables, x, fixer_generator), images,
+        lambda x: invert_fixer.run(rf_prep, x, fixer_generator), images,
         batch_size)
     return noise, images, attributes, attributes_fixer
 
@@ -91,7 +97,8 @@ def fix_images(g_variables: dict, recovered_z: torch.Tensor, *, dims: tuple,
     """⑤ G∘R fixing (apply_r.lua:324-352): the fast G on the recovered
     latents, in chunks of ``batch_size``."""
     generate = make_fast_generator(dims, noise_dim, dtype)
-    return forward_batched(lambda z: generate(g_variables, z), recovered_z,
+    prep = generate.prepare(g_variables)
+    return forward_batched(lambda z: generate.run(prep, z), recovered_z,
                            batch_size)
 
 

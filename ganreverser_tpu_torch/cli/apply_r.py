@@ -180,6 +180,9 @@ def _apply(cfg: ApplyConfig) -> dict:
     device = common.resolve_device()
     dtype = common.compute_dtype(cfg)
     mesh = None
+    if cfg.pallas:
+        print("[apply_r] note: --pallas is inert: every stage runs on the "
+              "port's kernels with or without it")
     if common.wants_mesh(cfg):
         mesh = par.make_mesh(data=cfg.mesh_data, model=cfg.mesh_model)
         if cfg.int8:

@@ -60,7 +60,9 @@ def _f(default, help=""):
 
 @dataclass
 class ApplyConfig(Config):
-    """Flags of apply_r.lua:13-23 plus the JAX package's additions."""
+    """Flags of apply_r.lua:13-23 plus the JAX package's additions.
+    --pallas is accepted and inert (the port's stages run on its kernels
+    with or without it)."""
     save: str = _f("logs", "directory with checkpoints / for outputs")
     G: str = _f("logs/adversarial", "G checkpoint")
     R: str = _f("", "R checkpoint (default derived from G's geometry)")
@@ -78,6 +80,7 @@ class ApplyConfig(Config):
     refine_lr: float = _f(0.05, "refinement learning rate (adam on z)")
     mesh_data: int = _f(1, "shard the N-axis of generation/inversion/search over this many devices (SURVEY.md §5.7 large-N path)")
     mesh_model: int = _f(1, "tensor-parallel axis: shard G/R's big Dense kernels over this many devices (the 128x128/z=256 workload, SURVEY.md §7 step 6); composes with --mesh_data")
+    pallas: bool = _f(False, "accepted for the JAX CLI's sake and inert: the JAX package's fused Pallas paths are the port's default, every stage runs on its hand-written kernels either way")
     int8: bool = _f(False, "int8 serving mode: stage ② on the int8 G and R (ops/quant.py)")
     approx: bool = _f(False, "approximate top-k selection in stage ④'s two searches (kernel S, ops/approx_topk_kernel.py); exact when off")
     recall_target: float = _f(0.95, "per-row recall target for --approx, in (0, 1]; 1 is the exact selection")

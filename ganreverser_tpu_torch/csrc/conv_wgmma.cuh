@@ -1,8 +1,8 @@
 // The tensor-core mainloop shared by kernels B (and B6), U (and its fused
-// head), B7 and B8 in bf16 and Q1 and Q2 in int8, and the helpers kernel
-// C's own loop reuses: an implicit GEMM for a 3x3 convolution, or one
-// output phase of U's 2x2 phase convolution, over an NHWC input, on
-// Hopper's wgmma fed by TMA.
+// head), B7 and B8 in bf16 and Q1, Q2 and Q3 in int8, and the helpers
+// kernel C's own loop reuses: an implicit GEMM for a 3x3 convolution, one
+// output phase of U's 2x2 phase convolution, or a dense layer as a 1x1
+// one, over an NHWC input, on Hopper's wgmma fed by TMA.
 //
 //   acc[m][co] = sum_stage x[n, i(m) + dy(stage), j(m) + dx(stage), c0 + ci]
 //                         * w[wz(stage)][co][wk(stage) + ci]
@@ -11,11 +11,11 @@
 // channels (16 to 256), K is streamed BK channels of one tap per pipeline
 // stage. Sums are f32 (bf16 operands) or s32 (int8) in registers. Three
 // policies are template parameters: the tap policy (Conv3x3Taps, PhaseTaps,
-// StackedPhaseTaps) maps a stage to the two boxes it reads, the epilogue
-// (BnActEpilogue, StatsEpilogue, HeadTapsEpilogue, DequantActEpilogue) takes
-// the sums from the registers, and the operand type (Bf16Operands, the
-// default, or S8Operands) picks the instruction; the ring between them is
-// the same for every kernel.
+// StackedPhaseTaps, DenseTaps) maps a stage to the two boxes it reads, the
+// epilogue (BnActEpilogue, StatsEpilogue, HeadTapsEpilogue,
+// DequantActEpilogue) takes the sums from the registers, and the operand
+// type (Bf16Operands, the default, or S8Operands) picks the instruction;
+// the ring between them is the same for every kernel.
 //
 // Operands. x is (N, H, W, C) with C % 8 == 0 (the wrapper zero-pads the
 // channels, ops/conv_operands.py), read through one 4D tiled tensor map over
@@ -61,8 +61,10 @@
 // output. StatsEpilogue (B7): y in f32 and per-tile channel sums and sums of
 // squares, in a fixed order. HeadTapsEpilogue (U's fused head): the head's
 // nine tap partials per pixel from a second product on the rounded tile.
-// DequantActEpilogue (Q1, Q2): the s32 sums dequantised (dequant.cuh), the
-// activation, R's pool or U's phase, stored in f32.
+// DequantActEpilogue (Q1-Q3): the s32 sums dequantised (dequant.cuh), the
+// activation, R's pool or U's phase, stored in f32, with the max |y| of
+// what is stored for the next layer's quantiser; or, under Q3's K split,
+// the s32 sums stored as they are.
 //
 // The tile plan (BH, BW, BN, BK, stages, shared bytes) is computed once, by
 // ops/conv_operands.py::tile_plan; the host side here only checks it against
@@ -88,7 +90,10 @@ constexpr int kThreads = kConsumerThreads + 32;  // + the producer warp
 constexpr int kAlign = 1024;             // the 128-byte swizzle's period
 constexpr int kMaxSharedBytes = 232448;
 
-// Everything a launch needs beyond its two tensor maps.
+// Everything a launch needs beyond its two tensor maps. The int8
+// epilogue's max shares the slot of a field it does not read, so the struct
+// keeps the 128 bytes the bf16 kernels were built with (a larger kernel
+// parameter changes their code).
 struct ConvArgs {
   const float* scale;
   const float* shift;
@@ -96,8 +101,12 @@ struct ConvArgs {
   __nv_bfloat16* out;  // BnActEpilogue's output
   int H, W, Co, act, pool;
   int bh, bw, bk, stages, kchunks;  // the plan; kchunks = ceil(C / bk)
-  float* y32;       // StatsEpilogue's f32 output
-  float* part_sum;  // StatsEpilogue's partials, [Co][tiles]
+  float* y32;  // StatsEpilogue's and DequantActEpilogue's output
+  union {
+    float* part_sum;     // StatsEpilogue's partials, [Co][tiles]
+    unsigned int* amax;  // DequantActEpilogue: raised to max |y| stored, or
+                         // null (dequant.cuh's raise_amax)
+  };
   float* part_sq;
   const __nv_bfloat16* head_w;  // HeadTapsEpilogue's (rows, Co') weights
   float* taps;                  // its tap partials (see HeadTapsEpilogue)
@@ -661,6 +670,19 @@ struct StackedPhaseTaps {
   }
 };
 
+// Kernel Q3 (quant.cu): a dense layer (N, K') x (K', M) as a one-tap 1x1
+// convolution over one image of 1 x N pixels and K' channels (the tile is
+// 1 x 128 rows of x); blockIdx.z is the K split, whose ``kchunks`` stages
+// start at chunk z * kchunks. The weights are (1, M, K').
+struct DenseTaps {
+  static constexpr int kTaps = 1;
+  static __device__ __forceinline__ StageCoord at(int it, int kchunks, int bk,
+                                                  int split) {
+    const int c0 = (split * kchunks + it) * bk;
+    return {c0, 0, 0, c0, 0};
+  }
+};
+
 // The block's place: the 128-pixel tile blockIdx.x (image-major, then tile
 // rows, then tile columns) of image n at (i0, j0), output channels co0 ..
 // co0 + BN (blockIdx.y) and the output phase blockIdx.z.
@@ -1025,15 +1047,44 @@ struct HeadTapsEpilogue {
   }
 };
 
-// Kernels Q1 and Q2 (quant.cu): the int8 convolutions' exact s32 sums
-// dequantised by dequant.cuh's dequant_act (the code Q3's epilogue runs),
-// deq = x_scale * w_scale[c] (``scale``) and bias[c] (``shift``), then the
-// activation; staged as f32 [128][BN + 4] on the freed ring and stored 16
-// bytes a thread (scalar where Co % 4 != 0) into ``y32``, ragged pixels and
-// channels masked. With the pool (Q1), the 2x2 max from the staged tile,
-// exact in f32; with kPhase (Q2), phase (a, b) writes pixel (2i + a, 2j + b)
-// of the (N, 2H, 2W, Co) output.
-template <bool kPhase>
+// Four staged f32 values to out[0..min(4, left)), as store4 does, and
+// their max |v| folded into ``m`` from the registers that are stored: a
+// read of the staged tile after the store would wait for the store, since
+// neither pointer is known to be shared or global.
+__device__ __forceinline__ void store4_max(float* dst, const float* src,
+                                           int left, bool vec, float& m) {
+  if (vec) {
+    const float4 v = *reinterpret_cast<const float4*>(src);
+    *reinterpret_cast<float4*>(dst) = v;
+    m = fmaxf(m, fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)),
+                       fmaxf(fabsf(v.z), fabsf(v.w))));
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (e < left) {
+        const float v = src[e];
+        dst[e] = v;
+        m = fmaxf(m, fabsf(v));
+      }
+  }
+}
+
+// Kernels Q1, Q2 and Q3 (quant.cu): the int8 products' exact s32 sums
+// dequantised by dequant.cuh's dequant_act, deq = x_scale * w_scale[c]
+// (``scale``) and bias[c] (``shift``), then the activation; staged as f32
+// [128][BN + 4] on the freed ring and stored 16 bytes a thread (scalar where
+// Co % 4 != 0) into ``y32``, ragged pixels and channels masked. With the
+// pool (Q1), the 2x2 max from the staged tile, exact in f32; with kPhase
+// (Q2), phase (a, b) writes pixel (2i + a, 2j + b) of the (N, 2H, 2W, Co)
+// output. With ``amax``, the max of |y| over the values this block stores
+// (after the activation, the pool and the phase interleave; nothing of a
+// ragged pixel or channel), reduced over the warp by shuffles and over the
+// block through the staged tile's first words, raises *amax once
+// (raise_amax): the next layer's activation scale without reading y again.
+// With kSplit (Q3's K split) the block stores its s32 sums themselves, bit
+// for bit, as split blockIdx.z's (W, Co) slice of ``y32``, for quant.cu's
+// sum kernel to add.
+template <bool kPhase, bool kSplit = false>
 struct DequantActEpilogue {
   template <int BN>
   static __device__ __forceinline__ void prologue(unsigned char*, const Tile&,
@@ -1056,16 +1107,22 @@ struct DequantActEpilogue {
       const float dq1 = co + 1 < p.Co ? __fmul_rn(xs, p.scale[co + 1]) : 0.0f;
       const float b1 = co + 1 < p.Co ? p.shift[co + 1] : 0.0f;
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
+      for (int h = 0; h < 2; ++h) {
+        const int a0 = acc[j * 4 + 2 * h], a1 = acc[j * 4 + 2 * h + 1];
         *reinterpret_cast<float2*>(cs + (row0 + 8 * h) * kLdc + col) =
-            make_float2(dequant_act(acc[j * 4 + 2 * h], dq0, b0, p.act),
-                        dequant_act(acc[j * 4 + 2 * h + 1], dq1, b1, p.act));
+            kSplit ? make_float2(__int_as_float(a0), __int_as_float(a1))
+                   : make_float2(dequant_act(a0, dq0, b0, p.act),
+                                 dequant_act(a1, dq1, b1, p.act));
+      }
     }
     consumer_sync();
 
     constexpr int kVecs = BN / 4;
     const int H = p.H, W = p.W, Co = p.Co;
     const bool vec = Co % 4 == 0;
+    float* y = kSplit ? p.y32 + static_cast<long long>(t.phase) * W * Co
+                      : p.y32;
+    float m = 0.0f;  // max |y| over what this thread stores
     if (!kPhase && p.pool) {
       const int pw = p.bw / 2;
       for (int c = tid; c < (kBM / 4) * kVecs; c += kConsumerThreads) {
@@ -1075,13 +1132,13 @@ struct DequantActEpilogue {
         if (P >= H / 2 || Q >= W / 2 || co >= Co) continue;
         const float* s0 = cs + ((2 * py) * p.bw + 2 * px) * kLdc + v * 4;
         const float* s2 = s0 + p.bw * kLdc;
-        __align__(16) float m[4];
+        __align__(16) float mv[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          m[e] = fmaxf(fmaxf(s0[e], s0[kLdc + e]), fmaxf(s2[e], s2[kLdc + e]));
+          mv[e] = fmaxf(fmaxf(s0[e], s0[kLdc + e]), fmaxf(s2[e], s2[kLdc + e]));
         const long long pix =
             (static_cast<long long>(t.n) * (H / 2) + P) * (W / 2) + Q;
-        store4(p.y32 + pix * Co + co, m, Co - co, vec);
+        store4_max(y + pix * Co + co, mv, Co - co, vec, m);
       }
     } else {
       const int pa = t.phase >> 1, pb = t.phase & 1;
@@ -1095,7 +1152,19 @@ struct DequantActEpilogue {
                           W +
                       2 * pj + pb)
                    : ((static_cast<long long>(t.n) * H + pi) * W + pj);
-        store4(p.y32 + pix * Co + co, cs + row * kLdc + v * 4, Co - co, vec);
+        store4_max(y + pix * Co + co, cs + row * kLdc + v * 4, Co - co, vec,
+                   m);
+      }
+    }
+    if (!kSplit && p.amax != nullptr) {  // the same in every thread
+      m = warp_max(m);
+      consumer_sync();  // the staged tile is read: its first words are free
+      if (lane == 0) cs[warp] = m;
+      consumer_sync();
+      if (tid == 0) {
+#pragma unroll
+        for (int w = 1; w < kConsumerWarps; ++w) m = fmaxf(m, cs[w]);
+        raise_amax(p.amax, m);
       }
     }
   }

@@ -3,9 +3,10 @@ the counterpart of ganreverser_tpu/data/dataset.py.
 
 * whole NHWC float32 batches, moved to the card by data/prefetch.py;
 * JPEG decode (PIL, imported only when a directory is read) with the
-  optional DCT-scaled draft mode, in a thread pool; the bilinear resize is
-  the numpy path of the JAX package's native/imageops.py (its C++ library
-  is not ported);
+  optional DCT-scaled draft mode, in a thread pool; the bilinear resize
+  and the [-1, 1] normalisation run on the port's host image library
+  (native/imageops.cc, the JAX package's C++ ops, built with g++ at first
+  use), or on its numpy path where no compiler builds it;
 * 'synthetic' as the dataset directory selects the procedural faces of
   data/synthetic.py, so every pipeline runs without real data.
 """

@@ -42,14 +42,18 @@ legs (ops/quant.py), the counterparts of the JAX package's
 ``make_fast_inverter_int8`` and ``make_fast_generator_xla_int8``: BatchNorm
 folded into the weights, which are quantised per output channel once in
 ``prepare``; per call each layer's f32 input is quantised per tensor
-(kernel Q4) and runs on the int8 kernels, activations in f32 between them:
+(kernel Q4) and runs on the int8 kernels, activations in f32 between them.
+Every layer but the last returns the max |y| its epilogue took, so the
+next layer's Q4 is one pass (``quant_act_max``); the first layer's input
+has no int8 producer and takes Q4's two launches:
 
   G: z -> int8 Dense(+BN)+ReLU                        [Q4, Q3]
-       -> 2x int8 upsample2+conv3x3(+BN)+ReLU          [Q4, Q2]
-       -> int8 conv3x3 (128->C) + Sigmoid              [Q4, Q1]
+       -> 2x int8 upsample2+conv3x3(+BN)+ReLU          [Q4 one pass, Q2]
+       -> int8 conv3x3 (128->C) + Sigmoid              [Q4 one pass, Q1]
   R: images -> 2x (3x int8 conv3x3(+BN)+ELU, pool)    [Q4, Q1; the pool in
                                                         the third's epilogue]
-            -> int8 Dense(+BN)+ELU -> int8 Dense (+Tanh) [Q4, Q3]
+            -> int8 Dense(+BN)+ELU -> int8 Dense (+Tanh)
+                                                      [Q4 one pass, Q3]
 """
 from __future__ import annotations
 
@@ -245,19 +249,23 @@ def make_fast_inverter_int8(dims: Dims, noise_dim: int, noise_method: str,
                           for wq, ws, b in dense]}
 
     def run(prep, images):
-        # two blocks of 3x [conv + BN + ELU] + maxpool2 (models.lua:409-440)
-        x = images.float()
+        # two blocks of 3x [conv + BN + ELU] + maxpool2 (models.lua:409-440);
+        # each layer's output is quantised from the max its epilogue took
+        xq, xs = quant.quant_act(images.float())
         for layer in prep["layers"]:
-            xq, xs = quant.quant_act(x)
-            x = quant.quant_conv3x3_same(
+            y, m = quant.quant_conv3x3_same(
                 xq, xs, layer["wq"], layer["w_scale"], layer["bias"],
-                act="elu", pool=layer["pool"], operand=layer["operand"])
+                act="elu", pool=layer["pool"], operand=layer["operand"],
+                with_max=True)
+            xq, xs = quant.quant_act_max(y, m)
         # head: Dense(+BN folded)+ELU -> Dense (models.lua:446-451)
-        x = x.reshape(x.shape[0], -1)
-        for d, act in zip(prep["dense"], ("elu", "none")):
-            xq, xs = quant.quant_act(x)
-            x = quant.quant_dense(xq, xs, d["wq"], d["w_scale"], d["bias"],
-                                  act=act, operand=d["operand"])
+        d27, d31 = prep["dense"]
+        y, m = quant.quant_dense(xq.reshape(xq.shape[0], -1), xs, d27["wq"],
+                                 d27["w_scale"], d27["bias"], act="elu",
+                                 operand=d27["operand"], with_max=True)
+        xq, xs = quant.quant_act_max(y, m)
+        x = quant.quant_dense(xq, xs, d31["wq"], d31["w_scale"], d31["bias"],
+                              operand=d31["operand"])
         if noise_method != "normal":
             x = torch.tanh(x)  # models.lua:452-454
         return x.to(dtype)
@@ -301,21 +309,23 @@ def make_fast_generator_int8(dims: Dims, noise_dim: int,
                                      if on_card else None)}}
 
     def run(prep, z):
-        # Dense + folded BN + ReLU (models.lua:115-117)
+        # Dense + folded BN + ReLU (models.lua:115-117); each producer's
+        # output is quantised from the max its epilogue took
         d = prep["dense"]
         zq, zs = quant.quant_act(z.float())
-        y = quant.quant_dense(zq, zs, d["wq"], d["w_scale"], d["bias"],
-                              act="relu", operand=d["operand"])
-        x = y.reshape(z.shape[0], sh, sw, 512)
+        y, m = quant.quant_dense(zq, zs, d["wq"], d["w_scale"], d["bias"],
+                                 act="relu", operand=d["operand"],
+                                 with_max=True)
+        xq, xs = quant.quant_act_max(y, m)
+        xq = xq.reshape(z.shape[0], sh, sw, 512)
         # two upsample + conv + BN + ReLU stages (models.lua:121-130)
         for st in prep["stages"]:
-            xq, xs = quant.quant_act(x)
-            x = quant.quant_upsample2_conv3x3(
+            y, m = quant.quant_upsample2_conv3x3(
                 xq, xs, st["wq16"], st["w_scale"], st["shift"], act="relu",
-                operand=st["operand"])
+                operand=st["operand"], with_max=True)
+            xq, xs = quant.quant_act_max(y, m)
         # final 3x3 conv + sigmoid (models.lua:132-133)
         hd = prep["head"]
-        xq, xs = quant.quant_act(x)
         y = quant.quant_conv3x3_same(xq, xs, hd["wq"], hd["w_scale"],
                                      hd["bias"], act="sigmoid",
                                      operand=hd["operand"])
@@ -342,16 +352,25 @@ def make_fast_fixer(dims: Dims, noise_dim: int, noise_method: str,
     their layer indices shifted back by one. Each call draws a fresh mask,
     as the reference's nn.Dropout does on every forward; ``keep=`` gives
     the mask instead (a rank's rows of a mask drawn for more rows,
-    analysis/distributed.py)."""
+    analysis/distributed.py). As a :class:`FastForward`, it comes in two
+    steps: ``invert_fixer.prepare(rf_variables)`` (the shift and R's
+    ``prepare``, once) and ``invert_fixer.run(prepared, images,
+    generator, keep=None)``, which draws the mask per call."""
     invert = make_fast_inverter(dims, noise_dim, noise_method, dtype)
 
-    def invert_fixer(variables, images, generator=None, keep=None):
+    def prepare(variables):
+        return invert.prepare(_unshift_layers(variables))
+
+    def run(prep, images, generator=None, keep=None):
         if keep is None:
             keep = dropout_keep_mask(images.shape, FIXER_DROPOUT, generator,
                                      images.device)
-        return invert(_unshift_layers(variables),
-                      apply_dropout(images, keep, FIXER_DROPOUT))
+        return invert.run(prep, apply_dropout(images, keep, FIXER_DROPOUT))
 
+    def invert_fixer(variables, images, generator=None, keep=None):
+        return run(prepare(variables), images, generator, keep)
+
+    invert_fixer.prepare, invert_fixer.run = prepare, run
     return invert_fixer
 
 

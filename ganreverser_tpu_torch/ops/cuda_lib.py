@@ -88,14 +88,17 @@ _SIGNATURES = {
     "gr_probe_dot_bf16": [_P, _P, _P, _I, _I, _I, _P],
     # x, q, scale, parts, n, stream
     "gr_quantize_act": [_P, _P, _P, _P, _L, _P],
-    # x, w, x_scale, w_scale, bias, out, n, h, w, ci, co, act, pool, then
+    # x, amax, q, scale, n, stream
+    "gr_quantize_act_max": [_P, _P, _P, _P, _L, _P],
+    # x, w, x_scale, w_scale, bias, out, amax, n, h, w, ci, co, act, pool,
+    # then the int8 plan (bh, bw, bn, bk, stages, smem), stream
+    "gr_quant_conv3x3": [*[_P] * 7, *[_I] * 7, *[_I] * 6, _P],
+    # x, w, x_scale, w_scale, shift, out, amax, n, h, w, ci, co, act, then
     # the int8 plan (bh, bw, bn, bk, stages, smem), stream
-    "gr_quant_conv3x3": [*[_P] * 6, *[_I] * 7, *[_I] * 6, _P],
-    # x, w, x_scale, w_scale, shift, out, n, h, w, ci, co, act, then the
-    # int8 plan (bh, bw, bn, bk, stages, smem), stream
-    "gr_quant_upsample2_conv3x3": [*[_P] * 6, *[_I] * 6, *[_I] * 6, _P],
-    # x, w, x_scale, w_scale, bias, out, ws, n, k, m, act, splits, stream
-    "gr_quant_dense": [*[_P] * 7, *[_I] * 5, _P],
+    "gr_quant_upsample2_conv3x3": [*[_P] * 7, *[_I] * 6, *[_I] * 6, _P],
+    # x, w, x_scale, w_scale, bias, out, part, amax, n, k, m, act, splits,
+    # then the plan (bh, bw, bn, bk, stages, smem), stream
+    "gr_quant_dense": [*[_P] * 8, *[_I] * 5, *[_I] * 6, _P],
     # scores, values, indices, ws, q, n, k, then the plan (bins, entries,
     # chunk), stream
     "gr_approx_topk": [*[_P] * 4, *[_I] * 6, _P],

@@ -2,7 +2,8 @@
 
 Each kernel wrapper that a fast forward or a search calls (``conv_block``,
 ``upsample2_conv3x3_bn_act``, its fused head, ``cosine_scores``,
-``approx_topk`` and the int8 kernels Q1-Q4 of ``ops/quant.py``) goes
+``approx_topk`` and the int8 kernels Q1-Q4 of ``ops/quant.py``, Q4's
+one pass after a producer included) goes
 through one operator here,
 so that ``torch.export`` can trace a program over the kernels
 (``io/serving.py``): the trace records one call of the operator, whose
@@ -77,21 +78,35 @@ def _quantize_fake(x):
             x.new_empty((), dtype=torch.float32))
 
 
-def _quant_conv_fake(xq, x_scale, wq, w_scale, bias, act, pool, operand):
+def _quantize_max_fake(x, amax):
+    return _quantize_fake(x)
+
+
+def _with_max_fake(y, with_max):
+    """A producer's (y, max |y|): the max 0-d, or (0,) where not asked."""
+    return y, y.new_empty(() if with_max else (0,))
+
+
+def _quant_conv_fake(xq, x_scale, wq, w_scale, bias, act, pool, with_max,
+                     operand):
     n, h, w, _ = xq.shape
     if pool:
         h, w = h // 2, w // 2
-    return xq.new_empty((n, h, w, wq.shape[-1]), dtype=torch.float32)
+    return _with_max_fake(xq.new_empty((n, h, w, wq.shape[-1]),
+                                       dtype=torch.float32), with_max)
 
 
-def _quant_upsample_fake(xq, x_scale, wq16, w_scale, shift, act, operand):
+def _quant_upsample_fake(xq, x_scale, wq16, w_scale, shift, act, with_max,
+                         operand):
     n, h, w, _ = xq.shape
-    return xq.new_empty((n, 2 * h, 2 * w, wq16.shape[-1]),
-                        dtype=torch.float32)
+    return _with_max_fake(xq.new_empty((n, 2 * h, 2 * w, wq16.shape[-1]),
+                                       dtype=torch.float32), with_max)
 
 
-def _quant_dense_fake(xq, x_scale, wq, w_scale, bias, act, operand):
-    return xq.new_empty((xq.shape[0], wq.shape[-1]), dtype=torch.float32)
+def _quant_dense_fake(xq, x_scale, wq, w_scale, bias, act, with_max,
+                      operand):
+    return _with_max_fake(xq.new_empty((xq.shape[0], wq.shape[-1]),
+                                       dtype=torch.float32), with_max)
 
 
 _define("conv_block",
@@ -114,15 +129,20 @@ _define("approx_topk",
         approx_topk_kernel.launch_approx_topk, _approx_topk_fake)
 _define("quantize_act", "(Tensor x) -> (Tensor, Tensor)",
         quant.launch_quantize_act, _quantize_fake)
+_define("quantize_act_max", "(Tensor x, Tensor amax) -> (Tensor, Tensor)",
+        quant.launch_quantize_act_max, _quantize_max_fake)
+# the int8 producers return (y, max |y|), the max empty without with_max
 _define("quant_conv3x3",
         "(Tensor xq, Tensor x_scale, Tensor wq, Tensor w_scale, Tensor bias, "
-        "str act, bool pool, Tensor? operand) -> Tensor",
+        "str act, bool pool, bool with_max, Tensor? operand) "
+        "-> (Tensor, Tensor)",
         quant.launch_quant_conv3x3, _quant_conv_fake)
 _define("quant_upsample2_conv3x3",
         "(Tensor xq, Tensor x_scale, Tensor wq16, Tensor w_scale, "
-        "Tensor shift, str act, Tensor? operand) -> Tensor",
+        "Tensor shift, str act, bool with_max, Tensor? operand) "
+        "-> (Tensor, Tensor)",
         quant.launch_quant_upsample2_conv3x3, _quant_upsample_fake)
 _define("quant_dense",
         "(Tensor xq, Tensor x_scale, Tensor wq, Tensor w_scale, Tensor bias, "
-        "str act, Tensor? operand) -> Tensor",
+        "str act, bool with_max, Tensor? operand) -> (Tensor, Tensor)",
         quant.launch_quant_dense, _quant_dense_fake)

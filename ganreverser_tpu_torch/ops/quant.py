@@ -14,7 +14,10 @@ stays exact.
 * Q4 ``quantize_symmetric(x, axis=None)`` / ``quant_act``: per-tensor max,
   ``scale = max(m, 1e-12) / 127``, ``q = clip(round(x / scale), -127,
   127)`` (IEEE division, round half to even). The scale is a 0-dimensional
-  f32 tensor on the device that Q1-Q3 read there: no ``.item()``.
+  f32 tensor on the device that Q1-Q3 read there: no ``.item()``. After
+  an int8 producer, ``quant_act_max(y, amax)`` is Q4 in one pass: the
+  producer, called ``with_max=True``, returned ``amax = max|y|`` of what
+  it stored, taken in its epilogue, so y is read once.
 * Q1 ``quant_conv3x3_same``: int8 SAME 3x3 conv, the epilogue, an optional
   activation and 2x2 max pool (R's layers; G's Co = 3 output conv).
 * Q2 ``quant_upsample2_conv3x3``: kernel U's four 2x2 phase convs on int8
@@ -29,13 +32,12 @@ from an exact f64 product, then the epilogue in JAX's order) on CPU
 tensors; no other device is accepted. Weight quantisation per channel
 (``axis`` given) is plain PyTorch, run once when a fast forward prepares
 its weights. ``*_operand`` lays int8 weights out as the kernels read them:
-Q1 and Q2 on the int8 tensor cores (``csrc/conv_wgmma.cuh`` with s8
-operands) take them K-major, ``(taps, Co, Ci')`` int8 with Ci' the padded
+Q1-Q3 on the int8 tensor cores (``csrc/conv_wgmma.cuh`` with s8 operands)
+take them K-major, Q1 and Q2 ``(taps, Co, Ci')`` int8 with Ci' the padded
 channels of ``conv_operands.padded_channels(Ci, 1)`` (32, 64 or a
-multiple of 16), as the activations are padded (``pad_int8``);
-``OPERAND_LAYOUT`` names that layout, which serving artifacts record
-(``io/serving.py``). Q3 takes words of four input channels, ``(Ci/4,
-Co)`` int32.
+multiple of 16), as the activations are padded (``pad_int8``), Q3 ``(M,
+K')`` with K' padded the same way; ``OPERAND_LAYOUT`` names that layout,
+which serving artifacts record (``io/serving.py``).
 """
 from __future__ import annotations
 
@@ -50,22 +52,38 @@ QMAX = 127.0
 EPS = 1e-12
 ACTS = ("none", "relu", "elu", "sigmoid")
 QUANT_PARTS = 1024       # Q4's workspace of partial maxima (csrc/quant.cu)
-DENSE_TILES = 64         # Q3's rows and columns a block
-# the layout of Q1's and Q2's weight operands (conv_operand, phase_operand),
-# recorded by int8 serving artifacts; one without it bakes an older layout
-OPERAND_LAYOUT = "taps-co-ci-int8"
+DENSE_MAX_BN = 128       # Q3's widest column tile
+DENSE_MIN_CHUNKS = 4     # K chunks a split of Q3 runs at least
+# the layout of Q1's, Q2's and Q3's weight operands (conv_operand,
+# phase_operand, dense_operand), recorded by int8 serving artifacts; one
+# without it, or with "taps-co-ci-int8" (Q3 on words of four channels),
+# bakes an older layout
+OPERAND_LAYOUT = "taps-co-ci-int8+dense-m-k-int8"
 
 
 # ----------------------------------------------------------------- plain
 
+def _per_tensor_scale(m: torch.Tensor, eps: float = EPS) -> torch.Tensor:
+    """max(m, eps) / 127 in IEEE division on any device, as Q4 and JAX
+    compute it: on CUDA tensors PyTorch divides by a Python number as a
+    multiply by its reciprocal, which is 1 ulp off for some m (182.19724
+    gives 1.4346238 where the quotient is 1.4346240), so the divisor is a
+    tensor."""
+    return torch.clamp_min(m, eps) / torch.full_like(m, QMAX)
+
+
 def quantize_plain(x: torch.Tensor, axis=None, eps: float = EPS):
     """(q int8, scale f32): ``scale`` the max |x| over ``axis`` (all of x
     for None, a 0-d tensor; else kept as size-1 dims) clamped at ``eps``,
-    over 127; ``q = clip(round(x / scale), -127, 127)``."""
+    over 127; ``q = clip(round(x / scale), -127, 127)``. The per-slice
+    scales (the weights') divide by the number 127, which on CUDA tensors
+    is not IEEE division (ROADMAP queue C)."""
     xf = x.float()
     a = xf.abs()
-    m = a.amax() if axis is None else a.amax(dim=axis, keepdim=True)
-    scale = torch.clamp_min(m, eps) / QMAX
+    if axis is None:
+        scale = _per_tensor_scale(a.amax(), eps)
+    else:
+        scale = torch.clamp_min(a.amax(dim=axis, keepdim=True), eps) / QMAX
     q = torch.clamp(torch.round(xf / scale), -QMAX, QMAX)
     return q.to(torch.int8), scale
 
@@ -149,31 +167,46 @@ def dense_int32_plain(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     return (xq.double() @ wq.double()).to(torch.int32)
 
 
+def quantize_with_max_plain(x: torch.Tensor, amax: torch.Tensor):
+    """Plain version of Q4's one pass: :func:`quantize_plain`'s (q, scale)
+    of ``x`` from its max ``amax`` = max |x| given (0-d f32): bitwise
+    ``quantize_plain(x)`` where ``amax`` is that max."""
+    scale = _per_tensor_scale(amax.float())
+    q = torch.clamp(torch.round(x.float() / scale), -QMAX, QMAX)
+    return q.to(torch.int8), scale
+
+
+def _with_max(y: torch.Tensor, with_max: bool):
+    """A producer's plain result: ``y``, or ``(y, max |y|)`` (0-d) of
+    exactly that ``y``."""
+    return (y, y.abs().amax()) if with_max else y
+
+
 def _pool2(y: torch.Tensor) -> torch.Tensor:
     n, h, w, c = y.shape
     return y.reshape(n, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
 
 
 def quant_conv3x3_plain(xq, x_scale, wq, w_scale, bias, *, act="none",
-                        pool=False) -> torch.Tensor:
-    """Plain version of Q1 on any device."""
+                        pool=False, with_max=False):
+    """Plain version of Q1 on any device; ``with_max``: also max |y|."""
     y = dequantize_plain(conv3x3_int32_plain(xq, wq), x_scale, w_scale, bias,
                          act)
-    return _pool2(y) if pool else y
+    return _with_max(_pool2(y) if pool else y, with_max)
 
 
 def quant_upsample2_conv3x3_plain(xq, x_scale, wq16, w_scale, shift, *,
-                                  act="relu") -> torch.Tensor:
-    """Plain version of Q2 on any device."""
-    return dequantize_plain(phase_conv_int32_plain(xq, wq16), x_scale,
-                            w_scale, shift, act)
+                                  act="relu", with_max=False):
+    """Plain version of Q2 on any device; ``with_max``: also max |y|."""
+    return _with_max(dequantize_plain(phase_conv_int32_plain(xq, wq16),
+                                      x_scale, w_scale, shift, act), with_max)
 
 
-def quant_dense_plain(xq, x_scale, wq, w_scale, bias, *,
-                      act="none") -> torch.Tensor:
-    """Plain version of Q3 on any device."""
-    return dequantize_plain(dense_int32_plain(xq, wq), x_scale, w_scale,
-                            bias, act)
+def quant_dense_plain(xq, x_scale, wq, w_scale, bias, *, act="none",
+                      with_max=False):
+    """Plain version of Q3 on any device; ``with_max``: also max |y|."""
+    return _with_max(dequantize_plain(dense_int32_plain(xq, wq), x_scale,
+                                      w_scale, bias, act), with_max)
 
 
 # ------------------------------------------------------ weight layouts
@@ -211,16 +244,6 @@ def quant_phase_weights(kernel: torch.Tensor, scale: torch.Tensor):
     return wq16, w_scale.reshape(-1)
 
 
-def _words(wq: torch.Tensor) -> torch.Tensor:
-    """(T, K, Co) int8 -> (T, K'/4, Co) int32 words of four K values (K
-    zero-padded to a multiple of 4), byte i of a word the value 4k + i."""
-    t, k, co = wq.shape
-    kp = -(-k // 4) * 4
-    w = F.pad(wq, (0, 0, 0, kp - k)) if kp != k else wq
-    return (w.reshape(t, kp // 4, 4, co).permute(0, 1, 3, 2).contiguous()
-            .view(torch.int32).reshape(t, kp // 4, co))
-
-
 def conv_operand(wq: torch.Tensor) -> torch.Tensor:
     """A (3,3,Ci,Co) int8 kernel as Q1 reads it: (9, Co, Ci') int8,
     K-major, tap t = (t // 3, t % 3), Ci' = ``padded_channels(Ci, 1)``,
@@ -237,8 +260,9 @@ def phase_operand(wq16: torch.Tensor) -> torch.Tensor:
 
 
 def dense_operand(wq: torch.Tensor) -> torch.Tensor:
-    """A (K, M) int8 kernel as Q3 reads it: (K'/4, M) words."""
-    return _words(wq[None])[0]
+    """A (K, M) int8 kernel as Q3 reads it: (M, K') int8, K-major, K' =
+    ``padded_channels(K, 1)``, the padding zero."""
+    return conv_operands.kmajor(wq[None], torch.int8, 1)[0]
 
 
 def pad_int8(xq: torch.Tensor) -> torch.Tensor:
@@ -249,13 +273,77 @@ def pad_int8(xq: torch.Tensor) -> torch.Tensor:
     return conv_operands.pad_channels(xq, 1)
 
 
-def _pad_words(xq: torch.Tensor) -> torch.Tensor:
-    """int8 ``xq`` with its last dim zero-padded to a multiple of 4 (Q3
-    reads words of four), contiguous."""
-    c = xq.shape[-1]
-    if c % 4:
-        return F.pad(xq, (0, -(-c // 4) * 4 - c))
-    return xq.contiguous()
+def dense_splits(tiles: int, chunks: int) -> int:
+    """Q3's K splits over ``chunks`` stages of K and ``tiles`` (N, M)
+    tiles: where the tiles alone leave SMs idle, the most splits, a divisor
+    of ``chunks`` (each split runs the same count), that keep the blocks
+    within one per SM and give each split at least ``DENSE_MIN_CHUNKS``
+    stages; 1 otherwise. R l27 (8 tiles, 256 chunks): 16 splits of 16."""
+    want = SMS // tiles
+    return max((d for d in range(1, chunks + 1)
+                if chunks % d == 0 and d <= want
+                and chunks // d >= DENSE_MIN_CHUNKS), default=1)
+
+
+def dense_plan(n: int, k: int, m: int):
+    """Q3's launch as (TilePlan, splits): :func:`dense_plan_at`'s at BN the
+    least width covering M up to ``DENSE_MAX_BN``, halved (down to 16)
+    while the (N, M) tiles leave SMs idle and K is too short to split:
+    more blocks in flight where the tiles are few and short (R l31), K
+    splits where K is long (R l27). ``tools/dense_plans.py`` times each
+    BN on the card (PERF.md section 6)."""
+    co = conv_operands
+    kp = co.padded_channels(k, 1)
+    bk = kp if kp <= 64 else 128
+    bn = next(b for b in co.WIDTHS_N if min(m, DENSE_MAX_BN) <= b)
+    rows = -(-n // co.BM)
+    if -(-kp // bk) < 2 * DENSE_MIN_CHUNKS:  # too short to split
+        while bn > co.WIDTHS_N[0] and rows * -(-m // bn) < SMS:
+            bn //= 2
+    return dense_plan_at(n, k, m, bn)
+
+
+def dense_plan_at(n: int, k: int, m: int, bn: int):
+    """Q3's (TilePlan, splits) at column tile width ``bn``: the tile is 1 x
+    128 rows of x (``DenseTaps``: one tap of a 1 x N image), BK the padded
+    K's depth up to a 128-byte row, K split by :func:`dense_splits`; the
+    ring as :func:`conv_operands.tile_plan`'s, no deeper than a split's
+    stages, holding the f32 staged tile."""
+    co = conv_operands
+    kp = co.padded_channels(k, 1)
+    bk = kp if kp <= 64 else 128
+    chunks = -(-kp // bk)
+    splits = dense_splits(-(-n // co.BM) * -(-m // bn), chunks)
+    stage = -(-(co.BM + bn) * bk // co.ALIGN) * co.ALIGN
+    stages = max(2, min(co.MAX_STAGES, co.RING_BYTES[bn] // stage,
+                        chunks // splits),
+                 -(-co.staged_bytes(bn, 4) // stage))
+    return (co.TilePlan(1, co.BM, bn, bk, stages,
+                        co.ALIGN + stages * (stage + 16)), splits)
+
+
+def dense_k_ranges(k: int, plan, splits: int) -> list:
+    """The [k0, k1) of K' each of Q3's splits adds (``DenseTaps``: split z
+    runs chunks z * c .. (z + 1) * c - 1 of ``plan.bk``, c = chunks /
+    splits), clipped to K' = ``padded_channels(k, 1)``."""
+    kp = conv_operands.padded_channels(k, 1)
+    per = -(-kp // plan.bk) // splits * plan.bk
+    return [(z * per, min(kp, (z + 1) * per)) for z in range(splits)]
+
+
+def dense_sums_plain(xq: torch.Tensor, operand: torch.Tensor, plan,
+                     splits: int) -> torch.Tensor:
+    """Q3's s32 sums as the kernel takes them, on any device: each split's
+    K range (:func:`dense_k_ranges`) of the padded ``xq`` against
+    :func:`dense_operand`'s (M, K'), exact in f64, then the splits added
+    in order. Returns (N, M) int32."""
+    xk = conv_operands.pad_channels(xq, 1).double()
+    w = operand.double()
+    acc = torch.zeros((xq.shape[0], operand.shape[0]), dtype=torch.int32,
+                      device=xq.device)
+    for k0, k1 in dense_k_ranges(xq.shape[1], plan, splits):
+        acc += (xk[:, k0:k1] @ w[:, k0:k1].T).to(torch.int32)
+    return acc
 
 
 def _flat_scale(t: torch.Tensor, n: int, device, name: str):
@@ -284,19 +372,51 @@ def launch_quantize_act(x: torch.Tensor):
     return q, scale
 
 
+def launch_quantize_act_max(x: torch.Tensor, amax: torch.Tensor):
+    """Q4's one pass on CUDA, its plain version on the CPU: the body of the
+    ``ganreverser::quantize_act_max`` op."""
+    if cuda_lib.dispatch_device(x, amax) == "cpu":
+        return quantize_with_max_plain(x, amax)
+    xf = x.float().contiguous()
+    cuda_lib.require(amax, "amax", x.device, torch.float32, ())
+    q = torch.empty(xf.shape, dtype=torch.int8, device=x.device)
+    scale = torch.empty((), dtype=torch.float32, device=x.device)
+    with cuda_lib.on_device(x):
+        rc = cuda_lib.library().gr_quantize_act_max(
+            xf.data_ptr(), amax.data_ptr(), q.data_ptr(), scale.data_ptr(),
+            xf.numel(), cuda_lib.stream_of(x))
+    cuda_lib.check(rc, "quantize_act_max")
+    quant_act_max.launches += 1
+    return q, scale
+
+
 def _check_act(act: str) -> None:
     if act not in ACTS:
         raise ValueError(f"act must be one of {ACTS}, got {act!r}")
 
 
+def _op_outputs(y: torch.Tensor, with_max: bool):
+    """A producer op's two outputs from its plain version's ``y``: y and
+    max |y| (0-d), or an empty (0,) f32 where the max was not asked."""
+    return y, (y.abs().amax() if with_max else y.new_empty((0,)))
+
+
+def _max_out(with_max: bool, like: torch.Tensor):
+    """(the 0-d f32 output the kernel raises to max |y|, its pointer), or
+    (an empty (0,) f32, None): the C entry point zeroes the word."""
+    t = torch.empty(() if with_max else (0,), dtype=torch.float32,
+                    device=like.device)
+    return t, (t.data_ptr() if with_max else None)
+
+
 def launch_quant_conv3x3(xq, x_scale, wq, w_scale, bias, act, pool,
-                         operand):
+                         with_max, operand):
     """Q1 on CUDA, its plain version on the CPU: the body of the
-    ``ganreverser::quant_conv3x3`` op."""
+    ``ganreverser::quant_conv3x3`` op; returns (y, max |y| or empty)."""
     _check_act(act)
     if cuda_lib.dispatch_device(xq, x_scale, wq, w_scale, bias) == "cpu":
-        return quant_conv3x3_plain(xq, x_scale, wq, w_scale, bias, act=act,
-                                   pool=pool)
+        return _op_outputs(quant_conv3x3_plain(
+            xq, x_scale, wq, w_scale, bias, act=act, pool=pool), with_max)
     n, h, w, ci = xq.shape
     co = wq.shape[-1]
     if tuple(wq.shape[:3]) != (3, 3, ci):
@@ -315,25 +435,27 @@ def launch_quant_conv3x3(xq, x_scale, wq, w_scale, bias, act, pool,
     b = _flat_scale(bias, co, xq.device, "bias")
     oh, ow = (h // 2, w // 2) if pool else (h, w)
     out = torch.empty((n, oh, ow, co), dtype=torch.float32, device=xq.device)
+    amax, amax_ptr = _max_out(with_max, xq)
     with cuda_lib.on_device(xq):
         rc = cuda_lib.library().gr_quant_conv3x3(
             xk.data_ptr(), wk.data_ptr(), xs.data_ptr(), ws.data_ptr(),
-            b.data_ptr(), out.data_ptr(), n, h, w, cp, co,
+            b.data_ptr(), out.data_ptr(), amax_ptr, n, h, w, cp, co,
             cuda_lib.ACT_CODES[act], int(pool), *plan,
             cuda_lib.stream_of(xq))
     cuda_lib.check(rc, "quant_conv3x3")
     quant_conv3x3_same.launches += 1
-    return out
+    return out, amax
 
 
 def launch_quant_upsample2_conv3x3(xq, x_scale, wq16, w_scale, shift, act,
-                                   operand):
+                                   with_max, operand):
     """Q2 on CUDA, its plain version on the CPU: the body of the
-    ``ganreverser::quant_upsample2_conv3x3`` op."""
+    ``ganreverser::quant_upsample2_conv3x3`` op; returns (y, max |y| or
+    empty)."""
     _check_act(act)
     if cuda_lib.dispatch_device(xq, x_scale, wq16, w_scale, shift) == "cpu":
-        return quant_upsample2_conv3x3_plain(xq, x_scale, wq16, w_scale,
-                                             shift, act=act)
+        return _op_outputs(quant_upsample2_conv3x3_plain(
+            xq, x_scale, wq16, w_scale, shift, act=act), with_max)
     n, h, w, ci = xq.shape
     co = wq16.shape[-1]
     if tuple(wq16.shape[:5]) != (2, 2, 2, 2, ci):
@@ -351,55 +473,52 @@ def launch_quant_upsample2_conv3x3(xq, x_scale, wq16, w_scale, shift, act,
     b = _flat_scale(shift, co, xq.device, "shift")
     out = torch.empty((n, 2 * h, 2 * w, co), dtype=torch.float32,
                       device=xq.device)
+    amax, amax_ptr = _max_out(with_max, xq)
     with cuda_lib.on_device(xq):
         rc = cuda_lib.library().gr_quant_upsample2_conv3x3(
             xk.data_ptr(), wk.data_ptr(), xs.data_ptr(), ws.data_ptr(),
-            b.data_ptr(), out.data_ptr(), n, h, w, cp, co,
+            b.data_ptr(), out.data_ptr(), amax_ptr, n, h, w, cp, co,
             cuda_lib.ACT_CODES[act], *plan, cuda_lib.stream_of(xq))
     cuda_lib.check(rc, "quant_upsample2_conv3x3")
     quant_upsample2_conv3x3.launches += 1
-    return out
+    return out, amax
 
 
-def dense_splits(n: int, k: int, m: int) -> int:
-    """Q3's K splits: enough to give the card's SMs two blocks each where
-    the (N, M) tiles alone do not, at most one per 64 words of K."""
-    tiles = -(-n // DENSE_TILES) * -(-m // DENSE_TILES)
-    return max(1, min(-(-k // 256), (2 * SMS) // tiles))
-
-
-def launch_quant_dense(xq, x_scale, wq, w_scale, bias, act, operand):
+def launch_quant_dense(xq, x_scale, wq, w_scale, bias, act, with_max,
+                       operand):
     """Q3 on CUDA, its plain version on the CPU: the body of the
-    ``ganreverser::quant_dense`` op."""
+    ``ganreverser::quant_dense`` op; returns (y, max |y| or empty)."""
     _check_act(act)
     if cuda_lib.dispatch_device(xq, x_scale, wq, w_scale, bias) == "cpu":
-        return quant_dense_plain(xq, x_scale, wq, w_scale, bias, act=act)
+        return _op_outputs(quant_dense_plain(
+            xq, x_scale, wq, w_scale, bias, act=act), with_max)
     n, k = xq.shape
     m = wq.shape[-1]
     if wq.shape[0] != k:
         raise ValueError(f"quant_dense: kernel {tuple(wq.shape)} does not "
                          f"take the input's {k} features")
-    xk = _pad_words(xq)
+    xk = conv_operands.pad_channels(xq, 1)
+    kp = xk.shape[-1]
     wk = dense_operand(wq) if operand is None else operand
-    cuda_lib.require(xk, "xq", xq.device, torch.int8, (n, xk.shape[-1]))
-    cuda_lib.require(wk, "kernel", xq.device, torch.int32,
-                     (xk.shape[-1] // 4, m))
+    cuda_lib.require(xk, "xq", xq.device, torch.int8, (n, kp))
+    cuda_lib.require(wk, "kernel", xq.device, torch.int8, (m, kp))
     xs = _flat_scale(x_scale, 1, xq.device, "x_scale")
     ws = _flat_scale(w_scale, m, xq.device, "w_scale")
     b = _flat_scale(bias, m, xq.device, "bias")
-    splits = dense_splits(n, xk.shape[-1], m)
-    work = (torch.empty((n, m), dtype=torch.int32, device=xq.device)
+    plan, splits = dense_plan(n, k, m)
+    part = (torch.empty((splits, n, m), dtype=torch.int32, device=xq.device)
             if splits > 1 else None)
     out = torch.empty((n, m), dtype=torch.float32, device=xq.device)
+    amax, amax_ptr = _max_out(with_max, xq)
     with cuda_lib.on_device(xq):
         rc = cuda_lib.library().gr_quant_dense(
             xk.data_ptr(), wk.data_ptr(), xs.data_ptr(), ws.data_ptr(),
             b.data_ptr(), out.data_ptr(),
-            None if work is None else work.data_ptr(), n, xk.shape[-1], m,
-            cuda_lib.ACT_CODES[act], splits, cuda_lib.stream_of(xq))
+            None if part is None else part.data_ptr(), amax_ptr, n, kp, m,
+            cuda_lib.ACT_CODES[act], splits, *plan, cuda_lib.stream_of(xq))
     cuda_lib.check(rc, "quant_dense")
     quant_dense.launches += 1
-    return out
+    return out, amax
 
 
 # ---------------------------------------------- the JAX package's API
@@ -425,49 +544,66 @@ def quant_act(x: torch.Tensor):
 
 
 @cuda_lib.counted
+def quant_act_max(x: torch.Tensor, amax: torch.Tensor):
+    """Q4 in one pass after an int8 producer: :func:`quant_act`'s (q,
+    scale) of ``x`` from ``amax`` = max |x|, the 0-d f32 the producer
+    returned with ``with_max=True``; one read of x."""
+    cuda_lib.dispatch_device(x, amax)
+    return torch.ops.ganreverser.quantize_act_max(x, amax)
+
+
+def _maybe_max(result, with_max: bool):
+    return result if with_max else result[0]
+
+
+@cuda_lib.counted
 def quant_conv3x3_same(xq: torch.Tensor, x_scale: torch.Tensor,
                        wq: torch.Tensor, w_scale: torch.Tensor,
                        bias: torch.Tensor, *, act: str = "none",
                        pool: bool = False,
-                       operand: torch.Tensor | None = None) -> torch.Tensor:
+                       operand: torch.Tensor | None = None,
+                       with_max: bool = False):
     """Q1: ``conv(xq, wq) * (x_scale * w_scale) + bias`` (one rounding), then
     ``act`` and with ``pool`` the 2x2 max pool; f32 (N,H,W,Co), or
     (N,H/2,W/2,Co). xq (N,H,W,Ci) int8, x_scale 0-d; wq (3,3,Ci,Co) int8,
     w_scale (1,1,1,Co) (or (Co,)), bias (Co,). ``operand``: ``wq`` laid
-    out beforehand by :func:`conv_operand`."""
+    out beforehand by :func:`conv_operand`. ``with_max``: returns (y,
+    max |y|), the max taken in the kernel's epilogue, for
+    :func:`quant_act_max`."""
     _check_act(act)
     cuda_lib.dispatch_device(xq, x_scale, wq, w_scale, bias)
-    return torch.ops.ganreverser.quant_conv3x3(xq, x_scale, wq, w_scale,
-                                               bias, act, pool, operand)
+    return _maybe_max(torch.ops.ganreverser.quant_conv3x3(
+        xq, x_scale, wq, w_scale, bias, act, pool, with_max, operand),
+        with_max)
 
 
 @cuda_lib.counted
 def quant_upsample2_conv3x3(xq: torch.Tensor, x_scale: torch.Tensor,
                             wq16: torch.Tensor, w_scale: torch.Tensor,
                             shift: torch.Tensor, *, act: str = "relu",
-                            operand: torch.Tensor | None = None
-                            ) -> torch.Tensor:
+                            operand: torch.Tensor | None = None,
+                            with_max: bool = False):
     """Q2: nearest-upsample x2 + 3x3 conv as kernel U's four phase convs on
     int8 operands (:func:`quant_phase_weights`), dequantised with
     ``x_scale * w_scale[c]`` + ``shift``, then ``act``. xq (N,H,W,Ci)
-    int8; returns (N,2H,2W,Co) f32. ``operand``: ``wq16`` laid out
-    beforehand by :func:`phase_operand`."""
+    int8; returns (N,2H,2W,Co) f32, with ``with_max`` (y, max |y|).
+    ``operand``: ``wq16`` laid out beforehand by :func:`phase_operand`."""
     _check_act(act)
     cuda_lib.dispatch_device(xq, x_scale, wq16, w_scale, shift)
-    return torch.ops.ganreverser.quant_upsample2_conv3x3(
-        xq, x_scale, wq16, w_scale, shift, act, operand)
+    return _maybe_max(torch.ops.ganreverser.quant_upsample2_conv3x3(
+        xq, x_scale, wq16, w_scale, shift, act, with_max, operand), with_max)
 
 
 @cuda_lib.counted
 def quant_dense(xq: torch.Tensor, x_scale: torch.Tensor, wq: torch.Tensor,
                 w_scale: torch.Tensor, bias: torch.Tensor, *,
-                act: str = "none",
-                operand: torch.Tensor | None = None) -> torch.Tensor:
+                act: str = "none", operand: torch.Tensor | None = None,
+                with_max: bool = False):
     """Q3: ``(xq @ wq) * (x_scale * w_scale) + bias`` (one rounding), then
     ``act``. xq (N,K) int8; wq (K,M) int8, w_scale (1,M) (or (M,)), bias
-    (M,). Returns (N,M) f32. ``operand``: ``wq`` laid out beforehand by
-    :func:`dense_operand`."""
+    (M,). Returns (N,M) f32, with ``with_max`` (y, max |y|). ``operand``:
+    ``wq`` laid out beforehand by :func:`dense_operand`."""
     _check_act(act)
     cuda_lib.dispatch_device(xq, x_scale, wq, w_scale, bias)
-    return torch.ops.ganreverser.quant_dense(xq, x_scale, wq, w_scale, bias,
-                                             act, operand)
+    return _maybe_max(torch.ops.ganreverser.quant_dense(
+        xq, x_scale, wq, w_scale, bias, act, with_max, operand), with_max)

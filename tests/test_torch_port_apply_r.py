@@ -331,3 +331,97 @@ def test_apply_r_refine_follows_alias_rule(tmp_path, rng, capsys, fixer):
     assert torch.isfinite(result["attributes"]).all()
     assert (result["attributes_fixer"] is result["attributes"]) != fixer
     assert ("no fixer checkpoint" in printed) != fixer
+
+
+def test_apply_r_pallas_is_inert(tmp_path, rng, capsys):
+    """apply_r --pallas (the JAX CLI's flag) is accepted, says in its help
+    and on its output that it is inert, and changes no result."""
+    from ganreverser_tpu_torch.core.config import ApplyConfig
+    help_text = ApplyConfig.__dataclass_fields__["pallas"].metadata["help"]
+    assert "inert" in help_text
+    save = str(tmp_path / "logs")
+    _write_checkpoints(save, rng, (1, 8, 8), 6, fixer=False)
+    base = ["--G", os.path.join(save, "adversarial"), "--save", save,
+            *ARGS]
+    plain = apply_r.main([*base, "--writeto", str(tmp_path / "a")])
+    assert "--pallas is inert" not in capsys.readouterr().out
+    flagged = apply_r.main([*base, "--writeto", str(tmp_path / "b"),
+                            "--pallas"])
+    assert "--pallas is inert" in capsys.readouterr().out
+    for key in ("images", "attributes", "counts", "is_anomaly"):
+        assert torch.equal(plain[key], flagged[key]), key
+
+
+class _CountingPrepare:
+    """Wraps a fast-forward factory: every forward it makes counts its
+    ``prepare`` calls in ``self.calls``."""
+
+    def __init__(self, make):
+        self.make, self.calls = make, 0
+
+    def __call__(self, *args, **kwargs):
+        f = self.make(*args, **kwargs)
+        prepare = f.prepare
+
+        def counted(variables):
+            self.calls += 1
+            return prepare(variables)
+        f.prepare = counted
+        return f
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_pipeline_prepares_each_forward_once(monkeypatch, rng, int8):
+    """② (G, R and the fixer-R), ① and ⑤ prepare each fast forward once
+    per call, not once per chunk, and give bitwise what the per-chunk form
+    (``f(variables, chunk)`` for every chunk) gives."""
+    dims, nd, n, batch = (1, 8, 8), 4, 40, 16
+    gv = bridge.to_torch(_variables(M.create_G(dims, nd), (nd,), 1, rng,
+                                    amplify=4.0), "cpu")
+    rv = bridge.to_torch(_variables(M.create_R(dims, nd, "normal"),
+                                    (8, 8, 1), 2, rng, amplify=4.0), "cpu")
+    rfv = bridge.to_torch(_shift_layers(_variables(
+        M.create_R(dims, nd, "normal"), (8, 8, 1), 3, rng, amplify=4.0)),
+        "cpu")
+    names = (("make_fast_generator_int8", "make_fast_inverter_int8")
+             if int8 else ("make_fast_generator", "make_fast_inverter"))
+    counters = {name: _CountingPrepare(getattr(P, name))
+                for name in (*names, "make_fast_generator", "make_fast_fixer")}
+    for name, counter in counters.items():
+        monkeypatch.setattr(P, name, counter)
+    got = P.generate_and_invert(
+        gv, rv, dims=dims, n=n, noise_dim=nd, noise_method="normal",
+        generator=_gen(5), batch_size=batch, rf_variables=rfv,
+        fixer_generator=_gen(6), int8=int8)
+    assert {k: c.calls for k, c in counters.items()} == {
+        **dict.fromkeys(counters, 0), **dict.fromkeys(names, 1),
+        "make_fast_fixer": 1}
+    noise, images = got[0], got[1]
+    gen_f = (fastpath.make_fast_generator_int8 if int8
+             else fastpath.make_fast_generator)(dims, nd, torch.float32)
+    inv_f = (fastpath.make_fast_inverter_int8 if int8
+             else fastpath.make_fast_inverter)(dims, nd, "normal",
+                                               torch.float32)
+    fix_f = fastpath.make_fast_fixer(dims, nd, "normal", torch.float32)
+    per_chunk = P.forward_batched(lambda z: gen_f(gv, z), noise, batch)
+    assert torch.equal(images, per_chunk)
+    assert torch.equal(got[2], P.forward_batched(lambda x: inv_f(rv, x),
+                                                 images, batch))
+    g6 = _gen(6)
+    assert torch.equal(got[3], P.forward_batched(
+        lambda x: fix_f(rfv, x, g6), images, batch))
+    if int8:
+        return
+    for c in counters.values():
+        c.calls = 0
+    sweep = P.variation_sweep(gv, dims=dims, noise_dim=nd,
+                              noise_method="normal", base=noise[0],
+                              batch_size=batch)
+    fixed = P.fix_images(gv, got[2], dims=dims, noise_dim=nd,
+                         batch_size=batch)
+    assert counters["make_fast_generator"].calls == 2
+    assert torch.equal(sweep, P.forward_batched(
+        lambda z: gen_f(gv, z), P.variation_noise(noise[0], "normal"),
+        batch))
+    assert torch.equal(fixed, P.forward_batched(lambda z: gen_f(gv, z),
+                                                got[2], batch))

@@ -695,12 +695,16 @@ def test_tensor_core_kernels_have_hgmma(dev):
     """chip_smoke's SASS guard: every instance of the six bf16 kernels
     holds HGMMA instructions (the tensor cores), as many as before Q1 and
     Q2 moved onto their mainloop: four conv kernels and C for BN 16 to 256,
-    U's fused head for BN 16 to 128; every instance of Q1's and Q2's s8
-    kernels holds IGMMA (the int8 tensor cores), Q3's and Q4's neither;
-    the CUDA-core f32 kernels and the finish launches hold no HGMMA."""
+    U's fused head for BN 16 to 128; every instance of Q1's, Q2's and Q3's
+    s8 kernels holds IGMMA (the int8 tensor cores), Q3's sum kernel and
+    Q4's kernels neither, and no kernel holds DP4A (check_hgmma raises
+    otherwise); the CUDA-core f32 kernels and the finish launches hold no
+    HGMMA."""
     import chip_smoke
     counts = chip_smoke.check_hgmma(cuda_lib.build())
-    assert sum(map(len, counts.values())) == 4 * 5 + 4 + 5 + 2 * 5
+    assert sum(map(len, counts.values())) == 4 * 5 + 4 + 5 + 4 * 5
+    assert {"quant_dense_s8_kernel", "quant_dense_split_s8_kernel"} <= set(
+        chip_smoke.S8_KERNELS)
     assert counts["conv3x3_wgmma_kernel"] == dict.fromkeys(
         (16, 32, 64, 128, 256), chip_smoke.HGMMA_COUNTS[
             "conv3x3_wgmma_kernel"])
@@ -1068,28 +1072,150 @@ def test_quant_s8_kernels_refuse_bad_operands(dev):
     wq = torch.ones(3, 3, 8, 5, dtype=torch.int8, device=dev)
     ws, b = torch.ones(5, device=dev), torch.zeros(5, device=dev)
     with pytest.raises(TypeError):
-        quant.quant_conv3x3_same(xq, xs, wq, ws, b, operand=quant._words(
-            wq.reshape(9, 8, 5)))
+        quant.quant_conv3x3_same(xq, xs, wq, ws, b, operand=torch.ones(
+            9, 2, 5, dtype=torch.int32, device=dev))
     with pytest.raises(ValueError):
         quant.quant_conv3x3_same(xq, xs, wq, ws, b, operand=torch.ones(
             9, 5, 64, dtype=torch.int8, device=dev))
 
 
-@pytest.mark.parametrize("n,k,m", [(7, 10, 13), (70, 4096, 130),
-                                   (256, 32768, 512)])
-def test_quant_dense_kernel_bitwise(dev, n, k, m):
-    """Q3 with one K slice and with K split across blocks (int32 atomics:
-    exact in any order)."""
+# Q3's shapes: ragged ones, one split over 8 (70 x 4096 . 4096 x 130), and
+# the int8 legs' G l0, R l27 (split 16) and R l31; (N, K, M, act)
+DENSE_CASES = [(7, 10, 13, "elu"), (70, 4096, 130, "elu"),
+               (256, 32768, 512, "elu"), (256, 100, 131072, "relu"),
+               (256, 512, 100, "none"), (1, 40, 300, "sigmoid")]
+
+
+@pytest.mark.parametrize("n,k,m,act", DENSE_CASES)
+def test_quant_dense_kernel_bitwise(dev, n, k, m, act):
+    """Q3 on the int8 tensor cores, with one K split and with K split over
+    blocks (s32 partials added in order by the sum kernel): bitwise the
+    plain version, the max bitwise max |y| of the output, a second call
+    bitwise the first; the operand (M, K') K-major int8."""
     from ganreverser_tpu_torch.ops import quant
     g = torch.Generator(device=dev).manual_seed(5)
     xq, xs = quant.quantize_plain(torch.randn(n, k, device=dev, generator=g))
     wq, ws = quant.quantize_plain(torch.randn(k, m, device=dev, generator=g),
                                   axis=(0,))
     b = torch.randn(m, device=dev, generator=g)
-    out = quant.quant_dense(xq, xs, wq, ws, b, act="elu")
+    op = quant.dense_operand(wq)
+    assert op.shape == (m, quant.conv_operands.padded_channels(k, 1))
+    before = quant.quant_dense.launches
+    out, mx = quant.quant_dense(xq, xs, wq, ws, b, act=act, operand=op,
+                                with_max=True)
     torch.cuda.synchronize()
-    assert torch.equal(out, quant.quant_dense_plain(xq, xs, wq, ws, b,
-                                                    act="elu"))
+    assert quant.quant_dense.launches == before + 1
+    ref, ref_max = quant.quant_dense_plain(xq, xs, wq, ws, b, act=act,
+                                           with_max=True)
+    assert torch.equal(out, ref) and torch.equal(mx, ref_max)
+    assert torch.equal(quant.quant_dense(xq, xs, wq, ws, b, act=act), out)
+
+
+@pytest.mark.parametrize("kind,n,h,w,ci,co,act,pool", [
+    ("conv", 1, 13, 21, 40, 70, "none", False),
+    ("conv", 1, 10, 18, 5, 3, "relu", True),
+    ("conv", 2, 6, 6, 12, 130, "elu", True),
+    ("phase", 1, 9, 17, 130, 300, "none", False),
+    ("phase", 2, 5, 3, 6, 9, "relu", False)])
+def test_quant_producers_max_bitwise(dev, kind, n, h, w, ci, co, act, pool):
+    """Q1 (with and without the pool) and Q2 off every tile edge with
+    ``with_max``: y bitwise the call without the max, the max bitwise
+    max |y| (what each block stored, ragged pixels and channels left out),
+    and Q4's one pass from it bitwise quantize_plain(y)."""
+    from ganreverser_tpu_torch.ops import quant
+    g = torch.Generator(device=dev).manual_seed(8)
+    xq, xs = quant.quantize_plain(torch.randn(n, h, w, ci, device=dev,
+                                              generator=g))
+    k = torch.randn(3, 3, ci, co, device=dev, generator=g)
+    b = torch.randn(co, device=dev, generator=g)
+    if kind == "conv":
+        wq, ws = quant.quantize_plain(k, axis=(0, 1, 2))
+
+        def run(**kw):
+            return quant.quant_conv3x3_same(xq, xs, wq, ws, b, act=act,
+                                            pool=pool, **kw)
+    else:
+        wq, ws = quant.quant_phase_weights(k, torch.rand(
+            co, device=dev, generator=g) + 0.5)
+
+        def run(**kw):
+            return quant.quant_upsample2_conv3x3(xq, xs, wq, ws, b, act=act,
+                                                 **kw)
+    y, mx = run(with_max=True)
+    torch.cuda.synchronize()
+    assert mx.shape == () and torch.equal(y, run())
+    assert torch.equal(mx, y.abs().amax())
+    before = quant.quant_act_max.launches
+    q, s = quant.quant_act_max(y, mx)
+    torch.cuda.synchronize()
+    assert quant.quant_act_max.launches == before + 1
+    qp, sp = quant.quantize_plain(y)
+    assert torch.equal(q, qp) and torch.equal(s, sp)
+
+
+def test_quantize_plain_scale_is_ieee_division(dev):
+    """The per-tensor scale max / 127 in IEEE division on the card, in
+    the plain version as in Q4's kernels: at max 182.19724, where CUDA's
+    division by the number 127 (a multiply by its reciprocal) gives
+    1.4346238, all three give the correctly rounded 1.4346240."""
+    from ganreverser_tpu_torch.ops import quant
+    m = np.float32(182.19723510742188)
+    x = torch.tensor([m, -3.0, 50.92914581298828, 27.97516441345215],
+                     device=dev)
+    want = np.float32(np.float64(m) / 127.0)
+    _, sp = quant.quantize_plain(x)
+    _, s2 = quant.quant_act(x)
+    _, s1 = quant.quant_act_max(x, x.abs().amax())
+    assert sp.item() == s2.item() == s1.item() == want
+    assert torch.equal(quant.quantize_plain(x)[0], quant.quant_act(x)[0])
+
+
+def test_quant_act_max_nan(dev):
+    """A NaN in a producer's output: the kernels' max leaves it out (fmaxf
+    from 0) and Q4 quantises it to -127, in one pass as in two launches;
+    quantize_plain's max is NaN instead (ROADMAP queue C)."""
+    from ganreverser_tpu_torch.ops import quant
+    y = torch.randn(4096, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(9))
+    y[5] = float("nan")
+    finite = torch.nan_to_num(y, nan=0.0)
+    q2, s2 = quant.quant_act(y)
+    q1, s1 = quant.quant_act_max(y, finite.abs().amax())
+    torch.cuda.synchronize()
+    qf, sf = quant.quantize_plain(finite)
+    assert torch.equal(s1, sf) and torch.equal(s2, sf)
+    assert q1[5].item() == q2[5].item() == -127
+    keep = torch.arange(4096, device=dev) != 5
+    assert torch.equal(q1[keep], qf[keep]) and torch.equal(q2[keep], qf[keep])
+    assert torch.isnan(quant.quantize_plain(y)[1])
+
+
+def test_int8_forwards_quantise_in_one_pass(dev):
+    """The int8 G and R on the card: two Q4s of two launches (z and the
+    images) and ten in one pass a forward pair, the outputs those of the
+    same forwards on the CPU's plain versions within two int8 levels."""
+    from torch.utils import _pytree as pytree
+    from ganreverser_tpu_torch.models import bridge, fastpath, modules, zoo
+    from ganreverser_tpu_torch.ops import quant
+    dims, nd = (3, 16, 16), 8
+    g = torch.Generator().manual_seed(10)
+    G = modules.init_parameters(zoo.create_G3(dims, nd), g)
+    R = modules.init_parameters(zoo.create_R(dims, nd, "normal"), g)
+    gv, rv = bridge.module_variables(G), bridge.module_variables(R)
+    gen = fastpath.make_fast_generator_int8(dims, nd, torch.float32)
+    inv = fastpath.make_fast_inverter_int8(dims, nd, "normal", torch.float32)
+    z = torch.randn(6, nd, generator=g)
+    counters = (quant.quant_act, quant.quant_act_max)
+    before = [fn.launches for fn in counters]
+    images = gen(pytree.tree_map(lambda t: t.to(dev), gv), z.to(dev))
+    zhat = inv(pytree.tree_map(lambda t: t.to(dev), rv), images)
+    torch.cuda.synchronize()
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [2, 10]
+    cpu_images = gen(gv, z)
+    cpu_zhat = inv(rv, images.cpu())
+    for got, want in ((images, cpu_images), (zhat, cpu_zhat)):
+        lev = (got.cpu() - want).abs().max() / (want.abs().max() / 127)
+        assert lev <= 2.0, lev
 
 
 @pytest.mark.parametrize("int8", [False, True])

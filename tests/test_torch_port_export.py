@@ -37,6 +37,7 @@ from ganreverser_tpu.cli import export as j_export
 from ganreverser_tpu.models import fastpath as JF
 from ganreverser_tpu_torch.cli import export
 from ganreverser_tpu_torch.io import serving
+from ganreverser_tpu_torch.ops import quant
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DIMS, ND, BATCH, N, K = (1, 8, 8), 6, 8, 40, 4
@@ -262,13 +263,16 @@ def test_serving_roundtrip_of_a_closure(tmp_path):
         serving.save_serving_program(out, fn, (x,), {}, platforms=("tpu",))
 
 
-@pytest.mark.parametrize("layout", [None, "words-of-four"])
+@pytest.mark.parametrize("layout", [None, "words-of-four",
+                                    "taps-co-ci-int8"])
 def test_loader_refuses_an_int8_artifact_of_another_operand_layout(
         tmp_path, layout):
     """An int8 artifact records the int8 kernels' operand layout and loads;
     one without that record (exported before Q1 and Q2 read K-major int8
-    weights: its baked operands are words of four channels) or with
-    another layout is refused, with a message saying to export it again."""
+    weights: its baked operands are words of four channels), one of the
+    layout before Q3 read K-major int8 weights ("taps-co-ci-int8": Q3's
+    operands still words) or of another layout is refused, with a message
+    saying to export it again."""
     w = torch.randn(5, 3)
 
     def fn(x):
@@ -280,7 +284,7 @@ def test_loader_refuses_an_int8_artifact_of_another_operand_layout(
                                  platforms=("cpu",))
     path = os.path.join(out, serving.MANIFEST)
     meta = json.load(open(path))
-    assert meta[serving.INT8_OPERANDS] == "taps-co-ci-int8"
+    assert meta[serving.INT8_OPERANDS] == quant.OPERAND_LAYOUT != layout
     call, _ = serving.load_serving_program(out, "cpu")
     x = torch.randn(4, 5)
     assert torch.equal(call(x), fn(x))

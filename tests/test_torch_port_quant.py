@@ -275,6 +275,161 @@ def test_s8_tile_plan(h, w, ci, co):
         assert CO.staged_bytes(256, 4) == 133_120 and p.bk == 128
 
 
+# Q3's shapes: the int8 legs' G l0, R l27 and R l31 at batch 256, and
+# ragged ones; (N, K, M)
+DENSE_SHAPES = [(256, 100, 131072), (256, 32768, 512), (256, 512, 100),
+                (7, 10, 13), (70, 4096, 130), (1, 40, 300)]
+
+
+@pytest.mark.parametrize("n,k,m", DENSE_SHAPES)
+def test_dense_operand_and_split_plan(rng, n, k, m):
+    """Q3's K-major operand (M, K') unpacks to the weights, the padding
+    zero; its plan fits csrc/conv_wgmma.cuh's layout (1 x 128 rows, the
+    f32 staged tile in the ring) and its K splits, a divisor of the K
+    chunks, cover K' exactly once; R l27 splits 16 ways over its 8 tiles
+    of BN 128, G l0 and R l31 not at all, R l31's short K narrowing its
+    tiles to BN 16 instead."""
+    wq = _int8(rng, (k, m))
+    op = Q.dense_operand(wq)
+    kp = CO.padded_channels(k, 1)
+    assert op.dtype == torch.int8 and op.is_contiguous()
+    assert tuple(op.shape) == (m, kp)
+    assert torch.equal(op[:, :k].T, wq) and not op[:, k:].any()
+    plan, splits = Q.dense_plan(n, k, m)
+    assert (plan.bh, plan.bw) == (1, CO.BM) and plan.bn <= Q.DENSE_MAX_BN
+    assert plan.bk == (kp if kp <= 64 else 128)
+    chunks = -(-kp // plan.bk)
+    assert chunks % splits == 0 and chunks // splits >= min(
+        chunks, Q.DENSE_MIN_CHUNKS)
+    stage = -(-(CO.BM + plan.bn) * plan.bk // CO.ALIGN) * CO.ALIGN
+    assert CO.staged_bytes(plan.bn, 4) <= plan.stages * stage
+    assert plan.smem_bytes == CO.ALIGN + plan.stages * (stage + 16)
+    assert plan.smem_bytes <= CO.MAX_SHARED_BYTES
+    covered = np.zeros(kp, np.int64)
+    for k0, k1 in Q.dense_k_ranges(k, plan, splits):
+        covered[k0:k1] += 1
+    assert (covered == 1).all()
+    want = {(256, 32768, 512): (16, 128), (256, 100, 131072): (1, 128),
+            (256, 512, 100): (1, 16)}
+    assert (splits, plan.bn) == want.get((n, k, m), (splits, plan.bn))
+
+
+@pytest.mark.parametrize("n,k,m", [(7, 10, 13), (70, 4096, 130),
+                                   (3, 600, 5)])
+def test_dense_sums_in_kernel_order_are_exact(rng, n, k, m):
+    """Q3's s32 sums split by split as the kernel takes them
+    (dense_sums_plain) are exactly the int32 product, at the grid's
+    extremes; and JAX's int8 dot_general's."""
+    xq, wq = _int8(rng, (n, k)), _int8(rng, (k, m))
+    xq[0] = 127
+    wq[:, 0] = 127
+    plan, splits = Q.dense_plan(n, k, m)
+    got = Q.dense_sums_plain(xq, Q.dense_operand(wq), plan, splits)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, Q.dense_int32_plain(xq, wq))
+    _same(got, lax.dot_general(jnp.asarray(xq.numpy()),
+                               jnp.asarray(wq.numpy()),
+                               (((1,), (0,)), ((), ())),
+                               preferred_element_type=jnp.int32))
+
+
+def _producer_case(rng, kind):
+    """(a call of the producer ``kind`` on quantised numpy inputs, taking
+    ``with_max``, and its plain version's)."""
+    if kind == "dense":
+        xq, xs, wq, ws, b = _quantized(rng, (5, 40), (40, 9), (0,))
+        args = [T(a) for a in (xq, xs, wq, ws.reshape(-1), b)]
+        return (lambda **kw: Q.quant_dense(*args, act="elu", **kw),
+                lambda **kw: Q.quant_dense_plain(*args, act="elu", **kw))
+    if kind == "phase":
+        xq, xs, _, _, sh = _quantized(rng, (2, 3, 5, 6), (3, 3, 6, 4),
+                                      (0, 1, 2))
+        wq16, ws = Q.quant_phase_weights(
+            T((rng.normal(size=(3, 3, 6, 4)) * 0.3).astype(np.float32)),
+            T(rng.uniform(0.5, 1.5, 4).astype(np.float32)))
+        args = [T(xq), T(xs), wq16, ws, T(sh)]
+        return (lambda **kw: Q.quant_upsample2_conv3x3(*args, **kw),
+                lambda **kw: Q.quant_upsample2_conv3x3_plain(*args, **kw))
+    pool = kind == "conv+pool"
+    xq, xs, wq, ws, b = _quantized(rng, (2, 6, 8, 7), (3, 3, 7, 5),
+                                   (0, 1, 2))
+    args = [T(a) for a in (xq, xs, wq, ws, b)]
+    return (lambda **kw: Q.quant_conv3x3_same(*args, act="elu", pool=pool,
+                                              **kw),
+            lambda **kw: Q.quant_conv3x3_plain(*args, act="elu", pool=pool,
+                                               **kw))
+
+
+@pytest.mark.parametrize("kind", ["conv", "conv+pool", "phase", "dense"])
+def test_producer_max_and_one_pass_quantiser_match_jax(rng, kind):
+    """Each int8 producer (Q1 with and without the pool, Q2, Q3) called
+    ``with_max`` returns its output unchanged and max |y| of exactly that
+    output, through the operator and through its plain version; Q4's one
+    pass from that max (quant_act_max) gives (q, scale) bitwise JAX's
+    quantize_symmetric of the output, and quantize_plain's."""
+    call, plain = _producer_case(rng, kind)
+    y, m = call(with_max=True)
+    assert torch.equal(y, call()) and m.shape == () and m.dtype == y.dtype
+    assert torch.equal(m, y.abs().amax())
+    py, pm = plain(with_max=True)
+    assert torch.equal(py, y) and torch.equal(pm, m)
+    q, s = Q.quant_act_max(y, m)
+    jq, js = JQ.quantize_symmetric(jnp.asarray(y.numpy()), None)
+    _same(q, jq)
+    _same(s, js)
+    qp, sp = Q.quantize_plain(y)
+    assert torch.equal(q, qp) and torch.equal(s, sp)
+
+
+def test_one_pass_quantiser_plain_at_the_grid_edges(rng):
+    """quantize_with_max_plain from the max: half steps to even, the max
+    and its negation to +-127, the scale the correctly rounded max / 127
+    (IEEE division, which CUDA's division by a number is not), an all-zero
+    tensor to the 1e-12 floor; a
+    NaN in x makes quantize_plain's max NaN (the kernels leave it out of
+    theirs, ROADMAP queue C), which the one-pass plain version carries
+    into its scale."""
+    x = T(_boundary_input(rng))
+    q, s = Q.quantize_with_max_plain(x, x.abs().amax())
+    qp, sp = Q.quantize_plain(x)
+    assert torch.equal(q, qp) and torch.equal(s, sp) and s.item() == 1 / 16
+    m = np.float32(182.19723510742188)  # where a reciprocal is 1 ulp off
+    y = T(np.array([m, -3.0, 50.92914581298828], np.float32))
+    for _, s in (Q.quantize_plain(y),
+                 Q.quantize_with_max_plain(y, y.abs().amax())):
+        assert s.item() == np.float32(np.float64(m) / 127.0)
+    z = torch.zeros(3, 4)
+    q0, s0 = Q.quantize_with_max_plain(z, z.abs().amax())
+    assert not q0.any() and s0.item() == np.float32(1e-12) / np.float32(127)
+    x[0, 1] = float("nan")
+    assert torch.isnan(Q.quantize_plain(x)[1])
+    assert torch.isnan(Q.quantize_with_max_plain(x, x.abs().amax())[1])
+
+
+def test_int8_forwards_quantise_each_producer_once(monkeypatch, rng):
+    """The int8 G and R quantise their first inputs (z, the images) with
+    Q4's two launches and every other layer's input in one pass from the
+    max its producer returned: 2 and 10 calls a forward pair."""
+    calls = {"quant_act": 0, "quant_act_max": 0}
+    for name in calls:
+        fn = getattr(Q, name)
+
+        def counted(*args, _fn=fn, _name=name):
+            calls[_name] += 1
+            return _fn(*args)
+        monkeypatch.setattr(Q, name, counted)
+    dims, nd = (1, 8, 8), 4
+    rv = bridge.to_torch(_variables(M.create_R(dims, nd, "normal"),
+                                    (8, 8, 1), 5, rng), "cpu")
+    gv = bridge.to_torch(_variables(M.create_G(dims, nd), (nd,), 6, rng),
+                         "cpu")
+    images = fastpath.make_fast_generator_int8(dims, nd, torch.float32)(
+        gv, T(rng.normal(size=(3, nd)).astype(np.float32)))
+    fastpath.make_fast_inverter_int8(dims, nd, "normal", torch.float32)(
+        rv, images)
+    assert calls == {"quant_act": 2, "quant_act_max": 10}
+
+
 def _variables(model, in_shape, seed, rng, amplify=4.0):
     """JAX variables with non-trivial BatchNorm statistics, the kernels
     scaled by ``amplify``, as numpy."""
@@ -340,21 +495,29 @@ def _ops_samples():
                           torch.tensor([0, 3])),
         "approx_topk": (torch.randn(3, 40, generator=g), 5, 0.95),
         "quantize_act": (torch.randn(3, 5, generator=g),),
-        "quant_conv3x3": (xq, xs, wq, ws.reshape(-1), sh, "elu", True, None),
-        "quant_upsample2_conv3x3": (xq, xs, wq16, ws16, sh, "relu", None),
-        "quant_dense": (torch.randint(-127, 128, (3, 4), generator=g,
-                                      dtype=torch.int8), xs, dq,
-                        dsc.reshape(-1), torch.randn(8, generator=g), "elu",
-                        None),
+        "quantize_act_max": (xq.float(), xq.float().abs().amax()),
+        # the int8 producers with and without their max
+        "quant_conv3x3": [(xq, xs, wq, ws.reshape(-1), sh, "elu", True,
+                           with_max, None) for with_max in (False, True)],
+        "quant_upsample2_conv3x3": [(xq, xs, wq16, ws16, sh, "relu",
+                                     with_max, None)
+                                    for with_max in (False, True)],
+        "quant_dense": [(torch.randint(-127, 128, (3, 4), generator=g,
+                                       dtype=torch.int8), xs, dq,
+                         dsc.reshape(-1), torch.randn(8, generator=g), "elu",
+                         with_max, None) for with_max in (False, True)],
     }
 
 
 @pytest.mark.parametrize("name", sorted(library.OPS))
 def test_custom_op_passes_opcheck(name):
-    """torch.library.opcheck on every registered operator: schema, fake
+    """torch.library.opcheck on every registered operator, each signature
+    (the int8 producers with and without their max): schema, fake
     implementation against the real one, no aliasing of an input."""
-    args = _ops_samples()[name]
-    torch.library.opcheck(getattr(torch.ops.ganreverser, name).default, args)
+    samples = _ops_samples()[name]
+    for args in samples if isinstance(samples, list) else [samples]:
+        torch.library.opcheck(getattr(torch.ops.ganreverser, name).default,
+                              args)
 
 
 def test_quant_wrappers_refuse_other_devices():

@@ -223,11 +223,15 @@ def test_apply_r_refuses_unported_modes(tmp_path, flag):
 
 def test_apply_r_has_no_pallas_flag(tmp_path, capsys):
     """The JAX CLI's --pallas picks among TPU paths; the port has one path
-    per device, so the flag is unknown rather than silently ignored."""
-    with pytest.raises(SystemExit) as e:
+    per device, so it has no such option: the flag is accepted as inert
+    (its help says so, as train_r's --prng), no unknown argument, and a
+    call with it fails only where it would without it (a missing G
+    checkpoint); test_torch_port_apply_r.py holds a run with it to one
+    without."""
+    with pytest.raises(FileNotFoundError) as e:
         apply_r.main(["--G", str(tmp_path / "none"), "--pallas"])
-    assert e.value.code == 2
-    assert "--pallas" in capsys.readouterr().err
+    assert "no checkpoint at" in str(e.value)
+    assert "unrecognized arguments" not in capsys.readouterr().err
 
 
 def test_resolve_device(monkeypatch):

@@ -58,8 +58,10 @@ and writes to ``<out>/profile.txt``:
   fixer-R) on the int8 legs (kernels Q1-Q4) and on the bf16 legs, with the
   models and N of ``[stage2+4]``: three warm runs each, then one under
   torch.profiler (``<out>/trace_stage2_{int8,bf16}.json``): wall, device
-  busy, idle share, device time by class and by kernel name (Q1 and Q2 by
-  tile width, Q4's two launches, the channel padding's copy).
+  busy, idle share, device time by class and by kernel name (Q1-Q3 by
+  tile width, Q4's launches, the channel padding's copy), and Q4's device
+  launches a chunk on the int8 legs (14: two for each of the two entry
+  quantisers, one for each of the ten after an int8 producer).
 
 ``--what apply_r`` runs the ``[stage2+4]``, ``[layer]``, ``[trace]``,
 ``[apply_r]`` and ``[native]`` sections; ``--what e2e`` only ``[e2e]``;
@@ -395,10 +397,20 @@ def profile_int8(dev, log, card: str, out_dir: str) -> bool:
             stage2()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        if not summarise_trace(prof, os.path.join(
-                out_dir, f"trace_stage2_{label}.json"), wall_us,
-                f"int8 {label}", log, card, top=16):
+        trace = os.path.join(out_dir, f"trace_stage2_{label}.json")
+        if not summarise_trace(prof, trace, wall_us, f"int8 {label}", log,
+                               card, top=16):
             return False
+        if int8:
+            chunks = -(-n // 256)
+            q4 = {k: sum(v in name for name, _, _ in device_intervals(trace))
+                  for k, v in cs.Q4_KERNELS.items()}
+            per_chunk = sum(q4.values()) / chunks
+            log(f"[int8] Q4's launches {q4} over {chunks} chunks: "
+                f"{per_chunk:g} a chunk (expected "
+                f"{cs.Q4_LAUNCHES_A_CHUNK})  [{card}]")
+            if per_chunk != cs.Q4_LAUNCHES_A_CHUNK:
+                return False
     return True
 
 

@@ -12,8 +12,11 @@ kernels by their ``chip_smoke.kernel_cases`` name (default: conv_block,
 upsample2_conv3x3_bn_act, conv3x3_bn_act, upsample2_conv3x3_head,
 cosine_scores: B, U, B6, U's fused head, C), by their
 ``chip_smoke.quant_cases`` name (``quant_conv3x3_same``,
-``quant_upsample2_conv3x3``: Q1 at R's six layers and G's output conv, Q2
-at G's two stages, int8, as phase 10 times them), or one of three cases
+``quant_upsample2_conv3x3``, ``quant_dense``, ``quant_act``: Q1 at R's
+six layers and G's output conv, Q2 at G's two stages, Q3 at its three
+layers, Q4's two launches at the checkout's sizes, int8, as phase 10 times
+them: with the max where a quantiser follows, in a checkout whose
+producers take it), or one of three cases
 built here from entry points every checkout of the port has:
 
 - ``fused_dropout`` (B5): the bf16 forward at each of chip_smoke's
@@ -35,8 +38,9 @@ the device time per call of the hand-written kernels it launched, from a
 torch.profiler trace of ``--reps`` calls: the device operations whose name
 holds one of ``DEVICE_KERNELS`` (the tensor-core kernels, the head's and
 C's second launches, the CUDA-core head and C of a checkout that predates
-their tensor-core design, B5 and K, Q1 and Q2 on the int8 tensor cores or
-their __dp4a kernel in a checkout before that). One JSON line per case with the
+their tensor-core design, B5 and K, Q1-Q3 on the int8 tensor cores or
+their __dp4a kernels in a checkout before that, Q3's sum or finish
+launch, Q4's kernels). One JSON line per case with the
 card's name and power limit, then one line with the sums per kernel.
 Needs a CUDA device.
 """
@@ -53,8 +57,10 @@ DEFAULT_NAMES = ("conv_block,upsample2_conv3x3_bn_act,conv3x3_bn_act,"
                  "upsample2_conv3x3_head,cosine_scores")
 DEVICE_KERNELS = ("wgmma_kernel", "finish_kernel", "conv3x3_head_kernel",
                   "cosine_scores_kernel", "fused_dropout", "kmeans_",
-                  "probe_", "_s8_kernel", "quant_tapconv_kernel")
-QUANT_NAMES = ("quant_conv3x3_same", "quant_upsample2_conv3x3")
+                  "probe_", "_s8_kernel", "quant_tapconv_kernel",
+                  "quant_dense", "quant_a")
+QUANT_NAMES = ("quant_conv3x3_same", "quant_upsample2_conv3x3",
+               "quant_dense", "quant_act")
 KMEANS_CASE = (10_000, 100, 15)   # N, D (noise 100), Lloyd iterations
 
 
