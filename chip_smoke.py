@@ -206,10 +206,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    seeded bf16 rows at apply_r's two searches (10 needles, 10,000 rows,
    D = 100 and 12,288) and the fused program's needle chunks (256 needles,
    10,240 rows, both D), at recall targets 0.95, 0.99 and 1 (at 1 the values
-   must be torch.topk's), and at 256 x 20,480 with r = 1, the large-L
-   path; S's, its plain version's and torch.topk's times (the exact
-   selection S stands in for, not the same function) and S's bound (4 Q N
-   + 12 Q k bytes over 3.35 TB/s). tiled_topk at tiles 512, 1,024 and 2,048
+   must be torch.topk's), and at 256 x 20,480 with r = 1 (large L); S must
+   launch one kernel a call at every L (the wrapper's count, and a trace of
+   20 calls by tools/time_kernels.py in a fresh process, which also gives
+   S's device time); S's wrapper time, its device time, its plain
+   version's and torch.topk's times (the same function at r = 1,
+   the library call there; the exact selection S stands in for below it)
+   and S's bound (4 Q N + 12 Q k bytes over 3.35 TB/s). tiled_topk at
+   tiles 512, 1,024 and 2,048
    beside one torch.topk on the pixel chunk's scores (values equal). Then
    phase 4's G3, R and fixer-R with every kernel x 3 (phase 8's other
    weights; the random G ties every score) as checkpoints, ``apply_r``
@@ -2846,9 +2850,10 @@ Q3_RAGGED = [(7, 10, 13, "elu"), (70, 4096, 130, "relu"),
 # after an int8 producer (24 before the producers took the max)
 Q4_LAUNCHES_A_CHUNK = 14
 # the int8 e2e program's top-100 recall against the bf16 program on phase
-# 8's x3 weights (as with the __dp4a kernels): both programs are
-# deterministic and the int8 sums exact, so another value is a fault
-INT8_RECALL = 0.6229
+# 8's x3 weights, the weights' per-channel scales in IEEE division: both
+# programs are deterministic and the int8 sums exact, so another value is
+# a fault
+INT8_RECALL = 0.6235
 # a process that loads artifacts with io.serving alone: loads each on the
 # card, runs it on the saved input (first call: capture + replay), saves
 # its outputs, counts its kernels in one traced call and times the e2e
@@ -3484,37 +3489,58 @@ APPROX_RECALLS = (0.95, 0.99, 1.0)
 APPROX_R = 0.95          # --recall_target's default: the main path's
 # kernel S's shapes: label, needles Q, rows N, D of kernel C's scores, k,
 # on the main path; apply_r's two searches and the fused program's needle
-# chunk (both measures), then one shape on the large-L path at r = 1
+# chunk (both measures), then one shape of large L at r = 1
 APPROX_SHAPES = [("apply_r attributes", NEEDLES, N_MAIN, NOISE_DIM, 100),
                  ("apply_r pixels", NEEDLES, N_MAIN, 3 * 64 * 64, 100),
                  ("e2e needle chunk", E2E_CHUNK, E2E_N, NOISE_DIM, E2E_K),
                  ("e2e pixel chunk", E2E_CHUNK, E2E_N, 3 * 64 * 64,
                   E2E_PIXEL_K)]
-APPROX_LARGE = ("large-L path", E2E_CHUNK, 2 * E2E_N, NOISE_DIM, E2E_K, 1.0)
+APPROX_LARGE = ("large L", E2E_CHUNK, 2 * E2E_N, NOISE_DIM, E2E_K, 1.0)
+S_KERNEL = "approx_topk_select_kernel"
 TILES = (512, 1024, 2048)
+
+
+def s_device_times() -> dict:
+    """S's device time and kernels a call at phase 11's shapes, by
+    ``tools/time_kernels.py --names approx_topk`` in a fresh process
+    (traces late in this script's run record some launches or none:
+    launch_ms), keyed by its labels."""
+    import subprocess
+    tool = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        "time_kernels.py")
+    out = subprocess.run([sys.executable, tool, "--names", "approx_topk"],
+                         capture_output=True, text=True, timeout=600)
+    check(out.returncode == 0, f"tools/time_kernels.py --names approx_topk: "
+          f"rc {out.returncode}: {out.stderr[-2000:]}")
+    rows = [json.loads(line) for line in out.stdout.splitlines()
+            if line.startswith("{")]
+    return {r["label"]: (r["device_ms"], r["kernels_per_call"])
+            for r in rows if r.get("name") == "approx_topk"}
 
 
 def approx_cases(dev, card: str):
     """Phase 11a: kernel S against its plain version on kernel C's scores,
-    bitwise, at APPROX_SHAPES x APPROX_RECALLS and the large-L shape; at
-    r = 1 the values must be torch.topk's. Prints and returns the records
-    (on the main path: r = APPROX_R) and the e2e pixel chunk's scores."""
+    bitwise, in one launch, at APPROX_SHAPES x APPROX_RECALLS and the
+    large-L shape; at r = 1 the values must be torch.topk's. Prints and
+    returns the records (on the main path: r = APPROX_R) and the e2e pixel
+    chunk's scores."""
     import torch
     from ganreverser_tpu_torch.ops import approx_topk_kernel as S
     from ganreverser_tpu_torch.ops import topk_kernel
     gen = torch.Generator(device=dev).manual_seed(SEED + 110)
     records, pixel_scores = [], None
+    devices = s_device_times()
     cases = [(*shape, r) for shape in APPROX_SHAPES for r in APPROX_RECALLS]
     for label, q, n, d, k, r in cases + [APPROX_LARGE]:
         emb = torch.randn(n, d, device=dev, generator=gen).to(torch.bfloat16)
         scores = topk_kernel.cosine_scores(emb, torch.arange(q, device=dev))
         del emb
-        plan = S.select_plan(n, k, r)
-        check(plan.path == ("global" if label == APPROX_LARGE[0]
-                            else "shared"),
-              f"S {label}: plan {plan} is not the expected path")
+        plan = S.select_plan(q, n, k, r)
+        before = S.approx_topk.launches
         v, i = S.approx_topk(scores, k, r)
         torch.cuda.synchronize()
+        check(S.approx_topk.launches == before + 1, f"S {label}: "
+              f"{S.approx_topk.launches - before} launches counted")
         pv, pi = S.approx_topk_plain(scores, k, r)
         check(torch.equal(i, pi) and torch.equal(v.view(torch.int32),
                                                  pv.view(torch.int32)),
@@ -3523,18 +3549,26 @@ def approx_cases(dev, card: str):
         if r == 1.0:
             check(torch.equal(v, torch.topk(scores, k, dim=1).values),
                   f"S {label} r=1: values differ from torch.topk's")
+        dev_ms, kernels = devices.get(f"{label} Q={q} N={n} k={k} r={r}",
+                                      (0.0, 0))
+        check(kernels == 1, f"S {label} r={r}: {kernels} kernels a call in "
+              "a trace, not one")
         ms = time_ms(lambda: S.approx_topk(scores, k, r))
         plain_ms = time_ms(lambda: S.approx_topk_plain(scores, k, r))
         exact_ms = time_ms(lambda: torch.topk(scores, k, dim=1))
         b_ms, b_by = bound(0.0, q * n * 4 + q * k * 12, "float32")
         print(f"[approx] S {label} Q={q} N={n} (C's scores at D={d}) k={k} "
-              f"r={r}: L={plan.bins}, {plan.entries} keys, {plan.path} "
-              f"path; indices and values bitwise the plain version; S "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, exact torch.topk "
-              f"{exact_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})  [{card}]")
+              f"r={r}: L={plan.bins}, cluster {plan.cluster}, keys "
+              f"{'on' if plan.keys_on_chip else 'off'} chip, row "
+              f"{'staged' if plan.stage_row else 'read'}, one launch; "
+              f"indices and values bitwise the plain version; S "
+              f"{ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f} ms, "
+              f"torch.topk {exact_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})"
+              f"  [{card}]")
         records.append({"name": "approx_topk", "label": f"{label} r={r}",
                         "dtype": "float32", "max_abs_err": 0.0, "ms": ms,
-                        "plain_ms": plain_ms, "library_ms": None,
+                        "device_ms": dev_ms, "plain_ms": plain_ms,
+                        "library_ms": exact_ms if r == 1.0 else None,
                         "bound_ms": b_ms,
                         "bound_by": b_by, "on_path": r == APPROX_R
                         and label != APPROX_LARGE[0]})
@@ -3669,7 +3703,7 @@ def check_approx(dev, card: str, tmp: str):
           f"two searches of {chunks} chunks)")
     s_launches += first
     traced = device_counts(lambda: fused(gv2, rv2, z),
-                           {"approx_topk": "approx_topk_chunk_kernel"})
+                           {"approx_topk": S_KERNEL})
     check(traced["approx_topk"] == 2 * chunks, f"e2e approx: S kernels in "
           f"a traced replay {traced}, expected {2 * chunks}")
     exact_prog = program(False, E2E_PIXEL_K)

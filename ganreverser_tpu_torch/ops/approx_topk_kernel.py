@@ -26,24 +26,33 @@ power of two L that reaches the recall target by that estimate, at least
 k and at most N; at L = N every bin holds one element and the selection is
 exact, as it is for ``recall_target = 1``.
 
-The kernel sorts the bins' keys with a bitonic network over
-``next_pow2(L)`` entries: in one block's shared memory up to
-MAX_SHARED_ENTRIES (128 KB), otherwise in a workspace in device memory,
-chunk by chunk (:func:`select_plan`). ``approx_topk`` (the custom operator
-``ganreverser::approx_topk`` of ops/library.py) launches it on CUDA
-tensors and runs ``approx_topk_plain`` on CPU tensors; no other device is
-accepted. ``approx_topk.launches`` counts the calls that launched it.
+The kernel selects instead of sorting, in one launch for every L
+(:func:`select_plan`): a radix walk over the bins' keys finds the k-th
+largest, and only the k keys at or above it are sorted. A row is a
+thread-block cluster of 1-8 blocks, more than one where few rows would
+leave the card's SMs idle; the keys stay in the blocks' shared memory
+where they fit, otherwise each pass walks the row again; where bins hold
+several elements the row is first staged in shared memory. ``approx_topk``
+(the custom operator ``ganreverser::approx_topk`` of ops/library.py)
+launches it on CUDA tensors and runs ``approx_topk_plain`` on CPU
+tensors; no other device is accepted. ``approx_topk.launches`` counts the
+calls that launched it.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
 from . import cuda_lib
+from .topk_kernel import SMS
 
-# one block's bitonic sort in shared memory: 16,384 keys of 8 bytes
-MAX_SHARED_ENTRIES = 16_384
+KEY_BYTES = 8
+SMEM_LIMIT = 232_448     # dynamic + static shared memory a block may take
+SMEM_FIXED = 4096        # the kernel's static histograms and control words
+MAX_CLUSTER = 8          # blocks of a row's cluster (the portable limit)
+MIN_CLUSTER_BINS = 1024  # bins each block of a cluster owns at least
 _LOW = 0xFFFFFFFF
 
 
@@ -65,23 +74,42 @@ def approx_plan(n: int, k: int, recall_target: float) -> int:
 
 
 class SelectPlan(NamedTuple):
-    bins: int        # L
-    entries: int     # next_pow2(L): the bitonic network's width
-    chunk: int       # entries one block sorts in shared memory
-    path: str        # "shared": one block per row; "global": a workspace
+    bins: int            # L
+    cluster: int         # blocks per row (a thread-block cluster)
+    keys_on_chip: bool   # the bins' keys kept in shared memory (else each
+    #                      pass walks the row again)
+    sort_on_chip: bool   # the k survivors sorted in shared memory (else in
+    #                      the row's int64 indices output)
+    stage_row: bool      # the row copied into shared memory and walked there
+    smem: int            # dynamic shared memory a block takes, bytes
 
 
-def select_plan(n: int, k: int, recall_target: float) -> SelectPlan:
-    """Kernel S's launch for rows of ``n`` scores: one block per row sorts
-    all ``next_pow2(L)`` keys in shared memory where they fit in
-    MAX_SHARED_ENTRIES; past that the keys go to a device workspace, each
-    block sorting a chunk of MAX_SHARED_ENTRIES, with the network's wider
-    strides as launches over the whole workspace."""
+@functools.lru_cache(maxsize=256)
+def select_plan(q: int, n: int, k: int, recall_target: float) -> SelectPlan:
+    """Kernel S's launch for ``q`` rows of ``n`` scores, one launch at any
+    L: the cluster doubles (up to MAX_CLUSTER) while twice the blocks still
+    fit the card's SMS at once and each would own MIN_CLUSTER_BINS bins;
+    the k survivors' sort stays in shared memory where 8 k bytes fit a
+    block, and the keys of a block's ceil(L / cluster) bins stay beside
+    them where those fit too. One block a row with keys on chip stages the
+    row in shared memory where its bins hold several elements (L < N) and
+    two such blocks still fit an SM."""
     bins = approx_plan(n, k, recall_target)
-    entries = 1 << (bins - 1).bit_length()
-    chunk = min(entries, MAX_SHARED_ENTRIES)
-    path = "shared" if entries <= MAX_SHARED_ENTRIES else "global"
-    return SelectPlan(bins, entries, chunk, path)
+    cluster = 1
+    while (cluster < MAX_CLUSTER and q * 2 * cluster <= SMS
+           and bins >= 2 * cluster * MIN_CLUSTER_BINS):
+        cluster *= 2
+    per = -(-bins // cluster)
+    sort_bytes = KEY_BYTES * k
+    sort_on_chip = SMEM_FIXED + sort_bytes <= SMEM_LIMIT
+    sort_bytes *= sort_on_chip
+    keys_on_chip = SMEM_FIXED + sort_bytes + KEY_BYTES * per <= SMEM_LIMIT
+    smem = sort_bytes + KEY_BYTES * per * keys_on_chip
+    row_bytes = 16 * -(-n // 4)
+    stage_row = (cluster == 1 and keys_on_chip and bins < n
+                 and 2 * (SMEM_FIXED + smem + row_bytes) <= SMEM_LIMIT)
+    return SelectPlan(bins, cluster, keys_on_chip, sort_on_chip, stage_row,
+                      smem + row_bytes * stage_row)
 
 
 def order_keys(scores: torch.Tensor) -> torch.Tensor:
@@ -126,21 +154,19 @@ def launch_approx_topk(scores: torch.Tensor, k: int, recall_target: float):
     if cuda_lib.dispatch_device(scores) == "cpu":
         return approx_topk_plain(scores, k, recall_target)
     q, n = scores.shape
-    plan = select_plan(n, k, recall_target)
+    plan = select_plan(q, n, k, float(recall_target))
     s = scores.contiguous()
     cuda_lib.require(s, "scores", scores.device, torch.float32, (q, n))
     values = torch.empty((q, k), dtype=torch.float32, device=s.device)
     indices = torch.empty((q, k), dtype=torch.int64, device=s.device)
     if q == 0:
         return values, indices
-    ws = None
-    if plan.path == "global":
-        ws = torch.empty(q * plan.entries, dtype=torch.int64, device=s.device)
     with cuda_lib.on_device(s):
         rc = cuda_lib.library().gr_approx_topk(
-            s.data_ptr(), values.data_ptr(), indices.data_ptr(),
-            None if ws is None else ws.data_ptr(), q, n, k, plan.bins,
-            plan.entries, plan.chunk, cuda_lib.stream_of(s))
+            s.data_ptr(), values.data_ptr(), indices.data_ptr(), q, n, k,
+            plan.bins, plan.cluster, int(plan.keys_on_chip),
+            int(plan.sort_on_chip), int(plan.stage_row),
+            cuda_lib.stream_of(s))
     cuda_lib.check(rc, "approx_topk")
     approx_topk.launches += 1
     return values, indices

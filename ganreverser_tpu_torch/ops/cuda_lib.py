@@ -99,9 +99,9 @@ _SIGNATURES = {
     # x, w, x_scale, w_scale, bias, out, part, amax, n, k, m, act, splits,
     # then the plan (bh, bw, bn, bk, stages, smem), stream
     "gr_quant_dense": [*[_P] * 8, *[_I] * 5, *[_I] * 6, _P],
-    # scores, values, indices, ws, q, n, k, then the plan (bins, entries,
-    # chunk), stream
-    "gr_approx_topk": [*[_P] * 4, *[_I] * 6, _P],
+    # scores, values, indices, q, n, k, then the plan (bins, cluster,
+    # keys_on_chip, sort_on_chip, stage_row), stream
+    "gr_approx_topk": [*[_P] * 3, *[_I] * 8, _P],
 }
 
 

@@ -63,7 +63,7 @@ OPERAND_LAYOUT = "taps-co-ci-int8+dense-m-k-int8"
 
 # ----------------------------------------------------------------- plain
 
-def _per_tensor_scale(m: torch.Tensor, eps: float = EPS) -> torch.Tensor:
+def _scale(m: torch.Tensor, eps: float = EPS) -> torch.Tensor:
     """max(m, eps) / 127 in IEEE division on any device, as Q4 and JAX
     compute it: on CUDA tensors PyTorch divides by a Python number as a
     multiply by its reciprocal, which is 1 ulp off for some m (182.19724
@@ -75,15 +75,13 @@ def _per_tensor_scale(m: torch.Tensor, eps: float = EPS) -> torch.Tensor:
 def quantize_plain(x: torch.Tensor, axis=None, eps: float = EPS):
     """(q int8, scale f32): ``scale`` the max |x| over ``axis`` (all of x
     for None, a 0-d tensor; else kept as size-1 dims) clamped at ``eps``,
-    over 127; ``q = clip(round(x / scale), -127, 127)``. The per-slice
-    scales (the weights') divide by the number 127, which on CUDA tensors
-    is not IEEE division (ROADMAP queue C)."""
+    over 127 in IEEE division (:func:`_scale`: the activations' per-tensor
+    scale and the weights' per-channel scales alike);
+    ``q = clip(round(x / scale), -127, 127)``."""
     xf = x.float()
     a = xf.abs()
-    if axis is None:
-        scale = _per_tensor_scale(a.amax(), eps)
-    else:
-        scale = torch.clamp_min(a.amax(dim=axis, keepdim=True), eps) / QMAX
+    scale = _scale(a.amax() if axis is None
+                   else a.amax(dim=axis, keepdim=True), eps)
     q = torch.clamp(torch.round(xf / scale), -QMAX, QMAX)
     return q.to(torch.int8), scale
 
@@ -171,7 +169,7 @@ def quantize_with_max_plain(x: torch.Tensor, amax: torch.Tensor):
     """Plain version of Q4's one pass: :func:`quantize_plain`'s (q, scale)
     of ``x`` from its max ``amax`` = max |x| given (0-d f32): bitwise
     ``quantize_plain(x)`` where ``amax`` is that max."""
-    scale = _per_tensor_scale(amax.float())
+    scale = _scale(amax.float())
     q = torch.clamp(torch.round(x.float() / scale), -QMAX, QMAX)
     return q.to(torch.int8), scale
 

@@ -35,31 +35,54 @@ def _same(port, ref):
     assert np.array_equal(np.asarray(port), np.asarray(ref))
 
 
-@pytest.mark.parametrize("n,k,r,bins,path", [
-    (10_000, 100, 0.95, 1024, "shared"),    # apply_r's searches
-    (10_240, 100, 0.95, 1024, "shared"),    # the e2e needle chunk
-    (10_240, 100, 0.99, 8192, "shared"),
-    (4096, 50, 0.95, 512, "shared"),
-    (10_000, 100, 1.0, 10_000, "shared"),   # exact: 16,384 entries
-    (16_384, 100, 1.0, 16_384, "shared"),
-    (16_385, 100, 1.0, 16_385, "global"),
-    (100_000, 100, 0.999, 65_536, "global"),
-    (24, 4, 0.95, 24, "shared"),            # L = N
-    (1000, 1, 0.5, 1, "shared"),
-    (1000, 1000, 0.5, 1000, "shared"),      # L >= k
+@pytest.mark.parametrize("q,n,k,r,bins,cluster,keys_on_chip,stage_row", [
+    (10, 10_000, 100, 0.95, 1024, 1, True, True),     # apply_r's searches
+    (256, 10_240, 100, 0.95, 1024, 1, True, True),    # the e2e needle chunk
+    (256, 10_240, 100, 0.99, 8192, 1, True, True),    # 105 KB a block
+    (10, 4096, 50, 0.95, 512, 1, True, True),
+    (10, 10_000, 100, 1.0, 10_000, 8, True, False),   # a cluster a row
+    (2, 16_384, 100, 1.0, 16_384, 8, True, False),
+    (256, 16_385, 100, 1.0, 16_385, 1, True, False),  # 131 KB of keys
+    (256, 100_000, 100, 0.999, 65_536, 1, False, False),
+    (3, 24, 4, 0.95, 24, 1, True, False),             # L = N
+    (1, 1000, 1, 0.5, 1, 1, True, True),
+    (1, 1000, 1000, 0.5, 1000, 1, True, False),       # L >= k
+    (10, 10_240, 100, 1.0, 10_240, 8, True, False),   # apply_r's Q, e2e's N
+    (256, 10_000, 100, 1.0, 10_000, 1, True, False),  # the e2e chunk's Q
+    (40, 10_000, 100, 1.0, 10_000, 2, True, False),   # 80 blocks, not 160
+    (256, 20_480, 100, 1.0, 20_480, 1, True, False),  # the large-L shape
+    (256, 30_000, 100, 1.0, 30_000, 1, False, False),  # past a block's memory
+    (1, 100_000, 100, 1.0, 100_000, 8, True, False),  # ... not the cluster's
+    (10, 10_000, 100, 0.99, 8192, 8, True, False),    # apply_r at r = 0.99
+    (256, 40_000, 100, 0.99, 8192, 1, True, False),   # two such blocks exceed
 ])
-def test_approx_plan(n, k, r, bins, path):
+def test_approx_plan(q, n, k, r, bins, cluster, keys_on_chip, stage_row):
     """L is the least power of two >= k reaching the recall estimate,
-    capped at N (r = 1 gives N); the path is 'shared' while next_pow2(L)
-    keys fit one block's shared memory."""
+    capped at N (r = 1 gives N); the cluster doubles while the rows'
+    blocks fit the SMs and each owns MIN_CLUSTER_BINS bins; the keys stay
+    on chip while a block's share of them fits beside the k survivors; one
+    block a row stages its row where bins hold several elements and two
+    blocks still fit an SM."""
     assert S.approx_plan(n, k, r) == bins
-    plan = S.select_plan(n, k, r)
-    entries = 1 << (bins - 1).bit_length()
-    assert plan == (bins, entries, min(entries, S.MAX_SHARED_ENTRIES), path)
+    plan = S.select_plan(q, n, k, r)
+    per = -(-bins // cluster)
+    assert plan == (bins, cluster, keys_on_chip, True, stage_row,
+                    8 * k + 8 * per * keys_on_chip + 16 * -(-n // 4)
+                    * stage_row)
+    assert plan.smem + S.SMEM_FIXED <= S.SMEM_LIMIT
     if bins < n:
         assert 1 - (k - 1) / (2 * bins) >= r
     if bins < n and bins > 1 << (k - 1).bit_length():  # the least such
         assert r > 1 - (k - 1) / bins
+
+
+def test_approx_plan_sorts_in_the_output_past_shared_memory():
+    """k keys that do not fit one block's shared memory are sorted in the
+    row's indices output; the keys stay on chip beside nothing else."""
+    plan = S.select_plan(1, 40_000, 30_000, 1.0)
+    assert plan == (40_000, 8, True, False, False, 8 * 5000)
+    assert S.select_plan(2, 20_000, 17_000, 1.0) == (
+        20_000, 8, True, True, False, 8 * 17_000 + 8 * 2500)
 
 
 @pytest.mark.parametrize("n,k,r", [(10, 11, 0.9), (10, 0, 0.9), (10, 3, 0.0),

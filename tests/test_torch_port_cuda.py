@@ -957,6 +957,24 @@ def test_quant_act_kernel_bitwise(dev, shape):
     assert torch.equal(q, qp) and torch.equal(s, sp) and s.shape == ()
 
 
+def test_weight_scales_are_the_ieee_quotient(dev):
+    """The weights' per-channel scales (``quantize_plain`` over axes) on
+    the card are max / 127 in IEEE division, as JAX and the CPU compute
+    them: the f64 quotient rounded to f32. 182.19724 is a maximum where a
+    multiply by the reciprocal of 127 is 1 ulp off."""
+    from ganreverser_tpu_torch.ops import quant
+    maxima = torch.tensor([182.19724, 1.0, 0.3, 127.0, 1e-3, 3.7, 2.0 ** -9,
+                           65504.0])
+    g = torch.Generator().manual_seed(3)
+    w = (2 * torch.rand(3, 3, 4, 8, generator=g) - 1) * 0.9 * maxima
+    w[1, 2, 3] = -maxima
+    q, scale = quant.quantize_plain(w.to(dev), axis=(0, 1, 2))
+    ieee = (maxima.double() / 127).float().reshape(1, 1, 1, -1)
+    assert torch.equal(scale.cpu(), ieee)
+    q_cpu, scale_cpu = quant.quantize_plain(w, axis=(0, 1, 2))
+    assert torch.equal(scale.cpu(), scale_cpu) and torch.equal(q.cpu(), q_cpu)
+
+
 @pytest.mark.parametrize("n,h,w,ci,co,act,pool", [
     (3, 10, 6, 5, 70, "none", False), (2, 8, 12, 8, 2, "relu", True),
     (1, 17, 33, 4, 3, "sigmoid", False), (2, 6, 6, 12, 130, "elu", True)])
@@ -1269,14 +1287,21 @@ def _planted(dev, q, n, seed):
 @pytest.mark.parametrize("q,n,k,r", [
     (10, 10_000, 100, 0.95), (256, 10_240, 100, 0.99), (7, 777, 5, 1.0),
     (3, 300, 7, 0.5), (2, 16_384, 100, 1.0),
-    # the global path: one merge stride, then a k spanning two chunks
-    (3, 20_000, 10, 1.0), (2, 20_000, 17_000, 1.0)])
+    # past 16,384 bins: a cluster of 8 with a k spanning its blocks
+    (3, 20_000, 10, 1.0), (2, 20_000, 17_000, 1.0),
+    # one row; k = 1 with rows off 16 bytes (the row staged by 4-byte
+    # copies); k = L; N off L (L = 256); L in 16,385..32,768 in
+    # one cluster and, at 70 rows, walked again each pass (keys off chip);
+    # k past one block's shared memory (the sort in the indices output)
+    (1, 10_000, 100, 1.0), (5, 3001, 1, 0.95), (4, 4096, 4096, 0.5),
+    (6, 1000, 20, 0.95), (3, 24_000, 50, 1.0), (70, 30_000, 100, 1.0),
+    (1, 40_000, 30_000, 1.0)])
 def test_approx_topk_kernel_bitwise(dev, q, n, k, r):
-    """Kernel S against its plain version, indices and values bitwise, on
-    both paths; at r = 1 the values are torch.topk's."""
+    """Kernel S against its plain version, indices and values bitwise, in
+    one launch at every L; a NaN among the planted ties; at r = 1 the
+    values are torch.topk's."""
     x = _planted(dev, q, n, q + n + k)
-    path = approx_topk_kernel.select_plan(n, k, r).path
-    assert path == ("global" if n > 16_384 else "shared")
+    x[-1, 5] = float("nan")
     before = approx_topk_kernel.approx_topk.launches
     v, i = approx_topk_kernel.approx_topk(x, k, r)
     torch.cuda.synchronize()
@@ -1286,12 +1311,30 @@ def test_approx_topk_kernel_bitwise(dev, q, n, k, r):
     assert torch.equal(i, pi)
     assert torch.equal(v.view(torch.int32), pv.view(torch.int32))
     if r == 1.0:
-        assert torch.equal(v, torch.topk(x, k, dim=1).values)
+        ref = torch.topk(x, k, dim=1).values
+        assert torch.equal(v.view(torch.int32), ref.view(torch.int32))
+
+
+def test_approx_topk_kernel_ties_straddle_the_threshold(dev):
+    """Rows whose k-th value is shared by more bins than are taken: the
+    index half of the keys decides, bitwise the plain version."""
+    for q, n, k, r in ((4, 10_240, 100, 0.95), (3, 10_000, 100, 1.0)):
+        g = torch.Generator(device=dev).manual_seed(n)
+        x = 0.1 * torch.randn(q, n, device=dev, generator=g)
+        x[:, 50::97] = 0.75   # some 100 ties, each in a bin of its own
+        x[:, ::389] = 3.0     # above them
+        x[0, 7] = float("nan")
+        v, i = approx_topk_kernel.approx_topk(x, k, r)
+        pv, pi = approx_topk_kernel.approx_topk_plain(x, k, r)
+        assert bool((pv[:, -1] == 0.75).all())
+        assert bool(((pv == 0.75).sum(1) < (x == 0.75).sum(1) - 10).all())
+        assert torch.equal(i, pi)
+        assert torch.equal(v.view(torch.int32), pv.view(torch.int32))
 
 
 def test_approx_topk_kernel_in_a_graph(dev):
-    """S captures in a CUDA graph on both paths: replays give the eager
-    call's result on the scores copied in."""
+    """S captures in a CUDA graph, one block a row and a cluster a row:
+    replays give the eager call's result on the scores copied in."""
     for n, k, r in ((10_240, 100, 0.95), (20_000, 50, 1.0)):
         x = _planted(dev, 4, n, n)
         static = torch.zeros_like(x)

@@ -29,18 +29,30 @@ built here from entry points every checkout of the port has:
   time, and its device time is B5's share);
 - ``probes`` (B9): ``add_one`` on (8,128), ``times_two`` on (4,256,128)
   and ``dot_bf16`` on (128,128)^2, chip_smoke's phase-3 shapes (their
-  device time is the ``probe_`` kernels').
+  device time is the ``probe_`` kernels');
+- ``approx_topk`` (S): ``approx_topk`` on kernel C's f32 scores at
+  chip_smoke's ``APPROX_SHAPES`` x ``APPROX_RECALLS`` and
+  ``APPROX_LARGE``, phase 11's shapes (its device time is the
+  ``approx_topk_`` kernels': one a call, or a checkout's several);
+- ``e2e_approx`` and ``e2e_exact``: one call of the fused program
+  (``analysis.e2e.make_e2e_program``, a CUDA graph replay) at
+  chip_smoke's phase-11 arguments, N = ``E2E_N``, batch
+  ``E2E_BATCHES[0]``, k = ``E2E_K``, pixel_k = ``E2E_PIXEL_K``, on phase
+  8's x3 weights, with ``approx`` at ``APPROX_R`` and without (the time
+  of a call gives its img/s; its device time is every hand-written
+  kernel's in it).
 
 Each kernel case runs in bf16 at N = 256 (C at apply_r's N = 10,000): the
 median of ``--reps`` calls by CUDA events (chip_smoke's ``time_ms``: the
 wrapper as a user calls it, weight re-layout and padding included), and
-the device time per call of the hand-written kernels it launched, from a
-torch.profiler trace of ``--reps`` calls: the device operations whose name
-holds one of ``DEVICE_KERNELS`` (the tensor-core kernels, the head's and
+the device time per call of the hand-written kernels it launched, and
+their launches a call, from a torch.profiler trace of ``--reps`` calls:
+the device operations whose name holds one of ``DEVICE_KERNELS`` (the
+tensor-core kernels, the head's and
 C's second launches, the CUDA-core head and C of a checkout that predates
 their tensor-core design, B5 and K, Q1-Q3 on the int8 tensor cores or
 their __dp4a kernels in a checkout before that, Q3's sum or finish
-launch, Q4's kernels). One JSON line per case with the
+launch, Q4's kernels, S's). One JSON line per case with the
 card's name and power limit, then one line with the sums per kernel.
 Needs a CUDA device.
 """
@@ -58,7 +70,7 @@ DEFAULT_NAMES = ("conv_block,upsample2_conv3x3_bn_act,conv3x3_bn_act,"
 DEVICE_KERNELS = ("wgmma_kernel", "finish_kernel", "conv3x3_head_kernel",
                   "cosine_scores_kernel", "fused_dropout", "kmeans_",
                   "probe_", "_s8_kernel", "quant_tapconv_kernel",
-                  "quant_dense", "quant_a")
+                  "quant_dense", "quant_a", "approx_topk_")
 QUANT_NAMES = ("quant_conv3x3_same", "quant_upsample2_conv3x3",
                "quant_dense", "quant_act")
 KMEANS_CASE = (10_000, 100, 15)   # N, D (noise 100), Lloyd iterations
@@ -98,6 +110,36 @@ def local_cases(dev, names):
                           ("dot_bf16 (128,128)^2",
                            lambda: pk.dot_bf16(a, b))):
             yield ("probes", label, fn)
+    if "approx_topk" in names:
+        from ganreverser_tpu_torch.ops import approx_topk_kernel as S
+        from ganreverser_tpu_torch.ops import topk_kernel
+        cases = [(*shape, r) for shape in chip_smoke.APPROX_SHAPES
+                 for r in chip_smoke.APPROX_RECALLS]
+        for label, q, n, d, k, r in cases + [chip_smoke.APPROX_LARGE]:
+            emb = torch.randn(n, d, device=dev, generator=gen).to(
+                torch.bfloat16)
+            scores = topk_kernel.cosine_scores(emb, torch.arange(q,
+                                                                 device=dev))
+            yield ("approx_topk", f"{label} Q={q} N={n} k={k} r={r}",
+                   lambda s=scores, k=k, r=r: S.approx_topk(s, k, r))
+    if "e2e_approx" in names or "e2e_exact" in names:
+        from ganreverser_tpu_torch.analysis import e2e
+        G, R, _, _, gv2, rv2, z = chip_smoke.e2e_inputs(dev)
+        for name, approx in (("e2e_approx", True), ("e2e_exact", False)):
+            if name not in names:
+                continue
+            prog = e2e.make_e2e_program(
+                G, R, batch_size=chip_smoke.E2E_BATCHES[0],
+                k=chip_smoke.E2E_K, needle_chunk=chip_smoke.E2E_CHUNK,
+                approx=approx, recall_target=chip_smoke.APPROX_R,
+                pixel_k=chip_smoke.E2E_PIXEL_K,
+                **e2e.fast_legs(chip_smoke.DIMS, chip_smoke.NOISE_DIM,
+                                "normal"))
+            prog(gv2, rv2, z)
+            yield (name, f"N={chip_smoke.E2E_N} batch "
+                   f"{chip_smoke.E2E_BATCHES[0]} pixel_k "
+                   f"{chip_smoke.E2E_PIXEL_K}",
+                   lambda prog=prog: prog(gv2, rv2, z))
     if "r_step" in names:
         from ganreverser_tpu_torch.models import modules, zoo
         G = chip_smoke.make_calibrated_g(dev)
@@ -113,9 +155,10 @@ def local_cases(dev, names):
                                              "kernel"))
 
 
-def device_ms(fn, reps: int) -> float:
-    """Device time per call of ``fn`` in kernels whose name holds one of
-    ``DEVICE_KERNELS``, from a torch.profiler trace of ``reps`` calls."""
+def device_ms(fn, reps: int):
+    """(device time per call, launches per call) of ``fn`` in kernels whose
+    name holds one of ``DEVICE_KERNELS``, from a torch.profiler trace of
+    ``reps`` calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -124,12 +167,13 @@ def device_ms(fn, reps: int) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = 0.0
+    total, count = 0.0, 0
     for ev in prof.key_averages():
         if any(k in ev.key for k in DEVICE_KERNELS):
             total += getattr(ev, "device_time_total",
                              getattr(ev, "cuda_time_total", 0.0))
-    return total / reps / 1e3
+            count += ev.count
+    return total / reps / 1e3, count / reps
 
 
 def main(argv=None) -> int:
@@ -167,17 +211,19 @@ def main(argv=None) -> int:
             local_cases(dev, names)):
         if name == "r_step":  # a call is 3 warm-up + STEP_TIMES steps
             ms = statistics.median(fn())
-            dms = device_ms(fn, 1) / (chip_smoke.STEP_TIMES + 3)
+            dms, kernels = device_ms(fn, 1)
+            dms /= chip_smoke.STEP_TIMES + 3
         else:
             ms = chip_smoke.time_ms(fn, reps=args.reps)
-            dms = device_ms(fn, args.reps)
+            dms, kernels = device_ms(fn, args.reps)
         sums[name] += ms
         dev_sums[name] += dms
         dtype = ("f32 and bf16" if name == "probes" else
+                 "float32" if name == "approx_topk" else
                  "int8" if name in QUANT_NAMES else "bfloat16")
         print(json.dumps({"root": root, "name": name, "label": label,
                           "dtype": dtype, "ms": ms, "device_ms": dms,
-                          "card": card}))
+                          "kernels_per_call": kernels, "card": card}))
         del fn
         torch.cuda.empty_cache()
     print(json.dumps({"root": root, "sum_ms": sums,
