@@ -265,13 +265,42 @@ Phases, each of which fails the run (non-zero exit, no result line):
    more after --network latest, --noplot) against the same run without it,
    cuDNN held to deterministic algorithms: the checkpoints equal leaf for
    leaf. (d) the host image ops (native/imageops.cc, built with g++)
-   against their numpy paths at a realistic batch, with host times.
+   against their numpy paths at a realistic batch, with host times;
+13. BASELINE.json's configs 1 (y 1x32x32, noise 32; apply_r N = 10,000
+   with --batchSize 64, the fused program at batch 64) and 5 (rgb
+   3x128x128, noise 256; apply_r N = 2,560 at batch 256 with
+   --refine_steps 5, the fused program at batch 128), random weights from
+   the seed (CONFIGS): (a) at each config's shapes, B, U, U's head (C = the
+   config's channels) and C against their plain versions at phase 3's
+   tolerances (f32 and bf16, timed in bf16), K's whole run as phase 3
+   holds it, Q1-Q4 bitwise as phase 10 holds them (no trace: their device
+   times are phase 10's), Q3 at R l27 with every operand +-127 (at config
+   5, K = 131,072: sums of 2,114,060,288), S bitwise at apply_r's and the
+   e2e chunks' searches (r 0.95 and 1); (b) ``cli.apply_r.main`` with the
+   fixer-R in bf16, then --int8 and --approx on the same checkpoints,
+   each counted and held to phase 4's checks (the searches against the
+   scores in f64), S once per search, the recalls of --int8 and --approx
+   against bf16 printed (no gate); fast vs plain in f32 on 512 rows, and
+   the refinement of 512 of the images from R's latents (5 adam steps): no
+   image's loss may rise; (c) the fused program at N = 10,240, pixel_k 0
+   and 100: first calls counted with their peak device memory, a replay
+   adding exactly the chunks' launches and bitwise the first call, the
+   top-k as phase 8 holds it, img/s of warm calls. Every kernel of the
+   paths (B, U, U's head, C, K, Q1-Q4, S) must launch at each config, and
+   a line per kernel gives its summed times, bound and launches there.
+   (d) the pack_conv A/B: G's output stage at 3x64x64 and 3x128x128,
+   batch 256, bf16, as kernel U then the head by F.conv2d, U then the
+   lane-packed head (ops/pack_conv.py) at (4, 8) and (8, 8), and U's
+   fused head, CUDA events, median of 10. ``python3 chip_smoke.py
+   --configs`` runs phases 1, 2 and 13 alone (no result lines).
 
 The last two lines are a JSON object with each kernel's route, source,
 launch count in the main path (Q1-Q4's: ``apply_r --int8`` and the int8
 e2e export's check; S's: phase 11's ``apply_r --approx`` and approximate
 fused program; phase 12's distributed paths add theirs to U's, the
-head's, B's, C's, S's and B5's), error, times and bound, and
+head's, B's, C's, S's and B5's; phase 13's configs' paths add theirs to
+B's, U's, the head's, C's, K's, Q1-Q4's and S's), error, times and bound
+(phases 3, 10 and 11, at 3x64x64), and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without a result when CUDA is absent or the package is not
 beside this file.
@@ -287,6 +316,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import NamedTuple
 
 SEED = 0
 N_CHECK = 256          # rows per kernel check (one chunk of the main path)
@@ -615,11 +645,14 @@ def _oihw_last(k, dtype):
         memory_format=torch.channels_last)
 
 
-def kernel_cases(dev, n: int, n_search: int):
-    """(kernel, label, make(dtype) -> case) at the main path's shapes; a
-    case holds the kernel's call, its plain version, the library call that
-    computes the same function (None where PyTorch has none), and the
-    operations and bytes of the function on these inputs."""
+def kernel_cases(dev, n: int, n_search: int, dims=DIMS,
+                 noise_dim: int = NOISE_DIM, names=None):
+    """(kernel, label, make(dtype) -> case) at the main path's shapes (G3
+    and R at ``dims``, latents of ``noise_dim``), only of the kernels in
+    ``names`` where it is given; a case holds the kernel's call, its plain
+    version, the library call that computes the same function (None where
+    PyTorch has none), and the operations and bytes of the function on
+    these inputs."""
     import torch
     import torch.nn.functional as F
     from ganreverser_tpu_torch.ops import (conv_block_kernel as cb,
@@ -629,8 +662,11 @@ def kernel_cases(dev, n: int, n_search: int):
                                            upsample_v2_kernel as v2)
     from ganreverser_tpu_torch.ops.upsample_conv import conv_nhwc
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    c, h, w = DIMS
+    c, h, w = dims
     cases = []
+
+    def wanted(name):
+        return names is None or name in names
 
     def block(label, shape, chans):
         x0 = torch.rand(shape, device=dev, generator=gen)
@@ -796,47 +832,60 @@ def kernel_cases(dev, n: int, n_search: int):
                               + nb * oh * ow * co * x.element_size())}
         cases.append(("conv3x3_bn_act", label, make))
 
-    block(f"R block 1 ({n},{h},{w},{c})->64x3+pool", (n, h, w, c),
-          [c, 64, 64, 64])
-    block(f"R block 2 ({n},{h // 2},{w // 2},64)->128x3+pool",
-          (n, h // 2, w // 2, 64), [64, 128, 128, 128])
-    upsample(f"G stage 1 ({n},{h // 4},{w // 4},512)->256",
-             (n, h // 4, w // 4, 512), 256)
-    upsample(f"G stage 2 ({n},{h // 2},{w // 2},256)->128",
-             (n, h // 2, w // 2, 256), 128)
-    search(f"attributes ({n_search},{NOISE_DIM}) x {NEEDLES}", NOISE_DIM,
-           False)
-    search(f"pixels ({n_search},{c * h * w}) x {NEEDLES}", c * h * w, True)
-    # the fused e2e program's needle chunks (phase 8)
-    search(f"attributes ({E2E_N},{NOISE_DIM}) x {E2E_CHUNK}", NOISE_DIM,
-           False, E2E_N, E2E_CHUNK)
-    search(f"pixels ({E2E_N},{c * h * w}) x {E2E_CHUNK}", c * h * w, True,
-           E2E_N, E2E_CHUNK)
+    if wanted("conv_block"):
+        block(f"R block 1 ({n},{h},{w},{c})->64x3+pool", (n, h, w, c),
+              [c, 64, 64, 64])
+        block(f"R block 2 ({n},{h // 2},{w // 2},64)->128x3+pool",
+              (n, h // 2, w // 2, 64), [64, 128, 128, 128])
+    if wanted("upsample2_conv3x3_bn_act"):
+        upsample(f"G stage 1 ({n},{h // 4},{w // 4},512)->256",
+                 (n, h // 4, w // 4, 512), 256)
+        upsample(f"G stage 2 ({n},{h // 2},{w // 2},256)->128",
+                 (n, h // 2, w // 2, 256), 128)
+    if wanted("cosine_scores"):
+        search(f"attributes ({n_search},{noise_dim}) x {NEEDLES}", noise_dim,
+               False)
+        search(f"pixels ({n_search},{c * h * w}) x {NEEDLES}", c * h * w,
+               True)
+        # the fused e2e program's needle chunks (phase 8)
+        search(f"attributes ({E2E_N},{noise_dim}) x {E2E_CHUNK}", noise_dim,
+               False, E2E_N, E2E_CHUNK)
+        search(f"pixels ({E2E_N},{c * h * w}) x {E2E_CHUNK}", c * h * w,
+               True, E2E_N, E2E_CHUNK)
     # D2's five conv + PReLU layers (stem l0, l1+pool; right branch
     # l0+pool, l2, l3+pool), one with a negative slope
-    for label, shape, co, alpha, pool in D2_B6_LAYERS:
-        conv_prelu(label, (n,) + shape, co, alpha, pool)
+    if wanted("conv3x3_bn_act"):
+        for label, shape, co, alpha, pool in D2_B6_LAYERS:
+            conv_prelu(label, (n,) + shape, co, alpha, pool)
     # U's fused head at G3's stage 2: C = 3 (pretrain_prev's G_prev), and
-    # C = 1 (a grayscale G_prev)
-    for cf in (3, 1):
-        head(f"G stage 2 + head ({n},{h // 2},{w // 2},256)->128->{cf}",
-             (n, h // 2, w // 2, 256), 128, cf, cf == c)
-    upsample_v2(f"G stage 1 ({n},{h // 4},{w // 4},512)->256",
-                (n, h // 4, w // 4, 512), 256)
-    upsample_v2(f"G stage 2 ({n},{h // 2},{w // 2},256)->128",
-                (n, h // 2, w // 2, 256), 128)
+    # C = 1 (a grayscale G_prev); with ``names`` only the path's C
+    if wanted("upsample2_conv3x3_head"):
+        for cf in (3, 1) if names is None else (c,):
+            head(f"G stage 2 + head ({n},{h // 2},{w // 2},256)->128->{cf}",
+                 (n, h // 2, w // 2, 256), 128, cf, cf == c)
+    if wanted("upsample_v2"):
+        upsample_v2(f"G stage 1 ({n},{h // 4},{w // 4},512)->256",
+                    (n, h // 4, w // 4, 512), 256)
+        upsample_v2(f"G stage 2 ({n},{h // 2},{w // 2},256)->128",
+                    (n, h // 2, w // 2, 256), 128)
     return cases
 
 
-def check_kernels(dev, card: str, n: int = N_CHECK, n_search: int = N_MAIN):
-    """Phase 3: every kernel against its plain version; returns one record
-    per (kernel, shape, dtype) with the times of the kernel, its plain
-    version and the library call, and the kernel's bound."""
+def check_kernels(dev, card: str, n: int = N_CHECK, n_search: int = N_MAIN,
+                  dims=DIMS, noise_dim: int = NOISE_DIM, names=None,
+                  timed=("float32", "bfloat16"), tag: str = "kernel"):
+    """Phase 3 (and phase 13 at another ``dims``, ``noise_dim`` and
+    ``n_search``, the kernels of ``names``): every kernel against its plain
+    version in f32 and bf16; returns one record per (kernel, shape, dtype)
+    with the times of the kernel, its plain version and the library call,
+    and the kernel's bound, timed in the dtypes of ``timed`` (the others
+    are checked only)."""
     import torch
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     records = []
-    for name, label, make in kernel_cases(dev, n, n_search):
+    for name, label, make in kernel_cases(dev, n, n_search, dims, noise_dim,
+                                          names):
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[-1]
             case = make(dtype)
@@ -868,17 +917,21 @@ def check_kernels(dev, card: str, n: int = N_CHECK, n_search: int = N_MAIN):
                 check(err_u <= tol_u, f"{name} {label} {dname}: vs kernel U "
                       f"{err_u} > {tol_u}")
             del out, ref
+            check(err <= tol, f"{name} {label} {dname}: max_abs_err {err} "
+                  f"> tol {tol}")
+            if dname not in timed:
+                print(f"[{tag}] {name} {label} {dname}: max_abs_err "
+                      f"{err:.3e} (tol {tol:.1e}){repeat}{versus}  [{card}]")
+                continue
             ms, plain_ms = time_ms(kern), time_ms(plain)
             lib_ms = time_ms(case["library"])
             b_ms, b_by = bound(case["flops"], case["bytes"], dname)
             unfused = (f", unfused U + head {time_ms(case['unfused']):.4f} ms"
                        if "unfused" in case else "")
-            print(f"[kernel] {name} {label} {dname}: max_abs_err {err:.3e} "
+            print(f"[{tag}] {name} {label} {dname}: max_abs_err {err:.3e} "
                   f"(tol {tol:.1e}){repeat}, kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
                   f"{b_ms:.4f} ms ({b_by}){unfused}{versus}  [{card}]")
-            check(err <= tol, f"{name} {label} {dname}: max_abs_err {err} "
-                  f"> tol {tol}")
             records.append({"name": name, "label": label, "dtype": dname,
                             "max_abs_err": err, "ms": ms,
                             "plain_ms": plain_ms, "library_ms": lib_ms,
@@ -1054,12 +1107,13 @@ def make_models(dev, dims=DIMS, noise_dim=NOISE_DIM):
 
 def save_models(G, R, RF, save: str, dims=DIMS,
                 noise_dim=NOISE_DIM) -> str:
-    """Checkpoints laid out as apply_r expects; returns G's path."""
+    """Checkpoints laid out as apply_r expects (one channel as the y colour
+    space, three as rgb); returns G's path."""
     from ganreverser_tpu_torch.io import checkpoint as ckpt
     from ganreverser_tpu_torch.models.bridge import export_variables
     c, h, w = dims
     cfg = {"noiseDim": noise_dim, "noiseMethod": "normal",
-           "colorSpace": "rgb", "height": h, "width": w}
+           "colorSpace": "y" if c == 1 else "rgb", "height": h, "width": w}
     g_path = ckpt.adversarial_name(save)
     ckpt.save_checkpoint(g_path, {"G": export_variables(G)}, config=cfg)
     for model, fixer in ((R, False), (RF, True)):
@@ -1101,12 +1155,13 @@ def run_main_path(g_path: str, save: str, out_dir: str, n: int = N_MAIN,
 
 def check_main_path(result, out_dir: str, n: int = N_MAIN,
                     needles: int = NEEDLES, noise_dim: int = NOISE_DIM,
-                    exact: bool = True):
+                    exact: bool = True, f64: bool = False):
     """Phase 4c: every artifact, finite latents, cluster counts summing to
     N, the anomaly count the threshold implies, and with ``exact`` the
     search scores vs plain (an approximate search is held by its recall,
-    phase 11). Returns the two top-k score errors (none without
-    ``exact``)."""
+    phase 11), with ``f64`` vs the scores in f64 (phase 13: the plain f32
+    sums over 49,152 pixels are the less exact side). Returns the two top-k
+    score errors (none without ``exact``)."""
     import torch
     from ganreverser_tpu_torch.ops.topk_kernel import cosine_scores_plain
     names = ["variations.jpg", "fixed_pairs.jpg", "fixed_images_528.jpg",
@@ -1147,8 +1202,8 @@ def check_main_path(result, out_dir: str, n: int = N_MAIN,
     errs = []
     for emb, (scores, _) in ((attrs, result["attr_topk"]),
                              (images.reshape(n, -1), result["pix_topk"])):
-        ref = torch.topk(cosine_scores_plain(emb, idx), scores.shape[1],
-                         dim=1).values
+        ref = torch.topk((cosine_scores_f64 if f64 else cosine_scores_plain)(
+            emb, idx), scores.shape[1], dim=1).values
         errs.append((scores - ref).abs().max().item())
     check(max(errs) <= TOL_SCORES,
           f"top-k scores differ from the plain search by {max(errs)}")
@@ -2902,8 +2957,9 @@ def quant_counters():
     return {name: getattr(quant, name) for name in INT8_LINES}
 
 
-def quant_cases(dev, n: int):
-    """(kernel, label, make() -> case) for Q1-Q4 at the int8 legs' shapes:
+def quant_cases(dev, n: int, dims=DIMS, noise_dim: int = NOISE_DIM):
+    """(kernel, label, make() -> case) for Q1-Q4 at the int8 legs' shapes
+    (G3 and R at ``dims``, latents of ``noise_dim``):
     the quantised operands from seeded f32 tensors, the kernel's call as
     the main path makes it (``with_max`` where a quantiser follows: the
     producer then returns (y, max |y|)), the call without the max, its
@@ -2916,7 +2972,7 @@ def quant_cases(dev, n: int):
     from ganreverser_tpu_torch.ops import quant as Q
     from ganreverser_tpu_torch.ops import upsample_conv_kernel as uc
     gen = torch.Generator(device=dev).manual_seed(SEED + 40)
-    c, h, w = DIMS
+    c, h, w = dims
     cases = []
 
     def act_input(shape, relu):
@@ -3055,14 +3111,14 @@ def quant_cases(dev, n: int):
              (n, h // 4, w // 4, 512), 256)
     upsample(f"G stage 2 ({n},{h // 2},{w // 2},256)->128",
              (n, h // 2, w // 2, 256), 128)
-    dense(f"G l0 ({n},{NOISE_DIM})->{h * w * 32} relu", n, NOISE_DIM,
+    dense(f"G l0 ({n},{noise_dim})->{h * w * 32} relu", n, noise_dim,
           h * w * 32, "relu", True)
     dense(f"R l27 ({n},{h * w * 8})->512 elu", n, h * w * 8, 512, "elu",
           True)
-    dense(f"R l31 ({n},512)->{NOISE_DIM}", n, 512, NOISE_DIM, "none", False)
+    dense(f"R l31 ({n},512)->{noise_dim}", n, 512, noise_dim, "none", False)
     # the entry quantisers: R's images and G's noise
     quantize(f"R's images ({n},{h},{w},{c}) f32", (n, h, w, c))
-    quantize(f"G's noise ({n},{NOISE_DIM}) f32", (n, NOISE_DIM))
+    quantize(f"G's noise ({n},{noise_dim}) f32", (n, noise_dim))
     # one pass after a producer: the eight sizes of the ten that follow
     # one, largest first (R l0 and l4, R l13 and l17 share theirs)
     for shape, what in (((n, h, w, 128), "G stage 2"),
@@ -3171,21 +3227,26 @@ def check_quant_ragged(dev, card: str) -> None:
               f"{tol:.1e}), {how}  [{card}]")
 
 
-def check_quant_kernels(dev, card: str, n: int = N_CHECK) -> list:
+def check_quant_kernels(dev, card: str, n: int = N_CHECK, dims=DIMS,
+                        noise_dim: int = NOISE_DIM,
+                        tag: str = "int8") -> list:
     """Phase 10: Q1-Q4 against their plain versions on the card at the int8
     legs' shapes; Q1-Q3 also bitwise (``_s8_exact``) with their max
     (``_max_exact``), their device times with and without the max, timed
     beside their __dp4a predecessors' times and B's or U's bf16 kernel on
     the same layer, Q3 beside torch._int_mm, and off every tile edge
     (``check_quant_ragged``); Q4's one pass beside its two launches on the
-    same input; records as check_kernels' (dtype "int8")."""
+    same input; records as check_kernels' (dtype "int8"). At another
+    ``dims`` (phase 13) the same checks and times at its shapes, without
+    the predecessors and the ragged cases."""
     import torch
+    main = (dims, noise_dim) == (DIMS, NOISE_DIM)
     records = []
     sums = {name: {"ms": 0.0, "bf16": 0.0, "bound": 0.0, "device": 0.0,
                    "device_nomax": 0.0, "library": 0.0}
             for name in S8_LINES}
     q4 = {"one": 0.0, "two": 0.0, "bound": 0.0}
-    for name, label, make in quant_cases(dev, n):
+    for name, label, make in quant_cases(dev, n, dims, noise_dim):
         case = make()
         out = case["kernel"]()
         torch.cuda.synchronize()
@@ -3223,11 +3284,13 @@ def check_quant_kernels(dev, card: str, n: int = N_CHECK) -> list:
         lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
         beside = ""
         if name in S8_LINES:
-            dev_ms = launch_ms(case["kernel"], (case["device"],))
-            dev_nomax = launch_ms(case["nomax"], (case["device"],))
-            mode = "with" if case["max"] else "without"
-            beside = (f", device {dev_ms:.4f} ms ({mode} the max; "
-                      f"{dev_nomax:.4f} without)")
+            dev_ms = dev_nomax = 0.0
+            if main:  # phase 13 traces nothing (launch_ms)
+                dev_ms = launch_ms(case["kernel"], (case["device"],))
+                dev_nomax = launch_ms(case["nomax"], (case["device"],))
+                mode = "with" if case["max"] else "without"
+                beside = (f", device {dev_ms:.4f} ms ({mode} the max; "
+                          f"{dev_nomax:.4f} without)")
             bf16_ms = 0.0
             if "bf16" in case:
                 which, fn = case["bf16"]
@@ -3235,7 +3298,7 @@ def check_quant_kernels(dev, card: str, n: int = N_CHECK) -> list:
                 beside += (f", {which}'s bf16 kernel on the layer "
                            f"{bf16_ms:.4f} ms")
             before = next((v for k, v in Q_BEFORE_MS.items()
-                           if label.startswith(k)), None)
+                           if main and label.startswith(k)), None)
             if before is not None:
                 beside += f", the __dp4a kernel {before:.2f} ms"
             for key, v in (("ms", ms), ("bf16", bf16_ms), ("bound", b_ms),
@@ -3247,7 +3310,7 @@ def check_quant_kernels(dev, card: str, n: int = N_CHECK) -> list:
             beside = f", Q4's two launches on the same input {two_ms:.4f} ms"
             for key, v in (("one", ms), ("two", two_ms), ("bound", b_ms)):
                 q4[key] += v
-        print(f"[int8] {name} {label}: max_abs_err {err:.3e} (q and scale "
+        print(f"[{tag}] {name} {label}: max_abs_err {err:.3e} (q and scale "
               f"bitwise; outputs tol {TOL_INT8:.0e} of scale){how}, kernel "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib}, bound "
               f"{b_ms:.4f} ms ({b_by}){beside}  [{card}]")
@@ -3261,17 +3324,20 @@ def check_quant_kernels(dev, card: str, n: int = N_CHECK) -> list:
                 S8_LINES[2]: "G l0, R l27 and R l31"}[name]
         yard = (f"torch._int_mm {s['library']:.4f} ms" if name == "quant_dense"
                 else f"bf16 kernel on the same layers {s['bf16']:.4f} ms")
-        print(f"[int8] {name} on the int8 tensor cores, {what}: {s['ms']:.4f}"
-              f" ms (the __dp4a kernel {Q_BEFORE_SUMS[name]:.3f} ms), device "
-              f"{s['device']:.4f} ms as the main path calls it, "
-              f"{s['device_nomax']:.4f} without the max; {yard}, bound "
-              f"{s['bound']:.4f} ms  [{card}]")
-    print(f"[int8] quant_act_max, Q4's one pass after a producer, at the "
+        was = (f" (the __dp4a kernel {Q_BEFORE_SUMS[name]:.3f} ms), device "
+               f"{s['device']:.4f} ms as the main path calls it, "
+               f"{s['device_nomax']:.4f} without the max" if main else "")
+        print(f"[{tag}] {name} on the int8 tensor cores, {what}: "
+              f"{s['ms']:.4f} ms{was}; {yard}, bound {s['bound']:.4f} ms  "
+              f"[{card}]")
+    was = (f" (the two launches at five sizes before: "
+           f"{Q_BEFORE_SUMS['quant_act']:.3f} ms)" if main else "")
+    print(f"[{tag}] quant_act_max, Q4's one pass after a producer, at the "
           f"eight sizes: {q4['one']:.4f} ms; Q4's two launches on the same "
-          f"inputs {q4['two']:.4f} ms (the two launches at five sizes "
-          f"before: {Q_BEFORE_SUMS['quant_act']:.3f} ms); bound "
+          f"inputs {q4['two']:.4f} ms{was}; bound "
           f"{q4['bound']:.4f} ms  [{card}]")
-    check_quant_ragged(dev, card)
+    if main:
+        check_quant_ragged(dev, card)
     torch.cuda.empty_cache()
     return records
 
@@ -4410,7 +4476,460 @@ def _numpy_grid(images, gh: int, gw: int):
     return grid
 
 
-def main() -> int:
+# -- phase 13: BASELINE.json's configs 1 and 5 --------------------------------
+
+
+class Config(NamedTuple):
+    dims: tuple          # (C, H, W) of G3 and R
+    noise_dim: int
+    apply_n: int         # apply_r --N
+    apply_batch: int     # apply_r --batchSize
+    refine_steps: int    # apply_r --refine_steps
+    e2e_batch: int       # the fused program's batch
+
+
+# BASELINE.json configs[0] ("Grayscale 32x32 faces, z=32: G+R forward
+# inversion, batch 64") and configs[4] ("128x128 RGB, z=256 with
+# gradient-based latent optimization"); apply_r's N at config 5 cut from
+# 10,000 to 2,560 (the phase's time; its fused program keeps 10,240)
+CONFIGS = {"config1": Config((1, 32, 32), 32, 10_000, 64, 0, 64),
+           "config5": Config((3, 128, 128), 256, 2_560, 256, 5, 128)}
+# the bf16 kernels of the configs' paths held in phase 13 (B, U, U's head
+# and C by check_kernels; K, Q1-Q4 and S by their own checks)
+CONFIG_KERNELS = ("conv_block", "upsample2_conv3x3_bn_act",
+                  "upsample2_conv3x3_head", "cosine_scores")
+PACK_AB_DIMS = ((3, 64, 64), (3, 128, 128))   # G's output stage, batch 256
+PACKS = ((4, 8), (8, 8))
+
+
+def kmeans_at(dev, card: str, tag: str, n: int, d: int) -> dict:
+    """Kernel K's whole run at apply_r's shape of a config (N latents of
+    D, K = 20, 15 iterations in one launch), held as phase 3 holds it
+    (``lloyd_case``); its record."""
+    import torch
+    from ganreverser_tpu_torch.ops import kmeans_kernel as kk
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    x = torch.randn(n, d, device=dev, generator=gen)
+    c = x[torch.randperm(n, device=dev, generator=gen)[:KMEANS_K]]
+    err, tol, flipped, run_err = lloyd_case(x, c, KMEANS_ITERS)
+    ms = time_ms(lambda: kk.kmeans_lloyd(x, c, KMEANS_ITERS))
+    plain_ms = time_ms(lambda: kk.kmeans_lloyd_plain(x, c, KMEANS_ITERS))
+    b_ms, b_by = bound(KMEANS_ITERS * (2 * n * KMEANS_K * d + n * d),
+                       4 * (n * d + 2 * KMEANS_K * d + KMEANS_K), "float32")
+    label = f"({n},{d}) K={KMEANS_K}, {KMEANS_ITERS} iterations"
+    print(f"[{tag}] kmeans_lloyd {label} float32, one launch: sums "
+          f"max_abs_err {err:.3e} (tol {tol:.1e}), {flipped} near-tie rows "
+          f"assigned otherwise, centroids vs the plain run {run_err:.3e}; "
+          f"bitwise repeatable; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by})  [{card}]")
+    return {"name": "kmeans_lloyd", "label": label, "dtype": "float32",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def approx_at(dev, card: str, tag: str, cfg: Config) -> list:
+    """Kernel S on kernel C's scores at a config's searches (apply_r's two,
+    the fused program's needle chunks), r = 0.95 and 1: one launch a call
+    (its counter), indices and values bitwise the plain version, at r = 1
+    the values torch.topk's; its records."""
+    import torch
+    from ganreverser_tpu_torch.ops import approx_topk_kernel as S
+    from ganreverser_tpu_torch.ops import topk_kernel
+    gen = torch.Generator(device=dev).manual_seed(SEED + 110)
+    c, h, w = cfg.dims
+    records = []
+    for label, q, n, d in (("apply_r attributes", NEEDLES, cfg.apply_n,
+                            cfg.noise_dim),
+                           ("apply_r pixels", NEEDLES, cfg.apply_n, c * h * w),
+                           ("e2e needle chunk", E2E_CHUNK, E2E_N,
+                            cfg.noise_dim),
+                           ("e2e pixel chunk", E2E_CHUNK, E2E_N, c * h * w)):
+        emb = torch.randn(n, d, device=dev, generator=gen).to(torch.bfloat16)
+        scores = topk_kernel.cosine_scores(emb, torch.arange(q, device=dev))
+        del emb
+        for r in (APPROX_R, 1.0):
+            before = S.approx_topk.launches
+            v, i = S.approx_topk(scores, E2E_K, r)
+            torch.cuda.synchronize()
+            check(S.approx_topk.launches == before + 1, f"{tag} S {label}: "
+                  f"{S.approx_topk.launches - before} launches counted")
+            pv, pi = S.approx_topk_plain(scores, E2E_K, r)
+            check(torch.equal(i, pi) and torch.equal(
+                v.view(torch.int32), pv.view(torch.int32)), f"{tag} S "
+                f"{label} Q={q} N={n} r={r}: differs from the plain version")
+            if r == 1.0:
+                check(torch.equal(v, torch.topk(scores, E2E_K, dim=1).values),
+                      f"{tag} S {label} r=1: values differ from torch.topk's")
+            ms = time_ms(lambda: S.approx_topk(scores, E2E_K, r))
+            plain_ms = time_ms(lambda: S.approx_topk_plain(scores, E2E_K, r))
+            exact_ms = time_ms(lambda: torch.topk(scores, E2E_K, dim=1))
+            b_ms, b_by = bound(0.0, q * n * 4 + q * E2E_K * 12, "float32")
+            plan = S.select_plan(q, n, E2E_K, r)
+            print(f"[{tag}] approx_topk {label} Q={q} N={n} (C's scores at "
+                  f"D={d}) k={E2E_K} r={r}: L={plan.bins}, cluster "
+                  f"{plan.cluster}, one launch, bitwise the plain version; S "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.topk "
+                  f"{exact_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})  [{card}]")
+            records.append({"name": "approx_topk", "label": f"{label} r={r}",
+                            "dtype": "float32", "max_abs_err": 0.0, "ms": ms,
+                            "plain_ms": plain_ms,
+                            "library_ms": exact_ms if r == 1.0 else None,
+                            "bound_ms": b_ms, "bound_by": b_by,
+                            "on_path": r == APPROX_R})
+        del scores
+    torch.cuda.empty_cache()
+    return records
+
+
+def q3_extremes(dev, card: str, tag: str, k: int, m: int = 512) -> None:
+    """Q3 at R l27 of a config with every operand at +-127 (rows 0 and 1
+    all +127 and all -127 against an all +127 column): the sums reach
+    127^2 K, through the s32 accumulator and the K split's s32 sum;
+    bitwise the plain version."""
+    import torch
+    from ganreverser_tpu_torch.ops import quant as Q
+    gen = torch.Generator(device=dev).manual_seed(SEED + 131)
+    x = torch.where(torch.rand(N_CHECK, k, device=dev, generator=gen) < 0.5,
+                    -1.0, 1.0)
+    x[0], x[1] = 1.0, -1.0
+    w = torch.where(torch.rand(k, m, device=dev, generator=gen) < 0.5,
+                    -1.0, 1.0)
+    w[:, 0] = 1.0
+    xq, xs = Q.quantize_plain(x)
+    wq, ws = Q.quantize_plain(w, axis=(0,))
+    b = torch.zeros(m, device=dev)
+    _, splits = Q.dense_plan(N_CHECK, k, m)
+    out = Q.quant_dense(xq, xs, wq, ws, b)
+    torch.cuda.synchronize()
+    check(torch.equal(out, Q.quant_dense_plain(xq, xs, wq, ws, b)),
+          f"{tag} Q3 at K={k} with +-127 operands: not bitwise the plain "
+          "version")
+    print(f"[{tag}] quant_dense ({N_CHECK},{k})x({k},{m}) every operand "
+          f"+-127, {splits} K splits: bitwise the plain version, the sums "
+          f"reaching {127 * 127 * k:,} of 2^31 - 1 = {2 ** 31 - 1:,}  "
+          f"[{card}]")
+
+
+def config_kernels(dev, card: str, tag: str, cfg: Config) -> list:
+    """Phase 13a: the kernels of a config's paths against their plain
+    versions at its shapes: B, U, U's head and C at phase 3's tolerances
+    (f32 and bf16, timed in bf16), K, Q1-Q4 and S bitwise as in phases
+    3, 10 and 11."""
+    records = check_kernels(dev, card, N_CHECK, cfg.apply_n, cfg.dims,
+                            cfg.noise_dim, CONFIG_KERNELS, ("bfloat16",),
+                            tag)
+    records.append(kmeans_at(dev, card, tag, cfg.apply_n, cfg.noise_dim))
+    records += check_quant_kernels(dev, card, N_CHECK, cfg.dims,
+                                   cfg.noise_dim, tag)
+    c, h, w = cfg.dims
+    q3_extremes(dev, card, tag, h * w * 8)
+    records += approx_at(dev, card, tag, cfg)
+    return records
+
+
+def config_apply_r(tag: str, cfg: Config, g_path: str, save: str,
+                   out_dir: str, flags: list, counters: dict):
+    """``cli.apply_r.main`` at a config, its counters set to 0 just before
+    and read just after. Returns (result, launches, seconds)."""
+    from ganreverser_tpu_torch.cli import apply_r
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    result = apply_r.main(["--G", g_path, "--save", save, "--writeto",
+                           out_dir, "--N", str(cfg.apply_n), "--needles",
+                           str(NEEDLES), "--batchSize", str(cfg.apply_batch),
+                           "--compute_dtype", "bfloat16", "--refine_steps",
+                           str(cfg.refine_steps), *flags])
+    seconds = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    for name, count in launches.items():
+        check(count > 0, f"{tag} apply_r {' '.join(flags) or 'bf16'}: {name} "
+              "launched no time")
+    return result, launches, seconds
+
+
+def config_analysis(dev, card: str, tag: str, cfg: Config, tmp: str,
+                    launches: dict) -> None:
+    """Phase 13b: apply_r at a config (bf16 with the fixer-R, then --int8
+    and --approx on the same checkpoints), phase 4's checks on each (the
+    searches against the scores in f64); the recalls of --int8 and
+    --approx against bf16; then fast vs plain in f32 on 512 rows, and the
+    refinement of 512 of the images from R's latents: no image's loss may
+    rise. Adds the runs' launches to ``launches``."""
+    import torch
+    from ganreverser_tpu_torch.analysis.similarity import topk_recall
+    from ganreverser_tpu_torch.models import bridge, fastpath
+    from ganreverser_tpu_torch.ops import approx_topk_kernel as S
+    G, R, RF = make_models(dev, cfg.dims, cfg.noise_dim)
+    save = os.path.join(tmp, "logs")
+    g_path = save_models(G, R, RF, save, cfg.dims, cfg.noise_dim)
+    runs = {}
+    for label, flags, extra in (
+            ("bf16", [], {}), ("int8", ["--int8"], quant_counters()),
+            ("approx", ["--approx", "--recall_target", str(APPROX_R)],
+             {"approx_topk": S.approx_topk})):
+        out_dir = os.path.join(tmp, f"out_{label}")
+        result, counts, seconds = config_apply_r(
+            tag, cfg, g_path, save, out_dir, flags,
+            {**kernel_counters(), **extra})
+        errs = check_main_path(result, out_dir, cfg.apply_n, NEEDLES,
+                               cfg.noise_dim, exact=label != "approx",
+                               f64=True)
+        if label == "approx":
+            check(counts["approx_topk"] == 2, f"{tag} apply_r --approx: S "
+                  f"launched {counts['approx_topk']} times, not once per "
+                  "search")
+        for name, count in counts.items():
+            launches[name] += count
+        secs = result["seconds"]
+        print(f"[{tag}] apply_r {' '.join(flags) or 'bf16'} N={cfg.apply_n} "
+              f"{cfg.dims} noise {cfg.noise_dim} --batchSize "
+              f"{cfg.apply_batch} --refine_steps {cfg.refine_steps}, with "
+              f"the fixer-R: whole call {seconds:.2f} s; stage seconds "
+              + ", ".join(f"{k} {v:.4f}" for k, v in secs.items())
+              + f"; generate+invert {cfg.apply_n / secs['generate_invert']:.1f}"
+              f" img/s; launches {counts}"
+              + (f"; top-k scores vs f64 {max(errs):.2e}" if errs else "")
+              + f"  [{card}]")
+        runs[label] = {k: result[k] for k in ("attr_topk", "pix_topk",
+                                              "images", "attributes")}
+        del result
+    recalls = {label: [topk_recall(runs["bf16"][what][1].cpu().numpy(),
+                                   runs[label][what][1].cpu().numpy())
+                       for what in ("attr_topk", "pix_topk")]
+               for label in ("int8", "approx")}
+    print(f"[{tag}] top-100 recall against the bf16 run (reported, no gate): "
+          + "; ".join(f"{label} attributes {r[0]:.4f}, pixels {r[1]:.4f}"
+                      for label, r in recalls.items()) + f"  [{card}]")
+    images = runs["bf16"]["images"][:N_COMPARE]
+    del runs
+    img_err, z_err, zf_err = compare_paths(G, R, RF, dev, N_COMPARE,
+                                           cfg.dims, cfg.noise_dim)
+    print(f"[{tag}] fast vs plain module path, f32, {N_COMPARE} rows: images "
+          f"max_abs_err {img_err:.3e}, latents {z_err:.3e}, fixer latents "
+          f"(same mask) {zf_err:.3e}  [{card}]")
+    with torch.inference_mode():
+        z0 = fastpath.make_fast_inverter(cfg.dims, cfg.noise_dim, "normal")(
+            bridge.module_variables(R), images)
+    loss0, loss1, chunk_err, refine_s = check_refine(G, images, z0)
+    print(f"[{tag}] refine {N_COMPARE} of apply_r's images from R's latents, "
+          f"{REFINE_STEPS} adam steps, f32 module G: mean pixel MSE "
+          f"{loss0:.4e} -> {loss1:.4e}, no image rose; {refine_s:.3f} s; "
+          f"chunked vs one chunk on 256 rows max_abs_err {chunk_err:.3e}  "
+          f"[{card}]")
+    del G, R, RF
+    torch.cuda.empty_cache()
+
+
+def config_e2e(dev, card: str, tag: str, cfg: Config, launches: dict):
+    """Phase 13c: the fused program at a config (N = 10,240, its batch,
+    k = 100, needle chunk 256, U's fused head where e2e.FUSED_HEAD says
+    so), pixel_k 0 and 100: each first call counted (every kernel must
+    launch) with its peak device memory, one more replay adding exactly the
+    chunks' launches and bitwise the first call, the top-k against the
+    plain search (attributes) and against the search in f64 on the serial
+    program's images (pixels) as phase 8 holds them; img/s of warm calls.
+    Adds the first calls' launches to ``launches``."""
+    import torch
+    from ganreverser_tpu_torch.analysis import e2e
+    from ganreverser_tpu_torch.core.prng import noise_inputs
+    from ganreverser_tpu_torch.models import bridge
+    from ganreverser_tpu_torch.ops import (conv_block_kernel, topk_kernel,
+                                           upsample_conv_kernel as uc)
+    counters = {"upsample2_conv3x3_bn_act": uc.upsample2_conv3x3_bn_act,
+                "upsample2_conv3x3_head": uc.upsample2_conv3x3_head,
+                "conv_block": conv_block_kernel.conv_block,
+                "cosine_scores": topk_kernel.cosine_scores}
+    head, n = e2e.FUSED_HEAD, E2E_N
+    G, R, _ = make_models(dev, cfg.dims, cfg.noise_dim)
+    gv, rv = bridge.module_variables(G), bridge.module_variables(R)
+    z = noise_inputs(torch.Generator(device=dev).manual_seed(SEED + 30), n,
+                     cfg.noise_dim, "normal", device=dev)
+    legs = e2e.fast_legs(cfg.dims, cfg.noise_dim, "normal", fused_head=head)
+    generate = e2e.make_serial_programs(
+        G, R, batch_size=cfg.e2e_batch, k=E2E_K, needle_chunk=E2E_CHUNK,
+        **legs)[0]
+    chunks = -(-n // cfg.e2e_batch)
+    lines, out = [], None
+    for pixel_k in (0, E2E_PIXEL_K):
+        prog = e2e.make_e2e_program(G, R, batch_size=cfg.e2e_batch, k=E2E_K,
+                                    needle_chunk=E2E_CHUNK, pixel_k=pixel_k,
+                                    **legs)
+        for fn in counters.values():
+            fn.launches = 0
+        first, first_s, peak = first_call(lambda: prog(gv, rv, z))
+        counts = {name: fn.launches for name, fn in counters.items()}
+        for name in ("conv_block", "cosine_scores",
+                     "upsample2_conv3x3_bn_act",
+                     *(("upsample2_conv3x3_head",) if head else ())):
+            check(counts[name] > 0, f"{tag} e2e pixel_k={pixel_k}: kernel "
+                  f"{name} launched no time in the first call")
+        for name, count in counts.items():
+            launches[name] += count
+        again = prog(gv, rv, z)
+        torch.cuda.synchronize()
+        per_replay = {name: fn.launches - counts[name]
+                      for name, fn in counters.items()}
+        expected = {"upsample2_conv3x3_bn_act": chunks if head else 2 * chunks,
+                    "upsample2_conv3x3_head": chunks if head else 0,
+                    "conv_block": 6 * chunks,
+                    "cosine_scores": -(-n // E2E_CHUNK) * (2 if pixel_k
+                                                          else 1)}
+        check(per_replay == expected, f"{tag} e2e pixel_k={pixel_k}: "
+              f"launches per replay {per_replay}, expected {expected}")
+        check(all(torch.equal(a, b) for a, b in zip(again, first)),
+              f"{tag} e2e pixel_k={pixel_k}: a second replay differs from "
+              "the first")
+        emb = first[0]
+        check(tuple(emb.shape) == (n, cfg.noise_dim) and bool(
+            torch.isfinite(emb).all()), f"{tag} e2e: embeddings "
+              f"{tuple(emb.shape)} or non-finite")
+        if out is not None:
+            check(torch.equal(emb, out[0]), f"{tag} e2e: the pixel "
+                  "program's embeddings differ")
+        line = check_topk(f"{tag} attributes", emb, first[1], first[2],
+                          E2E_K, TOL_TOPK)
+        if pixel_k:
+            images = generate(gv, z)
+            line = check_topk(f"{tag} pixels", images.reshape(n, -1),
+                              first[3], first[4], pixel_k, TOL_TOPK,
+                              f64=True)
+            del images
+        t = wall_s(lambda: prog(gv, rv, z), E2E_TIMES)
+        lines.append(f"pixel_k={pixel_k}: graph "
+                     f"{n / statistics.median(t):.1f} img/s "
+                     f"(median of {E2E_TIMES}: {statistics.median(t):.4f} s; "
+                     f"first call {first_s:.2f} s, peak device memory "
+                     f"{peak / 2 ** 30:.3f} GiB); launches per replay "
+                     f"{per_replay}; {line}")
+        out = first
+        del prog, again, first
+        torch.cuda.empty_cache()
+    for line in lines:
+        print(f"[{tag}] fused program N={n} {cfg.dims} noise {cfg.noise_dim} "
+              f"bf16 batch {cfg.e2e_batch} k={E2E_K} chunk {E2E_CHUNK}, fast "
+              f"G {'with' if head else 'without'} U's fused head, {line}  "
+              f"[{card}]")
+    del generate, out, G, R
+    torch.cuda.empty_cache()
+
+
+def pack_ab(dev, card: str) -> None:
+    """Phase 13d, the pack_conv A/B: G's output stage (stage 2 + the 128->C
+    conv + sigmoid) at batch 256, bf16, three ways: kernel U then the head
+    by F.conv2d (the fast G without U's fused head), kernel U then the
+    lane-packed head (ops/pack_conv.py) at each of PACKS, and U's fused
+    head; CUDA events, median of 10; the packed and fused outputs within
+    bf16's tolerance of the first."""
+    import torch
+    from ganreverser_tpu_torch.ops import pack_conv
+    from ganreverser_tpu_torch.ops import upsample_conv_kernel as uc
+    from ganreverser_tpu_torch.ops.upsample_conv import conv_nhwc
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 140)
+    for c, h, w in PACK_AB_DIMS:
+        x = torch.rand(N_CHECK, h // 2, w // 2, 256, device=dev,
+                       generator=gen).to(bf16)
+        k = (torch.randn(3, 3, 256, 128, device=dev, generator=gen)
+             / 48.0).to(bf16)
+        sc = 0.5 + torch.rand(128, device=dev, generator=gen)
+        sh = 0.1 * torch.randn(128, device=dev, generator=gen)
+        fk = (torch.randn(3, 3, 128, c, device=dev, generator=gen)
+              / 34.0).to(bf16)
+        fb = 0.1 * torch.randn(c, device=dev, generator=gen)
+        # the operands as the fast G prepares them, once
+        stage = {"kernel": k, "scale": sc, "shift": sh, "act": "relu",
+                 "operand": uc.phase_operand(k, bf16)}
+        fused = dict(stage, final_kernel=fk, final_bias=fb,
+                     final_operand=uc.head_operand(fk, bf16, h // 2, w // 2,
+                                                   256))
+        u = uc.upsample2_conv3x3_bn_act(x, **stage)
+        ways = {"U + F.conv2d head": lambda: torch.sigmoid(
+            conv_nhwc(uc.upsample2_conv3x3_bn_act(x, **stage), fk, 1, bf16)
+            + fb).to(bf16)}
+        heads = {"F.conv2d head": lambda: torch.sigmoid(
+            conv_nhwc(u, fk, 1, bf16) + fb).to(bf16)}
+        for pack in PACKS:
+            packed = pack_conv.pack_kernel(fk, pack)
+            ways[f"U + packed head {pack}"] = (
+                lambda pack=pack, packed=packed: pack_conv.conv3x3_packed(
+                    uc.upsample2_conv3x3_bn_act(x, **stage), fk, fb, pack,
+                    "sigmoid", bf16, packed))
+            heads[f"packed head {pack}"] = (
+                lambda pack=pack, packed=packed: pack_conv.conv3x3_packed(
+                    u, fk, fb, pack, "sigmoid", bf16, packed))
+        ways["U's fused head"] = lambda: uc.upsample2_conv3x3_bn_act(
+            x, **fused)
+        ref = ways["U + F.conv2d head"]().float()
+        parts = []
+        for label, fn in ways.items():
+            err = (fn().float() - ref).abs().max().item()
+            check(err <= TOL["bfloat16"], f"pack A/B {(c, h, w)} {label}: "
+                  f"{err} from U + F.conv2d head")
+            parts.append(f"{label} {time_ms(fn):.4f} ms (vs the first "
+                         f"{err:.1e})")
+        parts += [f"{label} alone {time_ms(fn):.4f} ms"
+                  for label, fn in heads.items()]
+        print(f"[pack] G's output stage {(N_CHECK, h // 2, w // 2, 256)} -> "
+              f"128 -> {c} bf16 (median of 10, CUDA events): "
+              + ", ".join(parts) + f"  [{card}]")
+        del x, u, ref, ways, heads
+    torch.cuda.empty_cache()
+
+
+def config_table(tag: str, records: list, launches: dict, card: str):
+    """One line per kernel of a config's paths: its wrapper times at the
+    config's shapes summed (bf16; K and S f32, S at the main path's r;
+    Q1-Q4 int8), its plain version's and library call's, its bound and its
+    launches on the config's paths."""
+    for name, count in launches.items():
+        recs = [r for r in records if r["name"] == name
+                and r.get("on_path", True)]
+        libs = [r["library_ms"] for r in recs]
+        lib = ("none" if None in libs
+               else f"{sum(libs):.4f} ms")
+        print(f"[{tag}] kernel {name}: {sum(r['ms'] for r in recs):.4f} ms "
+              f"over {len(recs)} shape(s), plain "
+              f"{sum(r['plain_ms'] for r in recs):.4f} ms, library {lib}, "
+              f"bound {sum(r['bound_ms'] for r in recs):.4f} ms ("
+              f"{max(recs, key=lambda r: r['bound_ms'])['bound_by']}), "
+              f"max_abs_err {max(r['max_abs_err'] for r in recs):.3e}, "
+              f"launches {count}  [{card}]")
+
+
+def check_configs(dev, card: str) -> dict:
+    """Phase 13: BASELINE.json's configs 1 and 5 through the port's main
+    path (see the module docstring), then the pack_conv A/B. Every kernel
+    must launch on each config's paths. Returns the launches of the
+    configs' paths."""
+    import torch
+    t_phase = time.perf_counter()
+    total = {name: 0 for name in (*kernel_counters(), *quant_counters(),
+                                  "upsample2_conv3x3_head", "approx_topk")}
+    for tag, cfg in CONFIGS.items():
+        launches = dict.fromkeys(total, 0)
+        t0 = time.perf_counter()
+        recs = config_kernels(dev, card, tag, cfg)
+        t1 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            config_analysis(dev, card, tag, cfg, tmp, launches)
+        t2 = time.perf_counter()
+        config_e2e(dev, card, tag, cfg, launches)
+        for name, count in launches.items():
+            check(count > 0, f"{tag}: kernel {name} launched no time on the "
+                  "config's paths")
+            total[name] += count
+        config_table(tag, recs, launches, card)
+        print(f"[{tag}] seconds: kernels {t1 - t0:.1f}, apply_r and the "
+              f"comparisons {t2 - t1:.1f}, fused program "
+              f"{time.perf_counter() - t2:.1f}  [{card}]")
+        torch.cuda.empty_cache()
+    pack_ab(dev, card)
+    print(f"[time] phase 13 {time.perf_counter() - t_phase:.1f} s  [{card}]")
+    return total
+
+
+def main(configs_only: bool = False) -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs an NVIDIA "
@@ -4468,6 +4987,12 @@ def main() -> int:
           + "; ".join(f"B8 {label} {tuple(tile_plan(*shape))}"
                       for label, *shape in MAIN_CONV_LAYERS
                       if label.startswith("G stage")))
+
+    if configs_only:  # phases 1, 2 and 13 (--configs)
+        check_configs(dev, card)
+        print(f"[time] the whole run {time.perf_counter() - t_start:.1f} s  "
+              f"[{card}]")
+        return 0
 
     # 3. kernels against their plain versions
     records = check_kernels(dev, card)
@@ -4579,11 +5104,16 @@ def main() -> int:
                 launches[name] += count
         check_async_save(dev, card, tmp)
     check_native(card)
+    t13 = time.perf_counter()
+    # 13. BASELINE.json's configs 1 and 5 through the main path, and the
+    # pack_conv A/B
+    for name, count in check_configs(dev, card).items():
+        launches[name] += count
     print(f"[time] phases 6 and 7 {t8 - t6:.1f} s (7: {secs7:.1f} s), phase "
           f"8 {t9 - t8:.1f} s, phase 9 {t10 - t9:.1f} s, phase 10 "
           f"{t11 - t10:.1f} s, phase 11 {t12 - t11:.1f} s, phase 12 "
-          f"{time.perf_counter() - t12:.1f} s, the whole run "
-          f"{time.perf_counter() - t_start:.1f} s  [{card}]")
+          f"{t13 - t12:.1f} s, phase 13 {time.perf_counter() - t13:.1f} s, "
+          f"the whole run {time.perf_counter() - t_start:.1f} s  [{card}]")
 
     sources = {"conv_block": ("ganreverser_tpu_torch/csrc/conv_block.cu",
                               "ganreverser_tpu/ops/conv_block_kernel.py:86"),
@@ -4666,7 +5196,7 @@ if __name__ == "__main__":
         if sys.argv[1:2] == ["--parallel-rank"]:  # phase 12b's ranks
             sys.exit(parallel_rank(int(sys.argv[2]), int(sys.argv[3]),
                                    sys.argv[4]))
-        sys.exit(main())
+        sys.exit(main(configs_only=sys.argv[1:2] == ["--configs"]))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         sys.exit(1)

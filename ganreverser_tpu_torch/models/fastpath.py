@@ -15,7 +15,9 @@ They run:
        -> upsample2+conv3x3+BN+ReLU (256->128)       [kernel U]
        -> conv3x3 (128->C) + Sigmoid                  [F.conv2d]
      with ``fused_head=True`` the last two lines are one launch of U's
-     fused head (upsample_conv_kernel.upsample2_conv3x3_head)
+     fused head (upsample_conv_kernel.upsample2_conv3x3_head); with
+     ``pack_out=(ph, pw)`` the last line is one strided F.conv2d onto
+     ph x pw pixel blocks (ops/pack_conv.py)
 
   R: images -> [conv64+BN+ELU x3 + pool]             [kernel B]
             -> [conv128+BN+ELU x3 + pool]            [kernel B]
@@ -64,6 +66,7 @@ from ..core.precision import pinned_precision
 from ..ops.conv_block_kernel import conv_block
 from ..ops import quant
 from ..ops.conv_kernel import conv3x3_bn_act, conv3x3_operand, fold_batchnorm
+from ..ops.pack_conv import conv3x3_packed, pack_kernel
 from ..ops.upsample_conv import conv_nhwc
 from ..ops.upsample_conv_kernel import (head_operand, phase_operand,
                                         upsample2_conv3x3_bn_act)
@@ -107,14 +110,21 @@ def _dense(x: torch.Tensor, k: torch.Tensor, dtype: torch.dtype):
 
 def make_fast_generator(dims: Dims, noise_dim: int,
                         dtype: torch.dtype = torch.bfloat16,
-                        fused_head: bool = False) -> FastForward:
+                        fused_head: bool = False,
+                        pack_out=None) -> FastForward:
     """Returns ``generate(g_variables, z) -> images`` (a
     :class:`FastForward`) equal to ``create_G3(...)`` in evaluation on the
     same weights; images are NHWC in ``dtype``. ``fused_head=True`` runs
     the second upsample stage and the 128->C conv + sigmoid as one launch
     of U's fused head, with the same rounding points (stage 2's output
     rounded to ``dtype``, f32 sums of the head); False, the JAX fast G's
-    choice, leaves the head to a plain convolution."""
+    choice, leaves the head to a plain convolution. ``pack_out=(ph, pw)``
+    (the JAX package's ``make_fast_generator_xla(pack_out=...)``) computes
+    that plain head lane-packed (ops/pack_conv.py); it cannot go with
+    ``fused_head``."""
+    if pack_out is not None and fused_head:
+        raise ValueError("pack_out packs the plain head; fused_head runs "
+                         "the head inside kernel U: choose one")
     c, h, w = dims
     sh, sw = h // 4, w // 4
 
@@ -137,11 +147,13 @@ def make_fast_generator(dims: Dims, noise_dim: int,
                                  fk, dtype, 2 * sh, 2 * sw, k.shape[2])
                              if on_card else None)
             stages.append(stage)
+        head = p["l12"]["kernel"].to(dtype)
         return {"k0": _rounded(p["l0"]["kernel"].float() * scale0[None, :],
                                dtype),
-                "shift0": shift0, "stages": stages,
-                "head": p["l12"]["kernel"].to(dtype),
-                "head_bias": p["l12"]["bias"]}
+                "shift0": shift0, "stages": stages, "head": head,
+                "head_bias": p["l12"]["bias"],
+                "head_packed": (None if pack_out is None
+                                else pack_kernel(head, tuple(pack_out)))}
 
     def run(prep, z):
         # Dense + folded BN + ReLU (models.lua:115-117)
@@ -155,6 +167,10 @@ def make_fast_generator(dims: Dims, noise_dim: int,
         if fused_head:
             return x
         # final 3x3 conv + sigmoid (models.lua:132-133)
+        if pack_out is not None:
+            return conv3x3_packed(x, prep["head"], prep["head_bias"],
+                                  tuple(pack_out), "sigmoid", dtype,
+                                  prep["head_packed"])
         y = conv_nhwc(x, prep["head"], 1, dtype)
         return torch.sigmoid(y + prep["head_bias"]).to(dtype)
 

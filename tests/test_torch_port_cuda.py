@@ -1437,3 +1437,182 @@ def test_distributed_e2e_one_rank_nccl(dev):
         assert torch.equal(a, b)
     assert (out[3] - one[3]).abs().max().item() <= 1e-5
     assert out[4].shape == one[4].shape
+
+
+# -- the kernels at BASELINE.json's configs 1 (1x32x32, noise 32) and 5
+# (3x128x128, noise 256): the shapes no other test launches
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_upsample_kernel_at_an_8x8_input(dev, dtype):
+    """U at config 1's G stage 1, (8, 8, 512) -> 256: the tile is 16 x 8,
+    taller than the image, so half of each tile lies outside it."""
+    from ganreverser_tpu_torch.ops import conv_operands
+    assert conv_operands.tile_plan(8, 8, 512, 256)[:2] == (16, 8)
+    g = torch.Generator(device=dev).manual_seed(21)
+    x = torch.rand(64, 8, 8, 512, device=dev, generator=g).to(dtype)
+    k = torch.randn(3, 3, 512, 256, device=dev, generator=g) / 48.0
+    sc = torch.rand(256, device=dev, generator=g) + 0.5
+    sh = 0.1 * torch.randn(256, device=dev, generator=g)
+    out = upsample_conv_kernel.upsample2_conv3x3_bn_act(x, k, sc, sh,
+                                                        act="relu")
+    torch.cuda.synchronize()
+    ref = upsample_conv_kernel.upsample2_conv3x3_bn_act_plain(
+        x, k, sc, sh, act="relu")
+    assert out.shape == (64, 16, 16, 256) and out.dtype == dtype
+    _close(out, ref, dtype)
+
+
+def test_quant_upsample_kernel_at_an_8x8_input(dev):
+    """Q2 at config 1's G stage 1 (the int8 plan's 16 x 8 tile over an
+    8 x 8 image): bitwise the plain version, its max bitwise max |y|."""
+    from ganreverser_tpu_torch.ops import quant
+    g = torch.Generator(device=dev).manual_seed(22)
+    xq, xs = quant.quantize_plain(torch.randn(64, 8, 8, 512, device=dev,
+                                              generator=g).relu())
+    wq16, ws = quant.quant_phase_weights(
+        torch.randn(3, 3, 512, 256, device=dev, generator=g),
+        torch.rand(256, device=dev, generator=g) + 0.5)
+    sh = torch.randn(256, device=dev, generator=g)
+    out, mx = quant.quant_upsample2_conv3x3(xq, xs, wq16, ws, sh,
+                                            with_max=True)
+    torch.cuda.synchronize()
+    ref = quant.quant_upsample2_conv3x3_plain(xq, xs, wq16, ws, sh)
+    assert torch.equal(out, ref) and torch.equal(mx, ref.abs().amax())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_block_kernel_on_a_one_channel_stem(dev, dtype):
+    """B at config 1's R block 1: a 1-channel 32x32 image (padded to 16
+    channels in bf16) through three conv64 + ELU, pooled."""
+    g = torch.Generator(device=dev).manual_seed(23)
+    chans = [1, 64, 64, 64]
+    x = torch.rand(64, 32, 32, 1, device=dev, generator=g).to(dtype)
+    ks = [torch.randn(3, 3, ci, co, device=dev, generator=g)
+          / (3.0 * ci ** 0.5) for ci, co in zip(chans[:-1], chans[1:])]
+    sc = [torch.rand(co, device=dev, generator=g) + 0.5 for co in chans[1:]]
+    sh = [0.1 * torch.randn(co, device=dev, generator=g) for co in chans[1:]]
+    out = conv_block_kernel.conv_block(x, ks, sc, sh, act="elu", pool=True)
+    torch.cuda.synchronize()
+    ref = conv_block_kernel.conv_block_plain(x, ks, sc, sh, act="elu",
+                                             pool=True)
+    assert out.shape == (64, 16, 16, 64) and out.dtype == dtype
+    _close(out, ref, dtype)
+
+
+def test_quant_conv3x3_kernel_on_a_one_channel_stem(dev):
+    """Q1 at config 1's R l0 (Ci = 1, padded to 32 int8 channels): within
+    1e-6 of scale with ELU, bitwise with none."""
+    from ganreverser_tpu_torch.ops import quant
+    g = torch.Generator(device=dev).manual_seed(24)
+    xq, xs = quant.quantize_plain(torch.rand(64, 32, 32, 1, device=dev,
+                                             generator=g))
+    wq, ws = quant.quantize_plain(torch.randn(3, 3, 1, 64, device=dev,
+                                              generator=g), axis=(0, 1, 2))
+    b = torch.randn(64, device=dev, generator=g)
+    out = quant.quant_conv3x3_same(xq, xs, wq, ws, b, act="elu")
+    torch.cuda.synchronize()
+    ref = quant.quant_conv3x3_plain(xq, xs, wq, ws, b, act="elu")
+    assert (out - ref).abs().max().item() <= 1e-6 * max(
+        1.0, ref.abs().max().item())
+    assert torch.equal(quant.quant_conv3x3_same(xq, xs, wq, ws, b),
+                       quant.quant_conv3x3_plain(xq, xs, wq, ws, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,ci,co,cf", [(8, 16, 256, 128, 1),
+                                          (4, 64, 256, 128, 3)])
+def test_upsample_head_kernel_at_the_configs(dev, dtype, n, h, ci, co, cf):
+    """U's fused head at G's stage 2 of config 1 (C = 1 on 32x32 output)
+    and of config 5 (C = 3 on 128x128 output)."""
+    g = torch.Generator(device=dev).manual_seed(25)
+    x = torch.rand(n, h, h, ci, device=dev, generator=g).to(dtype)
+    k = torch.randn(3, 3, ci, co, device=dev, generator=g) / 48.0
+    sc = torch.rand(co, device=dev, generator=g) + 0.5
+    sh = 0.1 * torch.randn(co, device=dev, generator=g)
+    fk = torch.randn(3, 3, co, cf, device=dev, generator=g) / 34.0
+    fb = 0.1 * torch.randn(cf, device=dev, generator=g)
+    out = upsample_conv_kernel.upsample2_conv3x3_head(x, k, sc, sh, fk, fb)
+    torch.cuda.synchronize()
+    ref = upsample_conv_kernel.upsample2_conv3x3_bn_act_plain(
+        x, k, sc, sh, act="relu", final_kernel=fk, final_bias=fb)
+    assert out.shape == (n, 2 * h, 2 * h, cf) and out.dtype == dtype
+    _close(out, ref, dtype)
+
+
+@pytest.mark.parametrize("n,q", [(2_560, 10), (1_024, 256)])
+def test_cosine_scores_kernel_at_d_49152(dev, n, q):
+    """C on config 5's flat images (D = 49,152: 768 chunks, at least 12
+    slices): within 1e-5 of the scores in f64 on the same bf16 rows, as
+    the pixel searches are held."""
+    g = torch.Generator(device=dev).manual_seed(26)
+    emb = torch.sigmoid(torch.randn(n, 49_152, device=dev, generator=g)).to(
+        torch.bfloat16)
+    idx = torch.arange(q, device=dev)
+    assert topk_kernel.cosine_plan(n, 49_152, q).slices >= 12
+    out = topk_kernel.cosine_scores(emb, idx)
+    torch.cuda.synchronize()
+    e = emb.double()
+    e = e / e.norm(dim=1, keepdim=True)
+    ref = e[idx] @ e.T
+    assert out.shape == (q, n)
+    assert (out.double() - ref).abs().max().item() <= 1e-5
+
+
+def test_quant_dense_kernel_at_k_131072(dev):
+    """Q3 at config 5's R l27 (K = 131,072, M = 512, K split over blocks)
+    with every operand at +-127: the sums reach 127^2 * 131,072 =
+    2,114,060,288, 1.6 % under 2^31 - 1, through the s32 accumulator and
+    the split sum; bitwise the plain version."""
+    from ganreverser_tpu_torch.ops import quant
+    g = torch.Generator(device=dev).manual_seed(27)
+    x = torch.where(torch.rand(256, 131_072, device=dev, generator=g) < 0.5,
+                    -1.0, 1.0)
+    x[0], x[1] = 1.0, -1.0
+    w = torch.where(torch.rand(131_072, 512, device=dev, generator=g) < 0.5,
+                    -1.0, 1.0)
+    w[:, 0] = 1.0
+    xq, xs = quant.quantize_plain(x)
+    wq, ws = quant.quantize_plain(w, axis=(0,))
+    assert int(xq.abs().min()) == int(wq.abs().min()) == 127
+    b = torch.zeros(512, device=dev)
+    assert quant.dense_plan(256, 131_072, 512)[1] > 1
+    out = quant.quant_dense(xq, xs, wq, ws, b)
+    torch.cuda.synchronize()
+    ref = quant.quant_dense_plain(xq, xs, wq, ws, b)
+    assert torch.equal(out, ref)
+    assert out[0, 0].item() == pytest.approx(2_114_060_288 * (
+        xs * ws.reshape(-1)[0]).item(), rel=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packed_head_on_card(dev, dtype):
+    """ops/pack_conv.py on CUDA tensors (F.conv2d, no kernel of the port):
+    at (4, 8) and (8, 8) within the tolerance of the unpacked head; the fast
+    G with pack_out launches U twice and its head not at all."""
+    from ganreverser_tpu_torch.models import bridge, fastpath, modules, zoo
+    from ganreverser_tpu_torch.ops import pack_conv
+    from ganreverser_tpu_torch.ops.upsample_conv import conv_nhwc
+    g = torch.Generator(device=dev).manual_seed(28)
+    x = torch.rand(16, 64, 64, 128, device=dev, generator=g).to(dtype)
+    k = torch.randn(3, 3, 128, 3, device=dev, generator=g) / 34.0
+    b = 0.1 * torch.randn(3, device=dev, generator=g)
+    ref = torch.sigmoid(conv_nhwc(x, k, 1, dtype) + b).to(dtype)
+    for pack in ((4, 8), (8, 8)):
+        out = pack_conv.conv3x3_packed(x, k, b, pack, "sigmoid", dtype)
+        assert out.shape == ref.shape and out.dtype == dtype
+        _close(out, ref, dtype)
+    dims, nd = (3, 64, 64), 16
+    G = modules.init_parameters(zoo.create_G3(dims, nd),
+                                torch.Generator().manual_seed(3)).to(dev)
+    v = bridge.module_variables(G)
+    z = torch.randn(8, nd, device=dev)
+    before = (upsample_conv_kernel.upsample2_conv3x3_bn_act.launches,
+              upsample_conv_kernel.upsample2_conv3x3_head.launches)
+    packed = fastpath.make_fast_generator(dims, nd, dtype,
+                                          pack_out=(4, 8))(v, z)
+    torch.cuda.synchronize()
+    assert (upsample_conv_kernel.upsample2_conv3x3_bn_act.launches,
+            upsample_conv_kernel.upsample2_conv3x3_head.launches) == (
+                before[0] + 2, before[1])
+    _close(packed, fastpath.make_fast_generator(dims, nd, dtype)(v, z),
+           dtype)

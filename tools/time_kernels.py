@@ -155,24 +155,31 @@ def local_cases(dev, names):
                                              "kernel"))
 
 
-def device_ms(fn, reps: int):
+def device_ms(fn, reps: int, tries: int = 3):
     """(device time per call, launches per call) of ``fn`` in kernels whose
     name holds one of ``DEVICE_KERNELS``, from a torch.profiler trace of
-    ``reps`` calls."""
+    ``reps`` calls, traced again (up to ``tries`` times) while the trace
+    holds a fraction of a launch a call: now and then a trace drops a
+    launch (19 of 20 calls of a one-launch kernel, once in a
+    chip_smoke.py run), which would read as a kernel launched less than
+    once a call and a device time short of one launch."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _ in range(tries):
         torch.cuda.synchronize()
-    total, count = 0.0, 0
-    for ev in prof.key_averages():
-        if any(k in ev.key for k in DEVICE_KERNELS):
-            total += getattr(ev, "device_time_total",
-                             getattr(ev, "cuda_time_total", 0.0))
-            count += ev.count
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total, count = 0.0, 0
+        for ev in prof.key_averages():
+            if any(k in ev.key for k in DEVICE_KERNELS):
+                total += getattr(ev, "device_time_total",
+                                 getattr(ev, "cuda_time_total", 0.0))
+                count += ev.count
+        if count % reps == 0:
+            break
     return total / reps / 1e3, count / reps
 
 
