@@ -17,6 +17,10 @@ The kernel wrappers count their launches in Python (ops/cuda_lib.py),
 which a replay does not run: the counts a capture added are taken back,
 and added again at every replay, so each count stays the number of
 launches the device ran (the warm-up's included).
+
+A call on the graph path is the span ``gr.program.call``, holding
+``gr.program.copy_in``, ``gr.program.replay`` and ``gr.program.clone_out``
+(io/metrics.py::span; nothing inside the graph is a span).
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from typing import Callable, NamedTuple
 import torch
 from torch.utils import _pytree as pytree
 
+from ..io.metrics import span
 from ..ops import cuda_lib
 
 
@@ -54,16 +59,19 @@ class CapturedProgram:
                                  for t in leaves))
         # static buffers are ordinary tensors also when the caller is in
         # inference mode, so that a later call outside it may fill them
-        with torch.inference_mode(False), torch.no_grad(), \
-                cuda_lib.on_device(leaves[0]):
+        with span("gr.program.call"), torch.inference_mode(False), \
+                torch.no_grad(), cuda_lib.on_device(leaves[0]):
             entry = self.graphs.get(key)
             if entry is None:
                 entry = self.graphs[key] = self._capture(leaves, spec)
-            for buf, t in zip(entry.static, leaves):
-                buf.copy_(t)
-            entry.graph.replay()
-            cuda_lib.add_launches(entry.launches)
-            return pytree.tree_map(torch.clone, entry.outputs)
+            with span("gr.program.copy_in"):
+                for buf, t in zip(entry.static, leaves):
+                    buf.copy_(t)
+            with span("gr.program.replay"):
+                entry.graph.replay()
+                cuda_lib.add_launches(entry.launches)
+            with span("gr.program.clone_out"):
+                return pytree.tree_map(torch.clone, entry.outputs)
 
     def _capture(self, leaves, spec) -> _Graph:
         static = [t.detach().clone() for t in leaves]

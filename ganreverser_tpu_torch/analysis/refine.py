@@ -15,6 +15,10 @@ adam is written out as the JAX package writes it (``refine.py:43-47``), with
 the bias correction folded into the step size,
 ``z -= lr sqrt(1 - b2^t) / (1 - b1^t) * m / (sqrt(v) + eps)``, which places
 eps differently from ``torch.optim.Adam``.
+
+A chunk is the span ``gr.refine.chunk`` (io/metrics.py::span), holding at
+each adam step ``gr.refine.forward``, ``gr.refine.backward`` and
+``gr.refine.adam``, then ``gr.refine.loss``.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import torch
 from torch import nn
 
 from ..core.precision import pinned_precision
+from ..io.metrics import span
 
 
 def make_refiner(G: nn.Module, *, steps: int = 100, lr: float = 0.05,
@@ -43,21 +48,27 @@ def make_refiner(G: nn.Module, *, steps: int = 100, lr: float = 0.05,
         return (d * d).mean(dim=tuple(range(1, d.ndim)))
 
     def refine_chunk(images, z0):
-        target = images.float().clone()
-        z = z0.detach().float().clone()
-        m = torch.zeros_like(z)
-        v = torch.zeros_like(z)
-        for t in range(1, steps + 1):
-            z.requires_grad_(True)
-            with torch.enable_grad(), pinned_precision(dtype):
-                (g,) = torch.autograd.grad(per_image_loss(z, target).sum(), z)
-            z = z.detach()
-            m = b1 * m + (1 - b1) * g
-            v = b2 * v + (1 - b2) * g * g
-            step_size = lr * math.sqrt(1 - b2 ** t) / (1 - b1 ** t)
-            z = z - step_size * m / (torch.sqrt(v) + eps)
-        with torch.no_grad(), pinned_precision(dtype):
-            return z, per_image_loss(z, target)
+        with span("gr.refine.chunk"):
+            target = images.float().clone()
+            z = z0.detach().float().clone()
+            m = torch.zeros_like(z)
+            v = torch.zeros_like(z)
+            for t in range(1, steps + 1):
+                z.requires_grad_(True)
+                with torch.enable_grad(), pinned_precision(dtype):
+                    with span("gr.refine.forward"):
+                        loss = per_image_loss(z, target).sum()
+                    with span("gr.refine.backward"):
+                        (g,) = torch.autograd.grad(loss, z)
+                with span("gr.refine.adam"):
+                    z = z.detach()
+                    m = b1 * m + (1 - b1) * g
+                    v = b2 * v + (1 - b2) * g * g
+                    step_size = lr * math.sqrt(1 - b2 ** t) / (1 - b1 ** t)
+                    z = z - step_size * m / (torch.sqrt(v) + eps)
+            with span("gr.refine.loss"), torch.no_grad(), \
+                    pinned_precision(dtype):
+                return z, per_image_loss(z, target)
 
     def refine(images: torch.Tensor, z0: torch.Tensor):
         n = images.shape[0]

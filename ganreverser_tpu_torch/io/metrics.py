@@ -6,18 +6,26 @@
   writer opened;
 * image grids and loss charts -> PNG files under ``<save>/<subdir>``;
 * a profiler trace of a region -> a Chrome trace JSON under a directory
-  (JAX writes a TensorBoard profile plugin directory instead).
+  (JAX writes a TensorBoard profile plugin directory instead);
+* spans: named ranges at the program's layer boundaries (``gr.*``), a flag
+  check each unless a ``torch.profiler`` records; then they lie in its
+  trace on the clock of every kernel, with their device time between two
+  CUDA events (:func:`span`, :func:`spans`).
 """
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import os
 import time
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
+
+_profiling = torch._C._autograd._profiler_enabled
 
 
 class MetricsWriter:
@@ -113,9 +121,91 @@ def profiler_trace(log_dir: Optional[str],
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                            if cuda else [])
     os.makedirs(log_dir, exist_ok=True)
+    clear_spans()
     with profile(activities=activities) as prof:
         yield
         if cuda:
             torch.cuda.synchronize(device)
     prof.export_chrome_trace(os.path.join(
         log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+class Span(NamedTuple):
+    """One span that ran while a profiler recorded."""
+    name: str
+    parent: Optional[str]      # the enclosing span's name; None at a root
+    root: int                  # the id of its root span, shared by the
+                               # spans of one call, chunk or epoch
+    device_ms: Optional[float]  # between its entry and exit on the CUDA
+                                # stream; None off the card, in a graph
+                                # capture, or while it is open
+
+
+_SPANS: list = []   # the spans entered while a profiler recorded, in entry
+                    # order (the profiler holds every kernel's record
+                    # meanwhile, so this needs no cap)
+_OPEN: list = []    # the spans entered and not yet left, innermost last
+_ROOT_IDS = itertools.count()
+_OFF = contextlib.nullcontext()
+
+
+class _Span:
+    __slots__ = ("name", "parent", "root", "start", "end", "_range")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.start = self.end = None
+
+    def __enter__(self):
+        self._range = record_function(self.name)
+        self._range.__enter__()
+        outer = _OPEN[-1] if _OPEN else None
+        self.parent = outer.name if outer else None
+        self.root = outer.root if outer else next(_ROOT_IDS)
+        if (torch.cuda.is_initialized()
+                and not torch.cuda.is_current_stream_capturing()):
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.start.record()
+        _SPANS.append(self)
+        _OPEN.append(self)
+
+    def __exit__(self, *exc):
+        _OPEN.pop()
+        if self.start is not None:
+            self.end = torch.cuda.Event(enable_timing=True)
+            self.end.record()
+        return self._range.__exit__(*exc)
+
+
+def span(name: str):
+    """A context manager around one layer's work, named ``name``
+    (``gr.<layer>.<part>``). Unless a ``torch.profiler`` records, it does
+    nothing but that check. While one records, the range is a
+    ``record_function`` in the trace (an idle gap of the device whose host
+    is in no torch operation is then named by the innermost span), its
+    device interval is taken between two timing events on the current CUDA
+    stream (none while the stream captures a graph), and it is kept for
+    :func:`spans`. Spans nest on one thread."""
+    if not _profiling():
+        return _OFF
+    return _Span(name)
+
+
+def spans() -> list:
+    """The :class:`Span` of every span entered while a profiler recorded,
+    since :func:`clear_spans`, in entry order (a root before what it
+    holds); each device interval is read here, waiting for its end event."""
+    out = []
+    for s in _SPANS:
+        ms = None
+        if s.end is not None:
+            s.end.synchronize()
+            ms = s.start.elapsed_time(s.end)
+        out.append(Span(s.name, s.parent, s.root, ms))
+    return out
+
+
+def clear_spans():
+    """Forget the spans kept so far (:func:`profiler_trace` does so when it
+    starts)."""
+    _SPANS.clear()

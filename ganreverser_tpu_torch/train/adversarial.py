@@ -42,6 +42,7 @@ import torch
 
 from ..core.precision import pinned_precision
 from ..core.prng import noise_inputs
+from ..io.metrics import span
 from ..optim import Optimizer, make_optimizer, regularize
 from ..parallel.comm import all_gather, pmean
 from ..parallel.mesh import Mesh, whole_params
@@ -123,20 +124,21 @@ def make_adversarial_steps(*, dtype: torch.dtype, d_l1: float = 0.0,
                loss: torch.Tensor, l1: float, l2: float, clamp: float):
         """The mean over the 'data' group, the penalties, the update;
         returns the loss with its penalty terms."""
-        grads, loss = list(grads), loss.detach()
-        if mesh is not None:
-            grads, loss = pmean((grads, loss), mesh)
-        grads, loss = regularize(params, grads, loss, l1, l2, clamp)
-        grads, tensors = ts.update_targets(grads)
-        opt.update(grads, ts.opt_state, tensors)
-        ts.step += 1
-        return loss
+        with span("gr.optim.update"):
+            grads, loss = list(grads), loss.detach()
+            if mesh is not None:
+                grads, loss = pmean((grads, loss), mesh)
+            grads, loss = regularize(params, grads, loss, l1, l2, clamp)
+            grads, tensors = ts.update_targets(grads)
+            opt.update(grads, ts.opt_state, tensors)
+            ts.step += 1
+            return loss
 
     def d_step(gs: GanState, real_half: torch.Tensor, z: torch.Tensor,
                confusion: Confusion) -> torch.Tensor:
         G, D = gs.g.module.train(), gs.d.module.train()
         half = z.shape[0]
-        with whole_params(gs.g, gs.d):
+        with span("gr.train.d_step"), whole_params(gs.g, gs.d):
             params = list(D.parameters())
             with pinned_precision(dtype):
                 with torch.no_grad():
@@ -155,12 +157,12 @@ def make_adversarial_steps(*, dtype: torch.dtype, d_l1: float = 0.0,
                 grads = torch.autograd.grad(loss, params)
             loss = update(gs.d, d_opt, params, grads, loss, d_l1, d_l2,
                           d_clamp)
-        confusion.add_batch(out.detach(), targets)
-        return loss
+            confusion.add_batch(out.detach(), targets)
+            return loss
 
     def g_step(gs: GanState, z: torch.Tensor) -> torch.Tensor:
         G, D = gs.g.module.train(), gs.d.module.train()
-        with whole_params(gs.g, gs.d):
+        with span("gr.train.g_step"), whole_params(gs.g, gs.d):
             params = list(G.parameters())
             with pinned_precision(dtype):
                 out = D(G(rows(z))).reshape(-1)
@@ -188,21 +190,24 @@ def train_epoch(d_step: Callable, g_step: Callable, gs: GanState,
     half = batch_size // 2
     need = n_batches * d_iterations * half
     device = train_data.device
-    idx = torch.arange(need, device=device) % train_data.shape[0]
-    reals = train_data[idx].reshape(
-        (n_batches, d_iterations, half) + tuple(train_data.shape[1:]))
-    confusion = confusion if confusion is not None else Confusion.zero(device)
-    d_losses, g_losses = [], []
-    for b in range(n_batches):
-        if should_stop is not None and should_stop():
-            break
-        for i in range(d_iterations):
-            d_losses.append(d_step(gs, reals[b, i], noise(half), confusion))
-        for _ in range(g_iterations):
-            g_losses.append(g_step(gs, noise(batch_size)))
-    if not d_losses:  # stopped before the first batch
-        d_losses = g_losses = [torch.zeros((), device=device)]
-    return confusion, (torch.stack(d_losses), torch.stack(g_losses))
+    with span("gr.train.epoch"):
+        idx = torch.arange(need, device=device) % train_data.shape[0]
+        reals = train_data[idx].reshape(
+            (n_batches, d_iterations, half) + tuple(train_data.shape[1:]))
+        confusion = (confusion if confusion is not None
+                     else Confusion.zero(device))
+        d_losses, g_losses = [], []
+        for b in range(n_batches):
+            if should_stop is not None and should_stop():
+                break
+            for i in range(d_iterations):
+                d_losses.append(d_step(gs, reals[b, i], noise(half),
+                                       confusion))
+            for _ in range(g_iterations):
+                g_losses.append(g_step(gs, noise(batch_size)))
+        if not d_losses:  # stopped before the first batch
+            d_losses = g_losses = [torch.zeros((), device=device)]
+        return confusion, (torch.stack(d_losses), torch.stack(g_losses))
 
 
 def make_epoch_program(*, batch_size: int, noise_dim: int, noise_method: str,
