@@ -133,9 +133,9 @@ class Conv(nn.Module):
 
 
 class UpsampleConv(Conv):
-    """Fused nearest-upsample(2x) + 3x3 SAME conv, one conv over the
-    zero-inserted input (ops/upsample_conv.py), with the parameters of
-    Conv."""
+    """Fused nearest-upsample(2x) + 3x3 SAME conv, one stride-2 transposed
+    conv with the parity-aggregated 4x4 kernel (ops/upsample_conv.py), with
+    the parameters of Conv."""
 
     def forward(self, x):
         return upsample2_conv3x3_dilated(x, self.kernel, self.bias, self.dtype)

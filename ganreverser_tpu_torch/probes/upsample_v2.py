@@ -6,8 +6,8 @@ compiled on the TPU.
 For G3's two stages, (256,16,16,512) -> 256 and (256,32,32,256) -> 128 in
 bf16 (``--smoke``: batch 4 at (4,4,16) -> 8 and (8,8,8) -> 4 in f32), one
 line each with the median times of v1 (kernel U), v2 (kernel B8) and the
-dilated form (ops/upsample_conv.py's one conv over the zero-inserted
-input, then ReLU), and the max error of v2 against v1, which must stay
+dilated form (ops/upsample_conv.py's stride-2 transposed conv, then
+ReLU), and the max error of v2 against v1, which must stay
 within 3e-2 of the output's scale in bf16 (v1 rounds each tap to bf16
 before summing a phase's taps, v2 sums them in f32 first) and 1e-4 in f32.
 

@@ -1616,3 +1616,38 @@ def test_packed_head_on_card(dev, dtype):
                 before[0] + 2, before[1])
     _close(packed, fastpath.make_fast_generator(dims, nd, dtype)(v, z),
            dtype)
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+def test_module_g3_forward_and_z_gradient_never_sync(dev, train):
+    """Module G3 at 64x64 in bf16, a forward and then autograd.grad to z
+    (the refinement's two passes in evaluation; BatchNorm on the batch's
+    statistics in training), runs without a host synchronisation
+    (``set_sync_debug_mode("error")`` raises at the first), and its output
+    and z-gradient match the same module on the CPU."""
+    from ganreverser_tpu_torch.models import modules, zoo
+    dims, nd, dtype = (3, 64, 64), 16, torch.bfloat16
+    G = modules.init_parameters(zoo.create_G3(dims, nd, dtype),
+                                torch.Generator().manual_seed(22)).train(train)
+    gen = torch.Generator().manual_seed(23)
+    z = torch.randn(8, nd, generator=gen)
+    ct = torch.randn(8, 64, 64, 3, generator=gen)
+
+    def run(G, z, ct):
+        z = z.clone().requires_grad_()
+        out = G(z)
+        (gz,) = torch.autograd.grad((out.float() * ct).sum(), z)
+        return out, gz
+
+    ref_out, ref_gz = run(G, z, ct)
+    G, z, ct = G.to(dev), z.to(dev), ct.to(dev)
+    run(G, z, ct)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, gz = run(G, z, ct)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert out.dtype == dtype and gz.dtype == torch.float32
+    _close(out.cpu(), ref_out, dtype)
+    _close(gz.cpu(), ref_gz, dtype)

@@ -10,8 +10,10 @@ on the CPU, in gloo worlds of 2 and 4 processes that import no jax
   'model'. The one-rank port step is held to JAX's by
   tests/test_torch_port_train_r.py and tests/test_torch_port_gan.py.
 * The CLIs: train and train_r as 2 processes (--coordinator_address,
-  --mesh_data 2, --async_save, train with a resume) against one process,
-  their checkpoints loaded by the JAX package; apply_r with --mesh_data 2,
+  --mesh_data 2, --async_save, train with a resume) against one process
+  (train_r step by step: after its own steps and after --cont), the ranks
+  of train_r bit for bit alike, their checkpoints loaded by the JAX
+  package; apply_r with --mesh_data 2,
   --mesh_model 2 and both, each starting its own ranks, against the
   one-rank run.
 
@@ -34,14 +36,22 @@ from PIL import Image
 
 from ganreverser_tpu import io as gio
 from ganreverser_tpu.cli import common as jcommon
-from ganreverser_tpu_torch.cli import apply_r, train, train_r
+from ganreverser_tpu_torch.cli import apply_r, common, train, train_r
+from ganreverser_tpu_torch.core.prng import (INIT_STAGE, stage_generator,
+                                             trainer_generators)
 from ganreverser_tpu_torch.io import checkpoint as ckpt
 from ganreverser_tpu_torch.models import bridge, zoo
-from ganreverser_tpu_torch.models.modules import init_parameters
+from ganreverser_tpu_torch.models.bridge import load_jax_variables
+from ganreverser_tpu_torch.models.modules import (init_parameters,
+                                                  set_dropout_generator)
+from ganreverser_tpu_torch.optim import adam
+from ganreverser_tpu_torch.train.r_loop import make_r_segment_program
+from ganreverser_tpu_torch.train.state import TrainState
 
 import torch_port_dist_worker as W
 
 ND, LR = 8, 1e-3
+R_DIMS = (1, 8, 8)  # GEOM's
 GEOM = ["--dataset", "synthetic", "--colorSpace", "y", "--height", "8",
         "--width", "8", "--noiseDim", str(ND), "--batchSize", "8",
         "--N_epoch", "2", "--nopretraining", "--noplot"]
@@ -135,22 +145,31 @@ def _cli(module: str, args: list) -> list:
             *args]
 
 
-def _two_processes(module: str, args: list) -> list:
+def _two_processes(module: str, args: list, dump=None) -> list:
+    """The CLI ``module`` as 2 processes; with ``dump``, each through
+    torch_port_dist_worker.py --cli, which writes rank r's train state
+    and losses to ``dump/rank<r>.npz``."""
     port = W.free_port()
-    return W.run_processes([_cli(module, args + [
-        "--coordinator_address", f"localhost:{port}", "--num_processes", "2",
-        "--process_id", str(r)]) for r in range(2)])
+    return W.run_processes([
+        (_cli(module, []) if dump is None else
+         [sys.executable, W.__file__, "--cli", module,
+          os.path.join(dump, f"rank{r}.npz")]) + args + [
+            "--coordinator_address", f"localhost:{port}",
+            "--num_processes", "2", "--process_id", str(r)]
+        for r in range(2)])
 
 
-def _trees_match(tree, ref):
+def _trees_match(tree, ref, steps=None):
     """Leaf for leaf: integer leaves (the step counts) equal, float leaves
-    as in :func:`_params_close` over all the run's steps (a bias before a
-    training-mode BatchNorm that stepped either way moves the running
-    statistics and the moments after it, by less than it moved)."""
+    as in :func:`_params_close` over ``steps`` steps, by default all the
+    run's (a bias before a training-mode BatchNorm that stepped either way
+    moves the running statistics and the moments after it, by less than it
+    moved)."""
     flat, flat_ref = W.flat(tree), W.flat(ref)
     assert sorted(flat) == sorted(flat_ref)
-    steps = max(int(np.max(v)) for k, v in flat_ref.items()
-                if k.endswith("step"))
+    if steps is None:
+        steps = max(int(np.max(v)) for k, v in flat_ref.items()
+                    if k.endswith("step"))
     floats = [k for k in flat if flat_ref[k].dtype.kind == "f"]
     _params_close([flat[k] for k in floats], [flat_ref[k] for k in floats],
                   steps)
@@ -189,23 +208,100 @@ def g_checkpoint(tmp_path_factory):
     return gio.adversarial_name(save)
 
 
+def _one_process_steps(g_checkpoint: str, trees: list) -> tuple:
+    """From each R tree of ``trees`` in turn, one train_r step in one
+    process on the whole batch, with the latents and dropout masks that
+    train_r (seed 1, --dropout kernel) draws for the next batch after as
+    many batches as the tree's place in the list: the R trees and losses
+    after the steps."""
+    g_tree, _, _ = ckpt.load_checkpoint(g_checkpoint)
+    G = load_jax_variables(zoo.create_G(R_DIMS, ND), g_tree["G"])
+    segment = make_r_segment_program(G, batch_size=8, noise_dim=ND,
+                                     noise_method="normal",
+                                     dtype=torch.float32)
+    noise, drops = trainer_generators(1, torch.device("cpu"))
+    after, losses = [], []
+    for tree in trees:
+        R = zoo.create_R(R_DIMS, ND, "normal", dropout_impl="kernel")
+        ts = common.ts_from_tree(tree, R, adam(), torch.device("cpu"))
+        set_dropout_generator(R, drops)
+        losses.append(float(segment(ts, noise, 1)[0]))
+        after.append(common.ts_to_tree(ts))
+    return after, losses
+
+
 def test_two_process_train_r_with_async_save(g_checkpoint, tmp_path):
     """train_r as 2 processes (--mesh_data 2, --async_save, --dropout
-    kernel: B5's plain version with each rank's counter base): the
-    checkpoint equals the one-process run's and loads in the JAX
-    package."""
-    args = ["--G", g_checkpoint, "--nbBatches", "3", "--saveFreq", "3",
-            "--batchSize", "8", "--noplot", "--dropout", "kernel"]
-    one = train_r.main(args + ["--save", str(tmp_path / "one")])
-    _two_processes("train_r", args + ["--save", str(tmp_path / "two"),
-                                      "--mesh_data", "2", "--async_save"])
-    name = os.path.basename(one["checkpoint"])
-    tree, _, extra = ckpt.load_checkpoint(str(tmp_path / "two" / name))
-    ref, _, ref_extra = ckpt.load_checkpoint(one["checkpoint"])
-    assert extra["batch"] == ref_extra["batch"] == 3
-    _trees_match(tree["R"], ref["R"])
-    j_tree, _, _ = gio.load_checkpoint(str(tmp_path / "two" / name))
+    kernel: B5's plain version with each rank's counter base) for 1, 2 and
+    3 batches, each run one segment from the start: both ranks end with
+    the R of rank 0's checkpoint and the same losses, bit for bit, and each
+    run's losses begin with the shorter run's (one trajectory). Each
+    checkpoint equals the one-process step on the whole batch from the one
+    before (the first from train_r's initial R), with the latents and masks
+    that train_r draws for that batch, as :func:`_trees_match` holds one
+    step; the last loads in the JAX package.
+
+    The one-process run is compared step by step, and not after 3 chained
+    steps of its own: the two runs' states differ after a step (a bias
+    before a training-mode BatchNorm steps either way), and where a 2x2
+    window of the MaxPool after layer 21 holds two values 4e-6 apart
+    relatively, that difference can pick the other maximum in the next
+    forward and route that window's gradient elsewhere, which moves one
+    channel of layer 21's gradient by a fifth of its scale and, through
+    adam, a third of the elements by more than 1e-5 of scale."""
+    args = ["--G", g_checkpoint, "--saveFreq", "3", "--batchSize", "8",
+            "--noplot", "--dropout", "kernel", "--mesh_data", "2",
+            "--async_save"]
+    R = zoo.create_R(R_DIMS, ND, "normal", dropout_impl="kernel")
+    init_parameters(R, stage_generator(1, INIT_STAGE, "cpu"))
+    trees = [common.ts_to_tree(TrainState.create(R, adam()))]
+    losses = np.zeros(0, np.float32)
+    for n in (1, 2, 3):
+        save = tmp_path / f"two{n}"
+        _two_processes("train_r", args + ["--nbBatches", str(n), "--save",
+                                          str(save)], dump=str(save))
+        path = ckpt.r_name(str(save), *R_DIMS, ND, "normal", False)
+        tree, _, extra = ckpt.load_checkpoint(path)
+        assert extra["batch"] == n
+        saved = W.flat(tree["R"], "R/")
+        ranks = [dict(np.load(save / f"rank{r}.npz")) for r in range(2)]
+        for rank in ranks:
+            assert sorted(rank) == sorted(saved) + ["losses"]
+            for k, v in saved.items():
+                assert np.array_equal(rank[k], v), k
+            assert np.array_equal(rank["losses"], ranks[0]["losses"])
+        assert np.array_equal(ranks[0]["losses"][:-1], losses)
+        losses = ranks[0]["losses"]
+        trees.append(tree["R"])
+    after, one_losses = _one_process_steps(g_checkpoint, trees[:-1])
+    _scale_close(losses, one_losses)
+    for tree, ref in zip(trees[1:], after):
+        _trees_match(tree, ref, steps=1)
+    j_tree, _, _ = gio.load_checkpoint(path)
     assert int(jcommon.ts_from_tree(j_tree["R"]).step) == 3
+
+
+def test_two_process_train_r_steps_match(g_checkpoint, tmp_path):
+    """train_r as 2 processes, as above, for one batch at a time, each run
+    in both from the one-process run's last checkpoint (--cont), so that
+    each comparison covers one step from one state, as
+    test_torch_port_train_r.py's against JAX does: after each batch the
+    checkpoint equals the one-process run's, adam's moments within adam's
+    bound too."""
+    args = ["--G", g_checkpoint, "--nbBatches", "1", "--saveFreq", "1",
+            "--batchSize", "8", "--noplot", "--dropout", "kernel"]
+    cont = []
+    for batch in (1, 2, 3):
+        one = train_r.main(args + cont + ["--save",
+                                          str(tmp_path / f"one{batch}")])
+        two = tmp_path / f"two{batch}" / os.path.basename(one["checkpoint"])
+        _two_processes("train_r", args + cont + [
+            "--save", str(two.parent), "--mesh_data", "2", "--async_save"])
+        tree, _, extra = ckpt.load_checkpoint(str(two))
+        ref, _, ref_extra = ckpt.load_checkpoint(one["checkpoint"])
+        assert extra["batch"] == ref_extra["batch"] == batch
+        _trees_match(tree["R"], ref["R"], steps=1)
+        cont = ["--cont", one["checkpoint"]]
 
 
 def _save_net(path: str, key: str, module, config: dict):

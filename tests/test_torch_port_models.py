@@ -55,19 +55,32 @@ def test_R_matches_jax(rng, noise_method):
     np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("dtype", [
-    pytest.param("float32", id="dilated"),
-    pytest.param("bfloat16", id="dilated_bf16")])
-def test_upsample_conv_formulations_match_jax(rng, dtype):
-    """UpsampleConv's lhs-dilated formulation against JAX's, and in f32
-    against JAX's naive upsample-then-conv. In bf16 both round the operands
-    and the output at the same places but sum in another order, so they may
-    land one bf16 ulp (2^-7 relative at most) apart."""
+# (N, H, W, Ci, Co) of the upsample cases: the first, a 1x1 input, batch 1
+# non-square and odd, and 16 -> 8 channels
+_UPSAMPLE_SHAPES = {"": (2, 5, 6, 4, 7), "-1x1": (2, 1, 1, 4, 7),
+                    "-b1_odd": (1, 3, 7, 5, 6), "-c16": (2, 4, 4, 16, 8)}
+_UPSAMPLE_CASES = [
+    pytest.param(dtype, shape, id=name + suffix)
+    for suffix, shape in _UPSAMPLE_SHAPES.items()
+    for dtype, name in (("float32", "dilated"), ("bfloat16", "dilated_bf16"))]
+
+
+def _upsample_inputs(rng, shape):
+    n, h, w, ci, co = shape
+    return (rng.normal(size=(n, h, w, ci)).astype(np.float32),
+            rng.normal(size=(3, 3, ci, co)).astype(np.float32),
+            rng.normal(size=(co,)).astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype,shape", _UPSAMPLE_CASES)
+def test_upsample_conv_formulations_match_jax(rng, dtype, shape):
+    """UpsampleConv's transposed conv against JAX's lhs-dilated conv, and in
+    f32 against JAX's naive upsample-then-conv. In bf16 both round the
+    operands and the output at the same places but sum in another order, so
+    they may land one bf16 ulp (2^-7 relative at most) apart."""
     from ganreverser_tpu.ops import upsample_conv as jup
     from ganreverser_tpu_torch.ops import upsample_conv as tup
-    x = rng.normal(size=(2, 5, 6, 4)).astype(np.float32)
-    k = rng.normal(size=(3, 3, 4, 7)).astype(np.float32)
-    b = rng.normal(size=(7,)).astype(np.float32)
+    x, k, b = _upsample_inputs(rng, shape)
     ref = np.asarray(jup.upsample2_conv3x3_dilated(
         x, k, b, dtype=getattr(jnp, dtype))).astype(np.float32)
     if dtype == "float32":
@@ -77,8 +90,36 @@ def test_upsample_conv_formulations_match_jax(rng, dtype):
     args = [torch.from_numpy(a) for a in (x, k, b)]
     out = tup.upsample2_conv3x3_dilated(*args, dtype=getattr(torch, dtype))
     assert out.dtype == getattr(torch, dtype)
+    assert out.shape == (shape[0], 2 * shape[1], 2 * shape[2], shape[4])
     rtol, atol = (1e-4, 1e-4) if dtype == "float32" else (8e-3, 1e-5)
     np.testing.assert_allclose(out.float().numpy(), ref, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype,shape", _UPSAMPLE_CASES)
+def test_upsample_conv_gradients_match_jax(rng, dtype, shape):
+    """The gradients of UpsampleConv's function for x, the kernel and the
+    bias against ``jax.vjp`` of JAX's lhs-dilated conv, for one cotangent
+    in the output's dtype. In bf16 both round the x and tap gradients to
+    bf16 at the same places (the port in its casts' backward, JAX in its
+    low-precision conv's), so they stay within one ulp; the kernel's and the
+    bias's sums are f32 in both."""
+    from ganreverser_tpu.ops import upsample_conv as jup
+    from ganreverser_tpu_torch.ops import upsample_conv as tup
+    x, k, b = _upsample_inputs(rng, shape)
+    n, h, w, _, co = shape
+    ct = jnp.asarray(rng.normal(size=(n, 2 * h, 2 * w, co)),
+                     getattr(jnp, dtype))
+    _, vjp = jax.vjp(lambda *a: jup.upsample2_conv3x3_dilated(
+        *a, dtype=getattr(jnp, dtype)), x, k, b)
+    refs = [np.asarray(g, np.float32) for g in vjp(ct)]
+    args = [torch.from_numpy(a).requires_grad_() for a in (x, k, b)]
+    out = tup.upsample2_conv3x3_dilated(*args, dtype=getattr(torch, dtype))
+    out.backward(torch.from_numpy(np.array(ct, np.float32)).to(out.dtype))
+    rtol, atol = (1e-4, 1e-6) if dtype == "float32" else (8e-3, 1e-5)
+    for a, ref in zip(args, refs):
+        assert a.grad.dtype == torch.float32
+        np.testing.assert_allclose(a.grad.numpy(), ref, rtol=rtol,
+                                   atol=atol * np.abs(ref).max())
 
 
 def test_modules_are_eval_only():

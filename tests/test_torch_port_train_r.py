@@ -49,6 +49,22 @@ def _close(out, ref, tol):
         assert err <= tol * max(1.0, np.abs(ref).max()), err
 
 
+class _SameImages(torch.nn.Module):
+    """The port's G held to JAX's images of the latents (f32, 1e-6 of
+    scale), which it then hands on: R's training-mode step here moves by up
+    to 7e-4 of scale when its images move by half an ulp, so the two
+    packages' steps are compared on the same images."""
+
+    def __init__(self, G, jax_images):
+        super().__init__()
+        self.G, self.jax_images = G, jax_images
+
+    def forward(self, z):
+        images = np.array(self.jax_images(jnp.asarray(z.numpy())))
+        _close(self.G(z), images, 1e-6)
+        return T(images)
+
+
 def _jax_variables(model, in_shape, seed, rng, amplify=1.0):
     """JAX variables with non-trivial BN stats; ``amplify`` scales the
     kernels so that random images and latents are not near-constant."""
@@ -206,8 +222,9 @@ def test_train_step_matches_jax(rng):
     """f32, dropouts off (the JAX module sends impl='kernel' to threefry
     off the TPU, so masks cannot be compared inside it): R.apply(train=True),
     mse, value_and_grad, regularize, adam, merge_state against the port's
-    step on the same weights and latents, steps 1 to 3: parameters, BN
-    buffers, adam m and v, and the loss, within 1e-5 of scale.
+    step on the same weights, latents and images (``_SameImages``), steps 1
+    to 3: parameters, BN buffers, adam m and v, and the loss, within 1e-5 of
+    scale.
 
     Each step starts both packages from one state, the JAX state after the
     previous step carried into the port by ts_from_tree, so step 3 runs
@@ -255,7 +272,8 @@ def test_train_step_matches_jax(rng):
     for m in R.modules():
         if isinstance(m, modules.Dropout):
             m.rate = 0.0
-    step = make_r_train_step(G, dtype=torch.float32)
+    jax_images = jax.jit(lambda z: jg.apply(gv, z, train=False)[0])
+    step = make_r_train_step(_SameImages(G, jax_images), dtype=torch.float32)
     jts = JT.TrainState.create(rv, opt)
     leaves = jax.tree_util.tree_leaves
     for i, z in enumerate(zs):

@@ -10,6 +10,7 @@ with the JAX package in its own process.
 
     python tests/torch_port_dist_worker.py --rank R --world N --port P \\
         --dir DIR --cases comm,analysis
+    python tests/torch_port_dist_worker.py --cli train_r OUT.npz ARGS...
 """
 from __future__ import annotations
 
@@ -454,7 +455,25 @@ CASES = {name[5:]: fn for name, fn in dict(globals()).items()
          if name.startswith("case_")}
 
 
+def cli(argv: list) -> None:
+    """``--cli MODULE OUT ARGS...``: one process of the port's CLI
+    ``MODULE`` on ``ARGS``, which writes to ``OUT`` (npz) what its main
+    returns: the losses and, under ``R/``, the train state as the JAX
+    package's tree (cli/common.py::ts_to_tree), flattened. Every rank's
+    own, where the CLI saves only rank 0's."""
+    import importlib
+    module, out, args = argv[0], argv[1], argv[2:]
+    from ganreverser_tpu_torch.cli import common
+    ran = importlib.import_module(f"ganreverser_tpu_torch.cli.{module}"
+                                  ).main(args)
+    np.savez(out, losses=np.asarray(ran["losses"]),
+             **flat(common.ts_to_tree(ran["ts"]), "R/"))
+    assert "jax" not in sys.modules, "a rank imported jax"
+
+
 def main():
+    if sys.argv[1:2] == ["--cli"]:
+        return cli(sys.argv[2:])
     ap = argparse.ArgumentParser()
     ap.add_argument("--rank", type=int, required=True)
     ap.add_argument("--world", type=int, required=True)
