@@ -1,6 +1,8 @@
 """``nn.Module``s of the zoo's layers (G3, G4, G_encoder, D2, D_default,
 D_facegen, R, createResidual) — the counterparts of
-ganreverser_tpu/models/modules.py, in evaluation and in training.
+ganreverser_tpu/models/modules.py, in evaluation and in training — and of
+StyleGAN2's generator (:class:`StyleGenerator`, which has no counterpart
+in the JAX package).
 
 Conventions kept from the JAX package, so that its checkpoints map onto
 these modules name for name (``models/bridge.py``):
@@ -48,8 +50,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.precision import pinned_precision
+from ..io.metrics import span
 from ..ops.dropout_kernel import draw_seed, fused_dropout
-from ..ops.upsample_conv import conv_nhwc, upsample2_conv3x3_dilated
+from ..ops.upsample_conv import (conv_nhwc, conv_transpose2_nhwc,
+                                 upsample2_conv3x3_dilated)
 from ..parallel.comm import psum
 from .init import SCHEMES, init_bn_scale, init_conv, init_dense
 
@@ -413,6 +417,249 @@ class Residual(nn.Module):
 
     def forward(self, x):
         return self.inner(x) + self.shortcut(x)
+
+
+# ------------------------------------------------------------- StyleGAN2
+#
+# The generator of Karras et al., "Analyzing and Improving the Image Quality
+# of StyleGAN" (arXiv:1912.04958; NVlabs/stylegan2, training/
+# networks_stylegan2.py and dnnlib/tflib/ops/upfirdn_2d.py), under the
+# conventions above: NHWC, HWIO and (in, out) kernels, operands rounded to
+# ``dtype`` with f32 products and sums, each layer's output held in
+# ``dtype``. Weights are stored as the official code stores them (before
+# the equalized learning rate's runtime scale); they are zero until loaded.
+
+_SQRT2 = math.sqrt(2.0)
+_LRELU_SLOPE = 0.2
+_EPS = 1e-8
+_FIR = (1.0, 3.0, 3.0, 1.0)  # the resampling filter's taps, each axis
+_MAPPING_LR_MUL = 0.01  # the mapping's equalized learning rate multiplier
+
+
+def _lrelu(x: torch.Tensor) -> torch.Tensor:
+    """lrelu(0.2) times sqrt(2), the gain of StyleGAN2's ``fused_bias_act``."""
+    return F.leaky_relu(x, _LRELU_SLOPE) * _SQRT2
+
+
+class PixelNorm(nn.Module):
+    """z / sqrt(mean(z^2) + 1e-8) over the last axis (``normalize_2nd_moment``),
+    in f32, held in ``dtype``."""
+
+    def __init__(self, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+
+    def forward(self, z):
+        zf = z.float()
+        return (zf * torch.rsqrt((zf * zf).mean(dim=-1, keepdim=True) + _EPS)
+                ).to(self.dtype)
+
+
+class EqualDense(nn.Module):
+    """StyleGAN2's dense layer with the equalized learning rate: the kernel
+    (in, out) and the bias are used at ``kernel * lr_mul / sqrt(in)`` and
+    ``bias * lr_mul``; ``act="lrelu"`` adds lrelu(0.2) * sqrt(2)."""
+
+    def __init__(self, in_features: int, features: int,
+                 dtype: torch.dtype = torch.float32, lr_mul: float = 1.0,
+                 act: str = "linear"):
+        super().__init__()
+        if act not in ("linear", "lrelu"):
+            raise ValueError(f"EqualDense act {act!r}: expected linear or "
+                             "lrelu")
+        self.kernel = nn.Parameter(torch.zeros(in_features, features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.gain = lr_mul / math.sqrt(in_features)
+        self.lr_mul = lr_mul
+        self.act = act
+        self.dtype = dtype
+
+    def forward(self, x):
+        y = (dense(x, self.kernel * self.gain, self.dtype)
+             + self.bias * self.lr_mul)
+        return (_lrelu(y) if self.act == "lrelu" else y).to(self.dtype)
+
+
+class FIRFilter(nn.Module):
+    """The 2-D FIR filter f (x) f of each of ``channels`` channels, f the
+    taps [1, 3, 3, 1], normalised to sum 1 and the 2-D filter scaled by 4,
+    the gain of a 2x up-sampling (upfirdn_2d's ``_setup_kernel``), applied
+    as a convolution (the filter flipped, as upfirdn2d does). ``up=1``: the blur after an up-sampling convolution,
+    pad (1, 1): 2r + 1 rows in, 2r out. ``up=2``: ``upsample_2d``, a zero
+    after each pixel, pad (2, 1), the filter, as one stride-2 transposed
+    convolution with padding 1: r rows in, 2r out. f32 result."""
+
+    def __init__(self, channels: int, up: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if up not in (1, 2):
+            raise ValueError(f"FIRFilter up {up}: expected 1 or 2")
+        f = torch.tensor(_FIR, dtype=torch.float32)
+        f2 = torch.outer(f, f).flip(0, 1)
+        f2 = f2 / f2.sum() * 4.0
+        shape = (channels, 1) if up == 2 else (1, channels)
+        kernel = f2[:, :, None, None].repeat(1, 1, *shape)
+        self.register_buffer("taps", kernel, persistent=False)
+        self.up = up
+        self.channels = channels
+        self.dtype = dtype
+
+    def forward(self, x):
+        if self.up == 2:
+            return conv_transpose2_nhwc(x, self.taps, 1, self.dtype,
+                                        groups=self.channels)
+        return conv_nhwc(x, self.taps, 1, self.dtype, groups=self.channels)
+
+
+class ModulatedConv(nn.Module):
+    """StyleGAN2's modulated convolution (``modulated_conv2d_layer``) in the
+    form its paper gives as equivalent: the input scaled by the style s =
+    A(w) per sample and input channel, the convolution with the shared
+    weight at its runtime scale 1 / sqrt(Ci k k) and, with ``demodulate``,
+    the output scaled per sample and output channel by d_o = 1 / sqrt(
+    sum_i s_i^2 sum_k w_{o,i,k}^2 + 1e-8): the convolution with the
+    per-sample weight d s w, which is never built. ``up``: the same weight
+    as a stride-2 transposed convolution (2r + 1 outputs), then the FIR blur
+    scaled by 4, pad (1, 1) (``upsample_conv_2d``): output 2r. The affine A
+    is an :class:`EqualDense` from w to Ci, its bias the style's (1 at
+    StyleGAN2's init). f32 result."""
+
+    def __init__(self, in_ch: int, features: int, kernel: int, w_dim: int,
+                 dtype: torch.dtype = torch.float32, demodulate: bool = True,
+                 up: bool = False):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.zeros(kernel, kernel, in_ch,
+                                               features))
+        self.affine = EqualDense(w_dim, in_ch, dtype)
+        self.blur = FIRFilter(features, 1, dtype) if up else None
+        self.gain = 1.0 / math.sqrt(in_ch * kernel * kernel)
+        self.demodulate = demodulate
+        self.dtype = dtype
+
+    def forward(self, x, w):
+        s = self.affine(w)
+        xs = x.to(self.dtype) * s[:, None, None, :]
+        k = self.kernel * self.gain
+        if self.blur is not None:
+            y = self.blur(conv_transpose2_nhwc(xs, k, 0, self.dtype))
+        else:
+            y = conv_nhwc(xs, k, (k.shape[0] - 1) // 2, self.dtype)
+        if self.demodulate:
+            d = torch.rsqrt(dense(s.float() ** 2, (k * k).sum(dim=(0, 1)),
+                                  self.dtype) + _EPS)
+            y = y * d[:, None, None, :]
+        return y
+
+
+class SynthesisLayer(ModulatedConv):
+    """A demodulated 3x3 :class:`ModulatedConv` (``up`` as there), then
+    + strength * noise (one fixed H x W map, StyleGAN2's "const" noise
+    mode; ``noise`` is a buffer, ``strength`` a learned scalar), + bias,
+    lrelu(0.2) * sqrt(2); held in ``dtype``."""
+
+    def __init__(self, in_ch: int, features: int, res: int, w_dim: int,
+                 dtype: torch.dtype = torch.float32, up: bool = False):
+        super().__init__(in_ch, features, 3, w_dim, dtype, True, up)
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.strength = nn.Parameter(torch.zeros(()))
+        self.register_buffer("noise", torch.zeros(res, res))
+
+    def forward(self, x, w):
+        y = (super().forward(x, w) + self.strength * self.noise[:, :, None]
+             + self.bias)
+        return _lrelu(y).to(self.dtype)
+
+
+class ToRGB(ModulatedConv):
+    """A modulated 1x1 convolution to the image's channels, without
+    demodulation, plus a bias; f32 result."""
+
+    def __init__(self, in_ch: int, w_dim: int, channels: int = 3,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_ch, channels, 1, w_dim, dtype, demodulate=False)
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x, w):
+        return super().forward(x, w) + self.bias
+
+
+class SynthesisBlock(nn.Module):
+    """One resolution of StyleGAN2's skip generator. At 4 x 4: the learned
+    constant (``const``, H x W x C), one :class:`SynthesisLayer` and
+    :class:`ToRGB`. Above: an up-sampling layer (``conv0``), a layer
+    (``conv1``) and ToRGB; the image so far, up-sampled by the FIR
+    (``upsample_2d``, gain 4), plus ToRGB's output is the new image.
+    ``forward(x, y, w) -> (x, y)``, features and image held in ``dtype``."""
+
+    def __init__(self, in_ch: int, features: int, res: int, w_dim: int,
+                 image_channels: int = 3, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        if res == 4:
+            self.const = nn.Parameter(torch.zeros(res, res, features))
+            self.conv = SynthesisLayer(features, features, res, w_dim, dtype)
+        else:
+            self.conv0 = SynthesisLayer(in_ch, features, res, w_dim, dtype,
+                                        up=True)
+            self.conv1 = SynthesisLayer(features, features, res, w_dim,
+                                        dtype)
+            self.skip = FIRFilter(image_channels, 2, dtype)
+        self.torgb = ToRGB(features, w_dim, image_channels, dtype)
+
+    def forward(self, x, y, w):
+        if y is None:
+            x = self.const.to(self.dtype).expand(w.shape[0],
+                                                 *self.const.shape)
+            x = self.conv(x, w)
+            return x, self.torgb(x, w).to(self.dtype)
+        x = self.conv1(self.conv0(x, w), w)
+        return x, (self.skip(y) + self.torgb(x, w)).to(self.dtype)
+
+
+class StyleGenerator(nn.Module):
+    """StyleGAN2's generator (``G_mapping`` + ``G_synthesis_stylegan2``,
+    the skip architecture), z (N, noise_dim) -> images (N, H, W, C) in
+    ``dtype``, at truncation 1 and without style mixing.
+
+    ``mapping``: :class:`PixelNorm`, then ``mapping_layers`` dense layers
+    with lrelu and the equalized learning rate at lr_mul 0.01, giving w,
+    which every layer's style takes (``l1`` ... are the dense layers).
+    Blocks ``b4``, ``b8``, ... up to H, with min(2 channel_base / r,
+    channel_max) channels at resolution r. Spans (io/metrics.py::span):
+    ``gr.sg2.mapping`` and one ``gr.sg2.b<r>`` a block."""
+
+    def __init__(self, dimensions, noise_dim: int, w_dim: int,
+                 dtype: torch.dtype = torch.float32, mapping_layers: int = 8,
+                 channel_base: int = 16384, channel_max: int = 512):
+        super().__init__()
+        c, h, w = dimensions
+        if h != w or h < 4 or h & (h - 1):
+            raise ValueError(f"StyleGAN2 needs a square power-of-two image "
+                             f"of at least 4 x 4, got {h} x {w}")
+        self.mapping = Sequential([PixelNorm(dtype)] + [
+            EqualDense(noise_dim if i == 0 else w_dim, w_dim, dtype,
+                       _MAPPING_LR_MUL, "lrelu")
+            for i in range(mapping_layers)])
+        res, in_ch = 4, None
+        while res <= h:
+            ch = min(2 * channel_base // res, channel_max)
+            self.add_module(f"b{res}", SynthesisBlock(
+                in_ch, ch, res, w_dim, c, dtype))
+            res, in_ch = 2 * res, ch
+
+    def blocks(self):
+        """(name, block) of the synthesis blocks, from 4 x 4 up."""
+        return [(n, m) for n, m in self.named_children()
+                if isinstance(m, SynthesisBlock)]
+
+    def forward(self, z):
+        with span("gr.sg2.mapping"):
+            w = self.mapping(z)
+        x = y = None
+        for name, block in self.blocks():
+            with span(f"gr.sg2.{name}"):
+                x, y = block(x, y, w)
+        return y
 
 
 def init_parameters(module: nn.Module, generator: torch.Generator) -> nn.Module:

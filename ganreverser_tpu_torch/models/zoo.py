@@ -1,6 +1,7 @@
 """The model zoo — the counterparts of ganreverser_tpu/models/zoo.py: G3,
 G4, G_encoder, D2, D_default, D_facegen, R (plain and fixer) and
-createResidual, with the same layer indices.
+createResidual, with the same layer indices — and StyleGAN2's config-F
+generator (:func:`create_G_sg2f`, the port's own).
 
 ``dimensions`` is (C, H, W) as in the reference; tensors flow as NHWC. The
 models are returned in evaluation mode (``.train()`` switches BatchNorm and
@@ -25,7 +26,7 @@ import torch
 from .modules import (Activation, AvgPool, BatchNorm, ConcatBranches, Conv,
                       Dense, Dropout, Flatten, Identity, MaxPool, PReLU,
                       Reshape, Residual, Sequential, SpatialDropout,
-                      UpsampleConv, UpsampleNearest)
+                      StyleGenerator, UpsampleConv, UpsampleNearest)
 
 Dims = tuple  # (C, H, W)
 
@@ -68,6 +69,22 @@ def create_G3(dimensions: Dims, noise_dim: int,
         Conv(128, c, dtype=dtype, **conv),
         Activation("sigmoid"),
     ]).eval()
+
+
+def create_G_sg2f(dimensions: Dims = (3, 1024, 1024), noise_dim: int = 512,
+                  w_dim: int = 512, dtype: torch.dtype = torch.float32, *,
+                  mapping_layers: int = 8, channel_base: int = 16384,
+                  channel_max: int = 512):
+    """StyleGAN2 config F (arXiv:1912.04958; NVlabs/stylegan2,
+    ``run_training.py``'s config-f: ``fmap_base = 16 << 10``): a mapping of
+    8 dense layers 512 -> 512, and the skip synthesis from a learned 4 x 4
+    constant up to H x W, min(2 * 16384 / r, 512) channels at resolution r
+    (512 up to 64 x 64, then 256, 128, 64, 32), with modulated and
+    demodulated 3x3 convolutions, const noise inputs, ToRGB at every
+    resolution and FIR up-sampling ([1, 3, 3, 1]). z (N, noise_dim) ->
+    NHWC images. The keywords give smaller presets (the CPU tests)."""
+    return StyleGenerator(dimensions, noise_dim, w_dim, dtype,
+                          mapping_layers, channel_base, channel_max).eval()
 
 
 def create_G4(dimensions: Dims, noise_dim: int,
