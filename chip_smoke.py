@@ -63,7 +63,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    B7 (conv_stats) at its probe's (256,64,64,256) -> 128,
    y to the tolerance, the sums within 1e-4 of their magnitudes, bitwise
    repeatable; the three B9 probes exactly their plain versions, with
-   their wrapper and device (torch.profiler) times;
+   their wrapper and device (torch.profiler) times. StyleGAN2's FIR
+   filter (csrc/fir.cu) at the 16 shapes of one refine step of config F
+   (``portbench/configs/sg2f_ffhq1024.json``), batch 8, bf16: forward and
+   backward through ``fir_filter`` against ``upfirdn2d_plain`` within
+   1e-5 of the largest output (the f32 sums' order), one bf16 step more
+   for the gradient rounded to bf16; kernel, plain, library (cuDNN's
+   depthwise F.conv2d / F.conv_transpose2d of f32 operands, the module
+   path's filter before the kernel) and bound times; then one forward and
+   backward of config F at batch 8 must launch it twice per FIRFilter
+   (32) and copy no input;
 4. the main path at full width: random G3, R and fixer-R (3x64x64, noise
    dim 100, normal noise, non-trivial BN running statistics) saved as
    checkpoints, then ``cli.apply_r.main`` with N = 10,000, 10 needles, batch
@@ -88,7 +97,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    by CUDA events with the kernel and with the plain masks (the median of
    40: two runs of 20 steps each, ordered kernel, plain, plain, kernel),
    and an f32 step that gives the same parameters with the process-wide
-   TF32 flags on and off (the backward runs under the precision pin);
+   TF32 flags on and off (the backward runs under the precision pin;
+   cuDNN held to deterministic algorithms in both legs);
 6. adversarial training and sampling at full width: ``cli.train.main`` on
    the synthetic faces at 3x64x64, noise 100, batch 256, bf16, 10 batches
    per epoch (the depth cut from the default 30), 2 epochs saved each
@@ -104,7 +114,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    amplified x3 (f32 1e-4, bf16 2e-2), the warm ms per batch pair (D step
    + G step, b256 bf16 adam, the median of 20 by CUDA events) with the
    peak device memory, and an f32 batch pair (b64, sgd) that gives the
-   same G and D parameters with the TF32 flags on and off;
+   same G and D parameters with the TF32 flags on and off (cuDNN held
+   deterministic);
 7. pretraining and the probes at full width: ``cli.pretrain_g.main`` at
    3x64x64, noise 100, batch 128, bf16, 2 epochs of 10 batches (the depth
    cut from 30), then one more with ``--network``: finite losses, the
@@ -299,14 +310,16 @@ launch count in the main path (Q1-Q4's: ``apply_r --int8`` and the int8
 e2e export's check; S's: phase 11's ``apply_r --approx`` and approximate
 fused program; phase 12's distributed paths add theirs to U's, the
 head's, B's, C's, S's and B5's; phase 13's configs' paths add theirs to
-B's, U's, the head's, C's, K's, Q1-Q4's and S's), error, times and bound
-(phases 3, 10 and 11, at 3x64x64), and
+B's, U's, the head's, C's, K's, Q1-Q4's and S's; the FIR filter's: one
+forward and backward of config F), error, times and bound
+(phases 3, 10 and 11, at 3x64x64; the FIR filter's at config F), and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without a result when CUDA is absent or the package is not
 beside this file.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -346,6 +359,11 @@ DROPOUT_SEEDS = [12345, -7]
 DROPOUT_STEP_SHAPES = [(256, 64, 64, 64), (256, 64, 64, 64),
                        (256, 32, 32, 64), (256, 32, 32, 128),
                        (256, 32, 32, 128), (256, 512)]
+# StyleGAN2's FIR filter at one refine step of sg2f_ffhq1024.refine_sg2:
+# config F as the benchmark's file states it, the cell's chunk of 8
+SG2F_CONFIG = "portbench/configs/sg2f_ffhq1024.json"
+FIR_BATCH = 8
+FIR_TOL = 1e-5           # of the largest output: the f32 sums' order
 TRAIN_BATCH = 256
 CALIBRATE_BATCHES = 50
 N_EVAL = 1024          # held-out latents of the evaluation MSE
@@ -390,6 +408,159 @@ DISTILL_BATCH = 64
 # pretrain_prev legs from phase 6's rgb 3x64x64 checkpoint: new colour
 # space, height = width, noise dim, batches
 DISTILL_LEGS = [("yuv", 64, NOISE_DIM, 60), ("y", 32, 50, 20)]
+
+
+def fir_cases(cfg: dict):
+    """(label, up, input shape, input dtype) of one config-F forward's 16
+    filters: at each resolution r from 8 up, the blur after the
+    up-sampling convolution (its f32 output, (r + 1)^2 -> r^2, the block's
+    channels) and the skip's up-sampling of the bf16 image ((r / 2)^2 ->
+    r^2, 3 channels)."""
+    _, top, _ = cfg["image"]
+    r = 8
+    while r <= top:
+        ch = min(2 * cfg["channel_base"] // r, cfg["channel_max"])
+        yield f"blur{r}", 1, (FIR_BATCH, r + 1, r + 1, ch), "float32"
+        yield f"skip{r}", 2, (FIR_BATCH, r // 2, r // 2, 3), "bfloat16"
+        r *= 2
+
+
+def fir_close(out, ref, rounded: bool) -> tuple:
+    """(max |out - ref|, within tolerance): FIR_TOL of ref's largest
+    element, plus one bf16 step (2^-7 of the value) where both summed in
+    f32 and then rounded to bf16, and may land on neighbouring values."""
+    ref = ref.float()
+    err = (out.float() - ref).abs()
+    allowed = FIR_TOL * ref.abs().max().item() + (
+        2.0 ** -7 * ref.abs() if rounded else 0.0)
+    return err.max().item(), bool((err <= allowed).all())
+
+
+def fir_library(x, up: int, dtype):
+    """The module path's filter before the kernel: x rounded to ``dtype``
+    and widened, then cuDNN's depthwise F.conv2d (the blur) or stride-2
+    F.conv_transpose2d (the skip) of f32 operands, at the precision the
+    module path pinned."""
+    import torch.nn.functional as F
+    from ganreverser_tpu_torch.core.precision import pinned_precision
+    from ganreverser_tpu_torch.ops import fir_kernel as fk
+    c = x.shape[3]
+    xt = x.to(dtype).float().permute(0, 3, 1, 2)
+    taps = fk.fir_taps(c, x.device)   # symmetric: the flip changes nothing
+    with pinned_precision(dtype):
+        if up == 2:
+            y = F.conv_transpose2d(xt, taps, stride=2, padding=1, groups=c)
+        else:
+            y = F.conv2d(xt, taps, padding=1, groups=c)
+    return y.permute(0, 2, 3, 1)
+
+
+def fir_step_launches(dev, cfg: dict, dtype) -> int:
+    """The filter's launches in one forward and backward of config F at
+    FIR_BATCH (random weights drawn as the benchmark draws them, z the
+    only leaf that needs a gradient), its counter set to 0 just before;
+    the wrapper must copy no input."""
+    import torch
+    from ganreverser_tpu_torch.models import modules, zoo
+    from ganreverser_tpu_torch.ops import fir_kernel as fk
+    from portbench import reference_sg2
+    with torch.device(dev):
+        G = zoo.create_G_sg2f(cfg["image"], cfg["noise_dim"], cfg["w_dim"],
+                              dtype, mapping_layers=cfg["mapping_layers"],
+                              channel_base=cfg["channel_base"],
+                              channel_max=cfg["channel_max"])
+    G.load_state_dict(reference_sg2.make(
+        cfg, torch.Generator(device=dev).manual_seed(SEED + 24), dev))
+    G.requires_grad_(False)
+    firs = sum(isinstance(m, modules.FIRFilter) for m in G.modules())
+    z = torch.randn(FIR_BATCH, cfg["noise_dim"], device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(SEED),
+                    requires_grad=True)
+    fk.fir_filter.launches = fk.fir_filter.copies = 0
+    G(z).float().square().mean().backward()
+    torch.cuda.synchronize()
+    launches, copies = fk.fir_filter.launches, fk.fir_filter.copies
+    check(launches == 2 * firs, f"fir_filter: {launches} launches in one "
+          f"forward and backward of config F, not 2 x its {firs} filters")
+    check(copies == 0, f"fir_filter copied {copies} inputs in config F")
+    check(bool(torch.isfinite(z.grad).all()), "config F: z's gradient is "
+          "not finite")
+    return launches
+
+
+def check_fir(dev, card: str):
+    """Phase 3, StyleGAN2's FIR filter (csrc/fir.cu) at the 16 shapes of
+    one config-F refine step, batch 8, bf16 compute dtype: forward and
+    backward through fir_filter against upfirdn2d_plain's forward and
+    gradient forms (FIR_TOL, one bf16 step more for the rounded
+    gradient); the wrapper's, plain, library (fir_library, its backward
+    by autograd) and bound times of each; then the launches of one
+    forward and backward of config F. Returns one record, a step's 16
+    filters forward and backward, and those launches."""
+    import torch
+    from ganreverser_tpu_torch.ops import fir_kernel as fk
+    from portbench import reference_sg2
+    with open(SG2F_CONFIG) as f:
+        cfg = reference_sg2.config(json.load(f))
+    dtype = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    err, sums = 0.0, [0.0] * 4
+    for label, up, shape, xname in fir_cases(cfg):
+        fwd, grad_form = fk.FORMS[up]
+        x = torch.randn(shape, device=dev, generator=gen).to(
+            getattr(torch, xname))
+        xg = x.clone().requires_grad_(True)
+        y = fk.fir_filter(xg, up, dtype)
+        dy = torch.randn(y.shape, device=dev, generator=gen)
+        (dx,) = torch.autograd.grad(y, xg, dy)
+        torch.cuda.synchronize()
+        check(dx.dtype == x.dtype and y.dtype == torch.float32,
+              f"fir_filter {label}: dtypes {y.dtype}, {dx.dtype}")
+        e_y, ok_y = fir_close(y, fk.upfirdn2d_plain(x, fwd, dtype), False)
+        e_dx, ok_dx = fir_close(dx, fk.upfirdn2d_plain(
+            dy, grad_form, torch.float32, dtype, x.dtype), True)
+        check(ok_y and ok_dx, f"fir_filter {label} {shape}: kernel vs plain "
+              f"forward {e_y}, backward {e_dx}, beyond the tolerance")
+        err = max(err, e_y, e_dx)
+        del xg, y, dx
+        xl = x.clone().requires_grad_(True)
+        yl = fir_library(xl, up, dtype)
+        row = []
+        # each launch reads its input once and writes its output once; 16
+        # multiply-adds an output (zero-inserted taps counted too) take far
+        # less than those bytes
+        for kern, plain, library, outputs in (
+                (lambda: fk.fir_filter(x, up, dtype),
+                 lambda: fk.upfirdn2d_plain(x, fwd, dtype),
+                 lambda: fir_library(x, up, dtype), dy.numel()),
+                (lambda: fk.upfirdn2d(dy, grad_form, torch.float32, dtype,
+                                      x.dtype),
+                 lambda: fk.upfirdn2d_plain(dy, grad_form, torch.float32,
+                                            dtype, x.dtype),
+                 lambda: torch.autograd.grad(yl, xl, dy, retain_graph=True),
+                 x.numel())):
+            b_ms, _ = bound(32 * outputs, _nbytes(dy, x), "float32")
+            row += [time_ms(kern), time_ms(plain), time_ms(library), b_ms]
+        del xl, yl, x, dy
+        sums = [a + b for a, b in zip(sums, [row[i] + row[i + 4]
+                                             for i in range(4)])]
+        print(f"[kernel] fir_filter {label} {shape} {xname} in, bf16: "
+              f"forward err {e_y:.3e}, backward err {e_dx:.3e}; forward "
+              f"kernel {row[0]:.4f} ms, plain {row[1]:.4f}, library "
+              f"{row[2]:.4f}, bound {row[3]:.4f}; backward kernel "
+              f"{row[4]:.4f} ms, plain {row[5]:.4f}, library {row[6]:.4f}, "
+              f"bound {row[7]:.4f}  [{card}]")
+    launches = fir_step_launches(dev, cfg, dtype)
+    ms, plain_ms, lib_ms, b_ms = sums
+    print(f"[kernel] fir_filter, one config-F refine step's 16 filters "
+          f"(b{FIR_BATCH} bf16), forward + backward: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, library (cuDNN depthwise) "
+          f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms (bytes); {launches} "
+          f"launches in one forward and backward of config F  [{card}]")
+    return {"name": "fir_filter", "label": "one config-F step's 16 filters",
+            "dtype": "bfloat16", "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+            "bound_by": "bytes"}, launches
 
 
 class SmokeFailure(RuntimeError):
@@ -1554,6 +1725,24 @@ def step_times(G, R_state, dev, impl: str, batch: int = TRAIN_BATCH):
     return times
 
 
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN held to deterministic algorithms (no autotuning) inside the
+    block: its free choice sums some gradients in a varying order, which
+    moves an f32 step by up to about 1.4e-5 of scale from run to run with
+    the same flags (H100, phase 5e's R step)."""
+    import torch
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            saved
+
+
 def precision_pin_error(G, dev, dims=DIMS, noise_dim=NOISE_DIM,
                         batch: int = 64) -> float:
     """Phase 5e: one f32 R train step through the f32 module ``G`` with the
@@ -1562,7 +1751,8 @@ def precision_pin_error(G, dev, dims=DIMS, noise_dim=NOISE_DIM,
     largest parameter difference relative to max(1, max |param|). The step
     uses sgd (lr 0.1), whose update is linear in the gradient, so a TF32
     backward (about 1e-3 relative) would show; adam's sign-like first step
-    would hide it in all but the near-zero entries."""
+    would hide it in all but the near-zero entries. cuDNN's algorithms are
+    held deterministic, so that only the flags differ between the legs."""
     import torch
     from ganreverser_tpu_torch.core.prng import noise_inputs
     from ganreverser_tpu_torch.models import modules, zoo
@@ -1574,24 +1764,26 @@ def precision_pin_error(G, dev, dims=DIMS, noise_dim=NOISE_DIM,
     saved = (torch.backends.cudnn.allow_tf32,
              torch.backends.cuda.matmul.allow_tf32)
     params = []
-    try:
-        for tf32 in (True, False):
-            torch.backends.cudnn.allow_tf32 = tf32
-            torch.backends.cuda.matmul.allow_tf32 = tf32
-            R = modules.init_parameters(
-                zoo.create_R(dims, noise_dim, "normal", dropout_impl="kernel"),
-                torch.Generator().manual_seed(SEED + 11)).to(dev)
-            modules.set_dropout_generator(
-                R, torch.Generator(device=dev).manual_seed(SEED + 12))
-            opt = sgd(lr=0.1)
-            make_r_train_step(G, dtype=torch.float32, opt=opt)(
-                TrainState.create(R, opt), z)
-            check(torch.backends.cudnn.allow_tf32 == tf32,
-                  "the train step left the TF32 flags changed")
-            params.append([p.detach().clone() for p in R.parameters()])
-    finally:
-        torch.backends.cudnn.allow_tf32 = saved[0]
-        torch.backends.cuda.matmul.allow_tf32 = saved[1]
+    with deterministic_cudnn():
+        try:
+            for tf32 in (True, False):
+                torch.backends.cudnn.allow_tf32 = tf32
+                torch.backends.cuda.matmul.allow_tf32 = tf32
+                R = modules.init_parameters(
+                    zoo.create_R(dims, noise_dim, "normal",
+                                 dropout_impl="kernel"),
+                    torch.Generator().manual_seed(SEED + 11)).to(dev)
+                modules.set_dropout_generator(
+                    R, torch.Generator(device=dev).manual_seed(SEED + 12))
+                opt = sgd(lr=0.1)
+                make_r_train_step(G, dtype=torch.float32, opt=opt)(
+                    TrainState.create(R, opt), z)
+                check(torch.backends.cudnn.allow_tf32 == tf32,
+                      "the train step left the TF32 flags changed")
+                params.append([p.detach().clone() for p in R.parameters()])
+        finally:
+            torch.backends.cudnn.allow_tf32 = saved[0]
+            torch.backends.cuda.matmul.allow_tf32 = saved[1]
     return max((a - b).abs().max().item() / max(1.0, b.abs().max().item())
                for a, b in zip(*params))
 
@@ -1802,8 +1994,9 @@ def gan_pin_error(dev, batch: int = 64) -> float:
     """One f32 batch pair (sgd, lr 0.1: the update is linear in the
     gradient, so a TF32 forward or backward would show) with the
     process-wide TF32 flags on, then off, from the same weights, data,
-    latents and dropout masks; returns the largest G or D parameter
-    difference relative to max(1, max |param|)."""
+    latents and dropout masks, cuDNN's algorithms held deterministic;
+    returns the largest G or D parameter difference relative to max(1,
+    max |param|)."""
     import torch
     from ganreverser_tpu_torch.optim import sgd
     from ganreverser_tpu_torch.train.adversarial import (
@@ -1813,23 +2006,24 @@ def gan_pin_error(dev, batch: int = 64) -> float:
     saved = (torch.backends.cudnn.allow_tf32,
              torch.backends.cuda.matmul.allow_tf32)
     params = []
-    try:
-        for tf32 in (True, False):
-            torch.backends.cudnn.allow_tf32 = tf32
-            torch.backends.cuda.matmul.allow_tf32 = tf32
-            opt = sgd(lr=0.1)
-            gs = make_gan(dev, f32, opt)
-            d_step, g_step = make_adversarial_steps(
-                dtype=f32, d_optimizer=opt, g_optimizer=opt)
-            d_step(gs, real, zd, Confusion.zero(dev))
-            g_step(gs, zg)
-            check(torch.backends.cudnn.allow_tf32 == tf32,
-                  "the GAN steps left the TF32 flags changed")
-            params.append([q.detach().clone() for m in (gs.g, gs.d)
-                           for q in m.module.parameters()])
-    finally:
-        torch.backends.cudnn.allow_tf32 = saved[0]
-        torch.backends.cuda.matmul.allow_tf32 = saved[1]
+    with deterministic_cudnn():
+        try:
+            for tf32 in (True, False):
+                torch.backends.cudnn.allow_tf32 = tf32
+                torch.backends.cuda.matmul.allow_tf32 = tf32
+                opt = sgd(lr=0.1)
+                gs = make_gan(dev, f32, opt)
+                d_step, g_step = make_adversarial_steps(
+                    dtype=f32, d_optimizer=opt, g_optimizer=opt)
+                d_step(gs, real, zd, Confusion.zero(dev))
+                g_step(gs, zg)
+                check(torch.backends.cudnn.allow_tf32 == tf32,
+                      "the GAN steps left the TF32 flags changed")
+                params.append([q.detach().clone() for m in (gs.g, gs.d)
+                               for q in m.module.parameters()])
+        finally:
+            torch.backends.cudnn.allow_tf32 = saved[0]
+            torch.backends.cuda.matmul.allow_tf32 = saved[1]
     return max((a - b).abs().max().item() / max(1.0, b.abs().max().item())
                for a, b in zip(*params))
 
@@ -4379,12 +4573,8 @@ def check_async_save(dev, card: str, tmp: str):
     from ganreverser_tpu_torch.cli import train
     from ganreverser_tpu_torch.io import checkpoint as ckpt
     c, h, w = DIMS
-    saved = (torch.backends.cudnn.deterministic,
-             torch.backends.cudnn.benchmark)
-    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
-        True, False
     secs, trees = {}, {}
-    try:
+    with deterministic_cudnn():
         for mode in ("sync", "async"):
             save = os.path.join(tmp, mode)
             base = ["--dataset", "synthetic", "--save", save, "--height",
@@ -4400,9 +4590,6 @@ def check_async_save(dev, card: str, tmp: str):
             torch.cuda.synchronize()
             secs[mode] = time.perf_counter() - t0
             trees[mode] = ckpt.load_checkpoint(ckpt.adversarial_name(save))
-    finally:
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
-            saved
     diff = tree_leaves_equal(trees["async"][0], trees["sync"][0])
     check(not diff, f"async_save: checkpoint leaves differ: {diff[:5]}")
     check(trees["async"][2]["plot_data"] == trees["sync"][2]["plot_data"]
@@ -5000,6 +5187,8 @@ def main(configs_only: bool = False) -> int:
     records.append(check_dropout(dev, card))
     records += check_conv_stats(dev, card)
     records += check_probe_kernels(dev, card)
+    fir_record, fir_launches = check_fir(dev, card)
+    records.append(fir_record)
 
     # 4. the main path at full width
     G, R, RF = make_models(dev)
@@ -5156,7 +5345,11 @@ def main(configs_only: bool = False) -> int:
                                  "ganreverser_tpu/ops/quant.py:43"),
                # S replaces jax.lax.approx_max_k in _select_topk (XLA)
                "approx_topk": ("ganreverser_tpu_torch/csrc/approx_topk.cu",
-                               "ganreverser_tpu/analysis/similarity.py:34")}
+                               "ganreverser_tpu/analysis/similarity.py:34"),
+               # StyleGAN2 exists only in the port: no JAX op to replace
+               "fir_filter": ("ganreverser_tpu_torch/csrc/fir.cu",
+                              "none: cuDNN's depthwise convolutions")}
+    launches["fir_filter"] = fir_launches
     f32_lines = ("kmeans_lloyd", "add_one", "times_two", "approx_topk")
     kernels = []
     for name, (source, replaces) in sources.items():
@@ -5169,7 +5362,9 @@ def main(configs_only: bool = False) -> int:
         # train_r runs, B6's those of the three train runs and the sample run,
         # the head's those of the two pretrain_prev runs and the e2e
         # program's, B7-B9's those of their probes; Q1-Q4's (int8) those
-        # of apply_r --int8 and the int8 e2e export's check (phase 10)
+        # of apply_r --int8 and the int8 e2e export's check (phase 10);
+        # the FIR filter's (bf16 compute dtype, f32 sums) those of one
+        # forward and backward of config F at batch 8 (phase 3)
         recs = [r for r in records if r["name"] == name and r["dtype"] == (
             "float32" if name in f32_lines else "int8" if name in INT8_LINES
             else "bfloat16") and r.get("on_path", True)]

@@ -52,6 +52,7 @@ from torch import nn
 from ..core.precision import pinned_precision
 from ..io.metrics import span
 from ..ops.dropout_kernel import draw_seed, fused_dropout
+from ..ops.fir_kernel import fir_filter
 from ..ops.upsample_conv import (conv_nhwc, conv_transpose2_nhwc,
                                  upsample2_conv3x3_dilated)
 from ..parallel.comm import psum
@@ -432,7 +433,6 @@ class Residual(nn.Module):
 _SQRT2 = math.sqrt(2.0)
 _LRELU_SLOPE = 0.2
 _EPS = 1e-8
-_FIR = (1.0, 3.0, 3.0, 1.0)  # the resampling filter's taps, each axis
 _MAPPING_LR_MUL = 0.01  # the mapping's equalized learning rate multiplier
 
 
@@ -483,32 +483,24 @@ class EqualDense(nn.Module):
 class FIRFilter(nn.Module):
     """The 2-D FIR filter f (x) f of each of ``channels`` channels, f the
     taps [1, 3, 3, 1], normalised to sum 1 and the 2-D filter scaled by 4,
-    the gain of a 2x up-sampling (upfirdn_2d's ``_setup_kernel``), applied
-    as a convolution (the filter flipped, as upfirdn2d does). ``up=1``: the blur after an up-sampling convolution,
-    pad (1, 1): 2r + 1 rows in, 2r out. ``up=2``: ``upsample_2d``, a zero
-    after each pixel, pad (2, 1), the filter, as one stride-2 transposed
-    convolution with padding 1: r rows in, 2r out. f32 result."""
+    the gain of a 2x up-sampling (upfirdn_2d's ``_setup_kernel``).
+    ``up=1``: the blur after an up-sampling convolution, pad (1, 1): 2r + 1
+    rows in, 2r out. ``up=2``: ``upsample_2d``, a zero after each pixel,
+    pad (2, 1), the filter: r rows in, 2r out. The input rounded to
+    ``dtype``, f32 result; forward and backward on the hand-written kernel
+    on the card (``ops/fir_kernel.py::fir_filter``)."""
 
     def __init__(self, channels: int, up: int,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         if up not in (1, 2):
             raise ValueError(f"FIRFilter up {up}: expected 1 or 2")
-        f = torch.tensor(_FIR, dtype=torch.float32)
-        f2 = torch.outer(f, f).flip(0, 1)
-        f2 = f2 / f2.sum() * 4.0
-        shape = (channels, 1) if up == 2 else (1, channels)
-        kernel = f2[:, :, None, None].repeat(1, 1, *shape)
-        self.register_buffer("taps", kernel, persistent=False)
         self.up = up
         self.channels = channels
         self.dtype = dtype
 
     def forward(self, x):
-        if self.up == 2:
-            return conv_transpose2_nhwc(x, self.taps, 1, self.dtype,
-                                        groups=self.channels)
-        return conv_nhwc(x, self.taps, 1, self.dtype, groups=self.channels)
+        return fir_filter(x, self.up, self.dtype)
 
 
 class ModulatedConv(nn.Module):

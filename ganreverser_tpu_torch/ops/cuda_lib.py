@@ -102,6 +102,9 @@ _SIGNATURES = {
     # scores, values, indices, q, n, k, then the plan (bins, cluster,
     # keys_on_chip, sort_on_chip, stage_row), stream
     "gr_approx_topk": [*[_P] * 3, *[_I] * 8, _P],
+    # in dtype, out dtype, x, y, n, hi, wi, ho, wo, c, up, down, pad0,
+    # round_in, round_out, then the plan (vec, rows), stream
+    "gr_fir_filter": [_I, _I, _P, _P, *[_I] * 13, _P],
 }
 
 

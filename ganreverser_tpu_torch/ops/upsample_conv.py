@@ -12,9 +12,9 @@ pixels, with tap weights that depend on the output pixel's parity:
 zero-inserted input with the 4-tap kernel [w0, w0+w1, w1+w2, w2] and
 padding 2; ``upsample2_conv3x3_dilated`` computes that conv as what it is,
 a stride-2 transposed convolution (``conv_transpose2_nhwc``, which
-StyleGAN2's up-sampling convolutions and FIR up-sampling share), which
-multiplies only the 2x2 taps of each output pixel that meet an input pixel
-and makes no zero-filled input.
+StyleGAN2's up-sampling convolutions share), which multiplies only the 2x2
+taps of each output pixel that meet an input pixel and makes no
+zero-filled input.
 The four per-parity 2x2 convs live in ops/upsample_conv_kernel.py
 (``phase_kernels``), the layout of kernel U.
 
@@ -30,31 +30,30 @@ from ..core.precision import pinned_precision
 
 
 def conv_nhwc(x: torch.Tensor, kernel: torch.Tensor, padding,
-              dtype: torch.dtype, groups: int = 1) -> torch.Tensor:
-    """Stride-1 cross-correlation of NHWC ``x`` with an HWIO ``kernel``
-    (I = the input channels / ``groups``), operands rounded to ``dtype``,
-    f32 result. ``padding`` as F.conv2d's. The precision does not follow
-    the process-wide TF32 flags (core/precision.py)."""
+              dtype: torch.dtype) -> torch.Tensor:
+    """Stride-1 cross-correlation of NHWC ``x`` with an HWIO ``kernel``,
+    operands rounded to ``dtype``, f32 result. ``padding`` as F.conv2d's.
+    The precision does not follow the process-wide TF32 flags
+    (core/precision.py)."""
     xt = x.to(dtype).float().permute(0, 3, 1, 2)
     wt = kernel.to(dtype).float().permute(3, 2, 0, 1)
     with pinned_precision(dtype):
-        y = F.conv2d(xt, wt, padding=padding, groups=groups)
+        y = F.conv2d(xt, wt, padding=padding)
     return y.permute(0, 2, 3, 1)
 
 
 def conv_transpose2_nhwc(x: torch.Tensor, kernel: torch.Tensor, padding,
-                         dtype: torch.dtype, groups: int = 1) -> torch.Tensor:
+                         dtype: torch.dtype) -> torch.Tensor:
     """Stride-2 transposed convolution of NHWC ``x``: ``x`` with a zero
     between neighbouring pixels, cross-correlated over its full extent with
-    the HWIO ``kernel`` (O = the output channels / ``groups``), ``padding``
-    rows and columns cropped from each side; a k x k kernel turns an r x r
-    input into 2r - 1 + k - 1 - 2 ``padding``. Operands rounded to
-    ``dtype``, f32 result, at the precision :func:`conv_nhwc` pins."""
+    the HWIO ``kernel``, ``padding`` rows and columns cropped from each
+    side; a k x k kernel turns an r x r input into 2r - 1 + k - 1 - 2
+    ``padding``. Operands rounded to ``dtype``, f32 result, at the
+    precision :func:`conv_nhwc` pins."""
     xt = x.to(dtype).float().permute(0, 3, 1, 2)
     wt = kernel.to(dtype).float().flip(0, 1).permute(2, 3, 0, 1)
     with pinned_precision(dtype):
-        y = F.conv_transpose2d(xt, wt, stride=2, padding=padding,
-                               groups=groups)
+        y = F.conv_transpose2d(xt, wt, stride=2, padding=padding)
     return y.permute(0, 2, 3, 1)
 
 

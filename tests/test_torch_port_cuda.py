@@ -15,7 +15,8 @@ import torch
 from ganreverser_tpu_torch.ops import (approx_topk_kernel, conv_block_kernel,
                                        conv_kernel,
                                        conv_stats_kernel, cuda_lib,
-                                       dropout_kernel, kmeans_kernel,
+                                       dropout_kernel, fir_kernel,
+                                       kmeans_kernel,
                                        probe_kernels, topk_kernel,
                                        upsample_conv_kernel,
                                        upsample_v2_kernel)
@@ -1651,3 +1652,154 @@ def test_module_g3_forward_and_z_gradient_never_sync(dev, train):
     assert out.dtype == dtype and gz.dtype == torch.float32
     _close(out.cpu(), ref_out, dtype)
     _close(gz.cpu(), ref_gz, dtype)
+
+
+# ---- StyleGAN2's FIR filter (ops/fir_kernel.py, csrc/fir.cu) against the
+# plain version of each launch. Tolerance: the f32 sums run in another
+# order, 1e-5 of the largest output; where a sum is then rounded to bf16
+# (the gradient at a bf16 compute dtype) the two can land on neighbouring
+# bf16 values, one bf16 step: 2^-7 of the value.
+
+
+def _fir_close(out, ref, rounded):
+    ref = ref.float()
+    err = (out.float() - ref).abs()
+    allowed = 1e-5 * ref.abs().max().item() + (2.0 ** -7 * ref.abs()
+                                               if rounded else 0.0)
+    assert bool((err <= allowed).all()), err.max().item()
+
+
+def _fir_case(dev, up, x, dtype):
+    """One forward and backward through fir_filter (two launches) against
+    the plain forward and gradient forms."""
+    g = torch.Generator(device=dev).manual_seed(24)
+    fwd, grad_form = fir_kernel.FORMS[up]
+    x = x.requires_grad_(True)
+    before = fir_kernel.fir_filter.launches
+    y = fir_kernel.fir_filter(x, up, dtype)
+    dy = torch.randn(y.shape, device=dev, generator=g)
+    (dx,) = torch.autograd.grad(y, x, dy)
+    torch.cuda.synchronize()
+    assert fir_kernel.fir_filter.launches == before + 2
+    want = fir_kernel.upfirdn2d_plain(x.detach(), fwd, dtype)
+    want_dx = fir_kernel.upfirdn2d_plain(dy, grad_form, torch.float32, dtype,
+                                         x.dtype)
+    assert y.shape == want.shape and y.dtype == torch.float32
+    assert dx.shape == x.shape and dx.dtype == x.dtype
+    _fir_close(y, want, False)
+    _fir_close(dx, want_dx, dtype == torch.bfloat16)
+
+
+@pytest.mark.parametrize("up,shape,x_dtype", [
+    (1, (8, 1025, 1025, 32), torch.float32),
+    (1, (8, 129, 129, 256), torch.float32),
+    (1, (8, 9, 9, 512), torch.float32),
+    (2, (8, 512, 512, 3), torch.bfloat16)],
+    ids=["blur1024", "blur128", "blur8", "skip1024"])
+def test_fir_kernel_at_the_cell_shapes(dev, up, shape, x_dtype):
+    """sg2f_ffhq1024.refine_sg2's filters at batch 8, bf16 compute dtype:
+    the blurs of the up-sampling convolutions' f32 outputs, and the skip's
+    up-sampling of the bf16 image (the scalar path), forward and
+    backward."""
+    x = torch.randn(shape, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(7))
+    _fir_case(dev, up, x.to(x_dtype), torch.bfloat16)
+
+
+@pytest.mark.parametrize("rows", [2, 8])
+@pytest.mark.parametrize("x_dtype,dtype", [
+    (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.bfloat16)], ids=["f32", "f32_in_bf16", "bf16"])
+@pytest.mark.parametrize("up", [1, 2], ids=["blur", "skip"])
+@pytest.mark.parametrize("shape", [(3, 7, 10, 3), (2, 13, 6, 8),
+                                   (1, 5, 17, 12), (2, 19, 11, 64)])
+def test_fir_kernel_ragged_shapes(dev, monkeypatch, shape, up, x_dtype,
+                                  dtype, rows):
+    """Odd and even sizes off every tile of 2 and 8 rows, C = 3 and 12
+    (scalar in bf16), 8 and 64 (16-byte packs), forward and backward, with
+    the plan's rows forced."""
+    plan = fir_kernel.fir_plan
+    monkeypatch.setattr(fir_kernel, "fir_plan", lambda *a: plan(*a)._replace(
+        rows=rows))
+    x = torch.randn(shape, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(8))
+    _fir_case(dev, up, x.to(x_dtype), dtype)
+
+
+def test_fir_kernel_unaligned_and_strided(dev):
+    """A view one element into its storage (not 16-byte aligned: the
+    scalar path) and a transposed view (copied first, counted) filter as
+    the plain version does."""
+    base = torch.randn(2 * 9 * 9 * 8 + 1, device=dev)
+    before = fir_kernel.fir_filter.copies
+    for x, copies in ((base[1:].view(2, 9, 9, 8), 0),
+                      (base[:-1].view(2, 9, 9, 8).transpose(1, 2), 1)):
+        got = fir_kernel.fir_filter(x, 1, torch.float32)
+        torch.cuda.synchronize()
+        assert fir_kernel.fir_filter.copies == before + copies
+        _fir_close(got, fir_kernel.upfirdn2d_plain(x, fir_kernel.FORMS[1][0]),
+                   False)
+
+
+def test_fir_kernel_refuses_bad_arguments(dev):
+    x = torch.zeros(1, 5, 5, 8, device=dev)
+    with pytest.raises(ValueError):  # no kernel for the device
+        fir_kernel.fir_filter(torch.zeros(1, 5, 5, 8, device="meta"), 1)
+    with pytest.raises(TypeError):
+        fir_kernel.fir_filter(x.half(), 1)
+    with pytest.raises(TypeError):
+        fir_kernel.fir_filter(x, 1, torch.float16)
+    with pytest.raises(ValueError):
+        fir_kernel.fir_filter(x[0], 1)  # not NHWC
+    with pytest.raises(ValueError):
+        fir_kernel.fir_filter(x[:, :1, :1], 1)  # an empty output
+    with pytest.raises(ValueError):
+        fir_kernel.fir_filter(x, 3)
+    with pytest.raises(ValueError):  # pads the kernel does not take
+        fir_kernel.upfirdn2d(x, (1, 1, 0, 0))
+    with pytest.raises(TypeError):  # a forward form writes f32
+        fir_kernel.upfirdn2d(x, fir_kernel.FORMS[1][0], torch.float32,
+                             torch.float32, torch.bfloat16)
+    with pytest.raises(TypeError):  # a gradient form reads f32
+        fir_kernel.upfirdn2d(x.bfloat16(), fir_kernel.FORMS[1][1])
+    lib = cuda_lib.library()
+    y = torch.empty(1, 4, 4, 8, device=dev)
+    stream = cuda_lib.stream_of(x)
+
+    def rc(pad0=1, vec=4, rows=8, c=8):
+        return lib.gr_fir_filter(0, 0, x.data_ptr(), y.data_ptr(), 1, 5, 5,
+                                 4, 4, c, 1, 1, pad0, 0, 0, vec, rows, stream)
+
+    assert rc() == 0
+    assert rc(pad0=0) != 0 and rc(pad0=3) != 0
+    assert lib.gr_fir_filter(1, 1, x.data_ptr(), y.data_ptr(), 1, 5, 5, 4, 4,
+                             8, 1, 1, 1, 0, 0, 1, 8, stream) != 0  # bf16 out
+    assert rc(vec=8) != 0 and rc(vec=4, c=6) != 0 and rc(rows=4) != 0
+    torch.cuda.synchronize()
+
+
+def test_style_generator_launches_fir_kernel(dev):
+    """One forward and backward of a small StyleGAN2 (3 x 16 x 16, blocks
+    4, 8 and 16: two blurs and two skips) in bf16 on the card launches the
+    filter twice for each FIRFilter, and copies no input."""
+    from ganreverser_tpu_torch.models import modules, zoo
+    from portbench import reference_sg2
+    cfg = reference_sg2.config({
+        "image": [3, 16, 16], "noise_dim": 8, "w_dim": 8,
+        "mapping_layers": 2, "lr_mul": 0.01, "channel_base": 64,
+        "channel_max": 16, "fir": [1, 3, 3, 1]})
+    with torch.device(dev):
+        G = zoo.create_G_sg2f(cfg["image"], cfg["noise_dim"], cfg["w_dim"],
+                              torch.bfloat16, mapping_layers=2,
+                              channel_base=64, channel_max=16)
+    G.load_state_dict(reference_sg2.make(
+        cfg, torch.Generator(device=dev).manual_seed(3), dev))
+    firs = sum(isinstance(m, modules.FIRFilter) for m in G.modules())
+    assert firs == 4
+    z = torch.randn(4, 8, device=dev, requires_grad=True)
+    before = (fir_kernel.fir_filter.launches, fir_kernel.fir_filter.copies)
+    G(z).float().square().mean().backward()
+    torch.cuda.synchronize()
+    assert (fir_kernel.fir_filter.launches,
+            fir_kernel.fir_filter.copies) == (before[0] + 2 * firs, before[1])
+    assert torch.isfinite(z.grad).all()

@@ -19,6 +19,7 @@ from torch.profiler import ProfilerActivity, profile
 from ganreverser_tpu_torch.analysis.refine import make_refiner
 from ganreverser_tpu_torch.io import metrics
 from ganreverser_tpu_torch.models import modules, zoo
+from ganreverser_tpu_torch.ops import fir_kernel
 from portbench import reference_sg2 as ref
 
 # config F's rules at 3 x 16 x 16, z and w 8, 2 mapping layers, <= 16
@@ -148,10 +149,11 @@ def test_modulated_conv_matches_grouped_conv(kernel, up, demodulate):
 
 @pytest.mark.parametrize("up", [2, 1], ids=["skip", "blur"])
 def test_fir_matches_upfirdn2d(up):
-    """The skip's up-sampling (a stride-2 transposed convolution with the
-    FIR, padding 1) against upfirdn2d's zero insertion, pad (2, 1) and
-    filter; the blur after an up-sampling convolution against pad (1, 1)
-    and filter."""
+    """FIRFilter's plain path (ops/fir_kernel.py on the CPU: zeros
+    inserted, padded, a depthwise convolution) against the reference's
+    upfirdn2d: the skip's up-sampling, a zero after each pixel and pad
+    (2, 1), then the filter; the blur after an up-sampling convolution,
+    pad (1, 1), then the filter."""
     x = torch.randn(2, 9, 9, 3, generator=torch.Generator().manual_seed(5))
     got = modules.FIRFilter(3, up)(x)
     pads = (2, 1) if up == 2 else (1, 1)
@@ -159,6 +161,100 @@ def test_fir_matches_upfirdn2d(up):
                          ref.fir_kernel((1, 3, 3, 1), 4.0, "cpu"), up, *pads)
     assert got.shape == ((2, 18, 18, 3) if up == 2 else (2, 8, 8, 3))
     assert gap(got, want.permute(0, 2, 3, 1)) < LAYER_TOL
+
+
+def _upfirdn2d_f64(x, up):
+    """The reference's filter of NHWC ``x`` in float64, NHWC."""
+    pads = (2, 1) if up == 2 else (1, 1)
+    taps = ref.fir_kernel((1, 3, 3, 1), 4.0, "cpu").double()
+    return ref.upfirdn2d(x.double().permute(0, 3, 1, 2), taps, up,
+                         *pads).permute(0, 2, 3, 1)
+
+
+def _fir_case(up, shape, x_dtype=torch.float32):
+    """x (requires grad), the incoming gradient, the reference's output and
+    its gradient to x in float64 (of x as given)."""
+    g = torch.Generator().manual_seed(24 + up)
+    x = torch.randn(shape, generator=g).to(x_dtype).requires_grad_(True)
+    x64 = x.detach().double().requires_grad_(True)
+    want = _upfirdn2d_f64(x64, up)
+    probe = torch.randn(want.shape, generator=g)
+    (want_grad,) = torch.autograd.grad((want * probe.double()).sum(), x64)
+    return x, probe, want.detach(), want_grad
+
+
+FIR_SHAPES = [(2, 7, 10, 3), (2, 8, 5, 8)]
+
+
+@pytest.mark.parametrize("shape", FIR_SHAPES, ids=["odd_even_c3",
+                                                   "even_odd_c8"])
+@pytest.mark.parametrize("up", [1, 2], ids=["blur", "skip"])
+def test_fir_filter_and_gradient_match_upfirdn2d_f64(up, shape):
+    """The filter's plain path (ops/fir_kernel.py on the CPU) at float32,
+    forward and the gradient its backward form gives, against autograd
+    through the reference's upfirdn2d in float64, at odd and even sizes
+    and C = 3 and 8: the gradient forms' pads and down-sampling are the
+    forward forms' adjoints."""
+    x, probe, want, want_grad = _fir_case(up, shape)
+    got = modules.FIRFilter(shape[3], up)(x)
+    (grad,) = torch.autograd.grad((got * probe).sum(), x)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert grad.shape == x.shape and grad.dtype == torch.float32
+    assert gap(got, want) < LAYER_TOL
+    assert gap(grad, want_grad) < LAYER_TOL
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32_input", "bf16_input"])
+@pytest.mark.parametrize("shape", FIR_SHAPES, ids=["odd_even_c3",
+                                                   "even_odd_c8"])
+@pytest.mark.parametrize("up", [1, 2], ids=["blur", "skip"])
+def test_fir_filter_rounds_to_bf16(up, shape, x_dtype):
+    """At a bf16 compute dtype the filter reads x rounded to bf16 (the
+    forward matches the reference on the rounded x, and not on x), sums in
+    f32 and returns f32; its gradient is the f32 sum rounded to bf16
+    (within half a bf16 step, at most 2^-8 of the value, of the float64
+    gradient, plus the f32 sum's round-off) and held in x's dtype."""
+    x, probe, _, want_grad = _fir_case(up, shape, x_dtype)
+    got = modules.FIRFilter(shape[3], up, torch.bfloat16)(x)
+    (grad,) = torch.autograd.grad((got * probe).sum(), x)
+    rounded = _upfirdn2d_f64(x.detach().bfloat16(), up)
+    assert got.dtype == torch.float32 and grad.dtype == x_dtype
+    assert gap(got, rounded) < LAYER_TOL
+    if x_dtype == torch.float32:
+        assert gap(got, _upfirdn2d_f64(x.detach(), up)) > 100 * LAYER_TOL
+    grad = grad.double()
+    assert torch.equal(grad, grad.bfloat16().double())
+    err = (grad - want_grad).abs()
+    assert bool((err <= 2.0 ** -8 * want_grad.abs()
+                 + LAYER_TOL * want_grad.abs().max()).all())
+
+
+# the cell's filters at batch 8: (n, ho, wo, c, input bytes), the rows and
+# channels a thread of the plan
+@pytest.mark.parametrize("case,plan", [
+    ((8, 1024, 1024, 32, 4), (4, 8)),    # the 1024^2 blur
+    ((8, 1025, 1025, 32, 4), (4, 8)),    # its gradient
+    ((8, 128, 128, 256, 4), (4, 8)),
+    ((8, 16, 16, 512, 4), (4, 2)),
+    ((8, 8, 8, 512, 4), (4, 2)),         # the smallest blur
+    ((8, 1024, 1024, 3, 2), (1, 8)),     # the skip: bf16 image, scalar
+    ((8, 4, 4, 3, 4), (1, 2)),           # the smallest skip's gradient
+], ids=["blur1024", "blur1024_grad", "blur128", "blur16", "blur8",
+        "skip1024", "skip8_grad"])
+def test_fir_plan_fills_the_card(case, plan):
+    """16-byte loads where C holds whole packs, one element a thread for
+    the 3-channel skip; 8 rows a thread where that grid still gives each
+    of the H100's 132 SMs 4 blocks, 2 where it would not: every blur of
+    128 x 128 and more then launches at least 4 blocks an SM, and the
+    smaller ones at least one."""
+    n, ho, wo, c, elem = case
+    got = fir_kernel.fir_plan(n, ho, wo, c, elem, True, 132)
+    assert tuple(got) == plan
+    blocks = (-(-(wo * c // got.vec) // fir_kernel.FIR_THREADS) * n
+              * -(-ho // got.rows))
+    assert blocks >= (4 * 132 if ho >= 128 else 132) or c == 3
+    assert fir_kernel.fir_plan(n, ho, wo, c, elem, False, 132).vec == 1
 
 
 def test_noise_input_matches_reference(weights):
