@@ -54,8 +54,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    with no near-tie row assigned otherwise the run must end within 1e-4 of
    the plain run (kmeans_lloyd_plain); wrapper and device times of the run;
    U's fused head at G3's stage 2 (N = 256, C = 3 and 1; library: cuDNN's
-   two convolutions in sequence; also timed: kernel U plus the plain head,
-   what the unfused fast G runs). In bf16 the head and C each run two
+   two convolutions in sequence; also timed for reference: kernel U plus
+   the head as a separate convolution). In bf16 the head and C each run two
    launches whose second adds partials in a fixed order: a second call
    must give bitwise the first's output. Kernel B8 (upsample_v2) at G3's two
    stages, also against kernel U on the same inputs (time, and within the
@@ -130,11 +130,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``probes.kernel_probe``) at full size, each launching its kernels;
 8. the fused generate -> invert -> top-k program (analysis/e2e.py) at full
    width, as bench.py times JAX's: phase 4's G3 and R, N = 10,240 latents,
-   bf16, k = 100, needle chunk 256, the fast G (kernel U, and U's fused
-   head where e2e.FUSED_HEAD says so) and the fast R (kernel B), kernel C
-   in the search. Its first call (warm-up, capture, replay) is the path
-   whose launches count; a second replay must add to U's, B's and C's
-   counts exactly as many launches as the chunks imply, a traced third
+   bf16, k = 100, needle chunk 256, the fast G (kernel U and U's fused
+   head) and the fast R (kernel B), kernel C in the search. Its first call
+   (warm-up, capture, replay) is the path whose launches count; a second
+   replay must add to U's, B's and C's counts exactly as many launches as
+   the chunks imply, a traced third
    must run as many of their kernels on the device (torch.profiler), and
    the replays must give bitwise the first call's results,
    which must be bitwise the eager program's (capture=False) and the
@@ -151,8 +151,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    products lie up to about 1e-4 from the exact scores), the other
    weights' with at least one row separated.
    Printed: img/s of the fused graph, the
-   eager program and the serial graphs at batch 128, of the other fast G
-   (U's fused head on or off), of batch 256 and of the pixel measure; the
+   eager program and the serial graphs at batch 128, of batch 256 and of
+   the pixel measure; the
    peak device memory of the fused and the serial programs' first calls;
    the search through kernel C against torch.matmul of normalised rows,
    each + torch.topk;
@@ -299,11 +299,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    top-k as phase 8 holds it, img/s of warm calls. Every kernel of the
    paths (B, U, U's head, C, K, Q1-Q4, S) must launch at each config, and
    a line per kernel gives its summed times, bound and launches there.
-   (d) the pack_conv A/B: G's output stage at 3x64x64 and 3x128x128,
-   batch 256, bf16, as kernel U then the head by F.conv2d, U then the
-   lane-packed head (ops/pack_conv.py) at (4, 8) and (8, 8), and U's
-   fused head, CUDA events, median of 10. ``python3 chip_smoke.py
-   --configs`` runs phases 1, 2 and 13 alone (no result lines).
+   ``python3 chip_smoke.py --configs`` runs phases 1, 2 and 13 alone (no
+   result lines).
 
 The last two lines are a JSON object with each kernel's route, source,
 launch count in the main path (Q1-Q4's: ``apply_r --int8`` and the int8
@@ -773,16 +770,19 @@ def device_counts(fn, names: dict) -> dict:
             for key, name in names.items()}
 
 
-# the card's published peaks (H100 SXM, dense) and memory rate, for the
-# least time a kernel's work could take (its bound)
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
-MEM_BYTES_PER_S = 3.35e12
+# the card's published peaks (H100 SXM, dense) that the benchmark's
+# portbench/work.py has no use for: f32 on the CUDA cores, int8
+PEAK_F32_FLOPS, PEAK_INT8_OPS = 67e12, 1979e12
 
 
 def bound(flops: float, nbytes: float, dtype: str):
     """(ms, "operations" or "bytes"): the larger of the operations over the
-    peak rate of the inputs' type and the bytes over the memory rate."""
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    peak rate of the inputs' type and the bytes over the memory rate (the
+    bf16 peak and the memory rate are portbench/work.py's)."""
+    from portbench.work import MEM_BYTES_PER_S, PEAK_FLOPS
+    peak = {"bfloat16": PEAK_FLOPS, "float32": PEAK_F32_FLOPS,
+            "int8": PEAK_INT8_OPS}[dtype]
+    t_ops = flops / peak * 1e3
     t_mem = nbytes / MEM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
@@ -911,7 +911,7 @@ def kernel_cases(dev, n: int, n_search: int, dims=DIMS,
                             dtype)
             wl, fkl = _oihw_last(k, dtype), _oihw_last(fk, dtype)
 
-            def unfused():  # what fused_head=False runs: U, then the head
+            def unfused():  # U, then the head as a separate conv (reference)
                 u = uc.upsample2_conv3x3_bn_act(x, k, sc, sh, act="relu")
                 return torch.sigmoid(conv_nhwc(u, fk, 1, dtype) + fb).to(dtype)
             return {"kernel": lambda: uc.upsample2_conv3x3_head(
@@ -1301,6 +1301,8 @@ def kernel_counters():
     return {"conv_block": conv_block_kernel.conv_block,
             "upsample2_conv3x3_bn_act":
                 upsample_conv_kernel.upsample2_conv3x3_bn_act,
+            "upsample2_conv3x3_head":
+                upsample_conv_kernel.upsample2_conv3x3_head,
             "cosine_scores": topk_kernel.cosine_scores,
             "kmeans_lloyd": kmeans_kernel.kmeans_lloyd}
 
@@ -2364,14 +2366,13 @@ def check_e2e(dev, card: str):
                 "conv_block": conv_block_kernel.conv_block,
                 "cosine_scores": topk_kernel.cosine_scores}
     G, R, gv, rv, gv2, rv2, z = e2e_inputs(dev)
-    n, head = E2E_N, e2e.FUSED_HEAD
+    n = E2E_N
 
-    def program(batch=E2E_BATCHES[0], fused_head=head, pixel_k=0,
-                capture=True):
+    def program(batch=E2E_BATCHES[0], pixel_k=0, capture=True):
         return e2e.make_e2e_program(
             G, R, batch_size=batch, k=E2E_K, needle_chunk=E2E_CHUNK,
             pixel_k=pixel_k, capture=capture,
-            **e2e.fast_legs(DIMS, NOISE_DIM, "normal", fused_head=fused_head))
+            **e2e.fast_legs(DIMS, NOISE_DIM, "normal"))
 
     def rate(times):
         return n / statistics.median(times)
@@ -2383,7 +2384,7 @@ def check_e2e(dev, card: str):
     (emb, v, i), first_s, peak_fused = first_call(lambda: fused(gv, rv, z))
     launches = {name: fn.launches for name, fn in counters.items()}
     for name in ("conv_block", "cosine_scores", "upsample2_conv3x3_bn_act",
-                 *(("upsample2_conv3x3_head",) if head else ())):
+                 "upsample2_conv3x3_head"):
         check(launches[name] > 0, f"e2e: kernel {name} launched no time in "
               "the fused program's first call")
     before = dict(launches)
@@ -2392,8 +2393,8 @@ def check_e2e(dev, card: str):
     per_replay = {name: fn.launches - before[name]
                   for name, fn in counters.items()}
     chunks = -(-n // E2E_BATCHES[0])
-    expected = {"upsample2_conv3x3_bn_act": chunks if head else 2 * chunks,
-                "upsample2_conv3x3_head": chunks if head else 0,
+    expected = {"upsample2_conv3x3_bn_act": chunks,
+                "upsample2_conv3x3_head": chunks,
                 "conv_block": 6 * chunks,
                 "cosine_scores": -(-n // E2E_CHUNK)}
     check(per_replay == expected, f"e2e: launches per replay {per_replay}, "
@@ -2429,7 +2430,7 @@ def check_e2e(dev, card: str):
     # the serial programs on the same legs
     generate, invert, search = e2e.make_serial_programs(
         G, R, batch_size=E2E_BATCHES[0], k=E2E_K, needle_chunk=E2E_CHUNK,
-        **e2e.fast_legs(DIMS, NOISE_DIM, "normal", fused_head=head))
+        **e2e.fast_legs(DIMS, NOISE_DIM, "normal"))
 
     def serial():
         images = generate(gv, z)
@@ -2445,8 +2446,7 @@ def check_e2e(dev, card: str):
         lambda: search(s_emb))]
     del invert, search, s_emb, sv, si
     print(f"[e2e] fused program N={n} bf16 batch {E2E_BATCHES[0]} k={E2E_K}"
-          f" chunk {E2E_CHUNK}, fast G {'with' if head else 'without'} U's "
-          f"fused head: graph {rate(t_graph):.1f} img/s (median of "
+          f" chunk {E2E_CHUNK}: graph {rate(t_graph):.1f} img/s (median of "
           f"{E2E_TIMES}: {statistics.median(t_graph):.4f} s; first call, "
           f"warm-up + capture + replay, {first_s:.2f} s), eager program "
           f"{rate(t_eager):.1f} img/s ({statistics.median(t_eager):.4f} s), "
@@ -2486,20 +2486,18 @@ def check_e2e(dev, card: str):
           f"{rate(t_pix):.1f} img/s ({statistics.median(t_pix):.4f} s); "
           f"{p_line}; {p_line2}  [{card}]")
 
-    # the other fast G, and batch 256
-    for label, prog in ((f"fast G {'without' if head else 'with'} U's "
-                         f"fused head", program(fused_head=not head)),
-                        (f"batch {E2E_BATCHES[1]}",
-                         program(batch=E2E_BATCHES[1]))):
-        o = prog(gv, rv, z)
-        check(bool(torch.isfinite(o[0]).all()), f"e2e {label}: non-finite")
-        diff = (o[0].float() - emb.float()).abs().max().item()
-        t = wall_s(lambda: prog(gv, rv, z), 3)
-        print(f"[e2e] {label}: graph {rate(t):.1f} img/s "
-              f"({statistics.median(t):.4f} s; embeddings max_abs_err vs "
-              f"the program above {diff:.3e})  [{card}]")
-        del prog, o
-        torch.cuda.empty_cache()
+    # batch 256
+    prog = program(batch=E2E_BATCHES[1])
+    o = prog(gv, rv, z)
+    check(bool(torch.isfinite(o[0]).all()),
+          f"e2e batch {E2E_BATCHES[1]}: non-finite")
+    diff = (o[0].float() - emb.float()).abs().max().item()
+    t = wall_s(lambda: prog(gv, rv, z), 3)
+    print(f"[e2e] batch {E2E_BATCHES[1]}: graph {rate(t):.1f} img/s "
+          f"({statistics.median(t):.4f} s; embeddings max_abs_err vs "
+          f"the program above {diff:.3e})  [{card}]")
+    del prog, o
+    torch.cuda.empty_cache()
 
     # kernel C's search against one plain product of normalised rows
     for label, rows, k in (("attributes", emb, E2E_K),
@@ -2978,11 +2976,8 @@ def check_t7_import(dev, card: str, tmp: str) -> dict:
     x = ref_images.permute(0, 2, 3, 1).contiguous()
     errs = {}
     with torch.inference_mode():
-        for head in (False, True):
-            fast = fastpath.make_fast_generator(DIMS, NOISE_DIM, f32, head)(
-                g_vars, z)
-            errs["G" + (" (U's head)" if head else "")] = _path_err(
-                "imported G", fast, x)
+        errs["G"] = _path_err("imported G", fastpath.make_fast_generator(
+            DIMS, NOISE_DIM, f32)(g_vars, z), x)
         errs["R"] = _path_err(
             "imported R", fastpath.make_fast_inverter(
                 DIMS, NOISE_DIM, "normal", f32)(r_vars, x),
@@ -3069,7 +3064,6 @@ SERVE_CPU_ROWS = 16      # rows of the CPU leg held to the plain path
 # one FMA rounding on both sides; expm1 and the sigmoid in CUDA's libdevice
 # against PyTorch's (their int8 and int32 parts must be bitwise)
 TOL_INT8 = 1e-6
-PEAK_INT8_OPS = 1979e12  # dense int8 tensor-core peak of an H100 SXM
 INT8_LINES = ("quant_conv3x3_same", "quant_upsample2_conv3x3", "quant_dense",
               "quant_act", "quant_act_max")
 S8_LINES = INT8_LINES[:3]   # Q1, Q2 and Q3, on the int8 tensor cores
@@ -3471,10 +3465,7 @@ def check_quant_kernels(dev, card: str, n: int = N_CHECK, dims=DIMS,
         ms, plain_ms = time_ms(case["kernel"]), time_ms(case["plain"])
         lib_ms = (time_ms(case["library"]) if case["library"] is not None
                   else None)
-        t_ops = case["ops"] / PEAK_INT8_OPS * 1e3
-        t_mem = case["bytes"] / MEM_BYTES_PER_S * 1e3
-        b_ms, b_by = ((t_ops, "operations") if t_ops >= t_mem
-                      else (t_mem, "bytes"))
+        b_ms, b_by = bound(case["ops"], case["bytes"], "int8")
         lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
         beside = ""
         if name in S8_LINES:
@@ -3592,7 +3583,7 @@ def check_serving(dev, card: str, tmp: str, secs4: dict, rate8: float):
             for what, extra in exports.items()}
 
     # the same inputs through the live legs and through a fresh process
-    legs = e2e.fast_legs(DIMS, NOISE_DIM, "normal", fused_head=True)
+    legs = e2e.fast_legs(DIMS, NOISE_DIM, "normal")
     gen = torch.Generator(device=dev).manual_seed(SEED + 50)
     c, h, w = DIMS
     inputs = {"invert": torch.rand(SERVE_BATCH, h, w, c, device=dev,
@@ -4018,7 +4009,8 @@ PAR_GATES = {"e2e": ("upsample2_conv3x3_bn_act", "upsample2_conv3x3_head",
              "topk": ("cosine_scores", "approx_topk"),
              "r_step": ("fused_dropout",),
              "gan_step": (),
-             "tp": ("upsample2_conv3x3_bn_act", "conv_block")}
+             "tp": ("upsample2_conv3x3_bn_act", "upsample2_conv3x3_head",
+                    "conv_block")}
 
 
 def free_port() -> int:
@@ -4685,8 +4677,6 @@ CONFIGS = {"config1": Config((1, 32, 32), 32, 10_000, 64, 0, 64),
 # and C by check_kernels; K, Q1-Q4 and S by their own checks)
 CONFIG_KERNELS = ("conv_block", "upsample2_conv3x3_bn_act",
                   "upsample2_conv3x3_head", "cosine_scores")
-PACK_AB_DIMS = ((3, 64, 64), (3, 128, 128))   # G's output stage, batch 256
-PACKS = ((4, 8), (8, 8))
 
 
 def kmeans_at(dev, card: str, tag: str, n: int, d: int) -> dict:
@@ -4910,12 +4900,12 @@ def config_analysis(dev, card: str, tag: str, cfg: Config, tmp: str,
 
 def config_e2e(dev, card: str, tag: str, cfg: Config, launches: dict):
     """Phase 13c: the fused program at a config (N = 10,240, its batch,
-    k = 100, needle chunk 256, U's fused head where e2e.FUSED_HEAD says
-    so), pixel_k 0 and 100: each first call counted (every kernel must
-    launch) with its peak device memory, one more replay adding exactly the
-    chunks' launches and bitwise the first call, the top-k against the
-    plain search (attributes) and against the search in f64 on the serial
-    program's images (pixels) as phase 8 holds them; img/s of warm calls.
+    k = 100, needle chunk 256), pixel_k 0 and 100: each first call counted
+    (every kernel must launch) with its peak device memory, one more replay
+    adding exactly the chunks' launches and bitwise the first call, the
+    top-k against the plain search (attributes) and against the search in
+    f64 on the serial program's images (pixels) as phase 8 holds them;
+    img/s of warm calls.
     Adds the first calls' launches to ``launches``."""
     import torch
     from ganreverser_tpu_torch.analysis import e2e
@@ -4927,12 +4917,12 @@ def config_e2e(dev, card: str, tag: str, cfg: Config, launches: dict):
                 "upsample2_conv3x3_head": uc.upsample2_conv3x3_head,
                 "conv_block": conv_block_kernel.conv_block,
                 "cosine_scores": topk_kernel.cosine_scores}
-    head, n = e2e.FUSED_HEAD, E2E_N
+    n = E2E_N
     G, R, _ = make_models(dev, cfg.dims, cfg.noise_dim)
     gv, rv = bridge.module_variables(G), bridge.module_variables(R)
     z = noise_inputs(torch.Generator(device=dev).manual_seed(SEED + 30), n,
                      cfg.noise_dim, "normal", device=dev)
-    legs = e2e.fast_legs(cfg.dims, cfg.noise_dim, "normal", fused_head=head)
+    legs = e2e.fast_legs(cfg.dims, cfg.noise_dim, "normal")
     generate = e2e.make_serial_programs(
         G, R, batch_size=cfg.e2e_batch, k=E2E_K, needle_chunk=E2E_CHUNK,
         **legs)[0]
@@ -4946,9 +4936,7 @@ def config_e2e(dev, card: str, tag: str, cfg: Config, launches: dict):
             fn.launches = 0
         first, first_s, peak = first_call(lambda: prog(gv, rv, z))
         counts = {name: fn.launches for name, fn in counters.items()}
-        for name in ("conv_block", "cosine_scores",
-                     "upsample2_conv3x3_bn_act",
-                     *(("upsample2_conv3x3_head",) if head else ())):
+        for name in counters:
             check(counts[name] > 0, f"{tag} e2e pixel_k={pixel_k}: kernel "
                   f"{name} launched no time in the first call")
         for name, count in counts.items():
@@ -4957,8 +4945,8 @@ def config_e2e(dev, card: str, tag: str, cfg: Config, launches: dict):
         torch.cuda.synchronize()
         per_replay = {name: fn.launches - counts[name]
                       for name, fn in counters.items()}
-        expected = {"upsample2_conv3x3_bn_act": chunks if head else 2 * chunks,
-                    "upsample2_conv3x3_head": chunks if head else 0,
+        expected = {"upsample2_conv3x3_bn_act": chunks,
+                    "upsample2_conv3x3_head": chunks,
                     "conv_block": 6 * chunks,
                     "cosine_scores": -(-n // E2E_CHUNK) * (2 if pixel_k
                                                           else 1)}
@@ -4994,73 +4982,9 @@ def config_e2e(dev, card: str, tag: str, cfg: Config, launches: dict):
         torch.cuda.empty_cache()
     for line in lines:
         print(f"[{tag}] fused program N={n} {cfg.dims} noise {cfg.noise_dim} "
-              f"bf16 batch {cfg.e2e_batch} k={E2E_K} chunk {E2E_CHUNK}, fast "
-              f"G {'with' if head else 'without'} U's fused head, {line}  "
-              f"[{card}]")
+              f"bf16 batch {cfg.e2e_batch} k={E2E_K} chunk {E2E_CHUNK}, {line}"
+              f"  [{card}]")
     del generate, out, G, R
-    torch.cuda.empty_cache()
-
-
-def pack_ab(dev, card: str) -> None:
-    """Phase 13d, the pack_conv A/B: G's output stage (stage 2 + the 128->C
-    conv + sigmoid) at batch 256, bf16, three ways: kernel U then the head
-    by F.conv2d (the fast G without U's fused head), kernel U then the
-    lane-packed head (ops/pack_conv.py) at each of PACKS, and U's fused
-    head; CUDA events, median of 10; the packed and fused outputs within
-    bf16's tolerance of the first."""
-    import torch
-    from ganreverser_tpu_torch.ops import pack_conv
-    from ganreverser_tpu_torch.ops import upsample_conv_kernel as uc
-    from ganreverser_tpu_torch.ops.upsample_conv import conv_nhwc
-    bf16 = torch.bfloat16
-    gen = torch.Generator(device=dev).manual_seed(SEED + 140)
-    for c, h, w in PACK_AB_DIMS:
-        x = torch.rand(N_CHECK, h // 2, w // 2, 256, device=dev,
-                       generator=gen).to(bf16)
-        k = (torch.randn(3, 3, 256, 128, device=dev, generator=gen)
-             / 48.0).to(bf16)
-        sc = 0.5 + torch.rand(128, device=dev, generator=gen)
-        sh = 0.1 * torch.randn(128, device=dev, generator=gen)
-        fk = (torch.randn(3, 3, 128, c, device=dev, generator=gen)
-              / 34.0).to(bf16)
-        fb = 0.1 * torch.randn(c, device=dev, generator=gen)
-        # the operands as the fast G prepares them, once
-        stage = {"kernel": k, "scale": sc, "shift": sh, "act": "relu",
-                 "operand": uc.phase_operand(k, bf16)}
-        fused = dict(stage, final_kernel=fk, final_bias=fb,
-                     final_operand=uc.head_operand(fk, bf16, h // 2, w // 2,
-                                                   256))
-        u = uc.upsample2_conv3x3_bn_act(x, **stage)
-        ways = {"U + F.conv2d head": lambda: torch.sigmoid(
-            conv_nhwc(uc.upsample2_conv3x3_bn_act(x, **stage), fk, 1, bf16)
-            + fb).to(bf16)}
-        heads = {"F.conv2d head": lambda: torch.sigmoid(
-            conv_nhwc(u, fk, 1, bf16) + fb).to(bf16)}
-        for pack in PACKS:
-            packed = pack_conv.pack_kernel(fk, pack)
-            ways[f"U + packed head {pack}"] = (
-                lambda pack=pack, packed=packed: pack_conv.conv3x3_packed(
-                    uc.upsample2_conv3x3_bn_act(x, **stage), fk, fb, pack,
-                    "sigmoid", bf16, packed))
-            heads[f"packed head {pack}"] = (
-                lambda pack=pack, packed=packed: pack_conv.conv3x3_packed(
-                    u, fk, fb, pack, "sigmoid", bf16, packed))
-        ways["U's fused head"] = lambda: uc.upsample2_conv3x3_bn_act(
-            x, **fused)
-        ref = ways["U + F.conv2d head"]().float()
-        parts = []
-        for label, fn in ways.items():
-            err = (fn().float() - ref).abs().max().item()
-            check(err <= TOL["bfloat16"], f"pack A/B {(c, h, w)} {label}: "
-                  f"{err} from U + F.conv2d head")
-            parts.append(f"{label} {time_ms(fn):.4f} ms (vs the first "
-                         f"{err:.1e})")
-        parts += [f"{label} alone {time_ms(fn):.4f} ms"
-                  for label, fn in heads.items()]
-        print(f"[pack] G's output stage {(N_CHECK, h // 2, w // 2, 256)} -> "
-              f"128 -> {c} bf16 (median of 10, CUDA events): "
-              + ", ".join(parts) + f"  [{card}]")
-        del x, u, ref, ways, heads
     torch.cuda.empty_cache()
 
 
@@ -5086,7 +5010,7 @@ def config_table(tag: str, records: list, launches: dict, card: str):
 
 def check_configs(dev, card: str) -> dict:
     """Phase 13: BASELINE.json's configs 1 and 5 through the port's main
-    path (see the module docstring), then the pack_conv A/B. Every kernel
+    path (see the module docstring). Every kernel
     must launch on each config's paths. Returns the launches of the
     configs' paths."""
     import torch
@@ -5111,7 +5035,6 @@ def check_configs(dev, card: str) -> dict:
               f"comparisons {t2 - t1:.1f}, fused program "
               f"{time.perf_counter() - t2:.1f}  [{card}]")
         torch.cuda.empty_cache()
-    pack_ab(dev, card)
     print(f"[time] phase 13 {time.perf_counter() - t_phase:.1f} s  [{card}]")
     return total
 
@@ -5238,8 +5161,10 @@ def main(configs_only: bool = False) -> int:
         # 7. pretraining from phase 6's checkpoint, and the probes
         t7 = time.perf_counter()
         from ganreverser_tpu_torch.io import checkpoint as ckpt
-        launches.update(check_pretraining(
-            dev, card, tmp, ckpt.adversarial_name(os.path.join(tmp, "gan"))))
+        for name, count in check_pretraining(
+                dev, card, tmp,
+                ckpt.adversarial_name(os.path.join(tmp, "gan"))).items():
+            launches[name] = launches.get(name, 0) + count
         secs7 = time.perf_counter() - t7
     launches["conv3x3_bn_act"] = n_train + n_sample
     for dtype in (torch.float32, torch.bfloat16):
@@ -5294,8 +5219,7 @@ def main(configs_only: bool = False) -> int:
         check_async_save(dev, card, tmp)
     check_native(card)
     t13 = time.perf_counter()
-    # 13. BASELINE.json's configs 1 and 5 through the main path, and the
-    # pack_conv A/B
+    # 13. BASELINE.json's configs 1 and 5 through the main path
     for name, count in check_configs(dev, card).items():
         launches[name] += count
     print(f"[time] phases 6 and 7 {t8 - t6:.1f} s (7: {secs7:.1f} s), phase "

@@ -83,9 +83,11 @@ def distributed_generate_and_invert(g_variables: dict, r_variables: dict, *,
     r_variables = gather_replicated(r_variables, mesh, r_specs)
     generate = make_fast_generator(dims, noise_dim, dtype)
     invert = make_fast_inverter(dims, noise_dim, noise_method, dtype)
-    images = forward_batched(lambda z: generate(g_variables, z), noise,
+    g_prep = generate.prepare(g_variables)
+    images = forward_batched(lambda z: generate.run(g_prep, z), noise,
                              batch_size)
-    attributes = forward_batched(lambda x: invert(r_variables, x), images,
+    r_prep = invert.prepare(r_variables)
+    attributes = forward_batched(lambda x: invert.run(r_prep, x), images,
                                  batch_size)
     if rf_variables is None:
         return noise, images, attributes
@@ -93,10 +95,11 @@ def distributed_generate_and_invert(g_variables: dict, r_variables: dict, *,
     invert_fixer = make_fast_fixer(dims, noise_dim, noise_method, dtype)
     keep = fixer_keep_rows(fixer_generator, n, batch_size, images.shape[1:],
                            rows)
+    rf_prep = invert_fixer.prepare(rf_variables)
     # chunks of row indices, so that each chunk's images and mask travel
     # together (and the last chunk is padded as the images' would be)
     attributes_fixer = forward_batched(
-        lambda idx: invert_fixer(rf_variables, images[idx], keep=keep[idx]),
+        lambda idx: invert_fixer.run(rf_prep, images[idx], keep=keep[idx]),
         torch.arange(images.shape[0], device=device), batch_size)
     return noise, images, attributes, attributes_fixer
 

@@ -59,17 +59,10 @@ from .graphs import CapturedProgram
 from .similarity import scores_against, select_topk
 
 
-# the fast G the fused program runs: U's fused head on G3's second stage,
-# or U and a plain head (the JAX fast G's layout), chosen by chip_smoke.py's
-# phase 8 on the card (PERF.md)
-FUSED_HEAD = True
-
-
 def fast_legs(dims: tuple, noise_dim: int, noise_method: str,
-              dtype: torch.dtype = torch.bfloat16,
-              fused_head: bool = FUSED_HEAD, int8: bool = False) -> dict:
-    """``{"g_apply", "r_apply"}``: the fast G (kernel U, and U's fused head
-    with ``fused_head``) and the fast R (kernel B) of models/fastpath.py,
+              dtype: torch.dtype = torch.bfloat16, int8: bool = False) -> dict:
+    """``{"g_apply", "r_apply"}``: the fast G (kernel U and U's fused head)
+    and the fast R (kernel B) of models/fastpath.py,
     the legs the card runs in :func:`make_e2e_program` and
     :func:`make_serial_programs`; with ``int8`` the int8 G and R (kernels
     Q1-Q4)."""
@@ -77,8 +70,7 @@ def fast_legs(dims: tuple, noise_dim: int, noise_method: str,
         return {"g_apply": make_fast_generator_int8(dims, noise_dim, dtype),
                 "r_apply": make_fast_inverter_int8(dims, noise_dim,
                                                    noise_method, dtype)}
-    return {"g_apply": make_fast_generator(dims, noise_dim, dtype,
-                                           fused_head),
+    return {"g_apply": make_fast_generator(dims, noise_dim, dtype),
             "r_apply": make_fast_inverter(dims, noise_dim, noise_method,
                                           dtype)}
 

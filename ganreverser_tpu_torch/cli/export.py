@@ -134,9 +134,7 @@ def main(argv=None) -> dict:
             "compute_dtype": args.compute_dtype, "int8": bool(args.int8),
             "G": args.G}
     gen = torch.Generator(device=device).manual_seed(0)
-    # the fast G ends in U's fused head, whatever e2e.FUSED_HEAD says
-    legs = fast_legs(dims, noise_dim, noise_method, dtype, fused_head=True,
-                     int8=args.int8)
+    legs = fast_legs(dims, noise_dim, noise_method, dtype, int8=args.int8)
 
     with torch.inference_mode(False), torch.no_grad():
         if args.what == "generate":

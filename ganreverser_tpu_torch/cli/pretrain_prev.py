@@ -82,8 +82,9 @@ def main(argv=None) -> dict:
                                "state": prev_tree["G"]["state"]}, device)
     dp_vars = bridge.to_torch({"params": prev_tree["D"]["params"],
                                "state": prev_tree["D"]["state"]}, device)
-    g_prev = make_fast_generator(prev_dims, prev_nd, dtype, fused_head=True)
+    g_prev = make_fast_generator(prev_dims, prev_nd, dtype)
     d_prev = make_fast_discriminator(prev_dims, dtype)
+    gp_prep, dp_prep = g_prev.prepare(gp_vars), d_prev.prepare(dp_vars)
 
     gen = stage_generator(cfg.seed, INIT_STAGE, "cpu")  # G's weights, then D's
     G = init_parameters(zoo.create_G(dims, cfg.noiseDim, dtype), gen)
@@ -116,7 +117,7 @@ def main(argv=None) -> dict:
             # G_prev's images -> the new geometry and colour space (the
             # host hop of pretrain_with_previous_net.lua:167)
             with torch.no_grad():
-                gp = g_prev(gp_vars, prev_z)
+                gp = g_prev.run(gp_prep, prev_z)
             gp_imgs = switch_colorspace(gp.float().cpu().numpy(), prev_cs,
                                         cfg.colorSpace)
             gp_imgs = _resize_batch(gp_imgs, h, w)
@@ -131,7 +132,7 @@ def main(argv=None) -> dict:
                 switch_colorspace(d_inputs, cfg.colorSpace, prev_cs),
                 prev_h, prev_w)
             with torch.no_grad():
-                soft = d_prev(dp_vars, torch.from_numpy(
+                soft = d_prev.run(dp_prep, torch.from_numpy(
                     np.ascontiguousarray(d_prev_in)).to(device)).reshape(-1)
             d_losses.append(d_step(d_ts, torch.from_numpy(d_inputs).to(
                 device), soft))

@@ -95,6 +95,7 @@ def main(argv=None) -> dict:
                              device)
     gen_fn = make_fast_generator(dims, noise_dim, dtype)
     rate_fn = make_fast_discriminator(dims, dtype)
+    g_prep, d_prep = gen_fn.prepare(g_vars), rate_fn.prepare(d_vars)
     dataset = common.make_dataset(cfg)
 
     def rgb(x):
@@ -115,8 +116,9 @@ def main(argv=None) -> dict:
         z = noise_inputs(stage_generator(cfg.seed, 100 + run, device),
                          N_SAMPLES, noise_dim, noise_method, device=device)
         with torch.inference_mode():
-            images = forward_batched(lambda b: gen_fn(g_vars, b), z, CHUNK)
-            preds = forward_batched(lambda b: rate_fn(d_vars, b), images,
+            images = forward_batched(lambda b: gen_fn.run(g_prep, b), z,
+                                     CHUNK)
+            preds = forward_batched(lambda b: rate_fn.run(d_prep, b), images,
                                     CHUNK).reshape(-1).float().cpu().numpy()
         images_host = rgb(images)
         save_image(out("samples_256.jpg"),

@@ -12,12 +12,8 @@ They run:
 
   G: z -> Dense(+BN folded)+ReLU                      [torch.matmul]
        -> upsample2+conv3x3+BN+ReLU (512->256)       [kernel U]
-       -> upsample2+conv3x3+BN+ReLU (256->128)       [kernel U]
-       -> conv3x3 (128->C) + Sigmoid                  [F.conv2d]
-     with ``fused_head=True`` the last two lines are one launch of U's
-     fused head (upsample_conv_kernel.upsample2_conv3x3_head); with
-     ``pack_out=(ph, pw)`` the last line is one strided F.conv2d onto
-     ph x pw pixel blocks (ops/pack_conv.py)
+       -> upsample2+conv3x3+BN+ReLU (256->128)
+          -> conv3x3 (128->C) + Sigmoid               [U's fused head]
 
   R: images -> [conv64+BN+ELU x3 + pool]             [kernel B]
             -> [conv128+BN+ELU x3 + pool]            [kernel B]
@@ -31,10 +27,12 @@ They run:
             -> Dense + PReLU per branch, Dense + PReLU, Dense + Sigmoid
                                                       [torch.matmul]
 
-as the JAX package leaves the dense layers, G's Co=C head and D's 5x5
-conv to XLA outside any kernel. Their f32 precision is pinned by the
-compute dtype (core/precision.py), not by the process-wide TF32 flags. On CUDA tensors
-the kernels launch; on CPU tensors their plain versions run.
+as the JAX package leaves the dense layers and D's 5x5 conv to XLA
+outside any kernel; G's Co=C head is the JAX kernel's fused final head
+(``upsample2_conv3x3(..., final_kernel=...)``). Their f32 precision is
+pinned by the compute dtype (core/precision.py), not by the process-wide
+TF32 flags. On CUDA tensors the kernels launch; on CPU tensors their
+plain versions run.
 
 The fixer-R (``make_fast_fixer``) is R behind an always-on input dropout:
 its mask is drawn outside the kernels, so the fixer runs on kernel B too.
@@ -66,11 +64,10 @@ from ..core.precision import pinned_precision
 from ..ops.conv_block_kernel import conv_block
 from ..ops import quant
 from ..ops.conv_kernel import conv3x3_bn_act, conv3x3_operand, fold_batchnorm
-from ..ops.pack_conv import conv3x3_packed, pack_kernel
 from ..ops.upsample_conv import conv_nhwc
 from ..ops.upsample_conv_kernel import (head_operand, phase_operand,
                                         upsample2_conv3x3_bn_act)
-from .modules import apply_dropout, dense, dropout_keep_mask
+from .modules import apply_dropout, dropout_keep_mask
 
 Dims = tuple  # (C, H, W)
 
@@ -109,22 +106,14 @@ def _dense(x: torch.Tensor, k: torch.Tensor, dtype: torch.dtype):
 
 
 def make_fast_generator(dims: Dims, noise_dim: int,
-                        dtype: torch.dtype = torch.bfloat16,
-                        fused_head: bool = False,
-                        pack_out=None) -> FastForward:
+                        dtype: torch.dtype = torch.bfloat16) -> FastForward:
     """Returns ``generate(g_variables, z) -> images`` (a
     :class:`FastForward`) equal to ``create_G3(...)`` in evaluation on the
-    same weights; images are NHWC in ``dtype``. ``fused_head=True`` runs
-    the second upsample stage and the 128->C conv + sigmoid as one launch
-    of U's fused head, with the same rounding points (stage 2's output
-    rounded to ``dtype``, f32 sums of the head); False, the JAX fast G's
-    choice, leaves the head to a plain convolution. ``pack_out=(ph, pw)``
-    (the JAX package's ``make_fast_generator_xla(pack_out=...)``) computes
-    that plain head lane-packed (ops/pack_conv.py); it cannot go with
-    ``fused_head``."""
-    if pack_out is not None and fused_head:
-        raise ValueError("pack_out packs the plain head; fused_head runs "
-                         "the head inside kernel U: choose one")
+    same weights; images are NHWC in ``dtype``. The second upsample stage
+    and the 128->C conv + sigmoid are one call of U's fused head, with the
+    rounding points of a separate head (stage 2's output rounded to
+    ``dtype``, f32 sums of the head); on the card it took under half the
+    time of U and a cuDNN head at every size measured (PERF.md)."""
     c, h, w = dims
     sh, sw = h // 4, w // 4
 
@@ -140,39 +129,27 @@ def make_fast_generator(dims: Dims, noise_dim: int,
             k = p[conv]["kernel"].to(dtype)
             stage = {"kernel": k, "scale": scale, "shift": shift,
                      "operand": phase_operand(k, dtype) if on_card else None}
-            if fused_head and i == 1:
+            if i == 1:
                 fk = p["l12"]["kernel"]
                 stage.update(final_kernel=fk, final_bias=p["l12"]["bias"],
                              final_act="sigmoid", final_operand=head_operand(
                                  fk, dtype, 2 * sh, 2 * sw, k.shape[2])
                              if on_card else None)
             stages.append(stage)
-        head = p["l12"]["kernel"].to(dtype)
         return {"k0": _rounded(p["l0"]["kernel"].float() * scale0[None, :],
                                dtype),
-                "shift0": shift0, "stages": stages, "head": head,
-                "head_bias": p["l12"]["bias"],
-                "head_packed": (None if pack_out is None
-                                else pack_kernel(head, tuple(pack_out)))}
+                "shift0": shift0, "stages": stages}
 
     def run(prep, z):
         # Dense + folded BN + ReLU (models.lua:115-117)
         y = torch.clamp_min(_dense(z, prep["k0"], dtype) + prep["shift0"],
                             0.0).to(dtype)
         x = y.reshape(z.shape[0], sh, sw, 512)
-        # two fused upsample+conv+BN+ReLU stages (models.lua:121-130); with
-        # fused_head the second carries the output conv + sigmoid
+        # two fused upsample+conv+BN+ReLU stages (models.lua:121-130), the
+        # second carrying the output conv + sigmoid (models.lua:132-133)
         for stage in prep["stages"]:
             x = upsample2_conv3x3_bn_act(x, act="relu", **stage)
-        if fused_head:
-            return x
-        # final 3x3 conv + sigmoid (models.lua:132-133)
-        if pack_out is not None:
-            return conv3x3_packed(x, prep["head"], prep["head_bias"],
-                                  tuple(pack_out), "sigmoid", dtype,
-                                  prep["head_packed"])
-        y = conv_nhwc(x, prep["head"], 1, dtype)
-        return torch.sigmoid(y + prep["head_bias"]).to(dtype)
+        return x
 
     return FastForward(prepare, run)
 
@@ -390,16 +367,18 @@ def make_fast_fixer(dims: Dims, noise_dim: int, noise_method: str,
     return invert_fixer
 
 
-def make_fast_discriminator(dims: Dims, dtype: torch.dtype = torch.bfloat16):
-    """Returns ``rate(d_variables, images) -> (N, 1)`` probabilities in
-    ``dtype``, D2 in evaluation (``create_D2(...)`` under ``.eval()``, the
-    dropouts the identity) on the same weights. Five of D2's six
-    convolutions run on kernel B6 with scale 1, shift = the conv bias and
-    the PReLU slope read from its (1,) parameter on the device; the pool
-    that follows three of them is fused. The 5x5 conv of the left branch
-    and the dense layers keep the module path's arithmetic: f32 sums of
-    ``dtype``-rounded operands, the bias added in f32, one rounding, then
-    PReLU in ``dtype``."""
+def make_fast_discriminator(dims: Dims, dtype: torch.dtype = torch.bfloat16
+                            ) -> FastForward:
+    """Returns ``rate(d_variables, images) -> (N, 1)`` (a
+    :class:`FastForward`), probabilities in ``dtype``, D2 in evaluation
+    (``create_D2(...)`` under ``.eval()``, the dropouts the identity) on
+    the same weights. Five of D2's six convolutions run on kernel B6 with
+    scale 1, shift = the conv bias and the PReLU slope read from its (1,)
+    parameter on the device; the pool that follows three of them is fused.
+    The 5x5 conv of the left branch and the dense layers keep the module
+    path's arithmetic: f32 sums of ``dtype``-rounded operands, the bias
+    added in f32, one rounding, then PReLU in ``dtype``. ``prepare``
+    rounds the kernels to ``dtype`` once."""
     c, h, w = dims
     if h % 8 or w % 8:
         raise ValueError(f"D2 needs H and W divisible by 8, got {h}x{w}")
@@ -407,39 +386,59 @@ def make_fast_discriminator(dims: Dims, dtype: torch.dtype = torch.bfloat16):
     def prelu(x, alpha):
         return torch.where(x >= 0, x, alpha.to(x.dtype) * x)
 
-    def b6(x, nxn, pool):
-        """create_D2's conv + PReLU block ``nxn`` (its l0, l1) on B6."""
-        k = nxn["l0"]["kernel"]
-        ones = torch.ones(k.shape[-1], device=x.device)
-        return conv3x3_bn_act(x, k.to(dtype), ones, nxn["l0"]["bias"],
-                              act="prelu", prelu_alpha=nxn["l1"]["alpha"],
-                              pool=pool)
-
-    def dense_prelu(x, lin, act):
-        y = (dense(x, lin["kernel"], dtype) + lin["bias"]).to(dtype)
-        return prelu(y, act["alpha"])
-
-    def rate(variables, images):
+    def prepare(variables):
         p = variables["params"]
         left, right = p["l3"]["b0"], p["l3"]["b1"]
+
+        def b6(nxn):
+            """create_D2's conv + PReLU block ``nxn`` (its l0, l1)."""
+            k = nxn["l0"]["kernel"]
+            return {"kernel": k.to(dtype),
+                    "scale": torch.ones(k.shape[-1], device=k.device),
+                    "shift": nxn["l0"]["bias"],
+                    "prelu_alpha": nxn["l1"]["alpha"]}
+
+        def lin(layer, act=None):
+            return {"k": _rounded(layer["kernel"], dtype),
+                    "b": layer["bias"],
+                    "alpha": None if act is None else act["alpha"]}
+
+        return {"stem": (b6(p["l0"]), b6(p["l1"])),
+                "left": {"kernel": left["l0"]["l0"]["kernel"].to(dtype),
+                         "bias": left["l0"]["l0"]["bias"],
+                         "alpha": left["l0"]["l1"]["alpha"]},
+                "right": (b6(right["l0"]), b6(right["l2"]),
+                          b6(right["l3"])),
+                "dense": {"left": lin(left["l3"], left["l4"]),
+                          "right": lin(right["l6"], right["l7"]),
+                          "l4": lin(p["l4"], p["l5"]), "l7": lin(p["l7"])}}
+
+    def dense_prelu(x, d):
+        return prelu((_dense(x, d["k"], dtype) + d["b"]).to(dtype),
+                     d["alpha"])
+
+    def run(prep, images):
+        stem, left, right, dn = (prep["stem"], prep["left"], prep["right"],
+                                 prep["dense"])
         # stem: two conv + PReLU blocks, the second with the pool (l0-l2)
-        x = b6(images.to(dtype).contiguous(), p["l0"], False)
-        x = b6(x, p["l1"], True)
+        x = conv3x3_bn_act(images.to(dtype).contiguous(), act="prelu",
+                           **stem[0])
+        x = conv3x3_bn_act(x, act="prelu", pool=True, **stem[1])
         n = x.shape[0]
         # left branch: 5x5 conv + PReLU + pool, Dense + PReLU (l3.b0)
-        y = (conv_nhwc(x, left["l0"]["l0"]["kernel"], 2, dtype)
-             + left["l0"]["l0"]["bias"]).to(dtype)
-        y = prelu(y, left["l0"]["l1"]["alpha"])
+        y = (conv_nhwc(x, left["kernel"], 2, dtype)
+             + left["bias"]).to(dtype)
+        y = prelu(y, left["alpha"])
         y = y.reshape(n, h // 4, 2, w // 4, 2, -1).amax(dim=(2, 4))
-        y = dense_prelu(y.reshape(n, -1), left["l3"], left["l4"])
+        y = dense_prelu(y.reshape(n, -1), dn["left"])
         # right branch: three conv + PReLU blocks, two pools (l3.b1)
-        r = b6(x, right["l0"], True)
-        r = b6(r, right["l2"], False)
-        r = b6(r, right["l3"], True)
-        r = dense_prelu(r.reshape(n, -1), right["l6"], right["l7"])
+        r = conv3x3_bn_act(x, act="prelu", pool=True, **right[0])
+        r = conv3x3_bn_act(r, act="prelu", **right[1])
+        r = conv3x3_bn_act(r, act="prelu", pool=True, **right[2])
+        r = dense_prelu(r.reshape(n, -1), dn["right"])
         # head: Dense 256 + PReLU, Dense 1 + Sigmoid (l4-l8)
-        y = dense_prelu(torch.cat([y, r], dim=-1), p["l4"], p["l5"])
-        y = (dense(y, p["l7"]["kernel"], dtype) + p["l7"]["bias"]).to(dtype)
-        return torch.sigmoid(y)
+        y = dense_prelu(torch.cat([y, r], dim=-1), dn["l4"])
+        l7 = dn["l7"]
+        return torch.sigmoid((_dense(y, l7["k"], dtype) + l7["b"]).to(dtype))
 
-    return rate
+    return FastForward(prepare, run)

@@ -6,12 +6,12 @@ as library functions, the counterparts of ganreverser_tpu/utils/sampling.py:
   sort_images_by_prediction <- nn_utils.sortImagesByPrediction (:101-129)
   to_batch / to_image_tensor<- nn_utils.toBatch/toImageTensor (:248-307)
 
-G runs on the fast G (kernel U, and U's fused head where
-``analysis/e2e.FUSED_HEAD`` says so) and D on the fast D (kernel B6), in
-evaluation, over ``analysis/batched.forward_batched``; on CPU tensors their
-plain versions run. The JAX functions apply the modules. The variables are
-``{"params", "state"}`` trees of tensors on the inputs' device
-(``models/bridge.py::module_variables`` or ``to_torch``).
+G runs on the fast G (kernel U and U's fused head) and D on the fast D
+(kernel B6), in evaluation, over ``analysis/batched.forward_batched``; on
+CPU tensors their plain versions run. The JAX functions apply the
+modules. The variables are ``{"params", "state"}`` trees of tensors on
+the inputs' device (``models/bridge.py::module_variables`` or
+``to_torch``).
 """
 from __future__ import annotations
 
@@ -22,7 +22,6 @@ import torch
 from torch import nn
 
 from ..analysis.batched import forward_batched
-from ..analysis.e2e import FUSED_HEAD
 from ..core.prng import noise_inputs
 from ..models.fastpath import make_fast_discriminator, make_fast_generator
 
@@ -41,7 +40,7 @@ def create_images_from_noise(G: nn.Module, g_variables: dict,
     """Batched evaluation forward of the G3 ``G`` (its geometry and compute
     dtype) on ``g_variables`` over ``noise``: NHWC images in G's dtype."""
     dims, noise_dim, dtype = _g3_geometry(G)
-    fast_g = make_fast_generator(dims, noise_dim, dtype, FUSED_HEAD)
+    fast_g = make_fast_generator(dims, noise_dim, dtype)
     prepared = fast_g.prepare(g_variables)
     return forward_batched(lambda z: fast_g.run(prepared, z), noise,
                            batch_size)
@@ -69,7 +68,8 @@ def sort_images_by_prediction(D: nn.Module, d_variables: dict,
     sorted_predictions), truncated to nb_max_out; ties keep their order."""
     _, h, w, c = images.shape
     rate = make_fast_discriminator((c, h, w), D.l0.l0.dtype)
-    preds = forward_batched(lambda x: rate(d_variables, x).reshape(-1),
+    prepared = rate.prepare(d_variables)
+    preds = forward_batched(lambda x: rate.run(prepared, x).reshape(-1),
                             images, batch_size)
     order = torch.argsort(preds if ascending else -preds, stable=True)
     if nb_max_out is not None:

@@ -19,15 +19,20 @@ from ganreverser_tpu import models as M
 from ganreverser_tpu.cli import apply_r as j_apply_r
 from ganreverser_tpu.core.prng import noise_inputs as j_noise_inputs
 from ganreverser_tpu.io.metrics import MetricsWriter as JMetricsWriter
+from ganreverser_tpu_torch import parallel as par
+from ganreverser_tpu_torch.analysis import distributed, e2e
 from ganreverser_tpu_torch.analysis import pipeline as P
 from ganreverser_tpu_torch.analysis.refine import make_refiner
-from ganreverser_tpu_torch.cli import apply_r
+from ganreverser_tpu_torch.cli import apply_r, pretrain_prev, sample
 from ganreverser_tpu_torch.core import prng
 from ganreverser_tpu_torch.io import checkpoint as ckpt
 from ganreverser_tpu_torch.io.metrics import MetricsWriter
 from ganreverser_tpu_torch.models import bridge, fastpath, modules, zoo
 from ganreverser_tpu_torch.ops import (conv_block_kernel, kmeans_kernel,
                                        topk_kernel, upsample_conv_kernel)
+from ganreverser_tpu_torch.utils import sampling
+
+from torch_port_fixtures import one_thread  # noqa: F401
 
 T = torch.from_numpy
 DIMS, ND = (3, 16, 16), 8
@@ -425,3 +430,164 @@ def test_pipeline_prepares_each_forward_once(monkeypatch, rng, int8):
         batch))
     assert torch.equal(fixed, P.forward_batched(lambda z: gen_f(gv, z),
                                                 got[2], batch))
+
+
+# -- one fast G, prepared once per call ---------------------------------------
+
+SMALL, SMALL_ND = (1, 8, 8), 8
+
+
+def _port_nets(seed):
+    """The port's G3, D2, R and fixer-R at SMALL, random weights from
+    ``seed`` with their kernels x4 (so that images and latents vary)."""
+    g = torch.Generator().manual_seed(seed)
+    nets = {"G": zoo.create_G3(SMALL, SMALL_ND), "D": zoo.create_D(SMALL),
+            "R": zoo.create_R(SMALL, SMALL_ND, "normal"),
+            "RF": zoo.create_R(SMALL, SMALL_ND, "normal", fixer=True)}
+    for m in nets.values():
+        modules.init_parameters(m, g)
+        with torch.no_grad():
+            for name, p in m.named_parameters():
+                if name.endswith("kernel"):
+                    p.mul_(4.0)
+        m.eval()
+    return nets
+
+
+def _gd_checkpoint(path, nets):
+    """``nets``' G and D as a port checkpoint at SMALL, as sample and
+    pretrain_prev read it."""
+    c, h, w = SMALL
+    ckpt.save_checkpoint(path, {k: bridge.export_variables(nets[k])
+                                for k in ("G", "D")},
+                         config={"noiseDim": SMALL_ND, "noiseMethod": "normal",
+                                 "colorSpace": "y", "height": h, "width": w})
+    return path
+
+
+def _pretrain_prev_args(prev, save):
+    return ["--network", prev, "--dataset", "synthetic", "--save", save,
+            "--N_batches", "3", "--batchSize", "8", "--noiseDim", "6",
+            "--colorSpace", "y", "--height", "8", "--width", "8"]
+
+
+@pytest.mark.parametrize("caller", [
+    "variation_sweep", "generate_and_invert", "fix_images",
+    "create_images_from_noise", "sample", "distributed_generate_and_invert",
+    "fast_legs", "pretrain_prev"])
+def test_fast_g_callers_end_in_u_and_its_head(monkeypatch, tmp_path, caller):
+    """Every caller of the fast G runs G's second stage and output conv as
+    U's fused head (its plain version on the CPU): one call of
+    ``upsample2_conv3x3_head`` per chunk of G's forward, on the chunk."""
+    nets = _port_nets(31)
+    gv, rv = (bridge.module_variables(nets[k]) for k in ("G", "R"))
+    head = upsample_conv_kernel.upsample2_conv3x3_head
+    rows = []
+
+    def counted(x, *args, **kwargs):
+        rows.append(x.shape[0])
+        return head(x, *args, **kwargs)
+    monkeypatch.setattr(upsample_conv_kernel, "upsample2_conv3x3_head",
+                        counted)
+    n, batch = 40, 16
+    z = torch.randn(n, SMALL_ND, generator=_gen(1))
+    kw = dict(dims=SMALL, noise_dim=SMALL_ND)
+    stage2 = dict(kw, n=n, noise_method="normal", batch_size=batch)
+    chunks = [batch] * 3  # 40 rows in chunks of 16, the last one padded
+    if caller == "variation_sweep":
+        P.variation_sweep(gv, noise_method="normal", base=z[0],
+                          batch_size=batch, **kw)
+        chunks = [batch] * (SMALL_ND * 16 // batch)
+    elif caller == "generate_and_invert":
+        P.generate_and_invert(gv, rv, generator=_gen(2), **stage2)
+    elif caller == "fix_images":
+        P.fix_images(gv, z, batch_size=batch, **kw)
+    elif caller == "create_images_from_noise":
+        sampling.create_images_from_noise(nets["G"], gv, z, batch)
+    elif caller == "sample":
+        sample.main(["--network", _gd_checkpoint(str(tmp_path / "gd"), nets),
+                     "--writeto", str(tmp_path / "out"), "--dataset",
+                     "synthetic"])
+        chunks = [sample.CHUNK] * (sample.N_SAMPLES // sample.CHUNK)
+    elif caller == "distributed_generate_and_invert":
+        distributed.distributed_generate_and_invert(
+            gv, rv, generator=_gen(2), mesh=par.make_mesh(), **stage2)
+    elif caller == "fast_legs":
+        e2e.fast_legs(SMALL, SMALL_ND, "normal", torch.float32)["g_apply"](
+            gv, z)
+        chunks = [n]
+    else:
+        pretrain_prev.main(_pretrain_prev_args(
+            _gd_checkpoint(str(tmp_path / "gd"), nets), str(tmp_path / "s")))
+        chunks = [8] * 3  # one G_prev forward per batch
+    assert rows == chunks
+
+
+class _PerChunk:
+    """Wraps a fast-forward factory: every forward it makes prepares its
+    weights on every ``run``, the per-chunk form ``f(variables, chunk)``."""
+
+    def __init__(self, make):
+        self.make = make
+
+    def __call__(self, *args, **kwargs):
+        f = self.make(*args, **kwargs)
+        prepare, run = f.prepare, f.run
+        f.prepare = lambda variables: variables
+        f.run = lambda variables, *a, **kw: run(prepare(variables), *a, **kw)
+        return f
+
+
+@pytest.mark.parametrize("caller", ["sample", "distributed",
+                                    "pretrain_prev"])
+def test_callers_prepare_each_forward_once(monkeypatch, tmp_path, caller):
+    """cli.sample (G and D), the distributed stage ② on a one-rank mesh
+    (G, R and the fixer-R) and cli.pretrain_prev (G_prev and D_prev)
+    prepare each fast forward once per call, not once per chunk or batch,
+    and give bitwise what the per-chunk form gives."""
+    nets = _port_nets(32)
+    if caller == "sample":
+        module, names = sample, ("make_fast_generator",
+                                 "make_fast_discriminator")
+        network = _gd_checkpoint(str(tmp_path / "gd"), nets)
+
+        def call(label):
+            out = sample.main(["--network", network, "--writeto",
+                               str(tmp_path / label), "--dataset",
+                               "synthetic"])
+            return [out["images"], out["preds"]]
+    elif caller == "distributed":
+        module, names = distributed, ("make_fast_generator",
+                                      "make_fast_inverter", "make_fast_fixer")
+        gv, rv, rfv = (bridge.module_variables(nets[k])
+                       for k in ("G", "R", "RF"))
+
+        def call(label):
+            return [t.numpy() for t in
+                    distributed.distributed_generate_and_invert(
+                        gv, rv, dims=SMALL, n=40, noise_dim=SMALL_ND,
+                        noise_method="normal", generator=_gen(5),
+                        mesh=par.make_mesh(), batch_size=16,
+                        rf_variables=rfv, fixer_generator=_gen(6))]
+    else:
+        module, names = pretrain_prev, ("make_fast_generator",
+                                        "make_fast_discriminator")
+        prev = _gd_checkpoint(str(tmp_path / "gd"), nets)
+
+        def call(label):
+            out = pretrain_prev.main(_pretrain_prev_args(
+                prev, str(tmp_path / label)))
+            return [np.asarray(out["g_losses"]), np.asarray(out["d_losses"])]
+    makes = {name: getattr(module, name) for name in names}
+    counters = {name: _CountingPrepare(make) for name, make in makes.items()}
+    for name, counter in counters.items():
+        monkeypatch.setattr(module, name, counter)
+    once = call("once")
+    assert {name: c.calls for name, c in counters.items()} == dict.fromkeys(
+        names, 1)
+    for name, make in makes.items():
+        monkeypatch.setattr(module, name, _PerChunk(make))
+    per_chunk = call("per_chunk")
+    assert len(once) == len(per_chunk)
+    for a, b in zip(once, per_chunk):
+        np.testing.assert_array_equal(a, b)

@@ -23,6 +23,8 @@ from ganreverser_tpu_torch import analysis as TA
 from ganreverser_tpu_torch.ops import approx_topk_kernel as S
 from ganreverser_tpu_torch.ops import topk_kernel
 
+from torch_port_fixtures import one_thread  # noqa: F401
+
 T = torch.from_numpy
 
 

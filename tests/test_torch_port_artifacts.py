@@ -18,6 +18,8 @@ from ganreverser_tpu_torch.io.preemption import PreemptionGuard
 from ganreverser_tpu_torch.models import bridge, modules, zoo
 from ganreverser_tpu_torch.utils import grids
 
+from torch_port_fixtures import one_thread  # noqa: F401
+
 
 @pytest.mark.parametrize("epoch,shape", [(None, (6, 8, 8, 3)),
                                          (7, (6, 8, 8, 1)),

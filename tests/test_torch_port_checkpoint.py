@@ -11,6 +11,8 @@ from ganreverser_tpu import models as M
 from ganreverser_tpu_torch.io import checkpoint as tckpt
 from ganreverser_tpu_torch.models import bridge, zoo
 
+from torch_port_fixtures import one_thread  # noqa: F401
+
 DIMS, ND = (3, 16, 16), 8
 
 

@@ -21,19 +21,11 @@ from ganreverser_tpu_torch.ops import approx_topk_kernel as S
 from ganreverser_tpu_torch.ops import conv_operands as CO
 from ganreverser_tpu_torch.ops import kmeans_kernel, quant as Q, topk_kernel
 
+from torch_port_fixtures import one_thread  # noqa: F401
+
 T = torch.from_numpy
 CONFIG1 = ((1, 32, 32), 32)     # BASELINE.json configs[0]
 CONFIG5 = ((3, 128, 128), 256)  # BASELINE.json configs[4]
-
-
-@pytest.fixture
-def one_thread():
-    """One intra-op thread: the config-5 forwards are a few large convs
-    each, and the test workers share the host's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _close(out, ref, tol=1e-4):
@@ -71,7 +63,7 @@ def _shift_layers(tree):
 
 
 def _forwards(dims, nd, n, seed, fixer=True):
-    """The port's fast G (plain head, and U's fused head), fast R and fast
+    """The port's fast G (kernel U and U's fused head), fast R and fast
     fixer-R on ``n`` rows (the fixer on the mask of generator seed 5)
     against JAX's G and R in evaluation (the fixer: R on x * m / 0.5). G's
     weights are dropped before R's are drawn."""
@@ -84,11 +76,9 @@ def _forwards(dims, nd, n, seed, fixer=True):
     gv = _variables(jg, (nd,), seed)
     ref = np.asarray(jg.apply(gv, jnp.asarray(z), train=False)[0])
     tg = bridge.to_torch(gv, "cpu")
-    for fused_head in (False, True):
-        images = fastpath.make_fast_generator(dims, nd, f32, fused_head)(
-            tg, T(z))
-        assert images.shape == (n, h, w, c)
-        _close(images, ref)
+    images = fastpath.make_fast_generator(dims, nd, f32)(tg, T(z))
+    assert images.shape == (n, h, w, c)
+    _close(images, ref)
     del gv, tg, images
     jr = M.create_R(dims, nd, "normal")
     rv = _variables(jr, (h, w, c), seed + 1)
@@ -146,7 +136,7 @@ def test_config1_stage2_topk_matches_jax():
         assert set(i[row].tolist()) == set(np.asarray(ji[row]).tolist())
 
 
-def test_config5_forwards_match_jax(one_thread):
+def test_config5_forwards_match_jax():
     """Config 5 (3x128x128, noise 256) on 2 rows: G's 256 x 524,288 dense
     and its 32x32x512 reshape, U at 32x32 and 64x64 inputs, the head at
     128x128, R's 131,072-wide flatten into its 512-wide dense."""

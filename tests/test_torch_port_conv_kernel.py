@@ -15,6 +15,8 @@ import torch
 from ganreverser_tpu.ops.conv_kernel import conv3x3_bn_act as j_conv
 from ganreverser_tpu_torch.ops import conv_kernel as ck
 
+from torch_port_fixtures import one_thread  # noqa: F401
+
 TOL = {"float32": 1e-5, "bfloat16": 2 ** -7}
 
 

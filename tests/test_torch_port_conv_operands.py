@@ -27,6 +27,8 @@ from ganreverser_tpu_torch.ops import conv_stats_kernel as cs
 from ganreverser_tpu_torch.ops.upsample_conv_kernel import phase_kernels
 from ganreverser_tpu_torch.ops.upsample_v2_kernel import stacked_phase_kernels
 
+from torch_port_fixtures import one_thread  # noqa: F401
+
 T = torch.from_numpy
 TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 CHANNELS = [(3, 5), (20, 70), (70, 72)]   # (Ci, Co): a stem, two ragged

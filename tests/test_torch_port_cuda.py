@@ -448,23 +448,66 @@ def test_upsample_head_refuses_bad_arguments(dev):
             torch.zeros(3, device=dev), final_act="elu")
 
 
-def test_fast_generator_fused_head_launches_head(dev):
+def test_fast_generator_launches_u_and_the_head(dev):
+    """The fast G on the card: U once for stage 1, U's fused head once for
+    stage 2 and the output conv, within the tolerance of the same G's
+    plain versions on the CPU."""
     from ganreverser_tpu_torch.models import bridge, fastpath, modules, zoo
     dims, nd = (3, 16, 16), 8
     G = modules.init_parameters(zoo.create_G3(dims, nd),
-                                torch.Generator().manual_seed(3)).to(dev)
-    v = bridge.module_variables(G)
-    z = torch.randn(5, nd, device=dev)
+                                torch.Generator().manual_seed(3))
+    v_cpu = bridge.to_torch(bridge.export_variables(G), "cpu")
+    v = bridge.module_variables(G.to(dev))
+    z = torch.randn(5, nd, generator=torch.Generator().manual_seed(4))
     for dtype in (torch.float32, torch.bfloat16):
         before = (upsample_conv_kernel.upsample2_conv3x3_bn_act.launches,
                   upsample_conv_kernel.upsample2_conv3x3_head.launches)
-        fused = fastpath.make_fast_generator(dims, nd, dtype, True)(v, z)
+        fused = fastpath.make_fast_generator(dims, nd, dtype)(v, z.to(dev))
         torch.cuda.synchronize()
         assert (upsample_conv_kernel.upsample2_conv3x3_bn_act.launches,
                 upsample_conv_kernel.upsample2_conv3x3_head.launches) == (
                     before[0] + 1, before[1] + 1)
-        plain = fastpath.make_fast_generator(dims, nd, dtype)(v, z)
-        _close(fused, plain, dtype)
+        plain = fastpath.make_fast_generator(dims, nd, dtype)(v_cpu, z)
+        _close(fused.cpu(), plain, dtype)
+
+
+def test_stage2_and_sample_launch_the_head(dev, tmp_path):
+    """apply_r's stage ② (pipeline.generate_and_invert) and cli.sample run
+    the fast G's second stage and output conv as U's fused head: one
+    launch of the head and one of U per chunk of G's forward, none of U's
+    for a separate head."""
+    from ganreverser_tpu_torch.analysis import pipeline
+    from ganreverser_tpu_torch.cli import sample
+    from ganreverser_tpu_torch.io import checkpoint as ckpt
+    from ganreverser_tpu_torch.models import bridge, modules, zoo
+    dims, nd = (3, 16, 16), 8
+    gen = torch.Generator().manual_seed(5)
+    G, R, D = (modules.init_parameters(m, gen).to(dev) for m in (
+        zoo.create_G3(dims, nd), zoo.create_R(dims, nd, "normal"),
+        zoo.create_D(dims)))
+    counters = (upsample_conv_kernel.upsample2_conv3x3_bn_act,
+                upsample_conv_kernel.upsample2_conv3x3_head)
+    before = [fn.launches for fn in counters]
+    pipeline.generate_and_invert(
+        bridge.module_variables(G), bridge.module_variables(R), dims=dims,
+        n=40, noise_dim=nd, noise_method="normal",
+        generator=torch.Generator(device=dev).manual_seed(6), batch_size=16,
+        dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [3, 3]
+    network = str(tmp_path / "gd")
+    ckpt.save_checkpoint(network, {"G": bridge.export_variables(G),
+                                   "D": bridge.export_variables(D)},
+                         config={"noiseDim": nd, "noiseMethod": "normal",
+                                 "colorSpace": "rgb", "height": 16,
+                                 "width": 16})
+    before = [fn.launches for fn in counters]
+    sample.main(["--network", network, "--writeto", str(tmp_path / "out"),
+                 "--dataset", "synthetic", "--compute_dtype", "bfloat16"])
+    torch.cuda.synchronize()
+    chunks = sample.N_SAMPLES // sample.CHUNK
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [
+        chunks, chunks]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -807,24 +850,22 @@ def _e2e_case(dev, dims=(3, 16, 16), nd=16, n=40):
     return G, R, bridge.module_variables(G), rv, rv2, z, dims, nd
 
 
-def _e2e(G, R, dims, nd, fused_head=False, pixel_k=0, capture=True):
+def _e2e(G, R, dims, nd, pixel_k=0, capture=True):
     from ganreverser_tpu_torch.analysis import e2e
     return e2e.make_e2e_program(
         G, R, batch_size=16, k=5, needle_chunk=16, pixel_k=pixel_k,
-        capture=capture, **e2e.fast_legs(dims, nd, "normal",
-                                          fused_head=fused_head))
+        capture=capture, **e2e.fast_legs(dims, nd, "normal"))
 
 
-@pytest.mark.parametrize("fused_head", [False, True])
 @pytest.mark.parametrize("pixel_k", [0, 7])
-def test_e2e_graph_matches_eager(dev, fused_head, pixel_k):
+def test_e2e_graph_matches_eager(dev, pixel_k):
     """The fused program as one CUDA graph: a replay is bitwise the eager
     program, and each replay adds the kernels' launches of one run to
-    their counts (three chunks of 16: U twice a chunk, or U and the head;
-    B six times a chunk; C once per needle chunk and search)."""
+    their counts (three chunks of 16: U and the head once a chunk; B six
+    times a chunk; C once per needle chunk and search)."""
     G, R, gv, rv, _, z, dims, nd = _e2e_case(dev)
-    graph = _e2e(G, R, dims, nd, fused_head, pixel_k)
-    eager = _e2e(G, R, dims, nd, fused_head, pixel_k, capture=False)
+    graph = _e2e(G, R, dims, nd, pixel_k)
+    eager = _e2e(G, R, dims, nd, pixel_k, capture=False)
     out = graph(gv, rv, z)
     ref = eager(gv, rv, z)
     assert len(out) == (5 if pixel_k else 3)
@@ -838,8 +879,7 @@ def test_e2e_graph_matches_eager(dev, fused_head, pixel_k):
     again = graph(gv, rv, z)
     torch.cuda.synchronize()
     per_replay = {k: fn.launches - before[k] for k, fn in counters.items()}
-    assert per_replay == {"U": 3 if fused_head else 6,
-                          "head": 3 if fused_head else 0, "B": 18,
+    assert per_replay == {"U": 3, "head": 3, "B": 18,
                           "C": 6 if pixel_k else 3}
     for a, b in zip(again, out):
         assert torch.equal(a, b)
@@ -873,7 +913,7 @@ def test_serial_programs_graphs_match_fused(dev):
         **e2e.fast_legs(dims, nd, "normal"))
     emb = invert(rv, generate(gv, z))
     v, i = search(emb)
-    fused = _e2e(G, R, dims, nd, e2e.FUSED_HEAD)(gv, rv, z)
+    fused = _e2e(G, R, dims, nd)(gv, rv, z)
     for a, b in zip((emb, v, i), fused):
         assert torch.equal(a, b)
 
@@ -925,10 +965,8 @@ def test_imported_g3_and_r_fast_paths_on_card(dev, tmp_path):
                 conv_block_kernel.conv_block, conv_kernel.conv3x3_bn_act)
     before = [fn.launches for fn in counters]
     with torch.no_grad():
-        for head in (False, True):
-            _close(fastpath.make_fast_generator(dims, nd, torch.float32,
-                                                head)(variables(tree["G"]),
-                                                      z), x, torch.float32)
+        _close(fastpath.make_fast_generator(dims, nd, torch.float32)(
+            variables(tree["G"]), z), x, torch.float32)
         _close(fastpath.make_fast_inverter(dims, nd, "normal",
                                            torch.float32)(
             variables(r_tree), x), cs.nchw_forward(refs["R"], ref),
@@ -938,7 +976,7 @@ def test_imported_g3_and_r_fast_paths_on_card(dev, tmp_path):
             torch.float32)
     torch.cuda.synchronize()
     assert [fn.launches - b for fn, b in zip(counters, before)] == \
-        [3, 1, 6, 5]
+        [1, 1, 6, 5]
 
 
 # -- the int8 kernels Q1-Q4 and serving artifacts -------------------------
@@ -1583,40 +1621,6 @@ def test_quant_dense_kernel_at_k_131072(dev):
     assert torch.equal(out, ref)
     assert out[0, 0].item() == pytest.approx(2_114_060_288 * (
         xs * ws.reshape(-1)[0]).item(), rel=1e-6)
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_packed_head_on_card(dev, dtype):
-    """ops/pack_conv.py on CUDA tensors (F.conv2d, no kernel of the port):
-    at (4, 8) and (8, 8) within the tolerance of the unpacked head; the fast
-    G with pack_out launches U twice and its head not at all."""
-    from ganreverser_tpu_torch.models import bridge, fastpath, modules, zoo
-    from ganreverser_tpu_torch.ops import pack_conv
-    from ganreverser_tpu_torch.ops.upsample_conv import conv_nhwc
-    g = torch.Generator(device=dev).manual_seed(28)
-    x = torch.rand(16, 64, 64, 128, device=dev, generator=g).to(dtype)
-    k = torch.randn(3, 3, 128, 3, device=dev, generator=g) / 34.0
-    b = 0.1 * torch.randn(3, device=dev, generator=g)
-    ref = torch.sigmoid(conv_nhwc(x, k, 1, dtype) + b).to(dtype)
-    for pack in ((4, 8), (8, 8)):
-        out = pack_conv.conv3x3_packed(x, k, b, pack, "sigmoid", dtype)
-        assert out.shape == ref.shape and out.dtype == dtype
-        _close(out, ref, dtype)
-    dims, nd = (3, 64, 64), 16
-    G = modules.init_parameters(zoo.create_G3(dims, nd),
-                                torch.Generator().manual_seed(3)).to(dev)
-    v = bridge.module_variables(G)
-    z = torch.randn(8, nd, device=dev)
-    before = (upsample_conv_kernel.upsample2_conv3x3_bn_act.launches,
-              upsample_conv_kernel.upsample2_conv3x3_head.launches)
-    packed = fastpath.make_fast_generator(dims, nd, dtype,
-                                          pack_out=(4, 8))(v, z)
-    torch.cuda.synchronize()
-    assert (upsample_conv_kernel.upsample2_conv3x3_bn_act.launches,
-            upsample_conv_kernel.upsample2_conv3x3_head.launches) == (
-                before[0] + 2, before[1])
-    _close(packed, fastpath.make_fast_generator(dims, nd, dtype)(v, z),
-           dtype)
 
 
 @pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])

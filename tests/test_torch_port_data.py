@@ -16,6 +16,8 @@ from ganreverser_tpu import data as jdata
 from ganreverser_tpu_torch.data import colorspace, dataset, prefetch
 from ganreverser_tpu_torch.data.synthetic import synthetic_faces
 
+from torch_port_fixtures import one_thread  # noqa: F401
+
 
 def test_synthetic_faces_bitwise():
     a = synthetic_faces(5, 16, 12, np.random.default_rng(3))

@@ -49,6 +49,7 @@ from ganreverser_tpu_torch.train.r_loop import make_r_segment_program
 from ganreverser_tpu_torch.train.state import TrainState
 
 import torch_port_dist_worker as W
+from torch_port_fixtures import one_thread  # noqa: F401
 
 ND, LR = 8, 1e-3
 R_DIMS = (1, 8, 8)  # GEOM's
@@ -332,12 +333,7 @@ def apply_inputs(tmp_path_factory):
     args = ["--G", os.path.join(save, "adversarial"), "--save", save,
             "--N", "512", "--clusters", "4", "--kmeans_iters", "3",
             "--needles", "2", "--anomalies_n", "128"]
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)  # as the ranks run (torch_port_dist_worker)
-    try:
-        apply_r.main(args + ["--writeto", os.path.join(save, "one")])
-    finally:
-        torch.set_num_threads(threads)
+    apply_r.main(args + ["--writeto", os.path.join(save, "one")])
     return save, args
 
 

@@ -14,6 +14,8 @@ import torch
 from ganreverser_tpu.ops import dropout_kernel as jdk
 from ganreverser_tpu_torch.ops import dropout_kernel as dk
 
+from torch_port_fixtures import one_thread  # noqa: F401
+
 SHAPES = [(16, 64, 16), (24, 1024), (8, 16, 16, 64)]
 DTYPES = ["float32", "bfloat16"]
 RATES = [0.5, 0.25]

@@ -23,6 +23,8 @@ from ganreverser_tpu import models as M
 from ganreverser_tpu_torch import analysis as TA
 from ganreverser_tpu_torch.models import bridge, zoo
 
+from torch_port_fixtures import one_thread  # noqa: F401
+
 DIMS, ND, N = (1, 8, 8), 8, 24
 BATCH, K, CHUNK, PIXEL_K = 8, 4, 8, 3
 T = torch.from_numpy
@@ -131,17 +133,16 @@ def test_e2e_program_matches_jax(case, pixel_k):
         (_same if j in (2, 4) else _close)(a, b)  # indices, values
 
 
-@pytest.mark.parametrize("fused_head", [False, True])
 @pytest.mark.parametrize("pixel_k", [0, PIXEL_K])
-def test_e2e_program_fast_overrides_match_jax(case, pixel_k, fused_head):
-    """g_apply/r_apply: the port's fast G (kernel U, with or without U's
-    fused head) and R (kernel B), their plain versions on the CPU,
+def test_e2e_program_fast_overrides_match_jax(case, pixel_k):
+    """g_apply/r_apply: the port's fast G (kernel U and U's fused head)
+    and R (kernel B), their plain versions on the CPU,
     prepared once per call, against JAX's module program within 1e-4; the
     rankings equal."""
     G, R, gv, rv, z = _port(case)
     run = TA.make_e2e_program(
         G, R, batch_size=BATCH, k=K, needle_chunk=CHUNK, pixel_k=pixel_k,
-        **TA.e2e.fast_legs(DIMS, ND, "normal", torch.float32, fused_head))
+        **TA.e2e.fast_legs(DIMS, ND, "normal", torch.float32))
     out = run(gv, rv, z)
     for j, (a, b) in enumerate(zip(out, case["jax"][pixel_k])):
         if j in (2, 4):

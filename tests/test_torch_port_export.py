@@ -39,6 +39,8 @@ from ganreverser_tpu_torch.cli import export
 from ganreverser_tpu_torch.io import serving
 from ganreverser_tpu_torch.ops import quant
 
+from torch_port_fixtures import one_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DIMS, ND, BATCH, N, K = (1, 8, 8), 6, 8, 40, 4
 

@@ -39,6 +39,8 @@ from ganreverser_tpu_torch.train import adversarial as adv
 from ganreverser_tpu_torch.train.losses import bce
 from ganreverser_tpu_torch.train.state import GanState, TrainState
 
+from torch_port_fixtures import one_thread  # noqa: F401
+
 T = torch.from_numpy
 DIMS, ND, BATCH = (3, 16, 16), 8, 8
 

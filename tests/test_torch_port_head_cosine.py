@@ -18,6 +18,8 @@ from ganreverser_tpu_torch.ops import (conv_operands, topk_kernel,
                                        upsample_conv_kernel as uc)
 from ganreverser_tpu_torch.ops.upsample_conv import conv_nhwc
 
+from torch_port_fixtures import one_thread  # noqa: F401
+
 T = torch.from_numpy
 # f32: sums in another order, within 1e-5 of the output's magnitude; bf16:
 # U's output is rounded once to bf16 in both packages, but its f32 sums are

@@ -34,6 +34,8 @@ from ganreverser_tpu_torch.io import checkpoint as ckpt
 from ganreverser_tpu_torch.models import bridge, init, modules, zoo
 from ganreverser_tpu_torch.utils import sampling, timing
 
+from torch_port_fixtures import one_thread  # noqa: F401
+
 INITS = ["heuristic", "torch", "xavier", "xavier_caffe", "kaiming"]
 ND = 8
 D3 = (3, 16, 16)

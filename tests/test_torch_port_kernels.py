@@ -18,6 +18,8 @@ from ganreverser_tpu_torch.ops import (conv_block_kernel, topk_kernel,
                                        upsample_conv_kernel)
 from ganreverser_tpu_torch.ops.conv_kernel import fold_batchnorm
 
+from torch_port_fixtures import one_thread  # noqa: F401
+
 T = torch.from_numpy
 
 

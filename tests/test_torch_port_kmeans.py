@@ -20,6 +20,8 @@ from ganreverser_tpu.ops.kmeans_kernel import (_kmeans_sums_counts,
                                                kmeans_step_pallas)
 from ganreverser_tpu_torch.ops import kmeans_kernel
 
+from torch_port_fixtures import one_thread  # noqa: F401
+
 # the module (the package exports its function ``kmeans`` under the name)
 K = importlib.import_module("ganreverser_tpu_torch.analysis.kmeans")
 

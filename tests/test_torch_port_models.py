@@ -10,6 +10,8 @@ import torch
 from ganreverser_tpu import models as M
 from ganreverser_tpu_torch.models import bridge, modules, zoo
 
+from torch_port_fixtures import one_thread  # noqa: F401
+
 DIMS, ND = (3, 16, 16), 8
 
 

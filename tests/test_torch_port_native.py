@@ -21,6 +21,8 @@ from ganreverser_tpu_torch.data import dataset
 from ganreverser_tpu_torch.native import imageops
 from ganreverser_tpu_torch.utils import grids
 
+from torch_port_fixtures import one_thread  # noqa: F401
+
 
 def test_native_builds_into_build_dir():
     """g++ builds the library at first use under build/native/ at the root

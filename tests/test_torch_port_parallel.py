@@ -39,6 +39,7 @@ from ganreverser_tpu_torch.models import bridge, zoo
 from ganreverser_tpu_torch.ops import dropout_kernel as dk
 
 import torch_port_dist_worker as W
+from torch_port_fixtures import one_thread  # noqa: F401
 
 DIMS, ND, N, BATCH = (1, 8, 8), 8, 64, 16
 N_FAST, K = 32, 10

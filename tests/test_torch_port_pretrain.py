@@ -41,6 +41,8 @@ from ganreverser_tpu_torch.models import bridge, fastpath, modules, zoo
 from ganreverser_tpu_torch.ops import conv_kernel, upsample_conv_kernel
 from ganreverser_tpu_torch.train import pretrain_ae, pretrain_distill
 
+from torch_port_fixtures import one_thread  # noqa: F401
+
 T = torch.from_numpy
 DIMS, ND, BATCH = (3, 16, 16), 8, 8
 leaves = jax.tree_util.tree_leaves
@@ -112,20 +114,19 @@ def _assert_step_matches(jts, ts, i, lr=1e-3):
     assert int(tree["step"]) == int(jts.step) == i + 1
 
 
-# -- the fast G with U's fused head --------------------------------------------
+# -- the fast G ---------------------------------------------------------------
 
 @pytest.mark.parametrize("dims", [(3, 16, 16), (1, 8, 8)])
-def test_fast_generator_fused_head_matches_jax_g3(rng, dims):
-    """make_fast_generator(fused_head=True) (the head's plain version on
-    the CPU) against create_G3(...).apply(train=False), f32 within 1e-4;
-    no kernel launch on the CPU."""
+def test_fast_generator_matches_jax_g3(rng, dims):
+    """make_fast_generator (kernel U and U's fused head, their plain
+    versions on the CPU) against create_G3(...).apply(train=False), f32
+    within 1e-4; no kernel launch on the CPU."""
     gv = _variables(M.create_G3(dims, ND), (ND,), 0, rng)
     z = rng.normal(size=(5, ND)).astype(np.float32)
     ref, _ = M.create_G3(dims, ND).apply(gv, jnp.asarray(z), train=False)
     before = (upsample_conv_kernel.upsample2_conv3x3_bn_act.launches,
               upsample_conv_kernel.upsample2_conv3x3_head.launches)
-    out = fastpath.make_fast_generator(dims, ND, torch.float32,
-                                       fused_head=True)(
+    out = fastpath.make_fast_generator(dims, ND, torch.float32)(
         bridge.to_torch(gv, "cpu"), T(z))
     assert out.shape == (5, dims[1], dims[2], dims[0])
     _close(out, ref, 1e-4)

@@ -16,6 +16,8 @@ from ganreverser_tpu_torch.ops import (conv_stats_kernel, probe_kernels,
                                        upsample_v2_kernel)
 from ganreverser_tpu_torch.probes import convbn, kernel_probe, upsample_v2
 
+from torch_port_fixtures import one_thread  # noqa: F401
+
 T = torch.from_numpy
 
 

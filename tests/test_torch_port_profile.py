@@ -7,6 +7,8 @@ import pathlib
 
 import pytest
 
+from torch_port_fixtures import one_thread  # noqa: F401
+
 _PATH = pathlib.Path(__file__).resolve().parents[1] / "tools" / "profile_port.py"
 _spec = importlib.util.spec_from_file_location("profile_port", _PATH)
 profile_port = importlib.util.module_from_spec(_spec)

@@ -45,6 +45,8 @@ from ganreverser_tpu_torch.ops import conv_operands as CO
 from ganreverser_tpu_torch.ops import cuda_lib, library
 from ganreverser_tpu_torch.ops import quant as Q
 
+from torch_port_fixtures import one_thread  # noqa: F401
+
 T = torch.from_numpy
 
 

@@ -13,6 +13,8 @@ from ganreverser_tpu_torch.io import checkpoint as ckpt
 from ganreverser_tpu_torch.models import bridge, zoo
 from ganreverser_tpu_torch.ops import conv_kernel
 
+from torch_port_fixtures import one_thread  # noqa: F401
+
 ARTIFACTS = ("trainset", "samples_256", "samples_1024", "best_64",
              "worst_64", "random_64", "neighbours")
 

@@ -22,6 +22,8 @@ from ganreverser_tpu_torch.models import modules, zoo
 from ganreverser_tpu_torch.ops import fir_kernel
 from portbench import reference_sg2 as ref
 
+from torch_port_fixtures import one_thread  # noqa: F401
+
 # config F's rules at 3 x 16 x 16, z and w 8, 2 mapping layers, <= 16
 # channels
 CFG = ref.config({"image": [3, 16, 16], "noise_dim": 8, "w_dim": 8,
@@ -42,16 +44,6 @@ LAYER_TOL = 2e-6
 # read): adam divides by sqrt(v), so a coordinate whose gradient is small
 # carries its round-off into z at full step size
 REFINE_TOL = 1e-4
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """Many small convolutions on one intra-op thread: the test workers
-    share the host."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def gap(got, want) -> float:

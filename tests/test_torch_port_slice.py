@@ -28,6 +28,8 @@ from ganreverser_tpu_torch.models import bridge, fastpath
 from ganreverser_tpu_torch.ops import (conv_block_kernel, topk_kernel,
                                        upsample_conv_kernel)
 
+from torch_port_fixtures import one_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

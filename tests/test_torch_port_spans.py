@@ -18,6 +18,8 @@ from ganreverser_tpu_torch.models import modules, zoo
 from ganreverser_tpu_torch.train import adversarial as adv
 from ganreverser_tpu_torch.train.state import GanState, TrainState
 
+from torch_port_fixtures import one_thread  # noqa: F401
+
 DIMS, ND, BATCH = (1, 8, 8), 6, 8
 
 REFINE = (["gr.refine.chunk"]

@@ -34,6 +34,8 @@ from test_torch7 import (T7Obj, _bn_f, _r_torch, _rand_bn, _skip, _Writer,
                          build_d2, build_g3, t7_bn, t7_bytes, t7_conv,
                          t7_file, t7_linear, t7_prelu, t7_seq)
 
+from torch_port_fixtures import one_thread  # noqa: F401
+
 ND = 8
 DIMS = (3, 16, 16)
 TOL = 1e-5
@@ -203,8 +205,8 @@ def _g_forward(tree, z, fast):
     g_vars = bridge.to_torch(tree, "cpu")
     with torch.no_grad():
         if fast:
-            return fastpath.make_fast_generator(
-                DIMS, ND, torch.float32, fused_head=True)(g_vars, z)
+            return fastpath.make_fast_generator(DIMS, ND, torch.float32)(
+                g_vars, z)
         return bridge.load_jax_variables(zoo.create_G3(DIMS, ND), tree)(z)
 
 

@@ -18,6 +18,8 @@ from ganreverser_tpu_torch.cli import train, train_r
 from ganreverser_tpu_torch.io import checkpoint as ckpt
 from ganreverser_tpu_torch.ops import conv_kernel
 
+from torch_port_fixtures import one_thread  # noqa: F401
+
 ND = 8
 GEOM = ["--dataset", "synthetic", "--colorSpace", "y", "--height", "8",
         "--width", "8", "--noiseDim", str(ND), "--batchSize", "8",

@@ -36,6 +36,8 @@ from ganreverser_tpu_torch.train.r_loop import (calibrate_batchnorm,
                                                 make_r_train_step)
 from ganreverser_tpu_torch.train.state import TrainState
 
+from torch_port_fixtures import one_thread  # noqa: F401
+
 T = torch.from_numpy
 DIMS, ND, BATCH = (3, 16, 16), 8, 8
 
@@ -352,17 +354,6 @@ def test_dropouts_need_a_generator_and_stay_off_in_evaluation():
 
 # -- learning and the segment program ------------------------------------------
 
-@pytest.fixture
-def one_thread():
-    """A test of many small steps on one intra-op thread: the test workers
-    share the host, and their threads otherwise spend the run waiting on
-    each other."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 @pytest.fixture(scope="module")
 def calibrated_g():
     """A random port G3 at 1x8x8, noise 8, its BN statistics settled by
@@ -377,7 +368,7 @@ def calibrated_g():
 
 
 @pytest.mark.parametrize("impl", ["plain", "kernel"])
-def test_r_training_reduces_loss(calibrated_g, impl, one_thread):
+def test_r_training_reduces_loss(calibrated_g, impl):
     """tests/test_train.py's bar for the JAX trainer: after 150 steps of
     batch 16 the evaluation MSE on held-out latents is below the
     predict-zero loss (Var z = 1), here with either dropout."""
@@ -549,8 +540,7 @@ def _events(save):
 
 
 @pytest.mark.parametrize("fixer", [False, True])
-def test_cli_writes_every_artifact(g_checkpoint, tmp_path, capsys, fixer,
-                                   one_thread):
+def test_cli_writes_every_artifact(g_checkpoint, tmp_path, capsys, fixer):
     save = str(tmp_path / "logs")
     args = ["--G", gio.adversarial_name(g_checkpoint), "--save", save,
             "--nbBatches", "100", "--batchSize", "8", "--saveFreq", "50",
@@ -577,7 +567,7 @@ def test_cli_writes_every_artifact(g_checkpoint, tmp_path, capsys, fixer,
     assert dk.fused_dropout.launches == 0  # the CPU runs the plain version
 
 
-def test_cli_cont_continues_plot_data(g_checkpoint, tmp_path, one_thread):
+def test_cli_cont_continues_plot_data(g_checkpoint, tmp_path):
     save = str(tmp_path / "logs")
     base = ["--G", gio.adversarial_name(g_checkpoint), "--save", save,
             "--batchSize", "4", "--saveFreq", "100"]

@@ -93,9 +93,12 @@ from ganreverser_tpu_torch.analysis.similarity import (  # noqa: E402
     cosine_topk, pixel_cosine_topk)
 from ganreverser_tpu_torch.core.prng import noise_inputs, seeded_generator  # noqa: E402
 from ganreverser_tpu_torch.models import bridge, fastpath  # noqa: E402
+from portbench import tracing  # noqa: E402
+from portbench.tracing import union_us  # noqa: E402
 
-_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-# (class, substrings of a device operation's name); the first match wins
+# (class, substrings of a device operation's name); the first match wins.
+# Not kernels.json's table, whose "xmma" files cuBLAS's sm80_xmma_gemm
+# kernels under convolution
 _CLASSES = (
     ("B5 dropout kernel", ("fused_dropout_kernel",)),
     ("hand-written kernels on the tensor cores (int8)", ("_s8_kernel",)),
@@ -107,7 +110,7 @@ _CLASSES = (
     ("optimizer and penalties (_foreach)", ("multi_tensor_apply",)),
     ("pooling", ("max_pool",)),
     ("reduction", ("reduce_kernel", "lpnorm")),
-    ("copy and cast", ("copy", "Copy")),
+    ("copy and cast", ("copy",)),
     ("memcpy and memset", ("Memcpy", "Memset")),
     ("elementwise", ("elementwise",)),
 )
@@ -115,36 +118,19 @@ _CLASSES = (
 
 def kernel_class(name: str) -> str:
     """The class of a device operation, from its (demangled) name."""
-    for cls, keys in _CLASSES:
-        if any(k in name for k in keys):
-            return cls
-    return "other"
+    return tracing.kernel_class(name, _CLASSES)
 
 
 def device_intervals(trace_path: str):
     """(name, start_us, end_us) of every device operation in a Chrome trace
-    exported by torch.profiler."""
+    exported by torch.profiler (``tracing.read_chrome_trace`` without the
+    traced window that trace needs)."""
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
     return [(e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"]))
             for e in events
             if e.get("ph") == "X" and str(e.get("cat", "")).lower()
-            in _DEVICE_CATS]
-
-
-def union_us(intervals) -> float:
-    """Length of the union of [start, end) intervals."""
-    total, cur_s, cur_e = 0.0, None, None
-    for s, e in sorted((s, e) for _, s, e in intervals):
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                total += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        total += cur_e - cur_s
-    return total
+            in tracing.DEVICE_CATS]
 
 
 def summarise_trace(prof, trace_path: str, wall_us: float, tag: str, log,
@@ -350,7 +336,7 @@ def profile_e2e(dev, log, card: str, out_dir: str) -> bool:
         run(gv, rv, z)
         times = cs.wall_s(lambda: run(gv, rv, z), 3)
         log(f"[e2e {label}] N={n} bf16 batch {cs.E2E_BATCHES[0]} k="
-            f"{cs.E2E_K}, fused head {e2e.FUSED_HEAD}: "
+            f"{cs.E2E_K}: "
             + ", ".join(f"{t:.4f} s" for t in times)
             + f" = {n / sorted(times)[1]:.1f} img/s (median)  [{card}]")
         torch.cuda.synchronize()
