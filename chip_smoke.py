@@ -19,7 +19,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (U), conv_stats_wgmma_kernel (B7), upsample_v2_wgmma_kernel (B8),
    upsample2_head_wgmma_kernel (U's fused head, BN 16 to 128) and
    cosine_wgmma_kernel (C), as many per instance as before Q1 and Q2 moved
-   onto their mainloop (HGMMA_COUNTS); IGMMA (the int8 tensor cores' s8
+   onto their mainloop (HGMMA_COUNTS), and some in every instance of
+   kernel D's dense_bf16_wgmma_kernel and dense_bf16_split_wgmma_kernel
+   (none in its dense_bf16_sum_kernel); IGMMA (the int8 tensor cores' s8
    wgmma) in every instance of Q1's, Q2's and Q3's
    quant_conv3x3_s8_kernel, quant_upsample2_s8_kernel,
    quant_dense_s8_kernel and quant_dense_split_s8_kernel, neither in Q3's
@@ -72,7 +74,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    depthwise F.conv2d / F.conv_transpose2d of f32 operands, the module
    path's filter before the kernel) and bound times; then one forward and
    backward of config F at batch 8 must launch it twice per FIRFilter
-   (32) and copy no input;
+   (32) and copy no input. Kernel D (csrc/dense.cu, the fast forwards'
+   bf16 dense layers) at G l0, R l27 and R l31 of 3x64x64 z 100 and
+   3x128x128 z 256, batch 128 (every shape the fused program gives it):
+   within dense_close of its plain version (one bf16 step of the larger
+   value plus 2^-14 of the sum of |x w|: the same exact
+   products summed in f32 in other orders), its wrapper and device times,
+   its plain version's (the f32 product and three passes it replaced),
+   the library's (torch.mm of the bf16 operands with an f32 output, and
+   the same passes) and its byte bound;
 4. the main path at full width: random G3, R and fixer-R (3x64x64, noise
    dim 100, normal noise, non-trivial BN running statistics) saved as
    checkpoints, then ``cli.apply_r.main`` with N = 10,000, 10 needles, batch
@@ -131,10 +141,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
 8. the fused generate -> invert -> top-k program (analysis/e2e.py) at full
    width, as bench.py times JAX's: phase 4's G3 and R, N = 10,240 latents,
    bf16, k = 100, needle chunk 256, the fast G (kernel U and U's fused
-   head) and the fast R (kernel B), kernel C in the search. Its first call
-   (warm-up, capture, replay) is the path whose launches count; a second
-   replay must add to U's, B's and C's counts exactly as many launches as
-   the chunks imply, a traced third
+   head) and the fast R (kernel B), their dense layers on kernel D, kernel
+   C in the search. Its first call (warm-up, capture, replay) is the path
+   whose launches count; a second replay must add to U's, B's, C's and
+   D's counts exactly as many launches as the chunks imply (U 80, head
+   80, B 480, C 40, D 240: G l0, R l27 and R l31), a traced third
    must run as many of their kernels on the device (torch.profiler), and
    the replays must give bitwise the first call's results,
    which must be bitwise the eager program's (capture=False) and the
@@ -179,8 +190,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``--check``; a fresh process that imports only
    ``ganreverser_tpu_torch.io.serving`` (and this script's timers) loads
    each on the card (one CUDA graph), runs it on the inputs the live legs
-   get, counts its kernels in one traced call (invert B 6; generate U 1
-   and U's head 1; e2e U 80, U's head 80, B 480, C 40), times the e2e
+   get, counts its kernels in one traced call (invert B 6, D 2; generate
+   U 1, U's head 1, D 1; e2e U 80, U's head 80, B 480, C 40, D 240),
+   times the e2e
    artifact warm, then loads the invert artifact on the CPU; it must have
    imported nothing under models/, cli/ or analysis/e2e.py. The loaded
    outputs must be within 1e-3 x max(1, scale) of the live legs', the
@@ -287,7 +299,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    holds it, Q1-Q4 bitwise as phase 10 holds them (no trace: their device
    times are phase 10's), Q3 at R l27 with every operand +-127 (at config
    5, K = 131,072: sums of 2,114,060,288), S bitwise at apply_r's and the
-   e2e chunks' searches (r 0.95 and 1); (b) ``cli.apply_r.main`` with the
+   e2e chunks' searches (r 0.95 and 1), D at G l0, R l27 and R l31 within
+   phase 3's dense_close; (b) ``cli.apply_r.main`` with the
    fixer-R in bf16, then --int8 and --approx on the same checkpoints,
    each counted and held to phase 4's checks (the searches against the
    scores in f64), S once per search, the recalls of --int8 and --approx
@@ -297,8 +310,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and 100: first calls counted with their peak device memory, a replay
    adding exactly the chunks' launches and bitwise the first call, the
    top-k as phase 8 holds it, img/s of warm calls. Every kernel of the
-   paths (B, U, U's head, C, K, Q1-Q4, S) must launch at each config, and
-   a line per kernel gives its summed times, bound and launches there.
+   paths (B, U, U's head, C, K, Q1-Q4, S, D) must launch at each config,
+   and a line per kernel gives its summed times, bound and launches there.
    ``python3 chip_smoke.py --configs`` runs phases 1, 2 and 13 alone (no
    result lines).
 
@@ -307,7 +320,7 @@ launch count in the main path (Q1-Q4's: ``apply_r --int8`` and the int8
 e2e export's check; S's: phase 11's ``apply_r --approx`` and approximate
 fused program; phase 12's distributed paths add theirs to U's, the
 head's, B's, C's, S's and B5's; phase 13's configs' paths add theirs to
-B's, U's, the head's, C's, K's, Q1-Q4's and S's; the FIR filter's: one
+B's, U's, the head's, C's, K's, Q1-Q4's, S's and D's; the FIR filter's: one
 forward and backward of config F), error, times and bound
 (phases 3, 10 and 11, at 3x64x64; the FIR filter's at config F), and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -392,12 +405,18 @@ E2E_K, E2E_CHUNK, E2E_PIXEL_K = 100, 256, 100
 E2E_TIMES = 5            # graph calls timed
 E2E_AMPLIFY = 3.0        # the second G's and R's kernels, phase 4's x 3
 TOL_TOPK = 1e-5          # e2e top-k vs the plain search (pixels: f64)
+# kernel D's two products, unsplit and under a K split: HGMMA in every
+# instance (BN 16 to 256); its sum kernel, on the CUDA cores: none
+DENSE_WGMMA = ("dense_bf16_wgmma_kernel", "dense_bf16_split_wgmma_kernel")
+DENSE_SUM = "dense_bf16_sum_kernel"
 # each e2e wrapper's kernel, by the name a torch.profiler trace gives it
-# (one per counted launch; the bf16 kernels)
+# (one per counted launch; the bf16 kernels; kernel D's product, split or
+# not)
 E2E_DEVICE_KERNELS = {"upsample2_conv3x3_bn_act": "upsample2_wgmma_kernel",
                       "upsample2_conv3x3_head": "upsample2_head_wgmma_kernel",
                       "conv_block": "conv3x3_wgmma_kernel",
-                      "cosine_scores": "cosine_wgmma_kernel"}
+                      "cosine_scores": "cosine_wgmma_kernel",
+                      "dense_act": DENSE_WGMMA}
 CONVBN_SHAPE = (256, 64, 64, 256, 128)   # B7's probe: N, H, W, Ci, Co
 PRETRAIN_BATCH = 128     # pretrain_g's default --batchSize
 PRETRAIN_EPOCH_BATCHES = 10   # --N_epoch of phase 7 (depth; the default 30)
@@ -560,6 +579,107 @@ def check_fir(dev, card: str):
             "bound_by": "bytes"}, launches
 
 
+def dense_layers(dims, noise_dim: int) -> list:
+    """Kernel D's shapes in the fused program at ``dims`` and ``noise_dim``:
+    G l0, R l27 and R l31 (normal noise) as (label, K, M, act)."""
+    _, h, w = dims
+    pix = (h // 4) * (w // 4)
+    return [(f"G l0 {h}x{w}", noise_dim, 512 * pix, "relu"),
+            (f"R l27 {h}x{w}", 128 * pix, 512, "elu"),
+            (f"R l31 {h}x{w}", 512, noise_dim, "none")]
+
+
+# kernel D's rows of phase 3: every shape the fused program gives it at
+# 3x64x64 z 100 and 3x128x128 z 256, batch 128 (R l31 unsplit at BN 16, its
+# last column tile partial at z 100)
+DENSE_LAYERS = dense_layers((3, 64, 64), 100) + dense_layers((3, 128, 128),
+                                                              256)
+DENSE_BATCH = 128
+
+
+def dense_close(out, ref, x, w) -> float:
+    """Kernel D's output against its plain version's, both bf16: the
+    worst error in units of one bf16 step of the larger of the two values
+    plus 2^-14 of that output's sum of |x * w|; at most 1 passes. Both
+    sum the same exact f32 products of bf16 operands in f32, in other
+    orders (the tensor cores', cuBLAS's); each order's error is some
+    sqrt(K) f32 rounding errors of that sum, under 2^-15 of it at K =
+    131,072, which moves the f32 value across a bf16 rounding boundary at
+    most once or, where the sum nearly cancels, by a few of its own small
+    bf16 steps."""
+    import torch
+    o, r = out.float(), ref.float()
+    big = torch.maximum(o.abs(), r.abs())
+    step = torch.where(big > 0, torch.exp2(torch.floor(torch.log2(big)) - 7),
+                       torch.zeros_like(big))
+    mag = (x.to(torch.bfloat16).float().abs()
+           @ w.to(torch.bfloat16).float().abs())
+    return ((o - r).abs() / (step + mag * 2.0 ** -14)).max().item()
+
+
+def check_dense(dev, card: str, layers=DENSE_LAYERS,
+                tag: str = "kernel") -> list:
+    """Phase 3 (and phase 13 at a config's ``dense_layers``, lines tagged
+    ``tag``), kernel D (csrc/dense.cu) at ``layers``, bf16: against its
+    plain version on the card within dense_close; the wrapper's ms, its
+    device ms (the product, and the sum kernel under a K split), the
+    plain version's ms (the f32 product of the rounded kernel and its
+    three passes, what the fast forwards ran before), the library's (the
+    tensor cores' bf16 product with an f32 output,
+    ``torch.mm(..., out_dtype=torch.float32)``, and the same passes) and
+    the bound: the weights, x and the output once each over the memory
+    rate, or the operations over the bf16 peak. Returns one record a
+    layer."""
+    import torch
+    from ganreverser_tpu_torch.ops import dense_kernel as D
+    bf16 = torch.bfloat16
+    records = []
+    for label, k, m, act in layers:
+        gen = torch.Generator(device=dev).manual_seed(SEED + 26 + k % 1000)
+        x = torch.randn(DENSE_BATCH, k, device=dev, generator=gen).to(bf16)
+        w = torch.randn(k, m, device=dev, generator=gen) / math.sqrt(k)
+        shift = 0.1 * torch.randn(m, device=dev, generator=gen)
+        op = D.dense_operand(w)
+        k32 = D.operand_kernel(op, k)
+        wt = op[:, :k].T
+
+        def kern():
+            return D.dense_act(x, op, shift, act)
+
+        def plain():
+            return D.dense_act_plain(x, k32, shift, act)
+
+        def library():
+            return D.activation(torch.mm(x, wt, out_dtype=torch.float32)
+                                + shift, act).to(bf16)
+        out = kern()
+        torch.cuda.synchronize()
+        ratio = dense_close(out, plain(), x, w)
+        lib_ratio = dense_close(library(), plain(), x, w)
+        check(ratio <= 1.0, f"dense_act {label}: error {ratio} of the "
+              "tolerance (one bf16 step + 2^-14 of the sum of |x w|)")
+        plan, splits = D.dense_plan(DENSE_BATCH, k, m)
+        ms, plain_ms, lib_ms = time_ms(kern), time_ms(plain), time_ms(library)
+        dev_ms = launch_ms(kern, (*DENSE_WGMMA, DENSE_SUM))
+        b_ms, b_by = bound(2.0 * DENSE_BATCH * k * m,
+                           _nbytes(op, x, out), "bfloat16")
+        print(f"[{tag}] dense_act {label} ({DENSE_BATCH},{k})x({k},{m}) "
+              f"bf16 {act}, plan {tuple(plan)} splits {splits}: error "
+              f"{ratio:.3f} of the tolerance (the library's {lib_ratio:.3f}),"
+              f" kernel {ms:.4f} ms (device {dev_ms:.4f}), plain "
+              f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms (torch.mm bf16 -> "
+              f"f32 + its passes), bound {b_ms:.4f} ms ({b_by})  [{card}]")
+        records.append({"name": "dense_act", "label": label,
+                        "dtype": "bfloat16", "max_abs_err": (
+                            out.float() - plain().float()).abs().max().item(),
+                        "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                        "library_ms": lib_ms, "bound_ms": b_ms,
+                        "bound_by": b_by})
+        del x, w, op, k32, wt, out
+        torch.cuda.empty_cache()
+    return records
+
+
 class SmokeFailure(RuntimeError):
     pass
 
@@ -644,11 +764,11 @@ def _instances(counts: dict, stem: str) -> dict:
 
 def check_hgmma(lib_path) -> dict:
     """The SASS guard: every instance of the bf16 kernels (one per tile
-    width BN) holds as many HGMMA instructions as HGMMA_COUNTS says; every
-    instance of Q1's, Q2's and Q3's s8 kernels holds IGMMA, Q3's sum kernel
-    and Q4's kernels neither, and no kernel DP4A (the CUDA cores' int8
-    product, which Q3 ran on before). Returns the counts by kernel and
-    BN."""
+    width BN) holds as many HGMMA instructions as HGMMA_COUNTS says, and
+    every instance of kernel D's two some; every instance of Q1's, Q2's
+    and Q3's s8 kernels holds IGMMA, Q3's and D's sum kernels and Q4's
+    kernels neither, and no kernel DP4A (the CUDA cores' int8 product,
+    which Q3 ran on before). Returns the counts by kernel and BN."""
     from ganreverser_tpu_torch.ops.conv_operands import HEAD_MAX_BN, WIDTHS_N
     hgmma, igmma = sass_hgmma(lib_path), sass_hgmma(lib_path, "IGMMA")
     found = {}
@@ -662,13 +782,19 @@ def check_hgmma(lib_path) -> dict:
         check(mine == want, f"SASS: HGMMA per instance of {stem} {mine}, "
               f"expected {want}")
         found[stem] = mine
+    for stem in DENSE_WGMMA:
+        mine = _instances(hgmma, stem)
+        check(sorted(mine) == list(WIDTHS_N) and all(mine.values()),
+              f"SASS: HGMMA per instance of {stem} {mine}, expected some in "
+              f"one instance per BN in {WIDTHS_N}")
+        found[stem] = mine
     for stem in S8_KERNELS:
         mine = _instances(igmma, stem)
         check(sorted(mine) == list(WIDTHS_N) and all(mine.values()),
               f"SASS: IGMMA per instance of {stem} {mine}, expected some in "
               f"one instance per BN in {WIDTHS_N}")
         found[stem] = mine
-    for stem in INT8_CUDA_CORE_KERNELS:
+    for stem in (*INT8_CUDA_CORE_KERNELS, DENSE_SUM):
         names = [n for n in hgmma if re.search(rf"\d{stem}E", n)]
         check(len(names) == 1 and not hgmma[names[0]]
               and not igmma[names[0]], f"SASS: {stem} ({names}) is not one "
@@ -758,7 +884,8 @@ def launch_ms(fn, names, reps: int = 10, tries: int = 3) -> float:
 
 def device_counts(fn, names: dict) -> dict:
     """Per key of ``names``, the device kernels of one call of ``fn`` whose
-    name holds its value, counted in a torch.profiler trace."""
+    name holds its value (or one of a tuple of them), counted in a
+    torch.profiler trace."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -766,7 +893,9 @@ def device_counts(fn, names: dict) -> dict:
         fn()
         torch.cuda.synchronize()
     events = prof.key_averages()
-    return {key: sum(ev.count for ev in events if name in ev.key)
+    return {key: sum(ev.count for ev in events
+                     if any(n in ev.key for n in ((name,) if isinstance(
+                         name, str) else name)))
             for key, name in names.items()}
 
 
@@ -1295,7 +1424,7 @@ def save_models(G, R, RF, save: str, dims=DIMS,
 
 
 def kernel_counters():
-    from ganreverser_tpu_torch.ops import (conv_block_kernel,
+    from ganreverser_tpu_torch.ops import (conv_block_kernel, dense_kernel,
                                            kmeans_kernel, topk_kernel,
                                            upsample_conv_kernel)
     return {"conv_block": conv_block_kernel.conv_block,
@@ -1304,7 +1433,8 @@ def kernel_counters():
             "upsample2_conv3x3_head":
                 upsample_conv_kernel.upsample2_conv3x3_head,
             "cosine_scores": topk_kernel.cosine_scores,
-            "kmeans_lloyd": kmeans_kernel.kmeans_lloyd}
+            "kmeans_lloyd": kmeans_kernel.kmeans_lloyd,
+            "dense_act": dense_kernel.dense_act}
 
 
 def run_main_path(g_path: str, save: str, out_dir: str, n: int = N_MAIN,
@@ -2358,13 +2488,14 @@ def check_e2e(dev, card: str):
     import torch
     from ganreverser_tpu_torch.analysis import e2e
     from ganreverser_tpu_torch.analysis.similarity import normalize_rows
-    from ganreverser_tpu_torch.ops import (conv_block_kernel, topk_kernel,
-                                           upsample_conv_kernel)
+    from ganreverser_tpu_torch.ops import (conv_block_kernel, dense_kernel,
+                                           topk_kernel, upsample_conv_kernel)
     uc = upsample_conv_kernel
     counters = {"upsample2_conv3x3_bn_act": uc.upsample2_conv3x3_bn_act,
                 "upsample2_conv3x3_head": uc.upsample2_conv3x3_head,
                 "conv_block": conv_block_kernel.conv_block,
-                "cosine_scores": topk_kernel.cosine_scores}
+                "cosine_scores": topk_kernel.cosine_scores,
+                "dense_act": dense_kernel.dense_act}
     G, R, gv, rv, gv2, rv2, z = e2e_inputs(dev)
     n = E2E_N
 
@@ -2383,8 +2514,7 @@ def check_e2e(dev, card: str):
         fn.launches = 0
     (emb, v, i), first_s, peak_fused = first_call(lambda: fused(gv, rv, z))
     launches = {name: fn.launches for name, fn in counters.items()}
-    for name in ("conv_block", "cosine_scores", "upsample2_conv3x3_bn_act",
-                 "upsample2_conv3x3_head"):
+    for name in counters:
         check(launches[name] > 0, f"e2e: kernel {name} launched no time in "
               "the fused program's first call")
     before = dict(launches)
@@ -2396,7 +2526,8 @@ def check_e2e(dev, card: str):
     expected = {"upsample2_conv3x3_bn_act": chunks,
                 "upsample2_conv3x3_head": chunks,
                 "conv_block": 6 * chunks,
-                "cosine_scores": -(-n // E2E_CHUNK)}
+                "cosine_scores": -(-n // E2E_CHUNK),
+                "dense_act": 3 * chunks}  # G l0, R l27, R l31
     check(per_replay == expected, f"e2e: launches per replay {per_replay}, "
           f"expected {expected}")
     # the counts above are the capture's, added again at each replay: the
@@ -3095,8 +3226,9 @@ Q4_LAUNCHES_A_CHUNK = 14
 # the int8 e2e program's top-100 recall against the bf16 program on phase
 # 8's x3 weights, the weights' per-channel scales in IEEE division: both
 # programs are deterministic and the int8 sums exact, so another value is
-# a fault
-INT8_RECALL = 0.6235
+# a fault (0.6235 until the bf16 program's dense layers moved onto kernel
+# D, whose f32 sums run in another order)
+INT8_RECALL = 0.6234
 # a process that loads artifacts with io.serving alone: loads each on the
 # card, runs it on the saved input (first call: capture + replay), saves
 # its outputs, counts its kernels in one traced call and times the e2e
@@ -3621,13 +3753,14 @@ def check_serving(dev, card: str, tmp: str, secs4: dict, rate8: float):
     check(not loaded["modules"], f"serving: the loading process imported "
           f"{loaded['modules']}")
     chunks = n_e2e // b_e2e
-    expected = {"invert": {"conv_block": 6},
+    expected = {"invert": {"conv_block": 6, "dense_act": 2},
                 "generate": {"upsample2_conv3x3_bn_act": 1,
-                             "upsample2_conv3x3_head": 1},
+                             "upsample2_conv3x3_head": 1, "dense_act": 1},
                 "e2e": {"upsample2_conv3x3_bn_act": chunks,
                         "upsample2_conv3x3_head": chunks,
                         "conv_block": 6 * chunks,
-                        "cosine_scores": -(-n_e2e // E2E_CHUNK)}}
+                        "cosine_scores": -(-n_e2e // E2E_CHUNK),
+                        "dense_act": 3 * chunks}}
     lines = []
     for what, want in live.items():
         got = [t.to(dev) for t in torch.load(spec["card"][what]["output"])]
@@ -4791,7 +4924,7 @@ def config_kernels(dev, card: str, tag: str, cfg: Config) -> list:
     """Phase 13a: the kernels of a config's paths against their plain
     versions at its shapes: B, U, U's head and C at phase 3's tolerances
     (f32 and bf16, timed in bf16), K, Q1-Q4 and S bitwise as in phases
-    3, 10 and 11."""
+    3, 10 and 11, D within phase 3's dense_close."""
     records = check_kernels(dev, card, N_CHECK, cfg.apply_n, cfg.dims,
                             cfg.noise_dim, CONFIG_KERNELS, ("bfloat16",),
                             tag)
@@ -4801,6 +4934,8 @@ def config_kernels(dev, card: str, tag: str, cfg: Config) -> list:
     c, h, w = cfg.dims
     q3_extremes(dev, card, tag, h * w * 8)
     records += approx_at(dev, card, tag, cfg)
+    records += check_dense(dev, card, dense_layers(cfg.dims, cfg.noise_dim),
+                           tag)
     return records
 
 
@@ -4911,12 +5046,14 @@ def config_e2e(dev, card: str, tag: str, cfg: Config, launches: dict):
     from ganreverser_tpu_torch.analysis import e2e
     from ganreverser_tpu_torch.core.prng import noise_inputs
     from ganreverser_tpu_torch.models import bridge
-    from ganreverser_tpu_torch.ops import (conv_block_kernel, topk_kernel,
+    from ganreverser_tpu_torch.ops import (conv_block_kernel, dense_kernel,
+                                           topk_kernel,
                                            upsample_conv_kernel as uc)
     counters = {"upsample2_conv3x3_bn_act": uc.upsample2_conv3x3_bn_act,
                 "upsample2_conv3x3_head": uc.upsample2_conv3x3_head,
                 "conv_block": conv_block_kernel.conv_block,
-                "cosine_scores": topk_kernel.cosine_scores}
+                "cosine_scores": topk_kernel.cosine_scores,
+                "dense_act": dense_kernel.dense_act}
     n = E2E_N
     G, R, _ = make_models(dev, cfg.dims, cfg.noise_dim)
     gv, rv = bridge.module_variables(G), bridge.module_variables(R)
@@ -4949,7 +5086,8 @@ def config_e2e(dev, card: str, tag: str, cfg: Config, launches: dict):
                     "upsample2_conv3x3_head": chunks,
                     "conv_block": 6 * chunks,
                     "cosine_scores": -(-n // E2E_CHUNK) * (2 if pixel_k
-                                                          else 1)}
+                                                          else 1),
+                    "dense_act": 3 * chunks}  # G l0, R l27, R l31
         check(per_replay == expected, f"{tag} e2e pixel_k={pixel_k}: "
               f"launches per replay {per_replay}, expected {expected}")
         check(all(torch.equal(a, b) for a, b in zip(again, first)),
@@ -5074,10 +5212,12 @@ def main(configs_only: bool = False) -> int:
             print(f"[build] {line}")
     gmma = check_hgmma(lib_path)
     print("[build] SASS guard, HGMMA instructions per bf16 kernel (by BN): "
-          + ", ".join(f"{n} {gmma[n]}" for n in WGMMA_KERNELS) + "; IGMMA "
-          "(s8 wgmma) per int8 kernel: " + ", ".join(
+          + ", ".join(f"{n} {gmma[n]}" for n in (*WGMMA_KERNELS,
+                                                  *DENSE_WGMMA))
+          + "; IGMMA (s8 wgmma) per int8 kernel: " + ", ".join(
               f"{n} {gmma[n]}" for n in S8_KERNELS) + "; none in " +
-          ", ".join(INT8_CUDA_CORE_KERNELS) + "; no DP4A in any kernel")
+          ", ".join((*INT8_CUDA_CORE_KERNELS, DENSE_SUM)) +
+          "; no DP4A in any kernel")
     wide = {n: c for n, c in sass_hgmma(lib_path, "IMAD.WIDE").items()
             if "fused_dropout_pack_kernel" in n}
     check(len(wide) == 2, f"SASS: {len(wide)} instances of "
@@ -5112,6 +5252,7 @@ def main(configs_only: bool = False) -> int:
     records += check_probe_kernels(dev, card)
     fir_record, fir_launches = check_fir(dev, card)
     records.append(fir_record)
+    records += check_dense(dev, card)
 
     # 4. the main path at full width
     G, R, RF = make_models(dev)
@@ -5191,7 +5332,7 @@ def main(configs_only: bool = False) -> int:
     t8 = time.perf_counter()
     launches8, rate8 = check_e2e(dev, card)
     for name, count in launches8.items():
-        launches[name] += count
+        launches[name] = launches.get(name, 0) + count
     t9 = time.perf_counter()
     # 9. the Torch7 import, then apply_r and train on the imported files
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -5272,7 +5413,11 @@ def main(configs_only: bool = False) -> int:
                                "ganreverser_tpu/analysis/similarity.py:34"),
                # StyleGAN2 exists only in the port: no JAX op to replace
                "fir_filter": ("ganreverser_tpu_torch/csrc/fir.cu",
-                              "none: cuDNN's depthwise convolutions")}
+                              "none: cuDNN's depthwise convolutions"),
+               # kernel D: the fast forwards' dense layers, which the JAX
+               # package leaves to XLA
+               "dense_act": ("ganreverser_tpu_torch/csrc/dense.cu",
+                             "none: an f32 torch.matmul and three passes")}
     launches["fir_filter"] = fir_launches
     f32_lines = ("kmeans_lloyd", "add_one", "times_two", "approx_topk")
     kernels = []
@@ -5288,7 +5433,8 @@ def main(configs_only: bool = False) -> int:
         # program's, B7-B9's those of their probes; Q1-Q4's (int8) those
         # of apply_r --int8 and the int8 e2e export's check (phase 10);
         # the FIR filter's (bf16 compute dtype, f32 sums) those of one
-        # forward and backward of config F at batch 8 (phase 3)
+        # forward and backward of config F at batch 8 (phase 3); D's, as
+        # B's, those of apply_r and the fused e2e program's first call
         recs = [r for r in records if r["name"] == name and r["dtype"] == (
             "float32" if name in f32_lines else "int8" if name in INT8_LINES
             else "bfloat16") and r.get("on_path", True)]

@@ -16,7 +16,8 @@ enum Act {
   ACT_RELU = 1,
   ACT_ELU = 2,
   ACT_SIGMOID = 3,
-  ACT_PRELU = 4
+  ACT_PRELU = 4,
+  ACT_TANH = 5
 };
 
 template <typename T>
@@ -56,6 +57,21 @@ __device__ __forceinline__ float apply_act(float y, int act,
     case ACT_PRELU:
       // nn.PReLU's one shared slope, the TPU kernel's where(y >= 0, y, a y)
       return y >= 0.0f ? y : alpha * y;
+    default:
+      return y;
+  }
+}
+
+// The dense layers' activation as PyTorch computes it (ops/dense_kernel.py's
+// plain version): ReLU, F.elu's expm1 form, tanh; none for any other code
+__device__ __forceinline__ float torch_act(float y, int act) {
+  switch (act) {
+    case ACT_RELU:
+      return fmaxf(y, 0.0f);
+    case ACT_ELU:
+      return y > 0.0f ? y : expm1f(y);
+    case ACT_TANH:
+      return tanhf(y);
     default:
       return y;
   }

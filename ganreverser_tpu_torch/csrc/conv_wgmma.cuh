@@ -1,5 +1,5 @@
 // The tensor-core mainloop shared by kernels B (and B6), U (and its fused
-// head), B7 and B8 in bf16 and Q1, Q2 and Q3 in int8, and the helpers
+// head), B7, B8 and D in bf16 and Q1, Q2 and Q3 in int8, and the helpers
 // kernel C's own loop reuses: an implicit GEMM for a 3x3 convolution, one
 // output phase of U's 2x2 phase convolution, or a dense layer as a 1x1
 // one, over an NHWC input, on Hopper's wgmma fed by TMA.
@@ -13,9 +13,9 @@
 // policies are template parameters: the tap policy (Conv3x3Taps, PhaseTaps,
 // StackedPhaseTaps, DenseTaps) maps a stage to the two boxes it reads, the
 // epilogue (BnActEpilogue, StatsEpilogue, HeadTapsEpilogue,
-// DequantActEpilogue) takes the sums from the registers, and the operand
-// type (Bf16Operands, the default, or S8Operands) picks the instruction;
-// the ring between them is the same for every kernel.
+// DequantActEpilogue, SplitSumsEpilogue) takes the sums from the registers,
+// and the operand type (Bf16Operands, the default, or S8Operands) picks the
+// instruction; the ring between them is the same for every kernel.
 //
 // Operands. x is (N, H, W, C) with C % 8 == 0 (the wrapper zero-pads the
 // channels, ops/conv_operands.py), read through one 4D tiled tensor map over
@@ -670,10 +670,11 @@ struct StackedPhaseTaps {
   }
 };
 
-// Kernel Q3 (quant.cu): a dense layer (N, K') x (K', M) as a one-tap 1x1
-// convolution over one image of 1 x N pixels and K' channels (the tile is
-// 1 x 128 rows of x); blockIdx.z is the K split, whose ``kchunks`` stages
-// start at chunk z * kchunks. The weights are (1, M, K').
+// Kernels Q3 (quant.cu) and D (dense.cu): a dense layer (N, K') x (K', M)
+// as a one-tap 1x1 convolution over one image of 1 x N pixels and K'
+// channels (the tile is 1 x 128 rows of x); blockIdx.z is the K split,
+// whose ``kchunks`` stages start at chunk z * kchunks. The weights are (1,
+// M, K').
 struct DenseTaps {
   static constexpr int kTaps = 1;
   static __device__ __forceinline__ StageCoord at(int it, int kchunks, int bk,
@@ -744,8 +745,10 @@ __device__ __forceinline__ void store4(float* dst, const float* src, int left,
 // Kernels B, B6, U and B8: acc * scale + shift, the activation, one rounding
 // to bf16, staged as [128][BN + 8]; with the pool, the 2x2 max from the
 // staged tile; with kPhase, phase (a, b) writes pixel (2i + a, 2j + b) of
-// the (N, 2H, 2W, Co) output.
-template <bool kPhase>
+// the (N, 2H, 2W, Co) output. With kDense (kernel D, dense.cu): scale 1,
+// the BatchNorm folded into the weights, so acc + shift, and the activation
+// as PyTorch computes it (common.cuh's torch_act).
+template <bool kPhase, bool kDense = false>
 struct BnActEpilogue {
   template <int BN>
   static __device__ __forceinline__ void prologue(unsigned char*, const Tile&,
@@ -763,16 +766,17 @@ struct BnActEpilogue {
     for (int j = 0; j < BN / 8; ++j) {
       const int col = j * 8 + 2 * (lane & 3);
       const int co = t.co0 + col;
-      const float sc0 = co < p.Co ? p.scale[co] : 0.0f;
+      const float sc0 = !kDense && co < p.Co ? p.scale[co] : 0.0f;
       const float sh0 = co < p.Co ? p.shift[co] : 0.0f;
-      const float sc1 = co + 1 < p.Co ? p.scale[co + 1] : 0.0f;
+      const float sc1 = !kDense && co + 1 < p.Co ? p.scale[co + 1] : 0.0f;
       const float sh1 = co + 1 < p.Co ? p.shift[co + 1] : 0.0f;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const float v0 =
-            apply_act(fmaf(acc[j * 4 + 2 * h], sc0, sh0), p.act, slope);
-        const float v1 =
-            apply_act(fmaf(acc[j * 4 + 2 * h + 1], sc1, sh1), p.act, slope);
+        const float a0 = acc[j * 4 + 2 * h], a1 = acc[j * 4 + 2 * h + 1];
+        const float v0 = kDense ? torch_act(a0 + sh0, p.act)
+                                : apply_act(fmaf(a0, sc0, sh0), p.act, slope);
+        const float v1 = kDense ? torch_act(a1 + sh1, p.act)
+                                : apply_act(fmaf(a1, sc1, sh1), p.act, slope);
         *reinterpret_cast<__nv_bfloat162*>(cs + (row_base + 8 * h) * kLdc +
                                            col) = __floats2bfloat162_rn(v0, v1);
       }
@@ -1081,10 +1085,7 @@ __device__ __forceinline__ void store4_max(float* dst, const float* src,
 // ragged pixel or channel), reduced over the warp by shuffles and over the
 // block through the staged tile's first words, raises *amax once
 // (raise_amax): the next layer's activation scale without reading y again.
-// With kSplit (Q3's K split) the block stores its s32 sums themselves, bit
-// for bit, as split blockIdx.z's (W, Co) slice of ``y32``, for quant.cu's
-// sum kernel to add.
-template <bool kPhase, bool kSplit = false>
+template <bool kPhase>
 struct DequantActEpilogue {
   template <int BN>
   static __device__ __forceinline__ void prologue(unsigned char*, const Tile&,
@@ -1108,11 +1109,9 @@ struct DequantActEpilogue {
       const float b1 = co + 1 < p.Co ? p.shift[co + 1] : 0.0f;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int a0 = acc[j * 4 + 2 * h], a1 = acc[j * 4 + 2 * h + 1];
         *reinterpret_cast<float2*>(cs + (row0 + 8 * h) * kLdc + col) =
-            kSplit ? make_float2(__int_as_float(a0), __int_as_float(a1))
-                   : make_float2(dequant_act(a0, dq0, b0, p.act),
-                                 dequant_act(a1, dq1, b1, p.act));
+            make_float2(dequant_act(acc[j * 4 + 2 * h], dq0, b0, p.act),
+                        dequant_act(acc[j * 4 + 2 * h + 1], dq1, b1, p.act));
       }
     }
     consumer_sync();
@@ -1120,8 +1119,7 @@ struct DequantActEpilogue {
     constexpr int kVecs = BN / 4;
     const int H = p.H, W = p.W, Co = p.Co;
     const bool vec = Co % 4 == 0;
-    float* y = kSplit ? p.y32 + static_cast<long long>(t.phase) * W * Co
-                      : p.y32;
+    float* y = p.y32;
     float m = 0.0f;  // max |y| over what this thread stores
     if (!kPhase && p.pool) {
       const int pw = p.bw / 2;
@@ -1156,7 +1154,7 @@ struct DequantActEpilogue {
                    m);
       }
     }
-    if (!kSplit && p.amax != nullptr) {  // the same in every thread
+    if (p.amax != nullptr) {  // the same in every thread
       m = warp_max(m);
       consumer_sync();  // the staged tile is read: its first words are free
       if (lane == 0) cs[warp] = m;
@@ -1166,6 +1164,51 @@ struct DequantActEpilogue {
         for (int w = 1; w < kConsumerWarps; ++w) m = fmaxf(m, cs[w]);
         raise_amax(p.amax, m);
       }
+    }
+  }
+};
+
+// The sums' bits as an f32 word: D's f32 sums as they are, Q3's s32 sums
+// bit for bit.
+__device__ __forceinline__ float sum_bits(float a) { return a; }
+__device__ __forceinline__ float sum_bits(int a) { return __int_as_float(a); }
+
+// Kernels Q3 (quant.cu, s32 sums) and D (dense.cu, f32 sums) under a K
+// split: a dense tile's sums as they are, staged as [128][BN + 4] words on
+// the freed ring and stored 16 bytes a thread (scalar where Co % 4 != 0) as
+// split blockIdx.z's (W, Co) slice of ``y32``, ragged rows and columns
+// masked, for the kernel's sum launch to add in split order.
+struct SplitSumsEpilogue {
+  template <int BN>
+  static __device__ __forceinline__ void prologue(unsigned char*, const Tile&,
+                                                  const ConvArgs&) {}
+  template <int BN, typename Acc>
+  static __device__ __forceinline__ void run(Acc (&acc)[BN / 2],
+                                             unsigned char* buf, const Tile& t,
+                                             const ConvArgs& p) {
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    constexpr int kLdc = BN + 4;
+    float* cs = reinterpret_cast<float*>(buf);
+    const int row0 = acc_row(warp, lane);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = j * 8 + 2 * (lane & 3);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(cs + (row0 + 8 * h) * kLdc + col) =
+            make_float2(sum_bits(acc[j * 4 + 2 * h]),
+                        sum_bits(acc[j * 4 + 2 * h + 1]));
+    }
+    consumer_sync();
+    constexpr int kVecs = BN / 4;
+    const bool vec = p.Co % 4 == 0;
+    float* part = p.y32 + static_cast<long long>(t.phase) * p.W * p.Co;
+    for (int c = tid; c < kBM * kVecs; c += kConsumerThreads) {
+      const int row = c / kVecs, v = c - row * kVecs;
+      const int r = t.j0 + row, co = t.co0 + v * 4;
+      if (r >= p.W || co >= p.Co) continue;
+      store4(part + static_cast<long long>(r) * p.Co + co,
+             cs + row * kLdc + v * 4, p.Co - co, vec);
     }
   }
 };

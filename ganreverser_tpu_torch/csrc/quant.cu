@@ -47,8 +47,9 @@
 // = 1 and out_bytes = 4, Q3's ops/quant.py::dense_plan's: 1 x 128 rows of
 // x, BN up to 128 columns, and where the (N, M) tiles alone leave the card
 // idle (R l27: 8 tiles, K' = 32,768) K split over blockIdx.z; each split
-// stores its s32 tile, and quant_dense_sum_kernel adds the splits in
-// order (integer sums: exact), dequantises and takes the max.
+// stores its s32 tile (SplitSumsEpilogue, kernel D's split store too), and
+// quant_dense_sum_kernel adds the splits in order (integer sums: exact),
+// dequantises and takes the max.
 #include <cstdint>
 
 #include "common.cuh"
@@ -217,7 +218,7 @@ __global__ void __launch_bounds__(wg::kThreads, BN <= 64 ? 2 : 1)
     quant_dense_split_s8_kernel(const __grid_constant__ CUtensorMap xmap,
                                 const __grid_constant__ CUtensorMap wmap,
                                 const wg::ConvArgs args) {
-  wg::conv_wgmma_body<BN, wg::DenseTaps, wg::DequantActEpilogue<false, true>,
+  wg::conv_wgmma_body<BN, wg::DenseTaps, wg::SplitSumsEpilogue,
                       wg::S8Operands>(xmap, wmap, args);
 }
 

@@ -10,7 +10,7 @@ rounds the weights to the compute dtype and lays them out for the
 kernels, and ``run`` is the forward on those operands; a call does both.
 They run:
 
-  G: z -> Dense(+BN folded)+ReLU                      [torch.matmul]
+  G: z -> Dense(+BN folded)+ReLU                      [kernel D]
        -> upsample2+conv3x3+BN+ReLU (512->256)       [kernel U]
        -> upsample2+conv3x3+BN+ReLU (256->128)
           -> conv3x3 (128->C) + Sigmoid               [U's fused head]
@@ -18,21 +18,27 @@ They run:
   R: images -> [conv64+BN+ELU x3 + pool]             [kernel B]
             -> [conv128+BN+ELU x3 + pool]            [kernel B]
             -> Dense(+BN folded)+ELU -> Dense (+Tanh for uniform)
-                                                      [torch.matmul]
+                                                      [kernel D x2]
 
   D: images -> [conv3x3 + PReLU] x2 + pool          [kernel B6 x2]
             -> left:  conv5x5 + PReLU + pool          [F.conv2d]
                right: [conv3x3 + PReLU] + pool,
                       [conv3x3 + PReLU] x2 + pool     [kernel B6 x3]
             -> Dense + PReLU per branch, Dense + PReLU, Dense + Sigmoid
-                                                      [torch.matmul]
+                                                      [kernel D x4]
 
-as the JAX package leaves the dense layers and D's 5x5 conv to XLA
+where the JAX package leaves the dense layers and D's 5x5 conv to XLA
 outside any kernel; G's Co=C head is the JAX kernel's fused final head
-(``upsample2_conv3x3(..., final_kernel=...)``). Their f32 precision is
-pinned by the compute dtype (core/precision.py), not by the process-wide
-TF32 flags. On CUDA tensors the kernels launch; on CPU tensors their
-plain versions run.
+(``upsample2_conv3x3(..., final_kernel=...)``). In bf16 each dense layer
+is one call of kernel D (ops/dense_kernel.py): the f32 sums of the
+bf16-rounded operands, the shift (a folded BatchNorm's or the bias), the
+activation where it precedes the rounding (G's ReLU, R's ELU, R's tanh)
+and one rounding to bf16, the rounding points of the f32 product it
+replaced; D's PReLUs and sigmoid follow the rounding, as before. In f32
+the dense layers stay the plain f32 product (``dense_act_plain``): kernel
+D is bf16 only. Their f32 precision is pinned by the compute dtype
+(core/precision.py), not by the process-wide TF32 flags. On CUDA tensors
+the kernels launch; on CPU tensors their plain versions run.
 
 The fixer-R (``make_fast_fixer``) is R behind an always-on input dropout:
 its mask is drawn outside the kernels, so the fixer runs on kernel B too.
@@ -58,12 +64,11 @@ has no int8 producer and takes Q4's two launches:
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
-from ..core.precision import pinned_precision
 from ..ops.conv_block_kernel import conv_block
 from ..ops import quant
 from ..ops.conv_kernel import conv3x3_bn_act, conv3x3_operand, fold_batchnorm
+from ..ops.dense_kernel import dense_act, dense_act_plain, dense_operand
 from ..ops.upsample_conv import conv_nhwc
 from ..ops.upsample_conv_kernel import (head_operand, phase_operand,
                                         upsample2_conv3x3_bn_act)
@@ -90,19 +95,25 @@ class FastForward:
         return self.run(self.prepare(variables), x)
 
 
-def _rounded(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``t`` rounded to ``dtype`` and held in f32: what ``modules.dense``
-    makes of a kernel on every call, made once."""
-    return t.to(dtype).float()
+def _dense_operand(k: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A dense (K, M) kernel (a BatchNorm folded in) as ``run`` reads it,
+    made once: in bf16 kernel D's (M, K') operand; in f32 the kernel
+    rounded to ``dtype`` and held in f32, what ``modules.dense`` makes of
+    it on every call (widening R's (32,768 x 512) kernel per chunk cost
+    the fused e2e program about 4 % of its img/s on an H100; PERF.md)."""
+    if dtype == torch.bfloat16:
+        return dense_operand(k)
+    return k.to(dtype).float()
 
 
-def _dense(x: torch.Tensor, k: torch.Tensor, dtype: torch.dtype):
-    """``modules.dense`` on a kernel already :func:`_rounded`: bitwise the
-    same result without widening the kernel again on every chunk (on an
-    H100, widening R's (32,768 x 512) kernel per chunk cost the fused e2e
-    program about 4 % of its img/s; PERF.md)."""
-    with pinned_precision(dtype):
-        return x.to(dtype).float() @ k
+def _dense_act(x: torch.Tensor, k: torch.Tensor, shift: torch.Tensor,
+               act: str, dtype: torch.dtype) -> torch.Tensor:
+    """``act(modules.dense(x, k) + shift)`` rounded once to ``dtype``, on
+    :func:`_dense_operand`'s ``k``: kernel D in bf16, the plain f32
+    product in f32; bitwise the module's arithmetic on the CPU."""
+    if dtype == torch.bfloat16:
+        return dense_act(x, k, shift, act)
+    return dense_act_plain(x, k, shift, act, dtype)
 
 
 def make_fast_generator(dims: Dims, noise_dim: int,
@@ -136,14 +147,13 @@ def make_fast_generator(dims: Dims, noise_dim: int,
                                  fk, dtype, 2 * sh, 2 * sw, k.shape[2])
                              if on_card else None)
             stages.append(stage)
-        return {"k0": _rounded(p["l0"]["kernel"].float() * scale0[None, :],
-                               dtype),
+        return {"k0": _dense_operand(
+                    p["l0"]["kernel"].float() * scale0[None, :], dtype),
                 "shift0": shift0, "stages": stages}
 
     def run(prep, z):
         # Dense + folded BN + ReLU (models.lua:115-117)
-        y = torch.clamp_min(_dense(z, prep["k0"], dtype) + prep["shift0"],
-                            0.0).to(dtype)
+        y = _dense_act(z, prep["k0"], prep["shift0"], "relu", dtype)
         x = y.reshape(z.shape[0], sh, sw, 512)
         # two fused upsample+conv+BN+ReLU stages (models.lua:121-130), the
         # second carrying the output conv + sigmoid (models.lua:132-133)
@@ -183,9 +193,9 @@ def make_fast_inverter(dims: Dims, noise_dim: int, noise_method: str,
                                  if on_card else None)
             prep["blocks"].append(block)
         scd, shd = fold_batchnorm(p["l28"], s["l28"], p["l27"]["bias"])
-        prep.update(kd=_rounded(p["l27"]["kernel"].float() * scd[None, :],
-                                dtype),
-                    shd=shd, k31=_rounded(p["l31"]["kernel"], dtype),
+        prep.update(kd=_dense_operand(
+                        p["l27"]["kernel"].float() * scd[None, :], dtype),
+                    shd=shd, k31=_dense_operand(p["l31"]["kernel"], dtype),
                     b31=p["l31"]["bias"])
         return prep
 
@@ -194,13 +204,13 @@ def make_fast_inverter(dims: Dims, noise_dim: int, noise_method: str,
         x = images.to(dtype).contiguous()
         for block in prep["blocks"]:
             x = conv_block(x, act="elu", pool=True, **block)
-        # head: Dense(+BN folded)+ELU -> Dense (models.lua:446-451)
+        # head: Dense(+BN folded)+ELU -> Dense, + Tanh for uniform noise
+        # (models.lua:446-454)
         x = x.reshape(x.shape[0], -1)
-        y = F.elu(_dense(x, prep["kd"], dtype) + prep["shd"]).to(dtype)
-        z = _dense(y, prep["k31"], dtype) + prep["b31"]
-        if noise_method != "normal":
-            z = torch.tanh(z)  # models.lua:452-454
-        return z.to(dtype)
+        y = _dense_act(x, prep["kd"], prep["shd"], "elu", dtype)
+        return _dense_act(y, prep["k31"], prep["b31"],
+                          "none" if noise_method == "normal" else "tanh",
+                          dtype)
 
     return FastForward(prepare, run)
 
@@ -375,10 +385,10 @@ def make_fast_discriminator(dims: Dims, dtype: torch.dtype = torch.bfloat16
     the same weights. Five of D2's six convolutions run on kernel B6 with
     scale 1, shift = the conv bias and the PReLU slope read from its (1,)
     parameter on the device; the pool that follows three of them is fused.
-    The 5x5 conv of the left branch and the dense layers keep the module
-    path's arithmetic: f32 sums of ``dtype``-rounded operands, the bias
-    added in f32, one rounding, then PReLU in ``dtype``. ``prepare``
-    rounds the kernels to ``dtype`` once."""
+    The 5x5 conv of the left branch and the dense layers (kernel D in
+    bf16) keep the module path's arithmetic: f32 sums of ``dtype``-rounded
+    operands, the bias added in f32, one rounding, then PReLU in
+    ``dtype``. ``prepare`` rounds the kernels to ``dtype`` once."""
     c, h, w = dims
     if h % 8 or w % 8:
         raise ValueError(f"D2 needs H and W divisible by 8, got {h}x{w}")
@@ -399,7 +409,7 @@ def make_fast_discriminator(dims: Dims, dtype: torch.dtype = torch.bfloat16
                     "prelu_alpha": nxn["l1"]["alpha"]}
 
         def lin(layer, act=None):
-            return {"k": _rounded(layer["kernel"], dtype),
+            return {"k": _dense_operand(layer["kernel"], dtype),
                     "b": layer["bias"],
                     "alpha": None if act is None else act["alpha"]}
 
@@ -414,7 +424,7 @@ def make_fast_discriminator(dims: Dims, dtype: torch.dtype = torch.bfloat16
                           "l4": lin(p["l4"], p["l5"]), "l7": lin(p["l7"])}}
 
     def dense_prelu(x, d):
-        return prelu((_dense(x, d["k"], dtype) + d["b"]).to(dtype),
+        return prelu(_dense_act(x, d["k"], d["b"], "none", dtype),
                      d["alpha"])
 
     def run(prep, images):
@@ -439,6 +449,6 @@ def make_fast_discriminator(dims: Dims, dtype: torch.dtype = torch.bfloat16
         # head: Dense 256 + PReLU, Dense 1 + Sigmoid (l4-l8)
         y = dense_prelu(torch.cat([y, r], dim=-1), dn["l4"])
         l7 = dn["l7"]
-        return torch.sigmoid((_dense(y, l7["k"], dtype) + l7["b"]).to(dtype))
+        return torch.sigmoid(_dense_act(y, l7["k"], l7["b"], "none", dtype))
 
     return FastForward(prepare, run)

@@ -38,7 +38,8 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-ACT_CODES = {"none": 0, "relu": 1, "elu": 2, "sigmoid": 3, "prelu": 4}
+ACT_CODES = {"none": 0, "relu": 1, "elu": 2, "sigmoid": 3, "prelu": 4,
+             "tanh": 5}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -102,6 +103,9 @@ _SIGNATURES = {
     # scores, values, indices, q, n, k, then the plan (bins, cluster,
     # keys_on_chip, sort_on_chip, stage_row), stream
     "gr_approx_topk": [*[_P] * 3, *[_I] * 8, _P],
+    # x, w, shift, out, part, n, k, m, act, splits, then the plan (bh, bw,
+    # bn, bk, stages, smem), stream
+    "gr_dense_bf16": [*[_P] * 5, *[_I] * 5, *[_I] * 6, _P],
     # in dtype, out dtype, x, y, n, hi, wi, ho, wo, c, up, down, pad0,
     # round_in, round_out, then the plan (vec, rows), stream
     "gr_fir_filter": [_I, _I, _P, _P, *[_I] * 13, _P],

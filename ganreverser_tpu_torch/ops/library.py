@@ -1,10 +1,10 @@
 """The kernels as ``torch.library`` custom operators, ``ganreverser::*``.
 
 Each kernel wrapper that a fast forward or a search calls (``conv_block``,
-``upsample2_conv3x3_bn_act``, its fused head, ``cosine_scores``,
-``approx_topk`` and the int8 kernels Q1-Q4 of ``ops/quant.py``, Q4's
-one pass after a producer included) goes
-through one operator here,
+``upsample2_conv3x3_bn_act``, its fused head, ``dense_act``,
+``cosine_scores``, ``approx_topk`` and the int8 kernels Q1-Q4 of
+``ops/quant.py``, Q4's one pass after a producer included) goes through
+one operator here,
 so that ``torch.export`` can trace a program over the kernels
 (``io/serving.py``): the trace records one call of the operator, whose
 output shape and dtype come from its fake implementation, and a loaded
@@ -26,8 +26,8 @@ from __future__ import annotations
 
 import torch
 
-from . import (approx_topk_kernel, conv_block_kernel, quant, topk_kernel,
-               upsample_conv_kernel)
+from . import (approx_topk_kernel, conv_block_kernel, dense_kernel, quant,
+               topk_kernel, upsample_conv_kernel)
 
 NAMESPACE = "ganreverser"
 
@@ -61,6 +61,10 @@ def _head_fake(x, kernel, scale, shift, final_kernel, final_bias, act,
                final_act, operand, final_operand):
     n, h, w, _ = x.shape
     return x.new_empty((n, 2 * h, 2 * w, final_kernel.shape[-1]))
+
+
+def _dense_fake(x, operand, shift, act):
+    return x.new_empty((x.shape[0], operand.shape[0]), dtype=torch.bfloat16)
 
 
 def _cosine_fake(embeddings, needle_idx):
@@ -122,6 +126,8 @@ _define("upsample2_conv3x3_head",
         "Tensor final_kernel, Tensor final_bias, str act, str final_act, "
         "Tensor? operand, Tensor? final_operand) -> Tensor",
         upsample_conv_kernel.launch_upsample2_conv3x3_head, _head_fake)
+_define("dense_act", "(Tensor x, Tensor operand, Tensor shift, str act) "
+        "-> Tensor", dense_kernel.launch_dense_act, _dense_fake)
 _define("cosine_scores", "(Tensor embeddings, Tensor needle_idx) -> Tensor",
         topk_kernel.launch_cosine_scores, _cosine_fake)
 _define("approx_topk",

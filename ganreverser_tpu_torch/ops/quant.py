@@ -41,6 +41,8 @@ which serving artifacts record (``io/serving.py``).
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
@@ -283,39 +285,66 @@ def dense_splits(tiles: int, chunks: int) -> int:
                 and chunks // d >= DENSE_MIN_CHUNKS), default=1)
 
 
-def dense_plan(n: int, k: int, m: int):
-    """Q3's launch as (TilePlan, splits): :func:`dense_plan_at`'s at BN the
-    least width covering M up to ``DENSE_MAX_BN``, halved (down to 16)
-    while the (N, M) tiles leave SMs idle and K is too short to split:
-    more blocks in flight where the tiles are few and short (R l31), K
-    splits where K is long (R l27). ``tools/dense_plans.py`` times each
-    BN on the card (PERF.md section 6)."""
+class DensePolicy(NamedTuple):
+    """What sets one dense kernel's plan apart from another's (Q3 here,
+    kernel D in ops/dense_kernel.py); the rest of :func:`dense_plan` is
+    theirs in common."""
+    elem_bytes: int     # bytes of an operand element: 1 int8, 2 bf16
+    max_bn: int         # the widest column tile
+    split_chunks: int   # K of at least this many stages is split where
+    #                     the tiles leave SMs idle; a shorter K narrows BN
+    out_bytes: int      # bytes of a value of the unsplit epilogue's tile
+    deep_ring: bool     # a grid of at most one block an SM takes a ring
+    #                     of all the shared memory, not RING_BYTES[BN]
+
+
+# Q3: BN up to 128, f32 outputs, split from 8 stages of K
+Q3_POLICY = DensePolicy(1, DENSE_MAX_BN, 2 * DENSE_MIN_CHUNKS, 4, False)
+
+
+def dense_plan(n: int, k: int, m: int, policy: DensePolicy = Q3_POLICY):
+    """A dense kernel's launch as (TilePlan, splits): :func:`dense_plan_at`'s
+    at BN the least width covering M up to ``policy.max_bn``, halved (down
+    to 16) while the (N, M) tiles leave SMs idle and K is shorter than
+    ``policy.split_chunks`` stages: more blocks in flight where the tiles
+    are few and short (R l31), K splits where K is long (R l27).
+    ``tools/dense_plans.py`` times each BN of Q3 on the card (PERF.md
+    section 6)."""
     co = conv_operands
-    kp = co.padded_channels(k, 1)
-    bk = kp if kp <= 64 else 128
-    bn = next(b for b in co.WIDTHS_N if min(m, DENSE_MAX_BN) <= b)
+    kp = co.padded_channels(k, policy.elem_bytes)
+    bk = kp if kp <= 64 // policy.elem_bytes else 128 // policy.elem_bytes
+    bn = next(b for b in co.WIDTHS_N if min(m, policy.max_bn) <= b)
     rows = -(-n // co.BM)
-    if -(-kp // bk) < 2 * DENSE_MIN_CHUNKS:  # too short to split
+    if -(-kp // bk) < policy.split_chunks:
         while bn > co.WIDTHS_N[0] and rows * -(-m // bn) < SMS:
             bn //= 2
-    return dense_plan_at(n, k, m, bn)
+    return dense_plan_at(n, k, m, bn, policy)
 
 
-def dense_plan_at(n: int, k: int, m: int, bn: int):
-    """Q3's (TilePlan, splits) at column tile width ``bn``: the tile is 1 x
-    128 rows of x (``DenseTaps``: one tap of a 1 x N image), BK the padded
-    K's depth up to a 128-byte row, K split by :func:`dense_splits`; the
-    ring as :func:`conv_operands.tile_plan`'s, no deeper than a split's
-    stages, holding the f32 staged tile."""
+def dense_plan_at(n: int, k: int, m: int, bn: int,
+                  policy: DensePolicy = Q3_POLICY):
+    """A dense kernel's (TilePlan, splits) at column tile width ``bn``: the
+    tile is 1 x 128 rows of x (``DenseTaps``: one tap of a 1 x N image),
+    BK the padded K's depth up to a 128-byte row, K of at least
+    ``policy.split_chunks`` stages split by :func:`dense_splits`; the ring
+    as :func:`conv_operands.tile_plan`'s (or, with ``policy.deep_ring``
+    and a grid of at most one block an SM, as many stages as the shared
+    memory holds), no deeper than a split's stages, holding the staged
+    tile (a split's f32 sums, else values of ``policy.out_bytes``)."""
     co = conv_operands
-    kp = co.padded_channels(k, 1)
-    bk = kp if kp <= 64 else 128
+    kp = co.padded_channels(k, policy.elem_bytes)
+    bk = kp if kp <= 64 // policy.elem_bytes else 128 // policy.elem_bytes
     chunks = -(-kp // bk)
-    splits = dense_splits(-(-n // co.BM) * -(-m // bn), chunks)
-    stage = -(-(co.BM + bn) * bk // co.ALIGN) * co.ALIGN
-    stages = max(2, min(co.MAX_STAGES, co.RING_BYTES[bn] // stage,
-                        chunks // splits),
-                 -(-co.staged_bytes(bn, 4) // stage))
+    tiles = -(-n // co.BM) * -(-m // bn)
+    splits = (dense_splits(tiles, chunks)
+              if chunks >= policy.split_chunks else 1)
+    stage = -(-(co.BM + bn) * bk * policy.elem_bytes // co.ALIGN) * co.ALIGN
+    staged = co.staged_bytes(bn, 4 if splits > 1 else policy.out_bytes)
+    ring = (co.MAX_SHARED_BYTES - co.ALIGN
+            if policy.deep_ring and tiles * splits <= SMS
+            else co.RING_BYTES[bn])
+    stages = max(2, min(co.MAX_STAGES, ring // stage, chunks // splits),
+                 -(-staged // stage))
     return (co.TilePlan(1, co.BM, bn, bk, stages,
                         co.ALIGN + stages * (stage + 16)), splits)
 

@@ -739,14 +739,19 @@ def test_tensor_core_kernels_have_hgmma(dev):
     """chip_smoke's SASS guard: every instance of the six bf16 kernels
     holds HGMMA instructions (the tensor cores), as many as before Q1 and
     Q2 moved onto their mainloop: four conv kernels and C for BN 16 to 256,
-    U's fused head for BN 16 to 128; every instance of Q1's, Q2's and Q3's
+    U's fused head for BN 16 to 128; so does every instance of kernel D's
+    two (BN 16 to 256, split and unsplit), whose sum kernel holds none;
+    every instance of Q1's, Q2's and Q3's
     s8 kernels holds IGMMA (the int8 tensor cores), Q3's sum kernel and
     Q4's kernels neither, and no kernel holds DP4A (check_hgmma raises
     otherwise); the CUDA-core f32 kernels and the finish launches hold no
     HGMMA."""
     import chip_smoke
     counts = chip_smoke.check_hgmma(cuda_lib.build())
-    assert sum(map(len, counts.values())) == 4 * 5 + 4 + 5 + 4 * 5
+    assert sum(map(len, counts.values())) == 4 * 5 + 4 + 5 + 4 * 5 + 2 * 5
+    for stem in ("dense_bf16_wgmma_kernel", "dense_bf16_split_wgmma_kernel"):
+        assert sorted(counts[stem]) == [16, 32, 64, 128, 256]
+        assert all(counts[stem].values()), (stem, counts[stem])
     assert {"quant_dense_s8_kernel", "quant_dense_split_s8_kernel"} <= set(
         chip_smoke.S8_KERNELS)
     assert counts["conv3x3_wgmma_kernel"] == dict.fromkeys(
@@ -758,7 +763,8 @@ def test_tensor_core_kernels_have_hgmma(dev):
     for name, n in chip_smoke.sass_hgmma(cuda_lib.build()).items():
         if any(s in name for s in ("bn_act_kernel", "conv_stats_kernel",
                                    "upsample_v2_kernel", "head_kernel",
-                                   "cosine_scores_kernel", "finish_kernel")):
+                                   "cosine_scores_kernel", "finish_kernel",
+                                   "dense_bf16_sum_kernel")):
             assert n == 0, name
 
 
@@ -1166,6 +1172,105 @@ def test_quant_dense_kernel_bitwise(dev, n, k, m, act):
                                            with_max=True)
     assert torch.equal(out, ref) and torch.equal(mx, ref_max)
     assert torch.equal(quant.quant_dense(xq, xs, wq, ws, b, act=act), out)
+
+
+# Kernel D (csrc/dense.cu): every dense layer of the fast G, R and D at
+# configs 3x64x64 z 100, 3x128x128 z 256 and 1x32x32 z 32, batch 128, with
+# the activation each layer takes (R l31's tanh for uniform noise), and
+# ragged rows, a K of 40 (padded to 64 in one stage) and M = 1; (label, N,
+# K, M, act). G l0 runs unsplit, R l27 and R l31 with K split over blocks.
+BF16_DENSE_CASES = [
+    ("G l0 64", 128, 100, 131_072, "relu"),
+    ("R l27 64", 128, 32_768, 512, "elu"),
+    ("R l31 64", 128, 512, 100, "none"),
+    ("G l0 128", 128, 256, 524_288, "relu"),
+    ("R l27 128", 128, 131_072, 512, "elu"),
+    ("R l31 128", 128, 512, 256, "tanh"),
+    ("G l0 32", 128, 32, 32_768, "relu"),
+    ("R l27 32", 128, 8192, 512, "elu"),
+    ("R l31 32", 128, 512, 32, "none"),
+    ("D left 64", 256, 16_384, 512, "none"),
+    ("D left 128", 256, 65_536, 512, "none"),
+    ("D l4", 256, 1024, 256, "none"),
+    ("D l7", 256, 256, 1, "none"),
+    ("ragged", 130, 40, 37, "elu"),
+    ("ragged split", 5, 4096, 300, "relu")]
+
+
+@pytest.mark.parametrize("label,n,k,m,act", BF16_DENSE_CASES,
+                         ids=[c[0] for c in BF16_DENSE_CASES])
+def test_dense_bf16_kernel(dev, label, n, k, m, act):
+    """Kernel D against its plain version (the f32 product of the rounded
+    operands, + shift, the activation, one rounding) at every shape the
+    fast forwards run it, split and unsplit plans, within chip_smoke's
+    dense_close: one bf16 step of the larger value plus 2^-14 of the sum
+    of |x w| (the same exact products summed in f32 in other orders); one
+    launch counted a call; a second call bitwise the first (fixed sum
+    orders: the split sums in split order)."""
+    import chip_smoke
+    from ganreverser_tpu_torch.ops import dense_kernel
+    g = torch.Generator(device=dev).manual_seed(k % 1000 + m % 1000)
+    x = torch.randn(n, k, device=dev, generator=g).to(torch.bfloat16)
+    w = torch.randn(k, m, device=dev, generator=g) / k ** 0.5
+    shift = 0.1 * torch.randn(m, device=dev, generator=g)
+    op = dense_kernel.dense_operand(w)
+    if label.startswith("R l27"):
+        assert dense_kernel.dense_plan(n, k, m)[1] > 1
+    before = dense_kernel.dense_act.launches
+    out = dense_kernel.dense_act(x, op, shift, act)
+    torch.cuda.synchronize()
+    assert dense_kernel.dense_act.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == (n, m)
+    ref = dense_kernel.dense_act_plain(
+        x, dense_kernel.operand_kernel(op, k), shift, act)
+    assert chip_smoke.dense_close(out, ref, x, w) <= 1.0
+    assert torch.equal(dense_kernel.dense_act(x, op, shift, act), out)
+
+
+def test_dense_bf16_kernel_refuses_bad_operands(dev):
+    """A CUDA tensor launches kernel D or raises, with no fallback: an f32
+    or unpadded operand, the (K, M) kernel itself, an activation the
+    epilogue does not take, a shift of the wrong length."""
+    from ganreverser_tpu_torch.ops import dense_kernel
+    x = torch.ones(4, 100, device=dev)
+    w = torch.ones(100, 24, device=dev)
+    op, sh = dense_kernel.dense_operand(w), torch.zeros(24, device=dev)
+    before = dense_kernel.dense_act.launches
+    for args, kw, err in (((x, op.float(), sh), {}, ValueError),
+                          ((x, op[:, :100].contiguous(), sh), {}, ValueError),
+                          ((x, w.to(torch.bfloat16), sh), {}, ValueError),
+                          ((x, op, sh), {"act": "sigmoid"}, ValueError),
+                          ((x, op, sh[:20]), {}, ValueError)):
+        with pytest.raises(err):
+            dense_kernel.dense_act(*args, **kw)
+    assert dense_kernel.dense_act.launches == before
+
+
+def test_fast_forwards_run_dense_on_kernel_d(dev):
+    """The fast G, R and D in bf16 on the card call kernel D once per
+    dense layer (1, 2, 4) and stay within the bf16 tolerance of their
+    plain versions on the CPU; in f32 they call it not at all."""
+    from ganreverser_tpu_torch.models import bridge, fastpath, modules, zoo
+    from ganreverser_tpu_torch.ops import dense_kernel
+    dims, nd = (3, 16, 16), 8
+    gen = torch.Generator().manual_seed(26)
+    trees = [bridge.export_variables(modules.init_parameters(m, gen))
+             for m in (zoo.create_G3(dims, nd),
+                       zoo.create_R(dims, nd, "uniform"),
+                       zoo.create_D(dims))]
+    z = torch.randn(5, nd, generator=gen)
+    x = torch.rand(5, 16, 16, 3, generator=gen)
+    for dtype, calls in ((torch.bfloat16, (1, 2, 4)),
+                         (torch.float32, (0, 0, 0))):
+        legs = (fastpath.make_fast_generator(dims, nd, dtype),
+                fastpath.make_fast_inverter(dims, nd, "uniform", dtype),
+                fastpath.make_fast_discriminator(dims, dtype))
+        for leg, tree, inp, want in zip(legs, trees, (z, x, x), calls):
+            before = dense_kernel.dense_act.launches
+            out = leg(bridge.to_torch(tree, dev), inp.to(dev))
+            torch.cuda.synchronize()
+            assert dense_kernel.dense_act.launches == before + want
+            _close(out.cpu(), leg(bridge.to_torch(tree, "cpu"), inp), dtype)
 
 
 @pytest.mark.parametrize("kind,n,h,w,ci,co,act,pool", [

@@ -42,7 +42,7 @@ from ganreverser_tpu_torch.cli import apply_r
 from ganreverser_tpu_torch.core.prng import noise_inputs, stage_generator
 from ganreverser_tpu_torch.models import bridge, fastpath
 from ganreverser_tpu_torch.ops import conv_operands as CO
-from ganreverser_tpu_torch.ops import cuda_lib, library
+from ganreverser_tpu_torch.ops import cuda_lib, dense_kernel, library
 from ganreverser_tpu_torch.ops import quant as Q
 
 from torch_port_fixtures import one_thread  # noqa: F401
@@ -493,6 +493,12 @@ def _ops_samples():
         "upsample2_conv3x3_bn_act": (x, k, sc, sh, "relu", None),
         "upsample2_conv3x3_head": (x, k, sc, sh, fk, fb, "relu", "sigmoid",
                                    None, None),
+        # kernel D at a padded K (100 -> 104), each activation it takes
+        "dense_act": [(torch.randn(3, 100, generator=g),
+                       dense_kernel.dense_operand(
+                           torch.randn(100, 6, generator=g)),
+                       torch.randn(6, generator=g), act)
+                      for act in dense_kernel.ACTS],
         "cosine_scores": (torch.randn(7, 5, generator=g),
                           torch.tensor([0, 3])),
         "approx_topk": (torch.randn(3, 40, generator=g), 5, 0.95),
@@ -514,8 +520,9 @@ def _ops_samples():
 @pytest.mark.parametrize("name", sorted(library.OPS))
 def test_custom_op_passes_opcheck(name):
     """torch.library.opcheck on every registered operator, each signature
-    (the int8 producers with and without their max): schema, fake
-    implementation against the real one, no aliasing of an input."""
+    (the int8 producers with and without their max, kernel D with each
+    activation): schema, fake implementation against the real one, no
+    aliasing of an input."""
     samples = _ops_samples()[name]
     for args in samples if isinstance(samples, list) else [samples]:
         torch.library.opcheck(getattr(torch.ops.ganreverser, name).default,
